@@ -1,0 +1,87 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each kernel keeps its sources in a ``csrc/`` folder with a plain
+``extern "C"`` interface. :func:`load_library` compiles every ``*.cu``
+there with ``nvcc`` into one shared library under
+``build/repro_torch_kernels/`` at the repository root, named by a hash
+of the sources and the flags, and loads it with ``ctypes``. A library
+already built from the same sources is reused; nothing is built when a
+module is imported. The ``ptxas`` report (registers, shared memory,
+spills) is kept beside the library as ``<name>.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: dict[Path, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [str(Path(home) / "bin" / "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the port's CUDA kernels")
+
+
+def library_path(name: str, csrc: Path) -> tuple[Path, list[Path]]:
+    """(target .so path, .cu sources) for the sources in ``csrc``."""
+    files = sorted(p for p in csrc.iterdir()
+                   if p.suffix in (".cu", ".cuh", ".h"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    sources = [f for f in files if f.suffix == ".cu"]
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so", sources
+
+
+def build(name: str, csrc: Path) -> Path:
+    """Compile ``csrc``'s sources into the library (if not built yet)
+    and return its path."""
+    so, sources = library_path(name, csrc)
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {name} "
+                               f"(exit {res.returncode}):\n{res.stderr}")
+        so.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
+def load_library(name: str, csrc: Path) -> ctypes.CDLL:
+    """Build (if needed) and load the library for ``csrc``."""
+    so = build(name, csrc)
+    lib = _LOADED.get(so)
+    if lib is None:
+        lib = _LOADED[so] = ctypes.CDLL(str(so))
+    return lib
+
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "library_path",
+           "load_library"]

@@ -1,0 +1,59 @@
+"""Weights cross between the JAX reference and the port bit-exactly."""
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny shapes: one thread each keeps the parallel test workers from
+# contending for the cores
+torch.set_num_threads(1)
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+
+from repro.configs import get_config, reduced  # noqa: E402
+from repro.models import init_params  # noqa: E402
+from repro_torch.bridge import params_from_numpy, params_to_numpy  # noqa: E402
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_round_trip_bit_exact(dtype):
+    cfg = dataclasses.replace(reduced(get_config("granite-8b"), layers=2),
+                              dtype=dtype)
+    ref = jax.tree_util.tree_map(np.asarray,
+                                 init_params(cfg, jax.random.PRNGKey(0)))
+    port = params_from_numpy(ref, "cpu")
+    back = params_to_numpy(port)
+    ref_flat, port_flat, back_flat = _flat(ref), _flat(port), _flat(back)
+    assert ref_flat.keys() == port_flat.keys() == back_flat.keys()
+    # the stacked period layout keeps its leading num_periods axis
+    assert port["periods"]["b0"]["mix"]["wq"].shape == \
+        (cfg.num_periods, cfg.d_model, cfg.q_dim)
+    for key, a in ref_flat.items():
+        t, b = port_flat[key], back_flat[key]
+        assert isinstance(t, torch.Tensor) and tuple(t.shape) == a.shape
+        assert b.dtype == a.dtype and b.shape == a.shape, key
+        np.testing.assert_array_equal(b.view(np.uint8), a.view(np.uint8),
+                                      err_msg=key)
+    if dtype == "bfloat16":
+        assert port["embed"].dtype == torch.bfloat16
+        # values, not only bits: bf16 → float32 agrees in both frameworks
+        np.testing.assert_array_equal(
+            port["embed"].float().numpy(),
+            ref["embed"].astype(np.float32))

@@ -1,0 +1,185 @@
+"""The port's flash attention against the JAX reference.
+
+On the CPU the port's wrapper runs its plain version; these tests hold
+that plain version to the JAX Pallas kernel (interpret mode) and to the
+reference's own oracles, on the same seeded numpy inputs. The CUDA
+kernel itself is held to the plain version by the ``cuda``-marked test,
+which runs only where a card is present (and by ``chip_smoke.py``).
+
+JAX is imported by the fixture that needs it, so the ``cuda`` tests also
+run on a machine that has a card and no JAX:
+``python -m pytest -m cuda tests/test_torch_flash_attention.py``.
+"""
+import os
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny shapes: one thread each keeps the parallel test workers from
+# contending for the cores
+torch.set_num_threads(1)
+
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    flash_attention_ref  # noqa: E402
+
+# the reference's cases and tolerances (tests/test_kernels.py)
+FLASH_CASES = [
+    # (B, H, KV, S, hd, causal, window, dtype)
+    (2, 4, 2, 256, 64, True, None, "float32"),
+    (1, 4, 4, 128, 128, False, None, "float32"),   # MHA, bidirectional
+    (2, 8, 2, 256, 64, True, 64, "float32"),       # sliding window
+    (1, 2, 1, 100, 80, True, None, "float32"),     # MQA, ragged dims
+    (1, 4, 2, 128, 64, True, None, "bfloat16"),
+    (1, 2, 2, 64, 32, True, 16, "bfloat16"),
+    (2, 2, 1, 192, 64, True, 128, "float32"),      # window > block
+]
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The reference's attention functions (JAX on the CPU)."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.flash_attention.ops import flash_attention
+    from repro.kernels.flash_attention.ref import attention_ref
+    from repro.models.layers import _plain_gqa
+    return types.SimpleNamespace(jnp=jnp, flash_attention=flash_attention,
+                                 attention_ref=attention_ref,
+                                 plain_gqa=_plain_gqa)
+
+
+def _tol(dtype: str) -> dict:
+    return dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" \
+        else dict(atol=2e-5, rtol=2e-5)
+
+
+def _inputs(seed, B, H, KV, Sq, Sk, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd), dtype=np.float32),
+            rng.standard_normal((B, Sk, KV, hd), dtype=np.float32),
+            rng.standard_normal((B, Sk, KV, hd), dtype=np.float32))
+
+
+def _torch(arrays, dtype: str, device="cpu"):
+    return [torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype))
+            for a in arrays]
+
+
+def _both(jx, arrays, dtype: str):
+    """The same arrays as JAX arrays and as torch tensors, both rounded
+    to ``dtype`` (round-to-nearest-even in both frameworks)."""
+    jnp = jx.jnp
+    return ([jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays],
+            _torch(arrays, dtype))
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window,dtype", FLASH_CASES)
+def test_flash_attention_matches_jax_kernel(jx, B, H, KV, S, hd, causal,
+                                            window, dtype):
+    (jq, jk, jv), (q, k, v) = _both(jx, _inputs(S * hd, B, H, KV, S, S, hd),
+                                    dtype)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert out.shape == (B, S, H, hd) and out.dtype == q.dtype
+    pallas = jx.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                block_q=64, block_k=64, interpret=True)
+    f32 = jx.jnp.float32
+    oracle = jx.attention_ref(
+        *(a.transpose(0, 2, 1, 3).astype(f32) for a in (jq, jk, jv)),
+        causal=causal, window=window).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(oracle), **_tol(dtype))
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,softcap,window,dtype", [
+    (16, 64, 48, 0.0, None, "float32"),       # a prompt continued at 48
+    (16, 64, 48, 30.0, None, "float32"),      # plus a soft cap
+    (8, 40, 20, 5.0, 12, "float32"),          # offset + window + cap
+    (16, 64, 40, 20.0, None, "bfloat16"),
+])
+def test_flash_attention_offset_softcap_match_plain_gqa(jx, Sq, Sk, q_offset,
+                                                        softcap, window,
+                                                        dtype):
+    """The two arguments the reference's Pallas dispatch drops reach the
+    port's attention, with the reference's plain-path semantics."""
+    (jq, jk, jv), (q, k, v) = _both(
+        jx, _inputs(Sq + Sk, 2, 4, 2, Sq, Sk, 32), dtype)
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              q_offset=q_offset, softcap=softcap)
+    ref = jx.plain_gqa(jq, jk, jv, causal=True, window=window,
+                       q_offset=q_offset, softcap=softcap)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
+
+
+def test_plain_version_per_row_offsets_match_plain_gqa(jx):
+    """Decode: one query token per row, each row at its own position."""
+    (jq, jk, jv), (q, k, v) = _both(jx, _inputs(5, 3, 4, 1, 1, 24, 16),
+                                    "float32")
+    pos = np.array([3, 17, 23], np.int32)
+    out = flash_attention_ref(q, k, v, causal=True, window=None,
+                              q_offset=torch.from_numpy(pos))
+    ref = jx.plain_gqa(jq, jk, jv, causal=True, window=None,
+                       q_offset=jx.jnp.asarray(pos))
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+
+
+def test_fully_masked_rows_are_zero():
+    q, k, v = _torch(_inputs(1, 1, 2, 2, 4, 8, 16), "float32")
+    # q_offset -8: every query sits before every key
+    out = ops.flash_attention(q, k, v, causal=True, q_offset=-8)
+    assert torch.count_nonzero(out) == 0
+
+
+def test_wrapper_rejects_bad_inputs_and_counts_only_kernel_launches():
+    q, k, v = _torch(_inputs(2, 1, 4, 2, 8, 8, 16), "float32")
+    before = ops.flash_attention.launches
+    ops.flash_attention(q, k, v)                   # CPU: plain version
+    assert ops.flash_attention.launches == before
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.flash_attention(q, k[:, :, :, :8], v)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_attention(q, k.double(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window,dtype", FLASH_CASES)
+def test_cuda_kernel_matches_plain_version(B, H, KV, S, hd, causal, window,
+                                           dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _torch(_inputs(S * hd, B, H, KV, S, S, hd), dtype, "cuda")
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,q_offset,softcap,window,dtype", [
+    (16, 64, 48, 30.0, None, "float32"),
+    (8, 40, 20, 5.0, 12, "float32"),
+    (300, 300, 0, 0.0, None, "bfloat16"),      # kv as a strided view
+])
+def test_cuda_kernel_offset_softcap_strides(Sq, Sk, q_offset, softcap,
+                                            window, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _torch(_inputs(Sq, 2, 4, 2, Sq, Sk + 8, 128), dtype, "cuda")
+    k, v = k[:, :Sk], v[:, :Sk]
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              q_offset=q_offset, softcap=softcap)
+    ref = flash_attention_ref(q, k, v, causal=True, window=window,
+                              q_offset=q_offset, softcap=softcap)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
