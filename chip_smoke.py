@@ -7,23 +7,39 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``. Phases, each of which fails the run if it fails:
 
 1. card: the card's name and power limit, as nvidia-smi reports them;
-2. build: every CUDA kernel of the serving path, from the sources in
-   this checkout, into ``build/repro_torch_kernels/``;
-3. kernels: each kernel against its plain PyTorch version at the
+2. build: every CUDA kernel of the port (flash attention, RWKV6), from
+   the sources in this checkout, into ``build/repro_torch_kernels/``,
+   one nvcc per kernel, all started together;
+3. kernels: flash attention against its plain PyTorch version at the
    reference's test shapes and at the granite-8b prefill shape (in
    float32 as well; in bf16 also against the plain version run in
-   float32, to one bf16 step), with times (CUDA events, median of
-   repeats) beside the roofline bound and one PyTorch library call
-   computing the same function;
-4. serve: the full granite-8b configuration in bf16 (random weights from
+   float32, to one bf16 step), with times (CUDA events around
+   back-to-back calls, median of 3 runs) beside the roofline bound and
+   one PyTorch library call computing the same function;
+4. rwkv6 kernel: the RWKV6 recurrence against its plain version, y and
+   the final state, at the reference's cases (zero and random state),
+   a ragged length and the rwkv6-7b prefill shape (float32, and the
+   model's types with two draws of the decay), under a gate scaled to
+   the output; times beside the bound (no PyTorch call computes it);
+5. serve: the full granite-8b configuration in bf16 (random weights from
    a seed) serves 8 seeded requests through ``ServingEngine``; the
    launch counts show prefill attention went through the kernel; then
    one prefill call and one decode step run under torch.profiler (wall
    time, device-busy share, the kernels that take the most time);
-5. token equality: the same geometry at full width with 2 layers in
+6. token equality: the same geometry at full width with 2 layers in
    float32 — continuous-batched greedy output equals the port's own
    sequential prefill + decode_step, token for token, save at near-ties
-   within the measured batched-vs-sequential logit difference.
+   within the measured batched-vs-sequential logit difference;
+7. rwkv generate: the full rwkv6-7b configuration in bf16 (random
+   weights from a seed): one ``prefill`` of 8 prompts of 1024 tokens,
+   then 31 greedy ``decode_step`` calls; the launch counts show every
+   layer's prefill went through the RWKV6 kernel and no decode step
+   did; then one prefill and one decode step under torch.profiler;
+8. rwkv equality: full width, 2 layers, float32 — batched greedy output
+   equals each request generated alone (near-tie rule of phase 6), and
+   prefill of 512 tokens then ``decode_step`` on the next 512 (the
+   kernel seeded with a non-zero state) matches one prefill of 1024 in
+   logits and every state leaf.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -37,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -71,25 +88,71 @@ TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 # is one bf16 step, 2^-7 relative, over an absolute 1e-5.
 TIGHT = {"atol": 1e-5, "rtol": 2.0 ** -7}
 
+# the reference's RWKV6 kernel cases (tests/test_kernels.py), a ragged
+# length, and the rwkv6-7b prefill shape (B=8, S=1024, H=64, hd=64)
+RWKV_CASES = [
+    # (B, H, S, hd, chunk, dtype of r, k, v)
+    (2, 2, 128, 64, 32, "float32"),
+    (1, 4, 96, 64, 64, "float32"),
+    (2, 1, 70, 32, 16, "float32"),
+    (1, 2, 64, 64, 64, "bfloat16"),
+    (1, 1, 33, 16, 8, "float32"),
+    (2, 4, 1000, 64, 64, "bfloat16"),
+]
+RWKV_PREFILL = (8, 64, 1024, 64, 64, "bfloat16")
+RWKV_PREFILL_F32 = RWKV_PREFILL[:-1] + ("float32",)
+# The kernel and its plain version compute in float32 from the same
+# inputs and differ only in the order of their sums, ~1e-6 of the
+# output's scale: the gate is max |diff| <= 2e-5 * max(1, max |plain|),
+# for y and the final state each.
+RWKV_GATE = 2e-5
+# prefill-of-512 + decode_step-of-512 against one prefill of 1024, float32:
+# the same arithmetic save cuBLAS's choice of kernel for other row counts;
+# held to the port's model tolerance against the reference, 1e-4 of the
+# scale.
+SPLIT_GATE = 1e-4
+
+
+# The kernel wrappers whose launch counts the main paths read, by name
+# (filled in by main()).
+COUNTED: dict = {}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms, from CUDA events."""
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a main path runs."""
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def cuda_ms(torch, fn, reps: int = 10, warmup: int = 3,
+            rounds: int = 3) -> float:
+    """Device time of one call of ``fn`` in ms: CUDA events around
+    ``reps`` back-to-back calls, over the count, the median of
+    ``rounds`` such runs. Back to back, the host enqueues a call while
+    the device runs the one before, so the wrapper's host time stays out
+    of the number unless it exceeds the device time (events around each
+    single call would count it in)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -112,17 +175,25 @@ def phase_card() -> str:
     return card
 
 
-def phase_build(ops, build) -> float:
+def phase_build(libs: dict, build) -> float:
+    """Build every kernel library at once (one nvcc each, in threads)."""
+    def timed(ops):
+        t0 = time.perf_counter()
+        ops.load()
+        return time.perf_counter() - t0
     t0 = time.perf_counter()
-    ops.load()
-    secs = time.perf_counter() - t0
-    so, _ = build.library_path("flash_attention", ops.CSRC)
-    log(f"build: flash_attention in {secs:.1f} s -> "
-        f"{so.relative_to(ROOT)}")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas {line.strip()}")
-    return secs
+    with ThreadPoolExecutor(len(libs)) as pool:
+        secs = dict(zip(libs, pool.map(timed, libs.values())))
+    total = time.perf_counter() - t0
+    for name, ops in libs.items():
+        so, _ = build.library_path(name, ops.CSRC)
+        log(f"build: {name} in {secs[name]:.1f} s -> "
+            f"{so.relative_to(ROOT)}")
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"  ptxas {line.strip()}")
+    log(f"build: {len(libs)} libraries in {total:.1f} s")
+    return total
 
 
 def _inputs(torch, case, seed):
@@ -281,12 +352,12 @@ def phase_serve(torch, ops, cfg) -> dict:
     obs.enable(True)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    ops.flash_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": ops.flash_attention.launches}
+    launches = read_counts()
     obs.enable(False)
     spans = {}
     for ev in tracer.drain():
@@ -302,6 +373,7 @@ def phase_serve(torch, ops, cfg) -> dict:
     assert launches["flash_attention"] == want > 0, \
         f"flash_attention launched {launches['flash_attention']} times, " \
         f"expected {cfg.num_layers} x {s.prefill_calls} prefill calls"
+    assert launches["wkv6"] == 0, "granite-8b has no RWKV layer"
     summary = s.to_dict()
     prefill_ms = spans.get("serving/prefill_batch", [])
     decode_ms = spans.get("serving/decode_step", [])
@@ -428,6 +500,266 @@ def phase_token_equality(torch, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def _rwkv_inputs(torch, case, seed, decay: str, state: bool):
+    """r, k, v ~ N(0, 1) in the case's dtype (k ~ 0.3 N for the test
+    draw); u ~ 0.1 N; decay from the reference test's distribution
+    (``test``: w = exp(-exp(0.5 N - 2))) or the model's at init
+    (``model``: w = exp(-exp(-6 + 0.05 N)), w0 = -6 and a small LoRA
+    term); state0 ~ N(0, 1) or None."""
+    B, H, S, hd, _, dtype = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    dt = getattr(torch, dtype)
+    r, k, v = n(B, S, H, hd), n(B, S, H, hd), n(B, S, H, hd)
+    if decay == "test":
+        k = k * 0.3
+        w = torch.exp(-torch.exp(n(B, S, H, hd) * 0.5 - 2.0))
+    else:
+        w = torch.exp(-torch.exp(-6.0 + 0.05 * n(B, S, H, hd)))
+    u = n(H, hd) * 0.1
+    s0 = n(B, H, hd, hd) if state else None
+    return r.to(dt), k.to(dt), v.to(dt), w, u, s0
+
+
+def _gate(out, plain) -> tuple[float, float]:
+    """(max |out - plain|, that over the gate's allowance)."""
+    err = (out - plain).abs().max().item()
+    allow = RWKV_GATE * max(1.0, plain.abs().max().item())
+    return err, err / allow
+
+
+def phase_rwkv_kernels(torch, ops, ref) -> dict:
+    """The RWKV6 kernel against its plain version, y and S_last, at every
+    case; times at the rwkv6-7b prefill shape. Returns its record
+    (launches filled in later)."""
+    runs = [(c, "test", st) for c in RWKV_CASES for st in (False, True)]
+    runs += [(RWKV_PREFILL_F32, "model", True),
+             (RWKV_PREFILL, "model", True), (RWKV_PREFILL, "test", True)]
+    worst, record = 0.0, None
+    for i, (case, decay, state) in enumerate(runs):
+        r, k, v, w, u, s0 = _rwkv_inputs(torch, case, 100 + i, decay, state)
+        chunk = case[4]
+        y, s_last = ops.wkv6(r, k, v, w, u, s0, chunk)
+        y_p, s_p = ref.wkv_ref(r, k, v, w, u, s0, chunk)
+        torch.cuda.synchronize()
+        (ey, ry), (es, rs) = _gate(y, y_p), _gate(s_last, s_p)
+        ok = max(ry, rs) <= 1 and bool(torch.isfinite(y).all()) and \
+            bool(torch.isfinite(s_last).all())
+        worst = max(worst, ry, rs)
+        log(f"kernel wkv6 {case} decay={decay} state0="
+            f"{'random' if state else 'zero'}: max |y - plain| {ey:.3g} "
+            f"(max |y| {y_p.abs().max().item():.3g}), max |S - plain| "
+            f"{es:.3g} (max |S| {s_p.abs().max().item():.3g}); error / "
+            f"gate y {ry:.3g} S {rs:.3g} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"wkv6 disagrees with its plain version "
+                                 f"at {case} ({decay} decay)")
+        if case is not RWKV_PREFILL or decay != "model":
+            continue
+        B, H, S, hd, _, dtype = case
+        ms = cuda_ms(torch, lambda: ops.wkv6(r, k, v, w, u, s0, chunk))
+        plain_ms = cuda_ms(torch, lambda: ref.wkv_ref(r, k, v, w, u, s0,
+                                                      chunk), reps=5)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (r, k, v, w, u, s0, y, s_last))
+        nchunks = -(-S // chunk)
+        # four products per (b, h, chunk): r_in k_inᵀ (C x C x hd),
+        # r_inter S (C x hd x hd), A v (C x C x hd), k_tailᵀ v (hd x C x hd)
+        flops = 2 * B * H * nchunks * (2 * chunk * chunk * hd
+                                       + 2 * chunk * hd * hd)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        log(f"timing wkv6 at {case}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
+            f"GB/s), plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f}"
+            f" ms ({nbytes / 2**20:.1f} MiB, {flops / 1e9:.2f} GFLOP); no "
+            f"PyTorch call computes the recurrence")
+        record = {
+            "name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:74",
+            "launches": 0, "max_abs_err": ey, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        }
+    record["gate_ratio"] = worst
+    log(f"kernel wkv6: {len(runs)} runs, worst error / gate {worst:.3g}")
+    del r, k, v, w, u, s0, y, s_last, y_p, s_p
+    torch.cuda.empty_cache()
+    return record
+
+
+def _greedy(torch, cfg, params, tokens, n_new: int):
+    """prefill + (n_new - 1) greedy decode_step calls. Returns the
+    generated tokens (B, n_new) and the logits of every step."""
+    from repro_torch.models import decode_step, prefill
+    B, S = tokens.shape
+    logits, caches = prefill(cfg, params, {"tokens": tokens}, S + n_new)
+    steps = [logits[:, -1]]
+    out = [logits[:, -1].argmax(-1)]
+    for i in range(n_new - 1):
+        logits, caches = decode_step(cfg, params, caches, out[-1][:, None],
+                                     S + i)
+        out.append(logits[:, -1].argmax(-1))
+        steps.append(logits[:, -1])
+    return torch.stack(out, 1), steps
+
+
+def phase_rwkv_generate(torch, cfg) -> dict:
+    """Full rwkv6-7b in bf16: one prefill of 8 x 1024 tokens, 31 decode
+    steps; returns the kernels' launch counts of that run."""
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    leaves = []
+    tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    log(f"rwkv: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"{cfg.dtype}, {n_params / 1e9:.3f} B parameters in the tensors "
+        f"({cfg.param_count() / 1e9:.3f} B by the reference's analytic "
+        f"count, which leaves out w_g and cm_r), init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    B, S, n_new = 8, 1024, 32
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S))
+                              .astype(np.int32)).cuda()
+    # warm-up (cuBLAS handles, the allocator), then the measured run
+    _greedy(torch, cfg, params, tokens[:, :128], 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill(cfg, params, {"tokens": tokens}, S + n_new)
+    out = [logits[:, -1].argmax(-1)]
+    out[-1].cpu()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = read_counts()
+    step_ms = []
+    for i in range(n_new - 1):
+        t1 = time.perf_counter()
+        logits, caches = decode_step(cfg, params, caches, out[-1][:, None],
+                                     S + i)
+        out.append(logits[:, -1].argmax(-1))
+        out[-1].cpu()                     # the host needs the token
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    gen = torch.stack(out, 1)
+    assert gen.shape == (B, n_new)
+    assert bool(((gen >= 0) & (gen < cfg.vocab_size)).all()), \
+        "token outside the vocab"
+    assert bool(torch.isfinite(logits).all())
+    assert after_prefill["wkv6"] == cfg.num_layers > 0, \
+        f"wkv6 launched {after_prefill['wkv6']} times in one prefill " \
+        f"call, expected {cfg.num_layers}"
+    assert launches["wkv6"] == after_prefill["wkv6"], \
+        "a decode step launched the RWKV6 kernel"
+    assert launches["flash_attention"] == 0, "rwkv6-7b has no attention"
+    log(f"rwkv: {B} requests x {S} prompt tokens, {B * n_new} generated in "
+        f"{wall:.3f} s -> {B * n_new / wall:.1f} tok/s; prefill (= TTFT) "
+        f"{prefill_ms:.1f} ms; {n_new - 1} decode steps, median "
+        f"{statistics.median(step_ms):.2f} ms (min {min(step_ms):.2f}, "
+        f"max {max(step_ms):.2f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"rwkv: wkv6 launches {launches['wkv6']} = {cfg.num_layers} layers "
+        f"x 1 prefill call; 0 in {n_new - 1} decode steps")
+    profile(torch, f"rwkv prefill B={B} S={S}",
+            lambda: prefill(cfg, params, {"tokens": tokens}, S + n_new))
+    profile(torch, f"rwkv decode step B={B}",
+            lambda: decode_step(cfg, params, caches, out[-1][:, None],
+                                S + n_new))
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_rwkv_equality(torch, cfg) -> None:
+    """Full width, 2 layers, float32: (a) batched greedy == each request
+    alone, with the near-tie rule of phase_token_equality; (b) prefill
+    of 512 then decode_step of 512 == prefill of 1024."""
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.tree import tree_map_with_path
+    cfg = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                         "cuda")
+    B, S, n_new = 8, 1024, 32
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S))
+                              .astype(np.int32)).cuda()
+    gen, b_steps = _greedy(torch, cfg, params, tokens, n_new)
+    # each request alone, fed the batched run's tokens; per step:
+    # (request, step, top-2 gap, argmax, batched token, how far its logit
+    # lies below the maximum)
+    d_prefill = d_decode = 0.0
+    steps = []
+    for j in range(B):
+        logits, caches = prefill(cfg, params, {"tokens": tokens[j:j + 1]},
+                                 S + n_new)
+        for i in range(n_new):
+            row = logits[0, -1]
+            d = float((b_steps[i][j] - row).abs().max())
+            if i == 0:
+                d_prefill = max(d_prefill, d)
+            elif i == 1:
+                d_decode = max(d_decode, d)
+            top2 = row.topk(2)
+            tok = int(gen[j, i])
+            steps.append((j, i, float(top2.values[0] - top2.values[1]),
+                          int(top2.indices[0]), tok,
+                          float(top2.values[0] - row[tok])))
+            if i + 1 < n_new:
+                logits, caches = decode_step(cfg, params, caches,
+                                             gen[j:j + 1, i:i + 1], S + i)
+    limit = 4 * max(d_prefill, d_decode)
+    ties = sum(gap <= limit for _, _, gap, _, _, _ in steps)
+    flips = sum(tok != top for _, _, _, top, tok, _ in steps)
+    mismatched = [(j, i) for j, i, _, top, tok, behind in steps
+                  if tok != top and behind > limit]
+    log(f"rwkv equality: {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"float32, {B} requests x {n_new} tokens; batched-vs-alone max "
+        f"|logit diff| prefill {d_prefill:.3g} decode {d_decode:.3g}, "
+        f"near-tie limit {limit:.3g}; min top-2 logit gap "
+        f"{min(st[2] for st in steps):.3g}; {ties} steps within the limit,"
+        f" {flips} tokens differ from the alone argmax, mismatched "
+        f"(request, step) {mismatched}")
+    assert not mismatched, f"batched != alone at {mismatched}"
+
+    # (b) the kernel seeded from a non-zero state on the main path
+    half = S // 2
+    full_logits, full = prefill(cfg, params, {"tokens": tokens}, S)
+    _, split = prefill(cfg, params, {"tokens": tokens[:, :half]}, S)
+    reset_counts()
+    split_logits, split = decode_step(cfg, params, split, tokens[:, half:],
+                                      half)
+    assert read_counts()["wkv6"] == cfg.num_layers, \
+        "decode_step with several tokens did not run the kernel"
+    ratios = {}
+
+    def compare(path, a, b):
+        err = float((a.float() - b.float()).abs().max())
+        scale = max(1.0, float(b.float().abs().max()))
+        ratios["/".join(map(str, path))] = (err, err / (SPLIT_GATE * scale))
+    compare(("logits",), split_logits[:, -1], full_logits[:, -1])
+    tree_map_with_path(compare, split, full)
+    worst = max(r for _, r in ratios.values())
+    log(f"rwkv split prefill: prefill 512 + decode_step 512 vs prefill "
+        f"1024: max |diff| " + ", ".join(
+            f"{k} {e:.3g}" for k, (e, _) in ratios.items())
+        + f"; worst error / gate ({SPLIT_GATE} of the scale) {worst:.3g} "
+        f"{'ok' if worst <= 1 else 'MISMATCH'}")
+    assert worst <= 1, "split prefill disagrees with one prefill"
+    del params, full, split, full_logits, split_logits, b_steps
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -439,21 +771,29 @@ def main() -> int:
         from repro_torch.configs import get_config
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops, ref
+        from repro_torch.kernels.rwkv6 import ops as rops
+        from repro_torch.kernels.rwkv6 import ref as rref
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    COUNTED.update(flash_attention=ops.flash_attention, wkv6=rops.wkv6)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     card = phase_card()
-    phase_build(ops, build)
+    phase_build({"flash_attention": ops, "rwkv6": rops}, build)
     record = phase_kernels(torch, ops, ref)
+    rwkv_record = phase_rwkv_kernels(torch, rops, rref)
     cfg = get_config("granite-8b")
     launches = phase_serve(torch, ops, cfg)
     phase_token_equality(torch, cfg)
+    rcfg = get_config("rwkv6-7b")
+    rwkv_launches = phase_rwkv_generate(torch, rcfg)
+    phase_rwkv_equality(torch, rcfg)
     record["launches"] = launches["flash_attention"]
+    rwkv_record["launches"] = rwkv_launches["wkv6"]
     log(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, rwkv_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

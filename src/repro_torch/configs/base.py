@@ -3,8 +3,8 @@
 One ``ModelConfig`` describes an architecture through a per-period
 ``block_pattern`` of layer kinds; the model stacks ``num_periods``
 periods of it after an optional ``prelude``. So far the port runs the
-``attn`` and ``swa`` kinds; the other kinds are listed so that a config
-reads the same as in the reference.
+``attn``, ``swa`` and ``rwkv`` kinds; the other kinds are listed so that
+a config reads the same as in the reference.
 
 Layer kinds (entries of ``block_pattern``):
   "attn"        — global attention (GQA) + dense MLP
@@ -145,7 +145,11 @@ class ModelConfig:
         return self
 
     def param_count(self) -> float:
-        """Analytic parameter count."""
+        """Analytic parameter count, the reference's function as it is.
+
+        For ``rwkv`` blocks it leaves out ``w_g`` and ``cm_r``: 6.46 B
+        for rwkv6-7b, whose tensors hold 7.53 B. Count the tensors where
+        the true size matters."""
         D, dff, V = self.d_model, self.d_ff, self.vocab_size
         total = V * D * (1 if self.tie_embeddings else 2)
         kinds = list(self.prelude) + list(self.block_pattern) * self.num_periods

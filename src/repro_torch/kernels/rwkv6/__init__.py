@@ -1,0 +1,5 @@
+"""RWKV6 recurrence: the CUDA kernel's wrapper and its plain versions."""
+from .ops import HEAD_DIMS, MAX_CHUNK, wkv6
+from .ref import wkv_ref, wkv_step_ref
+
+__all__ = ["HEAD_DIMS", "MAX_CHUNK", "wkv6", "wkv_ref", "wkv_step_ref"]

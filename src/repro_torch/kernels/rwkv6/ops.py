@@ -1,0 +1,120 @@
+"""Public wrapper around the CUDA RWKV6 chunked-recurrence kernel.
+
+The kernel (``csrc/rwkv6.cu``) is built with ``nvcc`` at the first call
+on a CUDA tensor and bound through ``ctypes``; see
+:mod:`repro_torch.kernels.build`. Nothing is built at import.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ..build import load_library
+from .ref import wkv_ref
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64)
+#: the largest chunk the kernel's tiles hold
+MAX_CHUNK = 64
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; sets the C
+    signatures."""
+    lib = load_library("rwkv6", CSRC)
+    fn = lib.repro_wkv6_fwd
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.repro_wkv6_error_string.argtypes = [ctypes.c_int]
+        lib.repro_wkv6_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(r, k, v, w, u, state0, chunk: int) -> None:
+    if r.dim() != 4:
+        raise ValueError(f"wkv6 expects r, k, v, w (B,S,H,hd); got r "
+                         f"{tuple(r.shape)}")
+    B, S, H, hd = r.shape
+    if not (r.shape == k.shape == v.shape == w.shape):
+        raise ValueError(f"shape mismatch: r {tuple(r.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, w "
+                         f"{tuple(w.shape)}")
+    if S < 1:
+        raise ValueError("wkv6 needs at least one token")
+    if tuple(u.shape) != (H, hd):
+        raise ValueError(f"u must be (H, hd) = {(H, hd)}, got "
+                         f"{tuple(u.shape)}")
+    if state0 is not None and tuple(state0.shape) != (B, H, hd, hd):
+        raise ValueError(f"state0 must be (B, H, hd, hd) = "
+                         f"{(B, H, hd, hd)}, got {tuple(state0.shape)}")
+    if not (r.dtype == k.dtype == v.dtype) or r.dtype not in _DTYPE_CODE:
+        raise TypeError(f"r, k, v must share one dtype of "
+                        f"{sorted(map(str, _DTYPE_CODE))}; got {r.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    for name, t in (("w", w), ("u", u), ("state0", state0)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    devices = {t.device for t in (r, k, v, w, u, state0) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on different devices: "
+                         f"{sorted(map(str, devices))}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+
+def wkv6(r, k, v, w, u, state0=None, chunk: int = 64):
+    """The RWKV6 recurrence over chunks. r, k, v, w: (B, S, H, hd), the
+    model's layout, read through strides (the head dim must be
+    contiguous); u: (H, hd); ``state0``: (B, H, hd, hd) or None (zeros).
+    r, k, v are float32 or bfloat16; w, u and ``state0`` float32.
+    Returns (y (B, S, H, hd) float32, S_last (B, H, hd, hd) float32), the
+    function of the reference's ``models.rwkv._wkv_chunked``, for any S.
+
+    A CUDA tensor launches the kernel (hd in :data:`HEAD_DIMS`, chunk at
+    most :data:`MAX_CHUNK`) on the current stream and adds one to
+    ``wkv6.launches``; anything it cannot take raises. A CPU tensor runs
+    the plain version :func:`wkv_ref`, which is not counted."""
+    _check(r, k, v, w, u, state0, chunk)
+    if r.device.type == "cpu":
+        return wkv_ref(r, k, v, w, u, state0, chunk)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    B, S, H, hd = r.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > the kernel's {MAX_CHUNK}")
+    if any(t.stride(-1) != 1 for t in (r, k, v, w)):
+        raise ValueError("wkv6 needs a contiguous head dim")
+    u = u.contiguous()
+    state0 = None if state0 is None else state0.contiguous()
+    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
+    s_last = torch.empty((B, H, hd, hd), dtype=torch.float32,
+                         device=r.device)
+    lib = load()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.repro_wkv6_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if state0 is None else state0.data_ptr(),
+            y.data_ptr(), s_last.data_ptr(), _DTYPE_CODE[r.dtype], B, S, H,
+            hd, chunk, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *w.stride()[:3], *y.stride()[:3], stream)
+    if err != 0:
+        msg = lib.repro_wkv6_error_string(err).decode()
+        raise RuntimeError(f"wkv6 launch failed: {msg} (cudaError {err})")
+    wkv6.launches += 1
+    return y, s_last
+
+
+wkv6.launches = 0
+
+__all__ = ["HEAD_DIMS", "MAX_CHUNK", "load", "wkv6", "wkv_ref"]

@@ -26,9 +26,10 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
-               dtype) -> torch.Tensor:
+               dtype, scale: float | None = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
     w = torch.randn((in_dim, out_dim), generator=generator,
-                    device=generator.device) * (1.0 / math.sqrt(in_dim))
+                    device=generator.device) * scale
     return w.to(dtype)
 
 

@@ -5,8 +5,8 @@ Layers are grouped into periods (``cfg.block_pattern``); the parameters
 of the ``cfg.num_periods`` identical periods are stacked along a leading
 axis, as in the reference, and :func:`forward` runs the periods in a
 Python loop that indexes the stacked tensors (the reference's
-``lax.scan``). The port covers the ``attn`` and ``swa`` block kinds;
-any other kind raises ``NotImplementedError``.
+``lax.scan``). The port covers the ``attn``, ``swa`` and ``rwkv`` block
+kinds; any other kind raises ``NotImplementedError``.
 
 Caches are written in place (see :func:`layers.update_cache`): the
 functions that take caches return the same tree they were given.
@@ -21,8 +21,10 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..tree import tree_map
 from . import layers as L
+from .rwkv import (apply_rwkv_channelmix, apply_rwkv_timemix,
+                   rwkv_cache_init, rwkv_init)
 
-_KINDS = ("attn", "swa")
+_KINDS = ("attn", "swa", "rwkv")
 
 
 def _check_kind(kind: str) -> None:
@@ -35,6 +37,9 @@ def _check_kind(kind: str) -> None:
 def _block_init(cfg: ModelConfig, kind: str, generator: torch.Generator):
     _check_kind(kind)
     dev = generator.device
+    if kind == "rwkv":
+        return {"ln1": L.norm_init(cfg, dev), "tm": rwkv_init(cfg, generator),
+                "ln2": L.norm_init(cfg, dev)}
     p = {"ln1": L.norm_init(cfg, dev), "mix": L.gqa_init(cfg, generator),
          "ln2": L.norm_init(cfg, dev), "ffn": L.mlp_init(cfg, generator)}
     if cfg.post_norm:
@@ -48,6 +53,14 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
     """One layer. Returns (x, cache)."""
     _check_kind(kind)
     h = L.apply_norm(cfg, p["ln1"], x)
+    if kind == "rwkv":
+        y, _ = apply_rwkv_timemix(cfg, p["tm"], h,
+                                  cache=cache and cache["tm"])
+        x = x + y
+        h2 = L.apply_norm(cfg, p["ln2"], x)
+        y2, _ = apply_rwkv_channelmix(cfg, p["tm"], h2,
+                                      cache=cache and cache["cm"])
+        return x + y2, cache
     y, mix_cache = L.apply_gqa(cfg, p["mix"], h, positions=positions,
                                is_global=kind == "attn",
                                kv_cache=cache and cache.get("mix"),
@@ -66,6 +79,8 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
 def _block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                       dtype, device):
     _check_kind(kind)
+    if kind == "rwkv":
+        return rwkv_cache_init(cfg, batch, dtype, device)
     return {"mix": L.gqa_cache_init(cfg, batch, max_len, dtype, device)}
 
 

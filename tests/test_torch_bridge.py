@@ -57,3 +57,26 @@ def test_params_round_trip_bit_exact(dtype):
         np.testing.assert_array_equal(
             port["embed"].float().numpy(),
             ref["embed"].astype(np.float32))
+
+
+def test_rwkv_params_round_trip_bit_exact():
+    """The rwkv tree in bf16 crosses unchanged, with its float32 leaves
+    (``w0``, ``u``, ``ln_x``, the norms) kept float32."""
+    cfg = dataclasses.replace(reduced(get_config("rwkv6-7b"), layers=2),
+                              dtype="bfloat16")
+    ref = jax.tree_util.tree_map(np.asarray,
+                                 init_params(cfg, jax.random.PRNGKey(0)))
+    port = params_from_numpy(ref, "cpu")
+    back = params_to_numpy(port)
+    ref_flat, port_flat, back_flat = _flat(ref), _flat(port), _flat(back)
+    assert ref_flat.keys() == port_flat.keys() == back_flat.keys()
+    dtypes = {str(t.dtype) for t in port_flat.values()}
+    assert dtypes == {"torch.float32", "torch.bfloat16"}
+    tm = port["periods"]["b0"]["tm"]
+    assert tm["u"].dtype == tm["w0"].dtype == torch.float32
+    assert tm["w_r"].dtype == torch.bfloat16
+    for key, a in ref_flat.items():
+        b = back_flat[key]
+        assert b.dtype == a.dtype and b.shape == a.shape, key
+        np.testing.assert_array_equal(b.view(np.uint8), a.view(np.uint8),
+                                      err_msg=key)
