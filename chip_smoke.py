@@ -11,11 +11,15 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    the sources in this checkout, into ``build/repro_torch_kernels/``,
    one nvcc per kernel, all started together;
 3. kernels: flash attention against its plain PyTorch version at the
-   reference's test shapes and at the granite-8b prefill shape (in
-   float32 as well; in bf16 also against the plain version run in
-   float32, to one bf16 step), with times (CUDA events around
-   back-to-back calls, median of 3 runs) beside the roofline bound and
-   one PyTorch library call computing the same function;
+   reference's test shapes, at the granite-8b prefill shape (in float32
+   as well) and at the edges of the bf16 Hopper kernel (``sm90``:
+   ragged S, a cache with q_offset, window, soft cap, K/V views of a
+   larger cache, hd 64 at the repro-lm-100m widths); every bf16 case
+   also against the plain version run in float32, to one bf16 step. At
+   the granite prefill shape the sm90 kernel, the first kernel
+   (``fma``), the plain version and one PyTorch library call computing
+   the same function are timed in turns (CUDA events around
+   back-to-back calls, median of 3 turns) beside the roofline bound;
 4. rwkv6 kernel: the RWKV6 recurrence against its plain version, y and
    the final state, at the reference's cases (zero and random state),
    a ragged length and the rwkv6-7b prefill shape (float32, and the
@@ -23,7 +27,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    the output; times beside the bound (no PyTorch call computes it);
 5. serve: the full granite-8b configuration in bf16 (random weights from
    a seed) serves 8 seeded requests through ``ServingEngine``; the
-   launch counts show prefill attention went through the kernel; then
+   launch counts show every prefill attention call went through the
+   sm90 kernel; then
    one prefill call and one decode step run under torch.profiler (wall
    time, device-busy share, the kernels that take the most time);
 6. token equality: the same geometry at full width with 2 layers in
@@ -80,13 +85,30 @@ FLASH_CASES = [
 GRANITE_PREFILL = (8, 32, 8, 1024, 128, True, None, "bfloat16")
 GRANITE_PREFILL_F32 = GRANITE_PREFILL[:-1] + ("float32",)
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
-# At the granite shape 5e-2 is as large as a typical output, so the bf16
-# kernel is also held to the plain version run in float32 on the same
-# bf16 inputs. The kernel keeps scores, probabilities and the accumulator
-# in float32 and rounds only its output, so it may differ by that
-# rounding (at most 2^-8 relative) and float32 summation order: the gate
-# is one bf16 step, 2^-7 relative, over an absolute 1e-5.
+# At the granite shape 5e-2 is as large as a typical output, so every bf16
+# kernel output is also held to the plain version run in float32 on the
+# same bf16 inputs. The kernels keep scores and the accumulator in
+# float32 (the fma kernel the probabilities too; the sm90 kernel takes P
+# as bf16 hi + lo parts, exact to about 2^-17) and round only their
+# output, so they may differ by that rounding (at most 2^-8 relative) and
+# float32 summation order: the gate is one bf16 step, 2^-7 relative, over
+# an absolute 1e-5.
 TIGHT = {"atol": 1e-5, "rtol": 2.0 ** -7}
+# the edges of the bf16 Hopper kernel (flash_attention_sm90.cu), each held
+# to TOL and TIGHT; kv_view: k and v are views of a cache twice as long
+SM90_CASES = [
+    # (B, H, KV, Sq, Sk, hd, causal, window, q_offset, softcap, kv_view)
+    (2, 4, 2, 256, 256, 64, True, None, 0, 0.0, False),
+    (1, 4, 4, 128, 128, 128, False, None, 0, 0.0, False),
+    (2, 8, 2, 256, 256, 64, True, 64, 0, 0.0, False),
+    (2, 2, 1, 192, 192, 64, True, 128, 0, 0.0, False),
+    (2, 4, 2, 1000, 1000, 128, True, None, 0, 0.0, False),   # ragged
+    (2, 8, 2, 512, 1024, 128, True, None, 512, 0.0, False),  # with a cache
+    (2, 8, 2, 1024, 1024, 128, True, 256, 0, 0.0, False),    # window
+    (2, 8, 2, 512, 512, 128, True, None, 0, 30.0, False),    # soft cap
+    (2, 8, 2, 300, 1000, 128, True, None, 700, 0.0, True),   # k, v views
+    (8, 12, 4, 1024, 1024, 64, True, None, 0, 0.0, False),   # repro-lm-100m
+]
 
 # the reference's RWKV6 kernel cases (tests/test_kernels.py), a ragged
 # length, and the rwkv6-7b prefill shape (B=8, S=1024, H=64, hd=64)
@@ -123,13 +145,22 @@ def log(msg: str) -> None:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count to 0, just before a main path runs."""
+    """Every kernel's launch counts (the total and, where a wrapper has
+    several kernels, each one's) to 0, just before a main path runs."""
     for fn in COUNTED.values():
         fn.launches = 0
+        for variant in getattr(fn, "variant_launches", {}):
+            fn.variant_launches[variant] = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    """{name: total, "name/variant": that kernel's launches}."""
+    counts = {}
+    for name, fn in COUNTED.items():
+        counts[name] = fn.launches
+        for variant, n in getattr(fn, "variant_launches", {}).items():
+            counts[f"{name}/{variant}"] = n
+    return counts
 
 
 def cuda_ms(torch, fn, reps: int = 10, warmup: int = 3,
@@ -154,6 +185,19 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 3,
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def timed_turns(torch, fns: dict, reps: dict, rounds: int = 3) -> dict:
+    """Device ms of one call of each function, timed in turns (each
+    round times every function once with :func:`cuda_ms`), the median
+    over the rounds: drift of the card's clock or power hits all of them
+    alike."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(torch, fn, reps=reps.get(name, 10),
+                                       rounds=1))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -189,9 +233,16 @@ def phase_build(libs: dict, build) -> float:
         so, _ = build.library_path(name, ops.CSRC)
         log(f"build: {name} in {secs[name]:.1f} s -> "
             f"{so.relative_to(ROOT)}")
+        # one line per kernel: its (mangled) name, registers, spills
+        kernel = spills = ""
         for line in so.with_suffix(".log").read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line:
+                log(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; "
+                    f"{spills}")
     log(f"build: {len(libs)} libraries in {total:.1f} s")
     return total
 
@@ -206,78 +257,118 @@ def _inputs(torch, case, seed):
     return rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
 
 
+def _hold(torch, ref, label, out, q, k, v, dtype, **kw) -> tuple:
+    """The kernel's output against the plain version on the same inputs
+    (TOL), and in bf16 also against the plain version run in float32
+    (TIGHT). Returns (max |out - plain|, TIGHT ratio or None): the worst
+    |out - plain32| over its allowance, which holds while <= 1."""
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - plain.float()).abs().max().item()
+    ok = torch.allclose(out.float(), plain.float(), atol=TOL[dtype],
+                        rtol=TOL[dtype]) and bool(torch.isfinite(out).all())
+    tight = None
+    if dtype == "bfloat16":
+        plain32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                          **kw)
+        tight = ((out.float() - plain32).abs() / (
+            TIGHT["atol"] + TIGHT["rtol"] * plain32.abs())).max().item()
+        ok = ok and tight <= 1
+        del plain32
+    log(f"kernel flash_attention {label}: max_abs_err {err:.3g} (tol "
+        f"{TOL[dtype]})" + ("" if tight is None else
+                            f", error / TIGHT {tight:.3g}")
+        + f" {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {label}")
+    return err, tight
+
+
 def phase_kernels(torch, ops, ref) -> dict:
-    """Kernel vs plain version at every case; times at the prefill
-    shape. Returns the kernel's record (launches filled in later)."""
+    """Both flash kernels vs the plain version at every case; times at
+    the prefill shape. Returns the sm90 kernel's record (launches filled
+    in later)."""
     import torch.nn.functional as F
-    record = None
-    cases = FLASH_CASES + [GRANITE_PREFILL_F32, GRANITE_PREFILL]
-    for i, case in enumerate(cases):
+    sm90 = ops.flash_attention.variant_launches
+    for i, case in enumerate(FLASH_CASES + [GRANITE_PREFILL_F32]):
         B, H, KV, S, hd, causal, window, dtype = case
         q, k, v = _inputs(torch, case, seed=i)
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
-        plain = ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window)
-        torch.cuda.synchronize()
-        err = (out.float() - plain.float()).abs().max().item()
-        ok = torch.allclose(out.float(), plain.float(), atol=TOL[dtype],
-                            rtol=TOL[dtype])
-        log(f"kernel flash_attention {case}: max_abs_err {err:.3g} "
-            f"(tol {TOL[dtype]}) {'ok' if ok else 'MISMATCH'}")
-        if not ok or not torch.isfinite(out).all():
-            raise AssertionError(f"flash_attention disagrees with its "
-                                 f"plain version at {case}")
-        if case is not GRANITE_PREFILL:
-            continue
-        plain32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                          causal=causal, window=window)
-        diff32 = (out.float() - plain32).abs()
-        # worst |diff| over its allowance: the gate holds while <= 1
-        tight = (diff32 / (TIGHT["atol"] + TIGHT["rtol"] * plain32.abs())
-                 ).max().item()
-        log(f"kernel flash_attention {case} against the float32 plain "
-            f"version: max_abs_err {diff32.max().item():.3g}, RMS of the "
-            f"output {plain32.pow(2).mean().sqrt().item():.3g}, worst "
-            f"error / (atol {TIGHT['atol']} + rtol {TIGHT['rtol']} |o|) "
-            f"{tight:.3g} {'ok' if tight <= 1 else 'MISMATCH'}")
-        if not tight <= 1:
-            raise AssertionError(f"flash_attention (bf16) disagrees with "
-                                 f"the float32 plain version at {case}")
-        del plain32, diff32
-        ms = cuda_ms(torch, lambda: ops.flash_attention(
-            q, k, v, causal=causal, window=window))
-        plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(
-            q, k, v, causal=causal, window=window), reps=5)
-        # library yardstick: SDPA on (B, H, S, hd) with the KV heads
-        # repeated for GQA (the repeat is outside the timed call)
-        qt = q.transpose(1, 2)
-        kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-        vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-        lib_err = (lib.transpose(1, 2).float() - plain.float()).abs().max()
-        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal))
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-        flops = 4 * B * H * hd * visible_pairs(S, S, causal, window)
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        log(f"timing flash_attention at {case}: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"sdpa {library_ms:.4f} ms (max |sdpa - plain| "
-            f"{lib_err.item():.3g}), {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 2**20:.1f} MiB")
-        record = {
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
-            "launches": 0, "max_abs_err": err,
-            "tight_gate_ratio": tight, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
-        }
-        del q, k, v, out, plain, qt, kt, vt, lib
+        variant = ops.select_variant(q.dtype, hd)
+        _hold(torch, ref, f"{case} [{variant}]", out, q, k, v, dtype,
+              causal=causal, window=window)
+    for i, case in enumerate(SM90_CASES):
+        B, H, KV, Sq, Sk, hd, causal, window, q_offset, softcap, view = case
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda").bfloat16()
+        q = rnd(B, Sq, H, hd)
+        k, v = rnd(B, 2 * Sk, KV, hd), rnd(B, 2 * Sk, KV, hd)
+        k, v = (k[:, :Sk], v[:, Sk:]) if view else \
+            (k[:, :Sk].contiguous(), v[:, :Sk].contiguous())
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  softcap=softcap)
+        before = sm90["sm90"]
+        out = ops.flash_attention(q, k, v, **kw)
+        assert sm90["sm90"] == before + 1, f"{case} did not run sm90"
+        _hold(torch, ref, f"{case} [sm90]", out, q, k, v, "bfloat16", **kw)
+
+    # the granite-8b prefill shape: both kernels held to the plain version,
+    # then all four timed in turns
+    B, H, KV, S, hd, causal, window, dtype = GRANITE_PREFILL
+    q, k, v = _inputs(torch, GRANITE_PREFILL, seed=len(FLASH_CASES) + 1)
+    kw = dict(causal=causal, window=window)
+    assert ops.select_variant(q.dtype, hd) == "sm90"
+    out = ops.flash_attention(q, k, v, **kw)
+    err, tight = _hold(torch, ref, f"{GRANITE_PREFILL} [sm90]", out, q, k,
+                       v, dtype, **kw)
+    earlier = ops.run_variant("fma", q, k, v, **kw)
+    _, earlier_tight = _hold(torch, ref, f"{GRANITE_PREFILL} [fma]", earlier,
+                             q, k, v, dtype, **kw)
+    # library yardstick: SDPA on (B, H, S, hd) with the KV heads repeated
+    # for GQA (the repeat is outside the timed call)
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    lib_err = (lib.transpose(1, 2).float() - out.float()).abs().max()
+    ms = timed_turns(torch, {
+        "sm90": lambda: ops.flash_attention(q, k, v, **kw),
+        "fma": lambda: ops.run_variant("fma", q, k, v, **kw),
+        "plain": lambda: ref.flash_attention_ref(q, k, v, **kw),
+        "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=causal),
+    }, reps={"fma": 5, "plain": 5})
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    flops = 4 * B * H * hd * visible_pairs(S, S, causal, window)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    log(f"timing flash_attention at {GRANITE_PREFILL}, in turns: sm90 "
+        f"{ms['sm90']:.4f} ms ({flops / ms['sm90'] / 1e9:.1f} TFLOP/s), "
+        f"fma {ms['fma']:.4f} ms ({flops / ms['fma'] / 1e9:.2f} TFLOP/s), "
+        f"plain {ms['plain']:.4f} ms, sdpa {ms['sdpa']:.4f} ms "
+        f"({flops / ms['sdpa'] / 1e9:.1f} TFLOP/s; max |sdpa - sm90| "
+        f"{lib_err.item():.3g}); bound {max(t_bytes, t_ops):.4f} ms "
+        f"({flops / 1e9:.2f} GFLOP, {nbytes / 2**20:.1f} MiB); fma against "
+        f"the float32 plain version: error / TIGHT {earlier_tight:.3g}")
+    record = {
+        "name": "flash_attention", "variant": "sm90", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
+        "launches": 0, "max_abs_err": err, "tight_gate_ratio": tight,
+        "ms": ms["sm90"], "plain_ms": ms["plain"],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": ms["sdpa"],
+        "earlier_ms": ms["fma"],
+        "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention.cu",
+    }
+    del q, k, v, out, earlier, qt, kt, vt, lib
+    torch.cuda.empty_cache()
     return record
 
 
@@ -373,6 +464,9 @@ def phase_serve(torch, ops, cfg) -> dict:
     assert launches["flash_attention"] == want > 0, \
         f"flash_attention launched {launches['flash_attention']} times, " \
         f"expected {cfg.num_layers} x {s.prefill_calls} prefill calls"
+    assert launches["flash_attention/sm90"] == want, \
+        f"{launches['flash_attention/sm90']} of {want} prefill attention " \
+        f"launches went to the sm90 kernel"
     assert launches["wkv6"] == 0, "granite-8b has no RWKV layer"
     summary = s.to_dict()
     prefill_ms = spans.get("serving/prefill_batch", [])
@@ -388,7 +482,8 @@ def phase_serve(torch, ops, cfg) -> dict:
         f"{s.peak_blocks_in_use}/{eng.allocator.capacity} blocks; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"serve: flash_attention launches {launches['flash_attention']} "
-        f"= {cfg.num_layers} layers x {s.prefill_calls} prefill calls")
+        f"= {cfg.num_layers} layers x {s.prefill_calls} prefill calls, "
+        f"{launches['flash_attention/sm90']} of them sm90")
     # where the time goes: one prefill call and one decode step at this
     # geometry, under the profiler (after the measured run)
     B, W = eng.max_batch, eng.max_blocks_per_req
@@ -791,6 +886,8 @@ def main() -> int:
     rwkv_launches = phase_rwkv_generate(torch, rcfg)
     phase_rwkv_equality(torch, rcfg)
     record["launches"] = launches["flash_attention"]
+    record["variant_launches"] = {
+        v: launches[f"flash_attention/{v}"] for v in ops.VARIANTS}
     rwkv_record["launches"] = rwkv_launches["wkv6"]
     log(card)
     print(json.dumps({"kernels": [record, rwkv_record]}))

@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOADED: dict[Path, ctypes.CDLL] = {}
+# (name, csrc) -> the library loaded for it in this process
+_LOADED: dict[tuple[str, Path], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -75,11 +76,14 @@ def build(name: str, csrc: Path) -> Path:
 
 
 def load_library(name: str, csrc: Path) -> ctypes.CDLL:
-    """Build (if needed) and load the library for ``csrc``."""
-    so = build(name, csrc)
-    lib = _LOADED.get(so)
+    """Build (if needed) and load the library for ``csrc``. Once loaded
+    in a process it is returned as it is: the sources are not read and
+    hashed again, which cost about a millisecond of host time per call
+    (more than the sm90 flash kernel's device time)."""
+    key = (name, Path(csrc))
+    lib = _LOADED.get(key)
     if lib is None:
-        lib = _LOADED[so] = ctypes.CDLL(str(so))
+        lib = _LOADED[key] = ctypes.CDLL(str(build(name, csrc)))
     return lib
 
 

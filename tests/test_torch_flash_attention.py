@@ -2,9 +2,11 @@
 
 On the CPU the port's wrapper runs its plain version; these tests hold
 that plain version to the JAX Pallas kernel (interpret mode) and to the
-reference's own oracles, on the same seeded numpy inputs. The CUDA
-kernel itself is held to the plain version by the ``cuda``-marked test,
-which runs only where a card is present (and by ``chip_smoke.py``).
+reference's own oracles, on the same seeded numpy inputs, and check the
+wrapper's choice of kernel and its TMA layout rule, which need no card.
+The CUDA kernels themselves are held to the plain version by the
+``cuda``-marked tests, which run only where a card is present (and by
+``chip_smoke.py``).
 
 JAX is imported by the fixture that needs it, so the ``cuda`` tests also
 run on a machine that has a card and no JAX:
@@ -183,3 +185,126 @@ def test_cuda_kernel_offset_softcap_strides(Sq, Sk, q_offset, softcap,
     ref = flash_attention_ref(q, k, v, causal=True, window=window,
                               q_offset=q_offset, softcap=softcap)
     np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype,hd,variant", [
+    ("bfloat16", 64, "sm90"),
+    ("bfloat16", 128, "sm90"),
+    ("bfloat16", 32, "fma"),
+    ("bfloat16", 80, "fma"),
+    ("bfloat16", 256, "fma"),
+    ("float32", 64, "fma"),
+    ("float32", 128, "fma"),
+])
+def test_variant_is_chosen_from_dtype_and_head_dim(dtype, hd, variant):
+    assert ops.select_variant(getattr(torch, dtype), hd) == variant
+    assert variant in ops.flash_attention.variant_launches
+
+
+def test_tma_layout_check_raises_before_any_launch():
+    """The sm90 kernel's TMA rules, checked on CPU tensors: the model's
+    layouts pass; a view offset by one element and a stride that is not
+    a multiple of 16 bytes raise ValueError."""
+    x = torch.zeros((2, 64, 4, 128), dtype=torch.bfloat16)
+    cache = torch.zeros((2, 256, 2, 64), dtype=torch.bfloat16)
+    ops.check_tma_layout(q=x, k=cache[:, :100], v=cache[:, 8:40])
+    flat = torch.zeros(x.numel() + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + x.numel()].view(x.shape)    # one element in
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.check_tma_layout(q=shifted)
+    wide = torch.zeros((2, 64, 4, 68), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ops.check_tma_layout(v=wide[..., :64])
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,window,q_offset,softcap", [
+    (1, 4, 2, 100, 100, 128, None, 0, 0.0),     # ragged S, hd 128
+    (1, 4, 2, 32, 96, 64, None, 64, 0.0),       # prefill with a cache
+    (1, 4, 2, 128, 128, 64, 40, 0, 0.0),        # window
+    (1, 4, 2, 64, 64, 128, None, 0, 30.0),      # soft cap
+])
+def test_sm90_edges_plain_version_matches_plain_gqa(jx, B, H, KV, Sq, Sk, hd,
+                                                    window, q_offset,
+                                                    softcap):
+    """The edge cases the sm90 kernel is held to on the card, at small
+    sizes in bf16: the plain version (what the kernel is compared with)
+    against the reference's plain attention."""
+    (jq, jk, jv), (q, k, v) = _both(
+        jx, _inputs(Sq * hd + Sk, B, H, KV, Sq, Sk, hd), "bfloat16")
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              q_offset=q_offset, softcap=softcap)
+    ref = jx.plain_gqa(jq, jk, jv, causal=True, window=window,
+                       q_offset=q_offset, softcap=softcap)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol("bfloat16"))
+
+
+# The sm90 kernel's edges on the card; each is held to the plain version
+# within the reference's bf16 tolerance and to the plain version run in
+# float32 within one bf16 step (chip_smoke.py's TIGHT gate).
+TIGHT = dict(atol=1e-5, rtol=2.0 ** -7)
+SM90_CASES = [
+    # (B, H, KV, Sq, Sk, hd, causal, window, q_offset, softcap, kv_view)
+    (2, 4, 2, 256, 256, 64, True, None, 0, 0.0, False),
+    (1, 4, 4, 128, 128, 128, False, None, 0, 0.0, False),
+    (2, 8, 2, 256, 256, 64, True, 64, 0, 0.0, False),
+    (1, 4, 2, 128, 128, 64, True, None, 0, 0.0, False),
+    (2, 2, 1, 192, 192, 64, True, 128, 0, 0.0, False),
+    (2, 4, 2, 1000, 1000, 128, True, None, 0, 0.0, False),   # ragged
+    (2, 8, 2, 512, 1024, 128, True, None, 512, 0.0, False),  # with a cache
+    (2, 8, 2, 1024, 1024, 128, True, 256, 0, 0.0, False),    # window
+    (2, 8, 2, 512, 512, 128, True, None, 0, 30.0, False),    # soft cap
+    (2, 8, 2, 300, 1000, 128, True, None, 700, 0.0, True),   # k, v views
+    (8, 12, 4, 1024, 1024, 64, True, None, 0, 0.0, False),   # repro-lm-100m
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,hd,causal,window,q_offset,softcap,kv_view", SM90_CASES)
+def test_cuda_sm90_kernel_edges(B, H, KV, Sq, Sk, hd, causal, window,
+                                q_offset, softcap, kv_view):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _torch(_inputs(Sq + hd, B, H, KV, Sq, 2 * Sk, hd), "bfloat16",
+                     "cuda")
+    k, v = (k[:, :Sk], v[:, Sk:]) if kv_view else \
+        (k[:, :Sk].contiguous(), v[:, :Sk].contiguous())
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              softcap=softcap)
+    before = dict(ops.flash_attention.variant_launches)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.variant_launches["sm90"] == \
+        before["sm90"] + 1
+    ref = flash_attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol("bfloat16"))
+    ref32 = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    np.testing.assert_allclose(_np(out), _np(ref32), **TIGHT)
+
+
+def test_ablations_apply_to_the_sm90_source():
+    """Each ablation of the sm90 kernel (``ablate.py``, run on the card)
+    finds the text it changes, so the script keeps measuring what it
+    says after the kernel is edited."""
+    from repro_torch.kernels.flash_attention import ablate
+    source = ablate.SOURCE.read_text()
+    for name in ablate.ABLATIONS:
+        text = ablate.variant_source(name)
+        assert (text == source) == (name == "kernel"), name
+
+
+@pytest.mark.parametrize("variant,dtype,hd,match", [
+    ("tiled", "bfloat16", 128, "unknown flash_attention variant"),
+    ("sm90", "float32", 128, "sm90 kernel takes bfloat16"),
+    ("sm90", "bfloat16", 32, "sm90 kernel takes bfloat16"),
+    ("fma", "bfloat16", 128, "run on cuda"),
+])
+def test_run_variant_refuses_what_its_kernel_cannot_take(variant, dtype, hd,
+                                                         match):
+    """``run_variant`` raises before any launch: an unknown kernel, the
+    sm90 kernel off its (dtype, head dim), a tensor off the card."""
+    q, k, v = _torch(_inputs(3, 1, 4, 2, 8, 8, hd), dtype)
+    before = ops.flash_attention.launches
+    with pytest.raises(ValueError, match=match):
+        ops.run_variant(variant, q, k, v)
+    assert ops.flash_attention.launches == before
