@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,rwkv_kernels]
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``. Phases, each of which fails the run if it fails:
@@ -20,11 +20,16 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    (``fma``), the plain version and one PyTorch library call computing
    the same function are timed in turns (CUDA events around
    back-to-back calls, median of 3 turns) beside the roofline bound;
-4. rwkv6 kernel: the RWKV6 recurrence against its plain version, y and
+4. rwkv kernels: the RWKV6 recurrence against its plain version, y and
    the final state, at the reference's cases (zero and random state),
-   a ragged length and the rwkv6-7b prefill shape (float32, and the
+   a ragged length, the edges of the bf16 tensor-core kernel (``mma``:
+   chunks of 32 and 16 with ragged tails, one token, r, k, v as views of
+   one wider tensor) and the rwkv6-7b prefill shape (float32, and the
    model's types with two draws of the decay), under a gate scaled to
-   the output; times beside the bound (no PyTorch call computes it);
+   the output; each case logs the kernel ``wkv6`` chose. At the bf16
+   prefill shape the first kernel (``fma``) is held too, and the mma
+   kernel, the fma kernel and the plain version are timed in turns
+   beside the bound (no PyTorch call computes the recurrence);
 5. serve: the full granite-8b configuration in bf16 (random weights from
    a seed) serves 8 seeded requests through ``ServingEngine``; the
    launch counts show every prefill attention call went through the
@@ -38,20 +43,25 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 7. rwkv generate: the full rwkv6-7b configuration in bf16 (random
    weights from a seed): one ``prefill`` of 8 prompts of 1024 tokens,
    then 31 greedy ``decode_step`` calls; the launch counts show every
-   layer's prefill went through the RWKV6 kernel and no decode step
-   did; then one prefill and one decode step under torch.profiler;
+   layer's prefill went through the mma RWKV6 kernel and no decode step
+   launched one; then one prefill and one decode step under
+   torch.profiler;
 8. rwkv equality: full width, 2 layers, float32 — batched greedy output
    equals each request generated alone (near-tie rule of phase 6), and
    prefill of 512 tokens then ``decode_step`` on the next 512 (the
    kernel seeded with a non-zero state) matches one prefill of 1024 in
    logits and every state leaf.
 
-The line before the last is the ``kernels`` JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
-rest of the repository beside it, it exits non-zero and prints no result.
+``--phases`` (a comma list of the names in ``PHASES``; default all) runs
+a subset, for iterating on one kernel; the card's name is always read.
+The line before the last is the ``kernels`` JSON record (the records of
+the phases that ran); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA card, or without the rest of the repository beside it, it
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import statistics
@@ -120,6 +130,16 @@ RWKV_CASES = [
     (1, 2, 64, 64, 64, "bfloat16"),
     (1, 1, 33, 16, 8, "float32"),
     (2, 4, 1000, 64, 64, "bfloat16"),
+]
+# the edges of the bf16 tensor-core kernel (rwkv6_mma.cu), each with zero
+# and random state0; view: r, k, v are views of one (B, S, 3, H, hd)
+# tensor (16-byte aligned strides, as the kernel's cp.async needs)
+MMA_CASES = [
+    # (B, H, S, hd, chunk, dtype, view)
+    (1, 2, 130, 64, 32, "bfloat16", False),    # chunk 32, ragged tail
+    (2, 1, 77, 64, 16, "bfloat16", False),     # chunk 16, ragged tail
+    (2, 2, 1, 64, 64, "bfloat16", False),      # one token
+    (2, 4, 200, 64, 64, "bfloat16", True),     # r, k, v views
 ]
 RWKV_PREFILL = (8, 64, 1024, 64, 64, "bfloat16")
 RWKV_PREFILL_F32 = RWKV_PREFILL[:-1] + ("float32",)
@@ -595,21 +615,28 @@ def phase_token_equality(torch, cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def _rwkv_inputs(torch, case, seed, decay: str, state: bool):
+def _rwkv_inputs(torch, case, seed, decay: str, state: bool,
+                 view: bool = False):
     """r, k, v ~ N(0, 1) in the case's dtype (k ~ 0.3 N for the test
     draw); u ~ 0.1 N; decay from the reference test's distribution
     (``test``: w = exp(-exp(0.5 N - 2))) or the model's at init
     (``model``: w = exp(-exp(-6 + 0.05 N)), w0 = -6 and a small LoRA
-    term); state0 ~ N(0, 1) or None."""
-    B, H, S, hd, _, dtype = case
+    term); state0 ~ N(0, 1) or None. With ``view``, r, k and v are views
+    of one (B, S, 3, H, hd) tensor."""
+    B, H, S, hd, _, dtype = case[:6]
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def n(*shape):
         return torch.randn(shape, generator=g, device="cuda")
     dt = getattr(torch, dtype)
-    r, k, v = n(B, S, H, hd), n(B, S, H, hd), n(B, S, H, hd)
+    if view:
+        rkv = n(B, S, 3, H, hd)
+        rkv[:, :, 1] *= 0.3 if decay == "test" else 1.0
+        r, k, v = rkv.to(dt).unbind(2)
+    else:
+        r, k, v = n(B, S, H, hd), n(B, S, H, hd), n(B, S, H, hd)
+        k = k * 0.3 if decay == "test" else k
     if decay == "test":
-        k = k * 0.3
         w = torch.exp(-torch.exp(n(B, S, H, hd) * 0.5 - 2.0))
     else:
         w = torch.exp(-torch.exp(-6.0 + 0.05 * n(B, S, H, hd)))
@@ -625,38 +652,64 @@ def _gate(out, plain) -> tuple[float, float]:
     return err, err / allow
 
 
+def _hold_rwkv(torch, ref, label, out, args, chunk) -> tuple:
+    """A kernel's (y, S_last) against the plain version on the same
+    inputs under RWKV_GATE, finite; logs and returns (max |y - plain|,
+    the worse error / gate), and raises past 1."""
+    y, s_last = out
+    y_p, s_p = ref.wkv_ref(*args, chunk)
+    torch.cuda.synchronize()
+    (ey, ry), (es, rs) = _gate(y, y_p), _gate(s_last, s_p)
+    ok = max(ry, rs) <= 1 and bool(torch.isfinite(y).all()) and \
+        bool(torch.isfinite(s_last).all())
+    log(f"kernel wkv6 {label}: max |y - plain| {ey:.3g} (max |y| "
+        f"{y_p.abs().max().item():.3g}), max |S - plain| {es:.3g} (max |S| "
+        f"{s_p.abs().max().item():.3g}); error / gate y {ry:.3g} S "
+        f"{rs:.3g} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"wkv6 disagrees with its plain version at "
+                             f"{label}")
+    return ey, max(ry, rs)
+
+
 def phase_rwkv_kernels(torch, ops, ref) -> dict:
-    """The RWKV6 kernel against its plain version, y and S_last, at every
-    case; times at the rwkv6-7b prefill shape. Returns its record
-    (launches filled in later)."""
-    runs = [(c, "test", st) for c in RWKV_CASES for st in (False, True)]
+    """Both RWKV6 kernels against the plain version, y and S_last, at
+    every case; times at the rwkv6-7b prefill shape. Returns the mma
+    kernel's record (launches filled in later)."""
+    runs = [(c, "test", st) for c in RWKV_CASES + MMA_CASES
+            for st in (False, True)]
     runs += [(RWKV_PREFILL_F32, "model", True),
              (RWKV_PREFILL, "model", True), (RWKV_PREFILL, "test", True)]
+    counts = ops.wkv6.variant_launches
     worst, record = 0.0, None
     for i, (case, decay, state) in enumerate(runs):
-        r, k, v, w, u, s0 = _rwkv_inputs(torch, case, 100 + i, decay, state)
-        chunk = case[4]
-        y, s_last = ops.wkv6(r, k, v, w, u, s0, chunk)
-        y_p, s_p = ref.wkv_ref(r, k, v, w, u, s0, chunk)
-        torch.cuda.synchronize()
-        (ey, ry), (es, rs) = _gate(y, y_p), _gate(s_last, s_p)
-        ok = max(ry, rs) <= 1 and bool(torch.isfinite(y).all()) and \
-            bool(torch.isfinite(s_last).all())
-        worst = max(worst, ry, rs)
-        log(f"kernel wkv6 {case} decay={decay} state0="
-            f"{'random' if state else 'zero'}: max |y - plain| {ey:.3g} "
-            f"(max |y| {y_p.abs().max().item():.3g}), max |S - plain| "
-            f"{es:.3g} (max |S| {s_p.abs().max().item():.3g}); error / "
-            f"gate y {ry:.3g} S {rs:.3g} {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"wkv6 disagrees with its plain version "
-                                 f"at {case} ({decay} decay)")
-        if case is not RWKV_PREFILL or decay != "model":
+        view = len(case) > 6 and case[6]
+        args = _rwkv_inputs(torch, case, 100 + i, decay, state, view)
+        r, k, v, w, u, s0 = args
+        B, H, S, hd, chunk, dtype = case[:6]
+        variant = ops.select_variant(r.dtype, hd)
+        before = counts[variant]
+        out = ops.wkv6(*args, chunk)
+        assert counts[variant] == before + 1, f"{case} did not run {variant}"
+        label = (f"{case} decay={decay} state0="
+                 f"{'random' if state else 'zero'} [{variant}]")
+        err, ratio = _hold_rwkv(torch, ref, label, out, args, chunk)
+        worst = max(worst, ratio)
+        if case is not RWKV_PREFILL:
             continue
-        B, H, S, hd, _, dtype = case
-        ms = cuda_ms(torch, lambda: ops.wkv6(r, k, v, w, u, s0, chunk))
-        plain_ms = cuda_ms(torch, lambda: ref.wkv_ref(r, k, v, w, u, s0,
-                                                      chunk), reps=5)
+        # the bf16 prefill shape: the first kernel held as well
+        assert variant == "mma", f"wkv6 chose {variant} at {case}"
+        earlier = ops.run_variant("fma", *args, chunk)
+        _, earlier_ratio = _hold_rwkv(
+            torch, ref, label.replace("[mma]", "[fma]"), earlier, args, chunk)
+        if decay != "model":
+            continue
+        y, s_last = out
+        ms = timed_turns(torch, {
+            "mma": lambda: ops.wkv6(*args, chunk),
+            "fma": lambda: ops.run_variant("fma", *args, chunk),
+            "plain": lambda: ref.wkv_ref(*args, chunk),
+        }, reps={"plain": 5})
         nbytes = sum(t.numel() * t.element_size()
                      for t in (r, k, v, w, u, s0, y, s_last))
         nchunks = -(-S // chunk)
@@ -666,23 +719,31 @@ def phase_rwkv_kernels(torch, ops, ref) -> dict:
                                        + 2 * chunk * hd * hd)
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        log(f"timing wkv6 at {case}: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
-            f"GB/s), plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f}"
-            f" ms ({nbytes / 2**20:.1f} MiB, {flops / 1e9:.2f} GFLOP); no "
-            f"PyTorch call computes the recurrence")
+        blocks = ops.mma_blocks_per_sm()
+        log(f"timing wkv6 at {case}, in turns: mma {ms['mma']:.4f} ms "
+            f"({flops / ms['mma'] / 1e9:.2f} TFLOP/s, "
+            f"{nbytes / ms['mma'] / 1e6:.1f} GB/s; {blocks} blocks per "
+            f"SM), fma {ms['fma']:.4f} ms, plain {ms['plain']:.4f} ms, "
+            f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 2**20:.1f} MiB, "
+            f"{flops / 1e9:.2f} GFLOP); fma error / gate "
+            f"{earlier_ratio:.3g}; no PyTorch call computes the recurrence")
         record = {
-            "name": "wkv6", "route": "cuda",
-            "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+            "name": "wkv6", "variant": "mma", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6_mma.cu",
             "replaces": "src/repro/kernels/rwkv6/kernel.py:74",
-            "launches": 0, "max_abs_err": ey, "ms": ms, "plain_ms": plain_ms,
+            "launches": 0, "max_abs_err": err,
+            "ms": ms["mma"], "plain_ms": ms["plain"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
+            "earlier_ms": ms["fma"],
+            "earlier_source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+            "blocks_per_sm": blocks,
         }
+        del earlier
     record["gate_ratio"] = worst
     log(f"kernel wkv6: {len(runs)} runs, worst error / gate {worst:.3g}")
-    del r, k, v, w, u, s0, y, s_last, y_p, s_p
+    del args, out, r, k, v, w, u, s0
     torch.cuda.empty_cache()
     return record
 
@@ -755,8 +816,12 @@ def phase_rwkv_generate(torch, cfg) -> dict:
     assert after_prefill["wkv6"] == cfg.num_layers > 0, \
         f"wkv6 launched {after_prefill['wkv6']} times in one prefill " \
         f"call, expected {cfg.num_layers}"
-    assert launches["wkv6"] == after_prefill["wkv6"], \
-        "a decode step launched the RWKV6 kernel"
+    assert after_prefill["wkv6/mma"] == cfg.num_layers, \
+        f"{after_prefill['wkv6/mma']} of {cfg.num_layers} prefill wkv6 " \
+        f"launches went to the mma kernel"
+    assert launches["wkv6"] == after_prefill["wkv6"] and \
+        launches["wkv6/mma"] == after_prefill["wkv6/mma"], \
+        "a decode step launched an RWKV6 kernel"
     assert launches["flash_attention"] == 0, "rwkv6-7b has no attention"
     log(f"rwkv: {B} requests x {S} prompt tokens, {B * n_new} generated in "
         f"{wall:.3f} s -> {B * n_new / wall:.1f} tok/s; prefill (= TTFT) "
@@ -765,7 +830,8 @@ def phase_rwkv_generate(torch, cfg) -> dict:
         f"max {max(step_ms):.2f}); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"rwkv: wkv6 launches {launches['wkv6']} = {cfg.num_layers} layers "
-        f"x 1 prefill call; 0 in {n_new - 1} decode steps")
+        f"x 1 prefill call, {launches['wkv6/mma']} of them mma; 0 in "
+        f"{n_new - 1} decode steps")
     profile(torch, f"rwkv prefill B={B} S={S}",
             lambda: prefill(cfg, params, {"tokens": tokens}, S + n_new))
     profile(torch, f"rwkv decode step B={B}",
@@ -855,7 +921,18 @@ def phase_rwkv_equality(torch, cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+PHASES = ("card", "build", "kernels", "rwkv_kernels", "serve",
+          "token_equality", "rwkv_generate", "rwkv_equality")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of phases to run (default: all)")
+    phases = ap.parse_args(argv).phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; known: {', '.join(PHASES)}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -876,21 +953,34 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     card = phase_card()
-    phase_build({"flash_attention": ops, "rwkv6": rops}, build)
-    record = phase_kernels(torch, ops, ref)
-    rwkv_record = phase_rwkv_kernels(torch, rops, rref)
+    if "build" in phases:
+        phase_build({"flash_attention": ops, "rwkv6": rops}, build)
+    record = rwkv_record = None
+    if "kernels" in phases:
+        record = phase_kernels(torch, ops, ref)
+    if "rwkv_kernels" in phases:
+        rwkv_record = phase_rwkv_kernels(torch, rops, rref)
     cfg = get_config("granite-8b")
-    launches = phase_serve(torch, ops, cfg)
-    phase_token_equality(torch, cfg)
+    if "serve" in phases:
+        launches = phase_serve(torch, ops, cfg)
+        if record is not None:
+            record["launches"] = launches["flash_attention"]
+            record["variant_launches"] = {
+                v: launches[f"flash_attention/{v}"] for v in ops.VARIANTS}
+    if "token_equality" in phases:
+        phase_token_equality(torch, cfg)
     rcfg = get_config("rwkv6-7b")
-    rwkv_launches = phase_rwkv_generate(torch, rcfg)
-    phase_rwkv_equality(torch, rcfg)
-    record["launches"] = launches["flash_attention"]
-    record["variant_launches"] = {
-        v: launches[f"flash_attention/{v}"] for v in ops.VARIANTS}
-    rwkv_record["launches"] = rwkv_launches["wkv6"]
+    if "rwkv_generate" in phases:
+        rwkv_launches = phase_rwkv_generate(torch, rcfg)
+        if rwkv_record is not None:
+            rwkv_record["launches"] = rwkv_launches["wkv6"]
+            rwkv_record["variant_launches"] = {
+                v: rwkv_launches[f"wkv6/{v}"] for v in rops.VARIANTS}
+    if "rwkv_equality" in phases:
+        phase_rwkv_equality(torch, rcfg)
     log(card)
-    print(json.dumps({"kernels": [record, rwkv_record]}))
+    print(json.dumps({"kernels": [r for r in (record, rwkv_record)
+                                  if r is not None]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

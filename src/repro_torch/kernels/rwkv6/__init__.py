@@ -1,5 +1,6 @@
-"""RWKV6 recurrence: the CUDA kernel's wrapper and its plain versions."""
-from .ops import HEAD_DIMS, MAX_CHUNK, wkv6
+"""RWKV6 recurrence: the CUDA kernels' wrapper and its plain versions."""
+from .ops import HEAD_DIMS, MAX_CHUNK, MMA_HEAD_DIMS, VARIANTS, wkv6
 from .ref import wkv_ref, wkv_step_ref
 
-__all__ = ["HEAD_DIMS", "MAX_CHUNK", "wkv6", "wkv_ref", "wkv_step_ref"]
+__all__ = ["HEAD_DIMS", "MAX_CHUNK", "MMA_HEAD_DIMS", "VARIANTS", "wkv6",
+           "wkv_ref", "wkv_step_ref"]

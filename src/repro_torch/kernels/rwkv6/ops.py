@@ -1,7 +1,12 @@
-"""Public wrapper around the CUDA RWKV6 chunked-recurrence kernel.
+"""Public wrapper around the CUDA RWKV6 chunked-recurrence kernels.
 
-The kernel (``csrc/rwkv6.cu``) is built with ``nvcc`` at the first call
-on a CUDA tensor and bound through ``ctypes``; see
+Two kernels, one library: ``csrc/rwkv6_mma.cu`` (bf16 r, k, v at the
+head dims in :data:`MMA_HEAD_DIMS`: mma.sync TF32 tensor-core products
+in 3xTF32, two blocks per SM, cp.async loads) and ``csrc/rwkv6.cu``
+(float32 FMAs: float32 r, k, v, and every head dim in
+:data:`HEAD_DIMS`). :func:`select_variant` picks one from (dtype, head
+dim) alone. The library is built with ``nvcc`` at the first call on a
+CUDA tensor and bound through ``ctypes``; see
 :mod:`repro_torch.kernels.build`. Nothing is built at import.
 """
 from __future__ import annotations
@@ -15,9 +20,13 @@ from ..build import load_library
 from .ref import wkv_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64)
-#: the largest chunk the kernel's tiles hold
+#: bf16 head dims the tensor-core kernel takes (every rwkv6-7b launch)
+MMA_HEAD_DIMS = (64,)
+#: the kernels: ``mma`` in rwkv6_mma.cu, ``fma`` in rwkv6.cu
+VARIANTS = ("mma", "fma")
+#: the largest chunk the kernels' tiles hold
 MAX_CHUNK = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,9 +42,38 @@ def load() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        lib.repro_wkv6_mma_fwd.argtypes = _ARGTYPES
+        lib.repro_wkv6_mma_fwd.restype = ctypes.c_int
+        lib.repro_wkv6_mma_blocks_per_sm.argtypes = []
+        lib.repro_wkv6_mma_blocks_per_sm.restype = ctypes.c_int
         lib.repro_wkv6_error_string.argtypes = [ctypes.c_int]
         lib.repro_wkv6_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def select_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of this dtype and head dim launches:
+    ``mma`` for bf16 at :data:`MMA_HEAD_DIMS`, else ``fma``."""
+    if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS:
+        return "mma"
+    return "fma"
+
+
+def check_cp_async_layout(**tensors: torch.Tensor) -> None:
+    """The ``mma`` kernel reads rows with 16-byte ``cp.async``: every
+    base and every stride but the head dim's must be a multiple of 16
+    bytes. Raises ValueError naming the first tensor that breaks it."""
+    for name, t in tensors.items():
+        size = t.element_size()
+        if t.data_ptr() % 16:
+            raise ValueError(f"wkv6 (mma): {name} starts at "
+                             f"{t.data_ptr():#x}, not 16-byte aligned, as "
+                             f"cp.async needs")
+        if any((s * size) % 16 for s in t.stride()[:-1]):
+            raise ValueError(f"wkv6 (mma): {name} strides "
+                             f"{tuple(t.stride())} (elements of {size} "
+                             f"bytes) are not all multiples of 16 bytes, "
+                             f"as cp.async needs")
 
 
 def _check(r, k, v, w, u, state0, chunk: int) -> None:
@@ -78,43 +116,81 @@ def wkv6(r, k, v, w, u, state0=None, chunk: int = 64):
     Returns (y (B, S, H, hd) float32, S_last (B, H, hd, hd) float32), the
     function of the reference's ``models.rwkv._wkv_chunked``, for any S.
 
-    A CUDA tensor launches the kernel (hd in :data:`HEAD_DIMS`, chunk at
-    most :data:`MAX_CHUNK`) on the current stream and adds one to
-    ``wkv6.launches``; anything it cannot take raises. A CPU tensor runs
-    the plain version :func:`wkv_ref`, which is not counted."""
+    A CUDA tensor launches one kernel on the current stream, the one
+    :func:`select_variant` names (hd in :data:`HEAD_DIMS`, chunk at most
+    :data:`MAX_CHUNK`), and adds one to ``wkv6.launches`` and to
+    ``wkv6.variant_launches[variant]``; anything it cannot take raises
+    (the ``mma`` kernel's r, k, v and w must also meet
+    :func:`check_cp_async_layout`), and a failed launch raises. A CPU
+    tensor runs the plain version :func:`wkv_ref`, which is not
+    counted."""
     _check(r, k, v, w, u, state0, chunk)
     if r.device.type == "cpu":
         return wkv_ref(r, k, v, w, u, state0, chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    return run_variant(select_variant(r.dtype, r.shape[-1]), r, k, v, w, u,
+                       state0, chunk)
+
+
+def run_variant(variant: str, r, k, v, w, u, state0=None, chunk: int = 64):
+    """Launch the named kernel on CUDA tensors and count it.
+    :func:`wkv6` calls it with the variant :func:`select_variant` names;
+    ``chip_smoke.py`` also calls it to time the ``fma`` kernel at a bf16
+    shape the ``mma`` kernel takes."""
+    _check(r, k, v, w, u, state0, chunk)
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown wkv6 variant {variant!r}")
     B, S, H, hd = r.shape
+    if variant == "mma" and select_variant(r.dtype, hd) != "mma":
+        raise ValueError(f"the mma kernel takes bfloat16 at head dims "
+                         f"{MMA_HEAD_DIMS}, not {r.dtype} at {hd}")
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6 kernels run on cuda, not {r.device}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
     if chunk > MAX_CHUNK:
         raise ValueError(f"chunk {chunk} > the kernel's {MAX_CHUNK}")
     if any(t.stride(-1) != 1 for t in (r, k, v, w)):
         raise ValueError("wkv6 needs a contiguous head dim")
+    if variant == "mma":
+        check_cp_async_layout(r=r, k=k, v=v, w=w)
     u = u.contiguous()
     state0 = None if state0 is None else state0.contiguous()
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     s_last = torch.empty((B, H, hd, hd), dtype=torch.float32,
                          device=r.device)
     lib = load()
+    fn = lib.repro_wkv6_mma_fwd if variant == "mma" else lib.repro_wkv6_fwd
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.repro_wkv6_fwd(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), None if state0 is None else state0.data_ptr(),
-            y.data_ptr(), s_last.data_ptr(), _DTYPE_CODE[r.dtype], B, S, H,
-            hd, chunk, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *w.stride()[:3], *y.stride()[:3], stream)
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), None if state0 is None else state0.data_ptr(),
+                 y.data_ptr(), s_last.data_ptr(), _DTYPE_CODE[r.dtype], B, S,
+                 H, hd, chunk, *r.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], *w.stride()[:3], *y.stride()[:3], stream)
     if err != 0:
         msg = lib.repro_wkv6_error_string(err).decode()
-        raise RuntimeError(f"wkv6 launch failed: {msg} (cudaError {err})")
+        raise RuntimeError(f"wkv6 ({variant}) launch failed: {msg} "
+                           f"(cudaError {err})")
     wkv6.launches += 1
+    wkv6.variant_launches[variant] += 1
     return y, s_last
 
 
-wkv6.launches = 0
+def mma_blocks_per_sm() -> int:
+    """Blocks of the ``mma`` kernel one SM holds at once, by the CUDA
+    occupancy calculator (needs the card)."""
+    n = load().repro_wkv6_mma_blocks_per_sm()
+    if n < 0:
+        raise RuntimeError(f"wkv6 (mma): occupancy query failed "
+                           f"(cudaError {-n})")
+    return n
 
-__all__ = ["HEAD_DIMS", "MAX_CHUNK", "load", "wkv6", "wkv_ref"]
+
+wkv6.launches = 0
+wkv6.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+__all__ = ["HEAD_DIMS", "MAX_CHUNK", "MMA_HEAD_DIMS", "VARIANTS",
+           "check_cp_async_layout", "load", "mma_blocks_per_sm",
+           "run_variant", "select_variant", "wkv6", "wkv_ref"]

@@ -3,9 +3,12 @@
 On the CPU the port's wrapper runs its plain version ``wkv_ref``; these
 tests hold it to the reference's Pallas kernel (interpret mode), its
 step-wise oracle ``rwkv6_ref`` and the model's ``_wkv_chunked``, on the
-same seeded numpy inputs. The CUDA kernel itself is held to the plain
-version by the ``cuda``-marked tests, which run only where a card is
-present (and by ``chip_smoke.py``).
+same seeded numpy inputs. An emulation of the tensor-core kernel's
+arithmetic (``rwkv6_mma.cu``: 3xTF32 products, the e^m folding) holds its
+precision scheme to the gate ``chip_smoke.py`` applies on the card. The
+CUDA kernels themselves are held to the plain version by the
+``cuda``-marked tests, which run only where a card is present (and by
+``chip_smoke.py``).
 
 JAX is imported by the fixture that needs it, so the ``cuda`` tests also
 run on a machine that has a card and no JAX:
@@ -178,8 +181,10 @@ def test_chunk_invariance():
 def test_wrapper_rejects_bad_inputs_and_counts_only_kernel_launches():
     r, k, v, w, u, s0 = (_t(a) for a in _inputs(2, 1, 8, 2, 16, True))
     before = ops.wkv6.launches
+    variants = dict(ops.wkv6.variant_launches)
     y, s_last = ops.wkv6(r, k, v, w, u, s0)     # CPU: the plain version
     assert ops.wkv6.launches == before
+    assert ops.wkv6.variant_launches == variants
     y_ref, s_ref = wkv_ref(r, k, v, w, u, s0)
     assert torch.equal(y, y_ref) and torch.equal(s_last, s_ref)
     with pytest.raises(ValueError, match="shape mismatch"):
@@ -201,6 +206,172 @@ def test_wrapper_rejects_bad_inputs_and_counts_only_kernel_launches():
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         ops.wkv6(*(t.to("meta") for t in (r, k, v, w, u)))
     assert ops.wkv6.launches == before
+    assert ops.wkv6.variant_launches == variants
+
+
+# chip_smoke.py's gate on the card: max |out - plain| <= 2e-5 x
+# max(1, max |plain|), for y and the final state each
+RWKV_GATE = 2e-5
+
+
+def _gate(out, plain) -> float:
+    """max |out - plain| over the gate's allowance (holds while <= 1)."""
+    out, plain = _np(out), _np(plain)
+    return float(np.abs(out - plain).max()
+                 / (RWKV_GATE * max(1.0, float(np.abs(plain).max()))))
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits
+    to the magnitude's bits, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm(a, b, passes: int, b_exact: bool = False):
+    """a @ b as the kernel's mma.sync products form it: float32 sums of
+    TF32 products. passes=3: hi.hi + hi.lo + lo.hi of the split x = hi +
+    lo (lo = tf32(x - hi)); with ``b_exact`` (b is bf16, exact in TF32)
+    two passes, hi.b + lo.b; passes=1: one TF32 product."""
+    if passes == 1:
+        return _tf32(a) @ (b if b_exact else _tf32(b))
+    a_hi = _tf32(a)
+    a_lo = _tf32(a - a_hi)
+    if b_exact:
+        return a_lo @ b + a_hi @ b
+    b_hi = _tf32(b)
+    b_lo = _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mma_kernel_emulated(r, k, v, w, u, s0, chunk=64, passes=3):
+    """The arithmetic of ``rwkv6_mma.cu`` in PyTorch, chunk by chunk:
+    log2-scaled prefix sums; Rn = r 2^{cum_ex - m}, Kn = k 2^{m - cum}
+    with m half the chunk's total; y = Rn (e^m S) + A v with A the lower
+    part of Rn Kn^T plus the bonus term; S <- e^m (e^m S + Kn^T v). The
+    products through :func:`_mm` with ``passes``."""
+    B, S, H, hd = r.shape
+    n = -(-S // chunk)
+    pad = n * chunk - S
+
+    def chunks(a, fill):
+        a = a.float().transpose(1, 2)                     # (B, H, S, hd)
+        if pad:
+            a = torch.cat([a, a.new_full((B, H, pad, hd), fill)], 2)
+        return a.reshape(B, H, n, chunk, hd).unbind(2)
+    St = s0.clone()
+    tri = torch.ones(chunk, chunk, dtype=torch.bool).tril(-1)
+    eye = torch.eye(chunk)
+    ys = []
+    for rx, kx, vx, wx in zip(chunks(r, 0.0), chunks(k, 0.0),
+                              chunks(v, 0.0), chunks(w, 1.0)):
+        cum = torch.cumsum(torch.log2(wx), 2)
+        cum_ex = torch.cat([torch.zeros_like(cum[:, :, :1]),
+                            cum[:, :, :-1]], 2)
+        m = 0.5 * cum[:, :, -1:]
+        rn, kn = rx * torch.exp2(cum_ex - m), kx * torch.exp2(m - cum)
+        em = torch.exp2(m)[:, :, 0, :, None]              # (B, H, hd, 1)
+        s_scaled = em * St
+        att = _mm(rn, kn.transpose(-1, -2), passes)
+        diag = (rx * u[None, :, None] * kx).sum(-1)
+        att = torch.where(tri, att, 0.0) + diag[..., None] * eye
+        ys.append(_mm(rn, s_scaled, passes)
+                  + _mm(att, vx, passes, b_exact=True))
+        St = em * (s_scaled + _mm(kn.transpose(-1, -2), vx, passes,
+                                  b_exact=True))
+    return torch.cat(ys, 2)[:, :, :S].transpose(1, 2), St
+
+
+def _card_inputs(seed, B, S, H, hd, decay):
+    """``chip_smoke.py``'s two decay draws at its bf16 prefill case, in
+    numpy: r, v ~ N(0, 1), u ~ 0.1 N, state0 ~ N(0, 1); ``test``: k ~ 0.3
+    N, w = exp(-exp(0.5 N - 2)); ``model`` (rwkv6-7b at init): k ~ N,
+    w = exp(-exp(-6 + 0.05 N)). r, k, v rounded to bf16."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+    r, k, v = n(B, S, H, hd), n(B, S, H, hd), n(B, S, H, hd)
+    if decay == "test":
+        k = k * 0.3
+        w = np.exp(-np.exp(n(B, S, H, hd) * 0.5 - 2.0))
+    else:
+        w = np.exp(-np.exp(-6.0 + 0.05 * n(B, S, H, hd)))
+    u, s0 = n(H, hd) * 0.1, n(B, H, hd, hd)
+    return (*(_t(a, "bfloat16") for a in (r, k, v)),
+            *(_t(np.asarray(a, np.float32)) for a in (w, u, s0)))
+
+
+@pytest.mark.parametrize("decay", ["test", "model"])
+def test_mma_kernel_3xtf32_arithmetic_meets_the_card_gate(decay):
+    """The tensor-core kernel's precision scheme, emulated at S=1024,
+    hd=64, bf16 r, k, v and a random state: 3xTF32 (two passes where v
+    is an operand) stays well inside the gate (about 0.02 of it)."""
+    args = _card_inputs(7, 2, 1024, 4, 64, decay)
+    y, s_last = _mma_kernel_emulated(*args, passes=3)
+    y_ref, s_ref = wkv_ref(*args)
+    assert _gate(y, y_ref) <= 0.1 and _gate(s_last, s_ref) <= 0.1
+
+
+@pytest.mark.parametrize("decay", ["test", "model"])
+def test_one_tf32_pass_per_product_misses_the_card_gate(decay):
+    """Why the kernel splits its operands: one TF32 product per term
+    misses the gate (by 10-20x) on y and on the state."""
+    args = _card_inputs(7, 2, 1024, 4, 64, decay)
+    y, s_last = _mma_kernel_emulated(*args, passes=1)
+    y_ref, s_ref = wkv_ref(*args)
+    assert _gate(y, y_ref) > 1 and _gate(s_last, s_ref) > 1
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1 + 2.0 ** -11, 1 + 2.0 ** -11 + 2.0 ** -20,
+                      -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11, 1 - 2.0 ** -12])
+    want = torch.tensor([1 + 2.0 ** -10, 1 + 2.0 ** -10, -(1 + 2.0 ** -10),
+                         1 + 2.0 ** -9, 1.0])
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("dtype,hd,variant", [
+    ("bfloat16", 64, "mma"), ("bfloat16", 32, "fma"), ("bfloat16", 16, "fma"),
+    ("float32", 64, "fma"), ("float32", 32, "fma"), ("bfloat16", 128, "fma")])
+def test_select_variant(dtype, hd, variant):
+    assert ops.select_variant(getattr(torch, dtype), hd) == variant
+
+
+def test_cp_async_layout_check_names_the_misaligned_tensor():
+    """The mma kernel's 16-byte rule, on CPU tensors: a model-layout
+    tensor and 16-byte-aligned views of a wider one pass; a base or a
+    stride off by an element raises ValueError naming the tensor."""
+    B, S, H, hd = 2, 5, 4, 64
+    r = torch.zeros(B, S, H, hd, dtype=torch.bfloat16)
+    qkv = torch.zeros(B, S, 3, H, hd, dtype=torch.bfloat16)
+    w = torch.zeros(B, S, H, hd)
+    ops.check_cp_async_layout(r=r, k=qkv[:, :, 1], v=qkv[:, :, 2], w=w)
+    flat = torch.zeros(B * S * H * hd + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k starts at .* not 16-byte"):
+        ops.check_cp_async_layout(r=r, k=flat[1:].view(B, S, H, hd))
+    odd = torch.zeros(B, S, H, hd + 1, dtype=torch.bfloat16)[..., :hd]
+    with pytest.raises(ValueError, match="v strides"):
+        ops.check_cp_async_layout(r=r, v=odd)
+    wide = torch.zeros(B, S, H + 1, hd)[:, :, :H, :]
+    ops.check_cp_async_layout(w=wide)      # 256-byte rows: aligned
+    with pytest.raises(ValueError, match="w strides"):
+        ops.check_cp_async_layout(w=torch.zeros(B, S, H, hd + 2)[..., :hd])
+
+
+def test_run_variant_refuses_what_its_kernel_cannot_take():
+    r, k, v, w, u, _ = (_t(a) for a in _inputs(3, 1, 8, 2, 64))
+    before = (ops.wkv6.launches, dict(ops.wkv6.variant_launches))
+    with pytest.raises(ValueError, match="unknown wkv6 variant"):
+        ops.run_variant("wgmma", r, k, v, w, u)
+    with pytest.raises(ValueError, match="mma kernel takes bfloat16"):
+        ops.run_variant("mma", r, k, v, w, u)
+    rb, kb, vb = (t.bfloat16() for t in (r, k, v))
+    for variant in ops.VARIANTS:
+        with pytest.raises(ValueError, match="run on cuda"):
+            ops.run_variant(variant, rb, kb, vb, w, u)
+    assert (ops.wkv6.launches, ops.wkv6.variant_launches) == before
 
 
 def _cuda():
@@ -208,36 +379,65 @@ def _cuda():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
+def _variants(dtype, hd):
+    """The kernels that take this dtype and head dim."""
+    return [v for v in ops.VARIANTS
+            if v == "fma" or ops.select_variant(getattr(torch, dtype), hd)
+            == v]
+
+
+def _hold(variant, outs, refs):
+    """A kernel's (y, S_last) against the plain version's."""
+    for out, ref in zip(outs, refs):
+        if variant == "fma":
+            np.testing.assert_allclose(_np(out), _np(ref), **TOL32)
+        else:
+            assert _gate(out, ref) <= 1, variant
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,S,hd,chunk,dtype", RWKV_CASES + [
-    (2, 3, 1000, 64, 64, "bfloat16"), (1, 2, 131, 16, 1, "float32")])
+    (2, 3, 1000, 64, 64, "bfloat16"), (1, 2, 131, 16, 1, "float32"),
+    (1, 2, 130, 64, 32, "bfloat16"), (2, 1, 77, 64, 16, "bfloat16"),
+    (2, 2, 1, 64, 64, "bfloat16")])
 @pytest.mark.parametrize("state", [False, True])
 def test_cuda_kernel_matches_plain_version(B, H, S, hd, chunk, dtype,
                                            state):
+    """Each kernel that takes the case, through ``run_variant``, and the
+    one ``wkv6`` selects: the float32 FMA kernel within TOL32 of the plain
+    version, element by element, as before; the 3xTF32 tensor-core
+    kernel within the card gate (``RWKV_GATE``, scaled to the output)."""
     _cuda()
     r, k, v, w, u, s0 = (_t(a, dt, "cuda") for a, dt in zip(
         _inputs(S * hd, B, S, H, hd, state),
         [dtype] * 3 + ["float32"] * 3))
-    before = ops.wkv6.launches
-    y, s_last = ops.wkv6(r, k, v, w, u, s0, chunk)
-    torch.cuda.synchronize()
-    assert ops.wkv6.launches == before + 1
     y_ref, s_ref = wkv_ref(r, k, v, w, u, s0, chunk)
-    np.testing.assert_allclose(_np(y), _np(y_ref), **TOL32)
-    np.testing.assert_allclose(_np(s_last), _np(s_ref), **TOL32)
+    for variant in _variants(dtype, hd):
+        before = ops.wkv6.variant_launches[variant]
+        y, s_last = ops.run_variant(variant, r, k, v, w, u, s0, chunk)
+        torch.cuda.synchronize()
+        assert ops.wkv6.variant_launches[variant] == before + 1
+        _hold(variant, (y, s_last), (y_ref, s_ref))
+    chosen = ops.select_variant(r.dtype, hd)
+    before = ops.wkv6.variant_launches[chosen]
+    ops.wkv6(r, k, v, w, u, s0, chunk)
+    assert ops.wkv6.variant_launches[chosen] == before + 1
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_reads_strided_inputs():
-    """r, k, v, w as views of wider tensors, as the model passes them."""
+@pytest.mark.parametrize("hd,dtype", [(32, "float32"), (64, "bfloat16")])
+def test_cuda_kernel_reads_strided_inputs(hd, dtype):
+    """r, k, v, w as views of wider tensors, as the model passes them,
+    through each kernel that takes them."""
     _cuda()
-    B, S, H, hd = 2, 100, 3, 32
-    big = [_t(a, device="cuda") for a in _inputs(1, B, S, 2 * H, hd)[:4]]
+    B, S, H = 2, 100, 3
+    big = [_t(a, dt, "cuda") for a, dt in zip(
+        _inputs(1, B, S, 2 * H, hd)[:4], [dtype] * 3 + ["float32"])]
     r, k, v, w = (a[:, :, H:] for a in big)
     u = torch.full((H, hd), 0.1, device="cuda")
-    y, s_last = ops.wkv6(r, k, v, w, u)
     y_ref, s_ref = wkv_ref(r, k, v, w, u)
-    np.testing.assert_allclose(_np(y), _np(y_ref), **TOL32)
-    np.testing.assert_allclose(_np(s_last), _np(s_ref), **TOL32)
+    for variant in _variants(dtype, hd):
+        _hold(variant, ops.run_variant(variant, r, k, v, w, u),
+              (y_ref, s_ref))
     with pytest.raises(ValueError, match="contiguous head dim"):
         ops.wkv6(r.transpose(1, 3).contiguous().transpose(1, 3), k, v, w, u)
