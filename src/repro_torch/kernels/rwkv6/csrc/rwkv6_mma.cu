@@ -42,14 +42,17 @@
 // - One block of 256 threads (8 warps) per (batch, head) walks the chunks
 //   in order with the 64 x 64 float32 state in shared memory, as in
 //   rwkv6.cu: the state never goes back to device memory between chunks.
-// - Two blocks per SM: 97.75 KB of shared memory (raw bf16 r, k, v tiles,
-//   w as float32 then its prefix sum in place, Rn, Kn, the state, small
-//   vectors) and at most 128 registers a thread (__launch_bounds__(256,
-//   2)), so 264 blocks run at once and one block's loads and barriers
-//   overlap the other's products.
+// - Two blocks per SM: 106.75 KB of shared memory (raw bf16 r and k
+//   tiles, two v buffers, w as float32 then its prefix sum in place, Rn,
+//   Kn, the state, small vectors) and at most 128 registers a thread
+//   (__launch_bounds__(256, 2)), so 264 blocks run at once and one
+//   block's barriers and serial phases overlap the other's products.
 // - Loads: 16-byte cp.async from global to shared memory; rows at or past
 //   the chunk's end are zero-filled (r = k = v = 0, and w = 0 is read as
-//   log w = 0).
+//   log w = 0). The next chunk's r, k and w load as soon as the factors
+//   are formed, its v into the second buffer, while this chunk's
+//   products run (about 5% faster than loading at the chunk's start,
+//   timed in turns on the card; PERF.md).
 // - Log-decay prefix sum in parallel: each warp sums 16 tokens of 32
 //   channels (one channel a lane), and the four segments' totals are
 //   combined when the factors are formed.
@@ -81,9 +84,9 @@ constexpr int LDB = D + 8;      // bf16 tiles: 144-byte rows
 constexpr int LDF = D + 4;      // float32 w, Rn, Kn: 272-byte rows
 constexpr int LDS = D + 8;      // the state: 288-byte rows
 
-// bytes: r, k, v (bf16), w, Rn, Kn, the state, then u, the four segment
-// totals, e^m and the bonus term per row (float32)
-constexpr size_t kSmemBytes = 3 * sizeof(__nv_bfloat16) * C * LDB +
+// bytes: r, k, two v buffers (bf16), w, Rn, Kn, the state, then u, the
+// four segment totals, e^m and the bonus term per row (float32)
+constexpr size_t kSmemBytes = 4 * sizeof(__nv_bfloat16) * C * LDB +
                               sizeof(float) * (3 * C * LDF + D * LDS + 7 * D);
 
 struct Params {
@@ -141,8 +144,8 @@ __global__ void __launch_bounds__(NT, 2) wkv6_mma_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sR = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sK = sR + C * LDB;
-  __nv_bfloat16* sV = sK + C * LDB;
-  float* sW = reinterpret_cast<float*>(sV + C * LDB);  // w, then cum
+  __nv_bfloat16* sV2 = sK + C * LDB;  // v, two buffers
+  float* sW = reinterpret_cast<float*>(sV2 + 2 * C * LDB);  // w, then cum
   float* sRn = sW + C * LDF;    // Rn, then A over each strip's own rows
   float* sKn = sRn + C * LDF;
   float* sS = sKn + C * LDF;    // the state, D x LDS
@@ -169,10 +172,11 @@ __global__ void __launch_bounds__(NT, 2) wkv6_mma_kernel(const Params p) {
   for (int i = tid; i < D * D; i += NT)
     sS[(i / D) * LDS + i % D] = p.state0 ? p.state0[s_base + i] : 0.f;
 
-  for (int t0 = 0; t0 < p.S; t0 += p.chunk) {
+  load_chunk(p, R, K, V, W, sR, sK, sV2, sW, 0, min(p.chunk, p.S), tid);
+  wkv::cp_async_commit();
+  for (int t0 = 0, it = 0; t0 < p.S; t0 += p.chunk, ++it) {
     const int n = min(p.chunk, p.S - t0);     // real rows of this chunk
-    load_chunk(p, R, K, V, W, sR, sK, sV, sW, t0, n, tid);
-    wkv::cp_async_commit();
+    const __nv_bfloat16* sV = sV2 + (it & 1) * C * LDB;
     wkv::cp_async_wait<0>();
     __syncthreads();  // the tiles, and the last chunk's state update
 
@@ -236,6 +240,14 @@ __global__ void __launch_bounds__(NT, 2) wkv6_mma_kernel(const Params p) {
       }
     }
     __syncthreads();
+
+    // r, k and w are consumed: the next chunk's tiles load into them, and
+    // its v into the other buffer (last read before the previous chunk's
+    // state update), while this chunk's products run.
+    if (t0 + p.chunk < p.S)
+      load_chunk(p, R, K, V, W, sR, sK, sV2 + ((it + 1) & 1) * C * LDB, sW,
+                 t0 + p.chunk, min(p.chunk, p.S - t0 - p.chunk), tid);
+    wkv::cp_async_commit();
 
     // y[strip] = Rn[strip] (diag(e^m) S)[:, half] and this warp's tiles of
     // A[strip] = Rn[strip] Kn^T, both 3xTF32, over the head dim.
