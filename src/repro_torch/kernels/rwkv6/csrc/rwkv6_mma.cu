@@ -173,11 +173,10 @@ __global__ void __launch_bounds__(NT, 2) wkv6_mma_kernel(const Params p) {
     sS[(i / D) * LDS + i % D] = p.state0 ? p.state0[s_base + i] : 0.f;
 
   load_chunk(p, R, K, V, W, sR, sK, sV2, sW, 0, min(p.chunk, p.S), tid);
-  wkv::cp_async_commit();
   for (int t0 = 0, it = 0; t0 < p.S; t0 += p.chunk, ++it) {
     const int n = min(p.chunk, p.S - t0);     // real rows of this chunk
     const __nv_bfloat16* sV = sV2 + (it & 1) * C * LDB;
-    wkv::cp_async_wait<0>();
+    wkv::cp_async_wait_all();
     __syncthreads();  // the tiles, and the last chunk's state update
 
     // Prefix sums of log2 w: warp w sums tokens 16 (w / 2) .. + 15 of
@@ -247,7 +246,6 @@ __global__ void __launch_bounds__(NT, 2) wkv6_mma_kernel(const Params p) {
     if (t0 + p.chunk < p.S)
       load_chunk(p, R, K, V, W, sR, sK, sV2 + ((it + 1) & 1) * C * LDB, sW,
                  t0 + p.chunk, min(p.chunk, p.S - t0 - p.chunk), tid);
-    wkv::cp_async_commit();
 
     // y[strip] = Rn[strip] (diag(e^m) S)[:, half] and this warp's tiles of
     // A[strip] = Rn[strip] Kn^T, both 3xTF32, over the head dim.
