@@ -6,7 +6,8 @@
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``. Phases, each of which fails the run if it fails:
 
-1. card: the card's name and power limit, as nvidia-smi reports them;
+1. card (always run): the card's name and power limit, as nvidia-smi
+   reports them;
 2. build: every CUDA kernel of the port (flash attention, RWKV6), from
    the sources in this checkout, into ``build/repro_torch_kernels/``,
    one nvcc per kernel, all started together;
@@ -55,7 +56,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 ``--phases`` (a comma list of the names in ``PHASES``; default all) runs
 a subset, for iterating on one kernel; the card's name is always read.
 The line before the last is the ``kernels`` JSON record (the records of
-the phases that ran); the last line is ``{"ok": true, "device": {...}}``.
+the kernel phases that ran; ``launches`` is null where the main path that
+would count them did not run); the last line is ``{"ok": true, "device":
+{...}}``.
 Without a CUDA card, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
 """
@@ -307,8 +310,8 @@ def _hold(torch, ref, label, out, q, k, v, dtype, **kw) -> tuple:
 
 def phase_kernels(torch, ops, ref) -> dict:
     """Both flash kernels vs the plain version at every case; times at
-    the prefill shape. Returns the sm90 kernel's record (launches filled
-    in later)."""
+    the prefill shape. Returns the sm90 kernel's record; its launches stay
+    None unless the serve phase runs and fills them in."""
     import torch.nn.functional as F
     sm90 = ops.flash_attention.variant_launches
     for i, case in enumerate(FLASH_CASES + [GRANITE_PREFILL_F32]):
@@ -378,7 +381,8 @@ def phase_kernels(torch, ops, ref) -> dict:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
-        "launches": 0, "max_abs_err": err, "tight_gate_ratio": tight,
+        "launches": None, "variant_launches": None,
+        "max_abs_err": err, "tight_gate_ratio": tight,
         "ms": ms["sm90"], "plain_ms": ms["plain"],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -675,7 +679,8 @@ def _hold_rwkv(torch, ref, label, out, args, chunk) -> tuple:
 def phase_rwkv_kernels(torch, ops, ref) -> dict:
     """Both RWKV6 kernels against the plain version, y and S_last, at
     every case; times at the rwkv6-7b prefill shape. Returns the mma
-    kernel's record (launches filled in later)."""
+    kernel's record; its launches stay None unless the rwkv_generate
+    phase runs and fills them in."""
     runs = [(c, "test", st) for c in RWKV_CASES + MMA_CASES
             for st in (False, True)]
     runs += [(RWKV_PREFILL_F32, "model", True),
@@ -731,8 +736,8 @@ def phase_rwkv_kernels(torch, ops, ref) -> dict:
             "name": "wkv6", "variant": "mma", "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6_mma.cu",
             "replaces": "src/repro/kernels/rwkv6/kernel.py:74",
-            "launches": 0, "max_abs_err": err,
-            "ms": ms["mma"], "plain_ms": ms["plain"],
+            "launches": None, "variant_launches": None,
+            "max_abs_err": err, "ms": ms["mma"], "plain_ms": ms["plain"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
@@ -921,7 +926,7 @@ def phase_rwkv_equality(torch, cfg) -> None:
     torch.cuda.empty_cache()
 
 
-PHASES = ("card", "build", "kernels", "rwkv_kernels", "serve",
+PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality")
 
 

@@ -70,6 +70,8 @@
 //   the A operand's.
 // - Six barriers a chunk: four block-wide, two of a warp pair.
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -377,7 +379,7 @@ __global__ void __launch_bounds__(NT, 2) wkv6_mma_kernel(const Params p) {
     p.s_last[s_base + i] = sS[(i / D) * LDS + i % D];
 }
 
-cudaError_t configure() {
+cudaError_t set_attributes() {
   cudaError_t err = cudaFuncSetAttribute(
       wkv6_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
@@ -387,6 +389,23 @@ cudaError_t configure() {
   return cudaFuncSetAttribute(wkv6_mma_kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+// The kernel's attributes hold per device: they are set at the first
+// launch on each device, not on every launch.
+constexpr int kMaxDevices = 64;
+std::atomic<bool> configured[kMaxDevices];
+
+cudaError_t configure() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && configured[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = set_attributes();
+  if (err == cudaSuccess && dev < kMaxDevices)
+    configured[dev].store(true, std::memory_order_release);
+  return err;
 }
 
 }  // namespace

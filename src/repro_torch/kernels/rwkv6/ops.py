@@ -129,16 +129,22 @@ def wkv6(r, k, v, w, u, state0=None, chunk: int = 64):
         return wkv_ref(r, k, v, w, u, state0, chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
-    return run_variant(select_variant(r.dtype, r.shape[-1]), r, k, v, w, u,
-                       state0, chunk)
+    return _launch(select_variant(r.dtype, r.shape[-1]), r, k, v, w, u,
+                   state0, chunk)
 
 
 def run_variant(variant: str, r, k, v, w, u, state0=None, chunk: int = 64):
-    """Launch the named kernel on CUDA tensors and count it.
-    :func:`wkv6` calls it with the variant :func:`select_variant` names;
-    ``chip_smoke.py`` also calls it to time the ``fma`` kernel at a bf16
-    shape the ``mma`` kernel takes."""
+    """Launch the named kernel on CUDA tensors and count it, as
+    :func:`wkv6` does with the variant :func:`select_variant` names;
+    ``chip_smoke.py`` calls it to time the ``fma`` kernel at a bf16 shape
+    the ``mma`` kernel takes."""
     _check(r, k, v, w, u, state0, chunk)
+    return _launch(variant, r, k, v, w, u, state0, chunk)
+
+
+def _launch(variant: str, r, k, v, w, u, state0, chunk: int):
+    """The named kernel's own checks, then its launch (inputs that
+    :func:`_check` passed)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown wkv6 variant {variant!r}")
     B, S, H, hd = r.shape

@@ -387,11 +387,13 @@ def _variants(dtype, hd):
 
 
 def _hold(variant, outs, refs):
-    """A kernel's (y, S_last) against the plain version's."""
+    """A kernel's (y, S_last) against the plain version's, element by
+    element within TOL32; the mma kernel's 3xTF32 sums within the card
+    gate as well."""
     for out, ref in zip(outs, refs):
-        if variant == "fma":
-            np.testing.assert_allclose(_np(out), _np(ref), **TOL32)
-        else:
+        np.testing.assert_allclose(_np(out), _np(ref), **TOL32,
+                                   err_msg=variant)
+        if variant == "mma":
             assert _gate(out, ref) <= 1, variant
 
 
@@ -404,9 +406,9 @@ def _hold(variant, outs, refs):
 def test_cuda_kernel_matches_plain_version(B, H, S, hd, chunk, dtype,
                                            state):
     """Each kernel that takes the case, through ``run_variant``, and the
-    one ``wkv6`` selects: the float32 FMA kernel within TOL32 of the plain
-    version, element by element, as before; the 3xTF32 tensor-core
-    kernel within the card gate (``RWKV_GATE``, scaled to the output)."""
+    one ``wkv6`` selects, each within TOL32 of the plain version, element
+    by element, as before; the 3xTF32 tensor-core kernel also within the
+    card gate (``RWKV_GATE``, scaled to the output)."""
     _cuda()
     r, k, v, w, u, s0 = (_t(a, dt, "cuda") for a, dt in zip(
         _inputs(S * hd, B, S, H, hd, state),
@@ -420,8 +422,10 @@ def test_cuda_kernel_matches_plain_version(B, H, S, hd, chunk, dtype,
         _hold(variant, (y, s_last), (y_ref, s_ref))
     chosen = ops.select_variant(r.dtype, hd)
     before = ops.wkv6.variant_launches[chosen]
-    ops.wkv6(r, k, v, w, u, s0, chunk)
+    out = ops.wkv6(r, k, v, w, u, s0, chunk)
+    torch.cuda.synchronize()
     assert ops.wkv6.variant_launches[chosen] == before + 1
+    _hold(chosen, out, (y_ref, s_ref))
 
 
 @pytest.mark.cuda
