@@ -51,7 +51,20 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    equals each request generated alone (near-tie rule of phase 6), and
    prefill of 512 tokens then ``decode_step`` on the next 512 (the
    kernel seeded with a non-zero state) matches one prefill of 1024 in
-   logits and every state leaf.
+   logits and every state leaf;
+9. plan: trace → partition → plan for full granite-8b's paged decode
+   step (bf16, random weights from a seed) at the serve phase's
+   geometry. At the reduced size the graph's fingerprint must be the
+   same traced on the CPU and on the card; at
+   full width the trace's matmul FLOPs must equal a count from the
+   config; ParDNN partitions it at K=4 under a quarter of the card per
+   PE and under a tight cap (1.2 x (resident + largest transient bytes)
+   / 4), every node in [0, 4) and, where the plan says feasible, every
+   peak under its planned cap; the plan is saved, loaded and bound to a
+   fresh trace (fingerprint and assignment equal); then the predicted
+   step time (emulated makespan, one PE and K=4) is printed beside the
+   measured eager step (wall, and device time under torch.profiler). No
+   kernel launches on this path (one query token).
 
 ``--phases`` (a comma list of the names in ``PHASES``; default all) runs
 a subset, for iterating on one kernel; the card's name is always read.
@@ -396,9 +409,10 @@ def phase_kernels(torch, ops, ref) -> dict:
     return record
 
 
-def profile(torch, label: str, fn, top: int = 6) -> None:
+def profile(torch, label: str, fn, top: int = 6) -> tuple[float, float]:
     """Host time, device-busy time and the kernels that take the most
-    device time for one call of ``fn`` (torch.profiler, after warm-up)."""
+    device time for one call of ``fn`` (torch.profiler, after warm-up).
+    Returns (wall ms, device-busy ms)."""
     from torch.profiler import ProfilerActivity
     for _ in range(2):
         fn()
@@ -418,6 +432,7 @@ def profile(torch, label: str, fn, top: int = 6) -> None:
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
             f"{e.key[:90]}")
+    return host_ms, busy_ms
 
 
 def _requests(Request, cfg, n, seed, plen=(128, 1024), max_new=32):
@@ -926,8 +941,171 @@ def phase_rwkv_equality(torch, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def decode_matmul_flops(cfg, batch: int, max_len: int) -> float:
+    """Matmul FLOPs of one paged decode step, counted from the config
+    (independently of any trace): the q/k/v/o projections, the MLP,
+    attention of one query over the ``max_len`` view (scores and the
+    weighted sum), and the LM head, for ``batch`` rows."""
+    d, hd = cfg.d_model, cfg.head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    proj = 2 * batch * d * (2 * q + 2 * kv)
+    mlp = (3 if cfg.gated_mlp else 2) * 2 * batch * d * cfg.d_ff
+    attn = 2 * 2 * batch * cfg.num_heads * max_len * hd
+    head = 2 * batch * d * cfg.padded_vocab
+    return float(cfg.num_layers * (proj + mlp + attn) + head)
+
+
+def phase_plan(torch, cfg) -> None:
+    """Trace → partition → plan for the paged decode step at full
+    granite-8b width (bf16, random weights from a seed) at the serve
+    phase's geometry: trace on cuda with the program recorded, the
+    matmul FLOPs held to a count from the config; partition at K=4 under
+    a quarter of the card and under a tight cap; save, load and bind the
+    plan to a fresh trace; the predicted step time beside the measured
+    eager step. First, at the reduced size, the graph's fingerprint must
+    be the same for a trace on the CPU and on the card."""
+    import tempfile
+    from repro_torch import api
+    from repro_torch.configs import reduced
+    from repro_torch.core.costmodel import H100
+    from repro_torch.core.emulator import emulate
+    from repro_torch.core.graph import RESIDUAL
+    from repro_torch.core.tracing import DOT_OPS
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import tree_map
+
+    small = reduced(cfg)
+    cpu_params = init_params(small, torch.Generator().manual_seed(0), "cpu")
+    prints = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        eng = ServingEngine(small, params, device=dev, **GEOMETRY)
+        prints[dev] = api.trace(eng._decode_impl,
+                                *eng._decode_example_args()).fingerprint
+    assert len(set(prints.values())) == 1, \
+        f"the reduced graph's fingerprint depends on the device: {prints}"
+    log(f"plan: reduced {small.name} fingerprint {prints['cpu'][:16]} on "
+        f"cpu and cuda")
+    del cpu_params, params, eng
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    eng = ServingEngine(cfg, params, device="cuda", **GEOMETRY)
+    reset_counts()
+    t0 = time.perf_counter()
+    traced = api.trace(eng._decode_impl, *eng._decode_example_args(),
+                       record=True)
+    trace_s = time.perf_counter() - t0
+    g = traced.graph
+    n_edges = sum(len(e) for e in g.out_edges)
+    res_bytes = float(g.mem[g.ntype == RESIDUAL].sum())
+    transient = float(g.mem[g.ntype != RESIDUAL].max())
+    mm = float(sum(g.op_flops[i] for i in range(g.n)
+                   if g.names[i] in DOT_OPS))
+    want = decode_matmul_flops(cfg, GEOMETRY["max_batch"],
+                               GEOMETRY["max_len"])
+    log(f"plan: traced {cfg.name} decode step (B={GEOMETRY['max_batch']}, "
+        f"max_len={GEOMETRY['max_len']}) on cuda in {trace_s:.2f} s: "
+        f"{g.n} nodes, {n_edges} edges, {len(traced.program.input_nodes)} "
+        f"input leaves, RESIDUAL {res_bytes / 2**30:.3f} GiB, largest "
+        f"transient {transient / 2**30:.3f} GiB, {g.op_flops.sum():.6g} "
+        f"FLOPs, matmul {mm:.6g} (from the config {want:.6g})")
+    assert mm == want, f"matmul FLOPs {mm} != {want} counted from the config"
+
+    k = 4
+    card = torch.cuda.get_device_properties(0).total_memory
+    caps = {"quarter": card / k,
+            "tight": 1.2 * (res_bytes + transient) / k}
+    plans = {}
+    for label, cap in caps.items():
+        t0 = time.perf_counter()
+        plan = api.partition(traced, devices=k, memory=cap)
+        part_s = time.perf_counter() - t0
+        a, peaks = plan.assignment, plan.peak_mem
+        assert a.shape == (g.n,) and a.min() >= 0 and a.max() < k, \
+            f"{label}: a node is assigned outside [0, {k})"
+        planned = cap * api.PardnnOptions().memory_fraction
+        if plan.feasible:
+            assert (peaks <= planned).all(), \
+                f"{label}: feasible, but peaks {peaks} exceed {planned}"
+        stages = {st: round(t, 3)
+                  for st, t in plan.report.stage_seconds.items()}
+        cut, cut_by_src = 0, {}
+        for u in range(g.n):
+            for v, c in g.out_edges[u]:
+                if a[u] != a[v]:
+                    cut += 1
+                    src = g.names[u].split(".")[0]
+                    cut_by_src[src] = cut_by_src.get(src, 0.0) + \
+                        (c - H100.link_latency) * H100.link_bw
+        cut_bytes = sum(cut_by_src.values())
+        top_cut = sorted(cut_by_src.items(), key=lambda x: -x[1])[:3]
+        log(f"plan: K={k} {label} cap {cap / 2**30:.3f} GiB per PE "
+            f"(planned to {planned / 2**30:.3f}): partition {part_s:.2f} s, "
+            f"feasible={plan.feasible}, peaks "
+            f"[{', '.join(f'{p / 2**30:.3f}' for p in peaks)}] GiB, moved "
+            f"{plan.report.moved_nodes} nodes in "
+            f"{plan.report.counters.get('step2_rounds')} Step-2 rounds, "
+            f"{cut} cut edges, {cut_bytes / 2**20:.1f} MiB cut ("
+            + ", ".join(f"from {n} {b / 2**20:.1f}" for n, b in top_cut)
+            + f"), makespan {plan.makespan * 1e3:.3f} ms; stages {stages}")
+        plans[label] = plan
+
+    plan = plans["quarter"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = plan.save(str(Path(tmp) / "granite-decode.plan.json"))
+        loaded = api.PartitionPlan.load(path)
+    t0 = time.perf_counter()
+    fresh = api.trace(eng._decode_impl, *eng._decode_example_args(),
+                      record=True)
+    retrace_s = time.perf_counter() - t0
+    loaded.bind(fresh)
+    assert loaded.fingerprint == fresh.fingerprint == traced.fingerprint
+    assert loaded.assignment.dtype == plan.assignment.dtype
+    assert np.array_equal(loaded.assignment, plan.assignment), \
+        "the loaded plan's assignment differs"
+    log(f"plan: saved, loaded and bound to a fresh trace ({retrace_s:.2f} "
+        f"s): fingerprint and assignment equal")
+
+    one_pe = emulate(g, np.zeros(g.n, dtype=np.int64), 1).makespan
+    by_op: dict = {}
+    for i in range(g.n):
+        name = g.names[i].split(".")[0]
+        by_op[name] = by_op.get(name, 0.0) + float(g.comp[i])
+    top = sorted(by_op.items(), key=lambda x: -x[1])[:6]
+    log(f"plan: predicted step on one PE {one_pe * 1e3:.3f} ms "
+        f"({', '.join(f'{n} {t * 1e3:.2f}' for n, t in top)} ms), at K={k} "
+        f"(quarter cap) {plan.makespan * 1e3:.3f} ms")
+    B, W = eng.max_batch, eng.max_blocks_per_req
+    bt = torch.arange(1, 1 + B * W, dtype=torch.int32,
+                      device="cuda").reshape(B, W)
+    toks = torch.ones((B, 1), dtype=torch.int32, device="cuda")
+    lens = torch.full((B,), 1040, dtype=torch.int32, device="cuda")
+    walls = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._decode(bt, toks, lens)
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms, busy_ms = profile(
+        torch, "plan: eager decode step B=8 max_len=2048",
+        lambda: eng._decode(bt, toks, lens), top=3)
+    launches = read_counts()
+    assert not any(launches.values()), \
+        f"a kernel launched on the plan path (one query token): {launches}"
+    log(f"plan: measured eager step median {statistics.median(walls):.2f} "
+        f"ms wall over {len(walls)} steps; profiled {wall_ms:.2f} ms wall, "
+        f"{busy_ms:.2f} ms device; predicted one PE {one_pe * 1e3:.3f} ms, "
+        f"K={k} {plan.makespan * 1e3:.3f} ms")
+    del eng, params, traced, fresh, plans, plan, loaded
+    torch.cuda.empty_cache()
+
+
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
-          "token_equality", "rwkv_generate", "rwkv_equality")
+          "token_equality", "rwkv_generate", "rwkv_equality", "plan")
 
 
 def main(argv=None) -> int:
@@ -983,6 +1161,8 @@ def main(argv=None) -> int:
                 v: rwkv_launches[f"wkv6/{v}"] for v in rops.VARIANTS}
     if "rwkv_equality" in phases:
         phase_rwkv_equality(torch, rcfg)
+    if "plan" in phases:
+        phase_plan(torch, cfg)
     log(card)
     print(json.dumps({"kernels": [r for r in (record, rwkv_record)
                                   if r is not None]}))

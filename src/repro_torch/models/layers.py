@@ -33,6 +33,18 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
     return w.to(dtype)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., in) and w (in, out), as one 2-D product.
+
+    This is the product ``matmul`` folds a (B, S, in) operand into when
+    its strides allow; choosing it from the shapes alone keeps the op
+    sequence independent of strides, so a trace with fake tensors (whose
+    strides on size-1 dims can differ from a real run's) records the
+    same ops as the real run."""
+    y = x.reshape(-1, x.shape[-1]) @ w
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
 # ------------------------------------------------------------------ norms
 def norm_init(cfg: ModelConfig, device) -> dict:
     d = cfg.d_model
@@ -122,12 +134,12 @@ def mlp_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    up = x @ p["w_up"]
+    up = linear(x, p["w_up"])
     if cfg.gated_mlp:
-        up = activation(cfg, x @ p["w_gate"]) * up
+        up = activation(cfg, linear(x, p["w_gate"])) * up
     else:
         up = activation(cfg, up)
-    return up @ p["w_down"]
+    return linear(up, p["w_down"])
 
 
 # ------------------------------------------------------------- attention
@@ -172,9 +184,9 @@ def apply_gqa(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     Returns (out, kv_cache)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = linear(x, p["wq"])
+    k = linear(x, p["wk"])
+    v = linear(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
@@ -197,7 +209,7 @@ def apply_gqa(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
         cv = update_cache(kv_cache["v"], v, cache_pos)
         out = multi_head_attention(q, ck, cv, causal=True, window=window,
                                    q_offset=cache_pos, softcap=cfg.softcap)
-    out = out.reshape(B, S, H * hd) @ p["wo"]
+    out = linear(out.reshape(B, S, H * hd), p["wo"])
     return out, kv_cache
 
 
@@ -210,5 +222,5 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 __all__ = ["activation", "apply_gqa", "apply_mlp", "apply_norm",
            "apply_rope", "dense_init", "dtype_of", "gqa_cache_init",
-           "gqa_init", "mlp_init", "multi_head_attention", "norm_init",
-           "rms_head_norm", "rope_freqs", "update_cache"]
+           "gqa_init", "linear", "mlp_init", "multi_head_attention",
+           "norm_init", "rms_head_norm", "rope_freqs", "update_cache"]

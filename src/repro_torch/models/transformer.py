@@ -186,7 +186,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 # ---------------------------------------------------------------- serving
 def _logits(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
-    logits = (hidden @ lm_head_weight(cfg, params)).float()
+    logits = L.linear(hidden, lm_head_weight(cfg, params)).float()
     return mask_pad_logits(cfg, logits)
 
 

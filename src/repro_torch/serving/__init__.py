@@ -10,11 +10,13 @@ from .kvcache import (NULL_BLOCK, BlockAllocator, OutOfBlocks,
                       gather_pages, init_pools, scatter_token,
                       supported_reason, write_prompt)
 from .scheduler import Admission, RequestState, Scheduler, ServingRequest
-from .engine import Request, ServingEngine, ServingStats
+from .engine import (Request, ServingEngine, ServingStats,
+                     partition_for_serving, serving_geometry)
 
 __all__ = [
     "NULL_BLOCK", "BlockAllocator", "OutOfBlocks", "supported_reason",
     "init_pools", "gather_pages", "scatter_token", "write_prompt",
     "RequestState", "ServingRequest", "Admission", "Scheduler",
-    "Request", "ServingEngine", "ServingStats",
+    "Request", "ServingEngine", "ServingStats", "partition_for_serving",
+    "serving_geometry",
 ]

@@ -1,5 +1,7 @@
-"""Continuous-batching serving engine (port of ``repro.serving.engine``,
-local path only; the plan-backed path is not ported yet).
+"""Continuous-batching serving engine (port of ``repro.serving.engine``:
+the local path, and :func:`partition_for_serving`, which traces and
+partitions the paged decode step; serving from a plan is not ported
+yet).
 
 The engine composes the paged KV storage (:mod:`.kvcache`), the
 admission / growth / preemption policy (:mod:`.scheduler`) and the model
@@ -147,15 +149,33 @@ class ServingEngine:
         self.completed: dict[int, ServingRequest] = {}
 
     # ------------------------------------------------------------- model
-    def _decode(self, block_tables, tokens, lengths) -> torch.Tensor:
-        """The paged decode step: gather pages → dense decode at per-row
-        positions → scatter the one new token per row back into its
-        block (in place)."""
-        dense = kvcache.gather_pages(self.pools, block_tables)
-        logits, dense = decode_step(self.cfg, self.params, dense, tokens,
+    def _decode_impl(self, params, pools, block_tables, tokens, lengths):
+        """The paged decode step (also the traced/partitioned function):
+        gather pages → dense decode at per-row positions → scatter the
+        one new token per row back into its block. Writes ``pools`` in
+        place and returns ``(logits, pools)``; the tracer functionalizes
+        the writes, so in the traced graph the new pools are node
+        outputs."""
+        dense = kvcache.gather_pages(pools, block_tables)
+        logits, dense = decode_step(self.cfg, params, dense, tokens,
                                     lengths)
-        kvcache.scatter_token(self.pools, dense, block_tables, lengths)
+        pools = kvcache.scatter_token(pools, dense, block_tables, lengths)
+        return logits, pools
+
+    def _decode(self, block_tables, tokens, lengths) -> torch.Tensor:
+        logits, self.pools = self._decode_impl(
+            self.params, self.pools, block_tables, tokens, lengths)
         return logits
+
+    def _decode_example_args(self):
+        """Example inputs fixing the decode step's (static) shapes."""
+        bt = torch.zeros((self.max_batch, self.max_blocks_per_req),
+                         dtype=torch.int32, device=self.device)
+        toks = torch.zeros((self.max_batch, 1), dtype=torch.int32,
+                           device=self.device)
+        lens = torch.zeros((self.max_batch,), dtype=torch.int32,
+                           device=self.device)
+        return (self.params, self.pools, bt, toks, lens)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -289,4 +309,38 @@ class ServingEngine:
         return self.completed
 
 
-__all__ = ["Request", "ServingRequest", "ServingEngine", "ServingStats"]
+# ---------------------------------------------------------------------------
+# plan construction
+# ---------------------------------------------------------------------------
+def serving_geometry(block_size: int = 16, num_blocks: int = 64,
+                     max_batch: int = 8, max_len: int = 256) -> dict:
+    return {"block_size": int(block_size), "num_blocks": int(num_blocks),
+            "max_batch": int(max_batch), "max_len": int(max_len)}
+
+
+def partition_for_serving(cfg: ModelConfig, params, *, devices,
+                          memory=None, options=None, meta=None,
+                          device=None, **geometry):
+    """Trace the paged decode step for ``(cfg, params)`` at the given
+    serving geometry and partition it into a
+    :class:`~repro_torch.api.PartitionPlan`.
+
+    ``params`` live on ``device`` (``None`` means ``cuda``), where the
+    engine allocates its pools; the trace runs no step. The geometry is
+    recorded in ``plan.meta["serving"]`` and the graph fingerprint
+    ties the plan to it.
+    """
+    from .. import api
+    geo = serving_geometry(**geometry)
+    eng = ServingEngine(cfg, params, device=device, **geo)
+    traced = api.trace(eng._decode_impl, *eng._decode_example_args(),
+                       record=True)
+    meta = dict(meta or {})
+    meta["serving"] = dict(geo)
+    meta.setdefault("arch", cfg.name)
+    return api.partition(traced, devices=devices, memory=memory,
+                         options=options, meta=meta)
+
+
+__all__ = ["Request", "ServingRequest", "ServingEngine", "ServingStats",
+           "partition_for_serving", "serving_geometry"]

@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.bridge, repro_torch.kernels.rwkv6.ops, "
-            "repro_torch.models.rwkv; "
+            "repro_torch.models.rwkv, repro_torch.api, "
+            "repro_torch.core.modelgraphs, repro_torch.core.baselines; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
