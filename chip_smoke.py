@@ -64,7 +64,29 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    fresh trace (fingerprint and assignment equal); then the predicted
    step time (emulated makespan, one PE and K=4) is printed beside the
    measured eager step (wall, and device time under torch.profiler). No
-   kernel launches on this path (one query token).
+   kernel launches on this path (one query token). The static verifier
+   must refuse the quarter-cap plan as it now does (RP020 and RP040 on
+   PE 3: its certificate holds more there than the partitioner's
+   emulated order does) and accept the plan under half the card per PE,
+   which is the one saved;
+10. plan execute: the plans run with their PEs folded onto the card
+   (``device_map=[0] * 4``), through ``PartitionPlan.execute``: (a) 2
+   layers in float32, the compiled runtime against the eager step
+   within 2e-5; (b) full granite-8b in bf16, the verified K=4 plan
+   (half cap), its parameters read in place and its other inputs copied
+   into the runtime's buffers (a call with other pools leaves the first
+   call's as they were): compiled async bit-equal to sync over three
+   calls each, both against
+   the eager step (greedy tokens equal on every row, logits within
+   2^-7 x max |logits|), every segment replayed from its CUDA graph;
+   (c) the same trace at K=1, one graph for the whole step, the same
+   gates; (d) 8 layers at full width, the op-by-op interpreter against
+   the compiled runtime (bit-equal expected; else the bf16 gate). For
+   (b) and (c): wall ms of async, sync and eager, device time under
+   torch.profiler, the predicted makespan, segments, transfers, input
+   copies and output clones, the logical peak per PE beside the plan's
+   peaks and the verifier's certificate, max_memory_allocated, capture
+   seconds. No kernel launches on this path.
 
 ``--phases`` (a comma list of the names in ``PHASES``; default all) runs
 a subset, for iterating on one kernel; the card's name is always read.
@@ -79,6 +101,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -955,6 +978,39 @@ def decode_matmul_flops(cfg, batch: int, max_len: int) -> float:
     return float(cfg.num_layers * (proj + mlp + attn) + head)
 
 
+#: How the static verifier judges full granite-8b's quarter-cap K=4
+#: plan today: ParDNN calls it feasible, but the certificate, which
+#: replays the segment schedule, holds more on PE 3 than the cap
+#: (ROADMAP: reconcile the emulator's feasibility with the certificate).
+QUARTER_CAP_REFUSAL = {("RP020", 3), ("RP040", 3)}
+
+
+def _half_cap_plan(api, traced, card: float, quarter=None):
+    """The K=4 plan under half the card per PE, verified clean, after
+    asserting that the verifier refuses the quarter-cap plan exactly as
+    ``QUARTER_CAP_REFUSAL`` says (a change either way fails here, so
+    that it is seen). Logs both verifications."""
+    plans = {"quarter": quarter if quarter is not None
+             else api.partition(traced, devices=4, memory=card / 4),
+             "half": api.partition(traced, devices=4, memory=card / 2)}
+    for label, plan in plans.items():
+        rep = plan.verify()
+        c = rep.counts()
+        cert, segments = _certificate(plan)
+        log(f"verify: K=4 {label} cap ({plan.devices.memory / 2**30:.3f} "
+            f"GiB per PE, feasible={plan.feasible}, {segments} segments, "
+            f"certificate [" + ", ".join(f"{x / 2**30:.3f}" for x in cert)
+            + f"] GiB): {c['error']}E/{c['warn']}W/{c['info']}I, passes "
+            f"{', '.join(rep.passes_run)}"
+            + "".join(f"; {d}" for d in rep.errors[:2]))
+        refused = {(d.code, d.device) for d in rep.errors}
+        want = QUARTER_CAP_REFUSAL if label == "quarter" else set()
+        assert refused == want, \
+            f"the verifier's errors on the {label}-cap plan are " \
+            f"{sorted(refused)}, expected {sorted(want)}"
+    return plans["half"]
+
+
 def phase_plan(torch, cfg) -> None:
     """Trace → partition → plan for the paged decode step at full
     granite-8b width (bf16, random weights from a seed) at the serve
@@ -1052,7 +1108,8 @@ def phase_plan(torch, cfg) -> None:
             + f"), makespan {plan.makespan * 1e3:.3f} ms; stages {stages}")
         plans[label] = plan
 
-    plan = plans["quarter"]
+    # save verifies the plan first, as the reference's does
+    plan, label = _half_cap_plan(api, traced, card, plans["quarter"]), "half"
     with tempfile.TemporaryDirectory() as tmp:
         path = plan.save(str(Path(tmp) / "granite-decode.plan.json"))
         loaded = api.PartitionPlan.load(path)
@@ -1065,8 +1122,8 @@ def phase_plan(torch, cfg) -> None:
     assert loaded.assignment.dtype == plan.assignment.dtype
     assert np.array_equal(loaded.assignment, plan.assignment), \
         "the loaded plan's assignment differs"
-    log(f"plan: saved, loaded and bound to a fresh trace ({retrace_s:.2f} "
-        f"s): fingerprint and assignment equal")
+    log(f"plan: the {label}-cap plan saved, loaded and bound to a fresh "
+        f"trace ({retrace_s:.2f} s): fingerprint and assignment equal")
 
     one_pe = emulate(g, np.zeros(g.n, dtype=np.int64), 1).makespan
     by_op: dict = {}
@@ -1076,7 +1133,8 @@ def phase_plan(torch, cfg) -> None:
     top = sorted(by_op.items(), key=lambda x: -x[1])[:6]
     log(f"plan: predicted step on one PE {one_pe * 1e3:.3f} ms "
         f"({', '.join(f'{n} {t * 1e3:.2f}' for n, t in top)} ms), at K={k} "
-        f"(quarter cap) {plan.makespan * 1e3:.3f} ms")
+        f"(quarter cap) {plans['quarter'].makespan * 1e3:.3f} ms, ({label} "
+        f"cap) {plan.makespan * 1e3:.3f} ms")
     B, W = eng.max_batch, eng.max_blocks_per_req
     bt = torch.arange(1, 1 + B * W, dtype=torch.int32,
                       device="cuda").reshape(B, W)
@@ -1099,13 +1157,318 @@ def phase_plan(torch, cfg) -> None:
     log(f"plan: measured eager step median {statistics.median(walls):.2f} "
         f"ms wall over {len(walls)} steps; profiled {wall_ms:.2f} ms wall, "
         f"{busy_ms:.2f} ms device; predicted one PE {one_pe * 1e3:.3f} ms, "
-        f"K={k} {plan.makespan * 1e3:.3f} ms")
+        f"K={k} {plans['quarter'].makespan * 1e3:.3f} ms (quarter cap)")
     del eng, params, traced, fresh, plans, plan, loaded
+    _release(torch)
+
+
+# compiled vs eager in bf16: the logits within 2^-7 of their largest
+# magnitude (one bf16 step at that scale), greedy tokens equal on every
+# row; in float32 the tolerance the reference holds its engines to
+PLAN_BF16_GATE = 2.0 ** -7
+PLAN_F32_GATE = 2e-5
+
+
+def _decode_inputs(torch, eng, seed: int):
+    """Random pools and a block table, tokens and lengths drawn from a
+    seed at the engine's geometry: each row owns distinct blocks, the
+    last row is padding aimed at the null block."""
+    from repro_torch.tree import tree_map
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pools = tree_map(lambda t: torch.randn(t.shape, generator=g,
+                                           device="cuda").to(t.dtype),
+                     eng.pools)
+    B, W, bs = eng.max_batch, eng.max_blocks_per_req, eng.block_size
+    per_row = min(W, (GEOMETRY["num_blocks"] - 1) // B)
+    bt = torch.zeros((B, W), dtype=torch.int32, device="cuda")
+    bt[:, :per_row] = (torch.randperm(B * per_row, generator=g,
+                                      device="cuda") + 1).reshape(
+        B, per_row).int()
+    lens = torch.randint(0, per_row * bs, (B,), generator=g,
+                         device="cuda").int()
+    bt[-1], lens[-1] = 0, 0
+    toks = torch.randint(1, eng.cfg.vocab_size, (B, 1), generator=g,
+                         device="cuda").int()
+    return pools, bt, toks, lens
+
+
+def _leaves(out):
+    from repro_torch.tree import tree_flatten
+    logits, pools = out
+    return [logits] + tree_flatten(pools)[0]
+
+
+def _certificate(plan):
+    """The verifier's per-PE peak-memory certificate of a plan, and the
+    number of segments its schedule cuts the program into."""
+    from repro_torch.analysis.passes import AnalysisContext, \
+        abstract_interpret
+    from repro_torch.core.segments import cut_segments
+    prog = plan.traced.program
+    sched = cut_segments(prog, plan.assignment, k=plan.k)
+    ctx = AnalysisContext(prog=prog, assignment=plan.assignment, k=plan.k,
+                          schedule=sched, graph=plan.traced.graph)
+    return abstract_interpret(ctx).cert_peaks, sched.num_segments
+
+
+def _hold_to_eager(torch, label, got, want, gate: float) -> bool:
+    """Compiled (logits, pools) against the eager step's: greedy tokens
+    equal on every row and the logits within ``gate`` x max |logits|.
+    Returns whether every leaf was bit-equal."""
+    g, w = _leaves(got), _leaves(want)
+    scale = float(w[0].float().abs().max())
+    err = float((g[0].float() - w[0].float()).abs().max())
+    tok_g, tok_w = g[0][:, -1].argmax(-1), w[0][:, -1].argmax(-1)
+    pool_err = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(g[1:], w[1:]))
+    bit = all(torch.equal(a, b) for a, b in zip(g, w))
+    ok = bool(torch.equal(tok_g, tok_w)) and err <= gate * scale and \
+        all(bool(torch.isfinite(t.float()).all()) for t in g)
+    log(f"plan_execute {label}: max |logits - eager| {err:.3g} (gate "
+        f"{gate:.3g} x {scale:.3g}), greedy tokens "
+        f"{'equal' if torch.equal(tok_g, tok_w) else 'DIFFER'} on "
+        f"{tok_g.numel()} rows, max |pools - eager| {pool_err:.3g}; "
+        f"bit-equal to eager: {bit} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"plan_execute {label}: compiled disagrees "
+                             f"with the eager step")
+    return bit
+
+
+def _wall_ms(torch, fn, n: int = 10) -> float:
+    """Median host ms of ``n`` calls of ``fn``, each ending in a
+    synchronise (after two warm-up calls)."""
+    times = []
+    for i in range(n + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _release(torch) -> float:
+    """Free what the last case left (cycles included); returns the GiB
+    still allocated."""
+    gc.collect()
     torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms):
+    """Compiled async and sync and the eager step on one plan: the
+    gates, then the times and the runtime's counters."""
+    from repro_torch.tree import tree_flatten, tree_map
+    pools, bt, toks, lens = inputs
+    fold = [0] * plan.k
+    rep = plan.verify(strict=True)
+    c = rep.counts()
+    log(f"plan_execute {label}: verified {c['error']}E/{c['warn']}W/"
+        f"{c['info']}I, passes {', '.join(rep.passes_run)}; "
+        f"{_release(torch):.3f} GiB allocated before the first call")
+    args = (params, pools, bt, toks, lens)
+
+    def run(mode, *given):
+        # the parameters are read in place, the other leaves copied
+        return plan.execute(*(given or args), device_map=fold, mode=mode,
+                            static_argnums=(0,))
+    torch.cuda.reset_peak_memory_stats()
+    first = run("sync")
+    first_peak = torch.cuda.max_memory_allocated()
+    st = plan._compiled_runtime[1].stats
+    same = all(torch.equal(a, b) for mode in ("sync", "async") * 3
+               for a, b in zip(_leaves(run(mode)), _leaves(first)))
+    # the pools given as other tensors: copied into the runtime's buffers
+    moved = run("async", params, tree_map(torch.clone, pools), bt, toks,
+                lens)
+    copies = st.input_copies
+    same = same and copies == 5 and all(
+        torch.equal(a, b) for a, b in zip(_leaves(moved), _leaves(first)))
+    log(f"plan_execute {label}: {st.num_segments} segments "
+        f"{st.segments_per_device} per PE; async x3 and sync x3 "
+        f"bit-equal to the first call, and a call with the pools as other "
+        f"tensors ({copies} input copies): {same}")
+    if not same:
+        raise AssertionError(f"plan_execute {label}: sync and async "
+                             f"dispatch disagree")
+    # the next step, on the pools the last call returned, leaves the
+    # first call's pools as they were
+    kept = tree_map(torch.clone, pools)
+    again = run("async", params, moved[1], bt, toks, lens)
+    unchanged = all(torch.equal(a, b) for a, b in zip(
+        tree_flatten(pools)[0], tree_flatten(kept)[0]))
+    log(f"plan_execute {label}: a call with the first call's output pools "
+        f"as its pools left the first call's pools unchanged: {unchanged}")
+    if not unchanged:
+        raise AssertionError(f"plan_execute {label}: a call wrote into an "
+                             f"earlier call's arguments")
+    del moved, again, kept
+    if not (st.graph_replays == st.num_segments and st.eager_segments == 0):
+        raise AssertionError(
+            f"plan_execute {label}: {st.graph_replays} graph replays and "
+            f"{st.eager_segments} eager segments for {st.num_segments} "
+            f"segments")
+    # the eager step writes its pools in place: a copy of its own
+    eager_pools = tree_map(torch.clone, pools)
+
+    def eager():
+        return eng._decode_impl(params, eager_pools, bt, toks, lens)
+    want = eng._decode_impl(params, tree_map(torch.clone, pools), bt, toks,
+                            lens)
+    _hold_to_eager(torch, label, first, want, PLAN_BF16_GATE)
+    del want, first
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run("async")
+    call_peak = torch.cuda.max_memory_allocated() - base
+    ms = {"compiled async": _wall_ms(torch, lambda: run("async")),
+          "compiled sync": _wall_ms(torch, lambda: run("sync"))}
+    after = torch.cuda.memory_allocated() / 2 ** 30
+    ms["eager"] = _wall_ms(torch, eager)
+    log(f"plan_execute {label}: median wall over 10 calls " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in ms.items())
+        + f"; predicted {plan.makespan * 1e3:.3f} ms (one PE "
+        f"{one_pe_ms:.3f} ms)")
+    prof = {}
+    for name, fn in (("compiled async", lambda: run("async")),
+                     ("eager", eager)):
+        prof[name] = profile(torch, f"plan_execute {label} {name}", fn,
+                             top=3)
+    del eager_pools
+    cert, _ = _certificate(plan)
+    gib = 2 ** 30
+    log(f"plan_execute {label}: capture {st.compile_seconds:.2f} s "
+        f"(warm-up + {st.num_segments} captures), {st.graph_replays} graph "
+        f"replays per step, 0 eager; transfers {st.transfers} "
+        f"({st.transfer_bytes / 2**20:.1f} MiB), of them aliased "
+        f"{st.aliased_reads} ({st.aliased_read_bytes / 2**20:.1f} MiB); "
+        f"input copies {st.input_copies} ({st.input_copy_bytes / 2**20:.1f} "
+        f"MiB), output clones {st.output_clone_bytes / gib:.3f} GiB; "
+        f"{st.reuse_waits} cross-pool reuse waits")
+    log(f"plan_execute {label}: logical peak per PE [" + ", ".join(
+        f"{x / gib:.3f}" for x in st.peak_live_bytes) + "] GiB; plan [" +
+        ", ".join(f"{x / gib:.3f}" for x in plan.peak_mem) +
+        "]; certificate [" + ", ".join(f"{x / gib:.3f}" for x in cert) +
+        f"]; max_memory_allocated first call {first_peak / gib:.3f} GiB, "
+        f"over a steady call +{call_peak / gib:.3f} GiB above "
+        f"{base / gib:.3f}, {after:.3f} after 20 more calls; reserved "
+        f"{torch.cuda.memory_reserved() / gib:.3f} GiB")
+    return ms, prof, st
+
+
+def phase_plan_execute(torch, cfg) -> None:
+    """Execute ParDNN plans of the paged decode step on the card, with PEs
+    folded onto it: (1) full granite-8b bf16 at K=4 (half cap: the
+    verifier refuses the quarter-cap plan), the
+    compiled runtime async and sync against the eager step, every
+    segment replayed from a CUDA graph; (2) the same trace at K=1, one
+    graph for the whole step; (3) the op-by-op interpreter at 8 layers
+    against the compiled runtime; (4) 2 layers in float32 against the
+    eager step within PLAN_F32_GATE. Run first is (4), the cheapest."""
+    from repro_torch import api
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine, partition_for_serving
+    from repro_torch.tree import tree_map
+    reset_counts()
+    log(f"plan_execute: {_release(torch):.3f} GiB allocated at the start")
+    card = torch.cuda.get_device_properties(0).total_memory
+    fold = api.fold_device_map(4)
+    assert fold == [0, 0, 0, 0], f"expected one card, device_map {fold}"
+
+    # (4) 2 layers, float32
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    params = init_params(small, torch.Generator(device="cuda").manual_seed(2),
+                         "cuda")
+    plan = partition_for_serving(small, params, devices=4, memory=card / 4,
+                                 device="cuda", **GEOMETRY)
+    eng = ServingEngine(small, params, device="cuda", **GEOMETRY)
+    pools, bt, toks, lens = _decode_inputs(torch, eng, seed=3)
+    got = plan.execute(params, pools, bt, toks, lens, device_map=fold)
+    want = eng._decode_impl(params, tree_map(torch.clone, pools), bt, toks,
+                            lens)
+    worst = max(float(((a - b).abs() / (PLAN_F32_GATE * (1 + b.abs())))
+                      .max()) for a, b in zip(_leaves(got), _leaves(want)))
+    st = plan._compiled_runtime[1].stats
+    log(f"plan_execute float32 {small.num_layers} layers K=4: "
+        f"{st.num_segments} segments, capture {st.compile_seconds:.2f} s; "
+        f"logits and pools against eager, worst error / (2e-5 (1 + |eager|))"
+        f" {worst:.3g}; bit-equal "
+        f"{all(torch.equal(a, b) for a, b in zip(_leaves(got), _leaves(want)))}"
+        f" {'ok' if worst <= 1 else 'MISMATCH'}")
+    assert worst <= 1, "float32 compiled step disagrees with the eager step"
+    del plan, eng, params, pools, got, want
+    _release(torch)
+
+    # (1) and (2): full granite-8b, bf16
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    eng = ServingEngine(cfg, params, device="cuda", **GEOMETRY)
+    inputs = _decode_inputs(torch, eng, seed=4)
+    eng.pools = None                    # the inputs carry their own pools
+    t0 = time.perf_counter()
+    traced = api.trace(eng._decode_impl, params, *inputs, record=True)
+    plan, cap = _half_cap_plan(api, traced, card), "half"
+    one = api.partition(traced, devices=1)
+    log(f"plan_execute: traced and partitioned {cfg.name} ({traced.n} nodes)"
+        f" at K=4 ({cap} cap, feasible={plan.feasible}, predicted "
+        f"{plan.makespan * 1e3:.3f} ms) and K=1 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    one_pe_ms = one.makespan * 1e3
+    cells = {}
+    for label, p in (("K=4", plan), ("K=1", one)):
+        cells[label] = _execute_cell(torch, f"{cfg.name} {label}", p, eng,
+                                     params, inputs, one_pe_ms)
+        del p._compiled_runtime
+    del traced, plan, one, inputs, eng, params
+    _release(torch)
+
+    # (3) the interpreter at 8 layers, full width, bf16
+    mid = dataclasses.replace(cfg, num_layers=8)
+    params = init_params(mid, torch.Generator(device="cuda").manual_seed(5),
+                         "cuda")
+    plan = partition_for_serving(mid, params, devices=4, memory=card / 4,
+                                 device="cuda", **GEOMETRY)
+    eng = ServingEngine(mid, params, device="cuda", **GEOMETRY)
+    pools, bt, toks, lens = _decode_inputs(torch, eng, seed=6)
+    eng.pools = None
+    args = (params, pools, bt, toks, lens)
+    compiled = _leaves(plan.execute(*args, device_map=fold, mode="sync"))
+    t0 = time.perf_counter()
+    interp = _leaves(plan.execute(*args, device_map=fold,
+                                  runtime="interpret"))
+    torch.cuda.synchronize()
+    interp_s = time.perf_counter() - t0
+    bit = all(torch.equal(a, b) for a, b in zip(interp, compiled))
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(interp, compiled))
+    scale = float(compiled[0].float().abs().max())
+    log(f"plan_execute interpreter {mid.num_layers} layers K=4 "
+        f"({plan.n} nodes): {interp_s:.2f} s, bit-equal to compiled sync: "
+        f"{bit}; max |diff| {err:.3g}")
+    if not bit:
+        tok_i, tok_c = interp[0][:, -1].argmax(-1), compiled[0][:, -1].argmax(-1)
+        assert torch.equal(tok_i, tok_c) and \
+            float((interp[0].float() - compiled[0].float()).abs().max()) \
+            <= PLAN_BF16_GATE * scale, "the interpreter disagrees"
+    del plan, eng, params, pools, compiled, interp, args
+    _release(torch)
+    launches = read_counts()
+    assert not any(launches.values()), \
+        f"a kernel launched on the plan path (one query token): {launches}"
+    for label, (ms, prof, st) in cells.items():
+        log(f"plan_execute {label} summary: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in ms.items()) + "; device busy " +
+            ", ".join(f"{k} {b:.2f} ms of {w:.2f} ms ({b / w:.1%})"
+                      for k, (w, b) in prof.items())
+            + f"; {st.num_segments} segments")
 
 
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
-          "token_equality", "rwkv_generate", "rwkv_equality", "plan")
+          "token_equality", "rwkv_generate", "rwkv_equality", "plan",
+          "plan_execute")
 
 
 def main(argv=None) -> int:
@@ -1163,6 +1526,8 @@ def main(argv=None) -> int:
         phase_rwkv_equality(torch, rcfg)
     if "plan" in phases:
         phase_plan(torch, cfg)
+    if "plan_execute" in phases:
+        phase_plan_execute(torch, cfg)
     log(card)
     print(json.dumps({"kernels": [r for r in (record, rwkv_record)
                                   if r is not None]}))

@@ -1,5 +1,5 @@
-"""Plan-centric facade: trace → partition → plan (the port's side of the
-reference's ``repro/api.py``).
+"""Plan-centric facade: trace → partition → plan → execute (the port's
+side of the reference's ``repro/api.py``).
 
     from repro_torch import api
 
@@ -7,6 +7,9 @@ reference's ``repro/api.py``).
     plan = api.partition(traced, devices=4, memory=20e9)
     plan.save("step.plan.json")          # JSON header + npz assignment
     plan = api.PartitionPlan.load("step.plan.json", traced=traced)
+    out = plan.execute(params, batch)    # segments as CUDA graphs
+    # fewer devices than PEs? alias explicitly:
+    #   plan.execute(params, batch, device_map=[0] * plan.k)
 
 :func:`trace` always returns a :class:`TracedModel`; :func:`partition`
 always returns a :class:`PartitionPlan` whose :class:`PlanReport`
@@ -16,10 +19,13 @@ it was not computed for.
 
 The artifact is the reference's: the same ``PLAN_FORMAT``, schema
 version, npz payload and sha256, and the same RP101 / RP102 / RP103
-checks, so a plan saved by either package loads in the other. Executing
-a plan (the op-by-op interpreter, the segment runtime), verifying it
-statically, and serving from it are not ported yet; :meth:`save`
-therefore writes the plan without the reference's static verification.
+checks, so a plan saved by either package loads in the other.
+:meth:`PartitionPlan.verify` runs the static verifier
+(:mod:`repro_torch.analysis`), which :meth:`~PartitionPlan.save` and
+:meth:`~PartitionPlan.execute` run strictly, as the reference's do.
+:meth:`~PartitionPlan.execute` runs the op-by-op interpreter or the
+segment runtime (:mod:`repro_torch.core.runtime`). Serving from a plan
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,11 +36,13 @@ from dataclasses import dataclass, field
 from typing import Callable, Mapping, Sequence
 
 import numpy as np
+import torch
 
+from . import resolve_device
 from .core import errors as _E
 from .core.costmodel import H100, DeviceModel
 from .core.errors import PlanValidationError
-from .core.executor import TracedProgram
+from .core.executor import TracedProgram, execute as _execute
 from .core.graph import CostGraph, Placement
 from .core.partitioner import PardnnOptions, pardnn_partition
 from .core.tracing import trace_cost_graph
@@ -42,6 +50,8 @@ from .core.tracing import trace_cost_graph
 PLAN_FORMAT = "repro-partition-plan"
 PLAN_SCHEMA_VERSION = 1
 KNOWN_SCHEMA_VERSIONS = (1,)
+
+RUNTIMES = ("compiled", "interpret")
 
 
 def _jsonable(x):
@@ -140,8 +150,6 @@ def fold_device_map(k: int, devices=None) -> list[int] | None:
     defaults to every visible CUDA device, and raises when there is
     none."""
     if devices is None:
-        import torch
-        from . import resolve_device
         resolve_device(None)
         devices = range(torch.cuda.device_count())
     n = len(devices)
@@ -157,10 +165,11 @@ class PlanReport:
 
     ``stage_seconds`` holds the per-stage wall times (slice / map /
     refine / step2 / total); ``counters`` the mapping, refinement and
-    Step-2 movement counters from the partitioner. The remaining fields
-    are those of the reference's report (runtime, accuracy, diagnostics,
-    serving), which the port fills once it executes, verifies and serves
-    plans; they round-trip unchanged through the plan header.
+    Step-2 movement counters from the partitioner; ``runtime`` the last
+    compiled execution's stats; ``diagnostics`` the verifier's summary.
+    ``accuracy`` and ``serving`` are the reference's fields, which the
+    port does not fill yet; all round-trip unchanged through the plan
+    header.
     """
     makespan_s: float
     peak_mem_bytes: list
@@ -265,6 +274,40 @@ class PartitionPlan:
                 f"feasible={r.feasible}, moved={r.moved_nodes}, "
                 f"peaks [{peaks}]")
 
+    # -- static verification ------------------------------------------------
+    def verify(self, *, strict: bool = False):
+        """Statically verify this plan (:mod:`repro_torch.analysis`):
+        placement holes, schedule liveness (use-after-free / double-free
+        / bad donation), transfer completeness, deadlock/acyclicity, and,
+        with a bound trace, the per-device peak-memory certificate.
+        Nothing executes.
+
+        Returns the :class:`~repro_torch.analysis.DiagnosticReport`
+        (cached until the assignment or bound trace changes) and records
+        its summary in ``report.diagnostics``. With ``strict=True``,
+        error-severity findings raise :class:`PlanValidationError` (code
+        RP107): the mode :meth:`save` and :meth:`execute` use.
+        """
+        from .analysis import analyze_plan
+        key = (id(self.traced),
+               None if self.traced is None else id(self.traced.program),
+               hashlib.sha256(np.ascontiguousarray(
+                   self.assignment, dtype=np.int64).tobytes()).hexdigest(),
+               self.k)
+        cached = getattr(self, "_verify_cache", None)
+        if cached is not None and cached[0] == key:
+            report = cached[1]
+        else:
+            report = analyze_plan(self)
+            self._verify_cache = (key, report)
+            self.report.diagnostics = report.summary_dict()
+        if strict and report.has_errors():
+            raise PlanValidationError(
+                "static plan verification failed:\n"
+                + report.render(max_findings=10),
+                code=_E.RP107_VERIFICATION_FAILED)
+        return report
+
     # -- persistence --------------------------------------------------------
     def save(self, path: str) -> str:
         """Write the plan: ``path`` (JSON header) + sibling ``.npz``.
@@ -272,9 +315,13 @@ class PartitionPlan:
         The header records the schema version, graph fingerprint, a
         sha256 of the assignment payload, the full report, and user
         metadata; the npz holds the arrays bit-for-bit. Returns ``path``.
-        Unlike the reference, the plan is not statically verified first:
-        the verifier needs the segment schedule, which is not ported yet.
+
+        The plan is statically verified first (:meth:`verify`): a plan
+        carrying error-severity diagnostics is refused rather than
+        persisted; the diagnostic summary is serialized in the header's
+        report.
         """
+        self.verify(strict=True)
         apath = _npz_path(path)
         assignment = np.ascontiguousarray(self.assignment, dtype=np.int64)
         arrays = {"assignment": assignment,
@@ -376,6 +423,114 @@ class PartitionPlan:
         self.traced = traced
         return self
 
+    # -- execution ----------------------------------------------------------
+    def _torch_devices(self, devices=None, device_map=None) -> list:
+        """The ``torch.device`` of each PE: ``devices`` (default: the
+        DeviceSpec's, else every visible CUDA device, raising when there
+        is none), expanded through ``device_map``."""
+        if devices is None and self.devices is not None:
+            devices = self.devices.torch_devices
+        if devices is None:
+            resolve_device(None)
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        devices = [torch.device(d) for d in devices]
+        if device_map is not None:
+            device_map = [int(i) for i in device_map]
+            if len(device_map) < self.k:
+                raise PlanValidationError(
+                    f"device_map has {len(device_map)} entries, plan "
+                    f"uses {self.k} PEs", code=_E.RP104_DEVICE_MISMATCH)
+            bad = [i for i in device_map if i < 0 or i >= len(devices)]
+            if bad:
+                raise PlanValidationError(
+                    f"device_map entries {bad} out of range: "
+                    f"{len(devices)} devices available (indices "
+                    f"0..{len(devices) - 1})",
+                    code=_E.RP104_DEVICE_MISMATCH)
+            devices = [devices[i] for i in device_map]
+        if len(devices) < self.k:
+            raise PlanValidationError(
+                f"plan uses {self.k} PEs but only {len(devices)} devices "
+                f"are available — pass device_map= (pe -> device index, "
+                f"e.g. device_map=[0]*{self.k} to fold onto one device) "
+                f"to alias PEs explicitly", code=_E.RP104_DEVICE_MISMATCH)
+        return devices
+
+    def execute(self, *args, devices=None, device_map=None,
+                runtime: str | None = None, donate: bool = True,
+                mode: str | None = None, static_argnums=None, **kwargs):
+        """Run the recorded program under this placement (the paper's
+        "placement file → execution engine" path).
+
+        Args:
+            devices: the torch devices the PEs run on (default: every
+                visible CUDA device; raises when there is none). A plan
+                with more PEs than devices raises; alias PEs explicitly
+                via ``device_map``. ``["cpu"]`` runs on the CPU.
+            device_map: pe -> device-index list realizing the placement
+                on fewer devices (``[0] * plan.k`` folds every PE onto
+                one device, each PE keeping its own stream).
+            runtime: ``"compiled"`` (default; the segment runtime: one
+                CUDA graph per segment, liveness-driven freeing) or
+                ``"interpret"`` (op by op). Overridable via the
+                ``REPRO_RUNTIME`` env var.
+            donate: accepted for parity with the reference; PyTorch has
+                no donation, and it changes nothing.
+            mode: compiled dispatch mode: ``"async"`` (overlapped; the
+                default) or ``"sync"`` (synchronised per segment).
+                ``None`` resolves the ``REPRO_RUNTIME_SYNC=1`` escape
+                hatch. Both replay the same graphs and are
+                bit-identical; ``report.runtime["mode"]`` records which
+                one produced the timings.
+            static_argnums: positional arguments the CUDA graphs read in
+                place (default: ``plan.meta["static_argnums"]``, which
+                ``serving.partition_for_serving`` sets to ``[0]``, the
+                parameters, else none). A later call must pass the same
+                tensors there, or it raises. Every other input leaf is
+                copied into a buffer the runtime owns at each call, so
+                no call writes into its arguments.
+
+        The compiled runtime is cached on the plan (rebuilt only when
+        the devices or ``static_argnums`` change) and its
+        :class:`~repro_torch.core.runtime.RuntimeStats` land in
+        ``report.runtime``. Requires a bound trace recorded with
+        ``record=True``.
+        """
+        if self.traced is None or self.traced.program is None:
+            raise PlanValidationError(
+                "plan has no executable program: trace with record=True "
+                "and partition (or PartitionPlan.bind) before execute()",
+                code=_E.RP106_PLAN_NOT_EXECUTABLE)
+        self.verify(strict=True)
+        if runtime is None:
+            runtime = os.environ.get("REPRO_RUNTIME", "compiled")
+        if runtime not in RUNTIMES:
+            raise ValueError(f"unknown runtime {runtime!r}; "
+                             f"have {list(RUNTIMES)}")
+        devs = self._torch_devices(devices, device_map)
+        if runtime == "interpret":
+            return _execute(self.traced.program, self.assignment, devs,
+                            *args, **kwargs)
+        from .core.runtime import CompiledRuntime, resolve_runtime_mode
+        if static_argnums is None:
+            static_argnums = self.meta.get("static_argnums", ())
+        static_argnums = tuple(int(i) for i in static_argnums)
+        key = (tuple(devs[:self.k]), static_argnums)
+        rt = getattr(self, "_compiled_runtime", None)
+        if rt is None or rt[0] != key:
+            rt = (key, CompiledRuntime(self.traced.program,
+                                       self.assignment, devs[:self.k],
+                                       donate=donate,
+                                       static_argnums=static_argnums))
+            self._compiled_runtime = rt
+        # mode is resolved per call (not cached in the key): the same
+        # captured segments serve both dispatch modes
+        rt[1].mode = resolve_runtime_mode(mode)
+        out = rt[1](*args, **kwargs)
+        self.report.runtime = rt[1].stats.to_dict()
+        return out
+
 
 # ---------------------------------------------------------------------------
 # partitioning
@@ -428,5 +583,5 @@ def partition(traced_or_graph: TracedModel | CostGraph,
 __all__ = [
     "trace", "partition", "fold_device_map", "TracedModel", "DeviceSpec",
     "PartitionPlan", "PlanReport", "PlanValidationError", "PardnnOptions",
-    "PLAN_FORMAT", "PLAN_SCHEMA_VERSION",
+    "PLAN_FORMAT", "PLAN_SCHEMA_VERSION", "RUNTIMES",
 ]

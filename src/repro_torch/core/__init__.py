@@ -1,10 +1,10 @@
 """ParDNN core: the paper's computational-graph partitioning algorithm.
 
-The partitioner modules are numpy-only copies of the reference's
-``repro/core``; the tracer (``tracing``) builds their ``CostGraph`` from
-an aten-level FX graph of a PyTorch function. ``tracing`` and
-``executor`` import torch and are left to the facade (``repro_torch.api``)
-to import.
+The partitioner modules and the segment cutter (``segments``) are
+numpy-only copies of the reference's ``repro/core``; the tracer
+(``tracing``) builds their ``CostGraph`` from an aten-level FX graph of a
+PyTorch function. ``tracing``, ``executor`` and ``runtime`` import torch
+and are left to the facade (``repro_torch.api``) to import.
 """
 from .costmodel import H100, V100, DeviceModel
 from .emulator import (Schedule, emulate, emulate_scalar, emulate_vectorized,

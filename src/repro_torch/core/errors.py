@@ -11,8 +11,8 @@ Every failure mode carries a stable ``RPxxx`` code, so exception
 messages and lint findings are greppable under one namespace:
 
 * ``RP0xx`` — static-analysis diagnostics (schedule safety, memory
-  certificates, lints), emitted by the reference's plan verifier (not
-  ported yet); error-severity diagnostics escalate to
+  certificates, lints), emitted by the plan verifier
+  (``repro_torch.analysis``); error-severity diagnostics escalate to
   :class:`PlanValidationError` with the same code.
 * ``RP1xx`` — artifact/plan validation failures raised directly as
   exceptions (schema drift, payload corruption, unrealizable

@@ -1,17 +1,35 @@
-"""The recorded program of a trace (the port's side of the reference's
-``repro/core/executor.py``: its :class:`TracedProgram` and
-:func:`compute_liveness`).
+"""Graph executor: the recorded program of a trace and the op-by-op
+interpreter that runs it under a placement (the port's side of the
+reference's ``repro/core/executor.py``).
 
 The tracer (:mod:`.tracing`) records, for every op node of the cost
 graph, the aten op, its keyword arguments and its positional inputs, so
-that a placement can replay the program node by node. The op-by-op
-interpreter and the compiled segment runtime that consume it are not
-ported yet.
+that a placement can replay the program node by node. Two engines
+realize a placement:
+
+* this module's :func:`execute`: the op-by-op *interpreter*, one aten
+  call per node on its PE's ``torch.device``, every intermediate kept
+  alive. Slow, but the executable specification the compiled path is
+  held to.
+* ``core.runtime.CompiledRuntime``: the *segment runtime*, which cuts
+  the placed program into maximal same-PE segments (``core.segments``),
+  captures each one as a CUDA graph on its PE's stream, and frees
+  buffers by liveness.
+
+Both consume the same :class:`TracedProgram`, which carries a liveness
+table (``consumers`` / ``output_nodes``) computed at trace time.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from ..tree import tree_flatten, tree_unflatten
+from .errors import RP104_DEVICE_MISMATCH, PlanValidationError
 
 
 @dataclass
@@ -65,4 +83,97 @@ def compute_liveness(prog: TracedProgram
     return table, outputs
 
 
-__all__ = ["TracedProgram", "compute_liveness"]
+def validate_device_count(assignment: np.ndarray | None,
+                          devices: list | None) -> None:
+    """A placement must name a real device for every PE it uses.
+
+    Raises :class:`PlanValidationError` when the plan has more PEs than
+    devices: silently aliasing PEs onto the same device voids the plan's
+    memory guarantees. Callers that *want* device reuse must pass an
+    explicitly expanded device list (e.g. via
+    ``PartitionPlan.execute(device_map=...)``).
+    """
+    if assignment is None or devices is None:
+        return
+    if len(assignment) == 0:
+        return
+    max_pe = int(np.max(assignment))
+    if max_pe >= len(devices):
+        raise PlanValidationError(
+            f"placement uses {max_pe + 1} PEs but only {len(devices)} "
+            f"devices were given — refusing to alias PEs onto shared "
+            f"devices implicitly (that voids the plan's per-device "
+            f"memory guarantees). Pass an explicit device_map (e.g. "
+            f"device_map=[0]*{max_pe + 1} to fold onto one device) or "
+            f"run with more devices.", code=RP104_DEVICE_MISMATCH)
+
+
+def node_kwargs(kwargs: dict, device) -> dict:
+    """A node's keyword arguments for a run on ``device``: an op that
+    creates a tensor (``arange``, ``ones``, ``scalar_tensor``) names the
+    device it traced on, and runs on its PE's device instead."""
+    if device is None or "device" not in kwargs:
+        return kwargs
+    return dict(kwargs, device=device)
+
+
+def run_node(prog: TracedProgram, nid: int, vals: list, kwargs: dict):
+    """One node's aten call on its input values (the leaves of its
+    positional arguments, literals included), as the trace recorded
+    it."""
+    op = prog.program[nid][0]
+    return op(*pytree.tree_unflatten(vals, prog.arg_specs[nid]), **kwargs)
+
+
+def execute(prog: TracedProgram, assignment: np.ndarray | None,
+            devices: list | None, *args, **kwargs):
+    """Execute the traced program under a placement, op by op.
+
+    ``assignment[node] -> pe``; ``devices[pe]`` the ``torch.device`` the
+    PE runs on. With ``assignment=None`` everything runs where its
+    inputs are (reference mode). A read of a value that lives on another
+    device is a ``.to(device)`` copy; with PEs folded onto one device it
+    is the value itself. Every intermediate stays alive until the call
+    returns: this is the all-live baseline the segment runtime's
+    refcount freeing is measured against."""
+    flat_args, _ = tree_flatten((args, kwargs))
+    if len(flat_args) != len(prog.input_nodes):
+        raise ValueError(
+            f"expected {len(prog.input_nodes)} leaves, got {len(flat_args)}")
+    validate_device_count(assignment, devices)
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+
+    def dev_of(nid: int):
+        if assignment is None or devices is None:
+            return None
+        return devices[int(assignment[nid])]
+
+    def place(v, d):
+        if d is not None and isinstance(v, torch.Tensor):
+            return v.to(d)
+        return v
+
+    vals: dict[int, Any] = {}
+    for nid, cval in prog.const_nodes:
+        vals[nid] = place(cval, dev_of(nid))
+    for nid, a in zip(prog.input_nodes, flat_args):
+        vals[nid] = place(a, dev_of(nid))
+
+    def read(src: int, idx: int):
+        v = vals[src]
+        return v[idx] if isinstance(v, (tuple, list)) else v
+
+    for nid in sorted(prog.program):
+        _, node_kw, inputs = prog.program[nid]
+        d = dev_of(nid)
+        invals = [inp[1] if inp[0] == "lit" else place(read(inp[1], inp[2]), d)
+                  for inp in inputs]
+        vals[nid] = run_node(prog, nid, invals, node_kwargs(node_kw, d))
+
+    outs = [None if slot is None else read(*slot) for slot in prog.out_slots]
+    return tree_unflatten(prog.out_tree, outs)
+
+
+__all__ = ["TracedProgram", "compute_liveness", "execute", "node_kwargs",
+           "run_node", "validate_device_count"]

@@ -1,6 +1,7 @@
 """Continuous-batching serving engine (port of ``repro.serving.engine``:
 the local path, and :func:`partition_for_serving`, which traces and
-partitions the paged decode step; serving from a plan is not ported
+partitions the paged decode step into a plan that
+``PartitionPlan.execute`` runs; the engine does not serve from a plan
 yet).
 
 The engine composes the paged KV storage (:mod:`.kvcache`), the
@@ -328,7 +329,9 @@ def partition_for_serving(cfg: ModelConfig, params, *, devices,
     ``params`` live on ``device`` (``None`` means ``cuda``), where the
     engine allocates its pools; the trace runs no step. The geometry is
     recorded in ``plan.meta["serving"]`` and the graph fingerprint
-    ties the plan to it.
+    ties the plan to it. ``plan.meta["static_argnums"]`` is ``[0]``: the
+    compiled runtime reads the parameters in place and copies the
+    step's other inputs into buffers of its own.
     """
     from .. import api
     geo = serving_geometry(**geometry)
@@ -338,6 +341,7 @@ def partition_for_serving(cfg: ModelConfig, params, *, devices,
     meta = dict(meta or {})
     meta["serving"] = dict(geo)
     meta.setdefault("arch", cfg.name)
+    meta.setdefault("static_argnums", [0])
     return api.partition(traced, devices=devices, memory=memory,
                          options=options, meta=meta)
 

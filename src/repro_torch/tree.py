@@ -53,33 +53,36 @@ def tree_flatten(tree) -> tuple[list, Any]:
     tuples in order, ``None`` holds no leaf — and the structure that
     :func:`tree_unflatten` rebuilds the tree from."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def go(t):
-        if isinstance(t, dict):
-            return {k: go(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(go(v) for v in t)
-        if t is None:
-            return None
-        leaves.append(t)
-        return LEAF
-    return leaves, go(tree)
+
+def _flatten(t, leaves: list):
+    # a module-level recursion: a recursive closure would be a reference
+    # cycle holding the leaves until the garbage collector runs
+    if isinstance(t, dict):
+        return {k: _flatten(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_flatten(v, leaves) for v in t)
+    if t is None:
+        return None
+    leaves.append(t)
+    return LEAF
 
 
 def tree_unflatten(structure, leaves):
     """Inverse of :func:`tree_flatten` (dicts come back with sorted
     keys)."""
-    it = iter(leaves)
+    return _unflatten(structure, iter(leaves))
 
-    def go(s):
-        if isinstance(s, dict):
-            return {k: go(v) for k, v in s.items()}
-        if isinstance(s, (list, tuple)):
-            return type(s)(go(v) for v in s)
-        if s is None:
-            return None
-        return next(it)
-    return go(structure)
+
+def _unflatten(s, it):
+    if isinstance(s, dict):
+        return {k: _unflatten(v, it) for k, v in s.items()}
+    if isinstance(s, (list, tuple)):
+        return type(s)(_unflatten(v, it) for v in s)
+    if s is None:
+        return None
+    return next(it)
 
 
 __all__ = ["tree_flatten", "tree_map", "tree_map_with_path",

@@ -42,7 +42,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.bridge, repro_torch.kernels.rwkv6.ops, "
             "repro_torch.models.rwkv, repro_torch.api, "
-            "repro_torch.core.modelgraphs, repro_torch.core.baselines; "
+            "repro_torch.core.modelgraphs, repro_torch.core.baselines, "
+            "repro_torch.core.runtime, repro_torch.analysis; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
