@@ -87,6 +87,28 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    copies and output clones, the logical peak per PE beside the plan's
    peaks and the verifier's certificate, max_memory_allocated, capture
    seconds. No kernel launches on this path.
+11. plan serve: full granite-8b in bf16 served from a K=4 ParDNN plan
+   (PEs folded onto the card) beside the local engine, one parameter
+   tree, each engine's pools released before the next is built: (a) the
+   half-cap plan the plan phase saved (partitioned here when that phase
+   did not run), loaded without a trace so that the engine retraces and
+   binds it, serves the serve phase's 8 requests: greedy tokens equal to
+   the local engine's request for request (a divergence only at a
+   near-tie under phase 6's rule, with d the two engines' logit
+   difference at the first decode step), 0 leaked blocks, every pool
+   leaf on its PE's device, every decode step a replay of every segment
+   with no capture after the first, all prefill flash launches sm90;
+   (b) a block-starved pool (``STARVED``), its own K=4 half-cap plan,
+   plan-served against local: preemptions equal and above 0, tokens
+   equal under the same rule; (c) the engine traces valid (a lane per
+   request, an ``evicted`` instant per preemption), and one
+   ``plan.execute(trace=)`` of a decode step: measured lanes (CUDA
+   events) and predicted lanes with the same ``seg{sid}`` names,
+   predicted against measured makespan; (d) ``launch.serve --plan-devices
+   4 --fold --trace --metrics`` in process, both files valid. Prints
+   plan-served and local tok/s, TTFT p50 and decode ms side by side,
+   segments, capture seconds and max_memory_allocated beside the card's
+   name and power limit.
 
 ``--phases`` (a comma list of the names in ``PHASES``; default all) runs
 a subset, for iterating on one kernel; the card's name is always read.
@@ -106,6 +128,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -985,14 +1008,24 @@ def decode_matmul_flops(cfg, batch: int, max_len: int) -> float:
 QUARTER_CAP_REFUSAL = {("RP020", 3), ("RP040", 3)}
 
 
-def _half_cap_plan(api, traced, card: float, quarter=None):
+def _serving_meta(cfg, geometry: dict) -> dict:
+    """The metadata ``serving.partition_for_serving`` records, so that
+    ``plan.serve`` rebuilds the engine at ``geometry``."""
+    from repro_torch.serving import serving_geometry
+    return {"serving": serving_geometry(**geometry), "arch": cfg.name,
+            "static_argnums": [0]}
+
+
+def _half_cap_plan(api, traced, card: float, quarter=None, meta=None):
     """The K=4 plan under half the card per PE, verified clean, after
     asserting that the verifier refuses the quarter-cap plan exactly as
     ``QUARTER_CAP_REFUSAL`` says (a change either way fails here, so
     that it is seen). Logs both verifications."""
     plans = {"quarter": quarter if quarter is not None
-             else api.partition(traced, devices=4, memory=card / 4),
-             "half": api.partition(traced, devices=4, memory=card / 2)}
+             else api.partition(traced, devices=4, memory=card / 4,
+                                meta=meta),
+             "half": api.partition(traced, devices=4, memory=card / 2,
+                                   meta=meta)}
     for label, plan in plans.items():
         rep = plan.verify()
         c = rep.counts()
@@ -1011,16 +1044,16 @@ def _half_cap_plan(api, traced, card: float, quarter=None):
     return plans["half"]
 
 
-def phase_plan(torch, cfg) -> None:
+def phase_plan(torch, cfg, plan_path: Path) -> None:
     """Trace → partition → plan for the paged decode step at full
     granite-8b width (bf16, random weights from a seed) at the serve
     phase's geometry: trace on cuda with the program recorded, the
     matmul FLOPs held to a count from the config; partition at K=4 under
-    a quarter of the card and under a tight cap; save, load and bind the
-    plan to a fresh trace; the predicted step time beside the measured
+    a quarter of the card and under a tight cap; save the half-cap plan
+    to ``plan_path`` (the plan_serve phase serves it), load it and bind
+    it to a fresh trace; the predicted step time beside the measured
     eager step. First, at the reduced size, the graph's fingerprint must
     be the same for a trace on the CPU and on the card."""
-    import tempfile
     from repro_torch import api
     from repro_torch.configs import reduced
     from repro_torch.core.costmodel import H100
@@ -1074,9 +1107,10 @@ def phase_plan(torch, cfg) -> None:
     caps = {"quarter": card / k,
             "tight": 1.2 * (res_bytes + transient) / k}
     plans = {}
+    meta = _serving_meta(cfg, GEOMETRY)
     for label, cap in caps.items():
         t0 = time.perf_counter()
-        plan = api.partition(traced, devices=k, memory=cap)
+        plan = api.partition(traced, devices=k, memory=cap, meta=meta)
         part_s = time.perf_counter() - t0
         a, peaks = plan.assignment, plan.peak_mem
         assert a.shape == (g.n,) and a.min() >= 0 and a.max() < k, \
@@ -1109,10 +1143,9 @@ def phase_plan(torch, cfg) -> None:
         plans[label] = plan
 
     # save verifies the plan first, as the reference's does
-    plan, label = _half_cap_plan(api, traced, card, plans["quarter"]), "half"
-    with tempfile.TemporaryDirectory() as tmp:
-        path = plan.save(str(Path(tmp) / "granite-decode.plan.json"))
-        loaded = api.PartitionPlan.load(path)
+    plan, label = _half_cap_plan(api, traced, card, plans["quarter"],
+                                 meta), "half"
+    loaded = api.PartitionPlan.load(plan.save(str(plan_path)))
     t0 = time.perf_counter()
     fresh = api.trace(eng._decode_impl, *eng._decode_example_args(),
                       record=True)
@@ -1466,9 +1499,321 @@ def phase_plan_execute(torch, cfg) -> None:
             + f"; {st.num_segments} segments")
 
 
+#: full granite-8b against a block-starved pool: the 8 requests of seed 7
+#: (prompts of 128-1024 tokens, 32 new tokens each) over 299 allocatable
+#: blocks of 16 force a preemption (1 when the scheduler ran the same
+#: schedule on the CPU at reduced width: admission and eviction depend
+#: on lengths alone)
+STARVED = dict(GEOMETRY, num_blocks=300)
+STARVED_SEED = 7
+
+
+def _watch_steps(torch, eng) -> dict:
+    """Wrap ``eng._decode``: per call, each active row's top-1 / top-2
+    logit gap keyed by (request id, index of the token the step emits),
+    the first call's last-position logits, and for a plan-served engine
+    the runtime and its counters after the call."""
+    watch = {"gaps": {}, "first": None, "runtime": []}
+    inner = eng._decode
+
+    def step(bt, toks, lens):
+        logits = inner(bt, toks, lens)
+        last = logits[:, -1].float()
+        top2 = last.topk(2, dim=-1).values.cpu().numpy()
+        owner = {r.blocks[0]: r for r in eng.scheduler.active if r.blocks}
+        for row, b0 in enumerate(bt[:, 0].tolist()):
+            r = owner.get(b0)
+            if r is not None:
+                watch["gaps"][(r.rid, len(r.output))] = \
+                    float(top2[row, 0] - top2[row, 1])
+        if watch["first"] is None:
+            watch["first"] = last.clone()
+        if eng.plan is not None:
+            rt = eng.plan._compiled_runtime[1]
+            watch["runtime"].append((rt, rt.stats.graph_replays,
+                                     rt.stats.eager_segments,
+                                     rt.stats.compile_seconds))
+        return logits
+    eng._decode = step
+    return watch
+
+
+def _serve_run(torch, cfg, eng, reqs, label: str) -> dict:
+    """Drain ``reqs`` through ``eng`` (which writes its trace) with the
+    kernels' counts set to 0 just before and read just after; the
+    flash-attention gates of the serve phase; returns the run's
+    numbers."""
+    from repro_torch.obs.trace import SERVING_PID, load_trace
+    watch = _watch_steps(torch, eng)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    s = eng.stats
+    assert len(done) == len(reqs), f"{label}: {len(done)} completed"
+    assert all(len(r.output) == r.max_new_tokens for r in done.values())
+    assert s.leaked_blocks == 0, f"{label}: {s.leaked_blocks} blocks leaked"
+    want = cfg.num_layers * s.prefill_calls
+    assert launches["flash_attention"] == want > 0 and \
+        launches["flash_attention/sm90"] == want, \
+        f"{label}: flash_attention launches {launches}, expected {want} sm90"
+    assert launches["wkv6"] == 0, "granite-8b has no RWKV layer"
+    doc = load_trace(eng._trace_path)
+    spans = {}      # the engine lane's spans, ms
+    for ev in doc["traceEvents"]:
+        if ev.get("ph") == "X" and ev["pid"] == SERVING_PID and \
+                ev["tid"] == 0:
+            spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    summary = s.to_dict()
+    run = {"done": done, "watch": watch, "wall": wall, "doc": doc,
+           "tok_s": s.generated_tokens / wall,
+           "ttft_p50": summary["ttft_p50_s"],
+           "decode_ms": statistics.median(spans["decode_step"]),
+           "prefill_ms": spans["prefill_batch"], "launches": launches,
+           "stats": s}
+    log(f"plan_serve {label}: {len(done)} requests, {s.prefill_tokens} "
+        f"prompt tokens in {s.prefill_calls} prefill calls ("
+        + ", ".join(f"{t:.1f}" for t in run["prefill_ms"]) + " ms), "
+        f"{s.generated_tokens} generated in {wall:.3f} s -> "
+        f"{run['tok_s']:.1f} tok/s; ttft p50 {run['ttft_p50']:.4f} s; "
+        f"{s.decode_steps} decode steps, median {run['decode_ms']:.2f} ms; "
+        f"{s.preempted} preemptions; peak {s.peak_blocks_in_use}/"
+        f"{eng.allocator.capacity} blocks; flash_attention "
+        f"{launches['flash_attention']} launches = {cfg.num_layers} x "
+        f"{s.prefill_calls}, {launches['flash_attention/sm90']} sm90")
+    return run
+
+
+def _hold_tokens(torch, label: str, local: dict, served: dict) -> None:
+    """Plan-served tokens against the local engine's, request for
+    request, under phase 6's near-tie rule: d is the largest logit
+    difference of the two engines' first decode steps (the same inputs),
+    and a request may diverge only at a step where the local engine's
+    top-2 gap is within 4 d; the step and the margin are printed."""
+    d = float((served["watch"]["first"] - local["watch"]["first"])
+              .abs().max())
+    limit = 4 * d
+    ties, mismatched = [], []
+    for rid, req in sorted(local["done"].items()):
+        a, b = req.output, served["done"][rid].output
+        i = next((j for j in range(len(a)) if a[j] != b[j]), None)
+        if i is None:
+            continue
+        gap = local["watch"]["gaps"].get((rid, i))
+        (ties if gap is not None and gap <= limit else mismatched).append(
+            (rid, i, gap))
+    gaps = local["watch"]["gaps"].values()
+    log(f"plan_serve {label}: max |logits plan - local| at the first decode "
+        f"step {d:.3g}, near-tie limit {limit:.3g}; min top-2 gap "
+        f"{min(gaps):.3g}; tokens equal on "
+        f"{len(local['done']) - len(ties) - len(mismatched)} of "
+        f"{len(local['done'])} requests; divergent at near-ties "
+        f"(request, step, gap) {ties}; mismatched {mismatched}")
+    assert not mismatched, f"plan_serve {label}: plan-served tokens != " \
+        f"local at {mismatched}"
+
+
+def _hold_replays(label: str, run: dict) -> tuple:
+    """Every decode step replayed every segment from its graph, the
+    graphs captured in the first step only. Returns (segments, capture
+    seconds)."""
+    calls = run["watch"]["runtime"]
+    rt = calls[0][0]
+    n = rt.stats.num_segments
+    assert all(c[0] is rt for c in calls), f"{label}: runtime rebuilt"
+    assert all(c[1] == n and c[2] == 0 for c in calls), \
+        f"{label}: replays {[c[1] for c in calls]}, {n} segments"
+    assert all(c[3] == calls[0][3] for c in calls), \
+        f"{label}: a capture after the first step"
+    log(f"plan_serve {label}: {len(calls)} decode steps x {n} segments = "
+        f"{sum(c[1] for c in calls)} graph replays, 0 eager; capture "
+        f"{calls[0][3]:.2f} s in the first step only; {rt.stats.reuse_waits} "
+        f"reuse waits")
+    return n, calls[0][3]
+
+
+def phase_plan_serve(torch, cfg, plan_path: Path, work: Path,
+                     card_line: str) -> dict:
+    """Serve full granite-8b (bf16, seeded weights) from a K=4 ParDNN plan
+    on the card, beside the local engine, one parameter tree for all:
+    (a) the plan the plan phase saved (partitioned here when that phase
+    did not run), loaded without a trace so the engine retraces and
+    binds it, served to the serve phase's 8 requests; (b) a K=4 half-cap
+    plan of a block-starved pool (``STARVED``); (c) the engine traces,
+    and one ``plan.execute(trace=)`` of a decode step: measured against
+    predicted segment lanes; (d) the launcher in-process with a folded
+    plan, its trace and metrics files. Returns the plan-served run's
+    kernel launch counts."""
+    from repro_torch import api
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import init_params
+    from repro_torch.obs.metrics import validate_file
+    from repro_torch.obs.trace import (MEASURED_PID, PREDICTED_PID,
+                                       SERVING_PID, load_trace,
+                                       predicted_vs_measured, validate_trace)
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.tree import tree_flatten
+    card = torch.cuda.get_device_properties(0).total_memory
+    fold = api.fold_device_map(4)
+    assert fold == [0, 0, 0, 0], f"expected one card, device_map {fold}"
+    log(f"plan_serve: {_release(torch):.3f} GiB allocated at the start")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    if not plan_path.exists():
+        eng = ServingEngine(cfg, params, device="cuda", **GEOMETRY)
+        traced = api.trace(eng._decode_impl, *eng._decode_example_args(),
+                           record=True)
+        _half_cap_plan(api, traced, card,
+                       meta=_serving_meta(cfg, GEOMETRY)).save(
+            str(plan_path))
+        del eng, traced
+        _release(torch)
+
+    # (a) local, then the saved plan, at the serve geometry
+    warm = ServingEngine(cfg, params, device="cuda", **GEOMETRY)
+    for r in _requests(Request, cfg, 1, seed=99, plen=(128, 128),
+                       max_new=2):
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+    _release(torch)
+    local = _serve_run(torch, cfg, ServingEngine(
+        cfg, params, device="cuda", trace=str(work / "local.trace.json"),
+        **GEOMETRY), _requests(Request, cfg, 8, seed=0), "(a) local")
+    _release(torch)
+    plan = api.PartitionPlan.load(str(plan_path))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = plan.serve(cfg, params, device_map=fold,
+                     trace=str(work / "plan.trace.json"))
+    bind_s = time.perf_counter() - t0
+    devs = plan._torch_devices(None, fold)
+    leaves = tree_flatten(eng.pools)[0]
+    assert all(leaf.device == eng.pool_devices[i] == devs[eng.pool_pes[i]]
+               for i, leaf in enumerate(leaves)), "a pool leaf is misplaced"
+    log(f"plan_serve (a): the saved half-cap plan loaded, retraced and bound "
+        f"in {bind_s:.2f} s; {len(leaves)} pool leaves on PEs "
+        f"{eng.pool_pes}, each on its PE's device "
+        f"{sorted({str(d) for d in eng.pool_devices})}")
+    served = _serve_run(torch, cfg, eng, _requests(Request, cfg, 8, seed=0),
+                        "(a) plan")
+    launches = served["launches"]
+    peak = torch.cuda.max_memory_allocated()
+    _hold_tokens(torch, "(a)", local, served)
+    segments, capture_s = _hold_replays("(a)", served)
+    assert plan.report.serving["completed"] == 8
+
+    # (c) the traces: the engine's, and one execute of a decode step
+    doc = served["doc"]
+    problems = validate_trace(doc)
+    lanes = [e["args"]["name"] for e in doc["traceEvents"]
+             if e.get("name") == "thread_name" and e["pid"] == SERVING_PID]
+    assert problems == [] and sorted(lanes) == sorted(
+        ["engine"] + [f"request {i}" for i in range(8)]), \
+        f"engine trace: {problems[:3]}, lanes {lanes}"
+    B, W = eng.max_batch, eng.max_blocks_per_req
+    bt = torch.arange(1, 1 + B * W, dtype=torch.int32,
+                      device="cuda").reshape(B, W)
+    toks = torch.ones((B, 1), dtype=torch.int32, device="cuda")
+    lens = torch.full((B,), 1040, dtype=torch.int32, device="cuda")
+    path = str(work / "step.trace.json")
+    plan.execute(params, eng.pools, bt, toks, lens, device_map=fold,
+                 trace=path)
+    tl = plan._compiled_runtime[1].stats.timeline()
+    step = load_trace(path)
+    rows = predicted_vs_measured(step)
+    names = {pid: sorted(e["name"] for e in step["traceEvents"]
+                         if e.get("ph") == "X" and e["pid"] == pid)
+             for pid in (MEASURED_PID, PREDICTED_PID)}
+    assert validate_trace(step) == [] and len(rows) == segments and \
+        names[MEASURED_PID] == names[PREDICTED_PID], \
+        f"plan trace: {len(rows)} matched segments of {segments}"
+    pred_end = max(e["ts"] + e["dur"] for e in step["traceEvents"]
+                   if e.get("ph") == "X" and e["pid"] == PREDICTED_PID)
+    ratios = sorted(r["ratio"] for r in rows if r["ratio"] is not None)
+    log(f"plan_serve (c): engine trace valid, {len(lanes) - 1} request "
+        f"lanes; plan trace of one decode step valid, {len(rows)} segments "
+        f"in both lane groups: predicted makespan {plan.makespan * 1e3:.3f} "
+        f"ms (segment emulator {pred_end / 1e3:.3f} ms), measured "
+        f"{tl['makespan_s'] * 1e3:.3f} ms (CUDA events); sum over segments "
+        f"predicted {sum(r['predicted_s'] for r in rows) * 1e3:.3f} ms, "
+        f"measured {sum(r['measured_s'] for r in rows) * 1e3:.3f} ms; "
+        f"measured / predicted per segment median "
+        f"{statistics.median(ratios):.3g} (range {ratios[0]:.3g}-"
+        f"{ratios[-1]:.3g}); input waits "
+        f"{sum(tl['transfer_wait_s']) * 1e3:.3f} ms")
+    del eng, plan, served["done"], served["watch"]
+    _release(torch)
+
+    # (b) forced eviction: a block-starved pool, plan against local
+    eng = ServingEngine(cfg, params, device="cuda",
+                        trace=str(work / "local_b.trace.json"), **STARVED)
+    t0 = time.perf_counter()
+    traced = api.trace(eng._decode_impl, *eng._decode_example_args(),
+                       record=True)
+    starved = _half_cap_plan(api, traced, card,
+                             meta=_serving_meta(cfg, STARVED))
+    log(f"plan_serve (b): {STARVED['num_blocks']} blocks: traced and "
+        f"partitioned in {time.perf_counter() - t0:.2f} s")
+    del traced
+    local_b = _serve_run(torch, cfg, eng, _requests(
+        Request, cfg, 8, seed=STARVED_SEED), "(b) local")
+    del eng
+    _release(torch)
+    eng = starved.serve(cfg, params, device_map=fold,
+                        trace=str(work / "plan_b.trace.json"))
+    served_b = _serve_run(torch, cfg, eng, _requests(
+        Request, cfg, 8, seed=STARVED_SEED), "(b) plan")
+    pre = (local_b["stats"].preempted, served_b["stats"].preempted)
+    assert pre[0] == pre[1] > 0, f"(b): preemptions local/plan {pre}"
+    _hold_tokens(torch, "(b)", local_b, served_b)
+    _hold_replays("(b)", served_b)
+    evicted = sum(e.get("name") == "evicted"
+                  for e in served_b["doc"]["traceEvents"])
+    assert validate_trace(served_b["doc"]) == [] and evicted == pre[1], \
+        f"(b): {evicted} evicted instants for {pre[1]} preemptions"
+    log(f"plan_serve (b): {pre[1]} preemptions on both engines, {evicted} "
+        f"evicted instants in the plan engine's trace")
+    del eng, starved, local_b, served_b, params
+    _release(torch)
+
+    # (d) the launcher, in process: a folded K=4 plan at its defaults
+    paths = [str(work / "launch.trace.json"), str(work / "launch.json")]
+    t0 = time.perf_counter()
+    eng = launch_serve.main(["--arch", "granite-8b", "--plan-devices", "4",
+                             "--fold", "--trace", paths[0], "--metrics",
+                             paths[1]])
+    launch_s = time.perf_counter() - t0
+    rep = eng.plan.verify()
+    c = rep.counts()
+    assert validate_trace(paths[0]) == [] and validate_file(paths[1]) == [], \
+        "the launcher's trace or metrics file does not validate"
+    log(f"plan_serve (d): launch.serve --plan-devices 4 --fold in "
+        f"{launch_s:.2f} s: {eng.plan.summary()}; verified {c['error']}E/"
+        f"{c['warn']}W/{c['info']}I; {eng.stats.completed} requests, "
+        f"trace and metrics valid")
+    del eng
+    _release(torch)
+    steady = served["stats"].generated_tokens / (served["wall"] - capture_s)
+    log(f"plan_serve summary ({card_line}): plan-served "
+        f"{served['tok_s']:.1f} tok/s ({steady:.1f} without the capture), "
+        f"ttft p50 {served['ttft_p50']:.4f} s, decode median "
+        f"{served['decode_ms']:.2f} ms; local {local['tok_s']:.1f} tok/s, "
+        f"ttft p50 {local['ttft_p50']:.4f} s, decode median "
+        f"{local['decode_ms']:.2f} ms; {segments} segments, capture "
+        f"{capture_s:.2f} s; max_memory_allocated while plan-served "
+        f"{peak / 2**30:.3f} GiB")
+    return launches
+
+
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
-          "plan_execute")
+          "plan_execute", "plan_serve")
 
 
 def main(argv=None) -> int:
@@ -1524,10 +1869,18 @@ def main(argv=None) -> int:
                 v: rwkv_launches[f"wkv6/{v}"] for v in rops.VARIANTS}
     if "rwkv_equality" in phases:
         phase_rwkv_equality(torch, rcfg)
-    if "plan" in phases:
-        phase_plan(torch, cfg)
-    if "plan_execute" in phases:
-        phase_plan_execute(torch, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the plan phase saves the plan here; plan_serve serves it
+        work = Path(tmp)
+        plan_path = work / "granite-decode.plan.json"
+        if "plan" in phases:
+            phase_plan(torch, cfg, plan_path)
+        if "plan_execute" in phases:
+            phase_plan_execute(torch, cfg)
+        if "plan_serve" in phases:
+            launches = phase_plan_serve(torch, cfg, plan_path, work, card)
+            if record is not None:
+                record["plan_serve_launches"] = launches["flash_attention"]
     log(card)
     print(json.dumps({"kernels": [r for r in (record, rwkv_record)
                                   if r is not None]}))

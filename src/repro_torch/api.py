@@ -10,6 +10,8 @@ side of the reference's ``repro/api.py``).
     out = plan.execute(params, batch)    # segments as CUDA graphs
     # fewer devices than PEs? alias explicitly:
     #   plan.execute(params, batch, device_map=[0] * plan.k)
+    # a plan of the paged decode step (serving.partition_for_serving):
+    engine = plan.serve(cfg, params, device_map=api.fold_device_map(plan.k))
 
 :func:`trace` always returns a :class:`TracedModel`; :func:`partition`
 always returns a :class:`PartitionPlan` whose :class:`PlanReport`
@@ -24,8 +26,11 @@ checks, so a plan saved by either package loads in the other.
 (:mod:`repro_torch.analysis`), which :meth:`~PartitionPlan.save` and
 :meth:`~PartitionPlan.execute` run strictly, as the reference's do.
 :meth:`~PartitionPlan.execute` runs the op-by-op interpreter or the
-segment runtime (:mod:`repro_torch.core.runtime`). Serving from a plan
-is not ported yet.
+segment runtime (:mod:`repro_torch.core.runtime`), and with ``trace=``
+writes the measured and predicted segment lanes
+(:mod:`repro_torch.obs.trace`). :meth:`~PartitionPlan.serve` builds a
+:class:`~repro_torch.serving.ServingEngine` whose decode steps run
+through the plan.
 """
 from __future__ import annotations
 
@@ -166,10 +171,10 @@ class PlanReport:
     ``stage_seconds`` holds the per-stage wall times (slice / map /
     refine / step2 / total); ``counters`` the mapping, refinement and
     Step-2 movement counters from the partitioner; ``runtime`` the last
-    compiled execution's stats; ``diagnostics`` the verifier's summary.
-    ``accuracy`` and ``serving`` are the reference's fields, which the
-    port does not fill yet; all round-trip unchanged through the plan
-    header.
+    compiled execution's stats; ``diagnostics`` the verifier's summary;
+    ``serving`` the stats of the last plan-served engine run to a
+    drain. ``accuracy`` is the reference's field, which the port does
+    not fill yet; all round-trip unchanged through the plan header.
     """
     makespan_s: float
     peak_mem_bytes: list
@@ -459,7 +464,8 @@ class PartitionPlan:
 
     def execute(self, *args, devices=None, device_map=None,
                 runtime: str | None = None, donate: bool = True,
-                mode: str | None = None, static_argnums=None, **kwargs):
+                mode: str | None = None, static_argnums=None,
+                trace: str | None = None, **kwargs):
         """Run the recorded program under this placement (the paper's
         "placement file → execution engine" path).
 
@@ -490,6 +496,13 @@ class PartitionPlan:
                 tensors there, or it raises. Every other input leaf is
                 copied into a buffer the runtime owns at each call, so
                 no call writes into its arguments.
+            trace: write a Chrome trace-event / Perfetto JSON file to
+                this path (open in ui.perfetto.dev). The call runs one
+                :meth:`~repro_torch.core.runtime.CompiledRuntime.
+                measure_timeline` pass and merges the **measured**
+                segment lanes with the overlap emulator's **predicted**
+                lanes for the same segments (:mod:`repro_torch.obs.
+                trace`). Compiled runtime only.
 
         The compiled runtime is cached on the plan (rebuilt only when
         the devices or ``static_argnums`` change) and its
@@ -510,6 +523,10 @@ class PartitionPlan:
                              f"have {list(RUNTIMES)}")
         devs = self._torch_devices(devices, device_map)
         if runtime == "interpret":
+            if trace is not None:
+                raise ValueError("trace= needs the compiled runtime's "
+                                 "measured timeline; drop "
+                                 "runtime='interpret'")
             return _execute(self.traced.program, self.assignment, devs,
                             *args, **kwargs)
         from .core.runtime import CompiledRuntime, resolve_runtime_mode
@@ -527,9 +544,48 @@ class PartitionPlan:
         # mode is resolved per call (not cached in the key): the same
         # captured segments serve both dispatch modes
         rt[1].mode = resolve_runtime_mode(mode)
+        if trace is not None:
+            from .obs.trace import build_plan_trace
+            out, timeline = rt[1].measure_timeline(*args, **kwargs)
+            self.report.runtime = rt[1].stats.to_dict()
+            build_plan_trace(self, rt[1], timeline).save(trace)
+            return out
         out = rt[1](*args, **kwargs)
         self.report.runtime = rt[1].stats.to_dict()
         return out
+
+    # -- serving ------------------------------------------------------------
+    def serve(self, cfg, params, *, devices=None, device_map=None,
+              runtime: str | None = None, trace: str | None = None,
+              device=None, **overrides):
+        """Build a :class:`~repro_torch.serving.ServingEngine` deploying
+        this plan: each paged KV pool leaf is allocated on the device
+        of the PE the plan assigns its input node, and every decode step
+        runs through :meth:`execute` (the compiled runtime replays the
+        plan's CUDA-graph segments). Prefill runs on ``device`` (``None``
+        means ``cuda``), where ``params`` live.
+
+        The serving geometry (block_size / num_blocks / max_batch /
+        max_len) defaults to what the plan was partitioned for
+        (``meta["serving"]``, recorded by
+        :func:`repro_torch.serving.partition_for_serving`); keyword
+        ``overrides`` replace single values, but one that changes the
+        decode step's shapes fails the fingerprint check when the engine
+        binds the plan (RP102). ``trace`` names a Chrome trace-event JSON
+        path the engine writes at drain time.
+        """
+        from .serving import ServingEngine
+        geo = dict(self.meta.get("serving") or {})
+        geo.update(overrides)
+        if not geo:
+            raise ValueError(
+                "plan carries no serving geometry (meta['serving']) — "
+                "build it with repro_torch.serving.partition_for_serving, "
+                "or pass block_size/num_blocks/max_batch/max_len "
+                "explicitly")
+        return ServingEngine(cfg, params, plan=self, devices=devices,
+                             device_map=device_map, runtime=runtime,
+                             trace=trace, device=device, **geo)
 
 
 # ---------------------------------------------------------------------------

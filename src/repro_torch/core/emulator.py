@@ -521,9 +521,9 @@ def serialized_makespan(g: CostGraph, assignment: np.ndarray,
 
 def segment_cost_graph(prog, sched, g: CostGraph,
                        device_model) -> tuple[CostGraph, np.ndarray]:
-    """Lift a segment schedule (the reference's
-    ``core/segments.py`` ``SegmentSchedule``; not ported yet) to a
-    segment-level cost graph for the overlap engine.
+    """Lift a segment schedule (:class:`~repro_torch.core.segments.
+    SegmentSchedule`) to a segment-level cost graph for the overlap
+    engine.
 
     One node per segment (comp = sum of member-node comp from ``g``);
     one edge per consumed cross-segment slot, weighted by the modeled

@@ -69,7 +69,10 @@ Dispatch modes (``mode``, default resolved from ``REPRO_RUNTIME_SYNC``):
   synchronised after every segment.
 
 Both modes replay the same graphs on the same values in the same order,
-so their outputs are bit-identical. The logical per-PE live bytes
+so their outputs are bit-identical. :meth:`CompiledRuntime.measure_timeline`
+runs one call that also records when each segment ran: on CUDA by timing
+events on each PE's stream (the card's clock), on the CPU by host
+timestamps; a plain call records none. The logical per-PE live bytes
 (``peak_live_bytes``) follow the refcount schedule as the reference's
 do; the tests hold the runtime to the interpreter and to the eager step
 bit for bit on the CPU, and ``chip_smoke.py`` on the card.
@@ -150,6 +153,12 @@ class RuntimeStats:
     freed_buffers: int = 0
     peak_live_bytes: list = field(default_factory=list)   # per device
     resident_bytes: list = field(default_factory=list)    # inputs+consts
+    # per segment, in schedule order, from the last measure_timeline call
+    # (empty after a plain call); seconds from the call's start
+    dispatch_seconds: list = field(default_factory=list)  # host clock
+    ready_seconds: list = field(default_factory=list)
+    done_seconds: list = field(default_factory=list)
+    transfer_wait_seconds: list = field(default_factory=list)
 
     def to_dict(self) -> dict:
         d = {}
@@ -160,6 +169,22 @@ class RuntimeStats:
             else:
                 d[k] = v
         return d
+
+    def timeline(self) -> dict:
+        """The last measured per-segment timeline as one dict (empty
+        lists unless the call came from ``measure_timeline``);
+        ``makespan_s`` is the last segment's done time, or the call's
+        execute seconds without a timeline."""
+        return {
+            "mode": str(self.mode),
+            "dispatch_s": [float(x) for x in self.dispatch_seconds],
+            "ready_s": [float(x) for x in self.ready_seconds],
+            "done_s": [float(x) for x in self.done_seconds],
+            "transfer_wait_s": [float(x) for x in
+                                self.transfer_wait_seconds],
+            "makespan_s": float(max(self.done_seconds,
+                                    default=self.execute_seconds)),
+        }
 
 
 def _nbytes(v: Any) -> int:
@@ -382,6 +407,8 @@ class CompiledRuntime:
         self._static_out: dict[Slot, torch.Tensor] = {}
         self._copy_src: dict[tuple[Slot, int], torch.Tensor] = {}
         self._copy_dst: dict[tuple[Slot, int], torch.Tensor] = {}
+        # set by measure_timeline for one call: record segment times
+        self._timeline = False
 
     # ------------------------------------------------------------------
     def _pe_of(self, nid: int) -> int:
@@ -570,6 +597,35 @@ class CompiledRuntime:
         return n, nb
 
     # ------------------------------------------------------------------
+    def measure_timeline(self, *args, **kwargs):
+        """One call that also records when each segment ran. Returns
+        ``(result, timeline)``: the :meth:`RuntimeStats.timeline` dict,
+        whose lists hold, per segment in schedule order, seconds from
+        the call's start:
+
+        * ``dispatch_s``: the host's clock when the segment had been
+          dispatched (its graph replay enqueued, or on the CPU, run);
+        * ``ready_s`` / ``done_s``: on CUDA, the card's clock, from
+          timing events recorded on the PE's stream after the segment's
+          waits on other PEs and its copies, and after its replay,
+          measured from an event recorded on the caller's stream of
+          that device at the call's start; on the CPU, the host's clock
+          before and after the segment ran;
+        * ``transfer_wait_s``: on CUDA, how long the PE's stream stood
+          between the end of its previous work and the segment's start,
+          waiting on the segments of other PEs it reads and on its
+          copies; 0 on the CPU.
+
+        The dispatch is the plain call's: the events are recorded beside
+        it, and only in this call (the first call captures the graphs
+        first and times the replays after)."""
+        self._timeline = True
+        try:
+            result = self(*args, **kwargs)
+        finally:
+            self._timeline = False
+        return result, self.stats.timeline()
+
     def __call__(self, *args, **kwargs):
         prog, sched = self.prog, self.schedule
         flat, _ = tree_flatten((args, kwargs))
@@ -583,6 +639,16 @@ class CompiledRuntime:
         if first:
             self._build(args, flat)
         t_start = time.perf_counter()
+        timed = self._timeline
+        # per segment: (pre, ready, done) timing events on CUDA, or
+        # (ready, done) host seconds on the CPU; dispatch host seconds
+        marks: list = []
+        dispatched: list[float] = []
+        bases: dict = {}
+        if timed and self.capture:
+            for d in dict.fromkeys(self.devices):
+                bases[d] = torch.cuda.Event(enable_timing=True)
+                bases[d].record(torch.cuda.current_stream(d))
         k = len(self.devices)
         live = np.zeros(k, dtype=np.float64)
         peak = np.zeros(k, dtype=np.float64)
@@ -671,6 +737,11 @@ class CompiledRuntime:
 
         for seg in sched.segments:
             stream = self._streams[seg.device] if self.capture else None
+            if stream is not None and timed:
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(3)]
+                ev[0].record(stream)
+                marks.append(ev)
             if stream is not None:
                 for p in self._waits[seg.sid]:
                     stream.wait_event(self._events[p])
@@ -688,18 +759,27 @@ class CompiledRuntime:
                     # sync mode, or a prefetch the window deferred
                     copy(key, stream, sched.producer_seg.get(slot, -1))
             if stream is not None:
+                if timed:
+                    marks[-1][1].record(stream)
                 with torch.cuda.stream(stream):
                     self._graphs[seg.sid].replay()
                 self._events[seg.sid].record(stream)
+                if timed:
+                    marks[-1][2].record(stream)
                 st.graph_replays += 1
                 if sync:
                     stream.synchronize()
             else:
+                t_ready = time.perf_counter() - t_start
                 outs = self._fns[seg.sid](*[env[s] for s in seg.inputs])
+                if timed:
+                    marks.append((t_ready, time.perf_counter() - t_start))
                 st.eager_segments += 1
                 for slot, v in zip(seg.outputs, outs):
                     env[slot] = v
                     nbytes[slot] = _nbytes(v)
+            if timed:
+                dispatched.append(time.perf_counter() - t_start)
             for slot in seg.outputs:
                 alloc(seg.device, nbytes[slot])
             if self.capture and not sync:
@@ -743,6 +823,21 @@ class CompiledRuntime:
             outs = [None if slot is None else env[slot]
                     for slot in prog.out_slots]
         st.execute_seconds = time.perf_counter() - t_start
+        st.dispatch_seconds = dispatched
+        if self.capture and timed:
+            # the events completed with the synchronise above
+            st.ready_seconds, st.done_seconds, st.transfer_wait_seconds = \
+                [], [], []
+            for seg, (pre, ready, done) in zip(sched.segments, marks):
+                base = bases[self.devices[seg.device]]
+                st.ready_seconds.append(base.elapsed_time(ready) / 1e3)
+                st.done_seconds.append(base.elapsed_time(done) / 1e3)
+                st.transfer_wait_seconds.append(
+                    pre.elapsed_time(ready) / 1e3)
+        else:
+            st.ready_seconds = [m[0] for m in marks]
+            st.done_seconds = [m[1] for m in marks]
+            st.transfer_wait_seconds = [0.0] * len(marks)
         st.calls += 1
         st.freed_buffers = freed
         st.peak_live_bytes = [float(x) for x in peak]

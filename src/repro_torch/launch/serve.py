@@ -5,6 +5,13 @@ requests through the paged continuous-batching engine.
         --requests 8 --max-batch 4 --max-new 16          # on cuda
     python -m repro_torch.launch.serve --arch granite-8b --reduced \
         --device cpu
+
+With ``--plan-devices K`` the decode step is partitioned first
+(:func:`repro_torch.serving.partition_for_serving`) and served through
+the plan (``plan.serve``); ``--fold`` aliases the K PEs onto the
+available devices (every visible card, or the CPU with ``--device
+cpu``). ``--trace PATH`` writes the engine's Perfetto trace, ``--metrics
+PATH`` the final serving stats as a ``repro-metrics`` envelope.
 """
 import argparse
 
@@ -23,13 +30,25 @@ def main(argv=None):
     ap.add_argument("--num-blocks", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--plan-devices", type=int, default=0,
+                    help="partition the decode step for K devices and "
+                         "serve through the plan (0 = local, eager)")
+    ap.add_argument("--fold", action="store_true",
+                    help="alias plan PEs onto the available devices")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Perfetto trace of the serving run "
+                         "(request lanes + engine lane + pool counters)")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="write the final ServingStats as a versioned "
+                         "repro-metrics envelope JSON")
     args = ap.parse_args(argv)
 
-    from repro_torch import resolve_device
+    from repro_torch import api, resolve_device
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import init_params
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import (Request, ServingEngine,
+                                     partition_for_serving)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -37,10 +56,22 @@ def main(argv=None):
         cfg = reduced(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, dev)
-    eng = ServingEngine(cfg, params, block_size=args.block_size,
-                        num_blocks=args.num_blocks,
-                        max_batch=args.max_batch, max_len=args.max_len,
-                        device=dev)
+    geo = dict(block_size=args.block_size, num_blocks=args.num_blocks,
+               max_batch=args.max_batch, max_len=args.max_len)
+    if args.plan_devices:
+        plan = partition_for_serving(cfg, params, devices=args.plan_devices,
+                                     device=dev, **geo)
+        # PEs run on the cards, or on the CPU when it serves
+        devices = ["cpu"] if dev.type == "cpu" else None
+        device_map = api.fold_device_map(plan.k, devices) if args.fold \
+            else None
+        eng = plan.serve(cfg, params, devices=devices,
+                         device_map=device_map, trace=args.trace,
+                         device=dev)
+        print(f"[serve] {plan.summary()}")
+    else:
+        eng = ServingEngine(cfg, params, trace=args.trace, device=dev,
+                            **geo)
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         plen = int(rng.integers(3, 12))
@@ -55,6 +86,19 @@ def main(argv=None):
           f"{s.prefill_calls} prefill calls, {s.preempted} preemptions, "
           f"peak {s.peak_blocks_in_use}/{eng.allocator.capacity} blocks "
           f"on {dev}")
+    if args.trace:
+        print(f"[serve] wrote trace {args.trace}")
+    if args.metrics:
+        from repro_torch.obs.metrics import MetricsRegistry
+        reg = MetricsRegistry("launch_serve",
+                              meta={"arch": args.arch,
+                                    "reduced": bool(args.reduced),
+                                    "plan_devices": args.plan_devices,
+                                    "device": str(dev)})
+        reg.update(s.to_dict())
+        reg.save(args.metrics)
+        print(f"[serve] wrote metrics {args.metrics}")
+    return eng
 
 
 if __name__ == "__main__":

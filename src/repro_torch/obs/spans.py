@@ -1,16 +1,21 @@
-"""Structured spans and counters (port of the part of ``repro.obs.spans``
-that the serving engine, the scheduler and the partitioner call).
+"""Structured spans and counters (port of ``repro.obs.spans``).
 
 One process-global :class:`Tracer` collects Chrome-trace-event-shaped
-records. Tracing is off by default, and the disabled path is one
-attribute load and one branch: ``span(name)`` without kwargs returns a
-shared no-op singleton and allocates nothing. The trace exporter
-(``repro.obs.trace``) is not ported yet, so the port collects events for
-callers that read :attr:`Tracer.events` themselves.
+records (complete spans, instants, counters) from the partitioner, the
+serving engine and the scheduler; :mod:`.trace` drains the buffer into
+a Perfetto-loadable JSON document. Tracing is off by default, and the
+disabled path is one attribute load and one branch: ``span(name)``
+without kwargs returns a shared no-op singleton and allocates nothing.
+
+``REPRO_TRACE=1`` in the environment turns tracing on at import;
+``REPRO_TRACE=/path/out.json`` also exports the buffer there at
+interpreter exit (:mod:`atexit`), as the reference does.
 """
 from __future__ import annotations
 
+import atexit
 import functools
+import os
 import threading
 import time
 from typing import Any
@@ -19,6 +24,7 @@ from typing import Any
 PH_COMPLETE = "X"
 PH_INSTANT = "i"
 PH_COUNTER = "C"
+PH_METADATA = "M"
 
 #: pid of the in-process host lanes
 HOST_PID = 0
@@ -33,14 +39,23 @@ class Tracer:
         self.enabled = False
         self.events: list[tuple] = []
         self._t0 = time.perf_counter()
+        self._meta_lock = threading.Lock()
+        self._thread_names: dict[int, str] = {}
 
     def now_us(self) -> float:
         return (time.perf_counter() - self._t0) * 1e6
 
+    def epoch(self) -> float:
+        """perf_counter value of trace time zero (for aligning externally
+        captured timestamps into span time)."""
+        return self._t0
+
     def complete(self, name: str, ts_us: float, dur_us: float,
-                 cat: str = "repro", args: dict | None = None) -> None:
+                 cat: str = "repro", args: dict | None = None,
+                 tid: int | None = None) -> None:
         self.events.append((PH_COMPLETE, name, cat, HOST_PID,
-                            threading.get_ident(), ts_us, dur_us, args))
+                            threading.get_ident() if tid is None else tid,
+                            ts_us, dur_us, args))
 
     def instant(self, name: str, cat: str = "repro",
                 args: dict | None = None) -> None:
@@ -53,10 +68,22 @@ class Tracer:
                             threading.get_ident(), self.now_us(), 0.0,
                             dict(values)))
 
+    def name_thread(self, name: str, tid: int | None = None) -> None:
+        tid = threading.get_ident() if tid is None else tid
+        with self._meta_lock:
+            self._thread_names[tid] = name
+
+    def thread_names(self) -> dict[int, str]:
+        with self._meta_lock:
+            return dict(self._thread_names)
+
     def drain(self) -> list[tuple]:
-        """Return and clear the collected events."""
+        """Return and clear the collected events (names map is kept)."""
         out, self.events = self.events, []
         return out
+
+    def clear(self) -> None:
+        self.events = []
 
 
 class _Span:
@@ -145,5 +172,27 @@ def counter(name: str, cat: str = "repro", **values: float) -> None:
         t.counter(name, values, cat)
 
 
+def _env_value() -> str:
+    return os.environ.get("REPRO_TRACE", "").strip()
+
+
+def _atexit_export() -> None:
+    val = _env_value()
+    if not _TRACER.events or val.lower() in ("", "0", "1", "true", "false"):
+        return
+    from .trace import export_spans
+    try:
+        export_spans(path=val)
+    except OSError:
+        pass  # tracing must never take the process down at exit
+
+
+_env = _env_value()
+if _env and _env.lower() not in ("0", "false"):
+    _TRACER.enabled = True
+    atexit.register(_atexit_export)
+
+
 __all__ = ["Tracer", "get_tracer", "enabled", "enable", "span",
-           "traced", "instant", "counter"]
+           "traced", "instant", "counter", "HOST_PID", "PH_COMPLETE",
+           "PH_INSTANT", "PH_COUNTER", "PH_METADATA"]

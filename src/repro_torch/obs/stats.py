@@ -1,5 +1,6 @@
-"""Percentiles and the latency summary (port of the part of
-``repro.obs.stats`` that ``ServingStats`` uses).
+"""Percentiles, median/MAD and the latency summary (port of
+``repro.obs.stats``): the one copy the serving stats, the load generator
+and the measured plan lanes use.
 
 Percentile ranks are on the 0–100 scale with linear interpolation
 (numpy's default); empty inputs yield ``None`` so summaries serialize
@@ -21,11 +22,25 @@ def percentile(xs: Sequence[float], q: float) -> float | None:
     return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
 
 
+def median(xs: Sequence[float]) -> float | None:
+    return percentile(xs, 50.0)
+
+
 def median_mad(samples: Sequence[float]) -> tuple[float, float]:
     """(median, median-absolute-deviation) of ``samples``."""
     s = np.asarray(samples, dtype=np.float64)
     med = float(np.median(s))
     return med, float(np.median(np.abs(s - med)))
+
+
+def dispersion(samples: Sequence[float]) -> float:
+    """MAD / median, the relative-noise score; 0.0 for empty or
+    all-zero input."""
+    s = [x for x in samples if x is not None]
+    if not s:
+        return 0.0
+    med, mad = median_mad(s)
+    return mad / med if med > 0 else 0.0
 
 
 def latency_summary(xs: Sequence[float], prefix: str = "") -> dict:
@@ -44,4 +59,5 @@ def latency_summary(xs: Sequence[float], prefix: str = "") -> dict:
             f"{prefix}n": len(xs)}
 
 
-__all__ = ["percentile", "median_mad", "latency_summary"]
+__all__ = ["percentile", "median", "median_mad", "dispersion",
+           "latency_summary"]

@@ -1,8 +1,5 @@
-"""Continuous-batching serving engine (port of ``repro.serving.engine``:
-the local path, and :func:`partition_for_serving`, which traces and
-partitions the paged decode step into a plan that
-``PartitionPlan.execute`` runs; the engine does not serve from a plan
-yet).
+"""Placement-aware continuous-batching serving engine (port of
+``repro.serving.engine``).
 
 The engine composes the paged KV storage (:mod:`.kvcache`), the
 admission / growth / preemption policy (:mod:`.scheduler`) and the model
@@ -11,9 +8,22 @@ host sync for the batch argmax, prefill attention through the
 flash-attention kernel), then one paged decode step over the block
 tables for every DECODE request.
 
-Correctness anchor: continuously-batched, paged greedy decode is
-token-for-token equal to the sequential reference for every request,
-under any admission order and any eviction/resume schedule.
+Two paths share the same step functions:
+
+* **local** (``plan=None``): the decode step runs eagerly on ``device``;
+* **plan-backed** (``plan=``): the decode step runs through
+  ``PartitionPlan.execute`` (on CUDA the compiled runtime replays the
+  plan's segments as CUDA graphs, one stream per PE), and each KV pool
+  leaf is allocated on the device of the PE the plan assigns its input
+  node (``kvcache.place_pools``). Prefill stays local on ``device``.
+  Build the plan with :func:`partition_for_serving`, then call
+  ``plan.serve(cfg, params)``, which reads the serving geometry back
+  out of the plan's metadata.
+
+Correctness anchor: plan-backed or local, continuously-batched, paged
+greedy decode is token-for-token equal to the sequential reference for
+every request, under any admission order and any eviction/resume
+schedule.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..models import decode_step, prefill_batched
 from ..obs.stats import latency_summary
+from ..tree import tree_flatten
 from . import kvcache
 from .kvcache import BlockAllocator
 from .scheduler import RequestState, Scheduler, ServingRequest
@@ -45,7 +56,8 @@ def _ceil_pow2(n: int, floor: int = 1) -> int:
 
 @dataclass
 class ServingStats:
-    """Engine counters + latency samples."""
+    """Engine counters + latency samples, mirrored into
+    ``PlanReport.serving`` for plan-backed engines."""
     submitted: int = 0
     admitted: int = 0              # prefill admissions (incl. resumes)
     preempted: int = 0             # eviction events
@@ -91,7 +103,7 @@ class ServingStats:
 
 
 class ServingEngine:
-    """Continuous-batching engine over a paged KV cache.
+    """Continuous-batching engine over a paged, placement-aware KV cache.
 
     Args:
         cfg, params: the model (attention-family archs; recurrent/
@@ -107,14 +119,27 @@ class ServingEngine:
             at ``max_len``.
         token_budget: max prompt tokens admitted per tick (an admission
             batch always takes at least one request regardless).
-        device: where the pools and the steps live; ``None`` means
-            ``cuda``, which raises on a machine without one.
+        device: where the pools, the prefill and the local decode step
+            live; ``None`` means ``cuda``, which raises on a machine
+            without one.
+        plan: a :class:`~repro_torch.api.PartitionPlan` produced by
+            :func:`partition_for_serving` with the same geometry; decode
+            then runs through ``plan.execute`` and the pools are placed
+            by the plan (a plan without a recorded program is bound to a
+            fresh trace of the decode step first).
+        devices / device_map / runtime: forwarded to ``plan.execute``
+            (``device_map`` folds PEs onto fewer devices).
+        trace: Chrome trace-event JSON path written at drain time: the
+            engine lane (admission batches, decode steps, pool-occupancy
+            counters) and one lane per request (queued+prefill and
+            decode spans, eviction markers); open in ui.perfetto.dev.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, block_size: int = 16,
                  num_blocks: int = 64, max_batch: int = 8,
                  max_len: int = 256, token_budget: int | None = None,
-                 device=None):
+                 device=None, plan=None, devices=None, device_map=None,
+                 runtime: str | None = None, trace: str | None = None):
         self.device = resolve_device(device)
         if max_len % block_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
@@ -148,6 +173,18 @@ class ServingEngine:
                                         self.device)
         self.stats = ServingStats()
         self.completed: dict[int, ServingRequest] = {}
+        # engine-local trace recording (independent of the global obs
+        # tracer): (kind, ts_s, dur_s, args) rows, exported at drain
+        self._trace_path = trace
+        self._trace_t0 = time.perf_counter()
+        self._trace_events: list[tuple] = []
+        if trace is not None:
+            self.scheduler.on_evict = self._record_evict
+        self.plan = plan
+        self.pool_devices: list | None = None
+        self.pool_pes: list[int] | None = None
+        if plan is not None:
+            self._bind_plan(plan, devices, device_map, runtime)
 
     # ------------------------------------------------------------- model
     def _decode_impl(self, params, pools, block_tables, tokens, lengths):
@@ -164,9 +201,34 @@ class ServingEngine:
         return logits, pools
 
     def _decode(self, block_tables, tokens, lengths) -> torch.Tensor:
-        logits, self.pools = self._decode_impl(
-            self.params, self.pools, block_tables, tokens, lengths)
+        if self.plan is None:
+            logits, self.pools = self._decode_impl(
+                self.params, self.pools, block_tables, tokens, lengths)
+        else:
+            logits, self.pools = self.plan.execute(
+                self.params, self.pools, block_tables, tokens, lengths,
+                **self._plan_execute_kw)
         return logits
+
+    def _bind_plan(self, plan, devices, device_map, runtime) -> None:
+        """Bind ``plan`` to this engine's decode step (retracing it when
+        the plan carries no program) and place the pools; ``_decode``
+        then runs through ``plan.execute``."""
+        from .. import api
+        traced = plan.traced
+        if traced is None or traced.program is None:
+            traced = api.trace(self._decode_impl,
+                               *self._decode_example_args(), record=True)
+            plan.bind(traced)
+        devs = plan._torch_devices(devices, device_map)
+        n_params = len(tree_flatten(self.params)[0])
+        self.pools, self.pool_devices = kvcache.place_pools(
+            plan, n_params, self.pools, devs)
+        prog = plan.traced.program
+        self.pool_pes = [int(plan.assignment[prog.input_nodes[n_params + i]])
+                         for i in range(len(self.pool_devices))]
+        self._plan_execute_kw = dict(devices=devices, device_map=device_map,
+                                     runtime=runtime)
 
     def _decode_example_args(self):
         """Example inputs fixing the decode step's (static) shapes."""
@@ -276,19 +338,44 @@ class ServingEngine:
                 self._finish(req)
         return len(batch)
 
+    def _record_evict(self, req: ServingRequest) -> None:
+        self._trace_events.append(
+            ("evict", time.perf_counter(), 0.0,
+             {"rid": req.rid, "evictions": req.evictions,
+              "generated": len(req.output)}))
+
     def tick(self) -> int:
         """One engine step: admit+prefill, then decode every active
         request by one token. Returns the number of requests advanced."""
         self.stats.ticks += 1
+        rec = self._trace_path is not None
         admits = self.scheduler.schedule_admissions()
         if admits:
+            t0 = time.perf_counter() if rec else 0.0
             with _obs.span("serving/prefill_batch"):
                 self._run_prefill(admits)
+            if rec:
+                self._trace_events.append(
+                    ("prefill_batch", t0, time.perf_counter() - t0,
+                     {"admitted": len(admits),
+                      "tokens": int(sum(len(a.prompt) for a in admits)),
+                      "rids": [a.req.rid for a in admits]}))
+        t1 = time.perf_counter() if rec else 0.0
         with _obs.span("serving/decode_step"):
             decoded = self._run_decode()
+        if rec and decoded:
+            self._trace_events.append(
+                ("decode_step", t1, time.perf_counter() - t1,
+                 {"batch": decoded}))
         self.stats.peak_active = max(self.stats.peak_active,
                                      len(self.scheduler.active))
         self.stats.peak_blocks_in_use = self.allocator.peak_in_use
+        if rec:
+            self._trace_events.append(
+                ("counter", time.perf_counter(), 0.0,
+                 {"blocks_in_use": self.allocator.num_in_use,
+                  "active": len(self.scheduler.active),
+                  "waiting": len(self.scheduler.waiting)}))
         if _obs.enabled():
             _obs.counter("serving/pool", "serving",
                          blocks_in_use=self.allocator.num_in_use,
@@ -307,11 +394,62 @@ class ServingEngine:
                 raise RuntimeError(f"exceeded max_ticks={max_ticks}")
         self.scheduler.check_invariants()
         self.stats.leaked_blocks = self.allocator.num_in_use
+        if self.plan is not None:
+            self.plan.report.serving = self.stats.to_dict()
+        if self._trace_path is not None:
+            self.write_trace(self._trace_path)
         return self.completed
+
+    def write_trace(self, path: str) -> str:
+        """Export the recorded serving trace: one engine lane
+        (admission batches, decode steps, pool-occupancy counters) plus
+        one lane per completed request (queued+prefill span from
+        arrival to first token, decode span to the last token, eviction
+        markers)."""
+        from ..obs.trace import SERVING_PID, TraceBuilder
+        b = TraceBuilder()
+        b.process(SERVING_PID, "serving")
+        b.thread(SERVING_PID, 0, "engine")
+        t0 = self._trace_t0
+
+        def us(t: float) -> float:
+            return (t - t0) * 1e6
+
+        for kind, ts, dur, args in self._trace_events:
+            if kind == "counter":
+                b.counter(SERVING_PID, 0, "pool", us(ts), args,
+                          cat="serving")
+            elif kind == "evict":
+                b.instant(SERVING_PID, 1 + int(args["rid"]), "evicted",
+                          us(ts), cat="serving", args=args)
+            else:
+                b.complete(SERVING_PID, 0, kind, us(ts), dur * 1e6,
+                           cat="serving", args=args)
+        for rid, req in sorted(self.completed.items()):
+            tid = 1 + rid
+            b.thread(SERVING_PID, tid, f"request {rid}")
+            if req.first_token_s is None:
+                continue
+            b.complete(SERVING_PID, tid, "queued+prefill",
+                       us(req.arrival_s),
+                       (req.first_token_s - req.arrival_s) * 1e6,
+                       cat="serving",
+                       args={"rid": rid, "prompt_tokens": len(req.prompt),
+                             "admissions": req.admissions})
+            if len(req.token_times) > 1:
+                b.complete(SERVING_PID, tid, "decode",
+                           us(req.first_token_s),
+                           (req.token_times[-1] - req.first_token_s) * 1e6,
+                           cat="serving",
+                           args={"rid": rid, "tokens": len(req.output),
+                                 "evictions": req.evictions})
+        if _obs.enabled():
+            b.add_spans()
+        return b.save(path)
 
 
 # ---------------------------------------------------------------------------
-# plan construction
+# plan-backed construction
 # ---------------------------------------------------------------------------
 def serving_geometry(block_size: int = 16, num_blocks: int = 64,
                      max_batch: int = 8, max_len: int = 256) -> dict:
@@ -323,13 +461,14 @@ def partition_for_serving(cfg: ModelConfig, params, *, devices,
                           memory=None, options=None, meta=None,
                           device=None, **geometry):
     """Trace the paged decode step for ``(cfg, params)`` at the given
-    serving geometry and partition it into a
+    serving geometry and partition it into a deployable
     :class:`~repro_torch.api.PartitionPlan`.
 
     ``params`` live on ``device`` (``None`` means ``cuda``), where the
     engine allocates its pools; the trace runs no step. The geometry is
-    recorded in ``plan.meta["serving"]`` and the graph fingerprint
-    ties the plan to it. ``plan.meta["static_argnums"]`` is ``[0]``: the
+    recorded in ``plan.meta["serving"]``, so ``plan.serve(cfg, params)``
+    rebuilds the engine the plan was computed for, and the graph
+    fingerprint ties the plan to it. ``plan.meta["static_argnums"]`` is ``[0]``: the
     compiled runtime reads the parameters in place and copies the
     step's other inputs into buffers of its own.
     """

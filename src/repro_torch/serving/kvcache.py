@@ -1,6 +1,6 @@
-"""Paged KV cache: fixed-size blocks, a free-list allocator and per-request
-block tables (port of ``repro.serving.kvcache``, without the plan-backed
-placement, which comes with the plan path).
+"""Paged KV cache: fixed-size blocks, a free-list allocator, per-request
+block tables and placement-aware residency (port of
+``repro.serving.kvcache``).
 
 The cache of every attention layer is a pool whose leading axes are
 ``(num_blocks, block_size)`` instead of ``(batch, max_len)``: the pools
@@ -19,12 +19,16 @@ The decode step per tick:
 The reference donates the pools to its jitted step and gets new ones
 back; here :func:`scatter_token` and :func:`write_prompt` update the
 pool tensors in place, which is what donation bought there.
+
+Under a plan (:func:`place_pools`) each pool leaf lives on the device of
+the PE the plan assigns the leaf's input node; the helpers above move
+what they write to the pool's device.
 """
 from __future__ import annotations
 
 import torch
 
-from ..tree import tree_map_with_path
+from ..tree import tree_flatten, tree_map_with_path, tree_unflatten
 
 #: block id every unallocated table entry (and padded row) points at
 NULL_BLOCK = 0
@@ -219,16 +223,44 @@ def write_prompt(pools, blocks: list[int], dense_caches, row: int,
             src = drow[pre + (slice(0, nfull * block_size),)]
             src = src.reshape(src.shape[:b] + (nfull, block_size)
                               + src.shape[b + 1:])
-            pool[pre + (ids,)] = src.to(pool.dtype)
+            pool[pre + (ids,)] = src.to(pool.device, pool.dtype)
         if rem:
             lo = nfull * block_size
             pool[pre + (blocks[nfull], slice(0, rem))] = \
-                drow[pre + (slice(lo, plen),)].to(pool.dtype)
+                drow[pre + (slice(lo, plen),)].to(pool.device, pool.dtype)
         return pool
     return tree_map_with_path(one, pools, dense_caches)
+
+
+# ---------------------------------------------------------------------------
+# placement-aware residency
+# ---------------------------------------------------------------------------
+def resolve_pool_devices(plan, n_params_leaves: int, pools,
+                         devices: list) -> list:
+    """Device for every pool leaf under ``plan``: the device of the PE
+    the plan assigns the leaf's graph input node to.
+
+    The traced decode function's flat inputs are
+    ``(params..., pools..., block_tables, tokens, lengths)``, so pool
+    leaf ``i`` is input node ``input_nodes[n_params_leaves + i]``.
+    """
+    prog = plan.traced.program
+    n = len(tree_flatten(pools)[0])
+    return [devices[int(plan.assignment[
+        prog.input_nodes[n_params_leaves + i]])] for i in range(n)]
+
+
+def place_pools(plan, n_params_leaves: int, pools, devices: list):
+    """Move every pool leaf onto its plan-resolved device. Returns
+    (placed_pools, leaf_devices)."""
+    devs = resolve_pool_devices(plan, n_params_leaves, pools, devices)
+    leaves, structure = tree_flatten(pools)
+    placed = [leaf.to(d) for leaf, d in zip(leaves, devs)]
+    return tree_unflatten(structure, placed), devs
 
 
 __all__ = [
     "NULL_BLOCK", "OutOfBlocks", "BlockAllocator", "supported_reason",
     "init_pools", "gather_pages", "scatter_token", "write_prompt",
+    "resolve_pool_devices", "place_pools",
 ]
