@@ -9,8 +9,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 1. card (always run): the card's name and power limit, as nvidia-smi
    reports them;
 2. build: every CUDA kernel of the port (flash attention, RWKV6), from
-   the sources in this checkout, into ``build/repro_torch_kernels/``,
-   one nvcc per kernel, all started together;
+   the sources in this checkout, into ``build/repro_torch_kernels/``:
+   one nvcc per source file, all started together, then one link per
+   library;
 3. kernels: flash attention against its plain PyTorch version at the
    reference's test shapes, at the granite-8b prefill shape (in float32
    as well) and at the edges of the bf16 Hopper kernel (``sm90``:
@@ -109,6 +110,28 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    plan-served and local tok/s, TTFT p50 and decode ms side by side,
    segments, capture seconds and max_memory_allocated beside the card's
    name and power limit.
+12. train: granite-8b's training step at full width (bf16, random
+   weights from a seed, B=1, S=2048, SGD at lr 1e-3): (a) both flash
+   backward kernels (``mma``: bf16 at hd 64/128; ``fma``: the rest, and
+   every bf16 case too) against the plain backward run in float32 on the
+   same inputs (BWD_CASES: the training shape in bf16 and float32, hd
+   64 at repro-lm-100m widths, ragged S, window, q_offset, softcap,
+   G = 1 and 4, fully masked rows), repeated calls bit-equal; at the
+   training shape both kernels, the plain version and SDPA's backward
+   timed in turns beside the bound; (b) the eager step at the depth the
+   printed memory arithmetic allows (36 layers on an 80 GB card): loss
+   near ln V, L forward (all sm90) and L backward (all mma) launches,
+   step ms, tokens/s, peak memory, device busy under torch.profiler; (c)
+   the 12-layer step traced on fake tensors (no ``select_backward``, no
+   whole-stack op but the restacks, product FLOPs equal to the config's
+   count), partitioned at K=4 under a generous and a tight cap,
+   verified, saved, loaded and bound; the verified plan executed with
+   its PEs folded onto the card (async = sync over 3 calls, loss, new
+   parameters and every grad leaf bit-equal to the eager step or within
+   TRAIN_GATE), K=1 the same, the interpreter at 4 layers against
+   compiled; wall, device time, segments, capture, replays, peaks per PE
+   beside the plan's and the certificate, measured against predicted
+   makespan.
 
 ``--phases`` (a comma list of the names in ``PHASES``; default all) runs
 a subset, for iterating on one kernel; the card's name is always read.
@@ -125,6 +148,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -302,7 +326,8 @@ def phase_card() -> str:
 
 
 def phase_build(libs: dict, build) -> float:
-    """Build every kernel library at once (one nvcc each, in threads)."""
+    """Build every kernel library at once (in threads; each library
+    compiles its sources in parallel nvcc processes)."""
     def timed(ops):
         t0 = time.perf_counter()
         ops.load()
@@ -1811,9 +1836,576 @@ def phase_plan_serve(torch, cfg, plan_path: Path, work: Path,
     return launches
 
 
+# ------------------------------------------------------------------ train
+#: the training cell: full granite-8b width, one sequence of 2048 tokens,
+#: SGD at the reference conformance's lr; the eager step at full depth
+#: when the printed arithmetic fits the card, the plan path at 12 layers
+#: (its runtime holds the outputs in its pools and returns clones), the
+#: interpreter (every intermediate kept) at 4
+TRAIN = dict(batch=1, seq=2048, lr=1e-3, plan_layers=12, interp_layers=4)
+#: the backward kernel's cases: the training shape in both dtypes, then
+#: the edges
+BWD_CASES = [
+    # (B, H, KV, Sq, Sk, hd, causal, window, q_offset, softcap, dtype)
+    (1, 32, 8, 2048, 2048, 128, True, None, 0, 0.0, "bfloat16"),
+    (1, 32, 8, 2048, 2048, 128, True, None, 0, 0.0, "float32"),
+    (8, 12, 4, 1024, 1024, 64, True, None, 0, 0.0, "bfloat16"),  # lm-100m
+    (2, 4, 2, 1000, 1000, 128, True, None, 0, 0.0, "bfloat16"),  # ragged
+    (2, 8, 2, 1024, 1024, 128, True, 256, 0, 0.0, "bfloat16"),   # window
+    (2, 8, 2, 512, 1024, 128, True, None, 512, 0.0, "bfloat16"),  # offset
+    (2, 8, 2, 512, 512, 128, True, None, 0, 30.0, "bfloat16"),   # softcap
+    (1, 8, 8, 256, 256, 64, True, None, 0, 0.0, "bfloat16"),     # G = 1
+    (1, 16, 4, 256, 256, 64, False, None, 0, 0.0, "float32"),    # G = 4
+    (1, 4, 2, 128, 128, 64, True, 64, 100, 0.0, "float32"),      # masked
+]
+# The backward kernels against their plain version run in float32 on the
+# same inputs: max |kernel - plain| <= gate x max |plain|, per gradient.
+# float32: sums in another order. bf16: the outputs rounded to bf16 (2^-9
+# of the scale), D = rowsum(dO o O) taken from the bf16 forward output
+# (up to 3.6e-3 of dq's scale in a CPU check of the formula) and, in the
+# mma kernel, P and dS rounded to bf16 for its products: two bf16 steps.
+BWD_GATE = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
+# compiled against the eager step, per leaf: bit-equal, or else within
+# one bf16 step of the leaf's largest magnitude (the eager step's
+# autograd engine may sum a gradient's parts in another order)
+TRAIN_GATE = 2.0 ** -7
+#: the kernels' names in a profile: the sm90 and fma forwards, and the
+#: backwards' last kernel (one per backward launch: bwd_dq_mma, bwd_dq)
+FWD_KERNELS = ("flash_fwd_sm90", "flash_fwd_kernel")
+BWD_KERNEL = "bwd_dq"
+
+
+def _hold_bwd(torch, label, got, again, want, dt) -> tuple:
+    """A backward kernel's (dq, dk, dv) against the plain version's:
+    each within BWD_GATE x its max |plain|, finite, and a repeated call
+    bit-equal. Returns (worst error / gate, max abs error)."""
+    ratios, errs = [], []
+    for a, w in zip(got, want):
+        errs.append(float((a.float() - w).abs().max()))
+        ratios.append(errs[-1] / (BWD_GATE[dt] * max(float(w.abs().max()),
+                                                     1e-30)))
+    rep = all(torch.equal(a, b) for a, b in zip(got, again))
+    fin = all(bool(torch.isfinite(a).all()) for a in got)
+    ok = rep and fin and max(ratios) <= 1
+    log(f"kernel flash_attention_bwd {label}: error / gate (dq, dk, dv) "
+        f"[{', '.join(f'{r:.3g}' for r in ratios)}] (gate "
+        f"{BWD_GATE[dt]:.3g} x max |plain|), max abs err {max(errs):.3g}; "
+        f"repeated call bit-equal {rep} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain "
+                             f"version at {label}")
+    return max(ratios), max(errs)
+
+
+def phase_train_kernel(torch, ops, ref) -> dict:
+    """Both backward kernels against the plain version at every case of
+    BWD_CASES (the forward kernel's output as ``out``): the one
+    ``select_bwd_variant`` names, and in bf16 the first kernel (``fma``)
+    too; repeated calls bit-equal. Then at the training shape the mma
+    kernel, the fma kernel, the plain version and SDPA's backward (a
+    yardstick the port never calls) timed in turns beside the bound.
+    Returns the mma kernel's record (launches filled in by the eager
+    step)."""
+    import torch.nn.functional as F
+    worst = {}
+    counts = ops.flash_attention_bwd.variant_launches
+    for i, case in enumerate(BWD_CASES):
+        B, H, KV, Sq, Sk, hd, causal, window, q_offset, softcap, dt = case
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        dtype = getattr(torch, dt)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+        q, k, v, do = (rnd(B, Sq, H, hd), rnd(B, Sk, KV, hd),
+                       rnd(B, Sk, KV, hd), rnd(B, Sq, H, hd))
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  softcap=softcap)
+        out = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_bwd_ref(do.float(), q.float(), k.float(),
+                                           v.float(), **kw)
+        variant = ops.select_bwd_variant(dtype, hd)
+        before = counts[variant]
+        got = ops.flash_attention_bwd(do, q, k, v, out, **kw)
+        again = ops.flash_attention_bwd(do, q, k, v, out, **kw)
+        assert counts[variant] == before + 2, f"{case} did not run {variant}"
+        worst[(case, variant)] = _hold_bwd(torch, f"{case} [{variant}]", got,
+                                           again, want, dt)
+        if variant != "fma":
+            got = ops.run_bwd_variant("fma", do, q, k, v, out, **kw)
+            again = ops.run_bwd_variant("fma", do, q, k, v, out, **kw)
+            worst[(case, "fma")] = _hold_bwd(torch, f"{case} [fma]", got,
+                                             again, want, dt)
+        del q, k, v, do, out, got, again, want
+    log(f"kernel flash_attention_bwd: worst error / gate "
+        f"{max(r for r, _ in worst.values()):.3g} over {len(worst)} "
+        f"(case, kernel) pairs")
+
+    B, H, KV, S, hd, causal, window, q_offset, softcap, dt = \
+        BWD_CASES[0][:4] + BWD_CASES[0][5:]
+    assert ops.select_bwd_variant(torch.bfloat16, hd) == "mma"
+    g = torch.Generator(device="cuda").manual_seed(300)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                   for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd), (B, S, H, hd)))
+    out = ops.flash_attention(q, k, v, causal=True)
+    # SDPA on (B, H, S, hd) with GQA; its backward alone is timed
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+    ms = timed_turns(torch, {
+        "mma": lambda: ops.flash_attention_bwd(do, q, k, v, out,
+                                               causal=True),
+        "fma": lambda: ops.run_bwd_variant("fma", do, q, k, v, out,
+                                           causal=True),
+        "plain": lambda: ref.flash_attention_bwd_ref(do, q, k, v,
+                                                     causal=True),
+        "sdpa": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                            retain_graph=True),
+    }, reps={"fma": 3, "plain": 2})
+    pairs = visible_pairs(S, S, True, None)
+    flops = 8 * B * H * hd * pairs
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v)) + \
+        2 * out.numel() * out.element_size()
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    log(f"timing flash_attention_bwd at the training shape {BWD_CASES[0]}, "
+        f"in turns: mma {ms['mma']:.4f} ms "
+        f"({flops / ms['mma'] / 1e9:.1f} TFLOP/s), fma {ms['fma']:.4f} ms "
+        f"({flops / ms['fma'] / 1e9:.1f} TFLOP/s), plain {ms['plain']:.4f} "
+        f"ms, sdpa backward {ms['sdpa']:.4f} ms "
+        f"({flops / ms['sdpa'] / 1e9:.1f} TFLOP/s); bound "
+        f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP of the four "
+        f"backward products on {pairs} visible pairs, {nbytes / 2**20:.1f} "
+        f"MiB)")
+    record = {
+        "name": "flash_attention_bwd", "variant": "mma", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd_mma.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
+        "note": "the gradient of that kernel; the reference has no "
+                "backward kernel (it differentiates models/layers.py:259 "
+                "_plain_gqa)",
+        "launches": None, "variant_launches": None,
+        "max_abs_err": worst[(BWD_CASES[0], "mma")][1],
+        "gate_ratio": max(r for r, _ in worst.values()),
+        "ms": ms["mma"], "plain_ms": ms["plain"],
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": ms["sdpa"],
+        "earlier_ms": ms["fma"],
+        "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention_bwd.cu",
+    }
+    del q, k, v, do, out, qt, kt, vt, lib_out, dot
+    _release(torch)
+    return record
+
+
+def _train_batch(torch, cfg, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (TRAIN["batch"], TRAIN["seq"])
+    return {k: torch.randint(0, cfg.vocab_size, shape, generator=g,
+                             device="cuda", dtype=torch.int32)
+            for k in ("tokens", "targets")}
+
+
+def train_dot_flops(cfg, batch: int, seq: int) -> float:
+    """Product FLOPs of one training step from the config: 3 x 2·T·(the
+    matmul parameters, lm head included) and, per layer, the attention's
+    dense products, 4·B·H·S²·hd forward and 8·B·H·S²·hd backward (priced
+    as the reference's graph prices its ``_plain_gqa``)."""
+    T = batch * seq
+    per_layer = (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim)
+                 + cfg.q_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+    mm = cfg.num_layers * per_layer + cfg.d_model * cfg.padded_vocab
+    attn = 12.0 * batch * cfg.num_heads * seq ** 2 * cfg.head_dim
+    return 6.0 * T * mm + cfg.num_layers * attn
+
+
+def _profile_step(torch, label: str, fn) -> dict:
+    """One call of ``fn`` under torch.profiler (after two warm-up
+    calls): wall and device-busy ms, the top kernels, and the flash
+    launches by kernel name (they count replays of captured graphs,
+    which the wrappers' counters do not)."""
+    from torch.profiler import ProfilerActivity
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    counts = {name: sum(e.count for e in evs if name in e.key)
+              for name in FWD_KERNELS + (BWD_KERNEL,)}
+    log(f"profile {label}: wall {host_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({busy_ms / host_ms:.1%}), "
+        f"{sum(e.count for e in evs)} kernels; flash launches by name "
+        f"{counts}")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
+            f"{e.key[:90]}")
+    return {"wall_ms": host_ms, "busy_ms": busy_ms, "counts": counts}
+
+
+def _train_leaves(out) -> list:
+    from repro_torch.tree import tree_flatten
+    return tree_flatten(out)[0]
+
+
+def _hold_train(torch, label: str, got, want) -> bool:
+    """(loss, new params, grads) against the eager step's: every leaf
+    finite, and bit-equal or within TRAIN_GATE x its max |eager|.
+    Returns whether every leaf was bit-equal."""
+    g, w = _train_leaves(got), _train_leaves(want)
+    assert len(g) == len(w), f"{label}: {len(g)} leaves against {len(w)}"
+    bits, worst = 0, 0.0
+    for a, b in zip(g, w):
+        if torch.equal(a, b):
+            bits += 1
+            continue
+        scale = float(b.float().abs().max())
+        worst = max(worst, float((a.float() - b.float()).abs().max())
+                    / (TRAIN_GATE * max(scale, 1e-30)))
+    fin = all(bool(torch.isfinite(a.float()).all()) for a in g)
+    ok = fin and worst <= 1
+    log(f"train {label}: {bits} of {len(g)} leaves (loss, new params, "
+        f"grads) bit-equal to the eager step; worst other leaf error / "
+        f"(2^-7 x max |eager|) {worst:.3g}; loss {float(g[0]):.6f} "
+        f"against {float(w[0]):.6f} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"train {label}: compiled disagrees with the "
+                             f"eager step")
+    return bits == len(g)
+
+
+def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
+                     layers: int) -> dict:
+    """A training plan folded onto the card: async = sync over 3 calls,
+    against the eager step, every segment a replay; then times, device
+    time, counters, peaks beside the plan's and the certificate, and one
+    measured timeline beside the predicted makespan."""
+    fold = [0] * plan.k
+    rep = plan.verify(strict=True)
+    c = rep.counts()
+    log(f"train {label}: verified {c['error']}E/{c['warn']}W/{c['info']}I; "
+        f"{_release(torch):.3f} GiB allocated before the first call")
+
+    def run(mode):
+        return plan.execute(params, batch, device_map=fold, mode=mode,
+                            static_argnums=(0,))
+    torch.cuda.reset_peak_memory_stats()
+    first = run("sync")
+    first_peak = torch.cuda.max_memory_allocated()
+    st = plan._compiled_runtime[1].stats
+    same = all(torch.equal(a, b) for mode in ("async", "sync") * 3
+               for a, b in zip(_train_leaves(run(mode)),
+                               _train_leaves(first)))
+    log(f"train {label}: {st.num_segments} segments "
+        f"{st.segments_per_device} per PE, capture {st.compile_seconds:.2f} "
+        f"s; async x3 and sync x3 bit-equal to the first call: {same}")
+    if not same:
+        raise AssertionError(f"train {label}: sync and async dispatch "
+                             f"disagree")
+    if not (st.graph_replays == st.num_segments and st.eager_segments == 0):
+        raise AssertionError(f"train {label}: {st.graph_replays} replays "
+                             f"and {st.eager_segments} eager segments for "
+                             f"{st.num_segments} segments")
+    bit = _hold_train(torch, label, first, want)
+    del first
+    ms = {"compiled async": _wall_ms(torch, lambda: run("async"), n=5),
+          "compiled sync": _wall_ms(torch, lambda: run("sync"), n=5),
+          "eager": _wall_ms(torch, eager_fn, n=5)}
+    prof = {name: _profile_step(torch, f"train {label} {name}", fn)
+            for name, fn in (("compiled async", lambda: run("async")),
+                             ("eager", eager_fn))}
+    # a report, not a gate: inside one long graph replay the profiler
+    # has been seen to miss launches (10 of 12 forwards at K=1, while
+    # every leaf was bit-equal to the eager step, which launches 12)
+    counts = prof["compiled async"]["counts"]
+    log(f"train {label}: flash launches per step in the profile "
+        f"{counts} (the step has {layers} attention layers)")
+    with tempfile.TemporaryDirectory() as tmp:
+        plan.execute(params, batch, device_map=fold, static_argnums=(0,),
+                     trace=f"{tmp}/train.trace.json")
+    measured = st.timeline()["makespan_s"]
+    cert, _ = _certificate(plan)
+    gib = 2 ** 30
+    log(f"train {label}: median wall of 5 calls " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in ms.items())
+        + f"; {st.graph_replays} graph replays per step; measured makespan "
+        f"{measured * 1e3:.3f} ms (CUDA events) against the predicted "
+        f"{plan.makespan * 1e3:.3f} ms; transfers {st.transfers} "
+        f"({st.transfer_bytes / 2**20:.1f} MiB, {st.aliased_reads} aliased), "
+        f"input copies {st.input_copies}, output clones "
+        f"{st.output_clone_bytes / gib:.3f} GiB, {st.reuse_waits} reuse "
+        f"waits")
+    log(f"train {label}: logical peak per PE [" + ", ".join(
+        f"{x / gib:.3f}" for x in st.peak_live_bytes) + "] GiB; plan [" +
+        ", ".join(f"{x / gib:.3f}" for x in plan.peak_mem) +
+        "]; certificate [" + ", ".join(f"{x / gib:.3f}" for x in cert) +
+        f"]; max_memory_allocated first call {first_peak / gib:.3f} GiB")
+    return {"ms": ms, "prof": prof, "segments": st.num_segments,
+            "capture_s": st.compile_seconds, "bit": bit,
+            "measured_ms": measured * 1e3, "predicted_ms": plan.makespan * 1e3}
+
+
+def phase_train(torch, ops, ref, cfg, card: str) -> dict:
+    """The training main path at full granite-8b width (bf16, random
+    weights from a seed, B=1, S=2048, SGD): (a) the backward kernel
+    against its plain version and timed; (b) the eager step at the depth
+    the printed arithmetic allows, with its launch counts; (c) ParDNN on
+    the traced step at TRAIN["plan_layers"] layers: the graph's gates,
+    K=4 under a generous and a tight cap, the verified plan executed
+    folded onto the card against the eager step, K=1 the same, the
+    interpreter at TRAIN["interp_layers"] against compiled, save / load /
+    bind. Returns the backward kernel's record."""
+    from repro_torch import api
+    from repro_torch.conformance import make_train_step
+    from repro_torch.core.costmodel import H100
+    from repro_torch.core.graph import RESIDUAL
+    from repro_torch.core.tracing import _functional_graph, op_name
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_flatten
+    record = phase_train_kernel(torch, ops, ref)
+    B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    gb = 1e9
+
+    # (b) the eager step: its depth from the arithmetic
+    total = torch.cuda.get_device_properties(0).total_memory
+    batch = _train_batch(torch, cfg, seed=2)
+
+    def params_bytes(layers: int) -> float:
+        """bf16 projections, float32 norm scales, embedding and head."""
+        c = cfg
+        per_layer = 2 * (c.d_model * (c.q_dim + 2 * c.kv_dim) + c.q_dim *
+                         c.d_model + 3 * c.d_model * c.d_ff) + 8 * c.d_model
+        return float(layers * per_layer + 4 * c.padded_vocab * c.d_model
+                     + 4 * c.d_model)
+
+    def step_peak(layers: int) -> float:
+        """max_memory_allocated over an eager step at this depth (its
+        second call), parameters included."""
+        c = dataclasses.replace(cfg, num_layers=layers)
+        p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                        "cuda")
+        st = make_train_step(c, lr)
+        st(p, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st(p, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del p, st
+        _release(torch)
+        return float(peak)
+    p1, p0 = params_bytes(1), params_bytes(0)
+    peaks = {n: step_peak(n) for n in (2, 4)}
+    slope = (peaks[4] - peaks[2]) / 2
+    layers = cfg.num_layers
+    need = peaks[2] + slope * (layers - 2)
+    log(f"train: depth arithmetic: parameters P(L) = {(p1 - p0) / gb:.4f} L "
+        f"+ {p0 / gb:.4f} GB; the eager step holds about 3P (parameters, "
+        f"grads, new parameters) plus the activations: measured peaks "
+        f"{peaks[2] / gb:.3f} GB at 2 layers and {peaks[4] / gb:.3f} GB at 4, "
+        f"{slope / gb:.3f} GB a layer ({(slope - 3 * (p1 - p0)) / gb:.3f} of "
+        f"it beyond 3P), so {need / gb:.2f} GB at {layers} layers of the "
+        f"card's {total / gb:.2f} GB; the plan path also holds the grads as "
+        f"outputs and returns clones (about 2P more): at "
+        f"{TRAIN['plan_layers']} layers P = "
+        f"{(p0 + TRAIN['plan_layers'] * (p1 - p0)) / gb:.2f} GB")
+    if need > 0.9 * total:
+        layers = 2 + int((0.9 * total - peaks[2]) // slope)
+        log(f"train: the eager step does not fit at {cfg.num_layers} "
+            f"layers: cut to {layers}")
+    deep = dataclasses.replace(cfg, num_layers=layers)
+    params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    step = make_train_step(deep, lr)
+    step(params, batch)                 # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, new = step(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del new
+    want = {"flash_attention": layers, "flash_attention/sm90": layers,
+            "flash_attention_bwd": layers, "flash_attention_bwd/mma": layers,
+            "wkv6": 0}
+    got = {k: launches[k] for k in want}
+    log(f"train eager: {layers} layers, loss {float(loss):.4f} (ln "
+        f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}), launches "
+        f"{got}, max_memory_allocated {peak / 2**30:.3f} GiB, "
+        f"one step {first_s * 1e3:.1f} ms")
+    assert got == want, f"train eager: launches {got}, expected {want}"
+    assert math.isfinite(float(loss)) and \
+        abs(float(loss) - math.log(cfg.vocab_size)) < 2, \
+        f"train eager: loss {float(loss)} far from ln V at init"
+    step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
+    prof = _profile_step(torch, f"train eager {layers} layers B={B} S={S}",
+                         lambda: step(params, batch))
+    log(f"train eager: median step {step_ms:.2f} ms, "
+        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
+        f"{prof['busy_ms']:.2f} ms of {prof['wall_ms']:.2f} ms "
+        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); {card}")
+    record["launches"] = launches["flash_attention_bwd"]
+    record["variant_launches"] = {
+        v: launches[f"flash_attention_bwd/{v}"] for v in ops.BWD_VARIANTS}
+    del params, step, loss
+    _release(torch)
+
+    # (c) ParDNN on the traced step
+    L = TRAIN["plan_layers"]
+    mid = dataclasses.replace(cfg, num_layers=L)
+    params = init_params(mid, torch.Generator(device="cuda").manual_seed(3),
+                         "cuda")
+    step = make_train_step(mid, lr, return_grads=True)
+    t0 = time.perf_counter()
+    traced = api.trace(step, params, batch, record=True, autograd=True)
+    trace_s = time.perf_counter() - t0
+    g = traced.graph
+    names = [n.split(".")[0] for n in g.names]
+    res_bytes = float(g.mem[g.ntype == RESIDUAL].sum())
+    transient = float(g.mem[g.ntype != RESIDUAL].max())
+    dot, want_dot = float(g.op_dot_flops.sum()), train_dot_flops(mid, B, S)
+    # the aten graph's shapes (a second trace): which ops make a tensor
+    # of a whole stacked leaf's shape; sizes alone coincide at this
+    # width (the embedding, the logits and a stacked wq are 402,653,184
+    # bytes each at 12 layers)
+    gm, _ = _functional_graph(step, (params, batch), autograd=True)
+    stacked = [tuple(t.shape) for t in tree_flatten(params["periods"])[0]]
+    whole = sorted(op_name(n.target) for n in gm.graph.nodes
+                   if n.op == "call_function"
+                   and isinstance(n.meta.get("val"), torch.Tensor)
+                   and tuple(n.meta["val"].shape) in stacked)
+    del gm
+    log(f"train plan: traced the {L}-layer step on cuda in {trace_s:.2f} s: "
+        f"{g.n} nodes, {names.count('flash_attention')} flash forward and "
+        f"{names.count('flash_attention_bwd')} backward nodes, "
+        f"{names.count('select_backward')} select_backward, "
+        f"{len(whole)} ops of a stacked leaf's shape ({sorted(set(whole))}"
+        f", {len(stacked)} stacked leaves), RESIDUAL {res_bytes / 2**30:.3f} "
+        f"GiB, largest transient {transient / 2**30:.3f} GiB; product FLOPs "
+        f"{dot:.6g} (from the config {want_dot:.6g}), all FLOPs "
+        f"{g.op_flops.sum():.6g}")
+    assert names.count("flash_attention") == L and \
+        names.count("flash_attention_bwd") == L
+    assert "select_backward" not in names, "the step differentiates through " \
+        "the stacked periods"
+    assert whole == ["stack"] * len(stacked), \
+        f"whole-stack nodes other than the restacks: {whole}"
+    assert dot == want_dot, f"product FLOPs {dot} != {want_dot}"
+
+    k = 4
+    caps = {"generous": total / 2,
+            "tight": 1.2 * (res_bytes + transient) / k}
+    meta = {"arch": cfg.name, "layers": L, "static_argnums": [0]}
+    plans, accepted = {}, {}
+    for label, cap in caps.items():
+        t0 = time.perf_counter()
+        plan = api.partition(traced, devices=k, memory=cap, meta=meta)
+        part_s = time.perf_counter() - t0
+        a = plan.assignment
+        assert a.shape == (g.n,) and a.min() >= 0 and a.max() < k
+        cut = sum((c - H100.link_latency) * H100.link_bw
+                  for u in range(g.n) for v, c in g.out_edges[u]
+                  if a[u] != a[v])
+        rep = plan.verify()
+        cnt = rep.counts()
+        cert, segments = _certificate(plan)
+        log(f"train plan: K={k} {label} cap {cap / 2**30:.3f} GiB per PE: "
+            f"partition {part_s:.2f} s, feasible={plan.feasible}, peaks ["
+            + ", ".join(f"{p / 2**30:.3f}" for p in plan.peak_mem)
+            + f"] GiB, cut {cut / 2**20:.1f} MiB, makespan "
+            f"{plan.makespan * 1e3:.3f} ms; verified {cnt['error']}E/"
+            f"{cnt['warn']}W/{cnt['info']}I ({segments} segments, "
+            f"certificate [" + ", ".join(f"{x / 2**30:.3f}" for x in cert)
+            + "] GiB)" + "".join(f"; {d}" for d in rep.errors[:2]))
+        plans[label] = plan
+        if not rep.has_errors():
+            accepted[label] = plan
+    assert "generous" in accepted, "the verifier refuses the generous plan"
+    # the tight plan where ParDNN found it feasible and the verifier agrees
+    label = "tight" if "tight" in accepted and plans["tight"].feasible \
+        else "generous"
+    plan = accepted[label]
+    path = f"{tempfile.mkdtemp()}/train.plan.json"
+    loaded = api.PartitionPlan.load(plan.save(path), traced=traced)
+    assert np.array_equal(loaded.assignment, plan.assignment) and \
+        loaded.meta["static_argnums"] == [0]
+    log(f"train plan: the {label}-cap plan saved, loaded and bound: "
+        f"fingerprint and assignment equal")
+    del plans, accepted, loaded
+
+    want = step(params, batch)
+    again = step(params, batch)
+    eager_det = all(torch.equal(a, b) for a, b in
+                    zip(_train_leaves(want), _train_leaves(again)))
+    log(f"train plan: the eager {L}-layer step repeated bit-equal: "
+        f"{eager_det}")
+    del again
+    cells = {}
+    one = api.partition(traced, devices=1, meta=meta)
+    for name, p in ((f"K=4 {label} cap", plan), ("K=1", one)):
+        cells[name] = _train_plan_cell(
+            torch, name, p, params, batch, lambda: step(params, batch), want,
+            L)
+        del p._compiled_runtime
+        _release(torch)
+    del traced, plan, one, want, params, step
+    _release(torch)
+
+    # the interpreter keeps every intermediate: a shallower step
+    L4 = TRAIN["interp_layers"]
+    small = dataclasses.replace(cfg, num_layers=L4)
+    params = init_params(small, torch.Generator(device="cuda").manual_seed(4),
+                         "cuda")
+    step = make_train_step(small, lr, return_grads=True)
+    traced = api.trace(step, params, batch, record=True, autograd=True)
+    plan = api.partition(traced, devices=k, memory=total / 2, meta=meta)
+    fold = [0] * k
+    compiled = _train_leaves(plan.execute(params, batch, device_map=fold,
+                                          mode="sync", static_argnums=(0,)))
+    t0 = time.perf_counter()
+    interp = _train_leaves(plan.execute(params, batch, device_map=fold,
+                                        runtime="interpret"))
+    torch.cuda.synchronize()
+    interp_s = time.perf_counter() - t0
+    bit = all(torch.equal(a, b) for a, b in zip(interp, compiled))
+    worst = max(float((a.float() - b.float()).abs().max()) /
+                (TRAIN_GATE * max(float(b.float().abs().max()), 1e-30))
+                for a, b in zip(interp, compiled))
+    log(f"train interpreter {L4} layers K={k} ({plan.n} nodes): "
+        f"{interp_s:.2f} s, bit-equal to compiled sync: {bit}; worst leaf "
+        f"error / (2^-7 x max |compiled|) {worst:.3g}")
+    assert bit or worst <= 1, "the interpreter disagrees with compiled"
+    del plan, traced, params, step, compiled, interp
+    _release(torch)
+    for name, c in cells.items():
+        log(f"train plan {name} summary ({L} layers): " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in c["ms"].items()) + "; device busy "
+            + ", ".join(f"{k} {p['busy_ms']:.2f} of {p['wall_ms']:.2f} ms"
+                        for k, p in c["prof"].items())
+            + f"; {c['segments']} segments, capture {c['capture_s']:.2f} s; "
+            f"measured makespan {c['measured_ms']:.3f} ms against the "
+            f"predicted {c['predicted_ms']:.3f} ms; bit-equal to eager "
+            f"{c['bit']}; {card}")
+    return record
+
+
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
-          "plan_execute", "plan_serve")
+          "plan_execute", "plan_serve", "train")
 
 
 def main(argv=None) -> int:
@@ -1840,7 +2432,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
-    COUNTED.update(flash_attention=ops.flash_attention, wkv6=rops.wkv6)
+    COUNTED.update(flash_attention=ops.flash_attention,
+                   flash_attention_bwd=ops.flash_attention_bwd,
+                   wkv6=rops.wkv6)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     card = phase_card()
@@ -1881,8 +2475,12 @@ def main(argv=None) -> int:
             launches = phase_plan_serve(torch, cfg, plan_path, work, card)
             if record is not None:
                 record["plan_serve_launches"] = launches["flash_attention"]
+    train_record = None
+    if "train" in phases:
+        train_record = phase_train(torch, ops, ref, cfg, card)
     log(card)
-    print(json.dumps({"kernels": [r for r in (record, rwkv_record)
+    print(json.dumps({"kernels": [r for r in (record, train_record,
+                                              rwkv_record)
                                   if r is not None]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -133,17 +133,21 @@ class TracedModel:
 
 
 def trace(fn: Callable, *example_args, record: bool = False,
-          dev: DeviceModel = H100,
-          params_residual: bool = True) -> TracedModel:
+          dev: DeviceModel = H100, params_residual: bool = True,
+          autograd: bool = False) -> TracedModel:
     """Trace ``fn(*example_args)`` into a :class:`TracedModel`.
 
     With ``record=True`` the node-level program is captured as well. The
     graph fingerprint is computed here once and reused for every plan
     produced from this trace. The trace runs on fake tensors: ``fn`` is
-    not run.
+    not run. ``autograd=True`` traces a function that differentiates
+    with ``torch.autograd``, such as a training step
+    (:func:`repro_torch.conformance.make_train_step`), its backward
+    included.
     """
     res = trace_cost_graph(fn, *example_args, dev=dev,
-                           params_residual=params_residual, record=record)
+                           params_residual=params_residual, record=record,
+                           autograd=autograd)
     g, prog = res if record else (res, None)
     return TracedModel(graph=g, program=prog, fingerprint=g.fingerprint(),
                        device_model=dev)

@@ -88,6 +88,9 @@ class CostGraph:
         # retracing (calibration). None for graphs built by hand.
         self.op_flops: np.ndarray | None = None
         self.op_bytes: np.ndarray | None = None
+        # the part of op_flops that is matrix products (mm-class ops and
+        # the attention ops' products)
+        self.op_dot_flops: np.ndarray | None = None
         self._topo: np.ndarray | None = None
         # lazy vectorization caches (invalidated on mutation)
         self._flat: tuple | None = None      # (indptr, src, dst, w)

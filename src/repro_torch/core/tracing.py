@@ -34,6 +34,18 @@ The rules that make the two graphs comparable:
   ``functionalize`` appends is dropped. Dead nodes are removed.
 * **Multiple outputs.** ``operator.getitem`` is not an op: it maps to
   ``(producer, out_idx)``.
+* **Attention.** The port's flash-attention custom ops
+  (:data:`ATTENTION_OPS`) are one node each, priced as the reference
+  prices the same attention in the same step: its jaxpr differentiates
+  the dense ``_plain_gqa``, so it counts 4·B·H·Sq·Sk·hd of products and
+  the softmax forward, and 8·B·H·Sq·Sk·hd and one elementwise pass on
+  the scores backward. Their ``mem`` is their outputs: unlike the
+  reference's graph, no node holds the S² probabilities.
+* **Training steps** (``autograd=True``). ``functionalize`` refuses a
+  function that makes leaves require grad, which a step differentiated
+  with ``torch.autograd`` does; such a step is traced in two passes,
+  first as it runs (autograd records the backward's aten ops), then
+  that graph functionalized.
 
 With ``record=True`` the tracer also returns a :class:`TracedProgram`:
 every node's aten op, keyword arguments and positional inputs, as
@@ -120,6 +132,8 @@ ATEN_PRIMS = {
                   "mul"),
     "_softmax": ("reduce_max", "sub", "exp", "reduce_sum", "div"),
     "_log_softmax": ("reduce_max", "sub", "exp", "reduce_sum", "log", "sub"),
+    "logsumexp": ("reduce_max", "sub@in", "exp@in", "reduce_sum", "log",
+                  "add"),
 }
 
 #: view and alias ops: no compute; priced as the reference's slices
@@ -157,12 +171,45 @@ def _prims_of(op, args, kwargs) -> tuple[str, ...]:
     return (name,)
 
 
-def flops_of(op, args, kwargs, in_vals, out_vals) -> float:
-    """FLOPs of one aten call under the reference's rules."""
+#: the port's attention custom ops -> (index of q and k among the
+#: positional args, product FLOPs per (batch, head, query, key, head-dim
+#: element), primitives priced on the B·H·Sq·Sk scores)
+ATTENTION_OPS = {
+    "flash_attention": (0, 1, 4, ATEN_PRIMS["_softmax"]),
+    "flash_attention_bwd": (1, 2, 8, ("_softmax_backward_data",)),
+}
+
+
+def _attention_sizes(name, args) -> tuple[float, float]:
+    """(score elements B·H·Sq·Sk, head dim) of an attention op's call."""
+    iq, ik = ATTENTION_OPS[name][:2]
+    B, Sq, H, hd = args[iq].meta["val"].shape
+    Sk = args[ik].meta["val"].shape[1]
+    return float(B) * H * Sq * Sk, float(hd)
+
+
+def dot_flops_of(op, args) -> float:
+    """The matrix-product FLOPs of one aten call (0 for anything but
+    the mm-class ops and the attention ops)."""
     name = op.overloadpacket.__name__
     if name in DOT_OPS:
         i, j = DOT_OPS[name]
         return _dot_flops(args[i].meta["val"], args[j].meta["val"])
+    if name in ATTENTION_OPS:
+        scores, hd = _attention_sizes(name, args)
+        return ATTENTION_OPS[name][2] * scores * hd
+    return 0.0
+
+
+def flops_of(op, args, kwargs, in_vals, out_vals) -> float:
+    """FLOPs of one aten call under the reference's rules."""
+    name = op.overloadpacket.__name__
+    if name in DOT_OPS:
+        return dot_flops_of(op, args)
+    if name in ATTENTION_OPS:
+        scores, _ = _attention_sizes(name, args)
+        return dot_flops_of(op, args) + scores * sum(
+            _CHEAP_MULT.get(prim, 1.0) for prim in ATTENTION_OPS[name][3])
     out_elems = sum(_numel(v) for v in out_vals)
     in_elems = sum(_numel(v) for v in in_vals)
     total = 0.0
@@ -194,15 +241,18 @@ class _Tracer:
         # per-node physical annotations, parallel to g.comp
         self.op_flops: list[float] = []
         self.op_bytes: list[float] = []
+        self.op_dot_flops: list[float] = []
         self.program: dict[int, tuple] = {}
         self.n_outputs: dict[int, int] = {}
         self.arg_specs: dict[int, Any] = {}
 
     def _node(self, comp: float, mem: float, ntype: int, name: str,
-              flops: float = 0.0, bytes_touched: float = 0.0) -> int:
+              flops: float = 0.0, bytes_touched: float = 0.0,
+              dot_flops: float = 0.0) -> int:
         nid = self.g.add_node(comp=comp, mem=mem, ntype=ntype, name=name)
         self.op_flops.append(float(flops))
         self.op_bytes.append(float(bytes_touched))
+        self.op_dot_flops.append(float(dot_flops))
         return nid
 
     def _edge(self, src: int, dst: int, nbytes: float) -> None:
@@ -222,13 +272,14 @@ class _Tracer:
         mem = sum(_tensor_bytes(v) for v in out_vals)
         is_view = op.overloadpacket.__name__ in VIEW_OPS
         if is_view:
-            comp = flops = touched = 0.0
+            comp = flops = touched = dot = 0.0
         else:
             touched = sum(_tensor_bytes(v) for v in in_vals) + mem
             flops = flops_of(op, args, kwargs, in_vals, out_vals)
+            dot = dot_flops_of(op, args)
             comp = self.dev.compute_seconds(flops, touched)
         nid = self._node(comp=comp, mem=mem, ntype=NORMAL, name=name,
-                         flops=flops, bytes_touched=touched)
+                         flops=flops, bytes_touched=touched, dot_flops=dot)
         seen: set[int] = set()
         inputs = []
         for a in leaves:
@@ -249,11 +300,13 @@ class _Tracer:
 
 
 def _functional_graph(fn: Callable, example_args: tuple,
-                      tracing_mode: str = "fake"):
+                      tracing_mode: str = "fake", autograd: bool = False):
     """``fn`` as an aten FX graph over the flat input leaves, with the
     input write-backs dropped and dead nodes removed. Returns the graph
     module and the output structure. ``tracing_mode="real"`` runs ``fn``
-    once; it exists to check that it gives the fake trace's graph."""
+    once; it exists to check that it gives the fake trace's graph.
+    ``autograd=True`` traces ``fn`` as it runs first (it may call
+    ``torch.autograd``), then functionalizes that graph."""
     leaves, in_structure = tree_flatten(example_args)
     bad = [type(x).__name__ for x in leaves if not isinstance(x, torch.Tensor)]
     if bad:
@@ -266,9 +319,12 @@ def _functional_graph(fn: Callable, example_args: tuple,
         out_structure[:] = [structure]
         return out_leaves
 
-    func = torch.func.functionalize(flat_fn, remove="mutations")
     # tensors ``fn`` closes over become constants (get_attr), as a
     # jaxpr's constvars do, in fake mode as well
+    if autograd:
+        flat_fn = make_fx(flat_fn, tracing_mode=tracing_mode,
+                          _allow_non_fake_inputs=True)(*leaves)
+    func = torch.func.functionalize(flat_fn, remove="mutations")
     gm = make_fx(lambda *flat: func(*flat), tracing_mode=tracing_mode,
                  _allow_non_fake_inputs=True)(*leaves)
     graph = gm.graph
@@ -291,18 +347,21 @@ def _get_attr(gm, target: str):
 def trace_cost_graph(fn: Callable, *example_args,
                      dev: DeviceModel = H100,
                      params_residual: bool = True,
-                     record: bool = False):
+                     record: bool = False, autograd: bool = False):
     """Trace ``fn(*example_args)`` into a cost graph.
 
     ``example_args`` is a pytree (dicts, lists, tuples) of tensors. Its
     leaves become RESIDUAL nodes (parameters and step inputs — memory
     that survives the step, the paper's res_ns), numbered in JAX's leaf
-    order after the constants.
+    order after the constants. ``autograd=True`` is for a function that
+    differentiates with ``torch.autograd`` (a training step): the
+    backward's ops become nodes of the graph.
 
     Returns the CostGraph, or ``(CostGraph, TracedProgram)`` when
     ``record=True``.
     """
-    gm, out_structure = _functional_graph(fn, example_args)
+    gm, out_structure = _functional_graph(fn, example_args,
+                                          autograd=autograd)
     return _cost_graph(gm, out_structure, example_args, dev=dev,
                        params_residual=params_residual, record=record)
 
@@ -345,6 +404,7 @@ def _cost_graph(gm, out_structure, example_args: tuple, *,
     g = tr.g.finalize()
     g.op_flops = np.asarray(tr.op_flops, dtype=np.float64)
     g.op_bytes = np.asarray(tr.op_bytes, dtype=np.float64)
+    g.op_dot_flops = np.asarray(tr.op_dot_flops, dtype=np.float64)
     if not record:
         return g
     prog = TracedProgram(program=tr.program, n_outputs=tr.n_outputs,
@@ -357,5 +417,5 @@ def _cost_graph(gm, out_structure, example_args: tuple, *,
     return g, prog
 
 
-__all__ = ["ATEN_PRIMS", "DOT_OPS", "VIEW_OPS", "flops_of", "op_name",
-           "trace_cost_graph"]
+__all__ = ["ATEN_PRIMS", "ATTENTION_OPS", "DOT_OPS", "VIEW_OPS",
+           "dot_flops_of", "flops_of", "op_name", "trace_cost_graph"]

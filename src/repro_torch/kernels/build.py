@@ -2,7 +2,8 @@
 
 Each kernel keeps its sources in a ``csrc/`` folder with a plain
 ``extern "C"`` interface. :func:`load_library` compiles every ``*.cu``
-there with ``nvcc`` into one shared library under
+there with ``nvcc`` (one process per source, all started together) and
+links the objects into one shared library under
 ``build/repro_torch_kernels/`` at the repository root, named by a hash
 of the sources and the flags, and loads it with ``ctypes``. A library
 already built from the same sources is reused; nothing is built when a
@@ -22,7 +23,7 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # (name, csrc) -> the library loaded for it in this process
 _LOADED: dict[tuple[str, Path], ctypes.CDLL] = {}
@@ -58,20 +59,28 @@ def build(name: str, csrc: Path) -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-            capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [(src, p.communicate()[0], p.returncode)
+                for src, p in zip(sources, procs)]
+        for src, out, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed to compile {src.name} of "
+                                   f"{name} (exit {rc}):\n{out}")
+        target = str(Path(tmp) / so.name)
+        res = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o",
+                              target, *objs], capture_output=True,
+                             text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {name} "
+            raise RuntimeError(f"nvcc failed to link {name} "
                                f"(exit {res.returncode}):\n{res.stderr}")
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        so.with_suffix(".log").write_text("".join(out for _, out, _ in logs))
+        os.replace(target, so)
     return so
 
 

@@ -70,8 +70,8 @@ def build_variant(name: str) -> ctypes.CDLL:
     (out / SOURCE.name).write_text(variant_source(name))
     shutil.copy(HEADER, out / HEADER.name)
     so = out / "lib.so"
-    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                          str(out / SOURCE.name)],
+    res = subprocess.run([build._nvcc(), "-shared", *build.NVCC_FLAGS,
+                          "-o", str(so), str(out / SOURCE.name)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on ablation {name}:\n{res.stderr}")

@@ -1,15 +1,28 @@
-"""Public wrapper around the CUDA flash-attention kernels.
+"""Public wrappers around the CUDA flash-attention kernels, forward and
+backward, and the PyTorch custom ops they go through.
 
-Two kernels, one library: ``csrc/flash_attention_sm90.cu`` (bf16 at the
-head dims in :data:`SM90_HEAD_DIMS`: wgmma, TMA, warp-specialised) and
-``csrc/flash_attention.cu`` (float32 FMAs: float32, and bf16 at the other
-head dims). :func:`select_variant` picks one from (dtype, head dim) alone.
-The library is built with ``nvcc`` at the first call on a CUDA tensor and
-bound through ``ctypes``; see :mod:`repro_torch.kernels.build`. Nothing
-is built at import.
+Four kernels, one library: ``csrc/flash_attention_sm90.cu`` (forward,
+bf16 at the head dims in :data:`SM90_HEAD_DIMS`: wgmma, TMA,
+warp-specialised), ``csrc/flash_attention.cu`` (forward, float32 FMAs:
+float32, and bf16 at the other head dims),
+``csrc/flash_attention_bwd_mma.cu`` (backward, bf16 at
+:data:`MMA_BWD_HEAD_DIMS`: mma.sync tensor cores) and
+``csrc/flash_attention_bwd.cu`` (backward, float32 FMAs, every dtype and
+head dim). :func:`select_variant` picks the forward and
+:func:`select_bwd_variant` the backward from (dtype, head dim) alone. The library is built with ``nvcc`` at the first call on a
+CUDA tensor and bound through ``ctypes``; see
+:mod:`repro_torch.kernels.build`. Nothing is built at import.
+
+Both directions are PyTorch custom ops, ``repro_torch::flash_attention``
+and ``repro_torch::flash_attention_bwd``: a CUDA implementation that
+launches the kernels, a CPU implementation that runs the plain versions
+(:mod:`.ref`), a fake implementation (so that ``make_fx`` traces them on
+fake tensors of either device, as one node each) and, on the forward,
+an autograd formula that calls the backward op. A training step
+differentiated with ``torch.autograd`` therefore runs the backward
+kernel on the card, and its trace holds one forward and one backward
+node per attention layer.
 """
-from __future__ import annotations
-
 import ctypes
 import math
 from pathlib import Path
@@ -17,7 +30,7 @@ from pathlib import Path
 import torch
 
 from ..build import load_library
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: head dims the kernels are instantiated for
@@ -26,15 +39,23 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 #: leave shared memory for one K/V slot, and O alone would take 128
 #: accumulator registers of a thread)
 SM90_HEAD_DIMS = (64, 128)
-#: the kernels: ``sm90`` in flash_attention_sm90.cu, ``fma`` in
+#: the forward kernels: ``sm90`` in flash_attention_sm90.cu, ``fma`` in
 #: flash_attention.cu
 VARIANTS = ("sm90", "fma")
+#: the backward kernels: ``mma`` in flash_attention_bwd_mma.cu (bf16 at
+#: :data:`MMA_BWD_HEAD_DIMS`, tensor cores), ``fma`` in
+#: flash_attention_bwd.cu (every dtype and head dim)
+BWD_VARIANTS = ("mma", "fma")
+MMA_BWD_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _c_ll = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [_c_ll] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_void_p])
+# eight tensors, lse and delta; dtype and the sizes; eight stride triples
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [_c_ll] * 24
+                 + _ARGTYPES[-6:])
 
 
 def load() -> ctypes.CDLL:
@@ -48,9 +69,23 @@ def load() -> ctypes.CDLL:
         sm90 = lib.repro_flash_attention_sm90_fwd
         sm90.argtypes = _ARGTYPES[:4] + _ARGTYPES[5:]   # no dtype code
         sm90.restype = ctypes.c_int
+        lib.repro_flash_attention_bwd.argtypes = _BWD_ARGTYPES
+        lib.repro_flash_attention_bwd.restype = ctypes.c_int
+        mma = lib.repro_flash_attention_bwd_mma
+        mma.argtypes = _BWD_ARGTYPES[:10] + _BWD_ARGTYPES[11:]  # no dtype
+        mma.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def select_bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel a CUDA call of this dtype and head dim
+    launches: ``mma`` for bf16 at :data:`MMA_BWD_HEAD_DIMS`, else
+    ``fma``."""
+    if dtype == torch.bfloat16 and head_dim in MMA_BWD_HEAD_DIMS:
+        return "mma"
+    return "fma"
 
 
 def select_variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -61,22 +96,29 @@ def select_variant(dtype: torch.dtype, head_dim: int) -> str:
     return "fma"
 
 
+def _check_16_bytes(kernel: str, why: str, tensors: dict) -> None:
+    """A 16-byte aligned base and every stride but the head dim's a
+    multiple of 16 bytes, for each tensor; raises ValueError naming the
+    first that breaks one."""
+    for name, t in tensors.items():
+        size = t.element_size()
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} starts at "
+                             f"{t.data_ptr():#x}, not 16-byte aligned, "
+                             f"{why}")
+        bad = [s for s in t.stride()[:-1] if (s * size) % 16]
+        if bad:
+            raise ValueError(f"{kernel}: {name} strides "
+                             f"{tuple(t.stride())} (elements of {size} "
+                             f"bytes) are not all multiples of 16 bytes, "
+                             f"{why}")
+
+
 def check_tma_layout(**tensors: torch.Tensor) -> None:
     """TMA's rules for the ``sm90`` kernel's tensors: a 16-byte aligned
     base and every stride but the head dim's a multiple of 16 bytes.
     Raises ValueError naming the first tensor that breaks one."""
-    for name, t in tensors.items():
-        size = t.element_size()
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention (sm90): {name} starts at "
-                             f"{t.data_ptr():#x}, not 16-byte aligned, as "
-                             f"TMA needs")
-        bad = [s for s in t.stride()[:-1] if (s * size) % 16]
-        if bad:
-            raise ValueError(f"flash_attention (sm90): {name} strides "
-                             f"{tuple(t.stride())} (elements of {size} "
-                             f"bytes) are not all multiples of 16 bytes, "
-                             f"as TMA needs")
+    _check_16_bytes("flash_attention (sm90)", "as TMA needs", tensors)
 
 
 def _check(q, k, v) -> None:
@@ -99,6 +141,11 @@ def _check(q, k, v) -> None:
                          f"{k.device}, {v.device}")
 
 
+def _check_window(window) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, q_offset: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
@@ -111,14 +158,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``softcap`` > 0 applies ``tanh(s / softcap) * softcap`` to the scaled
     scores before the mask. Rows with every key masked give 0.
 
-    A CUDA tensor launches one kernel on the current stream, the one
+    It runs the custom op ``repro_torch::flash_attention``, which is
+    differentiable: its gradient is :func:`flash_attention_bwd`. A CUDA
+    tensor launches one kernel on the current stream, the one
     :func:`select_variant` names (float32 or bfloat16, hd in
     :data:`HEAD_DIMS`), and adds one to ``flash_attention.launches`` and
     to ``flash_attention.variant_launches[variant]``; anything it cannot
     take raises (the ``sm90`` kernel's tensors must also meet
     :func:`check_tma_layout`), and a failed launch raises. A CPU tensor
     runs the plain version :func:`flash_attention_ref`, which is not
-    counted.
+    counted. Inside a captured CUDA graph the counts move at capture,
+    not at replay.
 
     Two quirks of the reference, documented and not copied:
 
@@ -136,12 +186,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
       and takes 0 as the max of a row that has seen no key yet.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, softcap=softcap)
-    return run_variant(select_variant(q.dtype, q.shape[-1]), q, k, v,
-                       causal=causal, window=window, q_offset=q_offset,
-                       softcap=softcap)
+    _check_window(window)
+    return _fwd_op(q, k, v, bool(causal), int(window or 0), int(q_offset),
+                   float(softcap))
 
 
 def run_variant(variant: str, q, k, v, *, causal: bool = True,
@@ -164,8 +211,7 @@ def run_variant(variant: str, q, k, v, *, causal: bool = True,
                          f"{q.device}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1 or None, got {window}")
+    _check_window(window)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous head dim")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -197,9 +243,177 @@ def run_variant(variant: str, q, k, v, *, causal: bool = True,
     return out
 
 
+def flash_attention_bwd(dout, q, k, v, out, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0,
+                        softcap: float = 0.0):
+    """Gradient of :func:`flash_attention`: (dq, dk, dv) for the
+    cotangent ``dout`` of its output ``out`` at (q, k, v), each in its
+    input's shape and dtype (q, dout, out: (B, Sq, H, hd); k, v: (B, Sk,
+    KV, hd), read through strides with a contiguous head dim). A row whose
+    every key is masked gets zero gradients.
+
+    It runs the custom op ``repro_torch::flash_attention_bwd``. A CUDA
+    tensor launches the backward kernel that :func:`select_bwd_variant`
+    names (three kernels in stream order, float32 accumulation, no
+    atomics, so repeated calls are bit-equal) on the current stream and
+    adds one to ``flash_attention_bwd.launches`` and to
+    ``flash_attention_bwd.variant_launches[variant]``; anything it cannot
+    take raises (the ``mma`` kernel's q, k, v, out and dout must also have
+    16-byte aligned bases and strides), and a failed launch raises. A CPU
+    tensor runs the plain version :func:`flash_attention_bwd_ref`, which
+    is not counted."""
+    _check(q, k, v)
+    _check_window(window)
+    if dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} and out "
+                         f"{tuple(out.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if dout.dtype != q.dtype or out.dtype != q.dtype:
+        raise TypeError(f"dout ({dout.dtype}) and out ({out.dtype}) must "
+                        f"have q's dtype {q.dtype}")
+    return _bwd_op(dout, q, k, v, out, bool(causal), int(window or 0),
+                   int(q_offset), float(softcap))
+
+
+def run_bwd_variant(variant: str, dout, q, k, v, out, *, causal: bool = True,
+                    window: int | None = None, q_offset: int = 0,
+                    softcap: float = 0.0):
+    """Launch the named backward kernel on CUDA tensors and count it, as
+    :func:`flash_attention_bwd` does with the variant
+    :func:`select_bwd_variant` names; ``chip_smoke.py`` calls it to hold
+    and time the ``fma`` kernel at bf16 shapes the ``mma`` kernel
+    takes."""
+    _check(q, k, v)
+    _check_window(window)
+    return _launch_bwd(variant, dout, q, k, v, out, causal, window or 0,
+                       q_offset, softcap)
+
+
+def _launch_bwd(variant, dout, q, k, v, out, causal, window, q_offset,
+                softcap):
+    """The named backward kernel's checks, then its launch."""
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"unknown flash_attention_bwd variant {variant!r}")
+    B, Sq, H, hd = q.shape
+    if variant == "mma" and select_bwd_variant(q.dtype, hd) != "mma":
+        raise ValueError(f"the mma backward takes bfloat16 at head dims "
+                         f"{MMA_BWD_HEAD_DIMS}, not {q.dtype} at {hd}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd kernels run on cuda, not "
+                         f"{q.device}")
+    Sk, KV = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    ins = (q, k, v, out, dout)
+    if any(t.device != q.device for t in ins):
+        raise ValueError("flash_attention_bwd: tensors on different "
+                         "devices")
+    if any(t.stride(-1) != 1 for t in ins):
+        raise ValueError("flash_attention_bwd needs a contiguous head dim")
+    if variant == "mma":
+        _check_16_bytes("flash_attention_bwd (mma)",
+                        "as its 16-byte loads need",
+                        dict(q=q, k=k, v=v, out=out, dout=dout))
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KV, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    # the row statistics the first kernel writes and the others read
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = load()
+    ts = (q, k, v, out, dout, dq, dk, dv)
+    strides = [s for t in ts for s in t.stride()[:3]]
+    ptrs = (*(t.data_ptr() for t in ts), lse.data_ptr(), delta.data_ptr())
+    args = (B, H, KV, Sq, Sk, hd, *strides, 1.0 / math.sqrt(hd),
+            int(causal), int(window), int(q_offset), float(softcap))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if variant == "mma":
+            err = lib.repro_flash_attention_bwd_mma(*ptrs, *args, stream)
+        else:
+            err = lib.repro_flash_attention_bwd(*ptrs, _DTYPE_CODE[q.dtype],
+                                                *args, stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_bwd ({variant}) launch failed: "
+                           f"{msg} (cudaError {err})")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.variant_launches[variant] += 1
+    return dq, dk, dv
+
+
+# -- the custom ops (window 0 means no window) -------------------------------
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: int, q_offset: int,
+            softcap: float) -> torch.Tensor:
+    return run_variant(select_variant(q.dtype, q.shape[-1]), q, k, v,
+                       causal=causal, window=window or None,
+                       q_offset=q_offset, softcap=softcap)
+
+
+@_fwd_op.register_kernel("cpu")
+def _fwd_cpu(q, k, v, causal, window, q_offset, softcap):
+    # contiguous, as the kernels' outputs (and the fake's) are
+    return flash_attention_ref(q, k, v, causal=causal, window=window or None,
+                               q_offset=q_offset,
+                               softcap=softcap).contiguous()
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, window, q_offset, softcap):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, out: torch.Tensor, causal: bool, window: int,
+            q_offset: int, softcap: float
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _launch_bwd(select_bwd_variant(q.dtype, q.shape[-1]), dout, q, k,
+                       v, out, causal, window, q_offset, softcap)
+
+
+@_bwd_op.register_kernel("cpu")
+def _bwd_cpu(dout, q, k, v, out, causal, window, q_offset, softcap):
+    return tuple(t.contiguous() for t in flash_attention_bwd_ref(
+        dout, q, k, v, causal=causal, window=window or None,
+        q_offset=q_offset, softcap=softcap))
+
+
+@_bwd_op.register_fake
+def _bwd_fake(dout, q, k, v, out, causal, window, q_offset, softcap):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, *attrs = inputs
+    ctx.save_for_backward(q, k, v, output)
+    ctx.attrs = attrs
+
+
+def _backward(ctx, dout):
+    q, k, v, out = ctx.saved_tensors
+    # the kernels read dout through strides but need them aligned; the
+    # cotangent autograd hands over is contiguous in the model's layout
+    dq, dk, dv = _bwd_op(dout.contiguous(), q, k, v, out, *ctx.attrs)
+    return dq, dk, dv, None, None, None, None
+
+
+_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
 flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+flash_attention_bwd.launches = 0
+flash_attention_bwd.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 
-__all__ = ["HEAD_DIMS", "SM90_HEAD_DIMS", "VARIANTS", "check_tma_layout",
-           "flash_attention", "flash_attention_ref", "load", "run_variant",
+__all__ = ["BWD_VARIANTS", "HEAD_DIMS", "MMA_BWD_HEAD_DIMS",
+           "SM90_HEAD_DIMS", "VARIANTS", "check_tma_layout",
+           "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "flash_attention_ref", "load",
+           "run_bwd_variant", "run_variant", "select_bwd_variant",
            "select_variant"]

@@ -121,9 +121,12 @@ def wkv6(r, k, v, w, u, state0=None, chunk: int = 64):
     :data:`MAX_CHUNK`), and adds one to ``wkv6.launches`` and to
     ``wkv6.variant_launches[variant]``; anything it cannot take raises
     (the ``mma`` kernel's r, k, v and w must also meet
-    :func:`check_cp_async_layout`), and a failed launch raises. A CPU
-    tensor runs the plain version :func:`wkv_ref`, which is not
-    counted."""
+    :func:`check_cp_async_layout`), and a failed launch raises. The
+    kernels have no backward yet: a CUDA call that would need a gradient
+    (grad mode on, an input that requires one) raises
+    ``NotImplementedError`` rather than return an output without
+    autograd history. A CPU tensor runs the plain version
+    :func:`wkv_ref`, which is not counted and is differentiable."""
     _check(r, k, v, w, u, state0, chunk)
     if r.device.type == "cpu":
         return wkv_ref(r, k, v, w, u, state0, chunk)
@@ -153,6 +156,14 @@ def _launch(variant: str, r, k, v, w, u, state0, chunk: int):
                          f"{MMA_HEAD_DIMS}, not {r.dtype} at {hd}")
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 kernels run on cuda, not {r.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, w, u, state0)):
+        raise NotImplementedError(
+            "wkv6 on CUDA has no backward kernel yet (ROADMAP queue 2: "
+            "the wkv6 backward kernel for rwkv6-7b training), and its "
+            "output would carry no gradient; run under torch.no_grad() "
+            "or on the CPU, where the plain version differentiates")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
     if chunk > MAX_CHUNK:

@@ -10,6 +10,16 @@ kinds; any other kind raises ``NotImplementedError``.
 
 Caches are written in place (see :func:`layers.update_cache`): the
 functions that take caches return the same tree they were given.
+
+Training (:func:`loss_fn`) differentiates the parameters with the
+periods unbound: :func:`unstack_periods` gives ``params["periods"]`` as
+a list of per-period trees (views of the stacked tensors, made once
+outside the differentiation), so that every gradient leaf is one
+layer's tensor, and the update stacks each leaf once again
+(``conformance.make_train_step``).
+Differentiated through the stacked tensors instead, every layer's read
+would become a ``select_backward`` of the whole stack's shape, and
+their sum (2L - 1) whole-stack tensors per leaf.
 """
 from __future__ import annotations
 
@@ -89,6 +99,14 @@ def _at(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def unstack_periods(cfg: ModelConfig, params) -> dict:
+    """``params`` with ``"periods"`` as a list of ``cfg.num_periods``
+    per-period trees: views of the stacked tensors, no copies.
+    :func:`forward` and :func:`loss_fn` take this form too."""
+    return dict(params, periods=[_at(params["periods"], n)
+                                 for n in range(cfg.num_periods)])
+
+
 # ------------------------------------------------------------------ model
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
@@ -151,14 +169,17 @@ def embed_inputs(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
             caches=None, cache_pos=None):
-    """Backbone forward. Returns (hidden (B,S,D), caches)."""
+    """Backbone forward. Returns (hidden (B,S,D), caches).
+    ``params["periods"]`` is the stacked tree or, as
+    :func:`unstack_periods` gives it, a list of per-period trees."""
+    periods = params["periods"]
     for i, kind in enumerate(cfg.prelude):
         c = caches["prelude"][i] if caches is not None else None
         x, _ = _block_apply(cfg, kind, params[f"prelude{i}"], x,
                             positions=positions, cache=c,
                             cache_pos=cache_pos)
     for n in range(cfg.num_periods):
-        pp = _at(params["periods"], n)
+        pp = periods[n] if isinstance(periods, list) else _at(periods, n)
         pc = _at(caches["periods"], n) if caches is not None else None
         for i, kind in enumerate(cfg.block_pattern):
             c = pc[f"b{i}"] if pc is not None else None
@@ -182,6 +203,55 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     periods = tree_map(
         lambda t: t.new_zeros((cfg.num_periods,) + t.shape), one)
     return {"prelude": prelude, "periods": periods}
+
+
+# ------------------------------------------------------------------- loss
+def chunked_cross_entropy(cfg: ModelConfig, hidden: torch.Tensor,
+                          head_w: torch.Tensor, targets: torch.Tensor,
+                          chunk: int = 8192) -> torch.Tensor:
+    """Mean next-token cross entropy that never builds (B, S, V) logits
+    (port of the reference's ``chunked_cross_entropy``): the T = B·S
+    tokens are cut into n equal chunks, n the largest count <= T / chunk
+    that divides T, and each chunk's vocab projection, log-sum-exp and
+    target logit are taken in turn (a Python loop where the reference
+    scans). Vocab-padding logits are masked; targets < 0 are ignored.
+    Returns the float32 scalar ``loss_sum / max(count, 1)``."""
+    B, S, D = hidden.shape
+    T = B * S
+    h = hidden.reshape(T, D)
+    t = targets.reshape(T).long()
+    n = max(T // chunk, 1)
+    while T % n:
+        n -= 1
+    # split, not sliced or indexed: the backward of a slice or a select
+    # is a zero tensor of the whole input's shape per chunk
+    chunks = [(h, t)] if n == 1 else list(zip(h.split(T // n),
+                                              t.split(T // n)))
+    loss_sum = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for hx, tx in chunks:
+        logits = mask_pad_logits(cfg, (hx @ head_w).float())     # (c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, tx.clamp(min=0)[:, None]).squeeze(-1)
+        valid = (tx >= 0).float()
+        loss_sum = loss_sum + ((lse - tgt) * valid).sum()
+        count = count + valid.sum()
+    return loss_sum / count.clamp(min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: dict):
+    """Training loss (port of the reference's ``loss_fn``). ``batch``:
+    ``tokens`` (B, S) int or ``embeds`` (B, S, D), and ``targets`` (B, S).
+    Returns ``(loss, {"ce", "aux"})``; ``aux`` is 0 for the dense
+    kinds, which have no router loss."""
+    x = embed_inputs(cfg, params, batch)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    hidden, _ = forward(cfg, params, x, positions=positions)
+    ce = chunked_cross_entropy(cfg, hidden, lm_head_weight(cfg, params),
+                               batch["targets"])
+    aux = ce.new_zeros(())
+    return ce, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------- serving
@@ -241,6 +311,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens_or_embeds,
     return _logits(cfg, params, hidden), caches
 
 
-__all__ = ["decode_step", "embed_inputs", "forward", "init_cache",
-           "init_params", "lm_head_weight", "mask_pad_logits", "prefill",
-           "prefill_batched"]
+__all__ = ["chunked_cross_entropy", "decode_step", "embed_inputs", "forward",
+           "init_cache", "init_params", "lm_head_weight", "loss_fn",
+           "mask_pad_logits", "prefill", "prefill_batched",
+           "unstack_periods"]
