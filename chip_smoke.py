@@ -21,7 +21,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    the granite prefill shape the sm90 kernel, the first kernel
    (``fma``), the plain version and one PyTorch library call computing
    the same function are timed in turns (CUDA events around
-   back-to-back calls, median of 3 turns) beside the roofline bound;
+   back-to-back calls, median of 3 turns) beside the roofline bound; the
+   sm90 kernel's row LSE (which the backward reads) is held to the plain
+   version's there too;
 4. rwkv kernels: the RWKV6 recurrence against its plain version, y and
    the final state, at the reference's cases (zero and random state),
    a ragged length, the edges of the bf16 tensor-core kernel (``mma``:
@@ -110,17 +112,23 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    plan-served and local tok/s, TTFT p50 and decode ms side by side,
    segments, capture seconds and max_memory_allocated beside the card's
    name and power limit.
-12. train: granite-8b's training step at full width (bf16, random
-   weights from a seed, B=1, S=2048, SGD at lr 1e-3): (a) both flash
-   backward kernels (``mma``: bf16 at hd 64/128; ``fma``: the rest, and
-   every bf16 case too) against the plain backward run in float32 on the
+12. train kernels: the three flash backward kernels (``sm90``: bf16 at
+   hd 64/128, wgmma and the forward's LSE; ``mma``, the earlier
+   mma.sync design, and ``fma``, the first, on every bf16 case too; fma
+   alone in float32) against the plain backward run in float32 on the
    same inputs (BWD_CASES: the training shape in bf16 and float32, hd
    64 at repro-lm-100m widths, ragged S, window, q_offset, softcap,
-   G = 1 and 4, fully masked rows), repeated calls bit-equal; at the
-   training shape both kernels, the plain version and SDPA's backward
-   timed in turns beside the bound; (b) the eager step at the depth the
+   G = 1 and 4, fully masked rows), each given the forward kernel's
+   output and LSE, repeated calls bit-equal; at the training shape the
+   three kernels, the plain version and SDPA's backward timed in turns
+   beside the bound, the sm90 backward's four kernels (D, dK/dV, their
+   sum over a KV head's query heads, dQ) timed apart under
+   torch.profiler, and their registers and spills from ptxas;
+13. train: granite-8b's training step at full width (bf16, random
+   weights from a seed, B=1, S=2048, SGD at lr 1e-3), after phase 12
+   (which it runs too): (b) the eager step at the depth the
    printed memory arithmetic allows (36 layers on an 80 GB card): loss
-   near ln V, L forward (all sm90) and L backward (all mma) launches,
+   near ln V, L forward (all sm90) and L backward (all sm90) launches,
    step ms, tokens/s, peak memory, device busy under torch.profiler; (c)
    the 12-layer step traced on fake tensors (no ``select_backward``, no
    whole-stack op but the restacks, product FLOPs equal to the config's
@@ -190,6 +198,10 @@ TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 # float32 summation order: the gate is one bf16 step, 2^-7 relative, over
 # an absolute 1e-5.
 TIGHT = {"atol": 1e-5, "rtol": 2.0 ** -7}
+# the forward's row log-sum-exp (values of a few units) against the plain
+# version's: float32 scores, another summation order, the hardware's exp2
+# (2^-22 relative): 1e-4 absolute
+LSE_GATE = 1e-4
 # the edges of the bf16 Hopper kernel (flash_attention_sm90.cu), each held
 # to TOL and TIGHT; kv_view: k and v are views of a cache twice as long
 SM90_CASES = [
@@ -340,18 +352,26 @@ def phase_build(libs: dict, build) -> float:
         so, _ = build.library_path(name, ops.CSRC)
         log(f"build: {name} in {secs[name]:.1f} s -> "
             f"{so.relative_to(ROOT)}")
-        # one line per kernel: its (mangled) name, registers, spills
-        kernel = spills = ""
-        for line in so.with_suffix(".log").read_text().splitlines():
-            if "Compiling entry function" in line:
-                kernel = line.split("'")[1]
-            elif "spill" in line:
-                spills = line.strip()
-            elif "Used" in line:
-                log(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; "
-                    f"{spills}")
+        for kernel, used in ptxas_report(build, ops, name).items():
+            log(f"  ptxas {kernel}: {used}")
     log(f"build: {len(libs)} libraries in {total:.1f} s")
     return total
+
+
+def ptxas_report(build, ops, name: str) -> dict:
+    """{mangled kernel name: "Used ... registers, ...; ... spill ..."},
+    one entry per kernel, from the ``ptxas -v`` log kept beside the
+    library."""
+    so, _ = build.library_path(name, ops.CSRC)
+    report, kernel, spills = {}, "", ""
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line:
+            report[kernel] = f"{line.split(':', 1)[1].strip()}; {spills}"
+    return report
 
 
 def _inputs(torch, case, seed):
@@ -428,10 +448,21 @@ def phase_kernels(torch, ops, ref) -> dict:
     q, k, v = _inputs(torch, GRANITE_PREFILL, seed=len(FLASH_CASES) + 1)
     kw = dict(causal=causal, window=window)
     assert ops.select_variant(q.dtype, hd) == "sm90"
-    out = ops.flash_attention(q, k, v, **kw)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     err, tight = _hold(torch, ref, f"{GRANITE_PREFILL} [sm90]", out, q, k,
                        v, dtype, **kw)
-    earlier = ops.run_variant("fma", q, k, v, **kw)
+    # the rows' LSE the backward reads: float32 scores in both, summed in
+    # another order, exp2 approximated (2^-22) in the kernel
+    _, plain_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    lse_err = (lse - plain_lse).abs().max().item()
+    log(f"kernel flash_attention {GRANITE_PREFILL} [sm90] LSE: max abs err "
+        f"{lse_err:.3g} against the plain version (gate {LSE_GATE}) "
+        f"{'ok' if lse_err <= LSE_GATE else 'MISMATCH'}")
+    if not lse_err <= LSE_GATE:
+        raise AssertionError("the sm90 forward's LSE disagrees with its "
+                             "plain version")
+    del lse, plain_lse
+    earlier, _ = ops.run_variant("fma", q, k, v, **kw)
     _, earlier_tight = _hold(torch, ref, f"{GRANITE_PREFILL} [fma]", earlier,
                              q, k, v, dtype, **kw)
     # library yardstick: SDPA on (B, H, S, hd) with the KV heads repeated
@@ -453,6 +484,7 @@ def phase_kernels(torch, ops, ref) -> dict:
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     log(f"timing flash_attention at {GRANITE_PREFILL}, in turns: sm90 "
+        f"(LSE written) "
         f"{ms['sm90']:.4f} ms ({flops / ms['sm90'] / 1e9:.1f} TFLOP/s), "
         f"fma {ms['fma']:.4f} ms ({flops / ms['fma'] / 1e9:.2f} TFLOP/s), "
         f"plain {ms['plain']:.4f} ms, sdpa {ms['sdpa']:.4f} ms "
@@ -1863,16 +1895,21 @@ BWD_CASES = [
 # float32: sums in another order. bf16: the outputs rounded to bf16 (2^-9
 # of the scale), D = rowsum(dO o O) taken from the bf16 forward output
 # (up to 3.6e-3 of dq's scale in a CPU check of the formula) and, in the
-# mma kernel, P and dS rounded to bf16 for its products: two bf16 steps.
+# sm90 and mma kernels, P and dS rounded to bf16 for their products: two
+# bf16 steps.
 BWD_GATE = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
 # compiled against the eager step, per leaf: bit-equal, or else within
 # one bf16 step of the leaf's largest magnitude (the eager step's
 # autograd engine may sum a gradient's parts in another order)
 TRAIN_GATE = 2.0 ** -7
-#: the kernels' names in a profile: the sm90 and fma forwards, and the
-#: backwards' last kernel (one per backward launch: bwd_dq_mma, bwd_dq)
+#: the kernels' names in a profile: the sm90 and fma forwards, and the sm90
+#: backward's last kernel (one per backward launch on the training path)
 FWD_KERNELS = ("flash_fwd_sm90", "flash_fwd_kernel")
-BWD_KERNEL = "bwd_dq"
+BWD_KERNEL = "bwd_dq_sm90"
+#: the sm90 backward's four kernels in stream order, as a profile names
+#: them: D and the padded LSE, dK/dV partials, their sum, dQ
+SM90_BWD_KERNELS = ("bwd_delta_sm90", "bwd_dkdv_sm90", "bwd_reduce_sm90",
+                    "bwd_dq_sm90")
 
 
 def _hold_bwd(torch, label, got, again, want, dt) -> tuple:
@@ -1897,15 +1934,40 @@ def _hold_bwd(torch, label, got, again, want, dt) -> tuple:
     return max(ratios), max(errs)
 
 
-def phase_train_kernel(torch, ops, ref) -> dict:
-    """Both backward kernels against the plain version at every case of
-    BWD_CASES (the forward kernel's output as ``out``): the one
-    ``select_bwd_variant`` names, and in bf16 the first kernel (``fma``)
-    too; repeated calls bit-equal. Then at the training shape the mma
-    kernel, the fma kernel, the plain version and SDPA's backward (a
-    yardstick the port never calls) timed in turns beside the bound.
-    Returns the mma kernel's record (launches filled in by the eager
-    step)."""
+def kernel_split(torch, fn, names, calls: int = 5) -> dict:
+    """{name: (device ms per launch, launches recorded)} for each named
+    kernel that ``fn`` launches once a call, from torch.profiler over
+    ``calls`` calls (after a warm-up). The mean is over the launches the
+    profiler recorded, which have been fewer than those made."""
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    split = {}
+    for name in names:
+        hits = [e for e in evs if name in e.key]
+        n = sum(e.count for e in hits)
+        split[name] = (sum(e.self_device_time_total for e in hits) / 1e3
+                       / max(n, 1), n)
+    return split
+
+
+def phase_train_kernel(torch, ops, ref, build) -> dict:
+    """The three backward kernels against the plain version at every case
+    of BWD_CASES (the forward kernel's output and LSE as ``out`` and
+    ``lse``): the one ``select_bwd_variant`` names (``sm90`` in bf16,
+    ``fma`` in float32), and in bf16 the earlier kernels (``mma``,
+    ``fma``) by name; repeated calls bit-equal. Then at the training shape
+    the sm90, mma and fma kernels, the plain version and SDPA's backward
+    (a yardstick the port never calls) timed in turns beside the bound;
+    the sm90 backward's four kernels timed apart (torch.profiler) and
+    their registers and spills (ptxas). Returns the sm90 kernel's record
+    (launches filled in by the eager step)."""
     import torch.nn.functional as F
     worst = {}
     counts = ops.flash_attention_bwd.variant_launches
@@ -1920,34 +1982,38 @@ def phase_train_kernel(torch, ops, ref) -> dict:
                        rnd(B, Sk, KV, hd), rnd(B, Sq, H, hd))
         kw = dict(causal=causal, window=window, q_offset=q_offset,
                   softcap=softcap)
-        out = ops.flash_attention(q, k, v, **kw)
+        out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
         want = ref.flash_attention_bwd_ref(do.float(), q.float(), k.float(),
                                            v.float(), **kw)
         variant = ops.select_bwd_variant(dtype, hd)
         before = counts[variant]
-        got = ops.flash_attention_bwd(do, q, k, v, out, **kw)
-        again = ops.flash_attention_bwd(do, q, k, v, out, **kw)
+        got = ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
+        again = ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
         assert counts[variant] == before + 2, f"{case} did not run {variant}"
         worst[(case, variant)] = _hold_bwd(torch, f"{case} [{variant}]", got,
                                            again, want, dt)
-        if variant != "fma":
-            got = ops.run_bwd_variant("fma", do, q, k, v, out, **kw)
-            again = ops.run_bwd_variant("fma", do, q, k, v, out, **kw)
-            worst[(case, "fma")] = _hold_bwd(torch, f"{case} [fma]", got,
-                                             again, want, dt)
-        del q, k, v, do, out, got, again, want
+        earlier = ("mma", "fma") if variant == "sm90" else ()
+        for name in earlier:
+            got = ops.run_bwd_variant(name, do, q, k, v, out, lse, **kw)
+            again = ops.run_bwd_variant(name, do, q, k, v, out, lse, **kw)
+            worst[(case, name)] = _hold_bwd(torch, f"{case} [{name}]", got,
+                                            again, want, dt)
+        del q, k, v, do, out, lse, got, again, want
+    by_kernel = {name: max(r for (_, n), (r, _) in worst.items()
+                           if n == name) for name in ops.BWD_VARIANTS}
     log(f"kernel flash_attention_bwd: worst error / gate "
         f"{max(r for r, _ in worst.values()):.3g} over {len(worst)} "
-        f"(case, kernel) pairs")
+        f"(case, kernel) pairs; by kernel " + ", ".join(
+            f"{name} {r:.3g}" for name, r in by_kernel.items()))
 
     B, H, KV, S, hd, causal, window, q_offset, softcap, dt = \
         BWD_CASES[0][:4] + BWD_CASES[0][5:]
-    assert ops.select_bwd_variant(torch.bfloat16, hd) == "mma"
+    assert ops.select_bwd_variant(torch.bfloat16, hd) == "sm90"
     g = torch.Generator(device="cuda").manual_seed(300)
     q, k, v, do = (torch.randn(shape, generator=g, device="cuda").bfloat16()
                    for shape in ((B, S, H, hd), (B, S, KV, hd),
                                  (B, S, KV, hd), (B, S, H, hd)))
-    out = ops.flash_attention(q, k, v, causal=True)
+    out, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
     # SDPA on (B, H, S, hd) with GQA; its backward alone is timed
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
@@ -1955,15 +2021,19 @@ def phase_train_kernel(torch, ops, ref) -> dict:
                                              enable_gqa=True)
     dot = do.transpose(1, 2)
     ms = timed_turns(torch, {
-        "mma": lambda: ops.flash_attention_bwd(do, q, k, v, out,
-                                               causal=True),
-        "fma": lambda: ops.run_bwd_variant("fma", do, q, k, v, out,
+        "sm90": lambda: ops.flash_attention_bwd(do, q, k, v, out, lse,
+                                                causal=True),
+        "mma": lambda: ops.run_bwd_variant("mma", do, q, k, v, out, lse,
+                                           causal=True),
+        "fma": lambda: ops.run_bwd_variant("fma", do, q, k, v, out, lse,
                                            causal=True),
         "plain": lambda: ref.flash_attention_bwd_ref(do, q, k, v,
                                                      causal=True),
         "sdpa": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                             retain_graph=True),
-    }, reps={"fma": 3, "plain": 2})
+    }, reps={"mma": 5, "fma": 3, "plain": 2})
+    split = kernel_split(torch, lambda: ops.flash_attention_bwd(
+        do, q, k, v, out, lse, causal=True), SM90_BWD_KERNELS)
     pairs = visible_pairs(S, S, True, None)
     flops = 8 * B * H * hd * pairs
     nbytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v)) + \
@@ -1971,34 +2041,49 @@ def phase_train_kernel(torch, ops, ref) -> dict:
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     log(f"timing flash_attention_bwd at the training shape {BWD_CASES[0]}, "
-        f"in turns: mma {ms['mma']:.4f} ms "
+        f"in turns: sm90 {ms['sm90']:.4f} ms "
+        f"({flops / ms['sm90'] / 1e9:.1f} TFLOP/s), mma {ms['mma']:.4f} ms "
         f"({flops / ms['mma'] / 1e9:.1f} TFLOP/s), fma {ms['fma']:.4f} ms "
         f"({flops / ms['fma'] / 1e9:.1f} TFLOP/s), plain {ms['plain']:.4f} "
         f"ms, sdpa backward {ms['sdpa']:.4f} ms "
         f"({flops / ms['sdpa'] / 1e9:.1f} TFLOP/s); bound "
         f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP of the four "
         f"backward products on {pairs} visible pairs, {nbytes / 2**20:.1f} "
-        f"MiB)")
+        f"MiB); sm90 is {ms['mma'] / ms['sm90']:.2f}x mma and "
+        f"{ms['sm90'] / ms['sdpa']:.2f}x sdpa; the 1.0 ms design target "
+        f"{'met' if ms['sm90'] <= 1.0 else 'not met'}")
+    log("timing flash_attention_bwd sm90 by kernel (torch.profiler, ms per "
+        "launch, launches recorded of 5 made): " + ", ".join(
+            f"{k} {ms_:.4f} ({n})" for k, (ms_, n) in split.items())
+        + f"; sum {sum(ms_ for ms_, _ in split.values()):.4f}")
+    regs = {k: v for k, v in ptxas_report(build, ops, "flash_attention")
+            .items() if "sm90" in k and "bwd_" in k}
+    for kernel, used in regs.items():
+        log(f"  ptxas {kernel}: {used}")
     record = {
-        "name": "flash_attention_bwd", "variant": "mma", "route": "cuda",
+        "name": "flash_attention_bwd", "variant": "sm90", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_bwd_mma.cu",
+                  "flash_attention_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
         "note": "the gradient of that kernel; the reference has no "
                 "backward kernel (it differentiates models/layers.py:259 "
                 "_plain_gqa)",
         "launches": None, "variant_launches": None,
-        "max_abs_err": worst[(BWD_CASES[0], "mma")][1],
+        "max_abs_err": worst[(BWD_CASES[0], "sm90")][1],
         "gate_ratio": max(r for r, _ in worst.values()),
-        "ms": ms["mma"], "plain_ms": ms["plain"],
+        "ms": ms["sm90"], "plain_ms": ms["plain"],
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": ms["sdpa"],
-        "earlier_ms": ms["fma"],
+        "earlier_ms": ms["mma"],
         "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
-                          "flash_attention_bwd.cu",
+                          "flash_attention_bwd_mma.cu",
+        "first_ms": ms["fma"],
+        "first_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention_bwd.cu",
+        "kernel_ms": {k: ms_ for k, (ms_, _) in split.items()},
     }
-    del q, k, v, do, out, qt, kt, vt, lib_out, dot
+    del q, k, v, do, out, lse, qt, kt, vt, lib_out, dot
     _release(torch)
     return record
 
@@ -2156,16 +2241,18 @@ def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
             "measured_ms": measured * 1e3, "predicted_ms": plan.makespan * 1e3}
 
 
-def phase_train(torch, ops, ref, cfg, card: str) -> dict:
+def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
     """The training main path at full granite-8b width (bf16, random
-    weights from a seed, B=1, S=2048, SGD): (a) the backward kernel
-    against its plain version and timed; (b) the eager step at the depth
-    the printed arithmetic allows, with its launch counts; (c) ParDNN on
+    weights from a seed, B=1, S=2048, SGD), after (a) the backward
+    kernels' phase (:func:`phase_train_kernel`): (b) the eager step at
+    the depth the printed arithmetic allows, with its launch counts; (c)
+    ParDNN on
     the traced step at TRAIN["plan_layers"] layers: the graph's gates,
     K=4 under a generous and a tight cap, the verified plan executed
     folded onto the card against the eager step, K=1 the same, the
     interpreter at TRAIN["interp_layers"] against compiled, save / load /
-    bind. Returns the backward kernel's record."""
+    bind. Fills in the backward kernel's ``record`` (from (a)) and
+    returns it."""
     from repro_torch import api
     from repro_torch.conformance import make_train_step
     from repro_torch.core.costmodel import H100
@@ -2173,7 +2260,6 @@ def phase_train(torch, ops, ref, cfg, card: str) -> dict:
     from repro_torch.core.tracing import _functional_graph, op_name
     from repro_torch.models import init_params
     from repro_torch.tree import tree_flatten
-    record = phase_train_kernel(torch, ops, ref)
     B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
     gb = 1e9
 
@@ -2240,7 +2326,7 @@ def phase_train(torch, ops, ref, cfg, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     del new
     want = {"flash_attention": layers, "flash_attention/sm90": layers,
-            "flash_attention_bwd": layers, "flash_attention_bwd/mma": layers,
+            "flash_attention_bwd": layers, "flash_attention_bwd/sm90": layers,
             "wkv6": 0}
     got = {k: launches[k] for k in want}
     log(f"train eager: {layers} layers, loss {float(loss):.4f} (ln "
@@ -2405,7 +2491,7 @@ def phase_train(torch, ops, ref, cfg, card: str) -> dict:
 
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
-          "plan_execute", "plan_serve", "train")
+          "plan_execute", "plan_serve", "train_kernels", "train")
 
 
 def main(argv=None) -> int:
@@ -2476,8 +2562,10 @@ def main(argv=None) -> int:
             if record is not None:
                 record["plan_serve_launches"] = launches["flash_attention"]
     train_record = None
+    if "train_kernels" in phases or "train" in phases:
+        train_record = phase_train_kernel(torch, ops, ref, build)
     if "train" in phases:
-        train_record = phase_train(torch, ops, ref, cfg, card)
+        phase_train(torch, ops, cfg, card, train_record)
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record)

@@ -77,7 +77,7 @@ def build_variant(name: str) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed on ablation {name}:\n{res.stderr}")
     lib = ctypes.CDLL(str(so))
     fn = lib.repro_flash_attention_sm90_fwd
-    fn.argtypes = ops._ARGTYPES[:4] + ops._ARGTYPES[5:]
+    fn.argtypes = ops._ARGTYPES[:5] + ops._ARGTYPES[6:]
     fn.restype = ctypes.c_int
     return fn
 
@@ -94,11 +94,12 @@ def main() -> int:
     k = torch.randn((B, S, KV, hd), generator=g, device="cuda").bfloat16()
     v = torch.randn((B, S, KV, hd), generator=g, device="cuda").bfloat16()
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
 
     def call(fn, causal: int) -> None:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, H, KV, S, S, hd, *q.stride()[:3], *k.stride()[:3],
+                 lse.data_ptr(), B, H, KV, S, S, hd, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], *out.stride()[:3], 1.0 / math.sqrt(hd),
                  causal, 0, 0, 0.0, stream)
         if err != 0:

@@ -30,6 +30,11 @@
 // and a 4 x hd/16 output tile), so it is limited by the 67 TFLOP/s
 // non-tensor float32 rate and by shared-memory bandwidth. mma/wgmma and TMA
 // are the next step.
+//
+// It also writes each row's log-sum-exp, float32 (B, H, Sq), for the
+// backward: m + ln l over the scaled (soft-capped) visible scores, and +inf
+// for a row that sees no key (l = 0), so that the backward's P of that row
+// is 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +64,7 @@ struct Params {
   int causal;
   int window;                   // <= 0: no window
   int q_offset;
+  float* lse;                   // (B, H, Sq) float32
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -226,6 +232,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
     const int qi = q0 + row0 + i;
     if (qi >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lane == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + qi] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : __int_as_float(0x7f800000);
     T* out = O + (long long)qi * p.o_ss;
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
@@ -262,9 +271,11 @@ cudaError_t dispatch(int D, const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
-// must be contiguous. Returns the cudaError_t of the launch.
+// must be contiguous; lse is a contiguous float32 (B, H, Sq). Returns the
+// cudaError_t of the launch.
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int B,
     int H, int KV, int Sq, int Sk, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
@@ -275,7 +286,7 @@ extern "C" int repro_flash_attention_fwd(
   const Params p{q,    k,    v,    o,    B,    H,     KV,      Sq,
                  Sk,   q_sb, q_ss, q_sh, k_sb, k_ss,  k_sh,    v_sb,
                  v_ss, v_sh, o_sb, o_ss, o_sh, scale, softcap, causal,
-                 window, q_offset};
+                 window, q_offset, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(dispatch<float>(D, p, s));
   if (dtype == 1) return static_cast<int>(dispatch<__nv_bfloat16>(D, p, s));

@@ -1,7 +1,10 @@
 // Flash attention backward for NVIDIA Hopper (sm_90a) on bf16 tensor cores
 // (mma.sync), CUDA C++: bf16 q, k, v, o and dO at head dims 64 and 128.
-// float32 inputs and the other head dims run the first design,
-// flash_attention_bwd.cu (float32 FMAs), which computes the same function.
+// The training path runs its successor, flash_attention_bwd_sm90.cu
+// (wgmma, TMA, the forward's LSE); this design stays as the comparison,
+// launched by name. float32 inputs and the other head dims run the first
+// design, flash_attention_bwd.cu (float32 FMAs). All three compute the
+// same function.
 //
 // The gradient of the forward kernels in this folder, which replace the
 // Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py:94 (the
@@ -23,10 +26,10 @@
 // bound by its operations. What the design does about it:
 //
 // * Every product runs on tensor cores: mma.sync m16n8k16 bf16 with float32
-//   accumulators (wgmma, the only way to the full rate, is the next
-//   design). Each of the 4 warps of a block owns 16 rows of the block's
-//   tile: the S (or S^T) and dP tiles of its rows stay in registers, and
-//   so do its dK and dV (or dQ) accumulators.
+//   accumulators (wgmma, the only way to the full rate, is the design of
+//   flash_attention_bwd_sm90.cu). Each of the 4 warps of a block owns 16
+//   rows of the block's tile: the S (or S^T) and dP tiles of its rows stay
+//   in registers, and so do its dK and dV (or dQ) accumulators.
 // * P and dS are rounded to bf16 for the products that take them (dV, dK,
 //   dQ); their accumulator fragments are the A fragments of those products
 //   directly (two adjacent 16 x 8 accumulator tiles are one 16 x 16 A
@@ -41,7 +44,8 @@
 // * Tiles outside the causal cone or the window are skipped, as in the
 //   first design; S is still recomputed in (a), (b) and (c), and dP in (b)
 //   and (c): 16 hd operations per visible pair and head against the
-//   bound's 8. Emitting the LSE from the forward removes (a).
+//   bound's 8. flash_attention_bwd_sm90.cu takes the LSE from the forward
+//   instead, which removes S from (a): 14.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

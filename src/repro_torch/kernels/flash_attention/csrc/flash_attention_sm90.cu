@@ -56,7 +56,12 @@
 //   keeps P to about 2^-17 at 1.5x the tensor-core work.
 // * The epilogue writes O / max(l, 1e-30) as bf16 into the item's own
 //   (consumed) Q buffer in the swizzled layout and TMA stores it; rows
-//   past Sq are clipped by the store.
+//   past Sq are clipped by the store. It also writes each row's
+//   log-sum-exp, float32 (B, H, Sq), for the backward
+//   (flash_attention_bwd_sm90.cu): ln of the row's sum of exp over its
+//   scaled (soft-capped) visible scores, (m + log2 l) ln 2 in the kernel's
+//   log2 units, and +inf for a row that saw no key (l = 0; its m is the
+//   -inf it started with), so that the backward's P of that row is 0.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -74,6 +79,7 @@ constexpr int WG_ROWS = 64;      // query rows per consumer warpgroup
 constexpr int NT = 384;          // producer + two consumer warpgroups
 constexpr int BOX = 64;          // bf16 per 128-byte swizzled row
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   int B, H, KV, Sq, Sk;
@@ -84,6 +90,7 @@ struct Params {
   int causal;
   int window;                    // <= 0: none
   int q_offset;
+  float* lse;                    // (B, H, Sq) float32, natural log
 };
 
 template <int D>
@@ -449,14 +456,19 @@ __global__ void __launch_bounds__(NT, 1)
     }
     for (int t = max(t_hi, t_lo); t < it.n_tiles; ++t) skip();
 
-    // ---- epilogue: O / l as bf16 into this wg's rows of the Q buffer,
-    // then one TMA store; the buffer is released once the store has read it
+    // ---- epilogue: the rows' LSE; O / l as bf16 into this wg's rows of
+    // the Q buffer, then one TMA store; the buffer is released once the
+    // store has read it
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+      const int row = w0 + ra + 8 * r;
+      if (tq == 0 && row < p.Sq)
+        p.lse[(static_cast<long long>(it.b) * p.H + it.h) * p.Sq + row] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : INFINITY;
     }
     named_sync(1 + wg, 128);             // every Q read of this wg is done
     uint8_t* out = smem + qb * L::Q_BYTES + wg * (WG_ROWS * 128);
@@ -484,52 +496,6 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime, so
-// the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A (B, S, H, D) bf16 tensor with element strides (sb, ss, sh, 1) as a 4-d
-// tensor map {D, S, H, B}, boxes of {64, rows, 1, 1} in 128-byte swizzle.
-CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                  int D, long long sb, long long ss, long long sh, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2,
-                                 cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {BOX, cuuint32_t(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int D>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const CUtensorMap& to,
@@ -553,13 +519,15 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 }  // namespace
 
-// bf16 q (B,Sq,H,D), k and v (B,Sk,KV,D), o (B,Sq,H,D); strides in
-// elements, the head dim contiguous; every base 16-byte aligned and every
-// other stride a multiple of 8 elements (TMA's rules; the wrapper checks).
+// bf16 q (B,Sq,H,D), k and v (B,Sk,KV,D), o (B,Sq,H,D); lse float32
+// (B,H,Sq), contiguous; strides in elements, the head dim contiguous; every
+// base 16-byte aligned and every other stride a multiple of 8 elements
+// (TMA's rules; the wrapper checks).
 // Returns 0, a cudaError_t of the launch (> 0), or -CUresult when a tensor
 // map cannot be encoded (-CUDA_ERROR_NOT_FOUND: no driver entry point).
 extern "C" int repro_flash_attention_sm90_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int B, int H,
     int KV, int Sq, int Sk, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
@@ -579,7 +547,7 @@ extern "C" int repro_flash_attention_sm90_fwd(
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   const int n_qtiles = (Sq + BQ - 1) / BQ;
   const Params p{B, H, KV, Sq, Sk, n_qtiles, B * H * n_qtiles, scale,
-                 scale * LOG2E, softcap, causal, window, q_offset};
+                 scale * LOG2E, softcap, causal, window, q_offset, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return static_cast<int>(launch<64>(tq, tk, tv, to, p, s));
   return static_cast<int>(launch<128>(tq, tk, tv, to, p, s));

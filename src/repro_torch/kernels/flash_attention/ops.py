@@ -1,20 +1,25 @@
 """Public wrappers around the CUDA flash-attention kernels, forward and
 backward, and the PyTorch custom ops they go through.
 
-Four kernels, one library: ``csrc/flash_attention_sm90.cu`` (forward,
+Five kernels, one library: ``csrc/flash_attention_sm90.cu`` (forward,
 bf16 at the head dims in :data:`SM90_HEAD_DIMS`: wgmma, TMA,
 warp-specialised), ``csrc/flash_attention.cu`` (forward, float32 FMAs:
 float32, and bf16 at the other head dims),
-``csrc/flash_attention_bwd_mma.cu`` (backward, bf16 at
-:data:`MMA_BWD_HEAD_DIMS`: mma.sync tensor cores) and
-``csrc/flash_attention_bwd.cu`` (backward, float32 FMAs, every dtype and
-head dim). :func:`select_variant` picks the forward and
-:func:`select_bwd_variant` the backward from (dtype, head dim) alone. The library is built with ``nvcc`` at the first call on a
+``csrc/flash_attention_bwd_sm90.cu`` (backward, bf16 at
+:data:`SM90_HEAD_DIMS`: wgmma, TMA, warp-specialised, the forward's
+LSE), ``csrc/flash_attention_bwd_mma.cu`` (backward, bf16 at
+:data:`MMA_BWD_HEAD_DIMS`: mma.sync tensor cores; the earlier design,
+kept to compare) and ``csrc/flash_attention_bwd.cu`` (backward, float32
+FMAs, every dtype and head dim). :func:`select_variant` picks the
+forward and :func:`select_bwd_variant` the backward from (dtype, head
+dim) alone. The library is built with ``nvcc`` at the first call on a
 CUDA tensor and bound through ``ctypes``; see
 :mod:`repro_torch.kernels.build`. Nothing is built at import.
 
 Both directions are PyTorch custom ops, ``repro_torch::flash_attention``
-and ``repro_torch::flash_attention_bwd``: a CUDA implementation that
+(which returns the output and each row's log-sum-exp) and
+``repro_torch::flash_attention_bwd`` (which takes that LSE after the
+output): a CUDA implementation that
 launches the kernels, a CPU implementation that runs the plain versions
 (:mod:`.ref`), a fake implementation (so that ``make_fx`` traces them on
 fake tensors of either device, as one node each) and, on the forward,
@@ -42,20 +47,31 @@ SM90_HEAD_DIMS = (64, 128)
 #: the forward kernels: ``sm90`` in flash_attention_sm90.cu, ``fma`` in
 #: flash_attention.cu
 VARIANTS = ("sm90", "fma")
-#: the backward kernels: ``mma`` in flash_attention_bwd_mma.cu (bf16 at
-#: :data:`MMA_BWD_HEAD_DIMS`, tensor cores), ``fma`` in
-#: flash_attention_bwd.cu (every dtype and head dim)
-BWD_VARIANTS = ("mma", "fma")
+#: the backward kernels: ``sm90`` in flash_attention_bwd_sm90.cu (bf16 at
+#: :data:`SM90_HEAD_DIMS`: wgmma, TMA, the forward's LSE), ``mma`` in
+#: flash_attention_bwd_mma.cu (bf16 at :data:`MMA_BWD_HEAD_DIMS`,
+#: mma.sync; the earlier design), ``fma`` in flash_attention_bwd.cu (every
+#: dtype and head dim)
+BWD_VARIANTS = ("sm90", "mma", "fma")
 MMA_BWD_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+#: rows of the sm90 backward's statistics scratch are padded to a multiple
+#: of this, so that its tiles read them whole
+SM90_BWD_PAD = 128
+
 _c_ll = ctypes.c_longlong
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [_c_ll] * 12
+# q, k, v, out and lse; dtype and the sizes; four stride triples
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [_c_ll] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_void_p])
 # eight tensors, lse and delta; dtype and the sizes; eight stride triples
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [_c_ll] * 24
                  + _ARGTYPES[-6:])
+# q, k, v, out, dout, the forward's lse, dq, dk, dv and four scratch
+# tensors; the sizes and the padded row count; eight stride triples
+_SM90_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                      + [_c_ll] * 24 + _ARGTYPES[-6:])
 
 
 def load() -> ctypes.CDLL:
@@ -67,13 +83,16 @@ def load() -> ctypes.CDLL:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         sm90 = lib.repro_flash_attention_sm90_fwd
-        sm90.argtypes = _ARGTYPES[:4] + _ARGTYPES[5:]   # no dtype code
+        sm90.argtypes = _ARGTYPES[:5] + _ARGTYPES[6:]   # no dtype code
         sm90.restype = ctypes.c_int
         lib.repro_flash_attention_bwd.argtypes = _BWD_ARGTYPES
         lib.repro_flash_attention_bwd.restype = ctypes.c_int
         mma = lib.repro_flash_attention_bwd_mma
         mma.argtypes = _BWD_ARGTYPES[:10] + _BWD_ARGTYPES[11:]  # no dtype
         mma.restype = ctypes.c_int
+        bwd90 = lib.repro_flash_attention_bwd_sm90
+        bwd90.argtypes = _SM90_BWD_ARGTYPES
+        bwd90.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -81,10 +100,10 @@ def load() -> ctypes.CDLL:
 
 def select_bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernel a CUDA call of this dtype and head dim
-    launches: ``mma`` for bf16 at :data:`MMA_BWD_HEAD_DIMS`, else
-    ``fma``."""
-    if dtype == torch.bfloat16 and head_dim in MMA_BWD_HEAD_DIMS:
-        return "mma"
+    launches: ``sm90`` for bf16 at :data:`SM90_HEAD_DIMS`, else ``fma``
+    (``mma`` is launched only by name, through :func:`run_bwd_variant`)."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
     return "fma"
 
 
@@ -148,10 +167,13 @@ def _check_window(window) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, q_offset: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, return_lse: bool = False):
     """Attention forward. q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), the
     model's layout, read through strides (the head dim must be
-    contiguous). Returns (B, Sq, H, hd) in q's dtype.
+    contiguous). Returns (B, Sq, H, hd) in q's dtype; with
+    ``return_lse`` also each row's log-sum-exp over its scaled
+    (soft-capped) visible scores, float32 (B, H, Sq), +inf for a row
+    with every key masked: what :func:`flash_attention_bwd` takes.
 
     GQA: head h reads KV head h // (H // KV). ``q_offset`` is the
     absolute position of q[:, 0] for the causal and window masks;
@@ -187,15 +209,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """
     _check(q, k, v)
     _check_window(window)
-    return _fwd_op(q, k, v, bool(causal), int(window or 0), int(q_offset),
-                   float(softcap))
+    out, lse = _fwd_op(q, k, v, bool(causal), int(window or 0),
+                       int(q_offset), float(softcap))
+    return (out, lse) if return_lse else out
 
 
 def run_variant(variant: str, q, k, v, *, causal: bool = True,
                 window: int | None = None, q_offset: int = 0,
-                softcap: float = 0.0) -> torch.Tensor:
-    """Launch the named kernel on CUDA tensors and count it.
-    :func:`flash_attention` calls it with the variant
+                softcap: float = 0.0):
+    """Launch the named kernel on CUDA tensors and count it; returns the
+    output and its rows' LSE (both kernels write it), as the forward op
+    does. :func:`flash_attention` calls it with the variant
     :func:`select_variant` names; ``chip_smoke.py`` also calls it to time
     the ``fma`` kernel at a bf16 shape the ``sm90`` kernel takes."""
     _check(q, k, v)
@@ -215,15 +239,17 @@ def run_variant(variant: str, q, k, v, *, causal: bool = True,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous head dim")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out
+        return out, lse
     if variant == "sm90":
         check_tma_layout(q=q, k=k, v=v)
     lib = load()
     args = (B, H, KV, Sq, Sk, hd, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], 1.0 / math.sqrt(hd),
             int(causal), int(window or 0), int(q_offset), float(softcap))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if variant == "sm90":
@@ -240,28 +266,30 @@ def run_variant(variant: str, q, k, v, *, causal: bool = True,
                            f"{msg} (cudaError {err})")
     flash_attention.launches += 1
     flash_attention.variant_launches[variant] += 1
-    return out
+    return out, lse
 
 
-def flash_attention_bwd(dout, q, k, v, out, *, causal: bool = True,
+def flash_attention_bwd(dout, q, k, v, out, lse, *, causal: bool = True,
                         window: int | None = None, q_offset: int = 0,
                         softcap: float = 0.0):
     """Gradient of :func:`flash_attention`: (dq, dk, dv) for the
     cotangent ``dout`` of its output ``out`` at (q, k, v), each in its
     input's shape and dtype (q, dout, out: (B, Sq, H, hd); k, v: (B, Sk,
-    KV, hd), read through strides with a contiguous head dim). A row whose
-    every key is masked gets zero gradients.
+    KV, hd), read through strides with a contiguous head dim). ``lse`` is
+    the forward's float32 (B, H, Sq) row log-sum-exp
+    (``flash_attention(..., return_lse=True)``), which the ``sm90`` kernel
+    reads. A row whose every key is masked gets zero gradients.
 
     It runs the custom op ``repro_torch::flash_attention_bwd``. A CUDA
     tensor launches the backward kernel that :func:`select_bwd_variant`
-    names (three kernels in stream order, float32 accumulation, no
+    names (a few kernels in stream order, float32 accumulation, no
     atomics, so repeated calls are bit-equal) on the current stream and
     adds one to ``flash_attention_bwd.launches`` and to
     ``flash_attention_bwd.variant_launches[variant]``; anything it cannot
-    take raises (the ``mma`` kernel's q, k, v, out and dout must also have
-    16-byte aligned bases and strides), and a failed launch raises. A CPU
-    tensor runs the plain version :func:`flash_attention_bwd_ref`, which
-    is not counted."""
+    take raises (the ``sm90`` and ``mma`` kernels' q, k, v, out and dout
+    must also have 16-byte aligned bases and strides), and a failed
+    launch raises. A CPU tensor runs the plain version
+    :func:`flash_attention_bwd_ref`, which is not counted."""
     _check(q, k, v)
     _check_window(window)
     if dout.shape != q.shape or out.shape != q.shape:
@@ -271,31 +299,50 @@ def flash_attention_bwd(dout, q, k, v, out, *, causal: bool = True,
     if dout.dtype != q.dtype or out.dtype != q.dtype:
         raise TypeError(f"dout ({dout.dtype}) and out ({out.dtype}) must "
                         f"have q's dtype {q.dtype}")
-    return _bwd_op(dout, q, k, v, out, bool(causal), int(window or 0),
+    _check_lse(lse, q)
+    return _bwd_op(dout, q, k, v, out, lse, bool(causal), int(window or 0),
                    int(q_offset), float(softcap))
 
 
-def run_bwd_variant(variant: str, dout, q, k, v, out, *, causal: bool = True,
-                    window: int | None = None, q_offset: int = 0,
-                    softcap: float = 0.0):
+def _check_lse(lse, q) -> None:
+    """The forward's LSE: float32 (B, H, Sq) on q's device."""
+    B, Sq, H, _ = q.shape
+    if not isinstance(lse, torch.Tensor) or lse.shape != (B, H, Sq) or \
+            lse.dtype != torch.float32 or lse.device != q.device:
+        got = (f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
+               if isinstance(lse, torch.Tensor) else type(lse).__name__)
+        raise ValueError(f"lse must be the forward's float32 (B, H, Sq) = "
+                         f"{(B, H, Sq)} on {q.device} (flash_attention(..., "
+                         f"return_lse=True)); got {got}")
+
+
+def run_bwd_variant(variant: str, dout, q, k, v, out, lse, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0, softcap: float = 0.0):
     """Launch the named backward kernel on CUDA tensors and count it, as
     :func:`flash_attention_bwd` does with the variant
     :func:`select_bwd_variant` names; ``chip_smoke.py`` calls it to hold
-    and time the ``fma`` kernel at bf16 shapes the ``mma`` kernel
-    takes."""
+    and time the earlier kernels (``mma``, ``fma``) at bf16 shapes the
+    ``sm90`` kernel takes. ``sm90`` reads ``lse``; the others compute
+    their own and ignore it."""
     _check(q, k, v)
     _check_window(window)
-    return _launch_bwd(variant, dout, q, k, v, out, causal, window or 0,
+    _check_lse(lse, q)
+    return _launch_bwd(variant, dout, q, k, v, out, lse, causal, window or 0,
                        q_offset, softcap)
 
 
-def _launch_bwd(variant, dout, q, k, v, out, causal, window, q_offset,
+def _launch_bwd(variant, dout, q, k, v, out, lse, causal, window, q_offset,
                 softcap):
     """The named backward kernel's checks, then its launch."""
     if variant not in BWD_VARIANTS:
         raise ValueError(f"unknown flash_attention_bwd variant {variant!r}")
     B, Sq, H, hd = q.shape
-    if variant == "mma" and select_bwd_variant(q.dtype, hd) != "mma":
+    if variant == "sm90" and select_bwd_variant(q.dtype, hd) != "sm90":
+        raise ValueError(f"the sm90 backward takes bfloat16 at head dims "
+                         f"{SM90_HEAD_DIMS}, not {q.dtype} at {hd}")
+    if variant == "mma" and (q.dtype != torch.bfloat16
+                             or hd not in MMA_BWD_HEAD_DIMS):
         raise ValueError(f"the mma backward takes bfloat16 at head dims "
                          f"{MMA_BWD_HEAD_DIMS}, not {q.dtype} at {hd}")
     if q.device.type != "cuda":
@@ -310,7 +357,9 @@ def _launch_bwd(variant, dout, q, k, v, out, causal, window, q_offset,
                          "devices")
     if any(t.stride(-1) != 1 for t in ins):
         raise ValueError("flash_attention_bwd needs a contiguous head dim")
-    if variant == "mma":
+    if variant == "sm90":
+        check_tma_layout(q=q, k=k, v=v, out=out, dout=dout)
+    elif variant == "mma":
         _check_16_bytes("flash_attention_bwd (mma)",
                         "as its 16-byte loads need",
                         dict(q=q, k=k, v=v, out=out, dout=dout))
@@ -319,22 +368,46 @@ def _launch_bwd(variant, dout, q, k, v, out, causal, window, q_offset,
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    # the row statistics the first kernel writes and the others read
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
     lib = load()
     ts = (q, k, v, out, dout, dq, dk, dv)
     strides = [s for t in ts for s in t.stride()[:3]]
-    ptrs = (*(t.data_ptr() for t in ts), lse.data_ptr(), delta.data_ptr())
-    args = (B, H, KV, Sq, Sk, hd, *strides, 1.0 / math.sqrt(hd),
-            int(causal), int(window), int(q_offset), float(softcap))
+    scalars = (1.0 / math.sqrt(hd), int(causal), int(window), int(q_offset),
+               float(softcap))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if variant == "mma":
-            err = lib.repro_flash_attention_bwd_mma(*ptrs, *args, stream)
+        if variant == "sm90":
+            # the rows' statistics padded to whole tiles, and each query
+            # head's dK, dV in float32 before the sum over its group
+            pad = -(-Sq // SM90_BWD_PAD) * SM90_BWD_PAD
+            lse2 = torch.empty((B, H, pad), dtype=torch.float32,
+                               device=q.device)
+            delta = torch.empty_like(lse2)
+            dkp = torch.empty((B, H, Sk, hd), dtype=torch.float32,
+                              device=q.device)
+            dvp = torch.empty_like(dkp)
+            lse = lse.contiguous()
+            ptrs = (*(t.data_ptr() for t in ts[:5]), lse.data_ptr(),
+                    *(t.data_ptr() for t in ts[5:]), lse2.data_ptr(),
+                    delta.data_ptr(), dkp.data_ptr(), dvp.data_ptr())
+            err = lib.repro_flash_attention_bwd_sm90(
+                *ptrs, B, H, KV, Sq, Sk, hd, pad, *strides, *scalars, stream)
         else:
-            err = lib.repro_flash_attention_bwd(*ptrs, _DTYPE_CODE[q.dtype],
-                                                *args, stream)
+            # these designs compute their own row statistics: their first
+            # kernel writes them and the others read them
+            own_lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                                  device=q.device)
+            delta = torch.empty_like(own_lse)
+            ptrs = (*(t.data_ptr() for t in ts), own_lse.data_ptr(),
+                    delta.data_ptr())
+            args = (B, H, KV, Sq, Sk, hd, *strides, *scalars)
+            if variant == "mma":
+                err = lib.repro_flash_attention_bwd_mma(*ptrs, *args, stream)
+            else:
+                err = lib.repro_flash_attention_bwd(
+                    *ptrs, _DTYPE_CODE[q.dtype], *args, stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention_bwd ({variant}): a TMA tensor "
+                           f"map could not be encoded (CUresult {-err})")
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_attention_bwd ({variant}) launch failed: "
@@ -349,7 +422,7 @@ def _launch_bwd(variant, dout, q, k, v, out, causal, window, q_offset,
                          device_types="cuda")
 def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: int, q_offset: int,
-            softcap: float) -> torch.Tensor:
+            softcap: float) -> tuple[torch.Tensor, torch.Tensor]:
     return run_variant(select_variant(q.dtype, q.shape[-1]), q, k, v,
                        causal=causal, window=window or None,
                        q_offset=q_offset, softcap=softcap)
@@ -358,49 +431,54 @@ def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_fwd_op.register_kernel("cpu")
 def _fwd_cpu(q, k, v, causal, window, q_offset, softcap):
     # contiguous, as the kernels' outputs (and the fake's) are
-    return flash_attention_ref(q, k, v, causal=causal, window=window or None,
-                               q_offset=q_offset,
-                               softcap=softcap).contiguous()
+    out, lse = flash_attention_ref(q, k, v, causal=causal,
+                                   window=window or None, q_offset=q_offset,
+                                   softcap=softcap, return_lse=True)
+    return out.contiguous(), lse.contiguous()
 
 
 @_fwd_op.register_fake
 def _fwd_fake(q, k, v, causal, window, q_offset, softcap):
-    return q.new_empty(q.shape)
+    B, Sq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
                          device_types="cuda")
 def _bwd_op(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor, out: torch.Tensor, causal: bool, window: int,
-            q_offset: int, softcap: float
+            v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+            causal: bool, window: int, q_offset: int, softcap: float
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return _launch_bwd(select_bwd_variant(q.dtype, q.shape[-1]), dout, q, k,
-                       v, out, causal, window, q_offset, softcap)
+                       v, out, lse, causal, window, q_offset, softcap)
 
 
 @_bwd_op.register_kernel("cpu")
-def _bwd_cpu(dout, q, k, v, out, causal, window, q_offset, softcap):
+def _bwd_cpu(dout, q, k, v, out, lse, causal, window, q_offset, softcap):
+    # the plain backward recomputes the softmax and does not read lse
     return tuple(t.contiguous() for t in flash_attention_bwd_ref(
         dout, q, k, v, causal=causal, window=window or None,
         q_offset=q_offset, softcap=softcap))
 
 
 @_bwd_op.register_fake
-def _bwd_fake(dout, q, k, v, out, causal, window, q_offset, softcap):
+def _bwd_fake(dout, q, k, v, out, lse, causal, window, q_offset, softcap):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 def _setup_context(ctx, inputs, output):
     q, k, v, *attrs = inputs
-    ctx.save_for_backward(q, k, v, output)
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse)
     ctx.attrs = attrs
 
 
-def _backward(ctx, dout):
-    q, k, v, out = ctx.saved_tensors
+def _backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
     # the kernels read dout through strides but need them aligned; the
     # cotangent autograd hands over is contiguous in the model's layout
-    dq, dk, dv = _bwd_op(dout.contiguous(), q, k, v, out, *ctx.attrs)
+    dq, dk, dv = _bwd_op(dout.contiguous(), q, k, v, out, lse, *ctx.attrs)
     return dq, dk, dv, None, None, None, None
 
 

@@ -29,14 +29,17 @@ def _mask(Sq: int, Sk: int, causal: bool, window, q_offset, device):
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: int | None = None, q_offset=0,
-                        softcap: float = 0.0) -> torch.Tensor:
+                        softcap: float = 0.0, return_lse: bool = False):
     """q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v: (B, Sk, KV, dv).
 
     GQA: head h reads KV head h // (H // KV). ``q_offset`` is the
     absolute position of q[:, 0]: an int or a (B,) tensor. Scores are
     float32; the probabilities are rounded to v's dtype before the PV
     product, as the reference does. Rows with every key masked give 0.
-    Returns (B, Sq, H, dv) in q's dtype."""
+    Returns (B, Sq, H, dv) in q's dtype; with ``return_lse`` also each
+    row's log-sum-exp over its scaled (soft-capped) visible scores,
+    float32 (B, H, Sq), +inf for a row with every key masked (what the
+    forward kernels write for the backward)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -51,7 +54,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)
     out = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float())
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    lse = torch.where(lse == float("-inf"), float("inf"), lse)
+    return out, lse.reshape(B, H, Sq)
 
 
 def flash_attention_bwd_ref(dout, q, k, v, *, causal: bool = True,

@@ -133,6 +133,53 @@ def test_plain_version_per_row_offsets_match_plain_gqa(jx):
     np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window,dtype", FLASH_CASES)
+def test_forward_lse_matches_jax_at_the_reference_cases(jx, B, H, KV, S, hd,
+                                                        causal, window,
+                                                        dtype):
+    """The row log-sum-exp the forward returns with ``return_lse`` (the
+    backward's input) against a logsumexp of the same scores, scaled and
+    masked as the reference's plain path does, in ``jax.numpy`` on the
+    same (rounded) inputs, in float32: 2e-5."""
+    (jq, jk, _), (q, k, v) = _both(jx, _inputs(S + hd, B, H, KV, S, S, hd),
+                                   dtype)
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    jnp = jx.jnp
+    f32 = jnp.float32
+    s = jnp.einsum("bqkgd,bskd->bkgqs",
+                   jq.astype(f32).reshape(B, S, KV, H // KV, hd),
+                   jk.astype(f32)) / np.sqrt(hd)
+    pos = jnp.arange(S)
+    mask = jnp.ones((S, S), dtype=bool)
+    if causal:
+        mask = mask & (pos[None, :] <= pos[:, None])
+    if window is not None:
+        mask = mask & (pos[None, :] > pos[:, None] - window)
+    import jax
+    want = jax.scipy.special.logsumexp(jnp.where(mask, s, -jnp.inf),
+                                       axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want).reshape(
+        B, H, S), atol=2e-5, rtol=2e-5)
+    np.testing.assert_array_equal(_np(out), _np(ops.flash_attention(
+        q, k, v, causal=causal, window=window)))
+
+
+def test_fully_masked_rows_have_infinite_lse():
+    """A row that sees no key: output 0, LSE +inf (so that the backward's
+    P of that row is exp(s - inf) = 0)."""
+    q, k, v = _torch(_inputs(1, 1, 2, 2, 4, 8, 16), "float32")
+    out, lse = ops.flash_attention(q, k, v, causal=True, q_offset=-8,
+                                   return_lse=True)
+    assert torch.count_nonzero(out) == 0
+    assert bool(torch.isposinf(lse).all())
+    _, lse = ops.flash_attention(q, k, v, causal=True, q_offset=-2,
+                                 return_lse=True)
+    assert bool(torch.isposinf(lse[:, :, :2]).all())
+    assert bool(torch.isfinite(lse[:, :, 2:]).all())
+
+
 def test_fully_masked_rows_are_zero():
     q, k, v = _torch(_inputs(1, 1, 2, 2, 4, 8, 16), "float32")
     # q_offset -8: every query sits before every key
@@ -166,6 +213,25 @@ def test_cuda_kernel_matches_plain_version(B, H, KV, S, hd, causal, window,
     assert ops.flash_attention.launches == before + 1
     ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window,dtype", FLASH_CASES)
+def test_cuda_kernel_lse_matches_plain_version(B, H, KV, S, hd, causal,
+                                               window, dtype):
+    """Both forward kernels' LSE against the plain version's on the same
+    inputs: scores in float32 in both, summed in another order, and the
+    sm90 kernel's exp2 is the hardware's approximation (2^-22 relative):
+    1e-4 absolute on values of a few units."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _torch(_inputs(S + hd, B, H, KV, S, S, hd), dtype, "cuda")
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    _, want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(lse), _np(want), atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

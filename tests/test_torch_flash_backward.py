@@ -6,14 +6,17 @@ The reference has no backward kernel: it differentiates its dense
 attention ``repro.models.layers._plain_gqa``. The port's plain backward
 ``flash_attention_bwd_ref`` is held to ``jax.vjp`` of that function on
 the same seeded numpy inputs within 2e-5 in float32 (the two frameworks
-sum in other orders). The ``cuda``-marked tests hold both backward
-kernels (``mma`` for bf16 at hd 64 and 128, ``fma`` everywhere) to the
-plain version run in float32 on the same inputs, under a gate scaled to
-each gradient's largest magnitude: 2e-5 in float32 (sums in another
-order); 2^-6 in bf16, where the outputs are rounded to bf16 (2^-9 of
-the scale), D = rowsum(dO o O) is taken from the bf16 forward output
-(up to 3.6e-3 of dq's scale in a CPU check of the formula) and the
-``mma`` kernel rounds P and dS to bf16 for its products (2^-9 of each
+sum in other orders), and the forward's row log-sum-exp, which the
+``sm90`` backward reads instead of recomputing it, to a logsumexp taken
+with ``jax.numpy`` under the reference's mask, also within 2e-5. The
+``cuda``-marked tests hold the three backward kernels (``sm90`` for bf16
+at hd 64 and 128, ``mma`` there too, ``fma`` everywhere) to the plain
+version run in float32 on the same inputs, under a gate scaled to each
+gradient's largest magnitude: 2e-5 in float32 (sums in another order);
+2^-6 in bf16, where the outputs are rounded to bf16 (2^-9 of the
+scale), D = rowsum(dO o O) is taken from the bf16 forward output (up to
+3.6e-3 of dq's scale in a CPU check of the formula) and the ``sm90`` and
+``mma`` kernels round P and dS to bf16 for their products (2^-9 of each
 term).
 
 JAX is imported by the fixture that needs it, so the ``cuda`` tests also
@@ -72,6 +75,71 @@ def _kw(case):
                 softcap=softcap)
 
 
+def _jax_lse(jx, arrays, case):
+    """Each row's logsumexp over the reference's masked scores (the score
+    and mask construction of ``_plain_gqa``), (B, H, Sq), with
+    ``jax.numpy``."""
+    jnp = jx.jnp
+    B, H, KV, Sq, Sk, hd = case[:6]
+    causal, window, q_offset, softcap = case[6:]
+    q, k = jnp.asarray(arrays[0]), jnp.asarray(arrays[1])
+    s = jnp.einsum("bqkgd,bskd->bkgqs", q.reshape(B, Sq, KV, H // KV, hd),
+                   k) / np.sqrt(hd)
+    if softcap > 0:
+        s = jnp.tanh(s / softcap) * softcap
+    qp = (q_offset + jnp.arange(Sq))[None, None, None, :, None]
+    kp = jnp.arange(Sk)[None, None, None, None, :]
+    mask = jnp.ones((), dtype=bool)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    s = jnp.where(mask, s, -jnp.inf)
+    return np.asarray(jx.jax.scipy.special.logsumexp(s, axis=-1)
+                      ).reshape(B, H, Sq)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_forward_lse_matches_jax_logsumexp(jx, case):
+    """The forward op's second output (what the forward kernels write for
+    the ``sm90`` backward): each row's logsumexp of its scaled,
+    soft-capped, visible scores within 2e-5 of ``jax.numpy``'s, and +inf
+    exactly where the reference masks every key of a row."""
+    arrays = _inputs(17, *case[:6])
+    q, k, v = (torch.from_numpy(a) for a in arrays[:3])
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **_kw(case))
+    assert lse.dtype == torch.float32 and lse.shape == (case[0], case[1],
+                                                        case[3])
+    want = _jax_lse(jx, arrays, case)
+    masked = np.isneginf(want)
+    got = lse.numpy()
+    assert np.array_equal(np.isposinf(got), masked)
+    assert masked.any() == (case[8] < 0)     # only the q_offset -6 case
+    np.testing.assert_allclose(got[~masked], want[~masked], atol=2e-5,
+                               rtol=2e-5)
+    torch.testing.assert_close(out, ops.flash_attention(q, k, v,
+                                                        **_kw(case)),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_backward_op_with_the_forward_lse_is_the_plain_backward(case):
+    """The backward op fed the forward op's lse (as autograd feeds it)
+    returns the plain backward's gradients, bit for bit, in float32 and
+    bf16; no launch is counted on the CPU."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.from_numpy(a).to(dtype)
+                       for a in _inputs(19, *case[:6]))
+        kw = _kw(case)
+        out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+        before = ops.flash_attention_bwd.launches
+        got = ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
+        assert ops.flash_attention_bwd.launches == before
+        for g, w in zip(got, flash_attention_bwd_ref(do, q, k, v, **kw)):
+            assert g.dtype == dtype
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_plain_backward_matches_reference_vjp(jx, case):
     arrays = _inputs(7, *case[:6])
@@ -115,7 +183,8 @@ def test_autograd_through_the_op_is_the_plain_backward(case):
     want = flash_attention_bwd_ref(do, q, k, v, **kw)
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
-    direct = ops.flash_attention_bwd(do, q, k, v, out.detach(), **kw)
+    _, lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    direct = ops.flash_attention_bwd(do, q, k, v, out.detach(), lse, **kw)
     for g, w in zip(direct, want):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
     assert (ops.flash_attention.launches,
@@ -133,11 +202,32 @@ def test_opcheck(which):
         args = tuple(t.requires_grad_() for t in (q, k, v)) + attrs
         op = torch.ops.repro_torch.flash_attention.default
     else:
-        out = flash_attention_ref(q, k, v, causal=True, window=8)
-        args = (do, q, k, v, out) + attrs
+        out, lse = flash_attention_ref(q, k, v, causal=True, window=8,
+                                       return_lse=True)
+        args = (do, q, k, v, out, lse) + attrs
         op = torch.ops.repro_torch.flash_attention_bwd.default
     res = torch.library.opcheck(op, args)
     assert set(res.values()) == {"SUCCESS"}, res
+
+
+@pytest.mark.parametrize("case", [CASES[3], CASES[4], CASES[5]],
+                         ids=[IDS[3], IDS[4], IDS[5]])
+def test_opcheck_with_offset_softcap_and_masked_rows(case):
+    """Both schemas (the forward returning (out, lse), the backward taking
+    lse after out) under ``opcheck`` at a q_offset, a soft cap and fully
+    masked rows (an lse of +inf)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(23, *case[:6]))
+    causal, window, q_offset, softcap = case[6:]
+    attrs = (causal, window or 0, q_offset, softcap)
+    fwd = torch.library.opcheck(
+        torch.ops.repro_torch.flash_attention.default,
+        tuple(t.clone().requires_grad_() for t in (q, k, v)) + attrs)
+    out, lse = flash_attention_ref(q, k, v, return_lse=True, **_kw(case))
+    bwd = torch.library.opcheck(
+        torch.ops.repro_torch.flash_attention_bwd.default,
+        (do, q, k, v, out, lse) + attrs)
+    for res in (fwd, bwd):
+        assert set(res.values()) == {"SUCCESS"}, res
 
 
 def test_fake_trace_records_one_node_each():
@@ -166,26 +256,37 @@ def test_fake_trace_records_one_node_each():
     (dict(dout=(1, 5, 4, 16)), ValueError),
     (dict(dtype="out"), TypeError),
     (dict(window=0), ValueError),
+    (dict(lse=(2, 4, 23)), ValueError),
+    (dict(lse_dtype="bfloat16"), ValueError),
+    (dict(lse=None), ValueError),
 ])
 def test_backward_wrapper_refuses(bad, error):
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, *CASES[0][:6]))
-    out = flash_attention_ref(q, k, v)
+    out, lse = flash_attention_ref(q, k, v, return_lse=True)
     if "dout" in bad:
         do = torch.zeros(bad["dout"])
     if "dtype" in bad:
         out = out.double()
+    if "lse" in bad:
+        lse = None if bad["lse"] is None else torch.zeros(bad["lse"])
+    if "lse_dtype" in bad:
+        lse = lse.to(getattr(torch, bad["lse_dtype"]))
     with pytest.raises(error):
-        ops.flash_attention_bwd(do, q, k, v, out,
+        ops.flash_attention_bwd(do, q, k, v, out, lse,
                                 window=bad.get("window"))
 
 
+
 @pytest.mark.parametrize("dtype, hd, variant", [
-    ("bfloat16", 64, "mma"), ("bfloat16", 128, "mma"),
+    ("bfloat16", 64, "sm90"), ("bfloat16", 128, "sm90"),
     ("bfloat16", 32, "fma"), ("bfloat16", 256, "fma"),
     ("float32", 128, "fma"),
 ])
 def test_select_bwd_variant(dtype, hd, variant):
+    """``sm90`` takes the forward's sm90 set; ``mma`` runs only by name."""
     assert ops.select_bwd_variant(getattr(torch, dtype), hd) == variant
+    assert ops.BWD_VARIANTS == ("sm90", "mma", "fma")
+    assert ops.SM90_HEAD_DIMS == ops.MMA_BWD_HEAD_DIMS == (64, 128)
 
 
 @pytest.mark.parametrize("variant, dtype, hd, error", [
@@ -193,14 +294,21 @@ def test_select_bwd_variant(dtype, hd, variant):
     ("mma", "bfloat16", 32, "takes bfloat16"),
     ("wgmma", "bfloat16", 64, "unknown"),
     ("fma", "bfloat16", 64, "run on cuda"),
+    ("sm90", "float32", 64, "sm90 backward takes bfloat16"),
+    ("sm90", "bfloat16", 256, "sm90 backward takes bfloat16"),
+    ("sm90", "bfloat16", 32, "sm90 backward takes bfloat16"),
+    ("sm90", "bfloat16", 64, "run on cuda"),
 ])
 def test_run_bwd_variant_refuses_what_its_kernel_cannot_take(variant, dtype,
                                                              hd, error):
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.from_numpy(a).to(dt)
                    for a in _inputs(1, 1, 2, 1, 8, 8, hd))
+    before = ops.flash_attention_bwd.launches
+    lse = torch.zeros((1, 2, 8))
     with pytest.raises(ValueError, match=error):
-        ops.run_bwd_variant(variant, do, q, k, v, q.clone())
+        ops.run_bwd_variant(variant, do, q, k, v, q.clone(), lse)
+    assert ops.flash_attention_bwd.launches == before
 
 
 # ------------------------------------------------------------------ card
@@ -221,10 +329,10 @@ def test_cuda_backward_kernel_matches_plain_version(case, dtype):
     q, k, v, do = (torch.from_numpy(a).to("cuda", dt)
                    for a in _inputs(13, *case[:6]))
     kw = _kw(case)
-    out = flash_attention_ref(q, k, v, **kw)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     before = ops.flash_attention_bwd.launches
-    got = ops.flash_attention_bwd(do, q, k, v, out, **kw)
-    again = ops.flash_attention_bwd(do, q, k, v, out, **kw)
+    got = ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
+    again = ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
     torch.cuda.synchronize()
     assert ops.flash_attention_bwd.launches == before + 2
     want = flash_attention_bwd_ref(do.float(), q.float(), k.float(),
@@ -232,10 +340,13 @@ def test_cuda_backward_kernel_matches_plain_version(case, dtype):
     variants = {ops.select_bwd_variant(dt, case[5])}
     if dtype == "bfloat16":
         variants.add("fma")         # the first kernel, at the same shapes
+        if case[5] in ops.MMA_BWD_HEAD_DIMS:
+            variants.add("mma")     # the earlier tensor-core kernel
     for variant in sorted(variants):
         if variant != ops.select_bwd_variant(dt, case[5]):
-            got = ops.run_bwd_variant(variant, do, q, k, v, out, **kw)
-            again = ops.run_bwd_variant(variant, do, q, k, v, out, **kw)
+            got = ops.run_bwd_variant(variant, do, q, k, v, out, lse, **kw)
+            again = ops.run_bwd_variant(variant, do, q, k, v, out, lse,
+                                        **kw)
         for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
             assert g.dtype == dt and g.shape == w.shape
             assert torch.equal(g, a), f"{variant} {name}: two calls differ"
