@@ -140,6 +140,38 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    compiled; wall, device time, segments, capture, replays, peaks per PE
    beside the plan's and the certificate, measured against predicted
    makespan.
+14. rwkv train kernels: the wkv6 backward kernel (``rwkv6_bwd.cu``)
+   against its plain version ``wkv_bwd_ref`` on the same inputs
+   (RWKV_BWD_CASES: the rwkv6-7b training shape in bf16 and float32, hd
+   16 and 32, ragged S, chunks under 64, a given state0 and dS_last,
+   B·H = 2, a fast decay at the edge of the kernel's stated range),
+   each gradient under the gate written in the kernel's source, repeated
+   calls bit-equal; at the training shape the kernel and the plain
+   version timed in turns beside the bound, registers and spills;
+15. rwkv train: rwkv6-7b's SGD step at full width (bf16, random weights
+   from a seed, B=1, S=2048, lr 1e-3), after phase 14 (which it runs
+   too): (a) the eager step at the depth the printed memory arithmetic
+   allows (all 32 layers on an 80 GB card): loss near ln V, L forward
+   (all mma) and L backward launches, step ms, tokens/s, peak memory,
+   device busy; (b) the 12-layer step traced (one wkv6 and one wkv6_bwd
+   node a layer, product FLOPs equal to the config's count),
+   partitioned at K=4, verified, and executed with its PEs folded onto
+   the card: every leaf bit-equal to the eager step or within
+   TRAIN_GATE;
+16. launch train: ``repro_torch.launch.train``'s body in process for
+   granite-8b and rwkv6-7b at full width (bf16, B=1, S=2048, AdamW,
+   remat full): (a) 4 steps at the depth the printed AdamW arithmetic
+   allows (16 bytes a parameter plus the activations, measured at 2 and
+   4 layers): step ms, tokens/s, peak memory, 2L forward and L backward
+   launches a step, one step more under torch.profiler; (b) at
+   CKPT_LAYERS, 4 steps with a checkpoint every 2, then a fresh run
+   resumed from the step-2 checkpoint alone: every
+   parameter and optimizer leaf against the uninterrupted run's
+   (bit-equal, else within TRAIN_GATE); (c) ``launch.serve --ckpt-dir``
+   serves 4 requests from granite's newest checkpoint, its parameters
+   equal to the resumed run's. The checkpoint run is cut in depth, not
+   the deep one: at 19 layers a checkpoint of parameters and AdamW
+   state is 60 GB, written three times a run.
 
 ``--phases`` (a comma list of the names in ``PHASES``; default all) runs
 a subset, for iterating on one kernel; the card's name is always read.
@@ -2109,10 +2141,11 @@ def train_dot_flops(cfg, batch: int, seq: int) -> float:
     return 6.0 * T * mm + cfg.num_layers * attn
 
 
-def _profile_step(torch, label: str, fn) -> dict:
+def _profile_step(torch, label: str, fn,
+                  kernels=FWD_KERNELS + (BWD_KERNEL,)) -> dict:
     """One call of ``fn`` under torch.profiler (after two warm-up
-    calls): wall and device-busy ms, the top kernels, and the flash
-    launches by kernel name (they count replays of captured graphs,
+    calls): wall and device-busy ms, the top kernels, and the launches
+    of the ``kernels`` by name (they count replays of captured graphs,
     which the wrappers' counters do not)."""
     from torch.profiler import ProfilerActivity
     for _ in range(2):
@@ -2128,11 +2161,10 @@ def _profile_step(torch, label: str, fn) -> dict:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
     counts = {name: sum(e.count for e in evs if name in e.key)
-              for name in FWD_KERNELS + (BWD_KERNEL,)}
+              for name in kernels}
     log(f"profile {label}: wall {host_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({busy_ms / host_ms:.1%}), "
-        f"{sum(e.count for e in evs)} kernels; flash launches by name "
-        f"{counts}")
+        f"{sum(e.count for e in evs)} kernels; launches by name {counts}")
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
             f"{e.key[:90]}")
@@ -2171,7 +2203,8 @@ def _hold_train(torch, label: str, got, want) -> bool:
 
 
 def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
-                     layers: int) -> dict:
+                     layers: int,
+                     kernels=FWD_KERNELS + (BWD_KERNEL,)) -> dict:
     """A training plan folded onto the card: async = sync over 3 calls,
     against the eager step, every segment a replay; then times, device
     time, counters, peaks beside the plan's and the certificate, and one
@@ -2207,15 +2240,15 @@ def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
     ms = {"compiled async": _wall_ms(torch, lambda: run("async"), n=5),
           "compiled sync": _wall_ms(torch, lambda: run("sync"), n=5),
           "eager": _wall_ms(torch, eager_fn, n=5)}
-    prof = {name: _profile_step(torch, f"train {label} {name}", fn)
+    prof = {name: _profile_step(torch, f"train {label} {name}", fn, kernels)
             for name, fn in (("compiled async", lambda: run("async")),
                              ("eager", eager_fn))}
     # a report, not a gate: inside one long graph replay the profiler
     # has been seen to miss launches (10 of 12 forwards at K=1, while
     # every leaf was bit-equal to the eager step, which launches 12)
     counts = prof["compiled async"]["counts"]
-    log(f"train {label}: flash launches per step in the profile "
-        f"{counts} (the step has {layers} attention layers)")
+    log(f"train {label}: kernel launches per step in the profile "
+        f"{counts} (the step has {layers} layers)")
     with tempfile.TemporaryDirectory() as tmp:
         plan.execute(params, batch, device_map=fold, static_argnums=(0,),
                      trace=f"{tmp}/train.trace.json")
@@ -2239,6 +2272,51 @@ def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
     return {"ms": ms, "prof": prof, "segments": st.num_segments,
             "capture_s": st.compile_seconds, "bit": bit,
             "measured_ms": measured * 1e3, "predicted_ms": plan.makespan * 1e3}
+
+
+def _param_bytes(params) -> int:
+    from repro_torch.tree import tree_flatten
+    return sum(t.numel() * t.element_size()
+               for t in tree_flatten(params)[0])
+
+
+def fit_depth(torch, cfg, label: str, build, holds: str,
+              fraction: float = 0.9) -> tuple[int, float, float]:
+    """The depth at which one step of ``cfg`` fits on the card: ``build(c)``
+    gives (params, step) for a config ``c``; the step runs twice at 2 and
+    at 4 layers and max_memory_allocated of its second call, parameters
+    included, is extrapolated linearly to ``cfg.num_layers``. Logs the
+    arithmetic; returns ``cfg.num_layers`` or the depth that keeps the
+    peak under ``fraction`` of the card, and the parameters' bytes per
+    layer and at 0 layers."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    gb = 1e9
+    peaks, pbytes = {}, {}
+    for n in (2, 4):
+        params, step = build(dataclasses.replace(cfg, num_layers=n))
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peaks[n] = float(torch.cuda.max_memory_allocated())
+        pbytes[n] = float(_param_bytes(params))
+        del params, step
+        _release(torch)
+    slope, pslope = (peaks[4] - peaks[2]) / 2, (pbytes[4] - pbytes[2]) / 2
+    layers = cfg.num_layers
+    need = peaks[2] + slope * (layers - 2)
+    log(f"{label}: depth arithmetic: parameters P(L) = {pslope / gb:.4f} L "
+        f"+ {(pbytes[2] - 2 * pslope) / gb:.4f} GB; the step holds about "
+        f"{holds} plus the activations: measured peaks {peaks[2] / gb:.3f} "
+        f"GB at 2 layers and {peaks[4] / gb:.3f} GB at 4, {slope / gb:.3f} "
+        f"GB a layer ({slope / pslope:.2f} P), so {need / gb:.2f} GB at "
+        f"{layers} layers of the card's {total / gb:.2f} GB")
+    if need > fraction * total:
+        layers = 2 + int((fraction * total - peaks[2]) // slope)
+        log(f"{label}: the step does not fit at {cfg.num_layers} layers "
+            f"in {fraction:.0%} of the card: cut to {layers}")
+    return layers, pslope, pbytes[2] - 2 * pslope
 
 
 def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
@@ -2267,49 +2345,16 @@ def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
     total = torch.cuda.get_device_properties(0).total_memory
     batch = _train_batch(torch, cfg, seed=2)
 
-    def params_bytes(layers: int) -> float:
-        """bf16 projections, float32 norm scales, embedding and head."""
-        c = cfg
-        per_layer = 2 * (c.d_model * (c.q_dim + 2 * c.kv_dim) + c.q_dim *
-                         c.d_model + 3 * c.d_model * c.d_ff) + 8 * c.d_model
-        return float(layers * per_layer + 4 * c.padded_vocab * c.d_model
-                     + 4 * c.d_model)
-
-    def step_peak(layers: int) -> float:
-        """max_memory_allocated over an eager step at this depth (its
-        second call), parameters included."""
-        c = dataclasses.replace(cfg, num_layers=layers)
+    def sgd_step(c):
         p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
                         "cuda")
         st = make_train_step(c, lr)
-        st(p, batch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        st(p, batch)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        del p, st
-        _release(torch)
-        return float(peak)
-    p1, p0 = params_bytes(1), params_bytes(0)
-    peaks = {n: step_peak(n) for n in (2, 4)}
-    slope = (peaks[4] - peaks[2]) / 2
-    layers = cfg.num_layers
-    need = peaks[2] + slope * (layers - 2)
-    log(f"train: depth arithmetic: parameters P(L) = {(p1 - p0) / gb:.4f} L "
-        f"+ {p0 / gb:.4f} GB; the eager step holds about 3P (parameters, "
-        f"grads, new parameters) plus the activations: measured peaks "
-        f"{peaks[2] / gb:.3f} GB at 2 layers and {peaks[4] / gb:.3f} GB at 4, "
-        f"{slope / gb:.3f} GB a layer ({(slope - 3 * (p1 - p0)) / gb:.3f} of "
-        f"it beyond 3P), so {need / gb:.2f} GB at {layers} layers of the "
-        f"card's {total / gb:.2f} GB; the plan path also holds the grads as "
-        f"outputs and returns clones (about 2P more): at "
-        f"{TRAIN['plan_layers']} layers P = "
-        f"{(p0 + TRAIN['plan_layers'] * (p1 - p0)) / gb:.2f} GB")
-    if need > 0.9 * total:
-        layers = 2 + int((0.9 * total - peaks[2]) // slope)
-        log(f"train: the eager step does not fit at {cfg.num_layers} "
-            f"layers: cut to {layers}")
+        return p, lambda: st(p, batch)
+    layers, p1, p0 = fit_depth(torch, cfg, "train", sgd_step,
+                               "3P (parameters, grads, new parameters)")
+    log(f"train: the plan path also holds the grads as outputs and returns "
+        f"clones (about 2P more); at {TRAIN['plan_layers']} layers P = "
+        f"{(p0 + TRAIN['plan_layers'] * p1) / gb:.2f} GB")
     deep = dataclasses.replace(cfg, num_layers=layers)
     params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
@@ -2489,9 +2534,454 @@ def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# rwkv6-7b training: the wkv6 backward kernel, the eager step and a plan
+# ---------------------------------------------------------------------------
+#: the wkv6 backward kernel's cases: the rwkv6-7b training shape in both
+#: dtypes (the model's decay at init), then the edges; ``given``: a random
+#: state0 and a random cotangent of the last state (else None and zeros);
+#: decay ``edge``: every channel's summed log-decay over a chunk near
+#: -RWKV_BWD_EDGE, the edge of the range the kernel states
+RWKV_BWD_CASES = [
+    # (B, H, S, hd, chunk, dtype, given, decay)
+    (1, 64, 2048, 64, 64, "bfloat16", True, "model"),    # training shape
+    (1, 64, 2048, 64, 64, "float32", False, "model"),
+    (2, 4, 131, 16, 16, "float32", True, "test"),        # hd 16, chunk 16
+    (1, 4, 1000, 32, 64, "float32", True, "test"),       # hd 32, ragged
+    (2, 8, 1000, 64, 32, "bfloat16", True, "test"),      # chunk 32, ragged
+    (1, 2, 256, 64, 64, "bfloat16", False, "test"),      # B·H = 2
+    (1, 8, 512, 64, 64, "float32", True, "edge"),
+    (1, 4, 200, 64, 16, "bfloat16", True, "edge"),
+]
+RWKV_BWD_EDGE = 150.0
+# The gate, from the float32 argument in rwkv6_bwd.cu (written before the
+# kernel first ran): each gradient within 2e-5 x max(1, |tot|_max / 20) x
+# max(1, max |plain|), |tot|_max the largest summed log-decay of a chunk;
+# dr, dk and dv in bf16 one rounding more, 2^-7 x max |plain|.
+RWKV_BWD_GATE = 2e-5
+RWKV_BWD_ROUND = 2.0 ** -7
+#: the training step's kernels in a profile: the wkv6 forward (mma) and
+#: the backward
+RWKV_KERNELS = ("wkv6_mma_kernel", "wkv6_kernel", "wkv6_bwd_kernel")
+
+
+def _rwkv_bwd_inputs(torch, case, seed):
+    """(r, k, v, w, u, state0, dy, ds_last) for a RWKV_BWD_CASES case."""
+    B, H, S, hd, chunk, dtype, given, decay = case
+    r, k, v, w, u, s0 = _rwkv_inputs(torch, case[:6], seed,
+                                     "test" if decay == "edge" else decay,
+                                     given)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    if decay == "edge":
+        w = torch.exp(-RWKV_BWD_EDGE / chunk + 0.01 * torch.randn(
+            w.shape, generator=g, device="cuda"))
+    dy = torch.randn((B, S, H, hd), generator=g, device="cuda")
+    ds = torch.randn((B, H, hd, hd), generator=g, device="cuda") if given \
+        else torch.zeros((B, H, hd, hd), device="cuda")
+    return r, k, v, w, u, s0, dy, ds
+
+
+def _tot_max(torch, w, chunk: int) -> float:
+    """The largest |summed log-decay| over a chunk and a channel."""
+    B, S, H, hd = w.shape
+    n = -(-S // chunk)
+    logw = torch.zeros((B, n * chunk, H, hd), device=w.device)
+    logw[:, :S] = torch.log(w)
+    return float(logw.reshape(B, n, chunk, H, hd).sum(2).abs().max())
+
+
+def _hold_rwkv_bwd(torch, label, got, again, want, dtype, tot) -> tuple:
+    """The backward kernel's six gradients against the plain version's
+    under the RWKV_BWD gate, finite, a repeated call bit-equal. Returns
+    (worst error / gate, max abs error)."""
+    scale = RWKV_BWD_GATE * max(1.0, tot / 20)
+    ratios, errs = [], []
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = float((a.float() - b).abs().max())
+        top = float(b.abs().max())
+        allow = scale * max(1.0, top) + (
+            RWKV_BWD_ROUND * top if i < 3 and dtype == "bfloat16" else 0.0)
+        ratios.append(err / allow)
+        errs.append(err)
+    rep = all(torch.equal(a, b) for a, b in zip(got, again))
+    fin = all(bool(torch.isfinite(a).all()) for a in got)
+    ok = rep and fin and max(ratios) <= 1
+    log(f"kernel wkv6_bwd {label}: |tot|_max {tot:.3g}; error / gate (dr, "
+        f"dk, dv, dw, du, dstate0) [{', '.join(f'{r:.3g}' for r in ratios)}]"
+        f", max abs err {max(errs):.3g}; repeated call bit-equal {rep} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"wkv6_bwd disagrees with its plain version "
+                             f"at {label}")
+    return max(ratios), max(errs)
+
+
+def phase_rwkv_train_kernel(torch, rops, rref, build) -> dict:
+    """The wkv6 backward kernel against its plain version at every case of
+    RWKV_BWD_CASES, a repeated call bit-equal; at the training shape the
+    kernel and the plain version timed in turns beside the bound, and the
+    kernel's registers and spills (ptxas). Returns its record (launches
+    filled in by the rwkv_train phase)."""
+    worst, err0 = 0.0, None
+    for i, case in enumerate(RWKV_BWD_CASES):
+        args = _rwkv_bwd_inputs(torch, case, 400 + i)
+        chunk, dtype = case[4], case[5]
+        before = rops.wkv6_bwd.launches
+        got = rops.wkv6_bwd(*args, chunk)
+        again = rops.wkv6_bwd(*args, chunk)
+        assert rops.wkv6_bwd.launches == before + 2, f"{case}: no launch"
+        want = rref.wkv_bwd_ref(*args, chunk)
+        ratio, err = _hold_rwkv_bwd(torch, str(case), got, again, want,
+                                    dtype, _tot_max(torch, args[3], chunk))
+        worst = max(worst, ratio)
+        if i == 0:
+            err0 = err
+        del args, got, again, want
+    log(f"kernel wkv6_bwd: {len(RWKV_BWD_CASES)} cases, worst error / gate "
+        f"{worst:.3g}")
+
+    case = RWKV_BWD_CASES[0]
+    B, H, S, hd, chunk, dtype = case[:6]
+    args = _rwkv_bwd_inputs(torch, case, 400)
+    ms = timed_turns(torch, {
+        "kernel": lambda: rops.wkv6_bwd(*args, chunk),
+        "plain": lambda: rref.wkv_bwd_ref(*args, chunk),
+    }, reps={"plain": 3})
+    outs = rops.wkv6_bwd(*args, chunk)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*args, *outs) if t is not None)
+    n = -(-S // chunk)
+    # the chunked form's backward: twice the forward's four products
+    flops = 2 * 2 * B * H * n * (2 * chunk * chunk * hd + 2 * chunk * hd * hd)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    work = B * H * n * hd * hd * 4
+    log(f"timing wkv6_bwd at the training shape {case}, in turns: kernel "
+        f"{ms['kernel']:.4f} ms ({nbytes / ms['kernel'] / 1e6:.1f} GB/s, "
+        f"{flops * 1.25 / ms['kernel'] / 1e9:.2f} TFLOP/s of its ten "
+        f"products), plain {ms['plain']:.4f} ms; bound "
+        f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 2**20:.1f} MiB in and out, "
+        f"{flops / 1e9:.2f} GFLOP; the kernel's state workspace, "
+        f"{work / 2**20:.1f} MiB written and read, is not counted); no "
+        f"PyTorch call computes it")
+    regs = {k: v for k, v in ptxas_report(build, rops, "rwkv6").items()
+            if "bwd" in k}
+    for kernel, used in regs.items():
+        log(f"  ptxas {kernel}: {used}")
+    record = {
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6_bwd.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:74",
+        "note": "the gradient of that kernel; the reference has no "
+                "backward kernel (JAX differentiates models/rwkv.py:56 "
+                "_wkv_chunked)",
+        "launches": None, "max_abs_err": err0, "gate_ratio": worst,
+        "ms": ms["kernel"], "plain_ms": ms["plain"],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+    del args, outs
+    _release(torch)
+    return record
+
+
+def rwkv_train_dot_flops(cfg, batch: int, seq: int) -> float:
+    """Product FLOPs of one rwkv training step from the config: 3 x
+    2·T·(the matmul parameters: five d x d time-mix projections and the
+    channel mix's receptance, the decay LoRA, the channel mix's two d x
+    d_ff, the head) and, per layer, the recurrence's chunked products,
+    2·B·H·n·(2·C²·hd + 2·C·hd²) forward and twice that backward."""
+    d, hd = cfg.d_model, cfg.rwkv.head_dim
+    per_layer = 6 * d * d + 2 * d * cfg.rwkv.lora_w + 2 * d * cfg.d_ff
+    mm = cfg.num_layers * per_layer + d * cfg.padded_vocab
+    C, n = min(64, seq), -(-seq // 64)
+    rec = 3 * 2 * batch * (d // hd) * n * (2 * C * C * hd + 2 * C * hd * hd)
+    return 6.0 * batch * seq * mm + cfg.num_layers * rec
+
+
+def phase_rwkv_train(torch, cfg, card: str, record: dict) -> dict:
+    """rwkv6-7b's training step at full width (bf16, random weights from
+    a seed, B=1, S=2048, SGD at lr 1e-3): (a) the eager step at the depth
+    the printed arithmetic allows, with its launch counts (L forward, all
+    mma, and L backward); (b) the step at TRAIN["plan_layers"] layers
+    traced, partitioned at K=4, verified, executed with its PEs folded
+    onto the card against the eager step. Fills in the backward kernel's
+    ``record`` and returns it."""
+    from repro_torch import api
+    from repro_torch.conformance import make_train_step
+    from repro_torch.models import init_params
+    B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    batch = _train_batch(torch, cfg, seed=5)
+
+    def sgd_step(c):
+        p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                        "cuda")
+        st = make_train_step(c, lr)
+        return p, lambda: st(p, batch)
+    layers, _, _ = fit_depth(torch, cfg, "rwkv train", sgd_step,
+                             "3P (parameters, grads, new parameters)")
+    deep = dataclasses.replace(cfg, num_layers=layers)
+    params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    step = make_train_step(deep, lr)
+    step(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, new = step(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del new
+    want = {"wkv6": layers, "wkv6/mma": layers, "wkv6_bwd": layers,
+            "flash_attention": 0, "flash_attention_bwd": 0}
+    got = {k: launches[k] for k in want}
+    log(f"rwkv train eager: {layers} layers, loss {float(loss):.4f} (ln "
+        f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}), launches "
+        f"{got}, max_memory_allocated {peak / 2**30:.3f} GiB, one step "
+        f"{first_s * 1e3:.1f} ms")
+    assert got == want, f"rwkv train eager: launches {got}, expected {want}"
+    assert math.isfinite(float(loss)) and \
+        abs(float(loss) - math.log(cfg.vocab_size)) < 2, \
+        f"rwkv train eager: loss {float(loss)} far from ln V at init"
+    record["launches"] = launches["wkv6_bwd"]
+    step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
+    prof = _profile_step(torch, f"rwkv train eager {layers} layers B={B} "
+                         f"S={S}", lambda: step(params, batch), RWKV_KERNELS)
+    log(f"rwkv train eager: median step {step_ms:.2f} ms, "
+        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
+        f"{prof['busy_ms']:.2f} ms of {prof['wall_ms']:.2f} ms "
+        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); {card}")
+    del params, step, loss
+    _release(torch)
+
+    # (b) the traced step at plan_layers, K=4, executed folded
+    L = TRAIN["plan_layers"]
+    mid = dataclasses.replace(cfg, num_layers=L)
+    params = init_params(mid, torch.Generator(device="cuda").manual_seed(3),
+                         "cuda")
+    step = make_train_step(mid, lr, return_grads=True)
+    t0 = time.perf_counter()
+    traced = api.trace(step, params, batch, record=True, autograd=True)
+    trace_s = time.perf_counter() - t0
+    g = traced.graph
+    names = [n.split(".")[0] for n in g.names]
+    dot, want_dot = float(g.op_dot_flops.sum()), rwkv_train_dot_flops(
+        mid, B, S)
+    log(f"rwkv train plan: traced the {L}-layer step in {trace_s:.2f} s: "
+        f"{g.n} nodes, {names.count('wkv6')} wkv6 and "
+        f"{names.count('wkv6_bwd')} wkv6_bwd nodes, "
+        f"{names.count('select_backward')} select_backward; product FLOPs "
+        f"{dot:.6g} (from the config {want_dot:.6g})")
+    assert names.count("wkv6") == L and names.count("wkv6_bwd") == L
+    assert "select_backward" not in names
+    assert dot == want_dot, f"product FLOPs {dot} != {want_dot}"
+    total = torch.cuda.get_device_properties(0).total_memory
+    meta = {"arch": cfg.name, "layers": L, "static_argnums": [0]}
+    t0 = time.perf_counter()
+    plan = api.partition(traced, devices=4, memory=total / 2, meta=meta)
+    part_s = time.perf_counter() - t0
+    a = plan.assignment
+    assert a.shape == (g.n,) and a.min() >= 0 and a.max() < 4
+    rep = plan.verify()
+    cnt = rep.counts()
+    log(f"rwkv train plan: K=4 cap {total / 2 / 2**30:.3f} GiB per PE: "
+        f"partition {part_s:.2f} s, feasible={plan.feasible}, peaks ["
+        + ", ".join(f"{p / 2**30:.3f}" for p in plan.peak_mem)
+        + f"] GiB, makespan {plan.makespan * 1e3:.3f} ms; verified "
+        f"{cnt['error']}E/{cnt['warn']}W/{cnt['info']}I"
+        + "".join(f"; {d}" for d in rep.errors[:2]))
+    assert not rep.has_errors(), "the verifier refuses the rwkv plan"
+    want_out = step(params, batch)
+    cell = _train_plan_cell(torch, "rwkv K=4", plan, params, batch,
+                            lambda: step(params, batch), want_out, L,
+                            RWKV_KERNELS)
+    log(f"rwkv train plan summary ({L} layers): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in cell["ms"].items()) + "; device busy "
+        + ", ".join(f"{k} {p['busy_ms']:.2f} of {p['wall_ms']:.2f} ms"
+                    for k, p in cell["prof"].items())
+        + f"; {cell['segments']} segments, capture {cell['capture_s']:.2f} "
+        f"s; measured makespan {cell['measured_ms']:.3f} ms against the "
+        f"predicted {cell['predicted_ms']:.3f} ms; bit-equal to eager "
+        f"{cell['bit']}; {card}")
+    del plan._compiled_runtime, plan, traced, params, step, want_out
+    _release(torch)
+    return record
+
+
+# ---------------------------------------------------------------------------
+# the training entry point: launch.train, checkpoints, resume, serve
+# ---------------------------------------------------------------------------
+#: launch.train's run: B=1, S=2048, 4 steps, a checkpoint every 2; the
+#: checkpoint and resume run at CKPT_LAYERS (see phase_launch_train)
+LAUNCH = dict(batch=1, seq=2048, steps=4, ckpt_every=2, lr=3e-4)
+CKPT_LAYERS = 2
+
+
+def _launch_run(torch, train, cfg, label: str, **kw):
+    """launch.train's body on ``cfg``; returns (loop, median ms of the
+    steps after the first, max_memory_allocated GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    loop = train(cfg, steps=LAUNCH["steps"], batch=LAUNCH["batch"],
+                 seq=LAUNCH["seq"], lr=LAUNCH["lr"], device="cuda",
+                 log_every=1, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = loop.state
+    times = [h["time"] * 1e3 for h in st.history]
+    losses = [h["loss"] for h in st.history]
+    assert st.step == LAUNCH["steps"] and not st.preempted and \
+        st.skipped == 0, f"{label}: {st}"
+    assert all(math.isfinite(x) for x in losses), f"{label}: loss {losses}"
+    ms = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    log(f"launch {label}: steps {[h['step'] for h in st.history]}, losses "
+        f"[{', '.join(f'{x:.4f}' for x in losses)}], step ms "
+        f"[{', '.join(f'{x:.1f}' for x in times)}], grad norms "
+        f"[{', '.join(f'{h['grad_norm']:.3g}' for h in st.history)}]; "
+        f"max_memory_allocated {peak:.3f} GiB")
+    return loop, ms, peak
+
+
+def phase_launch_train(torch, card: str) -> None:
+    """``repro_torch.launch.train`` in process (its body, ``train(cfg,
+    ...)``) for granite-8b and rwkv6-7b at full width in bf16, B=1,
+    S=2048, AdamW: (a) at the depth the printed AdamW arithmetic allows
+    (16 bytes a parameter and the activations, measured at 2 and 4
+    layers), 4 steps: step ms, tokens/s, peak memory, the kernels'
+    launches (remat "full": 2L forward, L backward a step), then one step
+    under torch.profiler; (b) at
+    CKPT_LAYERS, 4 steps with a checkpoint every 2 into a temporary
+    directory, then a fresh run that resumes from the step-2 checkpoint
+    alone: its parameters and optimizer state against the uninterrupted
+    run's (bit-equal, or within TRAIN_GATE); (c) for granite,
+    ``launch.serve --ckpt-dir`` serves 4 requests from that directory's
+    newest checkpoint (the resumed run's parameters)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, build_train_step, init_state
+    from repro_torch.tree import tree_flatten
+    for arch in ("granite-8b", "rwkv6-7b"):
+        cfg = get_config(arch)
+        ocfg = AdamWConfig(lr=LAUNCH["lr"], total_steps=LAUNCH["steps"])
+        batch = make_batch(DataConfig(batch_size=LAUNCH["batch"],
+                                      seq_len=LAUNCH["seq"],
+                                      vocab_size=cfg.vocab_size), 0)
+
+        def adamw_step(c):
+            p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                            "cuda")
+            o = init_state(ocfg, p)
+            st = build_train_step(c, ocfg, device="cuda")
+            return p, lambda: st(p, o, batch)
+        layers, p1, p0 = fit_depth(
+            torch, cfg, f"launch {arch}", adamw_step,
+            "8P (bf16 parameters and grads, float32 mu, nu and master; "
+            "remat full)")
+        fwd, bwd = ("wkv6", "wkv6_bwd") if cfg.rwkv is not None else \
+            ("flash_attention", "flash_attention_bwd")
+        reset_counts()
+        loop, ms, peak = _launch_run(
+            torch, train, dataclasses.replace(cfg, num_layers=layers),
+            f"{arch} {layers} layers")
+        counts = read_counts()
+        n = LAUNCH["steps"]
+        want = {fwd: 2 * layers * n, bwd: layers * n}
+        got = {k: counts[k] for k in want}
+        assert got == want, f"launch {arch}: launches {got}, want {want}"
+        first = loop.state.history[0]["loss"]
+        assert abs(first - math.log(cfg.vocab_size)) < 2, \
+            f"launch {arch}: first loss {first} far from ln V"
+        tok_s = LAUNCH["batch"] * LAUNCH["seq"] / ms * 1e3
+        log(f"launch {arch}: {layers} layers, median step {ms:.2f} ms, "
+            f"{tok_s:.1f} tokens/s, max_memory_allocated {peak:.3f} GiB; "
+            f"launches over {n} steps {got} (remat full: each layer's "
+            f"forward twice a step); {card}")
+        # where a step's time goes: three more steps of the same loop
+        _profile_step(torch, f"launch {arch} {layers} layers AdamW step",
+                      lambda: loop.step_fn(loop.params, loop.opt_state,
+                                           batch),
+                      RWKV_KERNELS if cfg.rwkv is not None
+                      else FWD_KERNELS + (BWD_KERNEL,))
+        del loop
+        _release(torch)
+
+        # (b) checkpoints and resume at CKPT_LAYERS
+        small = dataclasses.replace(cfg, num_layers=CKPT_LAYERS)
+        ckpt_gb = 7 * (p0 + CKPT_LAYERS * p1) / 1e9
+        with tempfile.TemporaryDirectory() as tmp:
+            first_dir, resume_dir = Path(tmp) / "run", Path(tmp) / "resume"
+            t0 = time.perf_counter()
+            straight, _, _ = _launch_run(
+                torch, train, small, f"{arch} {CKPT_LAYERS} layers, "
+                f"checkpoints", ckpt_dir=str(first_dir),
+                ckpt_every=LAUNCH["ckpt_every"])
+            run_s = time.perf_counter() - t0
+            steps = sorted(p.name for p in first_dir.iterdir())
+            resume_dir.mkdir()
+            shutil.move(str(first_dir / "step_00000002"),
+                        str(resume_dir / "step_00000002"))
+            shutil.rmtree(first_dir)
+            t0 = time.perf_counter()
+            resumed, _, _ = _launch_run(
+                torch, train, small, f"{arch} {CKPT_LAYERS} layers, resumed "
+                f"at step 2", ckpt_dir=str(resume_dir),
+                ckpt_every=LAUNCH["ckpt_every"])
+            resume_s = time.perf_counter() - t0
+            assert [h["step"] for h in resumed.state.history] == [3, 4], \
+                "the fresh run did not resume at step 2"
+            a = tree_flatten({"p": resumed.params, "o": resumed.opt_state})[0]
+            b = tree_flatten({"p": straight.params,
+                              "o": straight.opt_state})[0]
+            bits = sum(torch.equal(x, y) for x, y in zip(a, b))
+            worst = max(float((x.float() - y.float()).abs().max())
+                        / (TRAIN_GATE * max(float(y.float().abs().max()),
+                                            1e-30)) for x, y in zip(a, b))
+            log(f"launch {arch} resume: checkpoints {steps} ({ckpt_gb:.2f} "
+                f"GB each: 7 bytes a bf16 parameter's 2); the run with "
+                f"checkpoints {run_s:.1f} s, the resumed run {resume_s:.1f} "
+                f"s; {bits} of {len(a)} leaves (parameters and optimizer "
+                f"state) bit-equal to the uninterrupted run's, worst other "
+                f"leaf error / (2^-7 x max |leaf|) {worst:.3g}; last loss "
+                f"{resumed.state.history[-1]['loss']:.6f} against "
+                f"{straight.state.history[-1]['loss']:.6f}")
+            del a, b
+            assert steps == ["step_00000002", "step_00000004"], steps
+            assert worst <= 1, f"launch {arch}: resumed != uninterrupted"
+            del straight
+            if cfg.rwkv is None:
+                eng = serve_main(["--arch", arch, "--ckpt-dir",
+                                  str(resume_dir), "--requests", "4",
+                                  "--max-new", "8", "--max-len", "256"],
+                                 cfg=small)
+                served = tree_flatten(eng.params)[0]
+                same = all(torch.equal(x, y) for x, y in zip(
+                    served, tree_flatten(resumed.params)[0]))
+                toks = [r.output for r in eng.completed.values()]
+                log(f"launch serve --ckpt-dir: {len(toks)} requests, "
+                    f"{sum(map(len, toks))} tokens in {eng.stats.ticks} "
+                    f"ticks; served parameters equal to the resumed run's: "
+                    f"{same}")
+                assert same, "launch.serve did not serve the checkpoint"
+                assert len(toks) == 4 and all(
+                    len(t) == 8 and all(0 <= x < cfg.vocab_size for x in t)
+                    for t in toks), f"launch.serve tokens {toks}"
+                del eng, served
+            del resumed
+            log(f"launch {arch}: {_release(torch):.3f} GiB left allocated")
+
+
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
-          "plan_execute", "plan_serve", "train_kernels", "train")
+          "plan_execute", "plan_serve", "train_kernels", "train",
+          "rwkv_train_kernels", "rwkv_train", "launch_train")
 
 
 def main(argv=None) -> int:
@@ -2520,7 +3010,7 @@ def main(argv=None) -> int:
         return 2
     COUNTED.update(flash_attention=ops.flash_attention,
                    flash_attention_bwd=ops.flash_attention_bwd,
-                   wkv6=rops.wkv6)
+                   wkv6=rops.wkv6, wkv6_bwd=rops.wkv6_bwd)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     card = phase_card()
@@ -2566,9 +3056,16 @@ def main(argv=None) -> int:
         train_record = phase_train_kernel(torch, ops, ref, build)
     if "train" in phases:
         phase_train(torch, ops, cfg, card, train_record)
+    rwkv_bwd_record = None
+    if "rwkv_train_kernels" in phases or "rwkv_train" in phases:
+        rwkv_bwd_record = phase_rwkv_train_kernel(torch, rops, rref, build)
+    if "rwkv_train" in phases:
+        phase_rwkv_train(torch, rcfg, card, rwkv_bwd_record)
+    if "launch_train" in phases:
+        phase_launch_train(torch, card)
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
-                                              rwkv_record)
+                                              rwkv_record, rwkv_bwd_record)
                                   if r is not None]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,10 @@ The rules that make the two graphs comparable:
   ``functionalize`` appends is dropped. Dead nodes are removed.
 * **Multiple outputs.** ``operator.getitem`` is not an op: it maps to
   ``(producer, out_idx)``.
+* **Recurrence.** The RWKV6 custom ops (:data:`RECURRENCE_OPS`) are one
+  node each, priced by the chunked form's products (as the reference's
+  jaxpr counts ``_wkv_chunked``, forward and gradient) plus one pass on
+  their outputs.
 * **Attention.** The port's flash-attention custom ops
   (:data:`ATTENTION_OPS`) are one node each, priced as the reference
   prices the same attention in the same step: its jaxpr differentiates
@@ -180,6 +184,25 @@ ATTENTION_OPS = {
 }
 
 
+#: the port's RWKV6 recurrence custom ops -> how many times the chunked
+#: form's forward products each call does: per (batch, head, chunk of
+#: C tokens), r̂k̂ᵀ and A v (C²·hd each), r̂ S_in and k_tailᵀ v (C·hd²
+#: each); the backward twice as many, as the reference's jaxpr counts
+#: ``_wkv_chunked`` and its gradient (the kernel itself recomputes the
+#: states and A: ten products to the forward's four)
+RECURRENCE_OPS = {"wkv6": 1, "wkv6_bwd": 2}
+
+
+def _recurrence_dot_flops(name, args) -> float:
+    """Product FLOPs of a recurrence op's call: chunks of ``min(chunk,
+    S)`` tokens, as the reference cuts S."""
+    B, S, H, hd = args[0].meta["val"].shape
+    chunk = args[-1]
+    n, C = -(-S // chunk), min(chunk, S)
+    fwd = 2.0 * B * H * n * (2 * C * C * hd + 2 * C * hd * hd)
+    return RECURRENCE_OPS[name] * fwd
+
+
 def _attention_sizes(name, args) -> tuple[float, float]:
     """(score elements B·H·Sq·Sk, head dim) of an attention op's call."""
     iq, ik = ATTENTION_OPS[name][:2]
@@ -198,6 +221,8 @@ def dot_flops_of(op, args) -> float:
     if name in ATTENTION_OPS:
         scores, hd = _attention_sizes(name, args)
         return ATTENTION_OPS[name][2] * scores * hd
+    if name in RECURRENCE_OPS:
+        return _recurrence_dot_flops(name, args)
     return 0.0
 
 
@@ -211,6 +236,8 @@ def flops_of(op, args, kwargs, in_vals, out_vals) -> float:
         return dot_flops_of(op, args) + scores * sum(
             _CHEAP_MULT.get(prim, 1.0) for prim in ATTENTION_OPS[name][3])
     out_elems = sum(_numel(v) for v in out_vals)
+    if name in RECURRENCE_OPS:
+        return dot_flops_of(op, args) + out_elems
     in_elems = sum(_numel(v) for v in in_vals)
     total = 0.0
     for prim in _prims_of(op, args, kwargs):
@@ -417,5 +444,6 @@ def _cost_graph(gm, out_structure, example_args: tuple, *,
     return g, prog
 
 
-__all__ = ["ATEN_PRIMS", "ATTENTION_OPS", "DOT_OPS", "VIEW_OPS",
+__all__ = ["ATEN_PRIMS", "ATTENTION_OPS", "DOT_OPS", "RECURRENCE_OPS",
+           "VIEW_OPS",
            "dot_flops_of", "flops_of", "op_name", "trace_cost_graph"]

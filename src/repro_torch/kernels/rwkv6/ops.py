@@ -1,23 +1,32 @@
-"""Public wrapper around the CUDA RWKV6 chunked-recurrence kernels.
+"""Public wrappers around the CUDA RWKV6 chunked-recurrence kernels.
 
-Two kernels, one library: ``csrc/rwkv6_mma.cu`` (bf16 r, k, v at the
-head dims in :data:`MMA_HEAD_DIMS`: mma.sync TF32 tensor-core products
-in 3xTF32, two blocks per SM, cp.async loads) and ``csrc/rwkv6.cu``
-(float32 FMAs: float32 r, k, v, and every head dim in
+Forward: two kernels, one library: ``csrc/rwkv6_mma.cu`` (bf16 r, k, v
+at the head dims in :data:`MMA_HEAD_DIMS`: mma.sync TF32 tensor-core
+products in 3xTF32, two blocks per SM, cp.async loads) and
+``csrc/rwkv6.cu`` (float32 FMAs: float32 r, k, v, and every head dim in
 :data:`HEAD_DIMS`). :func:`select_variant` picks one from (dtype, head
-dim) alone. The library is built with ``nvcc`` at the first call on a
-CUDA tensor and bound through ``ctypes``; see
+dim) alone. Backward: ``csrc/rwkv6_bwd.cu`` (float32 FMAs, every dtype
+and head dim the forward takes), in the same library.
+
+Both directions are custom ops (``repro_torch::wkv6`` and
+``repro_torch::wkv6_bwd``), so that autograd differentiates the forward
+through the backward kernel and ``make_fx`` records each as one node.
+Their CUDA implementations launch the kernels; their CPU implementations
+run the plain versions :func:`~.ref.wkv_ref` and
+:func:`~.ref.wkv_bwd_ref`. The library is built with ``nvcc`` at the
+first call on a CUDA tensor and bound through ``ctypes``; see
 :mod:`repro_torch.kernels.build`. Nothing is built at import.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from ..build import load_library
-from .ref import wkv_ref
+from .ref import wkv_bwd_ref, wkv_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: head dims the kernels are instantiated for
@@ -32,6 +41,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+# r, k, v, w, u, state0, dy, ds_last; dr, dk, dv, dw, du partials,
+# dstate0, the state workspace; dtype, B, S, H, hd, chunk; the strides of
+# r, k, v, w, dy and of the outputs; the stream
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong] * 18 + [ctypes.c_void_p])
 
 
 def load() -> ctypes.CDLL:
@@ -46,6 +60,8 @@ def load() -> ctypes.CDLL:
         lib.repro_wkv6_mma_fwd.restype = ctypes.c_int
         lib.repro_wkv6_mma_blocks_per_sm.argtypes = []
         lib.repro_wkv6_mma_blocks_per_sm.restype = ctypes.c_int
+        lib.repro_wkv6_bwd.argtypes = _BWD_ARGTYPES
+        lib.repro_wkv6_bwd.restype = ctypes.c_int
         lib.repro_wkv6_error_string.argtypes = [ctypes.c_int]
         lib.repro_wkv6_error_string.restype = ctypes.c_char_p
     return lib
@@ -115,25 +131,48 @@ def wkv6(r, k, v, w, u, state0=None, chunk: int = 64):
     r, k, v are float32 or bfloat16; w, u and ``state0`` float32.
     Returns (y (B, S, H, hd) float32, S_last (B, H, hd, hd) float32), the
     function of the reference's ``models.rwkv._wkv_chunked``, for any S.
+    Differentiable: autograd runs :func:`wkv6_bwd`'s op.
 
     A CUDA tensor launches one kernel on the current stream, the one
     :func:`select_variant` names (hd in :data:`HEAD_DIMS`, chunk at most
     :data:`MAX_CHUNK`), and adds one to ``wkv6.launches`` and to
     ``wkv6.variant_launches[variant]``; anything it cannot take raises
     (the ``mma`` kernel's r, k, v and w must also meet
-    :func:`check_cp_async_layout`), and a failed launch raises. The
-    kernels have no backward yet: a CUDA call that would need a gradient
-    (grad mode on, an input that requires one) raises
-    ``NotImplementedError`` rather than return an output without
-    autograd history. A CPU tensor runs the plain version
-    :func:`wkv_ref`, which is not counted and is differentiable."""
+    :func:`check_cp_async_layout`), and a failed launch raises. A CPU
+    tensor runs the plain version :func:`wkv_ref`, which is not
+    counted."""
     _check(r, k, v, w, u, state0, chunk)
-    if r.device.type == "cpu":
-        return wkv_ref(r, k, v, w, u, state0, chunk)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
-    return _launch(select_variant(r.dtype, r.shape[-1]), r, k, v, w, u,
-                   state0, chunk)
+    return _fwd_op(r, k, v, w, u, state0, chunk)
+
+
+def wkv6_bwd(r, k, v, w, u, state0, dy, ds_last, chunk: int = 64):
+    """The backward of :func:`wkv6`: the cotangents ``dy`` (B, S, H, hd)
+    of y and ``ds_last`` (B, H, hd, hd) of S_last, both float32, to (dr,
+    dk, dv in r's dtype, dw (B, S, H, hd), du (H, hd) and dstate0 (B, H,
+    hd, hd), float32); dstate0 is the gradient of a zero state when
+    ``state0`` is None.
+
+    A CUDA tensor launches ``csrc/rwkv6_bwd.cu`` on the current stream
+    and adds one to ``wkv6_bwd.launches``; repeated calls give the same
+    bits (no atomics: du comes back as per-(b, h) partials summed over B
+    here). A CPU tensor runs the plain version :func:`wkv_bwd_ref`, not
+    counted."""
+    _check(r, k, v, w, u, state0, chunk)
+    B, S, H, hd = r.shape
+    for name, t, shape in (("dy", dy, (B, S, H, hd)),
+                           ("ds_last", ds_last, (B, H, hd, hd))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != r.device:
+            raise ValueError(f"{name} on {t.device}, r on {r.device}")
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"wkv6_bwd runs on cuda or cpu, not {r.device}")
+    return _bwd_op(r, k, v, w, u, state0, dy, ds_last, chunk)
 
 
 def run_variant(variant: str, r, k, v, w, u, state0=None, chunk: int = 64):
@@ -156,20 +195,7 @@ def _launch(variant: str, r, k, v, w, u, state0, chunk: int):
                          f"{MMA_HEAD_DIMS}, not {r.dtype} at {hd}")
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 kernels run on cuda, not {r.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (r, k, v, w, u, state0)):
-        raise NotImplementedError(
-            "wkv6 on CUDA has no backward kernel yet (ROADMAP queue 2: "
-            "the wkv6 backward kernel for rwkv6-7b training), and its "
-            "output would carry no gradient; run under torch.no_grad() "
-            "or on the CPU, where the plain version differentiates")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} > the kernel's {MAX_CHUNK}")
-    if any(t.stride(-1) != 1 for t in (r, k, v, w)):
-        raise ValueError("wkv6 needs a contiguous head dim")
+    _check_kernel_shape(hd, chunk, r, k, v, w)
     if variant == "mma":
         check_cp_async_layout(r=r, k=k, v=v, w=w)
     u = u.contiguous()
@@ -195,6 +221,127 @@ def _launch(variant: str, r, k, v, w, u, state0, chunk: int):
     return y, s_last
 
 
+def _check_kernel_shape(hd: int, chunk: int, *tensors) -> None:
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > the kernel's {MAX_CHUNK}")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("wkv6 needs a contiguous head dim")
+
+
+def _launch_bwd(r, k, v, w, u, state0, dy, ds_last, chunk: int):
+    """The backward kernel's checks, then its launch (inputs that
+    :func:`wkv6_bwd` passed)."""
+    B, S, H, hd = r.shape
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6_bwd kernel runs on cuda, not {r.device}")
+    _check_kernel_shape(hd, chunk, r, k, v, w, dy)
+    u = u.contiguous()
+    state0 = None if state0 is None else state0.contiguous()
+    ds_last = ds_last.contiguous()
+    dev = r.device
+    dr, dk, dv = (torch.empty((B, S, H, hd), dtype=r.dtype, device=dev)
+                  for _ in range(3))
+    dw = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
+    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    dstate0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
+    # the chunk-start states the kernel recomputes, then reads in reverse
+    work = torch.empty((B, H, -(-S // chunk), hd, hd), dtype=torch.float32,
+                       device=dev)
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_wkv6_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if state0 is None else state0.data_ptr(),
+            dy.data_ptr(), ds_last.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
+            dstate0.data_ptr(), work.data_ptr(), _DTYPE_CODE[r.dtype], B, S,
+            H, hd, chunk, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *w.stride()[:3], *dy.stride()[:3], *dr.stride()[:3], stream)
+    if err != 0:
+        msg = lib.repro_wkv6_error_string(err).decode()
+        raise RuntimeError(f"wkv6_bwd launch failed: {msg} (cudaError "
+                           f"{err})")
+    wkv6_bwd.launches += 1
+    # a fixed order of the B partials: repeated calls are bit-equal
+    return dr, dk, dv, dw, du_part.sum(0), dstate0
+
+
+# -- the custom ops ----------------------------------------------------------
+@torch.library.custom_op("repro_torch::wkv6", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, state0: Optional[torch.Tensor],
+            chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return _launch(select_variant(r.dtype, r.shape[-1]), r, k, v, w, u,
+                   state0, chunk)
+
+
+@_fwd_op.register_kernel("cpu")
+def _fwd_cpu(r, k, v, w, u, state0, chunk):
+    y, s_last = wkv_ref(r, k, v, w, u, state0, chunk)
+    return y.contiguous(), s_last.contiguous()
+
+
+@_fwd_op.register_fake
+def _fwd_fake(r, k, v, w, u, state0, chunk):
+    B, S, H, hd = r.shape
+    return (r.new_empty((B, S, H, hd), dtype=torch.float32),
+            r.new_empty((B, H, hd, hd), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::wkv6_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, state0: Optional[torch.Tensor],
+            dy: torch.Tensor, ds_last: torch.Tensor, chunk: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _launch_bwd(r, k, v, w, u, state0, dy, ds_last, chunk)
+
+
+@_bwd_op.register_kernel("cpu")
+def _bwd_cpu(r, k, v, w, u, state0, dy, ds_last, chunk):
+    dr, dk, dv, dw, du, ds0 = wkv_bwd_ref(r, k, v, w, u, state0, dy,
+                                          ds_last, chunk)
+    return (dr.to(r.dtype).contiguous(), dk.to(r.dtype).contiguous(),
+            dv.to(r.dtype).contiguous(), dw.contiguous(), du.contiguous(),
+            ds0.contiguous())
+
+
+@_bwd_op.register_fake
+def _bwd_fake(r, k, v, w, u, state0, dy, ds_last, chunk):
+    B, S, H, hd = r.shape
+    f32 = torch.float32
+    return (r.new_empty(r.shape), r.new_empty(r.shape), r.new_empty(r.shape),
+            r.new_empty(r.shape, dtype=f32), r.new_empty((H, hd), dtype=f32),
+            r.new_empty((B, H, hd, hd), dtype=f32))
+
+
+def _setup_context(ctx, inputs, output):
+    r, k, v, w, u, state0, chunk = inputs
+    ctx.save_for_backward(r, k, v, w, u, state0)
+    ctx.chunk = chunk
+
+
+def _backward(ctx, dy, ds_last):
+    r, k, v, w, u, state0 = ctx.saved_tensors
+    if dy is None:
+        dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+    if ds_last is None:
+        B, _, H, hd = r.shape
+        ds_last = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                              device=r.device)
+    dr, dk, dv, dw, du, ds0 = _bwd_op(r, k, v, w, u, state0,
+                                      dy.contiguous(), ds_last, ctx.chunk)
+    return dr, dk, dv, dw, du, None if state0 is None else ds0, None
+
+
+_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
 def mma_blocks_per_sm() -> int:
     """Blocks of the ``mma`` kernel one SM holds at once, by the CUDA
     occupancy calculator (needs the card)."""
@@ -207,7 +354,9 @@ def mma_blocks_per_sm() -> int:
 
 wkv6.launches = 0
 wkv6.variant_launches = dict.fromkeys(VARIANTS, 0)
+wkv6_bwd.launches = 0
 
 __all__ = ["HEAD_DIMS", "MAX_CHUNK", "MMA_HEAD_DIMS", "VARIANTS",
            "check_cp_async_layout", "load", "mma_blocks_per_sm",
-           "run_variant", "select_variant", "wkv6", "wkv_ref"]
+           "run_variant", "select_variant", "wkv6", "wkv6_bwd",
+           "wkv_bwd_ref", "wkv_ref"]

@@ -9,9 +9,11 @@ and bonus u (all vectors of the head dim):
 :func:`wkv_ref` is the chunked form of the reference's
 ``models.rwkv._wkv_chunked``, the function the CUDA kernel computes: the
 CPU path of :func:`..ops.wkv6` runs it, and ``chip_smoke.py`` holds the
-kernel to it on the card. :func:`wkv_step_ref` is the port of the
-reference's step-wise oracle ``kernels/rwkv6/ref.py::rwkv6_ref``, for
-the tests.
+kernel to it on the card. :func:`wkv_bwd_ref` is its backward, written
+out chunk by chunk (the CPU path of the backward op, and what
+``chip_smoke.py`` holds the backward kernel to). :func:`wkv_step_ref`
+is the port of the reference's step-wise oracle
+``kernels/rwkv6/ref.py::rwkv6_ref``, for the tests.
 """
 from __future__ import annotations
 
@@ -56,10 +58,7 @@ def wkv_ref(r, k, v, w, u, state0=None, chunk: int = 64):
     eye = torch.eye(chunk, dtype=f32, device=r.device)
     ys = []
     for rx, kx, vx, wx in zip(rc, kc, vc, wc):            # (B, C, H, hd)
-        cum = torch.cumsum(torch.log(wx), 1)              # log-decay <= t
-        cum_ex = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
-        tot = cum[:, -1:]                                 # (B, 1, H, hd)
-        m = 0.5 * tot
+        cum, cum_ex, tot, m = _log_decays(wx)
         # inter-chunk: r_t · (decay(0..t-1) ⊙ S)
         y = torch.einsum("bchd,bhde->bche", rx * torch.exp(cum_ex), St)
         att = torch.einsum("bchd,bshd->bhcs", rx * torch.exp(cum_ex - m),
@@ -73,6 +72,131 @@ def wkv_ref(r, k, v, w, u, state0=None, chunk: int = 64):
         ys.append(y)
     y = torch.cat(ys, 1)[:, :S]
     return y, St
+
+
+def _log_decays(wx):
+    """A chunk's inclusive and exclusive log-decay sums, their total and
+    half of it, per channel: (cum, cum_ex, tot (B, 1, H, hd), m)."""
+    cum = torch.cumsum(torch.log(wx), 1)                  # log-decay <= t
+    cum_ex = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
+    tot = cum[:, -1:]
+    return cum, cum_ex, tot, 0.5 * tot
+
+
+def wkv_bwd_ref(r, k, v, w, u, state0, dy, ds_last, chunk: int = 64):
+    """The backward of :func:`wkv_ref`: given the cotangents ``dy``
+    (B, S, H, hd) of y and ``ds_last`` (B, H, hd, hd) of S_last (either
+    may be None: zeros), returns (dr, dk, dv, dw (B, S, H, hd), du
+    (H, hd), dstate0 (B, H, hd, hd)), all float32; dstate0 is returned
+    also when ``state0`` is None (then it is the gradient of a zero
+    state).
+
+    Written out, not autograd: the same chunks, ragged-tail padding
+    (w = 1, k = 0) and half-sum factors as :func:`wkv_ref`. The
+    chunk-start states are recomputed first; then the chunks are walked
+    in reverse, carrying dS (the cotangent of the state leaving the
+    chunk). Per chunk, with r̃ = r·e^{cum_ex - m}, k̃ = k·e^{m - cum}
+    (A = tril₋₁(r̃ k̃ᵀ), the pairwise decays of r̂ k̂ᵀ for
+    r̂ = r·e^{cum_ex}, k̂ = k·e^{-cum}) and k_tail = k·e^{tot - cum}:
+
+        dA   = tril₋₁(dy vᵀ) = dA₂ + b   (b_t = dA[t, t-1], the band)
+        dr   = (dA₂ k̃)·e^{cum_ex - m} + b_t k_{t-1}
+               + (dy S_inᵀ)·e^{cum_ex} + δ u k
+        dk   = (dA₂ᵀ r̃)·e^{m - cum} + b_{s+1} r_{s+1}
+               + (v dSᵀ)·e^{tot - cum} + δ u r
+        dv   = Aᵀ dy + (r·u·k)_t dy_t + k_tail dS
+        du  += Σ_t δ_t r_t k_t,   δ_t = dy_t · v_t
+        dS_in = r̂ᵀ dy + diag(e^{tot}) dS
+
+    (the band's pairwise decay e^{cum_ex_t - cum_{t-1}} is exactly 1).
+    dlog w_j = Σ_{t>j} (dA₂ k̃)_t r̃_t + (dy S_inᵀ)_t r_t e^{cum_ex_t}
+    - Σ_{t≥j} (dA₂ᵀ r̃)_t k̃_t + Σ_{s<j} (v dSᵀ)_s k_tail_s
+    + e^{tot} Σ_e S_in dS, and dw = dlog w / w. The pairs (t, t-1) and
+    the tail's terms at j ≤ s enter the cum, cum_ex and tot terms with
+    opposite signs and cancel exactly, so they are left out rather than
+    summed and cancelled in float32: under strong decay they are the
+    largest terms, and the rounding they left was up to 7e-4 of max |dw|
+    (chunk 16, w ~ 1e-4), against 7e-6 without them.
+
+    Range: the factors e^{±(cum - m)} reach e^{-tot/2}, and the sums
+    dA k̃ and dAᵀ r̃ add 64 of them times |dy v| terms, so float32 holds
+    while each channel's summed log-decay over a chunk (tot) stays above
+    about -150 (e^75 = 3.7e32 leaves a factor of 9e5 for 64 |dA| |k| below
+    float32's 3.4e38); the forward's own bound is -176."""
+    B, S, H, hd = r.shape
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    f32 = torch.float32
+    n = -(-S // chunk)
+    pad = n * chunk - S
+
+    def chunks(a, fill):
+        a = a.to(f32)
+        if pad:
+            a = torch.cat([a, a.new_full((B, pad, H, hd), fill)], 1)
+        return a.reshape(B, n, chunk, H, hd).unbind(1)
+
+    rc, kc, vc = chunks(r, 0.0), chunks(k, 0.0), chunks(v, 0.0)
+    wc = chunks(w, 1.0)
+    dyc = chunks(dy if dy is not None else torch.zeros_like(r, dtype=f32),
+                 0.0)
+    u = u.to(f32)
+    zeros = torch.zeros((B, H, hd, hd), dtype=f32, device=r.device)
+    St = zeros if state0 is None else state0.to(f32)
+    states = []
+    for kx, vx, wx in zip(kc, vc, wc):
+        states.append(St)
+        cum, _, tot, _ = _log_decays(wx)
+        St = torch.exp(tot[:, 0])[..., None] * St + torch.einsum(
+            "bchd,bche->bhde", kx * torch.exp(tot - cum), vx)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=r.device).tril(-1)
+    tri2 = tri.tril(-2)
+    dS = zeros if ds_last is None else ds_last.to(f32)
+    du = torch.zeros_like(u)
+    drs, dks, dvs, dws = [], [], [], []
+    for i in reversed(range(n)):
+        rx, kx, vx, wx, dyx, S_in = rc[i], kc[i], vc[i], wc[i], dyc[i], \
+            states[i]
+        cum, cum_ex, tot, m = _log_decays(wx)
+        e_ex, tail = torch.exp(cum_ex), torch.exp(tot - cum)
+        rt = rx * torch.exp(cum_ex - m)
+        kt = kx * torch.exp(m - cum)
+        k_tail = kx * tail
+        A = torch.where(tri, torch.einsum("bchd,bshd->bhcs", rt, kt), 0.0)
+        dA = torch.einsum("bche,bshe->bhcs", dyx, vx)
+        band = torch.diagonal(dA, -1, 2, 3).permute(0, 2, 1)  # (B, C-1, H)
+        dA = torch.where(tri2, dA, 0.0)
+        delta = (dyx * vx).sum(-1, keepdim=True)           # (B, C, H, 1)
+        diag = torch.einsum("bchd,hd,bchd->bch", rx, u, kx)[..., None]
+        G = torch.einsum("bhcs,bshd->bchd", dA, kt)
+        Q = torch.einsum("bche,bhde->bchd", dyx, S_in)
+        Hs = torch.einsum("bhcs,bchd->bshd", dA, rt)
+        P = torch.einsum("bshe,bhde->bshd", vx, dS)
+        dr = G * torch.exp(cum_ex - m) + Q * e_ex + delta * u * kx
+        dr[:, 1:] += band[..., None] * kx[:, :-1]
+        dk = Hs * torch.exp(m - cum) + P * tail + delta * u * rx
+        dk[:, :-1] += band[..., None] * rx[:, 1:]
+        drs.append(dr)
+        dks.append(dk)
+        dvs.append(torch.einsum("bhcs,bche->bshe", A, dyx) + diag * dyx
+                   + torch.einsum("bshd,bhde->bshe", k_tail, dS))
+        du = du + (delta * rx * kx).sum((0, 1))
+        # the log-decay: cum_t directly, cum_ex_t = cum_{t-1}, tot = cum_C;
+        # the tail's terms as an exclusive prefix sum
+        dcum = -(Hs * kt)
+        dcum[:, :-1] += (G * rt + Q * rx * e_ex)[:, 1:]
+        dcum[:, -1] += torch.exp(tot[:, 0]) * (S_in * dS).sum(-1)
+        pk = torch.cumsum(P * k_tail, 1)
+        dlogw = dcum.flip(1).cumsum(1).flip(1)
+        dlogw[:, 1:] += pk[:, :-1]
+        dws.append(dlogw / wx)
+        dS = torch.einsum("bchd,bche->bhde", rx * e_ex, dyx) + \
+            torch.exp(tot[:, 0])[..., None] * dS
+
+    def joined(parts):
+        return torch.cat(parts[::-1], 1)[:, :S]
+    return joined(drs), joined(dks), joined(dvs), joined(dws), du, dS
 
 
 def wkv_step_ref(r, k, v, w, u, state0=None):
@@ -91,4 +215,4 @@ def wkv_step_ref(r, k, v, w, u, state0=None):
     return torch.stack(ys, 2), St
 
 
-__all__ = ["wkv_ref", "wkv_step_ref"]
+__all__ = ["wkv_bwd_ref", "wkv_ref", "wkv_step_ref"]

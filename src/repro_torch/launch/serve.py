@@ -10,8 +10,12 @@ With ``--plan-devices K`` the decode step is partitioned first
 (:func:`repro_torch.serving.partition_for_serving`) and served through
 the plan (``plan.serve``); ``--fold`` aliases the K PEs onto the
 available devices (every visible card, or the CPU with ``--device
-cpu``). ``--trace PATH`` writes the engine's Perfetto trace, ``--metrics
-PATH`` the final serving stats as a ``repro-metrics`` envelope.
+cpu``). ``--ckpt-dir DIR`` serves the parameters of the newest
+checkpoint there (one written by ``launch.train`` of the same config, or
+by the reference's), restored against an AdamW template as the
+reference restores them. ``--trace PATH`` writes the engine's Perfetto
+trace, ``--metrics PATH`` the final serving stats as a
+``repro-metrics`` envelope.
 """
 import argparse
 
@@ -19,10 +23,15 @@ import numpy as np
 import torch
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
+    """The CLI. ``cfg``: a :class:`~repro_torch.configs.base.ModelConfig`
+    to serve in place of ``--arch``'s (a depth-cut one: ``chip_smoke.py``
+    serves what ``launch.train`` trained at the depth the card holds).
+    Returns the drained engine."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
@@ -51,11 +60,22 @@ def main(argv=None):
                                      partition_for_serving)
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, dev)
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.train import AdamWConfig, init_state
+        ck = CheckpointManager(args.ckpt_dir)
+        opt_template = init_state(AdamWConfig(), params)
+        restored, _ = ck.restore({"params": params, "opt": opt_template})
+        params = restored["params"]
+        del opt_template
+        print(f"[serve] restored step {ck.latest_step()} from "
+              f"{args.ckpt_dir}")
     geo = dict(block_size=args.block_size, num_blocks=args.num_blocks,
                max_batch=args.max_batch, max_len=args.max_len)
     if args.plan_devices:

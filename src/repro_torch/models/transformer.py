@@ -26,6 +26,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
@@ -167,25 +168,52 @@ def embed_inputs(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
     return x
 
 
+#: remat policies :func:`forward` takes; the reference's "dots" and
+#: "dots_no_batch" (save the products' outputs) are not ported
+REMAT_POLICIES = (None, "none", "full")
+
+
+def check_remat_policy(remat_policy) -> None:
+    if remat_policy not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat policy {remat_policy!r} is not ported (have "
+            f"{REMAT_POLICIES[1:]}); ROADMAP queue 1: --remat dots")
+
+
+def _period_apply(cfg: ModelConfig, pp, x, positions, pc, cache_pos):
+    for i, kind in enumerate(cfg.block_pattern):
+        c = pc[f"b{i}"] if pc is not None else None
+        x, _ = _block_apply(cfg, kind, pp[f"b{i}"], x, positions=positions,
+                            cache=c, cache_pos=cache_pos)
+    return x
+
+
 def forward(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
-            caches=None, cache_pos=None):
+            caches=None, cache_pos=None, remat_policy: str | None = None):
     """Backbone forward. Returns (hidden (B,S,D), caches).
     ``params["periods"]`` is the stacked tree or, as
-    :func:`unstack_periods` gives it, a list of per-period trees."""
+    :func:`unstack_periods` gives it, a list of per-period trees.
+
+    ``remat_policy="full"`` (without caches) runs each period under
+    ``torch.utils.checkpoint``: its backward recomputes the period from
+    its input, as the reference's ``jax.checkpoint`` of the scan body
+    does; ``None`` or ``"none"`` keeps every activation."""
+    check_remat_policy(remat_policy)
     periods = params["periods"]
     for i, kind in enumerate(cfg.prelude):
         c = caches["prelude"][i] if caches is not None else None
         x, _ = _block_apply(cfg, kind, params[f"prelude{i}"], x,
                             positions=positions, cache=c,
                             cache_pos=cache_pos)
+    remat = remat_policy == "full" and caches is None
     for n in range(cfg.num_periods):
         pp = periods[n] if isinstance(periods, list) else _at(periods, n)
         pc = _at(caches["periods"], n) if caches is not None else None
-        for i, kind in enumerate(cfg.block_pattern):
-            c = pc[f"b{i}"] if pc is not None else None
-            x, _ = _block_apply(cfg, kind, pp[f"b{i}"], x,
-                                positions=positions, cache=c,
-                                cache_pos=cache_pos)
+        if remat:
+            x = checkpoint(_period_apply, cfg, pp, x, positions, None,
+                           cache_pos, use_reentrant=False)
+        else:
+            x = _period_apply(cfg, pp, x, positions, pc, cache_pos)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return x, caches
 
@@ -239,15 +267,18 @@ def chunked_cross_entropy(cfg: ModelConfig, hidden: torch.Tensor,
     return loss_sum / count.clamp(min=1.0)
 
 
-def loss_fn(cfg: ModelConfig, params, batch: dict):
+def loss_fn(cfg: ModelConfig, params, batch: dict,
+            remat_policy: str | None = None):
     """Training loss (port of the reference's ``loss_fn``). ``batch``:
     ``tokens`` (B, S) int or ``embeds`` (B, S, D), and ``targets`` (B, S).
     Returns ``(loss, {"ce", "aux"})``; ``aux`` is 0 for the dense
-    kinds, which have no router loss."""
+    kinds, which have no router loss. ``remat_policy`` as for
+    :func:`forward`."""
     x = embed_inputs(cfg, params, batch)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    hidden, _ = forward(cfg, params, x, positions=positions)
+    hidden, _ = forward(cfg, params, x, positions=positions,
+                        remat_policy=remat_policy)
     ce = chunked_cross_entropy(cfg, hidden, lm_head_weight(cfg, params),
                                batch["targets"])
     aux = ce.new_zeros(())
@@ -311,7 +342,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens_or_embeds,
     return _logits(cfg, params, hidden), caches
 
 
-__all__ = ["chunked_cross_entropy", "decode_step", "embed_inputs", "forward",
-           "init_cache", "init_params", "lm_head_weight", "loss_fn",
-           "mask_pad_logits", "prefill", "prefill_batched",
-           "unstack_periods"]
+__all__ = ["REMAT_POLICIES", "check_remat_policy", "chunked_cross_entropy",
+           "decode_step", "embed_inputs", "forward", "init_cache",
+           "init_params", "lm_head_weight", "loss_fn", "mask_pad_logits",
+           "prefill", "prefill_batched", "unstack_periods"]

@@ -1,0 +1,10 @@
+"""Training: AdamW, the one-device train step and the fault-tolerant
+loop."""
+from .loop import LoopConfig, LoopState, TrainLoop
+from .optimizer import (AdamWConfig, apply_updates, global_norm, init_state,
+                        schedule)
+from .step import build_train_step
+
+__all__ = ["AdamWConfig", "LoopConfig", "LoopState", "TrainLoop",
+           "apply_updates", "build_train_step", "global_norm", "init_state",
+           "schedule"]

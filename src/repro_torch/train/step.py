@@ -1,0 +1,62 @@
+"""The training step for one device (port of ``repro.train.step``'s
+``build_train_step``; its sharded forms wait for ``launch/mesh.py``,
+ROADMAP queue 1).
+
+The gradient is taken as ``conformance.make_train_step`` takes it:
+``torch.autograd.grad`` over per-layer leaves (the periods unbound by
+:func:`~repro_torch.models.unstack_periods`, views of the stacked
+tensors), then :func:`.optimizer.apply_updates` writes AdamW's update
+into the stacked parameters and optimizer state through the same views,
+so no whole stack is copied.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from ..models import check_remat_policy, loss_fn, unstack_periods
+from ..tree import tree_flatten, tree_unflatten
+from .optimizer import AdamWConfig, apply_updates
+
+#: the optimizer-state trees that have the parameters' shape
+_PARAM_SHAPED = ("master", "mu", "nu")
+
+
+def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
+                     remat_policy: str = "full", device=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` on ``device`` (``None``: cuda): the loss and its gradient
+    (``remat_policy`` ``"full"`` or ``"none"``, see
+    :func:`~repro_torch.models.forward`), then one AdamW step **in place**
+    (the returned trees are the ones given). ``batch`` holds numpy arrays
+    or tensors (``tokens`` or ``embeds``, ``targets``), moved to the
+    device. ``metrics``: 0-d tensors ``loss``, ``ce``, ``aux``,
+    ``grad_norm``, ``lr`` and ``skipped``."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    check_remat_policy(remat_policy)
+    dev = resolve_device(device)
+
+    def train_step(params, opt_state, batch):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        unstacked = unstack_periods(cfg, params)
+        leaves, structure = tree_flatten(unstacked)
+        req = [t.detach().requires_grad_() for t in leaves]
+        with torch.enable_grad():
+            loss, parts = loss_fn(cfg, tree_unflatten(structure, req), batch,
+                                  remat_policy=remat_policy)
+            grads = torch.autograd.grad(loss, req)
+        del req
+        state = {k: unstack_periods(cfg, v) if k in _PARAM_SHAPED else v
+                 for k, v in opt_state.items()}
+        _, _, om = apply_updates(opt_cfg, unstacked,
+                                 tree_unflatten(structure, list(grads)),
+                                 state)
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in parts.items()}, **om}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+__all__ = ["build_train_step"]

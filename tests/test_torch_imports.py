@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.rwkv, repro_torch.api, "
             "repro_torch.core.modelgraphs, repro_torch.core.baselines, "
             "repro_torch.core.runtime, repro_torch.analysis, "
-            "repro_torch.conformance, repro_torch.conformance.matrix; "
+            "repro_torch.conformance, repro_torch.conformance.matrix, "
+            "repro_torch.train, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

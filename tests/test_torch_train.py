@@ -30,12 +30,12 @@ import repro_torch.configs as tcfg  # noqa: E402
 import repro_torch.models as tm  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
-from repro_torch.conformance import (build_matrix, make_train_step,  # noqa
+from repro_torch.conformance import (make_train_step,  # noqa: E402
                                      run_conformance, spec_for)
 from repro_torch.tree import tree_flatten, tree_map  # noqa: E402
 
 TOL = dict(atol=2e-4, rtol=2e-4)
-ARCHS = ["granite-8b", "repro-lm-100m"]
+ARCHS = ["granite-8b", "repro-lm-100m", "rwkv6-7b"]
 B, S = 2, 16
 
 
@@ -137,29 +137,41 @@ def test_forward_takes_unstacked_periods(model):
 
 
 def _dot_flops_formula(cfg, batch: int, seq: int) -> float:
-    """3 x 2·T·(matmul parameters) + attention: 4·B·H·S²·hd forward and
-    8·B·H·S²·hd backward per layer (dense S², as the reference's graph
-    of its ``_plain_gqa`` counts)."""
+    """3 x 2·T·(matmul parameters) + per layer, attention: 4·B·H·S²·hd
+    forward and 8·B·H·S²·hd backward (dense S², as the reference's graph
+    of its ``_plain_gqa`` counts); or the RWKV6 recurrence's chunked
+    products, 2·B·H·n·(2·C²·hd + 2·C·hd²) forward (chunks of C = min(64,
+    S) tokens, n of them) and twice that backward."""
     T = batch * seq
-    per_layer = (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim)
-                 + cfg.q_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
-    mm = cfg.num_layers * per_layer + cfg.d_model * cfg.padded_vocab
-    attn = 12 * batch * cfg.num_heads * seq ** 2 * cfg.head_dim
-    return 6.0 * T * mm + cfg.num_layers * attn
+    d = cfg.d_model
+    if cfg.rwkv is not None:
+        per_layer = 6 * d * d + 2 * d * cfg.rwkv.lora_w + 2 * d * cfg.d_ff
+        hd = cfg.rwkv.head_dim
+        C, n = min(64, seq), -(-seq // 64)
+        mixer = 3 * 2 * batch * (d // hd) * n * (2 * C * C * hd
+                                                  + 2 * C * hd * hd)
+    else:
+        per_layer = (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+                     + 3 * d * cfg.d_ff)
+        mixer = 12 * batch * cfg.num_heads * seq ** 2 * cfg.head_dim
+    mm = cfg.num_layers * per_layer + d * cfg.padded_vocab
+    return 6.0 * T * mm + cfg.num_layers * mixer
 
 
 def test_training_trace(model):
     """The fake-tensor trace of the step: one forward and one backward
-    attention node per layer, no ``select_backward``, no node the size of
-    a whole stacked leaf but each leaf's one restack, and product FLOPs
-    equal to the count from the config."""
+    kernel node per layer (flash attention, or the RWKV6 recurrence), no
+    ``select_backward``, no node the size of a whole stacked leaf but
+    each leaf's one restack, and product FLOPs equal to the count from
+    the config."""
     _, tc, _, tp, batch = model
     traced = api.trace(make_train_step(tc), tp, _tbatch(batch),
                        record=True, autograd=True)
     g = traced.graph
     ops = [n.split(".")[0] for n in g.names]
-    assert ops.count("flash_attention") == tc.num_layers
-    assert ops.count("flash_attention_bwd") == tc.num_layers
+    fwd = "wkv6" if tc.rwkv is not None else "flash_attention"
+    assert ops.count(fwd) == tc.num_layers
+    assert ops.count(fwd + "_bwd") == tc.num_layers
     assert "select_backward" not in ops
     # the shapes of the aten graph the cost graph was built from
     from repro_torch.core.tracing import _functional_graph, op_name
@@ -186,17 +198,10 @@ def test_run_conformance_k4_on_cpu(arch, tmp_path):
     trace = str(tmp_path / "train.trace.json")
     rec = run_conformance(spec_for(arch, devices=4), device="cpu",
                           trace_path=trace)
-    assert rec["violations"] == [] and rec["ok"] and not rec["skipped"]
+    assert rec["violations"] == [] and rec["ok"]
     assert rec["trace_segments_matched"] > 0
     assert rec["device_map"] == [0, 0, 0, 0] and rec["folded"]
     assert rec["sync_async_max_diff"] == 0.0
     assert rec["compiled_vs_interpreter_max_diff"] <= 2e-5
     assert np.isfinite(rec["loss"]) and rec["num_segments"] >= 4
     assert rec["diagnostics"]["counts"]["error"] == 0
-
-
-def test_matrix_skips_rwkv_with_its_reason():
-    spec = build_matrix()["rwkv6-7b"]
-    assert "wkv6 has no backward kernel" in spec.skip_reason
-    rec = run_conformance(spec, device="cpu")
-    assert rec["skipped"] and not rec["ok"] and rec["violations"] == []
