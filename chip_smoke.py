@@ -140,19 +140,25 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    compiled; wall, device time, segments, capture, replays, peaks per PE
    beside the plan's and the certificate, measured against predicted
    makespan.
-14. rwkv train kernels: the wkv6 backward kernel (``rwkv6_bwd.cu``)
-   against its plain version ``wkv_bwd_ref`` on the same inputs
+14. rwkv train kernels: the two wkv6 backward kernels
+   (``rwkv6_bwd_mma.cu``, bf16 at hd 64; ``rwkv6_bwd.cu``, the rest)
+   against their plain version ``wkv_bwd_ref`` on the same inputs
    (RWKV_BWD_CASES: the rwkv6-7b training shape in bf16 and float32, hd
    16 and 32, ragged S, chunks under 64, a given state0 and dS_last,
-   B·H = 2, a fast decay at the edge of the kernel's stated range),
-   each gradient under the gate written in the kernel's source, repeated
-   calls bit-equal; at the training shape the kernel and the plain
-   version timed in turns beside the bound, registers and spills;
+   B·H = 2, a fast decay at the edge of the kernels' stated range): the
+   one ``select_bwd_variant`` names, and in bf16 at hd 64 the fma kernel
+   by name too, each gradient under the gate written in rwkv6_bwd.cu,
+   repeated calls bit-equal; at the training shape, in turns, the mma
+   kernel, the fma kernel, the plain version and the fma kernel cut
+   after its forward walk (a copy of its source built apart), beside the
+   bound; the mma kernel's two stages timed apart, registers, spills and
+   blocks per SM;
 15. rwkv train: rwkv6-7b's SGD step at full width (bf16, random weights
    from a seed, B=1, S=2048, lr 1e-3), after phase 14 (which it runs
    too): (a) the eager step at the depth the printed memory arithmetic
    allows (all 32 layers on an 80 GB card): loss near ln V, L forward
-   (all mma) and L backward launches, step ms, tokens/s, peak memory,
+   (all mma) and L backward (all mma) launches, step ms, tokens/s, peak
+   memory,
    device busy; (b) the 12-layer step traced (one wkv6 and one wkv6_bwd
    node a layer, product FLOPs equal to the config's count),
    partitioned at K=4, verified, and executed with its PEs folded onto
@@ -163,7 +169,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    remat full): (a) 4 steps at the depth the printed AdamW arithmetic
    allows (16 bytes a parameter plus the activations, measured at 2 and
    4 layers): step ms, tokens/s, peak memory, 2L forward and L backward
-   launches a step, one step more under torch.profiler; (b) at
+   launches a step (rwkv's backward all mma), one step more under
+   torch.profiler; (b) at
    CKPT_LAYERS, 4 steps with a checkpoint every 2, then a fresh run
    resumed from the step-2 checkpoint alone: every
    parameter and optimizer leaf against the uninterrupted run's
@@ -2146,7 +2153,7 @@ def _profile_step(torch, label: str, fn,
     """One call of ``fn`` under torch.profiler (after two warm-up
     calls): wall and device-busy ms, the top kernels, and the launches
     of the ``kernels`` by name (they count replays of captured graphs,
-    which the wrappers' counters do not)."""
+    which the wrappers' counters do not) and their device ms."""
     from torch.profiler import ProfilerActivity
     for _ in range(2):
         fn()
@@ -2162,9 +2169,13 @@ def _profile_step(torch, label: str, fn,
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
     counts = {name: sum(e.count for e in evs if name in e.key)
               for name in kernels}
+    named_ms = {name: sum(e.self_device_time_total for e in evs
+                          if name in e.key) / 1e3 for name in kernels}
     log(f"profile {label}: wall {host_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({busy_ms / host_ms:.1%}), "
-        f"{sum(e.count for e in evs)} kernels; launches by name {counts}")
+        f"{sum(e.count for e in evs)} kernels; launches by name {counts}; "
+        f"device ms by name " + ", ".join(
+            f"{name} {t:.3f}" for name, t in named_ms.items() if t))
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
             f"{e.key[:90]}")
@@ -2560,9 +2571,12 @@ RWKV_BWD_EDGE = 150.0
 # dr, dk and dv in bf16 one rounding more, 2^-7 x max |plain|.
 RWKV_BWD_GATE = 2e-5
 RWKV_BWD_ROUND = 2.0 ** -7
-#: the training step's kernels in a profile: the wkv6 forward (mma) and
-#: the backward
-RWKV_KERNELS = ("wkv6_mma_kernel", "wkv6_kernel", "wkv6_bwd_kernel")
+#: the mma backward's two kernels in stream order, as a profile names them
+RWKV_BWD_STAGES = ("wkv6_bwd_walk_mma", "wkv6_bwd_grad_mma")
+#: the training step's kernels in a profile: the wkv6 forwards (mma, fma)
+#: and the backwards (the mma one's two stages, the fma one)
+RWKV_KERNELS = ("wkv6_mma_kernel", "wkv6_kernel") + RWKV_BWD_STAGES + (
+    "wkv6_bwd_kernel",)
 
 
 def _rwkv_bwd_inputs(torch, case, seed):
@@ -2616,37 +2630,97 @@ def _hold_rwkv_bwd(torch, label, got, again, want, dtype, tot) -> tuple:
     return max(ratios), max(errs)
 
 
+def _fma_walk_only(torch, rops, build):
+    """The fma backward kernel (``rwkv6_bwd.cu``) cut after its phase 1,
+    the forward walk over the chunks: a text-substituted copy of its
+    source built into a library of its own. Returns ``call(args, chunk)``,
+    which launches it on CUDA tensors (its outputs are left unwritten):
+    what the fma kernel's design spends on its forward walk."""
+    import ctypes
+    src = (rops.CSRC / "rwkv6_bwd.cu").read_text()
+    marker = "  // ---- 2. backward: the chunks in reverse, carrying dS\n"
+    assert src.count(marker) == 1, "rwkv6_bwd.cu: phase 2 not found"
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "rwkv6_bwd.cu").write_text(
+            src.replace(marker, "  return;\n" + marker))
+        lib = ctypes.CDLL(str(build.build("rwkv6_bwd_walk_only", Path(tmp))))
+    fn = lib.repro_wkv6_bwd
+    fn.argtypes = rops._BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def call(args, chunk):
+        r, k, v, w, u, s0, dy, ds = args
+        B, S, H, hd = r.shape
+        outs = [torch.empty_like(r) for _ in range(3)] + [
+            torch.empty(r.shape, device="cuda"),
+            torch.empty((B, H, hd), device="cuda"),
+            torch.empty((B, H, hd, hd), device="cuda"),
+            torch.empty((B, H, -(-S // chunk), hd, hd), device="cuda")]
+        err = fn(*(None if t is None else t.data_ptr()
+                   for t in (r, k, v, w, u, s0, dy, ds)),
+                 *(t.data_ptr() for t in outs), 1, B, S, H, hd, chunk,
+                 *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *w.stride()[:3], *dy.stride()[:3], *r.stride()[:3],
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"the fma walk-only copy: cudaError {err}"
+    return call
+
+
 def phase_rwkv_train_kernel(torch, rops, rref, build) -> dict:
-    """The wkv6 backward kernel against its plain version at every case of
-    RWKV_BWD_CASES, a repeated call bit-equal; at the training shape the
-    kernel and the plain version timed in turns beside the bound, and the
-    kernel's registers and spills (ptxas). Returns its record (launches
-    filled in by the rwkv_train phase)."""
-    worst, err0 = 0.0, None
+    """The wkv6 backward kernels against their plain version at every case
+    of RWKV_BWD_CASES: the one ``select_bwd_variant`` names (``mma`` in
+    bf16 at hd 64, else ``fma``) and in bf16 at hd 64 the ``fma`` kernel
+    by name too, repeated calls bit-equal. At the training shape, in
+    turns: the mma kernel, the fma kernel, the plain version and the fma
+    kernel cut after its forward walk (built meanwhile from a copy of its
+    source), beside the bound; the mma kernel's two stages timed apart
+    (torch.profiler), the kernels' registers and spills (ptxas) and the
+    mma kernel's blocks per SM. Returns the mma kernel's record
+    (launches filled in by the rwkv_train phase)."""
+    pool = ThreadPoolExecutor(1)
+    walk_only = pool.submit(_fma_walk_only, torch, rops, build)
+    worst = {}
+    counts = rops.wkv6_bwd.variant_launches
     for i, case in enumerate(RWKV_BWD_CASES):
         args = _rwkv_bwd_inputs(torch, case, 400 + i)
-        chunk, dtype = case[4], case[5]
-        before = rops.wkv6_bwd.launches
-        got = rops.wkv6_bwd(*args, chunk)
-        again = rops.wkv6_bwd(*args, chunk)
-        assert rops.wkv6_bwd.launches == before + 2, f"{case}: no launch"
+        hd, chunk, dtype = case[3:6]
+        variant = rops.select_bwd_variant(getattr(torch, dtype), hd)
         want = rref.wkv_bwd_ref(*args, chunk)
-        ratio, err = _hold_rwkv_bwd(torch, str(case), got, again, want,
-                                    dtype, _tot_max(torch, args[3], chunk))
-        worst = max(worst, ratio)
-        if i == 0:
-            err0 = err
-        del args, got, again, want
-    log(f"kernel wkv6_bwd: {len(RWKV_BWD_CASES)} cases, worst error / gate "
-        f"{worst:.3g}")
+        tot = _tot_max(torch, args[3], chunk)
+        for name in ("mma", "fma") if variant == "mma" else (variant,):
+            before = (rops.wkv6_bwd.launches, counts[name])
+            if name == variant:
+                got = rops.wkv6_bwd(*args, chunk)
+                again = rops.wkv6_bwd(*args, chunk)
+            else:
+                got = rops.run_bwd_variant(name, *args, chunk)
+                again = rops.run_bwd_variant(name, *args, chunk)
+            assert (rops.wkv6_bwd.launches, counts[name]) == (
+                before[0] + 2, before[1] + 2), f"{case}: {name} not launched"
+            worst[(i, name)] = _hold_rwkv_bwd(torch, f"{case} [{name}]", got,
+                                              again, want, dtype, tot)
+            del got, again
+        del args, want
+    by_kernel = {name: max(r for (_, n), (r, _) in worst.items()
+                           if n == name) for name in rops.BWD_VARIANTS}
+    log(f"kernel wkv6_bwd: {len(RWKV_BWD_CASES)} cases, {len(worst)} (case, "
+        f"kernel) pairs, worst error / gate by kernel " + ", ".join(
+            f"{name} {r:.3g}" for name, r in by_kernel.items()))
 
     case = RWKV_BWD_CASES[0]
     B, H, S, hd, chunk, dtype = case[:6]
+    assert rops.select_bwd_variant(torch.bfloat16, hd) == "mma"
     args = _rwkv_bwd_inputs(torch, case, 400)
+    fma_walk = walk_only.result()
+    pool.shutdown()
     ms = timed_turns(torch, {
-        "kernel": lambda: rops.wkv6_bwd(*args, chunk),
+        "mma": lambda: rops.wkv6_bwd(*args, chunk),
+        "fma": lambda: rops.run_bwd_variant("fma", *args, chunk),
         "plain": lambda: rref.wkv_bwd_ref(*args, chunk),
-    }, reps={"plain": 3})
+        "fma walk": lambda: fma_walk(args, chunk),
+    }, reps={"fma": 3, "plain": 3, "fma walk": 5})
+    split = kernel_split(torch, lambda: rops.wkv6_bwd(*args, chunk),
+                         RWKV_BWD_STAGES)
     outs = rops.wkv6_bwd(*args, chunk)
     nbytes = sum(t.numel() * t.element_size()
                  for t in (*args, *outs) if t is not None)
@@ -2655,31 +2729,48 @@ def phase_rwkv_train_kernel(torch, rops, rref, build) -> dict:
     flops = 2 * 2 * B * H * n * (2 * chunk * chunk * hd + 2 * chunk * hd * hd)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    bound = max(t_bytes, t_ops)
     work = B * H * n * hd * hd * 4
-    log(f"timing wkv6_bwd at the training shape {case}, in turns: kernel "
-        f"{ms['kernel']:.4f} ms ({nbytes / ms['kernel'] / 1e6:.1f} GB/s, "
-        f"{flops * 1.25 / ms['kernel'] / 1e9:.2f} TFLOP/s of its ten "
-        f"products), plain {ms['plain']:.4f} ms; bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 2**20:.1f} MiB in and out, "
-        f"{flops / 1e9:.2f} GFLOP; the kernel's state workspace, "
-        f"{work / 2**20:.1f} MiB written and read, is not counted); no "
-        f"PyTorch call computes it")
+    occ = rops.bwd_mma_blocks_per_sm()
+    log(f"timing wkv6_bwd at the training shape {case}, in turns: mma "
+        f"{ms['mma']:.4f} ms ({nbytes / ms['mma'] / 1e6:.1f} GB/s, "
+        f"{bound / ms['mma']:.1%} of the bound), fma "
+        f"{ms['fma']:.4f} ms, the fma kernel cut after its forward walk "
+        f"{ms['fma walk']:.4f} ms, plain {ms['plain']:.4f} ms; bound "
+        f"{bound:.4f} ms ({nbytes / 2**20:.1f} MiB in and out, "
+        f"{flops / 1e9:.2f} GFLOP; the mma kernel's two state workspaces, "
+        f"{2 * work / 2**20:.1f} MiB written and read, are not counted); mma "
+        f"is {ms['fma'] / ms['mma']:.2f}x fma (the 3x goal "
+        f"{'met' if ms['fma'] >= 3 * ms['mma'] else 'not met'}; the 0.6 ms "
+        f"goal {'met' if ms['mma'] <= 0.6 else 'not met'}); no PyTorch call "
+        f"computes it")
+    log("timing wkv6_bwd mma by stage (torch.profiler, ms per launch, "
+        "launches recorded of 5 made): " + ", ".join(
+            f"{k} {ms_:.4f} ({c})" for k, (ms_, c) in split.items())
+        + f"; sum {sum(ms_ for ms_, _ in split.values()):.4f}; blocks per "
+        f"SM {occ}")
     regs = {k: v for k, v in ptxas_report(build, rops, "rwkv6").items()
             if "bwd" in k}
     for kernel, used in regs.items():
         log(f"  ptxas {kernel}: {used}")
     record = {
-        "name": "wkv6_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6_bwd.cu",
+        "name": "wkv6_bwd", "variant": "mma", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6_bwd_mma.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:74",
         "note": "the gradient of that kernel; the reference has no "
                 "backward kernel (JAX differentiates models/rwkv.py:56 "
                 "_wkv_chunked)",
-        "launches": None, "max_abs_err": err0, "gate_ratio": worst,
-        "ms": ms["kernel"], "plain_ms": ms["plain"],
-        "bound_ms": max(t_bytes, t_ops),
+        "launches": None, "variant_launches": None,
+        "max_abs_err": worst[(0, "mma")][1],
+        "gate_ratio": max(r for r, _ in worst.values()),
+        "ms": ms["mma"], "plain_ms": ms["plain"], "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
+        "earlier_ms": ms["fma"],
+        "earlier_source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6_bwd.cu",
+        "earlier_walk_ms": ms["fma walk"],
+        "kernel_ms": {k: ms_ for k, (ms_, _) in split.items()},
+        "blocks_per_sm": occ,
     }
     del args, outs
     _release(torch)
@@ -2737,7 +2828,8 @@ def phase_rwkv_train(torch, cfg, card: str, record: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     del new
     want = {"wkv6": layers, "wkv6/mma": layers, "wkv6_bwd": layers,
-            "flash_attention": 0, "flash_attention_bwd": 0}
+            "wkv6_bwd/mma": layers, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     got = {k: launches[k] for k in want}
     log(f"rwkv train eager: {layers} layers, loss {float(loss):.4f} (ln "
         f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}), launches "
@@ -2748,6 +2840,8 @@ def phase_rwkv_train(torch, cfg, card: str, record: dict) -> dict:
         abs(float(loss) - math.log(cfg.vocab_size)) < 2, \
         f"rwkv train eager: loss {float(loss)} far from ln V at init"
     record["launches"] = launches["wkv6_bwd"]
+    record["variant_launches"] = {v: launches[f"wkv6_bwd/{v}"]
+                                  for v in ("mma", "fma")}
     step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
     prof = _profile_step(torch, f"rwkv train eager {layers} layers B={B} "
                          f"S={S}", lambda: step(params, batch), RWKV_KERNELS)
@@ -2894,6 +2988,8 @@ def phase_launch_train(torch, card: str) -> None:
         counts = read_counts()
         n = LAUNCH["steps"]
         want = {fwd: 2 * layers * n, bwd: layers * n}
+        if cfg.rwkv is not None:
+            want["wkv6_bwd/mma"] = layers * n
         got = {k: counts[k] for k in want}
         assert got == want, f"launch {arch}: launches {got}, want {want}"
         first = loop.state.history[0]["loss"]

@@ -5,8 +5,12 @@ at the head dims in :data:`MMA_HEAD_DIMS`: mma.sync TF32 tensor-core
 products in 3xTF32, two blocks per SM, cp.async loads) and
 ``csrc/rwkv6.cu`` (float32 FMAs: float32 r, k, v, and every head dim in
 :data:`HEAD_DIMS`). :func:`select_variant` picks one from (dtype, head
-dim) alone. Backward: ``csrc/rwkv6_bwd.cu`` (float32 FMAs, every dtype
-and head dim the forward takes), in the same library.
+dim) alone. Backward: two kernels in the same library,
+``csrc/rwkv6_bwd_mma.cu`` (bf16 at :data:`MMA_HEAD_DIMS`: the two state
+walks split by state tile, then a chunk-parallel gradient pass, mma.sync
+TF32 in 3xTF32) and ``csrc/rwkv6_bwd.cu`` (float32 FMAs, one block per
+(b, h): every dtype and head dim the forward takes);
+:func:`select_bwd_variant` picks one the same way.
 
 Both directions are custom ops (``repro_torch::wkv6`` and
 ``repro_torch::wkv6_bwd``), so that autograd differentiates the forward
@@ -35,6 +39,8 @@ HEAD_DIMS = (16, 32, 64)
 MMA_HEAD_DIMS = (64,)
 #: the kernels: ``mma`` in rwkv6_mma.cu, ``fma`` in rwkv6.cu
 VARIANTS = ("mma", "fma")
+#: the backward kernels: ``mma`` in rwkv6_bwd_mma.cu, ``fma`` in rwkv6_bwd.cu
+BWD_VARIANTS = ("mma", "fma")
 #: the largest chunk the kernels' tiles hold
 MAX_CHUNK = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -46,6 +52,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
 # r, k, v, w, dy and of the outputs; the stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                  + [ctypes.c_longlong] * 18 + [ctypes.c_void_p])
+# the same, with two workspaces (each chunk's S_in and dS) for the one
+_BWD_MMA_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+                     + [ctypes.c_longlong] * 18 + [ctypes.c_void_p])
 
 
 def load() -> ctypes.CDLL:
@@ -62,6 +71,10 @@ def load() -> ctypes.CDLL:
         lib.repro_wkv6_mma_blocks_per_sm.restype = ctypes.c_int
         lib.repro_wkv6_bwd.argtypes = _BWD_ARGTYPES
         lib.repro_wkv6_bwd.restype = ctypes.c_int
+        lib.repro_wkv6_bwd_mma.argtypes = _BWD_MMA_ARGTYPES
+        lib.repro_wkv6_bwd_mma.restype = ctypes.c_int
+        lib.repro_wkv6_bwd_mma_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.repro_wkv6_bwd_mma_blocks_per_sm.restype = ctypes.c_int
         lib.repro_wkv6_error_string.argtypes = [ctypes.c_int]
         lib.repro_wkv6_error_string.restype = ctypes.c_char_p
     return lib
@@ -73,6 +86,12 @@ def select_variant(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS:
         return "mma"
     return "fma"
+
+
+def select_bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel a CUDA call of this dtype and head dim
+    launches: ``mma`` for bf16 at :data:`MMA_HEAD_DIMS`, else ``fma``."""
+    return select_variant(dtype, head_dim)
 
 
 def check_cp_async_layout(**tensors: torch.Tensor) -> None:
@@ -154,11 +173,32 @@ def wkv6_bwd(r, k, v, w, u, state0, dy, ds_last, chunk: int = 64):
     hd, hd), float32); dstate0 is the gradient of a zero state when
     ``state0`` is None.
 
-    A CUDA tensor launches ``csrc/rwkv6_bwd.cu`` on the current stream
-    and adds one to ``wkv6_bwd.launches``; repeated calls give the same
-    bits (no atomics: du comes back as per-(b, h) partials summed over B
-    here). A CPU tensor runs the plain version :func:`wkv_bwd_ref`, not
-    counted."""
+    A CUDA tensor launches the kernel :func:`select_bwd_variant` names on
+    the current stream and adds one to ``wkv6_bwd.launches`` and to
+    ``wkv6_bwd.variant_launches[variant]``; anything it cannot take
+    raises (the ``mma`` kernel's r, k, v, w and dy must also meet
+    :func:`check_cp_async_layout`), and a failed launch raises. Repeated
+    calls give the same bits (no atomics: du comes back as partials
+    summed here in a fixed order). A CPU tensor runs the plain version
+    :func:`wkv_bwd_ref`, not counted."""
+    _check_bwd(r, k, v, w, u, state0, dy, ds_last, chunk)
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"wkv6_bwd runs on cuda or cpu, not {r.device}")
+    return _bwd_op(r, k, v, w, u, state0, dy, ds_last, chunk)
+
+
+def run_bwd_variant(variant: str, r, k, v, w, u, state0, dy, ds_last,
+                    chunk: int = 64):
+    """Launch the named backward kernel on CUDA tensors and count it, as
+    :func:`wkv6_bwd` does with the variant :func:`select_bwd_variant`
+    names; ``chip_smoke.py`` calls it to hold and time the ``fma`` kernel
+    at a bf16 shape the ``mma`` kernel takes. Raises for an unknown name
+    and for tensors that are not on a CUDA device."""
+    _check_bwd(r, k, v, w, u, state0, dy, ds_last, chunk)
+    return _launch_bwd(variant, r, k, v, w, u, state0, dy, ds_last, chunk)
+
+
+def _check_bwd(r, k, v, w, u, state0, dy, ds_last, chunk: int) -> None:
     _check(r, k, v, w, u, state0, chunk)
     B, S, H, hd = r.shape
     for name, t, shape in (("dy", dy, (B, S, H, hd)),
@@ -170,9 +210,6 @@ def wkv6_bwd(r, k, v, w, u, state0, dy, ds_last, chunk: int = 64):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != r.device:
             raise ValueError(f"{name} on {t.device}, r on {r.device}")
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"wkv6_bwd runs on cuda or cpu, not {r.device}")
-    return _bwd_op(r, k, v, w, u, state0, dy, ds_last, chunk)
 
 
 def run_variant(variant: str, r, k, v, w, u, state0=None, chunk: int = 64):
@@ -230,43 +267,57 @@ def _check_kernel_shape(hd: int, chunk: int, *tensors) -> None:
         raise ValueError("wkv6 needs a contiguous head dim")
 
 
-def _launch_bwd(r, k, v, w, u, state0, dy, ds_last, chunk: int):
-    """The backward kernel's checks, then its launch (inputs that
-    :func:`wkv6_bwd` passed)."""
+def _launch_bwd(variant: str, r, k, v, w, u, state0, dy, ds_last,
+                chunk: int):
+    """The named backward kernel's checks, then its launch (inputs that
+    :func:`_check_bwd` passed)."""
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"unknown wkv6_bwd variant {variant!r}")
     B, S, H, hd = r.shape
+    if variant == "mma" and select_bwd_variant(r.dtype, hd) != "mma":
+        raise ValueError(f"the mma backward takes bfloat16 at head dims "
+                         f"{MMA_HEAD_DIMS}, not {r.dtype} at {hd}")
     if r.device.type != "cuda":
-        raise ValueError(f"wkv6_bwd kernel runs on cuda, not {r.device}")
+        raise ValueError(f"wkv6_bwd kernels run on cuda, not {r.device}")
     _check_kernel_shape(hd, chunk, r, k, v, w, dy)
+    if variant == "mma":
+        check_cp_async_layout(r=r, k=k, v=v, w=w, dy=dy)
     u = u.contiguous()
     state0 = None if state0 is None else state0.contiguous()
     ds_last = ds_last.contiguous()
-    dev = r.device
+    dev, n = r.device, -(-S // chunk)
     dr, dk, dv = (torch.empty((B, S, H, hd), dtype=r.dtype, device=dev)
                   for _ in range(3))
     dw = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
-    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
     dstate0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
-    # the chunk-start states the kernel recomputes, then reads in reverse
-    work = torch.empty((B, H, -(-S // chunk), hd, hd), dtype=torch.float32,
-                       device=dev)
+    # the fma kernel sums du per (b, h), the mma kernel per (b, h, chunk);
+    # work holds each chunk's start state (and, for mma, its dS)
+    du_part = torch.empty((B, H, n, hd) if variant == "mma" else (B, H, hd),
+                          dtype=torch.float32, device=dev)
+    work = [torch.empty((B, H, n, hd, hd), dtype=torch.float32, device=dev)
+            for _ in range(2 if variant == "mma" else 1)]
     lib = load()
+    fn = lib.repro_wkv6_bwd_mma if variant == "mma" else lib.repro_wkv6_bwd
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_wkv6_bwd(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), None if state0 is None else state0.data_ptr(),
-            dy.data_ptr(), ds_last.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-            dstate0.data_ptr(), work.data_ptr(), _DTYPE_CODE[r.dtype], B, S,
-            H, hd, chunk, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *w.stride()[:3], *dy.stride()[:3], *dr.stride()[:3], stream)
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), None if state0 is None else state0.data_ptr(),
+                 dy.data_ptr(), ds_last.data_ptr(), dr.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                 du_part.data_ptr(), dstate0.data_ptr(),
+                 *(t.data_ptr() for t in work), _DTYPE_CODE[r.dtype], B, S,
+                 H, hd, chunk, *r.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], *w.stride()[:3], *dy.stride()[:3],
+                 *dr.stride()[:3], stream)
     if err != 0:
         msg = lib.repro_wkv6_error_string(err).decode()
-        raise RuntimeError(f"wkv6_bwd launch failed: {msg} (cudaError "
-                           f"{err})")
+        raise RuntimeError(f"wkv6_bwd ({variant}) launch failed: {msg} "
+                           f"(cudaError {err})")
     wkv6_bwd.launches += 1
-    # a fixed order of the B partials: repeated calls are bit-equal
-    return dr, dk, dv, dw, du_part.sum(0), dstate0
+    wkv6_bwd.variant_launches[variant] += 1
+    # a fixed order of the partials: repeated calls are bit-equal
+    du = du_part.sum((0, 2)) if variant == "mma" else du_part.sum(0)
+    return dr, dk, dv, dw, du, dstate0
 
 
 # -- the custom ops ----------------------------------------------------------
@@ -299,7 +350,8 @@ def _bwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dy: torch.Tensor, ds_last: torch.Tensor, chunk: int
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                        torch.Tensor, torch.Tensor, torch.Tensor]:
-    return _launch_bwd(r, k, v, w, u, state0, dy, ds_last, chunk)
+    return _launch_bwd(select_bwd_variant(r.dtype, r.shape[-1]), r, k, v, w,
+                       u, state0, dy, ds_last, chunk)
 
 
 @_bwd_op.register_kernel("cpu")
@@ -352,11 +404,27 @@ def mma_blocks_per_sm() -> int:
     return n
 
 
+def bwd_mma_blocks_per_sm() -> dict:
+    """Blocks of the ``mma`` backward's two kernels (``walk`` and
+    ``grad``) one SM holds at once, by the CUDA occupancy calculator
+    (needs the card)."""
+    lib, out = load(), {}
+    for which, name in enumerate(("walk", "grad")):
+        n = lib.repro_wkv6_bwd_mma_blocks_per_sm(which)
+        if n < 0:
+            raise RuntimeError(f"wkv6_bwd (mma): occupancy query failed "
+                               f"(cudaError {-n})")
+        out[name] = n
+    return out
+
+
 wkv6.launches = 0
 wkv6.variant_launches = dict.fromkeys(VARIANTS, 0)
 wkv6_bwd.launches = 0
+wkv6_bwd.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 
-__all__ = ["HEAD_DIMS", "MAX_CHUNK", "MMA_HEAD_DIMS", "VARIANTS",
-           "check_cp_async_layout", "load", "mma_blocks_per_sm",
-           "run_variant", "select_variant", "wkv6", "wkv6_bwd",
+__all__ = ["BWD_VARIANTS", "HEAD_DIMS", "MAX_CHUNK", "MMA_HEAD_DIMS",
+           "VARIANTS", "bwd_mma_blocks_per_sm", "check_cp_async_layout",
+           "load", "mma_blocks_per_sm", "run_bwd_variant", "run_variant",
+           "select_bwd_variant", "select_variant", "wkv6", "wkv6_bwd",
            "wkv_bwd_ref", "wkv_ref"]

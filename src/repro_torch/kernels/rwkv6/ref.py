@@ -11,9 +11,11 @@ and bonus u (all vectors of the head dim):
 CPU path of :func:`..ops.wkv6` runs it, and ``chip_smoke.py`` holds the
 kernel to it on the card. :func:`wkv_bwd_ref` is its backward, written
 out chunk by chunk (the CPU path of the backward op, and what
-``chip_smoke.py`` holds the backward kernel to). :func:`wkv_step_ref`
-is the port of the reference's step-wise oracle
-``kernels/rwkv6/ref.py::rwkv6_ref``, for the tests.
+``chip_smoke.py`` holds the backward kernels to);
+:func:`wkv_bwd_staged_ref` computes the same in the stages of the ``mma``
+backward kernel, for the tests. :func:`wkv_step_ref` is the port of the
+reference's step-wise oracle ``kernels/rwkv6/ref.py::rwkv6_ref``, for the
+tests.
 """
 from __future__ import annotations
 
@@ -74,12 +76,14 @@ def wkv_ref(r, k, v, w, u, state0=None, chunk: int = 64):
     return y, St
 
 
-def _log_decays(wx):
+def _log_decays(wx, dim: int = 1):
     """A chunk's inclusive and exclusive log-decay sums, their total and
-    half of it, per channel: (cum, cum_ex, tot (B, 1, H, hd), m)."""
-    cum = torch.cumsum(torch.log(wx), 1)                  # log-decay <= t
-    cum_ex = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
-    tot = cum[:, -1:]
+    half of it, per channel, over the chunk's axis ``dim``: (cum, cum_ex,
+    tot (size 1 along ``dim``), m)."""
+    cum = torch.cumsum(torch.log(wx), dim)                # log-decay <= t
+    cum_ex = torch.cat([torch.zeros_like(cum.narrow(dim, 0, 1)),
+                        cum.narrow(dim, 0, cum.shape[dim] - 1)], dim)
+    tot = cum.narrow(dim, cum.shape[dim] - 1, 1)
     return cum, cum_ex, tot, 0.5 * tot
 
 
@@ -199,6 +203,103 @@ def wkv_bwd_ref(r, k, v, w, u, state0, dy, ds_last, chunk: int = 64):
     return joined(drs), joined(dks), joined(dvs), joined(dws), du, dS
 
 
+def wkv_bwd_staged_ref(r, k, v, w, u, state0, dy, ds_last,
+                       chunk: int = 64, dtype=torch.float32):
+    """:func:`wkv_bwd_ref`'s function in the three stages of the ``mma``
+    backward kernel (``csrc/rwkv6_bwd_mma.cu``), computed in ``dtype``:
+
+    1. the forward walk: each chunk's start state S_in, from ``state0``;
+    2. the backward walk: each chunk's dS (the cotangent of the state it
+       leaves), from ``ds_last``, and dstate0. Both recurrences act on
+       the state element by element, which is what lets the kernel cut
+       them into state tiles;
+    3. every chunk's gradients at once, from its own inputs, S_in and dS
+       (batched over the chunks): no chain across chunks.
+
+    Same arguments, padding and returns as :func:`wkv_bwd_ref` (in
+    ``dtype``); the same cancellation-free log-decay terms. Per chunk, with
+    fr = e^{cum_ex - m}, fk = e^{m - cum}, r̃ = r·fr, k̃ = k·fk:
+    dr = fr·G + fr·e^m·Q + b_t k_{t-1} + δ u k, dk = fk·Hs + fk·e^m·P
+    + b_{s+1} r_{s+1} + δ u r, dv = Aᵀ dy + k̃ (e^m ⊙ dS) + (r·u·k)_t dy_t,
+    the kernel's grouping (k_tail = k̃·e^m, r·e^{cum_ex} = r̃·e^m). The
+    tests hold it to :func:`wkv_bwd_ref` and to the reference's VJP; the
+    main path never calls it."""
+    B, S, H, hd = r.shape
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    n = -(-S // chunk)
+    pad = n * chunk - S
+
+    def chunks(a, fill):
+        a = a.to(dtype)
+        if pad:
+            a = torch.cat([a, a.new_full((B, pad, H, hd), fill)], 1)
+        return a.reshape(B, n, chunk, H, hd)
+
+    rc, kc, vc = chunks(r, 0.0), chunks(k, 0.0), chunks(v, 0.0)
+    wc = chunks(w, 1.0)
+    dyc = chunks(dy if dy is not None else torch.zeros_like(r, dtype=dtype),
+                 0.0)
+    u = u.to(dtype)
+    cum, cum_ex, tot, m = _log_decays(wc, 2)              # (B, n, ·, H, hd)
+    e_tot = torch.exp(tot[:, :, 0])[..., None]            # (B, n, H, hd, 1)
+    zeros = torch.zeros((B, H, hd, hd), dtype=dtype, device=r.device)
+
+    # 1-2. the walks: S_ws[:, c] = S_in, dS_ws[:, c] = dS of chunk c
+    k_tail = kc * torch.exp(tot - cum)
+    r_hat = rc * torch.exp(cum_ex)
+    St = zeros if state0 is None else state0.to(dtype)
+    s_ws = []
+    for c in range(n):
+        s_ws.append(St)
+        St = e_tot[:, c] * St + torch.einsum("bchd,bche->bhde", k_tail[:, c],
+                                             vc[:, c])
+    dS = zeros if ds_last is None else ds_last.to(dtype)
+    ds_ws = [None] * n
+    for c in reversed(range(n)):
+        ds_ws[c] = dS
+        dS = torch.einsum("bchd,bche->bhde", r_hat[:, c], dyc[:, c]) + \
+            e_tot[:, c] * dS
+    S_in, dS_out = torch.stack(s_ws, 1), torch.stack(ds_ws, 1)
+
+    # 3. every chunk at once
+    fr, fk, em = torch.exp(cum_ex - m), torch.exp(m - cum), torch.exp(m)
+    rt, kt = rc * fr, kc * fk
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=r.device).tril(-1)
+    A = torch.where(tri, torch.einsum("bnchd,bnshd->bnhcs", rt, kt), 0.0)
+    dA = torch.einsum("bnche,bnshe->bnhcs", dyc, vc)
+    band = torch.diagonal(dA, -1, 3, 4).permute(0, 1, 3, 2)  # (B,n,C-1,H)
+    dA2 = torch.where(tri.tril(-2), dA, 0.0)
+    delta = (dyc * vc).sum(-1, keepdim=True)
+    diag = torch.einsum("bnchd,hd,bnchd->bnch", rc, u, kc)[..., None]
+    G = torch.einsum("bnhcs,bnshd->bnchd", dA2, kt)
+    Q = torch.einsum("bnche,bnhde->bnchd", dyc, S_in)
+    Hs = torch.einsum("bnhcs,bnchd->bnshd", dA2, rt)
+    P = torch.einsum("bnshe,bnhde->bnshd", vc, dS_out)
+    dr = fr * G + fr * em * Q + delta * u * kc
+    dr[:, :, 1:] += band[..., None] * kc[:, :, :-1]
+    dk = fk * Hs + fk * em * P + delta * u * rc
+    dk[:, :, :-1] += band[..., None] * rc[:, :, 1:]
+    dS_em = em.squeeze(2)[..., None] * dS_out             # e^m ⊙ dS, by row
+    dv = torch.einsum("bnhcs,bnche->bnshe", A, dyc) + \
+        torch.einsum("bnshd,bnhde->bnshe", kt, dS_em) + diag * dyc
+    du = (delta * rc * kc).sum((0, 1, 2))
+    # the log-decay: cum_t directly, cum_ex_t = cum_{t-1}, tot = cum_C;
+    # the tail's terms as an exclusive prefix sum
+    dcum = -(Hs * kt)
+    dcum[:, :, :-1] += (rt * (G + em * Q))[:, :, 1:]
+    dcum[:, :, -1] += e_tot[..., 0] * (S_in * dS_out).sum(-1)
+    pk = torch.cumsum(P * kt * em, 2)
+    dlogw = dcum.flip(2).cumsum(2).flip(2)
+    dlogw[:, :, 1:] += pk[:, :, :-1]
+    dw = dlogw / wc
+
+    def joined(a):
+        return a.reshape(B, n * chunk, H, hd)[:, :S]
+    return joined(dr), joined(dk), joined(dv), joined(dw), du, dS
+
+
 def wkv_step_ref(r, k, v, w, u, state0=None):
     """The exact step-wise recurrence, one token at a time.
     r, k, v, w: (B, H, S, hd) float32 (the reference oracle's layout);
@@ -215,4 +316,5 @@ def wkv_step_ref(r, k, v, w, u, state0=None):
     return torch.stack(ys, 2), St
 
 
-__all__ = ["wkv_bwd_ref", "wkv_ref", "wkv_step_ref"]
+__all__ = ["wkv_bwd_ref", "wkv_bwd_staged_ref", "wkv_ref",
+           "wkv_step_ref"]

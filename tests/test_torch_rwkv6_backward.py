@@ -1,14 +1,17 @@
 """The RWKV6 recurrence's backward: the plain version ``wkv_bwd_ref``, the
-custom ops ``repro_torch::wkv6`` / ``repro_torch::wkv6_bwd`` and, on a
-card, the backward kernel ``csrc/rwkv6_bwd.cu``.
+staged version ``wkv_bwd_staged_ref`` (the ``mma`` kernel's stages), the
+custom ops ``repro_torch::wkv6`` / ``repro_torch::wkv6_bwd``, the routing
+between the two backward kernels and, on a card, the kernels
+``csrc/rwkv6_bwd_mma.cu`` and ``csrc/rwkv6_bwd.cu``.
 
 On the CPU the plain backward is held to ``torch.autograd`` of the plain
 forward ``wkv_ref`` and to ``jax.vjp`` of the reference's ``_wkv_chunked``
-(at lengths it takes: equal chunks), and the ops' CPU autograd to both,
-on the same seeded numpy inputs. Tolerance: 2e-5 x max(1, max |ref|) per
-gradient; both sides compute in float32 and differ by rounding in other
-orders, ~5e-7 of the scale here. The ``cuda``-marked tests hold the
-kernel to the plain version on the card:
+(at lengths it takes: equal chunks), the staged version (in float64 and
+float32) to both, and the ops' CPU autograd to both, on the same seeded
+numpy inputs. Tolerance: 2e-5 x max(1, max |ref|) per gradient; the sides
+differ by rounding in other orders, ~5e-7 of the scale here (5e-6 for dw
+at the |tot| = 150 edge). The ``cuda``-marked tests hold both kernels to
+the plain version on the card:
 ``python -m pytest -m cuda tests/test_torch_rwkv6_backward.py``.
 """
 import os
@@ -20,17 +23,23 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.kernels.rwkv6 import ops  # noqa: E402
-from repro_torch.kernels.rwkv6.ref import wkv_bwd_ref, wkv_ref  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
+    wkv_bwd_ref, wkv_bwd_staged_ref, wkv_ref)
 
 GATE = 2e-5
 NAMES = ("dr", "dk", "dv", "dw", "du", "dstate0")
 
 
-def _inputs(seed, B, S, H, hd, state=True, decay="test"):
+#: the summed log-decay of a chunk at the edge of the kernels' stated range
+EDGE_TOT = 150.0
+
+
+def _inputs(seed, B, S, H, hd, state=True, decay="test", chunk=None):
     """The reference test's distributions (r, v ~ N(0, 1), k ~ 0.3 N,
     u ~ 0.1 N, w = exp(-exp(0.5 N - 2)); ``decay="model"``: the model's at
-    init, w = exp(-exp(-6 + 0.05 N))), state0 and the cotangents dy, dS
-    ~ N(0, 1), as numpy float32."""
+    init, w = exp(-exp(-6 + 0.05 N)); ``decay="edge"``: w = exp(-EDGE_TOT
+    / chunk + 0.01 N), each chunk's summed log-decay near -EDGE_TOT),
+    state0 and the cotangents dy, dS ~ N(0, 1), as numpy float32."""
     rng = np.random.default_rng(seed)
 
     def n(*shape):
@@ -38,6 +47,8 @@ def _inputs(seed, B, S, H, hd, state=True, decay="test"):
     r, k, v = n(B, S, H, hd), n(B, S, H, hd) * 0.3, n(B, S, H, hd)
     if decay == "test":
         w = np.exp(-np.exp(n(B, S, H, hd) * 0.5 - 2.0))
+    elif decay == "edge":
+        w = np.exp(-EDGE_TOT / chunk + 0.01 * n(B, S, H, hd))
     else:
         w = np.exp(-np.exp(-6.0 + 0.05 * n(B, S, H, hd)))
     u = n(H, hd) * 0.1
@@ -155,6 +166,67 @@ def test_op_autograd_on_cpu_matches_reference_and_plain(jx, B, S, H, hd,
                           (r, k, v, w, u, s0), dy, ds))
 
 
+# the CPU cases, the |tot| = 150 edge at chunk 16, ragged S, chunk 37
+STAGED_CASES = CASES + [
+    (1, 64, 2, 16, 16, True, "edge"),
+    (2, 131, 2, 16, 16, True, "test"),
+    (1, 1000, 2, 32, 64, True, "test"),
+    (2, 77, 2, 64, 37, False, "test"),
+]
+
+
+def _reference_takes(S, chunk, decay):
+    """Whether the reference's ``_wkv_chunked`` computes this case: it cuts
+    S into max(S // chunk, 1) equal chunks, and its unscaled e^{-cum}
+    overflows float32 at the edge's decay."""
+    return S % max(S // chunk, 1) == 0 and decay != "edge"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,S,H,hd,chunk,state,decay", STAGED_CASES)
+def test_staged_backward_matches_plain_and_reference(jx, B, S, H, hd, chunk,
+                                                     state, decay, dtype):
+    """The ``mma`` kernel's decomposition in plain PyTorch (both state
+    walks, then every chunk on its own) against the plain backward and,
+    where the reference takes the case, jax.vjp of ``_wkv_chunked``."""
+    args = _inputs(S * 5 + hd, B, S, H, hd, state, decay, chunk)
+    ts = [_t(a) for a in args]
+    got = wkv_bwd_staged_ref(*ts, chunk, dtype=dtype)
+    assert all(g.dtype == dtype for g in got)
+    picked = got[:5] + ((got[5],) if state else ())
+    want = wkv_bwd_ref(*ts, chunk)
+    _close(picked, want[:5] + ((want[5],) if state else ()))
+    if _reference_takes(S, chunk, decay):
+        _close(picked, _reference_vjp(jx, args, chunk))
+
+
+def test_select_bwd_variant_picks_mma_only_for_bf16_at_hd64():
+    assert ops.select_bwd_variant(torch.bfloat16, 64) == "mma"
+    for dtype, hd in ((torch.bfloat16, 16), (torch.bfloat16, 32),
+                      (torch.float32, 64), (torch.float32, 16)):
+        assert ops.select_bwd_variant(dtype, hd) == "fma"
+    assert ops.BWD_VARIANTS == ("mma", "fma")
+    assert set(ops.wkv6_bwd.variant_launches) == set(ops.BWD_VARIANTS)
+
+
+def test_run_bwd_variant_rejects_cpu_tensors_and_unknown_names():
+    """Naming a kernel never runs the plain version: CPU tensors raise, as
+    do an unknown name and a variant that does not take the dtype."""
+    r, k, v, w, u, s0, dy, ds = (_t(a) for a in _inputs(4, 1, 12, 2, 64))
+    rb, kb, vb = r.bfloat16(), k.bfloat16(), v.bfloat16()
+    before = (ops.wkv6_bwd.launches, dict(ops.wkv6_bwd.variant_launches))
+    for name in ops.BWD_VARIANTS:
+        with pytest.raises(ValueError, match="run on cuda"):
+            ops.run_bwd_variant(name, rb, kb, vb, w, u, s0, dy, ds, 8)
+    with pytest.raises(ValueError, match="unknown wkv6_bwd variant"):
+        ops.run_bwd_variant("wgmma", rb, kb, vb, w, u, s0, dy, ds, 8)
+    with pytest.raises(ValueError, match="mma backward takes bfloat16"):
+        ops.run_bwd_variant("mma", r, k, v, w, u, s0, dy, ds, 8)
+    with pytest.raises(ValueError, match="dy must be"):
+        ops.run_bwd_variant("mma", rb, kb, vb, w, u, s0, dy[:, :3], ds, 8)
+    assert (ops.wkv6_bwd.launches, ops.wkv6_bwd.variant_launches) == before
+
+
 def test_ops_pass_opcheck():
     """Schemas, fake kernels and autograd registration of both ops."""
     for state in (True, False):
@@ -223,6 +295,9 @@ CUDA_CASES = [
     (2, 131, 3, 16, 16, torch.float32, True),
     (1, 1000, 2, 32, 64, torch.float32, True),
     (2, 77, 2, 64, 37, torch.bfloat16, False),
+    (2, 200, 2, 64, 16, torch.bfloat16, True),     # chunk 16, ragged
+    (1, 5, 2, 64, 1, torch.bfloat16, True),        # chunks of one token
+    (2, 1, 2, 64, 64, torch.bfloat16, True),       # one token
 ]
 
 
@@ -230,23 +305,35 @@ CUDA_CASES = [
 @pytest.mark.parametrize("B,S,H,hd,chunk,dtype,state", CUDA_CASES)
 def test_cuda_backward_kernel_matches_plain_version(B, S, H, hd, chunk,
                                                     dtype, state):
-    """The kernel through ``wkv6_bwd`` against the plain backward on the
-    same inputs on the card (2e-5 of the scale, bf16 gradients one
+    """The kernel ``select_bwd_variant`` names through ``wkv6_bwd``, and
+    every kernel that takes the case by name through ``run_bwd_variant``
+    (``mma`` and ``fma`` in bf16 at hd 64), against the plain backward on
+    the same inputs on the card (2e-5 of the scale, bf16 gradients one
     rounding more); a repeated call bit-equal; one launch each."""
     _cuda()
     a = _inputs(S + hd, B, S, H, hd, state)
     r, k, v = (_t(x, dtype, "cuda") for x in a[:3])
     w, u, s0, dy, ds = (_t(x, device="cuda") for x in a[3:])
-    before = ops.wkv6_bwd.launches
-    got = ops.wkv6_bwd(r, k, v, w, u, s0, dy, ds, chunk)
-    again = ops.wkv6_bwd(r, k, v, w, u, s0, dy, ds, chunk)
-    torch.cuda.synchronize()
-    assert ops.wkv6_bwd.launches == before + 2
-    assert all(torch.equal(x, y) for x, y in zip(got, again))
     want = wkv_bwd_ref(r, k, v, w, u, s0, dy, ds, chunk)
     extra = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
-    _close(got[:3], want[:3], NAMES[:3], extra)
-    _close(got[3:], want[3:], NAMES[3:])
+    chosen = ops.select_bwd_variant(dtype, hd)
+    names = ops.BWD_VARIANTS if chosen == "mma" else (chosen,)
+    for name in (None,) + names:
+        counts = ops.wkv6_bwd.variant_launches
+        before = (ops.wkv6_bwd.launches, counts[name or chosen])
+        if name is None:
+            got = ops.wkv6_bwd(r, k, v, w, u, s0, dy, ds, chunk)
+            again = ops.wkv6_bwd(r, k, v, w, u, s0, dy, ds, chunk)
+        else:
+            got = ops.run_bwd_variant(name, r, k, v, w, u, s0, dy, ds, chunk)
+            again = ops.run_bwd_variant(name, r, k, v, w, u, s0, dy, ds,
+                                        chunk)
+        torch.cuda.synchronize()
+        assert (ops.wkv6_bwd.launches, counts[name or chosen]) == (
+            before[0] + 2, before[1] + 2), name
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), name
+        _close(got[:3], want[:3], NAMES[:3], extra)
+        _close(got[3:], want[3:], NAMES[3:])
 
 
 @pytest.mark.cuda
