@@ -140,7 +140,25 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    compiled; wall, device time, segments, capture, replays, peaks per PE
    beside the plan's and the certificate, measured against predicted
    makespan.
-14. rwkv train kernels: the two wkv6 backward kernels
+14. calibrate: ``repro_torch.profiling`` on the card, closing the
+   predict-measure loop on two plans folded onto it: (a) full granite-8b's
+   paged decode step (bf16, 36 layers, the serve geometry), the K=4
+   half-cap plan; (b) granite-8b's training step (B=1, S=2048,
+   TRAIN["plan_layers"] layers), K=4 under half the card per PE. Each:
+   ``accuracy_report`` (segments serialised, CUDA events around each
+   graph replay), ``api.calibrate`` (every op signature timed by the
+   robust estimator, the copy ladder, the dispatch overhead, the
+   whole-step replay for the fusion factor), the profile saved and loaded
+   back with the device check (bit-equal), ``annotate``, the old plan
+   refused (RP102), re-partitioned, verified, executed against the eager
+   step by the gates of phases 10 and 13, ``accuracy_report`` again and
+   ``compare`` against rr and topo; prints the fingerprint, signatures,
+   fitted rates, the calibration's seconds and both scorecards. Every
+   flash node the calibration replays launches sm90; the flash nodes'
+   profiled seconds stand beside CUDA events at the same shape. (c)
+   ``benchmark_runtimes`` on a TRAIN["interp_layers"]-layer training
+   plan. The phase keeps its own launch counts (saved, reset, restored).
+15. rwkv train kernels: the two wkv6 backward kernels
    (``rwkv6_bwd_mma.cu``, bf16 at hd 64; ``rwkv6_bwd.cu``, the rest)
    against their plain version ``wkv_bwd_ref`` on the same inputs
    (RWKV_BWD_CASES: the rwkv6-7b training shape in bf16 and float32, hd
@@ -153,8 +171,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    after its forward walk (a copy of its source built apart), beside the
    bound; the mma kernel's two stages timed apart, registers, spills and
    blocks per SM;
-15. rwkv train: rwkv6-7b's SGD step at full width (bf16, random weights
-   from a seed, B=1, S=2048, lr 1e-3), after phase 14 (which it runs
+16. rwkv train: rwkv6-7b's SGD step at full width (bf16, random weights
+   from a seed, B=1, S=2048, lr 1e-3), after phase 15 (which it runs
    too): (a) the eager step at the depth the printed memory arithmetic
    allows (all 32 layers on an 80 GB card): loss near ln V, L forward
    (all mma) and L backward (all mma) launches, step ms, tokens/s, peak
@@ -164,7 +182,7 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    partitioned at K=4, verified, and executed with its PEs folded onto
    the card: every leaf bit-equal to the eager step or within
    TRAIN_GATE;
-16. launch train: ``repro_torch.launch.train``'s body in process for
+17. launch train: ``repro_torch.launch.train``'s body in process for
    granite-8b and rwkv6-7b at full width (bf16, B=1, S=2048, AdamW,
    remat full): (a) 4 steps at the depth the printed AdamW arithmetic
    allows (16 bytes a parameter plus the activations, measured at 2 and
@@ -2546,6 +2564,328 @@ def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# calibration: measure the card, fit the device model, score the plans
+# ---------------------------------------------------------------------------
+#: accuracy_report's profiled passes (serialised, medians taken)
+CALIBRATE_REPS = 3
+
+#: the copy ladder the calibrate phase fits the link model on: 4 KiB to
+#: 256 MiB. The profiler's default stops at 16 MiB, which an H100 copies
+#: in less than the ~20 us a host-timed call costs, and the slope then
+#: comes out of the noise (17.9 TB/s for a same-card copy on an H100 80GB
+#: HBM3 at 700 W).
+CALIBRATE_SIZES = tuple(1 << p for p in range(12, 29, 2))
+
+#: the scorecard entries the calibrate phase prints for each plan
+SCORECARD = ("stage_mape_pct", "device_mape_pct", "predicted_makespan_s",
+             "measured_wall_s", "makespan_ratio",
+             "predicted_serialized_makespan_s", "serialized_makespan_ratio",
+             "predicted_overlap_makespan_s", "measured_async_wall_s",
+             "overlap_makespan_ratio", "num_stages", "stages_scored")
+
+
+def restore_counts(counts: dict) -> None:
+    """Put back the launch counts :func:`read_counts` returned."""
+    for name, fn in COUNTED.items():
+        fn.launches = counts[name]
+        for variant in getattr(fn, "variant_launches", {}):
+            fn.variant_launches[variant] = counts[f"{name}/{variant}"]
+
+
+def _same_profile(a, b) -> bool:
+    """Two calibration profiles equal field for field, arrays bit for
+    bit."""
+    if (a.fitted, a.base_model, a.device_fingerprint, a.dispatch_overhead_s,
+            a.fusion_factor, a.meta) != (b.fitted, b.base_model,
+                                        b.device_fingerprint,
+                                        b.dispatch_overhead_s,
+                                        b.fusion_factor, b.meta):
+        return False
+    if len(a.ops) != len(b.ops) or len(a.transfers) != len(b.transfers):
+        return False
+    for x, y in zip(a.ops, b.ops):
+        if (x.signature, x.name, x.flops, x.bytes_touched, x.out_bytes,
+                x.seconds, x.dispersion, x.count) != \
+                (y.signature, y.name, y.flops, y.bytes_touched, y.out_bytes,
+                 y.seconds, y.dispersion, y.count) or \
+                not np.array_equal(x.samples, y.samples):
+            return False
+    return all((x.nbytes, x.seconds, x.dispersion) ==
+               (y.nbytes, y.seconds, y.dispersion)
+               and np.array_equal(x.samples, y.samples)
+               for x, y in zip(a.transfers, b.transfers))
+
+
+def _fmt(v, scale: float = 1.0, unit: str = "", digits: int = 4) -> str:
+    return "not fitted" if v is None else f"{v * scale:.{digits}g}{unit}"
+
+
+def _scorecard(label: str, when: str, acc: dict) -> dict:
+    card = {k: acc[k] for k in SCORECARD}
+    log(f"calibrate {label} {when}: stage MAPE "
+        f"{_fmt(acc['stage_mape_pct'], unit=' %')} over "
+        f"{acc['stages_scored']} of {acc['num_stages']} stages, device MAPE "
+        f"{_fmt(acc['device_mape_pct'], unit=' %')}; predicted makespan "
+        f"{acc['predicted_makespan_s'] * 1e3:.3f} ms against "
+        f"{acc['measured_wall_s'] * 1e3:.3f} ms measured (sync, ratio "
+        f"{_fmt(acc['makespan_ratio'])}; serialised prediction "
+        f"{_fmt(acc['predicted_serialized_makespan_s'], 1e3, ' ms')}, "
+        f"ratio {_fmt(acc['serialized_makespan_ratio'])}); overlap "
+        f"prediction "
+        f"{_fmt(acc['predicted_overlap_makespan_s'], 1e3, ' ms')} against "
+        f"{acc['measured_async_wall_s'] * 1e3:.3f} ms (async, ratio "
+        f"{_fmt(acc['overlap_makespan_ratio'])}); cost model "
+        f"{acc['cost_model']}")
+    if not acc["stages_scored"] > 0:
+        raise AssertionError(f"calibrate {label} {when}: no stage scored")
+    return card
+
+
+def _calibrate_cell(torch, api, label: str, traced, plan, args, cap: float,
+                    hold, work: Path) -> dict:
+    """One plan through the loop, folded onto the card: accuracy_report;
+    calibrate (saved, loaded back with the device check, bit-equal);
+    annotate; the old plan refuses to bind (RP102); re-partition at
+    ``cap``, verify, execute held to eager by ``hold``; accuracy_report
+    again; compare against rr and topo."""
+    from repro_torch.core.errors import (RP102_FINGERPRINT_MISMATCH,
+                                         PlanValidationError)
+    from repro_torch.profiling import CalibrationProfile
+    fold = [0] * plan.k
+    before = _scorecard(label, "before calibration",
+                        plan.accuracy_report(*args, device_map=fold,
+                                             reps=CALIBRATE_REPS))
+    del plan._compiled_runtime
+    _release(torch)
+    path = str(work / f"{label.split()[0]}.calib.json")
+    reset_counts()
+    t0 = time.perf_counter()
+    profile = api.calibrate(traced, *args, device="cuda", save=path,
+                            sizes=CALIBRATE_SIZES, meta={"plan": label})
+    calib_s = time.perf_counter() - t0
+    launches = read_counts()
+    _release(torch)
+    loaded = CalibrationProfile.load(path, expect_device=True)
+    same = _same_profile(profile, loaded)
+    f, m, dm = profile.fitted, profile.meta, profile.device_model()
+    log(f"calibrate {label}: fingerprint {profile.device_fingerprint}; "
+        f"{m['signatures_measured']} of {m['signatures']} signatures "
+        f"measured over {len(traced.program.program)} op nodes in "
+        f"{calib_s:.2f} s; fitted: sustained "
+        f"{_fmt(f['flop_efficiency'], dm.peak_flops / 1e12, ' TFLOP/s')} "
+        f"(flop_efficiency {_fmt(f['flop_efficiency'])} of "
+        f"{dm.peak_flops / 1e12:.0f}), HBM "
+        f"{_fmt(f['hbm_bw'], 1e-9, ' GB/s')}, link alpha "
+        f"{_fmt(f['link_latency'], 1e6, ' us')} beta "
+        f"{_fmt(None if f['link_bw'] is None else 1 / f['link_bw'], 1e12, ' ps/B')}"
+        f" ({_fmt(f['link_bw'], 1e-9, ' GB/s')}; {m['transfer_probe']}), "
+        f"dispatch overhead {profile.dispatch_overhead_s * 1e6:.2f} us, "
+        f"fusion factor {profile.fusion_factor:.4f}; saved and loaded back "
+        f"with expect_device=True, bit-equal: {same}")
+    if not same:
+        raise AssertionError(f"calibrate {label}: the profile did not "
+                             f"round-trip bit-equal")
+    old = traced.fingerprint
+    traced.annotate(loaded)
+    try:
+        plan.bind(traced)
+    except PlanValidationError as e:
+        refused = e.code == RP102_FINGERPRINT_MISMATCH
+    else:
+        refused = False
+    log(f"calibrate {label}: annotated ({old[:12]} -> "
+        f"{traced.fingerprint[:12]}); the old plan refuses to bind with "
+        f"RP102: {refused}")
+    if not refused:
+        raise AssertionError(f"calibrate {label}: the old plan still binds "
+                             f"to the re-priced trace")
+    new = api.partition(traced, devices=plan.k, memory=cap, meta=plan.meta)
+    rep = new.verify(strict=True)
+    c = rep.counts()
+    moved = int(np.count_nonzero(new.assignment != plan.assignment))
+    log(f"calibrate {label}: re-partitioned at {cap / 2**30:.3f} GiB per "
+        f"PE: feasible={new.feasible}, {moved} of {new.n} nodes moved, "
+        f"predicted makespan {new.makespan * 1e3:.3f} ms (before "
+        f"{plan.makespan * 1e3:.3f} on the old prices); verified "
+        f"{c['error']}E/{c['warn']}W/{c['info']}I")
+    hold(new.execute(*args, device_map=fold))
+    after = _scorecard(label, "after calibration",
+                       new.accuracy_report(*args, device_map=fold,
+                                           reps=CALIBRATE_REPS))
+    json.loads(json.dumps(new.report.to_dict()))      # valid JSON
+    cmp = new.compare(("rr", "topo"))
+    log(f"calibrate {label}: compare on the calibrated graph: ParDNN "
+        f"{new.makespan * 1e3:.3f} ms; " + "; ".join(
+            f"{name} {r['makespan_s'] * 1e3:.3f} ms ({r['speedup']:.3f}x)"
+            for name, r in cmp.items()))
+    del new._compiled_runtime
+    _release(torch)
+    fell = after["stage_mape_pct"] < before["stage_mape_pct"]
+    log(f"calibrate {label}: stage MAPE {before['stage_mape_pct']:.2f} % "
+        f"-> {after['stage_mape_pct']:.2f} % "
+        f"({'fell' if fell else 'did NOT fall'})")
+    return {"before": before, "after": after, "compare": cmp,
+            "calibration_s": calib_s, "profile": profile,
+            "launches": launches, "fitted": dict(f),
+            "dispatch_overhead_s": profile.dispatch_overhead_s,
+            "fusion_factor": profile.fusion_factor,
+            "signatures": m["signatures_measured"]}
+
+
+def phase_calibrate(torch, ops, cfg, card: str, train_record) -> None:
+    """Profile and calibrate on the card, then score ParDNN's plans before
+    and after: (a) full granite-8b's paged decode step (bf16, 36 layers,
+    the serve phase's geometry), K=4 half-cap plan; (b) granite-8b's
+    training step (B=1, S=2048, TRAIN["plan_layers"] layers), K=4 under
+    half the card per PE; each through :func:`_calibrate_cell`; (c)
+    ``benchmark_runtimes`` on a TRAIN["interp_layers"]-layer training
+    plan; the profiled per-call seconds of the flash nodes beside CUDA
+    events at the same shape. The launch counts are the phase's own:
+    saved first and restored at the end."""
+    from repro_torch import api
+    from repro_torch.conformance import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.profiling.opbench import corrected_seconds
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    saved = read_counts()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"calibrate: {_release(torch):.3f} GiB allocated at the start")
+    cells = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        # (a) the paged decode step, all 36 layers
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        eng = ServingEngine(cfg, params, device="cuda", **GEOMETRY)
+        inputs = _decode_inputs(torch, eng, seed=4)
+        eng.pools = None
+        args = (params,) + tuple(inputs)
+        traced = api.trace(eng._decode_impl, *args, record=True)
+        plan = _half_cap_plan(api, traced, total,
+                              meta=_serving_meta(cfg, GEOMETRY))
+        pools, bt, toks, lens = inputs
+        want = eng._decode_impl(params, tree_map(torch.clone, pools), bt,
+                                toks, lens)
+        label = f"decode {cfg.name} K=4"
+        cells["decode"] = _calibrate_cell(
+            torch, api, label, traced, plan, args, total / 2,
+            lambda got: _hold_to_eager(torch, f"calibrated {label}", got,
+                                       want, PLAN_BF16_GATE), work)
+        launches = cells["decode"]["launches"]
+        assert not any(launches.values()), \
+            f"a kernel launched on the decode path: {launches}"
+        del traced, plan, want, args, inputs, pools, eng, params
+        _release(torch)
+
+        # (b) the training step at TRAIN["plan_layers"] layers
+        L, B, S = TRAIN["plan_layers"], TRAIN["batch"], TRAIN["seq"]
+        mid = dataclasses.replace(cfg, num_layers=L)
+        params = init_params(mid, torch.Generator(device="cuda")
+                             .manual_seed(3), "cuda")
+        batch = _train_batch(torch, cfg, seed=2)
+        step = make_train_step(mid, TRAIN["lr"], return_grads=True)
+        traced = api.trace(step, params, batch, record=True, autograd=True)
+        meta = {"arch": cfg.name, "layers": L, "static_argnums": [0]}
+        plan = api.partition(traced, devices=4, memory=total / 2, meta=meta)
+        plan.verify(strict=True)
+        want = step(params, batch)
+        label = f"train {cfg.name} {L} layers K=4"
+        cells["train"] = _calibrate_cell(
+            torch, api, label, traced, plan, (params, batch), total / 2,
+            lambda got: _hold_train(torch, f"calibrated {label}", got, want),
+            work)
+        launches = cells["train"]["launches"]
+        got = {k: launches[k] for k in ("flash_attention",
+                                        "flash_attention/sm90",
+                                        "flash_attention_bwd",
+                                        "flash_attention_bwd/sm90")}
+        log(f"calibrate {label}: launches while calibrating {got} (the "
+            f"graph has {L} flash forward and {L} backward nodes)")
+        assert got["flash_attention"] == got["flash_attention/sm90"] >= L \
+            and got["flash_attention_bwd"] == \
+            got["flash_attention_bwd/sm90"] >= L, \
+            f"calibrate: a replayed flash node did not launch sm90: {got}"
+        prof = cells["train"]["profile"]
+        flash = {}
+        for s in prof.ops:
+            name = s.name.split(".")[0]
+            if name in ("flash_attention", "flash_attention_bwd"):
+                flash.setdefault(name, []).append(s)
+        del traced, plan, want, step, params, prof
+        _release(torch)
+
+        # the flash nodes' profiled seconds beside CUDA events
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        g = torch.Generator(device="cuda").manual_seed(301)
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                       .bfloat16() for shape in ((B, S, H, hd),
+                                                 (B, S, KV, hd),
+                                                 (B, S, KV, hd),
+                                                 (B, S, H, hd)))
+        out, lse = ops.flash_attention(q, k, v, causal=True,
+                                       return_lse=True)
+        ev = {"flash_attention": cuda_ms(torch, lambda: ops.flash_attention(
+                  q, k, v, causal=True, return_lse=True)),
+              "flash_attention_bwd": cuda_ms(
+                  torch, lambda: ops.flash_attention_bwd(
+                      do, q, k, v, out, lse, causal=True))}
+        del q, k, v, do, out, lse
+        oh = cells["train"]["dispatch_overhead_s"]
+        for name, samples in flash.items():
+            log(f"calibrate flash cross-check {name} (B={B}, S={S}, H={H}, "
+                f"KV={KV}, hd={hd}, bf16, causal): profiled per call " +
+                ", ".join(f"{s.seconds * 1e3:.4f} ms (dispersion "
+                          f"{s.dispersion:.3f}, {s.count} nodes; less the "
+                          f"dispatch overhead "
+                          f"{corrected_seconds(s.seconds, oh) * 1e3:.4f})"
+                          for s in samples)
+                + f"; CUDA events, back-to-back {ev[name]:.4f} ms"
+                + (f"; train_kernels phase {train_record['ms']:.4f} ms"
+                   if name == "flash_attention_bwd" and train_record
+                   else ""))
+        _release(torch)
+
+        # (c) both engines at TRAIN["interp_layers"] layers
+        L4 = TRAIN["interp_layers"]
+        small = dataclasses.replace(cfg, num_layers=L4)
+        params = init_params(small, torch.Generator(device="cuda")
+                             .manual_seed(4), "cuda")
+        step = make_train_step(small, TRAIN["lr"], return_grads=True)
+        traced = api.trace(step, params, batch, record=True, autograd=True)
+        plan = api.partition(traced, devices=4, memory=total / 2,
+                             meta=dict(meta, layers=L4))
+        res = plan.benchmark_runtimes(params, batch, device_map=[0] * 4,
+                                      reps=5)
+        log(f"calibrate benchmark_runtimes {cfg.name} {L4} layers K=4: "
+            f"interpreter {res['interpreter_s'] * 1e3:.2f} ms, compiled "
+            f"first call {res['compiled_first_call_s'] * 1e3:.2f} ms, "
+            f"compiled async {res['compiled_s'] * 1e3:.2f} ms (dispersion "
+            f"{res['compiled_dispersion']:.3f}, {res['compiled_samples']} "
+            f"samples), sync {res['compiled_sync_s'] * 1e3:.2f} ms; "
+            f"speedup over the interpreter {res['speedup']:.2f}x; "
+            f"{res['num_segments']} segments; drift compiled vs interpreter "
+            f"{res['output_drift']:.3g}, async vs sync "
+            f"{res['sync_async_drift']:.3g}")
+        assert res["sync_async_drift"] == 0.0, \
+            "benchmark_runtimes: async and sync disagree"
+        del plan, traced, params, step, batch
+        _release(torch)
+    summary = {name: {"before": c["before"], "after": c["after"],
+                      "fitted": c["fitted"],
+                      "dispatch_overhead_s": c["dispatch_overhead_s"],
+                      "fusion_factor": c["fusion_factor"],
+                      "signatures": c["signatures"],
+                      "calibration_s": c["calibration_s"],
+                      "compare": c["compare"]}
+               for name, c in cells.items()}
+    log("calibrate scorecards " + json.dumps(summary))
+    restore_counts(saved)
+    log(f"calibrate: {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+# ---------------------------------------------------------------------------
 # rwkv6-7b training: the wkv6 backward kernel, the eager step and a plan
 # ---------------------------------------------------------------------------
 #: the wkv6 backward kernel's cases: the rwkv6-7b training shape in both
@@ -3077,7 +3417,7 @@ def phase_launch_train(torch, card: str) -> None:
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
           "plan_execute", "plan_serve", "train_kernels", "train",
-          "rwkv_train_kernels", "rwkv_train", "launch_train")
+          "calibrate", "rwkv_train_kernels", "rwkv_train", "launch_train")
 
 
 def main(argv=None) -> int:
@@ -3152,6 +3492,8 @@ def main(argv=None) -> int:
         train_record = phase_train_kernel(torch, ops, ref, build)
     if "train" in phases:
         phase_train(torch, ops, cfg, card, train_record)
+    if "calibrate" in phases:
+        phase_calibrate(torch, ops, cfg, card, train_record)
     rwkv_bwd_record = None
     if "rwkv_train_kernels" in phases or "rwkv_train" in phases:
         rwkv_bwd_record = phase_rwkv_train_kernel(torch, rops, rref, build)

@@ -30,7 +30,11 @@ segment runtime (:mod:`repro_torch.core.runtime`), and with ``trace=``
 writes the measured and predicted segment lanes
 (:mod:`repro_torch.obs.trace`). :meth:`~PartitionPlan.serve` builds a
 :class:`~repro_torch.serving.ServingEngine` whose decode steps run
-through the plan.
+through the plan. :func:`calibrate` measures the traced program's ops
+and the card's copies (:mod:`repro_torch.profiling`),
+:meth:`TracedModel.annotate` re-prices the graph from the measurements,
+and :meth:`PartitionPlan.accuracy_report` scores a plan's predictions
+against the card.
 """
 from __future__ import annotations
 
@@ -131,10 +135,93 @@ class TracedModel:
     def n(self) -> int:
         return self.graph.n
 
+    def annotate(self, profile) -> "TracedModel":
+        """Re-annotate this trace's cost graph from a
+        :class:`~repro_torch.profiling.CalibrationProfile` (in place).
+
+        Node compute costs are replaced by the profile's *measured*
+        per-signature seconds (dispatch-corrected) where the signature
+        was profiled, and by the calibrated device model's roofline
+        otherwise; edge comm costs are re-priced through the fitted
+        alpha-beta model (payload bytes are recovered exactly by
+        inverting the original model's ``comm_seconds``). Compute costs
+        are then rescaled by the profile's ``fusion_factor``: what one
+        replay of the whole program as one segment achieves against the
+        summed per-op costs, measured independently of any partition.
+        The graph fingerprint changes: existing plans for the
+        un-annotated costs no longer bind (RP102) and must be
+        re-partitioned, which is the point.
+        """
+        from .profiling.opbench import graph_signatures
+        g = self.graph
+        old = self.device_model
+        if old is None:
+            raise ValueError("annotate() needs the device model the "
+                             "trace was priced with (TracedModel."
+                             "device_model) to invert edge costs")
+        if g.op_flops is None or g.op_bytes is None:
+            raise ValueError("cost graph has no op_flops/op_bytes "
+                             "annotations: re-trace with "
+                             "repro_torch.api.trace")
+        model = profile.device_model(base=old)
+        flops = np.asarray(g.op_flops, dtype=np.float64)
+        bts = np.asarray(g.op_bytes, dtype=np.float64)
+        comp = np.maximum(
+            flops / (model.peak_flops * model.flop_efficiency),
+            bts / model.hbm_bw)
+        measured = profile.op_seconds_by_signature()
+        if measured:
+            for i, sig in enumerate(graph_signatures(g)):
+                t = measured.get(sig)
+                if t is not None:
+                    comp[i] = t
+        # the measured per-op seconds and the roofline fallback both
+        # describe ops run one at a time: rescale to what one replay of
+        # the program achieves
+        comp *= float(getattr(profile, "fusion_factor", 1.0))
+        g.comp = comp
+        for adj in (g.out_edges, g.in_edges):
+            for u, edges in enumerate(adj):
+                adj[u] = [
+                    (v, model.comm_seconds(
+                        max(c - old.link_latency, 0.0) * old.link_bw))
+                    for v, c in edges]
+        g._invalidate()
+        self.device_model = model
+        self.fingerprint = g.fingerprint()
+        return self
+
+
+def _resolve_calibration(calibration):
+    """calibration= argument -> CalibrationProfile | None. Accepts a
+    profile object, a path, or (when None) the ``REPRO_CALIBRATION``
+    environment variable pointing at a saved artifact. A profile whose
+    device fingerprint does not match this environment is applied but
+    *warned about*: measured costs do not transfer across hardware; pass
+    ``CalibrationProfile.load(path, expect_device=True)`` to make the
+    mismatch a hard error instead."""
+    if calibration is None:
+        calibration = os.environ.get("REPRO_CALIBRATION") or None
+    if calibration is None:
+        return None
+    from .profiling.artifact import (CalibrationProfile,
+                                     current_device_fingerprint)
+    if isinstance(calibration, str):
+        calibration = CalibrationProfile.load(calibration)
+    here = current_device_fingerprint()
+    if calibration.device_fingerprint != here:
+        import warnings
+        warnings.warn(
+            f"calibration profile was measured on "
+            f"{calibration.device_fingerprint!r} but this environment "
+            f"is {here!r}: measured costs may not transfer; re-run "
+            f"repro_torch.api.calibrate on this hardware", stacklevel=3)
+    return calibration
+
 
 def trace(fn: Callable, *example_args, record: bool = False,
           dev: DeviceModel = H100, params_residual: bool = True,
-          autograd: bool = False) -> TracedModel:
+          autograd: bool = False, calibration=None) -> TracedModel:
     """Trace ``fn(*example_args)`` into a :class:`TracedModel`.
 
     With ``record=True`` the node-level program is captured as well. The
@@ -144,7 +231,17 @@ def trace(fn: Callable, *example_args, record: bool = False,
     with ``torch.autograd``, such as a training step
     (:func:`repro_torch.conformance.make_train_step`), its backward
     included.
+
+    ``calibration`` (a :class:`~repro_torch.profiling.
+    CalibrationProfile`, a path to a saved one, or, when unset, the
+    ``REPRO_CALIBRATION`` environment variable) overlays measured device
+    parameters on ``dev`` before pricing, so the graph is annotated with
+    calibrated costs from the start; :meth:`TracedModel.annotate`
+    additionally patches in the per-op measured seconds afterwards.
     """
+    profile = _resolve_calibration(calibration)
+    if profile is not None:
+        dev = profile.device_model(base=dev)
     res = trace_cost_graph(fn, *example_args, dev=dev,
                            params_residual=params_residual, record=record,
                            autograd=autograd)
@@ -165,6 +262,15 @@ def fold_device_map(k: int, devices=None) -> list[int] | None:
     return None if n >= k else [i % n for i in range(k)]
 
 
+def calibrate(traced, *example_args, **kwargs):
+    """Measure real op and copy costs and fit the device model: the
+    facade name for :func:`repro_torch.profiling.run_calibration` (see
+    there for the full signature; ``device`` defaults to ``cuda``).
+    Returns a :class:`~repro_torch.profiling.CalibrationProfile`."""
+    from .profiling import run_calibration
+    return run_calibration(traced, *example_args, **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # report
 # ---------------------------------------------------------------------------
@@ -175,10 +281,11 @@ class PlanReport:
     ``stage_seconds`` holds the per-stage wall times (slice / map /
     refine / step2 / total); ``counters`` the mapping, refinement and
     Step-2 movement counters from the partitioner; ``runtime`` the last
-    compiled execution's stats; ``diagnostics`` the verifier's summary;
-    ``serving`` the stats of the last plan-served engine run to a
-    drain. ``accuracy`` is the reference's field, which the port does
-    not fill yet; all round-trip unchanged through the plan header.
+    compiled execution's stats; ``accuracy`` the predicted-against-
+    measured scorecard of :meth:`PartitionPlan.accuracy_report`;
+    ``diagnostics`` the verifier's summary; ``serving`` the stats of the
+    last plan-served engine run to a drain. All round-trip unchanged
+    through the plan header.
     """
     makespan_s: float
     peak_mem_bytes: list
@@ -558,6 +665,255 @@ class PartitionPlan:
         self.report.runtime = rt[1].stats.to_dict()
         return out
 
+    def accuracy_report(self, *args, devices=None, device_map=None,
+                        reps: int = 3, donate: bool = True,
+                        static_argnums=None, **kwargs) -> dict:
+        """Score the Step-2 emulator's predictions against the compiled
+        runtime's measurements: the closed predict-execute loop.
+
+        Runs the plan through the segment runtime in per-segment
+        profiling mode (``reps`` serialised passes, medians taken; on the
+        card each segment's seconds come from timing events around its
+        graph replay), runs the emulator on the same placement, and
+        compares stage by stage (a *stage* = one segment): predicted
+        seconds (sum of annotated node costs) against measured seconds,
+        as absolute percentage error. The scorecard lands in
+        ``report.accuracy`` (serialized with the plan) and is returned.
+
+        A huge MAPE is not a bug: it is the measurement that tells you
+        the cost model is wrong for this hardware. Calibrate
+        (:func:`calibrate`, then :meth:`TracedModel.annotate`),
+        re-partition, and score again to close the loop.
+
+        Sync and async samples are never mixed: per-stage timings come
+        from the serialised profiling mode, while the overlap scoring
+        runs one *async* timeline pass
+        (:meth:`~repro_torch.core.runtime.CompiledRuntime.
+        measure_timeline`) and compares its measured makespan against
+        the overlap emulator's segment-level prediction.
+        ``timing_modes`` labels which mode produced each number.
+        ``devices``, ``device_map``, ``donate`` and ``static_argnums``
+        are :meth:`execute`'s.
+        """
+        from .core.emulator import (emulate, emulate_overlap,
+                                    segment_cost_graph,
+                                    serialized_makespan)
+        from .profiling.opbench import profile_segments
+
+        if self.traced is None or self.traced.program is None:
+            raise PlanValidationError(
+                "accuracy_report needs a bound trace recorded with "
+                "record=True (the plan must be executable)",
+                code=_E.RP106_PLAN_NOT_EXECUTABLE)
+        # build (or reuse) the compiled runtime: this call runs the
+        # program end to end and pays capture, so profile_segments can
+        # skip its own warm-up pass
+        self.execute(*args, devices=devices, device_map=device_map,
+                     runtime="compiled", donate=donate,
+                     static_argnums=static_argnums, **kwargs)
+        rt = self._compiled_runtime[1]
+        prof = profile_segments(rt, *args, reps=reps, warmup=False,
+                                **kwargs)
+        g = self.traced.graph
+        comp = np.asarray(g.comp, dtype=np.float64)
+        segments = rt.schedule.segments
+        pred = np.asarray([float(np.sum(comp[list(s.nodes)]))
+                           for s in segments])
+        meas = np.asarray(prof["seconds"], dtype=np.float64)
+        disp = np.asarray(prof["dispersion"], dtype=np.float64)
+        ape = np.abs(pred - meas) / np.maximum(meas, 1e-12)
+        # score only stages/devices with measurable duration: sub-2us
+        # times are clock noise. None (not NaN: the scorecard must stay
+        # valid JSON) when nothing clears the floor.
+        scored = meas > 2e-6
+        mape = float(np.mean(ape[scored]) * 100) if scored.any() else None
+        k = max(self.k, 1)
+        pred_dev = np.zeros(k)
+        meas_dev = np.zeros(k)
+        for s, p, m in zip(segments, pred, meas):
+            pred_dev[s.device] += p
+            meas_dev[s.device] += m
+        dev_scored = meas_dev > 2e-6
+        dev_ape = np.abs(pred_dev - meas_dev) / np.maximum(meas_dev, 1e-12)
+        sched = emulate(g, self.assignment, self.k)
+        wall = float(np.median(prof["wall_seconds"]))
+        # one async timeline pass: measured per-segment dispatch/ready/
+        # done envelope and async wall, scored against the overlap
+        # emulator's segment-level makespan prediction
+        prev_mode = rt.mode
+        try:
+            rt.mode = "async"
+            _, timeline = rt.measure_timeline(*args, **kwargs)
+        finally:
+            rt.mode = prev_mode
+        dm = self.traced.device_model
+        overlap_pred = serial_pred = None
+        if dm is not None:
+            sg, seg_assign = segment_cost_graph(
+                self.traced.program, rt.schedule, g, dm)
+            ov = emulate_overlap(sg, seg_assign, self.k,
+                                 comm_streams=dm.comm_streams)
+            overlap_pred = float(ov.makespan)
+            serial_pred = float(serialized_makespan(sg, seg_assign))
+        async_wall = float(timeline["makespan_s"])
+        result = {
+            "num_stages": len(segments),
+            "stages_scored": int(np.count_nonzero(scored)),
+            "reps": int(reps),
+            "per_stage": [
+                {"stage": int(s.sid), "device": int(s.device),
+                 "nodes": len(s.nodes), "predicted_s": float(p),
+                 "measured_s": float(m), "dispersion": float(d),
+                 "ape_pct": float(a * 100)}
+                for s, p, m, d, a in zip(segments, pred, meas, disp, ape)],
+            "stage_mape_pct": mape,
+            "per_device_ape_pct": [float(a * 100) if s else None
+                                   for a, s in zip(dev_ape, dev_scored)],
+            "devices_scored": int(np.count_nonzero(dev_scored)),
+            "device_mape_pct": (float(np.mean(dev_ape[dev_scored]) * 100)
+                                if dev_scored.any() else None),
+            "predicted_makespan_s": float(sched.makespan),
+            "measured_wall_s": wall,
+            "makespan_ratio": (wall / float(sched.makespan)
+                               if sched.makespan > 0 else None),
+            # overlap scoring: async samples only, never mixed with the
+            # sync per-stage numbers above (see timing_modes)
+            "timing_modes": {"per_stage": "sync",
+                             "measured_wall_s": "sync",
+                             "timeline": str(timeline["mode"]),
+                             "measured_async_wall_s": "async"},
+            "predicted_overlap_makespan_s": overlap_pred,
+            "predicted_serialized_makespan_s": serial_pred,
+            "measured_async_wall_s": async_wall,
+            "overlap_makespan_ratio": (
+                async_wall / overlap_pred
+                if overlap_pred else None),
+            "serialized_makespan_ratio": (
+                wall / serial_pred if serial_pred else None),
+            "timeline": timeline,
+            "cost_model": (self.traced.device_model.name
+                           if self.traced.device_model else None),
+        }
+        self.report.accuracy = result
+        return result
+
+    def benchmark_runtimes(self, *args, devices=None, device_map=None,
+                           reps: int = 3, **kwargs) -> dict:
+        """Time both execution engines on this plan with the same inputs.
+
+        One interpreter run, one compiled run paying capture, then the
+        steady-state compiled path measured by the robust estimator
+        (:mod:`repro_torch.profiling.measure`: median-of-k with outlier
+        rejection and noisy-window retries, ``reps`` samples per
+        attempt), async and sync. Every sample is the host's clock
+        around a call and a wait for the card. Returns timings (with
+        sample dispersion), speedup, segment/transfer counters, output
+        drift, and measured-vs-predicted per-device peak bytes.
+        ``kwargs`` go to :meth:`execute` (``static_argnums``, ...).
+        """
+        import time
+
+        from .profiling.measure import MeasureSpec, measure_call, synchronize
+        from .tree import tree_flatten
+
+        def _timed(runtime):
+            t0 = time.perf_counter()
+            out = synchronize(self.execute(*args, devices=devices,
+                                           device_map=device_map,
+                                           runtime=runtime, **kwargs))
+            return out, time.perf_counter() - t0
+
+        def _drift(x, y) -> float:
+            d = 0.0
+            for a, b in zip(tree_flatten(x)[0], tree_flatten(y)[0]):
+                if isinstance(a, torch.Tensor) and a.numel():
+                    d = max(d, float((a.double() - b.double()).abs().max()))
+            return d
+
+        out_i, interp_s = _timed("interpret")
+        out_c, first_s = _timed("compiled")
+        m = measure_call(
+            lambda: self.execute(*args, devices=devices,
+                                 device_map=device_map,
+                                 runtime="compiled", mode="async",
+                                 **kwargs),
+            spec=MeasureSpec(warmup=0, reps=max(int(reps), 2)),
+            sync=synchronize)
+        out_c = m.result
+        best = m.seconds
+        rt = dict(self.report.runtime)
+        # the serialised escape hatch, same captured segments: the
+        # async-vs-sync delta is the measured overlap speedup
+        m_sync = measure_call(
+            lambda: self.execute(*args, devices=devices,
+                                 device_map=device_map,
+                                 runtime="compiled", mode="sync",
+                                 **kwargs),
+            spec=MeasureSpec(warmup=0, reps=max(int(reps), 2)),
+            sync=synchronize)
+        sync_s = m_sync.seconds
+        sync_drift = _drift(m_sync.result, out_c)
+        drift = _drift(out_c, out_i)
+        del out_i, out_c
+        predicted = [float(x) for x in self.peak_mem]
+        measured = list(rt.get("peak_live_bytes", []))
+        # the full estimator evidence rides in report.runtime so it
+        # serializes with the plan: a one-number speedup without its
+        # dispersion is not diagnosable from artifacts alone
+        timing_modes = {"async": m.to_dict(), "sync": m_sync.to_dict()}
+        self.report.runtime = {**self.report.runtime,
+                               "timing_modes": timing_modes}
+        return {
+            "timing_modes": timing_modes,
+            "interpreter_s": interp_s,
+            "compiled_first_call_s": first_s,
+            "compiled_s": best,
+            "compiled_dispersion": m.dispersion,
+            "compiled_samples": int(m.samples.size),
+            "timing_attempts": int(m.attempts),
+            "timing_noisy": bool(m.noisy),
+            "speedup": interp_s / best if best > 0 else float("inf"),
+            "compiled_mode": rt.get("mode", "async"),
+            "compiled_sync_s": sync_s,
+            "compiled_sync_dispersion": m_sync.dispersion,
+            "overlap_speedup": sync_s / best if best > 0 else float("inf"),
+            "sync_async_drift": sync_drift,
+            "prefetched_transfers": rt.get("prefetched_transfers", 0),
+            "deferred_transfers": rt.get("deferred_transfers", 0),
+            "compile_s": rt.get("compile_seconds", 0.0),
+            "num_segments": rt.get("num_segments", 0),
+            "segments_per_device": rt.get("segments_per_device", []),
+            "transfers": rt.get("transfers", 0),
+            "transfer_bytes": rt.get("transfer_bytes", 0.0),
+            "freed_buffers": rt.get("freed_buffers", 0),
+            "output_drift": drift,
+            "predicted_peak_bytes": predicted,
+            "measured_peak_bytes": measured,
+            "measured_over_predicted": [
+                (m / p if p else None)
+                for m, p in zip(measured, predicted)],
+        }
+
+    def compare(self, baselines: Sequence[str] = ("rr", "topo"),
+                graph: CostGraph | None = None) -> dict:
+        """Run baseline partitioners on the same graph; returns
+        ``{name: {"makespan_s": ..., "speedup": plan-vs-baseline}}``."""
+        from .core.baselines import BASELINES
+        g = graph if graph is not None else \
+            (self.traced.graph if self.traced is not None else None)
+        if g is None:
+            raise ValueError("compare() needs a bound trace or graph=")
+        out = {}
+        for name in baselines:
+            if name not in BASELINES:
+                raise ValueError(f"unknown baseline {name!r}; "
+                                 f"have {sorted(BASELINES)}")
+            b = BASELINES[name](g, self.k)
+            out[name] = {"makespan_s": float(b.makespan),
+                         "speedup": float(b.makespan / self.makespan)
+                         if self.makespan else float("nan")}
+        return out
+
     # -- serving ------------------------------------------------------------
     def serve(self, cfg, params, *, devices=None, device_map=None,
               runtime: str | None = None, trace: str | None = None,
@@ -641,7 +997,7 @@ def partition(traced_or_graph: TracedModel | CostGraph,
 
 
 __all__ = [
-    "trace", "partition", "fold_device_map", "TracedModel", "DeviceSpec",
+    "trace", "partition", "calibrate", "fold_device_map", "TracedModel", "DeviceSpec",
     "PartitionPlan", "PlanReport", "PlanValidationError", "PardnnOptions",
     "PLAN_FORMAT", "PLAN_SCHEMA_VERSION", "RUNTIMES",
 ]

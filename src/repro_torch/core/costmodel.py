@@ -4,7 +4,8 @@ with the H100 as the target).
 ParDNN consumes *annotated* graphs: per-node compute seconds, output bytes
 and per-edge communication seconds. The paper obtains these from TensorFlow
 profiling on V100s; the framework derives them analytically from a device
-model, until calibration fits the model to measurements.
+model, and calibration (:mod:`repro_torch.profiling`) fits the model's
+sustained rates to measurements on the card.
 
 NVIDIA H100 SXM (target hardware; NVIDIA's data sheet, dense rates):
   peak bf16      : 989 TFLOP/s per card
@@ -79,7 +80,8 @@ class DeviceModel:
 @dataclass(frozen=True)
 class CalibratedDeviceModel(DeviceModel):
     """A :class:`DeviceModel` whose sustained parameters were *fitted
-    from measurements* instead of guessed (calibration; not ported yet).
+    from measurements* instead of guessed (:mod:`repro_torch.profiling.
+    calibrate`).
 
     Same pricing interface — everything that consumes a DeviceModel
     (tracer, emulator, runtime transfer accounting) works unchanged;

@@ -134,7 +134,8 @@ class PlanValidationError(ValueError):
 class ProfileValidationError(PlanValidationError):
     """A calibration-profile artifact failed schema/payload validation,
     or was measured on a different device than it is being applied to
-    (the calibration artifact; not ported yet). Subclasses PlanValidationError so
-    one except-clause guards both artifact kinds."""
+    (:class:`repro_torch.profiling.CalibrationProfile`). Subclasses
+    PlanValidationError so one except-clause guards both artifact
+    kinds."""
 
     default_code = RP105_PROFILE_INVALID

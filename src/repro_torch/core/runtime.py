@@ -69,7 +69,13 @@ Dispatch modes (``mode``, default resolved from ``REPRO_RUNTIME_SYNC``):
   synchronised after every segment.
 
 Both modes replay the same graphs on the same values in the same order,
-so their outputs are bit-identical. :meth:`CompiledRuntime.measure_timeline`
+so their outputs are bit-identical. Per-segment profiling
+(``profile_segments = True``, which ``repro_torch.profiling.
+profile_segments`` sets) forces the sync mode and records each
+segment's seconds in ``RuntimeStats.segment_seconds``: on CUDA from a
+pair of timing events around its graph replay (after its waits and
+copies), on the CPU from the host's clock around its run.
+:meth:`CompiledRuntime.measure_timeline`
 runs one call that also records when each segment ran: on CUDA by timing
 events on each PE's stream (the card's clock), on the CPU by host
 timestamps; a plain call records none. The logical per-PE live bytes
@@ -159,6 +165,10 @@ class RuntimeStats:
     ready_seconds: list = field(default_factory=list)
     done_seconds: list = field(default_factory=list)
     transfer_wait_seconds: list = field(default_factory=list)
+    # per segment, in schedule order, when the runtime's
+    # profile_segments mode is on (empty otherwise): the seconds of its
+    # replay alone, segments serialised
+    segment_seconds: list = field(default_factory=list)
 
     def to_dict(self) -> dict:
         d = {}
@@ -409,6 +419,10 @@ class CompiledRuntime:
         self._copy_dst: dict[tuple[Slot, int], torch.Tensor] = {}
         # set by measure_timeline for one call: record segment times
         self._timeline = False
+        # per-segment profiling mode (repro_torch.profiling flips it):
+        # forces sync dispatch and records RuntimeStats.segment_seconds;
+        # off by default, since serialising defeats the overlap
+        self.profile_segments = False
 
     # ------------------------------------------------------------------
     def _pe_of(self, nid: int) -> int:
@@ -632,7 +646,10 @@ class CompiledRuntime:
         if len(flat) != len(prog.input_nodes):
             raise ValueError(f"expected {len(prog.input_nodes)} leaves, "
                              f"got {len(flat)}")
-        sync = self.mode == "sync"
+        # profiling waits after every segment anyway, so it forces the
+        # serialised mode for attributable timings
+        profiling = self.profile_segments
+        sync = self.mode == "sync" or profiling
         window = 0.0 if sync else float(self.transfer_window_bytes)
         st = self.stats
         first = self.capture and self._graphs is None
@@ -644,6 +661,7 @@ class CompiledRuntime:
         # (ready, done) host seconds on the CPU; dispatch host seconds
         marks: list = []
         dispatched: list[float] = []
+        seg_seconds: list[float] = []
         bases: dict = {}
         if timed and self.capture:
             for d in dict.fromkeys(self.devices):
@@ -761,19 +779,30 @@ class CompiledRuntime:
             if stream is not None:
                 if timed:
                     marks[-1][1].record(stream)
+                if profiling:
+                    span = [torch.cuda.Event(enable_timing=True)
+                            for _ in range(2)]
+                    span[0].record(stream)
                 with torch.cuda.stream(stream):
                     self._graphs[seg.sid].replay()
                 self._events[seg.sid].record(stream)
                 if timed:
                     marks[-1][2].record(stream)
+                if profiling:
+                    span[1].record(stream)
                 st.graph_replays += 1
                 if sync:
                     stream.synchronize()
+                if profiling:
+                    seg_seconds.append(span[0].elapsed_time(span[1]) / 1e3)
             else:
                 t_ready = time.perf_counter() - t_start
                 outs = self._fns[seg.sid](*[env[s] for s in seg.inputs])
                 if timed:
                     marks.append((t_ready, time.perf_counter() - t_start))
+                if profiling:
+                    seg_seconds.append(time.perf_counter() - t_start
+                                       - t_ready)
                 st.eager_segments += 1
                 for slot, v in zip(seg.outputs, outs):
                     env[slot] = v
@@ -824,6 +853,7 @@ class CompiledRuntime:
                     for slot in prog.out_slots]
         st.execute_seconds = time.perf_counter() - t_start
         st.dispatch_seconds = dispatched
+        st.segment_seconds = seg_seconds
         if self.capture and timed:
             # the events completed with the synchronise above
             st.ready_seconds, st.done_seconds, st.transfer_wait_seconds = \

@@ -46,7 +46,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.runtime, repro_torch.analysis, "
             "repro_torch.conformance, repro_torch.conformance.matrix, "
             "repro_torch.train, repro_torch.data, repro_torch.checkpoint, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.profiling; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
