@@ -157,7 +157,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    flash node the calibration replays launches sm90; the flash nodes'
    profiled seconds stand beside CUDA events at the same shape. (c)
    ``benchmark_runtimes`` on a TRAIN["interp_layers"]-layer training
-   plan. The phase keeps its own launch counts (saved, reset, restored).
+   plan. The phase reads its own launch counts (reset before
+   ``api.calibrate``, read after).
 15. rwkv train kernels: the two wkv6 backward kernels
    (``rwkv6_bwd_mma.cu``, bf16 at hd 64; ``rwkv6_bwd.cu``, the rest)
    against their plain version ``wkv_bwd_ref`` on the same inputs
@@ -1991,27 +1992,52 @@ def _hold_bwd(torch, label, got, again, want, dt) -> tuple:
     return max(ratios), max(errs)
 
 
-def kernel_split(torch, fn, names, calls: int = 5) -> dict:
+#: calls of the recorded profiler step in :func:`kernel_split`
+SPLIT_CALLS = 20
+
+
+def kernel_split(torch, fn, names, calls: int = SPLIT_CALLS) -> dict:
     """{name: (device ms per launch, launches recorded)} for each named
     kernel that ``fn`` launches once a call, from torch.profiler over
-    ``calls`` calls (after a warm-up). The mean is over the launches the
-    profiler recorded, which have been fewer than those made."""
-    from torch.profiler import ProfilerActivity
+    ``calls`` calls (after a warm-up). torch.profiler has missed the
+    first kernels launched in its window, up to all 5 of a 5-call window
+    late in this script: the profiler runs one unrecorded step of
+    ``calls`` calls first, which cut the misses but did not end them,
+    and the window is long enough that a few missed leave most recorded.
+    The mean is over the launches recorded; a kernel it recorded none of
+    reads None, not a time."""
+    from torch.profiler import ProfilerActivity, schedule
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
+    got = []
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [e for e in got[-1]
            if e.device_type == torch.autograd.DeviceType.CUDA]
     split = {}
     for name in names:
         hits = [e for e in evs if name in e.key]
         n = sum(e.count for e in hits)
-        split[name] = (sum(e.self_device_time_total for e in hits) / 1e3
-                       / max(n, 1), n)
+        split[name] = (sum(e.self_device_time_total for e in hits) / 1e3 / n
+                       if n else None, n)
     return split
+
+
+def split_text(split: dict, calls: int = SPLIT_CALLS) -> str:
+    """:func:`kernel_split`'s result for the log, with the sum of the
+    per-launch times when every kernel was recorded."""
+    parts = [f"{k} {'not recorded' if ms_ is None else f'{ms_:.4f}'} "
+             f"({n} of {calls})" for k, (ms_, n) in split.items()]
+    times = [ms_ for ms_, _ in split.values()]
+    total = ("not measured" if None in times else f"{sum(times):.4f}")
+    return ", ".join(parts) + f"; sum {total}"
 
 
 def phase_train_kernel(torch, ops, ref, build) -> dict:
@@ -2110,9 +2136,7 @@ def phase_train_kernel(torch, ops, ref, build) -> dict:
         f"{ms['sm90'] / ms['sdpa']:.2f}x sdpa; the 1.0 ms design target "
         f"{'met' if ms['sm90'] <= 1.0 else 'not met'}")
     log("timing flash_attention_bwd sm90 by kernel (torch.profiler, ms per "
-        "launch, launches recorded of 5 made): " + ", ".join(
-            f"{k} {ms_:.4f} ({n})" for k, (ms_, n) in split.items())
-        + f"; sum {sum(ms_ for ms_, _ in split.values()):.4f}")
+        "launch, launches recorded of those made): " + split_text(split))
     regs = {k: v for k, v in ptxas_report(build, ops, "flash_attention")
             .items() if "sm90" in k and "bwd_" in k}
     for kernel, used in regs.items():
@@ -2569,51 +2593,12 @@ def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
 #: accuracy_report's profiled passes (serialised, medians taken)
 CALIBRATE_REPS = 3
 
-#: the copy ladder the calibrate phase fits the link model on: 4 KiB to
-#: 256 MiB. The profiler's default stops at 16 MiB, which an H100 copies
-#: in less than the ~20 us a host-timed call costs, and the slope then
-#: comes out of the noise (17.9 TB/s for a same-card copy on an H100 80GB
-#: HBM3 at 700 W).
-CALIBRATE_SIZES = tuple(1 << p for p in range(12, 29, 2))
-
 #: the scorecard entries the calibrate phase prints for each plan
 SCORECARD = ("stage_mape_pct", "device_mape_pct", "predicted_makespan_s",
              "measured_wall_s", "makespan_ratio",
              "predicted_serialized_makespan_s", "serialized_makespan_ratio",
              "predicted_overlap_makespan_s", "measured_async_wall_s",
              "overlap_makespan_ratio", "num_stages", "stages_scored")
-
-
-def restore_counts(counts: dict) -> None:
-    """Put back the launch counts :func:`read_counts` returned."""
-    for name, fn in COUNTED.items():
-        fn.launches = counts[name]
-        for variant in getattr(fn, "variant_launches", {}):
-            fn.variant_launches[variant] = counts[f"{name}/{variant}"]
-
-
-def _same_profile(a, b) -> bool:
-    """Two calibration profiles equal field for field, arrays bit for
-    bit."""
-    if (a.fitted, a.base_model, a.device_fingerprint, a.dispatch_overhead_s,
-            a.fusion_factor, a.meta) != (b.fitted, b.base_model,
-                                        b.device_fingerprint,
-                                        b.dispatch_overhead_s,
-                                        b.fusion_factor, b.meta):
-        return False
-    if len(a.ops) != len(b.ops) or len(a.transfers) != len(b.transfers):
-        return False
-    for x, y in zip(a.ops, b.ops):
-        if (x.signature, x.name, x.flops, x.bytes_touched, x.out_bytes,
-                x.seconds, x.dispersion, x.count) != \
-                (y.signature, y.name, y.flops, y.bytes_touched, y.out_bytes,
-                 y.seconds, y.dispersion, y.count) or \
-                not np.array_equal(x.samples, y.samples):
-            return False
-    return all((x.nbytes, x.seconds, x.dispersion) ==
-               (y.nbytes, y.seconds, y.dispersion)
-               and np.array_equal(x.samples, y.samples)
-               for x, y in zip(a.transfers, b.transfers))
 
 
 def _fmt(v, scale: float = 1.0, unit: str = "", digits: int = 4) -> str:
@@ -2650,7 +2635,8 @@ def _calibrate_cell(torch, api, label: str, traced, plan, args, cap: float,
     again; compare against rr and topo."""
     from repro_torch.core.errors import (RP102_FINGERPRINT_MISMATCH,
                                          PlanValidationError)
-    from repro_torch.profiling import CalibrationProfile
+    from repro_torch.profiling import (CalibrationProfile,
+                                       profile_differences)
     fold = [0] * plan.k
     before = _scorecard(label, "before calibration",
                         plan.accuracy_report(*args, device_map=fold,
@@ -2661,12 +2647,12 @@ def _calibrate_cell(torch, api, label: str, traced, plan, args, cap: float,
     reset_counts()
     t0 = time.perf_counter()
     profile = api.calibrate(traced, *args, device="cuda", save=path,
-                            sizes=CALIBRATE_SIZES, meta={"plan": label})
+                            meta={"plan": label})
     calib_s = time.perf_counter() - t0
     launches = read_counts()
     _release(torch)
     loaded = CalibrationProfile.load(path, expect_device=True)
-    same = _same_profile(profile, loaded)
+    differ = profile_differences(profile, loaded)
     f, m, dm = profile.fitted, profile.meta, profile.device_model()
     log(f"calibrate {label}: fingerprint {profile.device_fingerprint}; "
         f"{m['signatures_measured']} of {m['signatures']} signatures "
@@ -2681,10 +2667,10 @@ def _calibrate_cell(torch, api, label: str, traced, plan, args, cap: float,
         f" ({_fmt(f['link_bw'], 1e-9, ' GB/s')}; {m['transfer_probe']}), "
         f"dispatch overhead {profile.dispatch_overhead_s * 1e6:.2f} us, "
         f"fusion factor {profile.fusion_factor:.4f}; saved and loaded back "
-        f"with expect_device=True, bit-equal: {same}")
-    if not same:
+        f"with expect_device=True, bit-equal: {not differ}")
+    if differ:
         raise AssertionError(f"calibrate {label}: the profile did not "
-                             f"round-trip bit-equal")
+                             f"round-trip bit-equal: {differ}")
     old = traced.fingerprint
     traced.annotate(loaded)
     try:
@@ -2740,8 +2726,7 @@ def phase_calibrate(torch, ops, cfg, card: str, train_record) -> None:
     half the card per PE; each through :func:`_calibrate_cell`; (c)
     ``benchmark_runtimes`` on a TRAIN["interp_layers"]-layer training
     plan; the profiled per-call seconds of the flash nodes beside CUDA
-    events at the same shape. The launch counts are the phase's own:
-    saved first and restored at the end."""
+    events at the same shape."""
     from repro_torch import api
     from repro_torch.conformance import make_train_step
     from repro_torch.models import init_params
@@ -2749,7 +2734,6 @@ def phase_calibrate(torch, ops, cfg, card: str, train_record) -> None:
     from repro_torch.serving import ServingEngine
     from repro_torch.tree import tree_map
     t_phase = time.perf_counter()
-    saved = read_counts()
     total = torch.cuda.get_device_properties(0).total_memory
     log(f"calibrate: {_release(torch):.3f} GiB allocated at the start")
     cells = {}
@@ -2881,7 +2865,6 @@ def phase_calibrate(torch, ops, cfg, card: str, train_record) -> None:
                       "compare": c["compare"]}
                for name, c in cells.items()}
     log("calibrate scorecards " + json.dumps(summary))
-    restore_counts(saved)
     log(f"calibrate: {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
@@ -3085,10 +3068,8 @@ def phase_rwkv_train_kernel(torch, rops, rref, build) -> dict:
         f"goal {'met' if ms['mma'] <= 0.6 else 'not met'}); no PyTorch call "
         f"computes it")
     log("timing wkv6_bwd mma by stage (torch.profiler, ms per launch, "
-        "launches recorded of 5 made): " + ", ".join(
-            f"{k} {ms_:.4f} ({c})" for k, (ms_, c) in split.items())
-        + f"; sum {sum(ms_ for ms_, _ in split.values()):.4f}; blocks per "
-        f"SM {occ}")
+        "launches recorded of those made): " + split_text(split)
+        + f"; blocks per SM {occ}")
     regs = {k: v for k, v in ptxas_report(build, rops, "rwkv6").items()
             if "bwd" in k}
     for kernel, used in regs.items():

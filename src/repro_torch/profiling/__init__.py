@@ -37,12 +37,13 @@ from .. import resolve_device
 from ..core.errors import ProfileValidationError
 from ..tree import tree_flatten
 from .artifact import (CALIB_SCHEMA_VERSION, CalibrationProfile,
-                       current_device_fingerprint)
+                       current_device_fingerprint, profile_differences)
 from .calibrate import (fit_alpha_beta, fit_compute_params,
                         fit_device_model, fit_params)
 from .measure import (DEFAULT_SPEC, MeasureSpec, Measurement, measure_call,
                       median_mad, quick_spec, synchronize)
-from .opbench import (DEFAULT_TRANSFER_SIZES, OpSample, TransferSample,
+from .opbench import (CUDA_TRANSFER_SIZES, DEFAULT_TRANSFER_SIZES, OpSample,
+                      TransferSample, default_transfer_sizes,
                       graph_signatures, measure_dispatch_overhead,
                       node_signature, profile_ops, profile_segments,
                       profile_transfers, transfer_pair, transfer_probe)
@@ -54,10 +55,12 @@ __all__ = [
     "profile_ops", "profile_segments", "profile_transfers",
     "transfer_pair", "transfer_probe",
     "measure_dispatch_overhead", "DEFAULT_TRANSFER_SIZES",
+    "CUDA_TRANSFER_SIZES", "default_transfer_sizes",
     "fit_alpha_beta", "fit_compute_params", "fit_device_model",
     "fit_params",
     "CalibrationProfile", "CALIB_SCHEMA_VERSION",
-    "current_device_fingerprint", "ProfileValidationError",
+    "current_device_fingerprint", "profile_differences",
+    "ProfileValidationError",
     "run_calibration",
 ]
 
@@ -76,7 +79,8 @@ def run_calibration(traced, *example_args, spec=None, sizes=None,
             (a trace on fake or meta tensors needs them passed here).
         spec: :class:`MeasureSpec` timing knobs (default: robust).
         sizes: transfer payload ladder (bytes); default
-            :data:`DEFAULT_TRANSFER_SIZES`.
+            :func:`default_transfer_sizes` of the device (4 KiB to 256
+            MiB on a card, the reference's ladder on the CPU).
         device: the torch device the ops run on (``None``: ``cuda``,
             which raises on a machine without one); the inputs are moved
             there.
@@ -115,8 +119,7 @@ def run_calibration(traced, *example_args, spec=None, sizes=None,
     spec = spec or DEFAULT_SPEC
     ops = profile_ops(traced.graph, prog, *flat, device=device, spec=spec,
                       max_signatures=max_signatures)
-    transfers = profile_transfers(sizes or DEFAULT_TRANSFER_SIZES, src=src,
-                                  dst=dst, spec=spec)
+    transfers = profile_transfers(sizes or None, src=src, dst=dst, spec=spec)
     overhead = measure_dispatch_overhead(device, spec).seconds
     base = traced.device_model
     if base is None:

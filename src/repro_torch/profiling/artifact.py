@@ -35,6 +35,7 @@ ladder (``tr_bytes`` / ``tr_seconds`` / ``tr_dispersion`` /
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -277,6 +278,37 @@ class CalibrationProfile:
                    schema_version=int(ver))
 
 
+def profile_differences(a, b) -> list[str]:
+    """Where two calibration profiles differ: ``[]`` when they are equal
+    field for field and their arrays bit for bit. Walks the dataclass
+    fields of both, into the op and transfer samples, so a profile of the
+    reference package's class compares too, and a field added to the
+    format is compared without being named here."""
+    return _differences(a, b, "profile")
+
+
+def _differences(a, b, where: str) -> list[str]:
+    if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
+        names = dict.fromkeys(f.name for f in (*dataclasses.fields(a),
+                                               *dataclasses.fields(b)))
+        out = []
+        for name in names:
+            if not (hasattr(a, name) and hasattr(b, name)):
+                out.append(f"{where}.{name} (on one side only)")
+            else:
+                out += _differences(getattr(a, name), getattr(b, name),
+                                    f"{where}.{name}")
+        return out
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return [] if np.array_equal(a, b) else [where]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{where} (length {len(a)} against {len(b)})"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _differences(x, y, f"{where}[{i}]")]
+    return [] if a == b else [where]
+
+
 __all__ = ["CALIB_FORMAT", "CALIB_SCHEMA_VERSION", "CalibrationProfile",
            "KNOWN_CALIB_SCHEMA_VERSIONS", "ProfileValidationError",
-           "current_device_fingerprint"]
+           "current_device_fingerprint", "profile_differences"]

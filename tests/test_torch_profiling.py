@@ -460,24 +460,35 @@ def _synthetic(pkg=tprof, fingerprint="test|fake|x2|torch=0.0"):
 
 
 def _assert_profiles_equal(p, q):
-    assert q.fitted == p.fitted
-    assert q.base_model == p.base_model
-    assert q.device_fingerprint == p.device_fingerprint
-    assert q.dispatch_overhead_s == p.dispatch_overhead_s
-    assert q.fusion_factor == p.fusion_factor
-    assert q.meta == p.meta
-    assert len(q.ops) == len(p.ops) and len(q.transfers) == len(p.transfers)
-    for a, b in zip(p.ops, q.ops):
-        assert (a.signature, a.name, a.count) == (b.signature, b.name,
-                                                  b.count)
-        for f in ("flops", "bytes_touched", "out_bytes", "seconds",
-                  "dispersion"):
-            assert getattr(a, f) == getattr(b, f)
-        np.testing.assert_array_equal(a.samples, b.samples)
-    for a, b in zip(p.transfers, q.transfers):
-        assert (a.nbytes, a.seconds, a.dispersion) == (b.nbytes, b.seconds,
-                                                       b.dispersion)
-        np.testing.assert_array_equal(a.samples, b.samples)
+    assert tprof.profile_differences(p, q) == []
+
+
+@pytest.mark.parametrize("change", ["meta", "fusion_factor", "op_sample",
+                                    "transfer_sample", "ops_length",
+                                    "transfer_nbytes"])
+def test_profile_differences_names_what_differs(change):
+    p, q = _synthetic(), _synthetic()
+    assert tprof.profile_differences(p, q) == []
+    if change == "meta":
+        q.meta["extra"] = 1
+        want = "profile.meta"
+    elif change == "fusion_factor":
+        q.fusion_factor = np.nextafter(q.fusion_factor, 2.0)
+        want = "profile.fusion_factor"
+    elif change == "op_sample":
+        q.ops[3].samples = q.ops[3].samples.copy()
+        q.ops[3].samples[-1] = np.nextafter(q.ops[3].samples[-1], 1.0)
+        want = "profile.ops[3].samples"
+    elif change == "transfer_sample":
+        q.transfers[1].samples = q.transfers[1].samples[:-1]
+        want = "profile.transfers[1].samples"
+    elif change == "ops_length":
+        q.ops.pop()
+        want = f"profile.ops (length {len(p.ops)} against {len(q.ops)})"
+    else:
+        q.transfers[0].nbytes *= 2
+        want = "profile.transfers[0].nbytes"
+    assert tprof.profile_differences(p, q) == [want]
 
 
 def test_profile_roundtrip_bit_for_bit(tmp_path):
@@ -574,6 +585,14 @@ def test_transfer_probe_names_the_copy():
         "device-to-device copy on cuda:0"
     assert topbench.transfer_probe("cuda:0", "cuda:1") == \
         "peer copy cuda:0 -> cuda:1"
+    # the reference's ladder on the CPU; on a card one that reaches past
+    # what it copies in a host-timed call's overhead
+    assert tprof.default_transfer_sizes("cpu") == \
+        tprof.DEFAULT_TRANSFER_SIZES == jprof.DEFAULT_TRANSFER_SIZES
+    assert tprof.default_transfer_sizes("cuda:0") == \
+        tprof.CUDA_TRANSFER_SIZES
+    assert tprof.CUDA_TRANSFER_SIZES[0] == 4 << 10
+    assert tprof.CUDA_TRANSFER_SIZES[-1] == 256 << 20
     samples = tprof.profile_transfers((1 << 12, 1 << 16), src="cpu",
                                       spec=quick_spec(reps=2,
                                                       max_attempts=1))
