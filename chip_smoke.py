@@ -14,7 +14,7 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    library;
 3. kernels: flash attention against its plain PyTorch version at the
    reference's test shapes, at the granite-8b prefill shape (in float32
-   as well) and at the edges of the bf16 Hopper kernel (``sm90``:
+   as well, and in bf16 at mixtral-8x7b's window of 4096) and at the edges of the bf16 Hopper kernel (``sm90``:
    ragged S, a cache with q_offset, window, soft cap, K/V views of a
    larger cache, hd 64 at the repro-lm-100m widths); every bf16 case
    also against the plain version run in float32, to one bf16 step. At
@@ -118,7 +118,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    alone in float32) against the plain backward run in float32 on the
    same inputs (BWD_CASES: the training shape in bf16 and float32, hd
    64 at repro-lm-100m widths, ragged S, window, q_offset, softcap,
-   G = 1 and 4, fully masked rows), each given the forward kernel's
+   G = 1 and 4, fully masked rows, the training shape at mixtral's
+   window of 4096), each given the forward kernel's
    output and LSE, repeated calls bit-equal; at the training shape the
    three kernels, the plain version and SDPA's backward timed in turns
    beside the bound, the sm90 backward's four kernels (D, dK/dV, their
@@ -198,6 +199,33 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    equal to the resumed run's. The checkpoint run is cut in depth, not
    the deep one: at 19 layers a checkpoint of parameters and AdamW
    state is 60 GB, written three times a run.
+18. mixtral serve: mixtral-8x7b in bf16 (random weights from a seed,
+   8 experts top-2, window 4096) at full width and the depth the printed
+   arithmetic lets 90% of the card hold (24 of 32 layers), serving the
+   serve phase's 8 requests at its geometry: every prefill attention
+   call launches the sm90 kernel at window 4096 (L per prefill call), 0
+   leaked blocks; tok/s, TTFT p50, decode ms, peak memory; one prefill
+   and one decode step under torch.profiler, device time by role (expert
+   products, dispatch and combine, router, the rest), and the share of
+   routed assignments capacity dropped in each. Then the same engine on
+   the plain attention path, fed the kernel path's tokens: every token
+   the plain path's argmax, or behind it by no more than the near-tie
+   limit of phase 6 (4 x the two paths' logit difference at the prefill
+   and the first decode step). Batched and sequential decoding differ
+   under MoE capacity (a lone token never drops, a batch of 8 rows can),
+   so this phase has no batched = sequential gate;
+19. mixtral train: mixtral-8x7b's SGD step at full width (bf16, B=1,
+   S=2048, lr 1e-3, the loss with its router term): (a) in place, at
+   the depth the printed arithmetic allows (parameters and grads): L
+   flash forward and L backward launches, all sm90, loss near ln V; step
+   ms, tokens/s, peak memory, device time by role; (b) traced,
+   partitioned at K=4 under half the card per PE at the deepest depth
+   whose plan's summed peaks and the returned clones fit 90% of the card
+   (folded onto one card each PE keeps its own graph pool), verified,
+   executed with its PEs folded onto the card: async = sync bit for bit,
+   every leaf within TRAIN_GATE of the eager step; nodes, partition
+   seconds, predicted makespan, async, sync and eager ms, logical peak
+   per PE beside the plan's.
 
 ``--phases`` (a comma list of the names in ``PHASES``; default all) runs
 a subset, for iterating on one kernel; the card's name is always read.
@@ -246,6 +274,8 @@ FLASH_CASES = [
 ]
 GRANITE_PREFILL = (8, 32, 8, 1024, 128, True, None, "bfloat16")
 GRANITE_PREFILL_F32 = GRANITE_PREFILL[:-1] + ("float32",)
+# mixtral-8x7b's prefill: granite's shape at its sliding window of 4096
+MIXTRAL_PREFILL = GRANITE_PREFILL[:6] + (4096, "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 # At the granite shape 5e-2 is as large as a typical output, so every bf16
 # kernel output is also held to the plain version run in float32 on the
@@ -476,7 +506,8 @@ def phase_kernels(torch, ops, ref) -> dict:
     None unless the serve phase runs and fills them in."""
     import torch.nn.functional as F
     sm90 = ops.flash_attention.variant_launches
-    for i, case in enumerate(FLASH_CASES + [GRANITE_PREFILL_F32]):
+    for i, case in enumerate(FLASH_CASES + [GRANITE_PREFILL_F32,
+                                            MIXTRAL_PREFILL]):
         B, H, KV, S, hd, causal, window, dtype = case
         q, k, v = _inputs(torch, case, seed=i)
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -1947,6 +1978,7 @@ BWD_CASES = [
     (1, 8, 8, 256, 256, 64, True, None, 0, 0.0, "bfloat16"),     # G = 1
     (1, 16, 4, 256, 256, 64, False, None, 0, 0.0, "float32"),    # G = 4
     (1, 4, 2, 128, 128, 64, True, 64, 100, 0.0, "float32"),      # masked
+    (1, 32, 8, 2048, 2048, 128, True, 4096, 0, 0.0, "bfloat16"),  # mixtral
 ]
 # The backward kernels against their plain version run in float32 on the
 # same inputs: max |kernel - plain| <= gate x max |plain|, per gradient.
@@ -2181,12 +2213,23 @@ def train_dot_flops(cfg, batch: int, seq: int) -> float:
     """Product FLOPs of one training step from the config: 3 x 2·T·(the
     matmul parameters, lm head included) and, per layer, the attention's
     dense products, 4·B·H·S²·hd forward and 8·B·H·S²·hd backward (priced
-    as the reference's graph prices its ``_plain_gqa``)."""
-    T = batch * seq
-    per_layer = (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim)
-                 + cfg.q_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
-    mm = cfg.num_layers * per_layer + cfg.d_model * cfg.padded_vocab
+    as the reference's graph prices its ``_plain_gqa``). An MoE layer's
+    FFN (mixtral) on G groups of N tokens with C slots an expert: the
+    router 3 x 2·T·d·E, dispatch 2 x 2·G·N·E·C·d (no gradient into the
+    one-hots), combine 3 x that (its weights take a gradient through the
+    router), the expert products 3 x 3 x 2·E·G·C·d·f."""
+    T, d = batch * seq, cfg.d_model
+    per_layer = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
     attn = 12.0 * batch * cfg.num_heads * seq ** 2 * cfg.head_dim
+    if cfg.moe is None:
+        per_layer += 3 * d * cfg.d_ff
+    else:
+        from repro_torch.models.moe import capacity
+        E, N = cfg.moe.num_experts, min(1024, T)
+        G, C = T // N, capacity(cfg, N)
+        attn += (6 * T * d * E + 10 * G * N * E * C * d
+                 + 18 * E * G * C * d * cfg.moe.d_ff)
+    mm = cfg.num_layers * per_layer + d * cfg.padded_vocab
     return 6.0 * T * mm + cfg.num_layers * attn
 
 
@@ -2237,6 +2280,7 @@ def _hold_train(torch, label: str, got, want) -> bool:
     assert len(g) == len(w), f"{label}: {len(g)} leaves against {len(w)}"
     bits, worst = 0, 0.0
     for a, b in zip(g, w):
+        b = b.to(a.device)              # an eager step kept on the host
         if torch.equal(a, b):
             bits += 1
             continue
@@ -3395,10 +3439,577 @@ def phase_launch_train(torch, card: str) -> None:
             log(f"launch {arch}: {_release(torch):.3f} GiB left allocated")
 
 
+# ---------------------------------------------------------------------------
+# mixtral-8x7b: the MoE family served and trained at full width
+# ---------------------------------------------------------------------------
+#: the flash kernels by name (forward sm90 and fma; sm90 backward's four)
+FLASH_KERNEL_NAMES = FWD_KERNELS + ("bwd_delta_sm90", "bwd_dkdv_sm90",
+                                    "bwd_reduce_sm90", BWD_KERNEL)
+
+
+def _product_role(cfg, shapes, slots: int) -> str:
+    """The role of one aten mm / bmm in an MoE step, from its operands'
+    shapes: an expert product has a dim of the expert d_ff; dispatch and
+    combine a dim of the E·C slots; the router E as an operand's last
+    dim; the plain (decode) attention the head dim and not d_model."""
+    dims = {x for s in shapes for x in (s or [])}
+    if cfg.moe.d_ff in dims:
+        return "experts"
+    if slots in dims:
+        return "dispatch/combine"
+    if any(s and s[-1] == cfg.moe.num_experts for s in shapes):
+        return "router"
+    if cfg.head_dim in dims and cfg.d_model not in dims:
+        return "plain attention"
+    return "other products"
+
+
+def _moe_profile(torch, label: str, fn, cfg, group: int) -> dict:
+    """One call of ``fn`` under torch.profiler, shapes recorded (after
+    two warm-up calls): wall and device-busy ms, and the device ms of
+    the products by role (:func:`_product_role`, groups of ``group``
+    tokens), of the flash kernels by name, and of the rest (elementwise
+    passes, the routing, copies)."""
+    from torch.profiler import ProfilerActivity
+    from repro_torch.models.moe import capacity
+    slots = cfg.moe.num_experts * capacity(cfg, group)
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA],
+                                record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    roles = dict.fromkeys(("experts", "dispatch/combine", "router",
+                           "plain attention", "other products",
+                           "flash kernels"), 0.0)
+    calls = dict.fromkeys(roles, 0)
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != cuda and e.key in ("aten::mm", "aten::bmm"):
+            role = _product_role(cfg, e.input_shapes or [], slots)
+            roles[role] += e.device_time_total / 1e3
+            calls[role] += e.count
+    for e in kernels:
+        if any(name in e.key for name in FLASH_KERNEL_NAMES):
+            roles["flash kernels"] += e.self_device_time_total / 1e3
+            calls["flash kernels"] += e.count
+    rest = busy_ms - sum(roles.values())
+    log(f"profile {label}: wall {host_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({busy_ms / host_ms:.1%}), "
+        f"{sum(e.count for e in kernels)} kernels; device ms by role: "
+        + ", ".join(f"{k} {v:.3f} (x{calls[k]})" for k, v in roles.items())
+        + f", the rest {rest:.3f} (elementwise, routing, copies)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
+            f"{e.key[:90]}")
+    return {"wall_ms": host_ms, "busy_ms": busy_ms, "roles": roles,
+            "rest_ms": rest}
+
+
+class _Steps:
+    """Wraps a serving engine's two model calls (the module's
+    ``prefill_batched`` and the engine's ``_decode``) to keep the first
+    call of each (its inputs and its last-position logits), and, with
+    ``force`` ({rid: tokens}), every call's logits on the host and the
+    tokens each request emits replaced by ``force``'s: the engine then
+    runs on another engine's tokens, and each step records (request,
+    token index, top-2 gap, argmax, forced token, how far the forced
+    token's logit lies below the maximum). The engine emits a call's
+    tokens in the order of its logits' rows, which is how a row is
+    matched to its request."""
+
+    def __init__(self, eng, reqs, force=None):
+        from repro_torch.serving import engine as engine_mod
+        self.eng, self.mod, self.reqs = eng, engine_mod, reqs
+        self.first, self.steps, self.force = {}, [], force
+        self._rows, self._row = None, 0
+        self._prefill = engine_mod.prefill_batched
+        self._decode = eng._decode
+        engine_mod.prefill_batched = self._wrap("prefill", self._prefill,
+                                                pair=True)
+        eng._decode = self._wrap("decode", self._decode, pair=False)
+        if force is not None:
+            for r in reqs:
+                r.emit = self._emit(r, r.emit)
+
+    def _wrap(self, name, fn, pair: bool):
+        """``fn`` recording its logits: ``out[0]`` where it returns
+        (logits, caches), else ``out``."""
+        def call(*args):
+            out = fn(*args)
+            logits = out[0] if pair else out
+            last = logits[:, -1]
+            if name not in self.first:
+                self.first[name] = (tuple(a.clone() if hasattr(a, "clone")
+                                          else a for a in args),
+                                    last.float().clone())
+            if self.force is not None:
+                self._rows, self._row = last.float().cpu(), 0
+            return out
+        return call
+
+    def _emit(self, req, emit):
+        def forced(token, now=None):
+            row = self._rows[self._row]
+            self._row += 1
+            i = len(req.output)
+            tok = self.force[req.rid][i]
+            top2 = row.topk(2)
+            self.steps.append((req.rid, i, float(top2.values[0]
+                                                - top2.values[1]),
+                               int(top2.indices[0]), tok,
+                               float(top2.values[0] - row[tok])))
+            return emit(tok, now)
+        return forced
+
+    def restore(self) -> None:
+        """Undo the wrapping and drop every reference to the engine and
+        its requests (an engine holding a wrapper of itself is a cycle
+        that keeps its parameters and pools until the collector runs)."""
+        self.mod.prefill_batched = self._prefill
+        del self.eng._decode
+        if self.force is not None:
+            for r in self.reqs:
+                del r.emit
+        self.eng = self.reqs = self._decode = None
+
+
+def _moe_drops(torch, run) -> list:
+    """The share of routed (token, k) assignments that capacity dropped
+    in each MoE layer during ``run()``: ``apply_moe`` wrapped to route
+    its input a second time and count."""
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import dropped_share
+    inner, shares = transformer.apply_moe, []
+
+    def counted(cfg_, p, x, *a, **kw):
+        shares.append(dropped_share(cfg_, p["router"], x))
+        return inner(cfg_, p, x, *a, **kw)
+    transformer.apply_moe = counted
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        transformer.apply_moe = inner
+    return shares
+
+
+def phase_mixtral_serve(torch, cfg, card: str) -> dict:
+    """mixtral-8x7b in bf16 (random weights from a seed) at full width
+    through ``ServingEngine`` at the serve phase's geometry, as deep as
+    the printed arithmetic lets 90% of the card hold it. Returns the
+    kernels' launch counts of the measured run."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import init_params, layers, prefill_batched
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch import obs
+    t_phase = time.perf_counter()
+    _release(torch)
+    big = _requests(Request, cfg, 8, seed=0)
+    B = 1 << (len(big) - 1).bit_length()
+    S = 1 << max(3, (max(len(r.prompt) for r in big) - 1).bit_length())
+
+    def engine_prefill(c):
+        p = init_params(c, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+        eng = ServingEngine(c, p, device="cuda", **GEOMETRY)
+        tokens = torch.ones((B, S), dtype=torch.int32, device="cuda")
+        plens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        # the engine (its pool) lives as long as the step
+        return p, lambda eng=eng: prefill_batched(c, p, tokens, plens)
+    layers_n, p1, p0 = fit_depth(
+        torch, cfg, "mixtral_serve", engine_prefill,
+        f"P plus the pool ({GEOMETRY['num_blocks']} blocks of "
+        f"{GEOMETRY['block_size']}) and the prefill of B={B}, S={S} "
+        f"(kernel path)")
+    deep = dataclasses.replace(cfg, num_layers=layers_n)
+    t0 = time.perf_counter()
+    params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    log(f"mixtral_serve: {layers_n} of {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.experts_per_token}, window {cfg.sliding_window}, "
+        f"{deep.param_count() / 1e9:.2f} B params "
+        f"({_param_bytes(params) / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    warm = ServingEngine(deep, params, device="cuda", **GEOMETRY)
+    for r in _requests(Request, deep, 1, seed=99, plen=(128, 128),
+                       max_new=2):
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+    _release(torch)
+
+    # (a) the measured run on the kernel path
+    eng = ServingEngine(deep, params, device="cuda", **GEOMETRY)
+    reqs = _requests(Request, deep, 8, seed=0)
+    for r in reqs:
+        eng.submit(r)
+    windows = []
+    mha = layers.multi_head_attention
+
+    def seen(q, k, v, **kw):
+        if q.shape[1] > 1:              # the calls that take the kernel
+            windows.append(kw["window"])
+        return mha(q, k, v, **kw)
+    layers.multi_head_attention = seen
+    record = _Steps(eng, reqs)
+    tracer = obs.get_tracer()
+    tracer.drain()
+    obs.enable(True)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+    finally:
+        layers.multi_head_attention = mha
+        record.restore()
+        obs.enable(False)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    spans = {}
+    for ev in tracer.drain():
+        if ev[0] == "X":
+            spans.setdefault(ev[1], []).append(ev[6] / 1e3)   # ms
+    s = eng.stats
+    assert len(done) == len(reqs), f"{len(done)} of {len(reqs)} completed"
+    assert all(len(r.output) == r.max_new_tokens for r in done.values())
+    assert all(0 <= t < cfg.vocab_size for r in done.values()
+               for t in r.output), "token outside the vocab"
+    assert s.leaked_blocks == 0, f"{s.leaked_blocks} blocks leaked"
+    want = layers_n * s.prefill_calls
+    assert launches["flash_attention"] == want > 0, \
+        f"flash_attention launched {launches['flash_attention']} times, " \
+        f"expected {layers_n} x {s.prefill_calls} prefill calls"
+    assert launches["flash_attention/sm90"] == want, \
+        f"{launches['flash_attention/sm90']} of {want} prefill attention " \
+        f"launches went to the sm90 kernel"
+    assert set(windows) == {cfg.sliding_window} and len(windows) == want, \
+        f"flash windows {sorted(set(windows))} over {len(windows)} calls"
+    assert launches["flash_attention_bwd"] == launches["wkv6"] == 0
+    summary = s.to_dict()
+    decode_ms = spans.get("serving/decode_step", [])
+    log(f"mixtral_serve: {len(done)} requests, {s.prefill_tokens} prompt "
+        f"tokens, {s.generated_tokens} generated in {wall:.3f} s -> "
+        f"{s.generated_tokens / wall:.1f} tok/s; ttft p50 "
+        f"{summary['ttft_p50_s']:.4f} s; {s.prefill_calls} prefill calls "
+        f"({', '.join(f'{t:.1f}' for t in spans.get('serving/prefill_batch', []))}"
+        f" ms); {s.decode_steps} decode steps, median "
+        f"{statistics.median(decode_ms):.2f} ms; {s.preempted} "
+        f"preemptions; peak {s.peak_blocks_in_use}/"
+        f"{eng.allocator.capacity} blocks; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); {card}")
+    log(f"mixtral_serve: flash_attention launches "
+        f"{launches['flash_attention']} = {layers_n} layers x "
+        f"{s.prefill_calls} prefill calls, "
+        f"{launches['flash_attention/sm90']} of them sm90, every one at "
+        f"window {cfg.sliding_window}")
+    outs = {r.rid: list(done[r.rid].output) for r in reqs}
+    kernel_first = record.first
+
+    # (b) where the time goes and how much capacity dropped, on (a)'s
+    # first prefill and first decode step
+    # (the engine's pools hold every request's context: no block was
+    # reused, so the first decode step's inputs read what they read then)
+    assert s.preempted == 0
+    p_args = kernel_first["prefill"][0]
+    d_args = kernel_first["decode"][0]
+    Bp, Sp = p_args[2].shape
+    prefill = _moe_profile(
+        torch, f"mixtral prefill B={Bp} S={Sp}",
+        lambda: prefill_batched(deep, params, p_args[2], p_args[3]), deep,
+        min(1024, Bp * Sp))
+    decode = _moe_profile(torch, f"mixtral decode step B={d_args[0].shape[0]}",
+                          lambda: eng._decode(*d_args), deep,
+                          d_args[0].shape[0])
+    drops = {"prefill": _moe_drops(torch, lambda: prefill_batched(
+        deep, params, p_args[2], p_args[3])),
+        "decode": _moe_drops(torch, lambda: eng._decode(*d_args))}
+    for name, shares in drops.items():
+        assert len(shares) == layers_n
+        log(f"mixtral_serve: {name}: assignments dropped by capacity, "
+            f"mean over the {layers_n} layers {statistics.mean(shares):.4f}"
+            f", max {max(shares):.4f}, first layer {shares[0]:.4f}")
+    del eng
+    _release(torch)
+
+    # (c) the same engine on the plain attention path, fed (a)'s tokens
+    def plain_attention(q, k, v, *, causal, window, q_offset=0,
+                        softcap=0.0):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, softcap=softcap)
+    mha = layers.multi_head_attention
+    layers.multi_head_attention = plain_attention
+    try:
+        reset_counts()
+        plain_eng = ServingEngine(deep, params, device="cuda", **GEOMETRY)
+        preqs = _requests(Request, deep, 8, seed=0)
+        for r in preqs:
+            plain_eng.submit(r)
+        forced = _Steps(plain_eng, preqs, force=outs)
+        try:
+            plain_eng.run_until_drained()
+        finally:
+            forced.restore()
+        assert read_counts()["flash_attention"] == 0
+    finally:
+        layers.multi_head_attention = mha
+    assert plain_eng.stats.leaked_blocks == 0
+    assert plain_eng.stats.prefill_calls == s.prefill_calls and \
+        plain_eng.stats.decode_steps == s.decode_steps, "admissions differ"
+    n = len(reqs)
+    d_prefill = float((kernel_first["prefill"][1][:n]
+                       - forced.first["prefill"][1][:n]).abs().max())
+    d_decode = float((kernel_first["decode"][1][:n]
+                      - forced.first["decode"][1][:n]).abs().max())
+    limit = 4 * max(d_prefill, d_decode)
+    steps = forced.steps
+    flips = sum(tok != top for _, _, _, top, tok, _ in steps)
+    mismatched = [(rid, i) for rid, i, _, top, tok, behind in steps
+                  if tok != top and behind > limit]
+    log(f"mixtral_serve: kernel path against the plain attention path, "
+        f"same engine, same admissions, {len(steps)} tokens: max |logit "
+        f"diff| prefill {d_prefill:.3g} first decode step {d_decode:.3g}, "
+        f"near-tie limit {limit:.3g}; min top-2 gap "
+        f"{min(x[2] for x in steps):.3g}; {flips} tokens differ from the "
+        f"plain path's argmax, mismatched (request, step) {mismatched}")
+    assert len(steps) == sum(len(o) for o in outs.values())
+    assert not mismatched, f"kernel path != plain path at {mismatched}"
+    del plain_eng
+    _release(torch)
+
+    log(f"mixtral_serve summary: {layers_n} layers, "
+        f"{s.generated_tokens / wall:.1f} tok/s, ttft p50 "
+        f"{summary['ttft_p50_s'] * 1e3:.1f} ms, decode median "
+        f"{statistics.median(decode_ms):.2f} ms, device busy prefill "
+        f"{prefill['busy_ms'] / prefill['wall_ms']:.1%} decode "
+        f"{decode['busy_ms'] / decode['wall_ms']:.1%}, peak "
+        f"{peak / 2**30:.2f} GiB; phase {time.perf_counter() - t_phase:.1f}"
+        f" s; {card}")
+    del params, record, forced, kernel_first, p_args, d_args
+    log(f"mixtral_serve: {_release(torch):.3f} GiB left allocated")
+    return launches
+
+
+def _host(leaves) -> list:
+    return [t.detach().cpu() for t in leaves]
+
+
+def _same_host(torch, got, host) -> bool:
+    g = _train_leaves(got)
+    return len(g) == len(host) and all(
+        torch.equal(a, h.to(a.device)) for a, h in zip(g, host))
+
+
+def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
+    """mixtral-8x7b's SGD step at full width (bf16, random weights from
+    a seed, B=1, S=2048, lr 1e-3, the loss with its router term): (a)
+    eager, in place, as deep as the printed arithmetic lets 90% of the
+    card hold it: L flash forward and L backward launches, all sm90;
+    (b) the step traced at the plan depth (its own printed arithmetic:
+    the runtime keeps new parameters and grads as outputs and returns
+    clones of them), partitioned at K=4 under half the card per PE,
+    verified, executed with its PEs folded onto the card: async = sync
+    bit for bit, every leaf within TRAIN_GATE of the eager step."""
+    from repro_torch import api
+    from repro_torch.conformance import make_train_step
+    from repro_torch.core.graph import RESIDUAL
+    from repro_torch.core.tracing import _functional_graph, op_name
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_flatten
+    t_phase = time.perf_counter()
+    _release(torch)
+    B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    gb = 1e9
+    batch = _train_batch(torch, cfg, seed=2)
+    group = min(1024, B * S)
+
+    # (a) the eager step, in place
+    def sgd_step(c):
+        p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                        "cuda")
+        st = make_train_step(c, lr, in_place=True)
+        return p, lambda: st(p, batch)
+    layers_n, p1, p0 = fit_depth(
+        torch, cfg, "mixtral_train", sgd_step,
+        "2P (parameters and grads; the update in place)")
+    deep = dataclasses.replace(cfg, num_layers=layers_n)
+    params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    step = make_train_step(deep, lr, in_place=True)
+    step(params, batch)                 # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, _ = step(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": layers_n, "flash_attention/sm90": layers_n,
+            "flash_attention_bwd": layers_n,
+            "flash_attention_bwd/sm90": layers_n, "wkv6": 0}
+    got = {k: launches[k] for k in want}
+    log(f"mixtral_train eager: {layers_n} layers, loss {float(loss):.4f} "
+        f"(ce + {cfg.moe.router_aux_weight} x aux; ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f}), launches {got}, "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB ({peak / gb:.2f} GB),"
+        f" one step {first_s * 1e3:.1f} ms")
+    assert got == want, f"mixtral_train eager: launches {got}, want {want}"
+    assert math.isfinite(float(loss)) and \
+        abs(float(loss) - math.log(cfg.vocab_size)) < 2, \
+        f"mixtral_train eager: loss {float(loss)} far from ln V at init"
+    step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
+    prof = _moe_profile(torch, f"mixtral train eager {layers_n} layers "
+                        f"B={B} S={S}", lambda: step(params, batch), deep,
+                        group)
+    log(f"mixtral_train eager: median step {step_ms:.2f} ms, "
+        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
+        f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); {card}")
+    if record is not None:
+        record["mixtral_train_launches"] = launches["flash_attention_bwd"]
+    del params, step, loss
+    _release(torch)
+
+    # (b) the plan path. Folded onto one card, each PE captures its
+    # segments into its own graph pool, which keeps that PE's peak: the
+    # card holds the sum of the plan's peaks, and beside it the clones a
+    # call returns (new parameters and grads, 2P). The depth is the
+    # deepest from 5 P(L) <= 90% of the card down whose plan fits so.
+    k = 4
+    fit = 0.9 * total
+    L = max([n for n in range(1, layers_n + 1)
+             if 5 * (p0 + n * p1) <= fit] or [1])
+    while True:
+        mid = dataclasses.replace(cfg, num_layers=L)
+        params = init_params(mid, torch.Generator(device="cuda")
+                             .manual_seed(3), "cuda")
+        step = make_train_step(mid, lr, return_grads=True)
+        t0 = time.perf_counter()
+        traced = api.trace(step, params, batch, record=True,
+                           autograd=True)
+        trace_s = time.perf_counter() - t0
+        meta = {"arch": cfg.name, "layers": L, "static_argnums": [0]}
+        t0 = time.perf_counter()
+        plan = api.partition(traced, devices=k, memory=total / 2, meta=meta)
+        part_s = time.perf_counter() - t0
+        pbytes = _param_bytes(params)
+        need = float(sum(plan.peak_mem)) + 2 * pbytes
+        log(f"mixtral_train plan: depth arithmetic at {L} layers: the "
+            f"K={k} plan's peaks [" + ", ".join(
+                f"{p / gb:.2f}" for p in plan.peak_mem) + f"] GB sum to "
+            f"{float(sum(plan.peak_mem)) / gb:.2f} GB, plus the returned "
+            f"clones 2P = {2 * pbytes / gb:.2f} GB: {need / gb:.2f} GB "
+            f"against 90% of the card, {fit / gb:.2f} GB: "
+            f"{'fits' if need <= fit else 'does not fit'}")
+        if need <= fit or L == 1:
+            break
+        del plan, traced, params, step
+        _release(torch)
+        L -= 1
+    g = traced.graph
+    names = [n.split(".")[0] for n in g.names]
+    dot, want_dot = float(g.op_dot_flops.sum()), \
+        train_dot_flops(mid, B, S)
+    gm, _ = _functional_graph(step, (params, batch), autograd=True)
+    stacked = [tuple(t.shape) for t in tree_flatten(params["periods"])[0]]
+    whole = sorted(op_name(n.target) for n in gm.graph.nodes
+                   if n.op == "call_function"
+                   and isinstance(n.meta.get("val"), torch.Tensor)
+                   and tuple(n.meta["val"].shape) in stacked)
+    del gm
+    log(f"mixtral_train plan: traced the {L}-layer step in {trace_s:.2f} "
+        f"s: {g.n} nodes, {names.count('flash_attention')} flash forward "
+        f"and {names.count('flash_attention_bwd')} backward nodes, "
+        f"{names.count('sort')} sort and {names.count('cumsum')} cumsum "
+        f"(the routing), {names.count('bmm')} bmm, "
+        f"{names.count('select_backward')} select_backward, {len(whole)} "
+        f"ops of a stacked leaf's shape ({sorted(set(whole))}, "
+        f"{len(stacked)} stacked leaves), RESIDUAL "
+        f"{float(g.mem[g.ntype == RESIDUAL].sum()) / 2**30:.3f} GiB; "
+        f"product FLOPs {dot:.6g} (from the config {want_dot:.6g})")
+    assert names.count("flash_attention") == L and \
+        names.count("flash_attention_bwd") == L
+    assert names.count("sort") == L and names.count("cumsum") == L
+    assert "select_backward" not in names
+    assert whole == ["stack"] * len(stacked), \
+        f"whole-stack nodes other than the restacks: {whole}"
+    assert dot == want_dot, f"product FLOPs {dot} != {want_dot}"
+    a = plan.assignment
+    assert a.shape == (g.n,) and a.min() >= 0 and a.max() < k
+    rep = plan.verify(strict=True)
+    c = rep.counts()
+    log(f"mixtral_train plan: K={k} under {total / 2 / 2**30:.3f} GiB per "
+        f"PE: partition {part_s:.2f} s, feasible={plan.feasible}, "
+        f"predicted makespan {plan.makespan * 1e3:.3f} ms, peaks [" +
+        ", ".join(f"{p / 2**30:.3f}" for p in plan.peak_mem) +
+        f"] GiB; verified {c['error']}E/{c['warn']}W/{c['info']}I")
+
+    # the eager step at this depth, kept on the host
+    out = step(params, batch)
+    want_host = _host(_train_leaves(out))
+    del out
+    eager_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
+    _release(torch)
+    fold = [0] * k
+
+    def run(mode):
+        return plan.execute(params, batch, device_map=fold, mode=mode,
+                            static_argnums=(0,))
+    torch.cuda.reset_peak_memory_stats()
+    first = run("sync")
+    first_peak = torch.cuda.max_memory_allocated()
+    st = plan._compiled_runtime[1].stats
+    bit = _hold_train(torch, f"mixtral K={k} plan", first, want_host)
+    first_host = _host(_train_leaves(first))
+    del first, want_host
+    same = all(_same_host(torch, run(mode), first_host)
+               for mode in ("async", "sync"))
+    log(f"mixtral_train plan: {st.num_segments} segments "
+        f"{st.segments_per_device} per PE, capture "
+        f"{st.compile_seconds:.2f} s; async and sync bit-equal to the "
+        f"first call: {same}")
+    assert same, "mixtral_train plan: sync and async dispatch disagree"
+    assert st.graph_replays == st.num_segments and st.eager_segments == 0, \
+        f"{st.graph_replays} replays, {st.eager_segments} eager segments"
+    del first_host
+    ms = {"async": _wall_ms(torch, lambda: run("async"), n=3),
+          "sync": _wall_ms(torch, lambda: run("sync"), n=3)}
+    gib = 2 ** 30
+    log(f"mixtral_train plan summary ({L} layers, K={k} folded onto the "
+        f"card): {g.n} nodes, partition {part_s:.2f} s, predicted makespan "
+        f"{plan.makespan * 1e3:.3f} ms; median wall async {ms['async']:.2f} "
+        f"ms, sync {ms['sync']:.2f} ms, eager {eager_ms:.2f} ms; logical "
+        f"peak per PE [" + ", ".join(f"{x / gib:.3f}"
+                                     for x in st.peak_live_bytes)
+        + "] GiB, plan [" + ", ".join(f"{x / gib:.3f}"
+                                      for x in plan.peak_mem)
+        + f"]; max_memory_allocated first call {first_peak / gib:.3f} GiB;"
+        f" bit-equal to eager {bit}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    del plan, traced, params, step
+    _release(torch)
+
+
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
           "plan_execute", "plan_serve", "train_kernels", "train",
-          "calibrate", "rwkv_train_kernels", "rwkv_train", "launch_train")
+          "calibrate", "rwkv_train_kernels", "rwkv_train", "launch_train",
+          "mixtral_serve", "mixtral_train")
 
 
 def main(argv=None) -> int:
@@ -3482,6 +4093,13 @@ def main(argv=None) -> int:
         phase_rwkv_train(torch, rcfg, card, rwkv_bwd_record)
     if "launch_train" in phases:
         phase_launch_train(torch, card)
+    mcfg = get_config("mixtral-8x7b")
+    if "mixtral_serve" in phases:
+        launches = phase_mixtral_serve(torch, mcfg, card)
+        if record is not None:
+            record["mixtral_serve_launches"] = launches["flash_attention"]
+    if "mixtral_train" in phases:
+        phase_mixtral_train(torch, mcfg, card, train_record)
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record, rwkv_bwd_record)

@@ -117,7 +117,8 @@ def example_batch(cfg, spec: ArchSpec, device=None) -> dict:
     return {"tokens": tokens, "targets": targets}
 
 
-def make_train_step(cfg, lr: float = 1e-3, *, return_grads: bool = False):
+def make_train_step(cfg, lr: float = 1e-3, *, return_grads: bool = False,
+                    in_place: bool = False):
     """One SGD training step: ``train_step(params, batch) -> (loss,
     new_params)``, the reference's step. The gradient is taken by
     ``torch.autograd`` with the periods unbound
@@ -130,6 +131,12 @@ def make_train_step(cfg, lr: float = 1e-3, *, return_grads: bool = False):
     weights ``lr * g`` sits below one ulp of most ``p``, so new
     parameters alone would hide a wrong gradient.
 
+    ``in_place=True`` writes each new leaf into ``params`` instead (the
+    same values, bit for bit) and drops each gradient once used, so that
+    the step holds the parameters and the gradients, not a third copy:
+    ``train_step(params, batch) -> (loss, params)``. It does not trace
+    (a traced step must not write its inputs).
+
     Trace the step with ``api.trace(..., autograd=True)``."""
     from ..models import loss_fn, unstack_periods
 
@@ -140,6 +147,13 @@ def make_train_step(cfg, lr: float = 1e-3, *, return_grads: bool = False):
         with torch.enable_grad():
             loss, _ = loss_fn(cfg, tree_unflatten(structure, req), batch)
             flat_grads = torch.autograd.grad(loss, req)
+        if in_place:
+            flat_grads = list(flat_grads)
+            with torch.no_grad():
+                for i, p in enumerate(leaves):
+                    p.sub_(lr * flat_grads[i])
+                    flat_grads[i] = None
+            return loss.detach(), params
         grads = tree_unflatten(structure, list(flat_grads))
         with torch.no_grad():
             new = tree_map(lambda p, g: p - lr * g,

@@ -1,12 +1,15 @@
-"""Model assembly for the dense attention kinds (port of
-``repro.models.transformer``).
+"""Model assembly (port of ``repro.models.transformer``).
 
 Layers are grouped into periods (``cfg.block_pattern``); the parameters
 of the ``cfg.num_periods`` identical periods are stacked along a leading
 axis, as in the reference, and :func:`forward` runs the periods in a
 Python loop that indexes the stacked tensors (the reference's
-``lax.scan``). The port covers the ``attn``, ``swa`` and ``rwkv`` block
-kinds; any other kind raises ``NotImplementedError``.
+``lax.scan``). The port covers the ``attn``, ``swa``, ``attn_moe``,
+``swa_moe`` and ``rwkv`` block kinds; any other kind (``mla*``,
+``mamba*``) raises ``NotImplementedError``. :func:`forward` returns each
+MoE block's load-balancing loss summed over the layers, as the
+reference's does, and :func:`loss_fn` adds it at the config's
+``router_aux_weight``; the dense and rwkv kinds have none.
 
 Caches are written in place (see :func:`layers.update_cache`): the
 functions that take caches return the same tree they were given.
@@ -32,10 +35,11 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..tree import tree_map
 from . import layers as L
+from .moe import apply_moe, moe_init
 from .rwkv import (apply_rwkv_channelmix, apply_rwkv_timemix,
                    rwkv_cache_init, rwkv_init)
 
-_KINDS = ("attn", "swa", "rwkv")
+_KINDS = ("attn", "swa", "attn_moe", "swa_moe", "rwkv")
 
 
 def _check_kind(kind: str) -> None:
@@ -52,7 +56,9 @@ def _block_init(cfg: ModelConfig, kind: str, generator: torch.Generator):
         return {"ln1": L.norm_init(cfg, dev), "tm": rwkv_init(cfg, generator),
                 "ln2": L.norm_init(cfg, dev)}
     p = {"ln1": L.norm_init(cfg, dev), "mix": L.gqa_init(cfg, generator),
-         "ln2": L.norm_init(cfg, dev), "ffn": L.mlp_init(cfg, generator)}
+         "ln2": L.norm_init(cfg, dev),
+         "ffn": (moe_init if kind.endswith("moe") else L.mlp_init)(
+             cfg, generator)}
     if cfg.post_norm:
         p["pn1"] = L.norm_init(cfg, dev)
         p["pn2"] = L.norm_init(cfg, dev)
@@ -61,7 +67,8 @@ def _block_init(cfg: ModelConfig, kind: str, generator: torch.Generator):
 
 def _block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
                  cache=None, cache_pos=None):
-    """One layer. Returns (x, cache)."""
+    """One layer. Returns (x, cache, aux): ``aux`` is an MoE block's
+    float32 load-balancing loss, None for the other kinds."""
     _check_kind(kind)
     h = L.apply_norm(cfg, p["ln1"], x)
     if kind == "rwkv":
@@ -71,20 +78,24 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
         h2 = L.apply_norm(cfg, p["ln2"], x)
         y2, _ = apply_rwkv_channelmix(cfg, p["tm"], h2,
                                       cache=cache and cache["cm"])
-        return x + y2, cache
+        return x + y2, cache, None
     y, mix_cache = L.apply_gqa(cfg, p["mix"], h, positions=positions,
-                               is_global=kind == "attn",
+                               is_global=not kind.startswith("swa"),
                                kv_cache=cache and cache.get("mix"),
                                cache_pos=cache_pos)
     if cfg.post_norm:
         y = L.apply_norm(cfg, p["pn1"], y)
     x = x + y
     h2 = L.apply_norm(cfg, p["ln2"], x)
-    y2 = L.apply_mlp(cfg, p["ffn"], h2)
+    aux = None
+    if kind.endswith("moe"):
+        y2, aux = apply_moe(cfg, p["ffn"], h2)
+    else:
+        y2 = L.apply_mlp(cfg, p["ffn"], h2)
     if cfg.post_norm:
         y2 = L.apply_norm(cfg, p["pn2"], y2)
     x = x + y2
-    return x, (None if cache is None else {"mix": mix_cache})
+    return x, (None if cache is None else {"mix": mix_cache}), aux
 
 
 def _block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -180,17 +191,32 @@ def check_remat_policy(remat_policy) -> None:
             f"{REMAT_POLICIES[1:]}); ROADMAP queue 1: --remat dots")
 
 
+def _add_aux(total, aux):
+    """The running sum of the blocks' aux losses (None while no block
+    had one: the dense graphs keep no node for it)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
 def _period_apply(cfg: ModelConfig, pp, x, positions, pc, cache_pos):
+    """One period. Returns (x, the sum of its blocks' aux losses or
+    None)."""
+    aux = None
     for i, kind in enumerate(cfg.block_pattern):
         c = pc[f"b{i}"] if pc is not None else None
-        x, _ = _block_apply(cfg, kind, pp[f"b{i}"], x, positions=positions,
-                            cache=c, cache_pos=cache_pos)
-    return x
+        x, _, a = _block_apply(cfg, kind, pp[f"b{i}"], x,
+                               positions=positions, cache=c,
+                               cache_pos=cache_pos)
+        aux = _add_aux(aux, a)
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
             caches=None, cache_pos=None, remat_policy: str | None = None):
-    """Backbone forward. Returns (hidden (B,S,D), caches).
+    """Backbone forward. Returns (hidden (B,S,D), caches, aux): ``aux``
+    is the float32 sum of the MoE blocks' load-balancing losses in layer
+    order (0 where there is none), as the reference's forward returns it.
     ``params["periods"]`` is the stacked tree or, as
     :func:`unstack_periods` gives it, a list of per-period trees.
 
@@ -200,22 +226,27 @@ def forward(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
     does; ``None`` or ``"none"`` keeps every activation."""
     check_remat_policy(remat_policy)
     periods = params["periods"]
+    aux = None
     for i, kind in enumerate(cfg.prelude):
         c = caches["prelude"][i] if caches is not None else None
-        x, _ = _block_apply(cfg, kind, params[f"prelude{i}"], x,
-                            positions=positions, cache=c,
-                            cache_pos=cache_pos)
+        x, _, a = _block_apply(cfg, kind, params[f"prelude{i}"], x,
+                               positions=positions, cache=c,
+                               cache_pos=cache_pos)
+        aux = _add_aux(aux, a)
     remat = remat_policy == "full" and caches is None
     for n in range(cfg.num_periods):
         pp = periods[n] if isinstance(periods, list) else _at(periods, n)
         pc = _at(caches["periods"], n) if caches is not None else None
         if remat:
-            x = checkpoint(_period_apply, cfg, pp, x, positions, None,
-                           cache_pos, use_reentrant=False)
+            x, a = checkpoint(_period_apply, cfg, pp, x, positions, None,
+                              cache_pos, use_reentrant=False)
         else:
-            x = _period_apply(cfg, pp, x, positions, pc, cache_pos)
+            x, a = _period_apply(cfg, pp, x, positions, pc, cache_pos)
+        aux = _add_aux(aux, a)
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return x, caches
+    if aux is None:
+        aux = x.new_zeros((), dtype=torch.float32)
+    return x, caches, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -271,18 +302,19 @@ def loss_fn(cfg: ModelConfig, params, batch: dict,
             remat_policy: str | None = None):
     """Training loss (port of the reference's ``loss_fn``). ``batch``:
     ``tokens`` (B, S) int or ``embeds`` (B, S, D), and ``targets`` (B, S).
-    Returns ``(loss, {"ce", "aux"})``; ``aux`` is 0 for the dense
-    kinds, which have no router loss. ``remat_policy`` as for
-    :func:`forward`."""
+    Returns ``(ce + router_aux_weight · aux, {"ce", "aux"})``: ``aux``
+    is :func:`forward`'s sum of the MoE blocks' load-balancing losses,
+    0 for a config without experts (whose loss is ``ce`` alone).
+    ``remat_policy`` as for :func:`forward`."""
     x = embed_inputs(cfg, params, batch)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    hidden, _ = forward(cfg, params, x, positions=positions,
-                        remat_policy=remat_policy)
+    hidden, _, aux = forward(cfg, params, x, positions=positions,
+                             remat_policy=remat_policy)
     ce = chunked_cross_entropy(cfg, hidden, lm_head_weight(cfg, params),
                                batch["targets"])
-    aux = ce.new_zeros(())
-    return ce, {"ce": ce, "aux": aux}
+    loss = ce + cfg.moe.router_aux_weight * aux if cfg.moe else ce
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------- serving
@@ -298,8 +330,8 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_len: int):
     B, S = x.shape[:2]
     caches = init_cache(cfg, B, max_len, x.device)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    hidden, caches = forward(cfg, params, x, positions=positions,
-                             caches=caches, cache_pos=0)
+    hidden, caches, _ = forward(cfg, params, x, positions=positions,
+                                caches=caches, cache_pos=0)
     return _logits(cfg, params, hidden[:, -1:]), caches
 
 
@@ -315,8 +347,8 @@ def prefill_batched(cfg: ModelConfig, params, tokens: torch.Tensor,
     B, S = tokens.shape
     caches = init_cache(cfg, B, S, x.device)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    hidden, caches = forward(cfg, params, x, positions=positions,
-                             caches=caches, cache_pos=0)
+    hidden, caches, _ = forward(cfg, params, x, positions=positions,
+                                caches=caches, cache_pos=0)
     rows = torch.arange(B, device=x.device)
     last = hidden[rows, plens.to(x.device).long() - 1][:, None]  # (B,1,D)
     return _logits(cfg, params, last), caches
@@ -337,8 +369,8 @@ def decode_step(cfg: ModelConfig, params, caches, tokens_or_embeds,
     pos = torch.as_tensor(cache_pos, device=x.device)
     positions = pos.reshape(-1, 1).to(torch.int32) + \
         torch.arange(S, dtype=torch.int32, device=x.device)
-    hidden, caches = forward(cfg, params, x, positions=positions,
-                             caches=caches, cache_pos=cache_pos)
+    hidden, caches, _ = forward(cfg, params, x, positions=positions,
+                                caches=caches, cache_pos=cache_pos)
     return _logits(cfg, params, hidden), caches
 
 

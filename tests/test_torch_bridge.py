@@ -80,3 +80,32 @@ def test_rwkv_params_round_trip_bit_exact():
         assert b.dtype == a.dtype and b.shape == a.shape, key
         np.testing.assert_array_equal(b.view(np.uint8), a.view(np.uint8),
                                       err_msg=key)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_params_round_trip_bit_exact(dtype):
+    """mixtral's tree crosses both ways unchanged: the router stays
+    float32 and the expert stacks keep their (layers, E, d, f) and (layers,
+    E, f, d) shapes in the compute dtype."""
+    cfg = dataclasses.replace(reduced(get_config("mixtral-8x7b"), layers=2),
+                              dtype=dtype)
+    ref = jax.tree_util.tree_map(np.asarray,
+                                 init_params(cfg, jax.random.PRNGKey(0)))
+    port = params_from_numpy(ref, "cpu")
+    back = params_to_numpy(port)
+    ref_flat, port_flat, back_flat = _flat(ref), _flat(port), _flat(back)
+    assert ref_flat.keys() == port_flat.keys() == back_flat.keys()
+    ffn = port["periods"]["b0"]["ffn"]
+    m, L = cfg.moe, cfg.num_periods
+    assert sorted(ffn) == ["router", "w_down", "w_gate", "w_up"]
+    assert ffn["router"].dtype == torch.float32
+    assert ffn["router"].shape == (L, cfg.d_model, m.num_experts)
+    assert ffn["w_up"].shape == ffn["w_gate"].shape == \
+        (L, m.num_experts, cfg.d_model, m.d_ff)
+    assert ffn["w_down"].shape == (L, m.num_experts, m.d_ff, cfg.d_model)
+    assert ffn["w_up"].dtype == getattr(torch, dtype)
+    for key, a in ref_flat.items():
+        b = back_flat[key]
+        assert b.dtype == a.dtype and b.shape == a.shape, key
+        np.testing.assert_array_equal(b.view(np.uint8), a.view(np.uint8),
+                                      err_msg=key)

@@ -3,6 +3,7 @@ bridged weights.
 
 Tolerance atol = rtol = 1e-4: XLA and PyTorch sum matrix products in
 different orders, and the difference grows through the layers."""
+import dataclasses
 import os
 
 import numpy as np
@@ -26,7 +27,7 @@ import repro_torch.models.layers as tL  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["granite-8b", "repro-lm-100m"]
+ARCHS = ["granite-8b", "mixtral-8x7b", "repro-lm-100m"]
 
 
 def _np(x):
@@ -39,8 +40,11 @@ def model(request):
     name = request.param
     jc = jcfg.reduced(jcfg.get_config(name), layers=2)
     tc = tcfg.reduced(tcfg.get_config(name), layers=2)
-    assert jc == jc.__class__(**{f: getattr(tc, f) for f in
-                                 jc.__dataclass_fields__})
+    for f in jc.__dataclass_fields__:
+        want, got = getattr(jc, f), getattr(tc, f)
+        if dataclasses.is_dataclass(want):
+            want, got = dataclasses.asdict(want), dataclasses.asdict(got)
+        assert want == got, f
     jp = jm.init_params(jc, jax.random.PRNGKey(1))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     return jc, tc, jp, tp

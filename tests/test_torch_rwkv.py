@@ -87,7 +87,7 @@ def test_forward_matches(model, S):
     jx = jt.embed_inputs(jc, jp, {"tokens": jnp.asarray(tokens)})
     jh, _, _ = jt.forward(jc, jp, jx, positions=jnp.arange(S))
     tx = tm.embed_inputs(tc, tp, {"tokens": torch.from_numpy(tokens)})
-    th, _ = tm.forward(tc, tp, tx, positions=torch.arange(S))
+    th, _, _ = tm.forward(tc, tp, tx, positions=torch.arange(S))
     np.testing.assert_allclose(_np(th), np.asarray(jh), **TOL)
 
 

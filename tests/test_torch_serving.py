@@ -178,6 +178,53 @@ def test_engine_token_equal_to_reference_under_eviction(setup):
     assert s["ttft_p50_s"] is not None
 
 
+def _record_decode_logits(eng, port: bool) -> list:
+    """Wrap an engine's decode step to keep each step's logits."""
+    seen, inner = [], eng._decode
+
+    def wrapped(*args):
+        out = inner(*args)
+        logits = out if port else out[0]
+        seen.append(np.asarray(logits.numpy() if port else logits))
+        return out
+    eng._decode = wrapped
+    return seen
+
+
+def test_mixtral_engine_tokens_and_logits_equal_to_reference():
+    """Reduced mixtral (two swa_moe layers, window 16 < the longest
+    sequence) through both engines with the same requests, admissions
+    and evictions: every decode step's logits within 1e-4, the tokens
+    equal, no block leaked."""
+    jc = jcfg.reduced(jcfg.get_config("mixtral-8x7b"), layers=2)
+    tc = tcfg.reduced(tcfg.get_config("mixtral-8x7b"), layers=2)
+    jp = jm.init_params(jc, jax.random.PRNGKey(2))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, jc.vocab_size, n).astype(np.int32)
+               for n in (9, 6, 12, 7)]
+    geo = dict(block_size=4, num_blocks=10, max_batch=4, max_len=24)
+    jeng = js.ServingEngine(jc, jp, **geo)
+    teng = ts.ServingEngine(tc, tp, device="cpu", **geo)
+    jlog = _record_decode_logits(jeng, port=False)
+    tlog = _record_decode_logits(teng, port=True)
+    for eng, Req in ((jeng, js.Request), (teng, ts.Request)):
+        for i, p in enumerate(prompts):
+            eng.submit(Req(rid=i, prompt=p, max_new_tokens=10))
+    jdone, tdone = jeng.run_until_drained(), teng.run_until_drained()
+    assert teng.stats.preempted == jeng.stats.preempted > 0
+    assert len(tlog) == len(jlog) > 0
+    for i, (a, b) in enumerate(zip(tlog, jlog)):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"decode step {i}")
+    top2 = np.sort(np.concatenate([x[:, -1] for x in jlog]), -1)[:, -2:]
+    assert (top2[:, 1] - top2[:, 0]).min() > 1e-3, "a near-tie"
+    for i in range(len(prompts)):
+        assert tdone[i].output == jdone[i].output, i
+    assert teng.stats.leaked_blocks == 0
+    assert teng.allocator.num_in_use == 0
+
+
 def test_engine_rejects_overflow_and_small_pool(setup):
     _, tc, _, tp = setup
     eng = ts.ServingEngine(tc, tp, block_size=4, num_blocks=32,

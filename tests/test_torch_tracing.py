@@ -264,6 +264,8 @@ PRICED = {
     "pow": (lambda a: jnp.abs(a) ** 1.5, lambda a: torch.abs(a) ** 1.5),
     "silu": (lambda a: a * lax.logistic(a), F.silu),
     "matmul": (lambda a: a @ _JW, lambda a: a @ _TW),
+    "cumsum": (lambda a: jnp.cumsum(a, -1), lambda a: a.cumsum(-1)),
+    "topk": (lambda a: lax.top_k(a, 2)[0], lambda a: a.topk(2).values),
 }
 
 
@@ -276,3 +278,43 @@ def test_op_pricing_matches_reference(name):
     jt = repro.trace(jf, jnp.asarray(x))
     tt = tapi.trace(tf, torch.from_numpy(x))
     assert tt.graph.op_flops.sum() == jt.graph.op_flops.sum() > 0
+
+
+def test_moe_topk_routing_replay():
+    """The MoE layer's routing (softmax, top-k, the cumsum of slots, the
+    one-hot dispatch and combine) mixes value and index outputs: the
+    recorded program of its forward, and of its gradient, replays to the
+    eager results (the reference's test of the same name)."""
+    from repro_torch.core.executor import execute
+    from repro_torch.models.moe import apply_moe, moe_init
+    cfg = dataclasses.replace(tcfg.reduced(tcfg.get_config("mixtral-8x7b")),
+                              moe=dataclasses.replace(
+                                  tcfg.get_config("mixtral-8x7b").moe,
+                                  num_experts=4, d_ff=32,
+                                  capacity_factor=0.75))
+    p = moe_init(cfg, torch.Generator().manual_seed(1))
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(2))
+
+    def fwd(p, x):
+        out, aux = apply_moe(cfg, p, x)
+        return (out ** 2).sum() + aux
+
+    tr = tapi.trace(fwd, p, x, record=True)
+    names = [n.split(".")[0] for n in tr.graph.names]
+    assert {"sort", "cumsum", "bmm"} <= set(names)
+    assert torch.equal(execute(tr.program, None, None, p, x), fwd(p, x))
+
+    def grad(p, x):
+        leaves, spec = tree_flatten((p, x))
+        req = [t.detach().requires_grad_() for t in leaves]
+        with torch.enable_grad():
+            loss = fwd(*tree_unflatten(spec, req))
+            return torch.autograd.grad(loss, req)
+
+    tr = tapi.trace(grad, p, x, record=True, autograd=True)
+    got = execute(tr.program, None, None, p, x)
+    want = grad(p, x)
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

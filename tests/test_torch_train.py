@@ -32,10 +32,11 @@ from repro_torch import api  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.conformance import (make_train_step,  # noqa: E402
                                      run_conformance, spec_for)
+from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.tree import tree_flatten, tree_map  # noqa: E402
 
 TOL = dict(atol=2e-4, rtol=2e-4)
-ARCHS = ["granite-8b", "repro-lm-100m", "rwkv6-7b"]
+ARCHS = ["granite-8b", "mixtral-8x7b", "repro-lm-100m", "rwkv6-7b"]
 B, S = 2, 16
 
 
@@ -106,7 +107,10 @@ def test_loss_and_every_grad_leaf_match_reference(model):
         lambda p: jm.loss_fn(jc, p, _jbatch(batch)), has_aux=True)(jp)
     loss, parts = tm.loss_fn(tc, tp, _tbatch(batch))
     np.testing.assert_allclose(float(loss), float(jloss), **TOL)
-    assert float(parts["aux"]) == float(jparts["aux"]) == 0.0
+    np.testing.assert_allclose(float(parts["ce"]), float(jparts["ce"]), **TOL)
+    np.testing.assert_allclose(float(parts["aux"]), float(jparts["aux"]),
+                               **TOL)
+    assert (float(parts["aux"]) > 0) == (tc.moe is not None)
     _, _, grads = make_train_step(tc, return_grads=True)(tp, _tbatch(batch))
     assert isinstance(grads["periods"], list)
     _assert_leaves_close(_restack(grads), jgrads, **TOL)
@@ -121,6 +125,19 @@ def test_train_step_matches_reference(model):
     _assert_leaves_close(new, jnew, **TOL)
 
 
+def test_in_place_step_equals_the_functional_step(model):
+    """``in_place=True`` writes the functional step's new parameters
+    into the given tree, bit for bit, and returns that tree."""
+    _, tc, _, tp, batch = model
+    loss, new = make_train_step(tc, lr=1e-3)(tp, _tbatch(batch))
+    mine = tree_map(torch.clone, tp)
+    loss2, out = make_train_step(tc, lr=1e-3, in_place=True)(
+        mine, _tbatch(batch))
+    assert out is mine and torch.equal(loss, loss2)
+    for a, b in zip(tree_flatten(mine)[0], tree_flatten(new)[0]):
+        assert torch.equal(a, b)
+
+
 def test_forward_takes_unstacked_periods(model):
     """The list of per-period views gives the stacked tree's forward
     bit for bit, and restacking gives the stacked tensors back."""
@@ -129,8 +146,8 @@ def test_forward_takes_unstacked_periods(model):
     pos = torch.arange(S, dtype=torch.int32)
     un = tm.unstack_periods(tc, tp)
     assert len(un["periods"]) == tc.num_periods
-    a, _ = tm.forward(tc, tp, x, positions=pos)
-    b, _ = tm.forward(tc, un, x, positions=pos)
+    a, _, _ = tm.forward(tc, tp, x, positions=pos)
+    b, _, _ = tm.forward(tc, un, x, positions=pos)
     assert torch.equal(a, b)
     for s, r in zip(tree_flatten(tp)[0], tree_flatten(_restack(un))[0]):
         assert torch.equal(s, r)
@@ -141,7 +158,12 @@ def _dot_flops_formula(cfg, batch: int, seq: int) -> float:
     forward and 8·B·H·S²·hd backward (dense S², as the reference's graph
     of its ``_plain_gqa`` counts); or the RWKV6 recurrence's chunked
     products, 2·B·H·n·(2·C²·hd + 2·C·hd²) forward (chunks of C = min(64,
-    S) tokens, n of them) and twice that backward."""
+    S) tokens, n of them) and twice that backward. An MoE layer's FFN is
+    its router (3 x 2·T·d·E), the dispatch product (forward and the
+    activations' gradient: 2 x 2·G·N·E·C·d), the combine product (3 x
+    2·G·N·E·C·d: the combine weights take a gradient through the router)
+    and the three expert products on E·G·C rows (3 x 3 x 2·E·G·C·d·f),
+    for G groups of N tokens and C slots."""
     T = batch * seq
     d = cfg.d_model
     if cfg.rwkv is not None:
@@ -151,9 +173,15 @@ def _dot_flops_formula(cfg, batch: int, seq: int) -> float:
         mixer = 3 * 2 * batch * (d // hd) * n * (2 * C * C * hd
                                                   + 2 * C * hd * hd)
     else:
-        per_layer = (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
-                     + 3 * d * cfg.d_ff)
+        per_layer = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
         mixer = 12 * batch * cfg.num_heads * seq ** 2 * cfg.head_dim
+        if cfg.moe is None:
+            per_layer += 3 * d * cfg.d_ff
+        else:
+            E, N = cfg.moe.num_experts, min(1024, T)
+            G, C = T // N, moe_capacity(cfg, N)
+            mixer += (6 * T * d * E + 10 * G * N * E * C * d
+                      + 18 * E * G * C * d * cfg.moe.d_ff)
     mm = cfg.num_layers * per_layer + d * cfg.padded_vocab
     return 6.0 * T * mm + cfg.num_layers * mixer
 

@@ -282,7 +282,8 @@ def test_checkpoint_written_by_port_restores_in_reference(tmp_path):
 
 
 # -------------------------------------------------------------- train step
-@pytest.fixture(scope="module", params=["granite-8b", "rwkv6-7b"])
+@pytest.fixture(scope="module", params=["granite-8b", "mixtral-8x7b",
+                                              "rwkv6-7b"])
 def model(request):
     name = request.param
     jc = jcfg.reduced(jcfg.get_config(name), layers=2)
@@ -405,6 +406,26 @@ def test_launch_train_runs_and_resumes_in_process(tmp_path):
                   ckpt_every=2, device="cpu")
     assert [h["step"] for h in again.state.history] == [4, 5]
     assert CheckpointManager(str(tmp_path)).all_steps() == [2, 3, 4, 5][-3:]
+
+
+def test_launch_train_mixtral_loss_carries_the_aux_loss():
+    """``launch.train``'s body on reduced mixtral (AdamW): the first
+    step's loss is ce + router_aux_weight x the routers' load-balancing
+    loss of the same weights and batch."""
+    from repro_torch.models import init_params, loss_fn
+    cfg = tcfg.reduced(tcfg.get_config("mixtral-8x7b"), layers=2)
+    loop = train(cfg, steps=2, batch=2, seq=16, device="cpu", log_every=1)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = make_batch(DataConfig(batch_size=2, seq_len=16,
+                                  vocab_size=cfg.vocab_size, seed=0), 0)
+    loss, parts = loss_fn(cfg, params,
+                          {k: torch.as_tensor(v) for k, v in batch.items()},
+                          remat_policy="full")
+    assert float(parts["aux"]) > 0
+    want = float(parts["ce"] + cfg.moe.router_aux_weight * parts["aux"])
+    assert float(loss) == pytest.approx(want, rel=1e-6)
+    assert loop.state.history[0]["loss"] == pytest.approx(want, rel=1e-6)
+    assert loop.state.step == 2
 
 
 def _cli(*args, cwd):
