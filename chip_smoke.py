@@ -217,7 +217,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 19. mixtral train: mixtral-8x7b's SGD step at full width (bf16, B=1,
    S=2048, lr 1e-3, the loss with its router term): (a) in place, at
    the depth the printed arithmetic allows (parameters and grads): L
-   flash forward and L backward launches, all sm90, loss near ln V; step
+   flash forward and L backward launches, all sm90, the cross entropy
+   at init near ln V; step
    ms, tokens/s, peak memory, device time by role; (b) traced,
    partitioned at K=4 under half the card per PE at the deepest depth
    whose plan's summed peaks and the returned clones fit 90% of the card
@@ -226,6 +227,43 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    every leaf within TRAIN_GATE of the eager step; nodes, partition
    seconds, predicted makespan, async, sync and eager ms, logical peak
    per PE beside the plan's.
+20. wide head kernels: the fma flash kernels at the head dims this
+   slice puts on main paths, in bf16: hd 192 at deepseek-v2-lite's
+   training shape (B=1, S=2048, 16 heads, v zero-padded from 128, as
+   ``apply_mla`` pads it; forward and backward), hd 256 at gemma3-1b's
+   prefill shape (B=8, S=1024, 4 / 1 heads) and at its training shape
+   with window 1024 at S=2048 (forward and backward): each against its
+   plain version under the gates of phases 3 and 12, repeated calls
+   bit-equal, timed in turns with the plain version and SDPA at the same
+   shape (the backend that took it, v at its own width) beside the bound
+   of the work these inputs need; the sm90 forward held at qwen2.5-14b's
+   and starcoder2-7b's prefill shapes (GQA groups of 5 and 9);
+21. deepseek serve: deepseek-v2-lite-16b in bf16 (random weights from a
+   seed) at full width and the depth the printed arithmetic lets 90% of
+   the card hold (all 27 layers) at the serve phase's geometry: no flash
+   launch (MLA with a cache attends in the latent space, as plain
+   products), 0 leaked blocks; the engine's first prefill logits equal
+   ``prefill_batched`` on the same padded batch and its first decode
+   step's within 2^-7 of their scale of ``decode_step`` on that
+   prefill's dense caches (the 3-D latent and rope-key leaves through
+   the pages); a second drain gives the same tokens; a starved pool
+   preempts and leaks nothing; tok/s, TTFT p50, prefill and decode ms and
+   busy share, peak memory, device time by role (MLA attention, expert
+   products, dispatch and combine, router, the rest) and the share of
+   routed assignments capacity dropped, on the first prefill and decode
+   step;
+22. deepseek train: its SGD step as phase 19 runs mixtral's: eager at
+   the depth the printed arithmetic allows (all 27 layers), L fma flash
+   forward and L fma backward launches at hd 192, the cross entropy at
+   init near ln V; the K=4 plan at the deepest depth that folds onto the
+   card, verified, async = sync, every leaf within TRAIN_GATE of eager;
+23. dense configs: gemma3-1b served and trained eagerly at all 26 layers
+   (every flash launch fma at hd 256, window 1024 on 22 of them);
+   qwen2.5-14b (48 layers) and starcoder2-7b (32) served with a short
+   drain, every prefill launch sm90; tok/s, TTFT, decode ms and peak
+   memory for each.
+
+Each phase's seconds are printed when it ends.
 
 ``--phases`` (a comma list of the names in ``PHASES``; default all) runs
 a subset, for iterating on one kernel; the card's name is always read.
@@ -2028,16 +2066,10 @@ def _hold_bwd(torch, label, got, again, want, dt) -> tuple:
 SPLIT_CALLS = 20
 
 
-def kernel_split(torch, fn, names, calls: int = SPLIT_CALLS) -> dict:
-    """{name: (device ms per launch, launches recorded)} for each named
-    kernel that ``fn`` launches once a call, from torch.profiler over
-    ``calls`` calls (after a warm-up). torch.profiler has missed the
-    first kernels launched in its window, up to all 5 of a 5-call window
-    late in this script: the profiler runs one unrecorded step of
-    ``calls`` calls first, which cut the misses but did not end them,
-    and the window is long enough that a few missed leave most recorded.
-    The mean is over the launches recorded; a kernel it recorded none of
-    reads None, not a time."""
+def _device_events(torch, fn, calls: int) -> list:
+    """torch.profiler's device events (key averages) over ``calls``
+    calls of ``fn``, recorded after a warm-up call and one unrecorded
+    profiler step of ``calls`` calls."""
     from torch.profiler import ProfilerActivity, schedule
     fn()
     torch.cuda.synchronize()
@@ -2051,8 +2083,23 @@ def kernel_split(torch, fn, names, calls: int = SPLIT_CALLS) -> dict:
                 fn()
             torch.cuda.synchronize()
             prof.step()
-    evs = [e for e in got[-1]
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device side of the profiler's own step annotation is no kernel
+    return [e for e in got[-1]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+def kernel_split(torch, fn, names, calls: int = SPLIT_CALLS) -> dict:
+    """{name: (device ms per launch, launches recorded)} for each named
+    kernel that ``fn`` launches once a call, from torch.profiler over
+    ``calls`` calls (after a warm-up). torch.profiler has missed the
+    first kernels launched in its window, up to all 5 of a 5-call window
+    late in this script: the profiler runs one unrecorded step of
+    ``calls`` calls first, which cut the misses but did not end them,
+    and the window is long enough that a few missed leave most recorded.
+    The mean is over the launches recorded; a kernel it recorded none of
+    reads None, not a time."""
+    evs = _device_events(torch, fn, calls)
     split = {}
     for name in names:
         hits = [e for e in evs if name in e.key]
@@ -2213,24 +2260,39 @@ def train_dot_flops(cfg, batch: int, seq: int) -> float:
     """Product FLOPs of one training step from the config: 3 x 2·T·(the
     matmul parameters, lm head included) and, per layer, the attention's
     dense products, 4·B·H·S²·hd forward and 8·B·H·S²·hd backward (priced
-    as the reference's graph prices its ``_plain_gqa``). An MoE layer's
-    FFN (mixtral) on G groups of N tokens with C slots an expert: the
-    router 3 x 2·T·d·E, dispatch 2 x 2·G·N·E·C·d (no gradient into the
-    one-hots), combine 3 x that (its weights take a gradient through the
-    router), the expert products 3 x 3 x 2·E·G·C·d·f."""
-    T, d = batch * seq, cfg.d_model
-    per_layer = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
-    attn = 12.0 * batch * cfg.num_heads * seq ** 2 * cfg.head_dim
-    if cfg.moe is None:
-        per_layer += 3 * d * cfg.d_ff
-    else:
-        from repro_torch.models.moe import capacity
-        E, N = cfg.moe.num_experts, min(1024, T)
-        G, C = T // N, capacity(cfg, N)
-        attn += (6 * T * d * E + 10 * G * N * E * C * d
-                 + 18 * E * G * C * d * cfg.moe.d_ff)
-    mm = cfg.num_layers * per_layer + d * cfg.padded_vocab
-    return 6.0 * T * mm + cfg.num_layers * attn
+    as the reference's graph prices its ``_plain_gqa``; an MLA layer's hd
+    is nope + rope, the width its zero-padded v reaches the kernel at,
+    and its matmul parameters its six projections). An MoE layer's FFN
+    on G groups of N tokens with C slots an expert: the router 3 x
+    2·T·d·E, dispatch 2 x 2·G·N·E·C·d (no gradient into the one-hots),
+    combine 3 x that (its weights take a gradient through the router),
+    the expert products 3 x m x 2·E·G·C·d·f (m matrices an expert) and
+    the shared experts' dense products."""
+    from repro_torch.models.moe import capacity
+    T, d, H = batch * seq, cfg.d_model, cfg.num_heads
+    mats = 3 if cfg.gated_mlp else 2
+    mm, attn = d * cfg.padded_vocab, 0.0
+    for kind in list(cfg.prelude) + list(cfg.block_pattern) \
+            * cfg.num_periods:
+        if kind.startswith("mla"):
+            r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim,
+                             cfg.qk_rope_dim, cfg.v_head_dim)
+            mm += (d * H * (nd + rd) + d * (r + rd) + r * H * (nd + vd)
+                   + H * vd * d)
+            attn += 12.0 * batch * H * seq ** 2 * (nd + rd)
+        else:
+            mm += d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+            attn += 12.0 * batch * H * seq ** 2 * cfg.head_dim
+        if kind.endswith("moe"):
+            m = cfg.moe
+            E, N = m.num_experts, min(1024, T)
+            G, C = T // N, capacity(cfg, N)
+            mm += mats * d * m.d_ff * m.num_shared_experts
+            attn += (6 * T * d * E + 10 * G * N * E * C * d
+                     + 6 * mats * E * G * C * d * m.d_ff)
+        else:
+            mm += mats * d * cfg.d_ff
+    return 6.0 * T * mm + attn
 
 
 def _profile_step(torch, label: str, fn,
@@ -2264,7 +2326,8 @@ def _profile_step(torch, label: str, fn,
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
             f"{e.key[:90]}")
-    return {"wall_ms": host_ms, "busy_ms": busy_ms, "counts": counts}
+    return {"wall_ms": host_ms, "busy_ms": busy_ms, "counts": counts,
+            "named_ms": named_ms}
 
 
 def _train_leaves(out) -> list:
@@ -3442,23 +3505,31 @@ def phase_launch_train(torch, card: str) -> None:
 # ---------------------------------------------------------------------------
 # mixtral-8x7b: the MoE family served and trained at full width
 # ---------------------------------------------------------------------------
-#: the flash kernels by name (forward sm90 and fma; sm90 backward's four)
+#: the flash kernels by name (forward sm90 and fma; the sm90 backward's
+#: four kernels; the fma backward's three)
 FLASH_KERNEL_NAMES = FWD_KERNELS + ("bwd_delta_sm90", "bwd_dkdv_sm90",
-                                    "bwd_reduce_sm90", BWD_KERNEL)
+                                    "bwd_reduce_sm90", BWD_KERNEL,
+                                    "bwd_prep", "bwd_dkdv", "bwd_dq")
 
 
 def _product_role(cfg, shapes, slots: int) -> str:
     """The role of one aten mm / bmm in an MoE step, from its operands'
     shapes: an expert product has a dim of the expert d_ff; dispatch and
-    combine a dim of the E·C slots; the router E as an operand's last
-    dim; the plain (decode) attention the head dim and not d_model."""
+    combine a dim of the E·C slots; the router d_model and E as an
+    operand's last dim; MLA's absorbed attention (deepseek serving) the
+    latent rank or the rope width and not d_model; the plain (decode)
+    attention the head dim and not d_model."""
     dims = {x for s in shapes for x in (s or [])}
     if cfg.moe.d_ff in dims:
         return "experts"
     if slots in dims:
         return "dispatch/combine"
-    if any(s and s[-1] == cfg.moe.num_experts for s in shapes):
+    if cfg.d_model in dims and any(s and s[-1] == cfg.moe.num_experts
+                                   for s in shapes):
         return "router"
+    if cfg.kv_lora_rank and cfg.d_model not in dims and (
+            cfg.kv_lora_rank in dims or cfg.qk_rope_dim in dims):
+        return "MLA attention"
     if cfg.head_dim in dims and cfg.d_model not in dims:
         return "plain attention"
     return "other products"
@@ -3488,7 +3559,9 @@ def _moe_profile(torch, label: str, fn, cfg, group: int) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     roles = dict.fromkeys(("experts", "dispatch/combine", "router",
                            "plain attention", "other products",
-                           "flash kernels"), 0.0)
+                           "flash kernels")
+                          + (("MLA attention",) if cfg.kv_lora_rank
+                             else ()), 0.0)
     calls = dict.fromkeys(roles, 0)
     for e in prof.key_averages(group_by_input_shape=True):
         if e.device_type != cuda and e.key in ("aten::mm", "aten::bmm"):
@@ -3608,7 +3681,6 @@ def phase_mixtral_serve(torch, cfg, card: str) -> dict:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.models import init_params, layers, prefill_batched
     from repro_torch.serving import Request, ServingEngine
-    from repro_torch import obs
     t_phase = time.perf_counter()
     _release(torch)
     big = _requests(Request, cfg, 8, seed=0)
@@ -3650,8 +3722,6 @@ def phase_mixtral_serve(torch, cfg, card: str) -> dict:
     # (a) the measured run on the kernel path
     eng = ServingEngine(deep, params, device="cuda", **GEOMETRY)
     reqs = _requests(Request, deep, 8, seed=0)
-    for r in reqs:
-        eng.submit(r)
     windows = []
     mha = layers.multi_head_attention
 
@@ -3661,33 +3731,12 @@ def phase_mixtral_serve(torch, cfg, card: str) -> dict:
         return mha(q, k, v, **kw)
     layers.multi_head_attention = seen
     record = _Steps(eng, reqs)
-    tracer = obs.get_tracer()
-    tracer.drain()
-    obs.enable(True)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
     try:
-        done = eng.run_until_drained()
-        torch.cuda.synchronize()
+        run = _drain(torch, deep, eng, reqs, "mixtral_serve")
     finally:
         layers.multi_head_attention = mha
         record.restore()
-        obs.enable(False)
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    spans = {}
-    for ev in tracer.drain():
-        if ev[0] == "X":
-            spans.setdefault(ev[1], []).append(ev[6] / 1e3)   # ms
-    s = eng.stats
-    assert len(done) == len(reqs), f"{len(done)} of {len(reqs)} completed"
-    assert all(len(r.output) == r.max_new_tokens for r in done.values())
-    assert all(0 <= t < cfg.vocab_size for r in done.values()
-               for t in r.output), "token outside the vocab"
-    assert s.leaked_blocks == 0, f"{s.leaked_blocks} blocks leaked"
+    s, launches, done = run["stats"], run["launches"], run["done"]
     want = layers_n * s.prefill_calls
     assert launches["flash_attention"] == want > 0, \
         f"flash_attention launched {launches['flash_attention']} times, " \
@@ -3698,18 +3747,6 @@ def phase_mixtral_serve(torch, cfg, card: str) -> dict:
     assert set(windows) == {cfg.sliding_window} and len(windows) == want, \
         f"flash windows {sorted(set(windows))} over {len(windows)} calls"
     assert launches["flash_attention_bwd"] == launches["wkv6"] == 0
-    summary = s.to_dict()
-    decode_ms = spans.get("serving/decode_step", [])
-    log(f"mixtral_serve: {len(done)} requests, {s.prefill_tokens} prompt "
-        f"tokens, {s.generated_tokens} generated in {wall:.3f} s -> "
-        f"{s.generated_tokens / wall:.1f} tok/s; ttft p50 "
-        f"{summary['ttft_p50_s']:.4f} s; {s.prefill_calls} prefill calls "
-        f"({', '.join(f'{t:.1f}' for t in spans.get('serving/prefill_batch', []))}"
-        f" ms); {s.decode_steps} decode steps, median "
-        f"{statistics.median(decode_ms):.2f} ms; {s.preempted} "
-        f"preemptions; peak {s.peak_blocks_in_use}/"
-        f"{eng.allocator.capacity} blocks; max_memory_allocated "
-        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); {card}")
     log(f"mixtral_serve: flash_attention launches "
         f"{launches['flash_attention']} = {layers_n} layers x "
         f"{s.prefill_calls} prefill calls, "
@@ -3790,13 +3827,13 @@ def phase_mixtral_serve(torch, cfg, card: str) -> dict:
     _release(torch)
 
     log(f"mixtral_serve summary: {layers_n} layers, "
-        f"{s.generated_tokens / wall:.1f} tok/s, ttft p50 "
-        f"{summary['ttft_p50_s'] * 1e3:.1f} ms, decode median "
-        f"{statistics.median(decode_ms):.2f} ms, device busy prefill "
+        f"{run['tok_s']:.1f} tok/s, ttft p50 "
+        f"{run['ttft_p50'] * 1e3:.1f} ms, decode median "
+        f"{run['decode_ms']:.2f} ms, device busy prefill "
         f"{prefill['busy_ms'] / prefill['wall_ms']:.1%} decode "
         f"{decode['busy_ms'] / decode['wall_ms']:.1%}, peak "
-        f"{peak / 2**30:.2f} GiB; phase {time.perf_counter() - t_phase:.1f}"
-        f" s; {card}")
+        f"{run['peak'] / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
     del params, record, forced, kernel_first, p_args, d_args
     log(f"mixtral_serve: {_release(torch):.3f} GiB left allocated")
     return launches
@@ -3812,23 +3849,42 @@ def _same_host(torch, got, host) -> bool:
         torch.equal(a, h.to(a.device)) for a, h in zip(g, host))
 
 
-def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
-    """mixtral-8x7b's SGD step at full width (bf16, random weights from
+#: the plan path's depth search starts at the deepest L with PLAN_START
+#: x P(L) under 90% of the card: folded onto one card, the K=4 plans'
+#: summed per-PE peaks and the returned clones came to 7.5 P (mixtral, 3
+#: layers) and 8.2 P (deepseek-v2-lite, 8 layers)
+PLAN_START = 7
+
+
+def phase_moe_train(torch, cfg, card: str, label: str,
+                    variant: str) -> dict:
+    """An MoE config's SGD step at full width (bf16, random weights from
     a seed, B=1, S=2048, lr 1e-3, the loss with its router term): (a)
     eager, in place, as deep as the printed arithmetic lets 90% of the
-    card hold it: L flash forward and L backward launches, all sm90;
-    (b) the step traced at the plan depth (its own printed arithmetic:
-    the runtime keeps new parameters and grads as outputs and returns
-    clones of them), partitioned at K=4 under half the card per PE,
-    verified, executed with its PEs folded onto the card: async = sync
-    bit for bit, every leaf within TRAIN_GATE of the eager step."""
+    card hold it: L flash forward and L backward launches, all of the
+    kernel ``variant`` and at the config's attention head dim (for MLA
+    nope + rope, v zero-padded to it); (b) the step traced at the plan
+    depth (its own printed arithmetic: the runtime keeps new parameters
+    and grads as outputs and returns clones of them; the search starts
+    at the deepest L with PLAN_START x P(L) under 90% of the card),
+    partitioned at K=4 under half the card per PE, verified, executed
+    with its PEs folded onto the card: async = sync bit for bit, every
+    leaf within TRAIN_GATE of the eager step. Returns the eager step's
+    launch counts."""
     from repro_torch import api
     from repro_torch.conformance import make_train_step
     from repro_torch.core.graph import RESIDUAL
     from repro_torch.core.tracing import _functional_graph, op_name
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, layers as model_layers
+    from repro_torch.models import loss_fn
     from repro_torch.tree import tree_flatten
     t_phase = time.perf_counter()
+    mla = bool(cfg.kv_lora_rank)
+    hd = cfg.qk_nope_dim + cfg.qk_rope_dim if mla else cfg.head_dim
+
+    def n_moe(c) -> int:
+        return sum(k.endswith("moe") for k in
+                   list(c.prelude) + list(c.block_pattern) * c.num_periods)
     _release(torch)
     B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
     total = torch.cuda.get_device_properties(0).total_memory
@@ -3843,45 +3899,78 @@ def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
         st = make_train_step(c, lr, in_place=True)
         return p, lambda: st(p, batch)
     layers_n, p1, p0 = fit_depth(
-        torch, cfg, "mixtral_train", sgd_step,
+        torch, cfg, label, sgd_step,
         "2P (parameters and grads; the update in place)")
     deep = dataclasses.replace(cfg, num_layers=layers_n)
     params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     step = make_train_step(deep, lr, in_place=True)
+    # the loss at init, without a gradient: its cross entropy near ln V;
+    # the router term adds w x aux. aux is E x sum_e (share of the
+    # assignments to e) x (mean probability of e) a layer: K when
+    # balanced, more when the routing is correlated, at most E
+    with torch.no_grad():
+        _, parts = loss_fn(deep, params, batch)
+    ce, aux = float(parts["ce"]), float(parts["aux"])
+    n_layers = n_moe(deep)
+    log(f"{label} eager: at init ce {ce:.4f} (ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f}), aux {aux:.4f} over {n_layers} "
+        f"MoE layers ({aux / n_layers:.4f} a layer; K = "
+        f"{cfg.moe.experts_per_token})")
+    assert math.isfinite(aux) and abs(ce - math.log(cfg.vocab_size)) < 2, \
+        f"{label} eager: ce {ce} far from ln V at init"
+    assert cfg.moe.experts_per_token / 2 <= aux / n_layers \
+        <= cfg.moe.num_experts, \
+        f"{label} eager: aux {aux / n_layers} a layer outside [K/2, E]"
+    del parts
     step(params, batch)                 # warm-up: cuBLAS, the allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    widths = []
+    mha = model_layers.multi_head_attention
+
+    def seen(q, k, v, **kw):
+        widths.append((q.shape[-1], v.shape[-1], kw["window"]))
+        return mha(q, k, v, **kw)
+    model_layers.multi_head_attention = seen
     reset_counts()
     t0 = time.perf_counter()
-    loss, _ = step(params, batch)
-    torch.cuda.synchronize()
+    try:
+        loss, _ = step(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        model_layers.multi_head_attention = mha
     first_s = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": layers_n, "flash_attention/sm90": layers_n,
+    want = {"flash_attention": layers_n,
+            f"flash_attention/{variant}": layers_n,
             "flash_attention_bwd": layers_n,
-            "flash_attention_bwd/sm90": layers_n, "wkv6": 0}
+            f"flash_attention_bwd/{variant}": layers_n, "wkv6": 0}
     got = {k: launches[k] for k in want}
-    log(f"mixtral_train eager: {layers_n} layers, loss {float(loss):.4f} "
-        f"(ce + {cfg.moe.router_aux_weight} x aux; ln {cfg.vocab_size} = "
-        f"{math.log(cfg.vocab_size):.4f}), launches {got}, "
+    window = None if mla else cfg.sliding_window
+    log(f"{label} eager: flash calls at (q/k head dim, v width as "
+        f"called, window) {sorted(set(widths))} x {len(widths)}")
+    assert widths == [(hd, hd, window)] * layers_n, \
+        f"{label}: attention calls {sorted(set(widths))} x {len(widths)}"
+    log(f"{label} eager: {layers_n} layers, loss after one update "
+        f"{float(loss):.4f} (ce + {cfg.moe.router_aux_weight} x aux), "
+        f"launches {got}, "
         f"max_memory_allocated {peak / 2**30:.3f} GiB ({peak / gb:.2f} GB),"
         f" one step {first_s * 1e3:.1f} ms")
-    assert got == want, f"mixtral_train eager: launches {got}, want {want}"
-    assert math.isfinite(float(loss)) and \
-        abs(float(loss) - math.log(cfg.vocab_size)) < 2, \
-        f"mixtral_train eager: loss {float(loss)} far from ln V at init"
+    assert got == want, f"{label} eager: launches {got}, want {want}"
+    assert math.isfinite(float(loss)), f"{label} eager: loss {float(loss)}"
     step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
-    prof = _moe_profile(torch, f"mixtral train eager {layers_n} layers "
+    prof = _moe_profile(torch, f"{label} eager {layers_n} layers "
                         f"B={B} S={S}", lambda: step(params, batch), deep,
                         group)
-    log(f"mixtral_train eager: median step {step_ms:.2f} ms, "
+    flash = prof["roles"]["flash kernels"]
+    log(f"{label} eager: median step {step_ms:.2f} ms, "
         f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
         f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
-        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); {card}")
-    if record is not None:
-        record["mixtral_train_launches"] = launches["flash_attention_bwd"]
+        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); the flash kernels "
+        f"{flash:.3f} ms ({flash / prof['busy_ms']:.1%} of device time); "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB; {card}")
     del params, step, loss
     _release(torch)
 
@@ -3893,7 +3982,7 @@ def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
     k = 4
     fit = 0.9 * total
     L = max([n for n in range(1, layers_n + 1)
-             if 5 * (p0 + n * p1) <= fit] or [1])
+             if PLAN_START * (p0 + n * p1) <= fit] or [1])
     while True:
         mid = dataclasses.replace(cfg, num_layers=L)
         params = init_params(mid, torch.Generator(device="cuda")
@@ -3909,7 +3998,7 @@ def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
         part_s = time.perf_counter() - t0
         pbytes = _param_bytes(params)
         need = float(sum(plan.peak_mem)) + 2 * pbytes
-        log(f"mixtral_train plan: depth arithmetic at {L} layers: the "
+        log(f"{label} plan: depth arithmetic at {L} layers: the "
             f"K={k} plan's peaks [" + ", ".join(
                 f"{p / gb:.2f}" for p in plan.peak_mem) + f"] GB sum to "
             f"{float(sum(plan.peak_mem)) / gb:.2f} GB, plus the returned "
@@ -3932,7 +4021,7 @@ def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
                    and isinstance(n.meta.get("val"), torch.Tensor)
                    and tuple(n.meta["val"].shape) in stacked)
     del gm
-    log(f"mixtral_train plan: traced the {L}-layer step in {trace_s:.2f} "
+    log(f"{label} plan: traced the {L}-layer step in {trace_s:.2f} "
         f"s: {g.n} nodes, {names.count('flash_attention')} flash forward "
         f"and {names.count('flash_attention_bwd')} backward nodes, "
         f"{names.count('sort')} sort and {names.count('cumsum')} cumsum "
@@ -3944,7 +4033,7 @@ def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
         f"product FLOPs {dot:.6g} (from the config {want_dot:.6g})")
     assert names.count("flash_attention") == L and \
         names.count("flash_attention_bwd") == L
-    assert names.count("sort") == L and names.count("cumsum") == L
+    assert names.count("sort") == names.count("cumsum") == n_moe(mid)
     assert "select_backward" not in names
     assert whole == ["stack"] * len(stacked), \
         f"whole-stack nodes other than the restacks: {whole}"
@@ -3953,7 +4042,7 @@ def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
     assert a.shape == (g.n,) and a.min() >= 0 and a.max() < k
     rep = plan.verify(strict=True)
     c = rep.counts()
-    log(f"mixtral_train plan: K={k} under {total / 2 / 2**30:.3f} GiB per "
+    log(f"{label} plan: K={k} under {total / 2 / 2**30:.3f} GiB per "
         f"PE: partition {part_s:.2f} s, feasible={plan.feasible}, "
         f"predicted makespan {plan.makespan * 1e3:.3f} ms, peaks [" +
         ", ".join(f"{p / 2**30:.3f}" for p in plan.peak_mem) +
@@ -3974,23 +4063,23 @@ def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
     first = run("sync")
     first_peak = torch.cuda.max_memory_allocated()
     st = plan._compiled_runtime[1].stats
-    bit = _hold_train(torch, f"mixtral K={k} plan", first, want_host)
+    bit = _hold_train(torch, f"{label} K={k} plan", first, want_host)
     first_host = _host(_train_leaves(first))
     del first, want_host
     same = all(_same_host(torch, run(mode), first_host)
                for mode in ("async", "sync"))
-    log(f"mixtral_train plan: {st.num_segments} segments "
+    log(f"{label} plan: {st.num_segments} segments "
         f"{st.segments_per_device} per PE, capture "
         f"{st.compile_seconds:.2f} s; async and sync bit-equal to the "
         f"first call: {same}")
-    assert same, "mixtral_train plan: sync and async dispatch disagree"
+    assert same, f"{label} plan: sync and async dispatch disagree"
     assert st.graph_replays == st.num_segments and st.eager_segments == 0, \
         f"{st.graph_replays} replays, {st.eager_segments} eager segments"
     del first_host
     ms = {"async": _wall_ms(torch, lambda: run("async"), n=3),
           "sync": _wall_ms(torch, lambda: run("sync"), n=3)}
     gib = 2 ** 30
-    log(f"mixtral_train plan summary ({L} layers, K={k} folded onto the "
+    log(f"{label} plan summary ({L} layers, K={k} folded onto the "
         f"card): {g.n} nodes, partition {part_s:.2f} s, predicted makespan "
         f"{plan.makespan * 1e3:.3f} ms; median wall async {ms['async']:.2f} "
         f"ms, sync {ms['sync']:.2f} ms, eager {eager_ms:.2f} ms; logical "
@@ -4003,13 +4092,599 @@ def phase_mixtral_train(torch, cfg, card: str, record: dict) -> None:
         f"{time.perf_counter() - t_phase:.1f} s; {card}")
     del plan, traced, params, step
     _release(torch)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the wide head dims (MLA's 192, gemma3's 256) and the other GQA groups
+# ---------------------------------------------------------------------------
+#: the fma kernels' shapes on this slice's main paths, in bf16:
+#: (label, B, H, KV, S, q/k head dim, v width, window, backward). v is
+#: zero-padded from its width to the head dim as ``apply_mla`` pads it,
+#: and dO is zero there, as the slice after the kernel makes it.
+#: gemma3-1b's 22 local layers run at window 1024 and its 4 global ones
+#: at none: a case each (at S = 1024 the window does not bind; at 2048
+#: the global layers see 1.9x the pairs).
+WIDE_CASES = [
+    ("deepseek train", 1, 16, 16, 2048, 192, 128, None, True),
+    ("gemma3 prefill", 8, 4, 1, 1024, 256, 256, 1024, False),
+    ("gemma3 prefill global", 8, 4, 1, 1024, 256, 256, None, False),
+    ("gemma3 train", 1, 4, 1, 2048, 256, 256, 1024, True),
+    ("gemma3 train global", 1, 4, 1, 2048, 256, 256, None, True),
+]
+#: the sm90 forward at the prefill shapes of the dense configs whose GQA
+#: group is not 4: qwen2.5-14b (40 / 8 heads, 5) and starcoder2-7b (36 /
+#: 4, 9)
+GROUP_CASES = [
+    ("qwen2.5-14b prefill", (8, 40, 8, 1024, 128, True, None, "bfloat16")),
+    ("starcoder2-7b prefill", (8, 36, 4, 1024, 128, True, None,
+                               "bfloat16")),
+]
+
+
+def _sdpa(torch, q, k, v, window):
+    """One SDPA call, PyTorch's own choice of backend, on (B, H, S, hd)
+    ``q``, ``k`` and ``v`` (v at its own width, KV heads already
+    repeated), causal; a window goes in as a boolean mask. A yardstick:
+    the port never calls it."""
+    import torch.nn.functional as F
+    kw = {"is_causal": True}
+    if window:
+        i = torch.arange(q.shape[2], device=q.device)
+        kw = {"attn_mask": (i[None, :] <= i[:, None])
+              & (i[None, :] > i[:, None] - window)}
+    return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+
+
+def top_kernel(torch, fn) -> str:
+    """The device kernel that takes the most time in a call of ``fn``
+    (torch.profiler, as :func:`kernel_split` records): which library
+    kernel a call was dispatched to."""
+    evs = _device_events(torch, fn, SPLIT_CALLS)
+    if not evs:
+        return "not recorded"
+    return max(evs, key=lambda e: e.self_device_time_total).key[:100]
+
+
+def phase_wide_head_kernels(torch, ops, ref) -> list:
+    """The fma flash kernels, forward and backward, at the wide head dims
+    this slice puts on main paths (WIDE_CASES), against their plain
+    versions (TOL and TIGHT forward, BWD_GATE backward), repeated calls
+    bit-equal; each timed in turns with its plain version and SDPA at
+    the same shape (the kernel it ran, v unpadded), beside
+    the bound of the work these inputs need (v at its own width). Then
+    the sm90 forward held at GROUP_CASES. Returns the records; their
+    launches are filled in by the main paths."""
+    import torch.nn.functional as F
+    counts = ops.flash_attention.variant_launches
+    bcounts = ops.flash_attention_bwd.variant_launches
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    records = []
+    for i, (label, B, H, KV, S, hd, vd, window, backward) in \
+            enumerate(WIDE_CASES):
+        g = torch.Generator(device="cuda").manual_seed(500 + i)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda").bfloat16()
+        q, k = rnd(B, S, H, hd), rnd(B, S, KV, hd)
+        v = F.pad(rnd(B, S, KV, vd), (0, hd - vd))
+        kw = dict(causal=True, window=window)
+        shape = (B, H, KV, S, hd, vd, True, window, "bfloat16")
+        assert ops.select_variant(q.dtype, hd) == "fma"
+        before = counts["fma"]
+        out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+        again = ops.flash_attention(q, k, v, **kw)
+        assert counts["fma"] == before + 2, f"{label}: not the fma kernel"
+        rep = torch.equal(out, again)
+        del again
+        err, tight = _hold(torch, ref, f"{label} {shape} [fma]", out, q, k,
+                           v, "bfloat16", **kw)
+        zero = int(torch.count_nonzero(out[..., vd:]))
+        log(f"wide_head_kernels {label}: forward repeated call bit-equal "
+            f"{rep}; output columns past v's width {vd}: {zero} non-zero")
+        assert rep and zero == 0, f"{label}: forward not repeatable"
+        rep_q = q.transpose(1, 2)
+        rep_k = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+        rep_v = v[..., :vd].repeat_interleave(H // KV, dim=2).transpose(1, 2)
+        sdpa = _sdpa(torch, rep_q, rep_k, rep_v, window)
+        backend = top_kernel(torch, sdpa)
+        lib_err = float((sdpa().transpose(1, 2).float()
+                         - out[..., :vd].float()).abs().max())
+        fns = {"fma": lambda: ops.flash_attention(q, k, v, **kw),
+               "plain": lambda: ref.flash_attention_ref(q, k, v, **kw),
+               "sdpa": sdpa}
+        pairs = visible_pairs(S, S, True, window)
+        flops = 2 * B * H * pairs * (hd + vd)
+        nbytes = 2 * (B * S * (H + KV) * hd + B * S * (KV + H) * vd)
+        ms = timed_turns(torch, fns, reps={"fma": 5, "plain": 3})
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        log(f"timing flash_attention at {label} {shape}, in turns: fma "
+            f"{ms['fma']:.4f} ms ({flops / ms['fma'] / 1e9:.2f} TFLOP/s of "
+            f"the work needed), plain {ms['plain']:.4f} ms, sdpa "
+            f"(top kernel {backend}; v at its width {vd}, unpadded) "
+            f"{ms['sdpa']:.4f} "
+            f"ms (max |sdpa - fma| {lib_err:.3g}); bound "
+            f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP on "
+            f"{B * H * pairs / 1e6:.2f} M visible (pair, head)s, "
+            f"{nbytes / 2**20:.1f} MiB)")
+        records.append({
+            "name": "flash_attention", "variant": "fma", "case": label,
+            "shape": list(shape), "route": "cuda",
+            "source": src + "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
+            "launches": None, "max_abs_err": err, "tight_gate_ratio": tight,
+            "ms": ms["fma"], "plain_ms": ms["plain"],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": ms["sdpa"], "library_kernel": backend,
+            "library_v_padded": False})
+        if backward:
+            do = F.pad(rnd(B, S, H, vd), (0, hd - vd))
+            want = ref.flash_attention_bwd_ref(do.float(), q.float(),
+                                               k.float(), v.float(), **kw)
+            assert ops.select_bwd_variant(q.dtype, hd) == "fma"
+            before = bcounts["fma"]
+            got = ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
+            again = ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
+            assert bcounts["fma"] == before + 2
+            ratio, berr = _hold_bwd(torch, f"{label} {shape} [fma]", got,
+                                    again, want, "bfloat16")
+            del want, again
+            qg, kg, vg = (t.detach().requires_grad_()
+                          for t in (rep_q, rep_k, rep_v))
+            lib_out = _sdpa(torch, qg, kg, vg, window)()
+            dot = do[..., :vd].transpose(1, 2)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(lib_out, (qg, kg, vg), dot,
+                                           retain_graph=True)
+            bbackend = top_kernel(torch, sdpa_bwd)
+            bms = timed_turns(torch, {
+                "fma": lambda: ops.flash_attention_bwd(do, q, k, v, out, lse,
+                                                       **kw),
+                "plain": lambda: ref.flash_attention_bwd_ref(do, q, k, v,
+                                                             **kw),
+                "sdpa": sdpa_bwd,
+            }, reps={"fma": 3, "plain": 2})
+            bflops = 2 * B * H * pairs * (2 * hd + 2 * vd)
+            bbytes = 2 * nbytes + 2 * B * S * H * vd
+            b_ops = bflops / PEAK_FLOPS["bfloat16"] * 1e3
+            b_bytes = bbytes / PEAK_BYTES * 1e3
+            log(f"timing flash_attention_bwd at {label} {shape}, in turns: "
+                f"fma {bms['fma']:.4f} ms ({bflops / bms['fma'] / 1e9:.2f} "
+                f"TFLOP/s of the work needed), plain {bms['plain']:.4f} ms, "
+                f"sdpa backward (top kernel {bbackend}; v at {vd}, unpadded) "
+                f"{bms['sdpa']:.4f} ms; bound {max(b_ops, b_bytes):.4f} ms "
+                f"({bflops / 1e9:.2f} GFLOP of the four backward products, "
+                f"{bbytes / 2**20:.1f} MiB)")
+            records.append({
+                "name": "flash_attention_bwd", "variant": "fma",
+                "case": label, "shape": list(shape), "route": "cuda",
+                "source": src + "flash_attention_bwd.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
+                "note": "the gradient of that kernel; the reference has no "
+                        "backward kernel",
+                "launches": None, "max_abs_err": berr, "gate_ratio": ratio,
+                "ms": bms["fma"], "plain_ms": bms["plain"],
+                "bound_ms": max(b_ops, b_bytes),
+                "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+                "library_ms": bms["sdpa"], "library_kernel": bbackend,
+                "library_v_padded": False})
+            del do, got, qg, kg, vg, lib_out, dot
+        del q, k, v, out, lse, rep_q, rep_k, rep_v
+        _release(torch)
+    for i, (label, case) in enumerate(GROUP_CASES):
+        q, k, v = _inputs(torch, case, seed=600 + i)
+        before = counts["sm90"]
+        out = ops.flash_attention(q, k, v, causal=True)
+        assert counts["sm90"] == before + 1, f"{label}: not sm90"
+        _hold(torch, ref, f"{label} {case} [sm90, GQA group "
+              f"{case[1] // case[2]}]", out, q, k, v, "bfloat16",
+              causal=True)
+        del q, k, v, out
+        _release(torch)
+    return records
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite-16b: MLA + MoE served and trained at full width
+# ---------------------------------------------------------------------------
+def _drain(torch, cfg, eng, reqs, label: str) -> dict:
+    """Drain ``reqs`` through ``eng`` with the kernels' counts set to 0
+    just before and read just after, under the obs spans: the run's
+    numbers (tok/s, TTFT p50, prefill and decode ms, peak memory), 0
+    leaked blocks and every request complete."""
+    from repro_torch import obs
+    for r in reqs:
+        eng.submit(r)
+    tracer = obs.get_tracer()
+    tracer.drain()
+    obs.enable(True)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+    finally:
+        obs.enable(False)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    spans = {}
+    for ev in tracer.drain():
+        if ev[0] == "X":
+            spans.setdefault(ev[1], []).append(ev[6] / 1e3)   # ms
+    s = eng.stats
+    assert len(done) == len(reqs), f"{label}: {len(done)} of {len(reqs)}"
+    assert all(len(r.output) == r.max_new_tokens for r in done.values())
+    assert all(0 <= t < cfg.vocab_size for r in done.values()
+               for t in r.output), f"{label}: a token outside the vocab"
+    assert s.leaked_blocks == 0, f"{label}: {s.leaked_blocks} leaked blocks"
+    run = {"done": done, "wall": wall, "launches": launches, "stats": s,
+           "tok_s": s.generated_tokens / wall,
+           "ttft_p50": s.to_dict()["ttft_p50_s"],
+           "prefill_ms": spans.get("serving/prefill_batch", []),
+           "decode_ms": statistics.median(spans.get("serving/decode_step",
+                                                    [float("nan")])),
+           "peak": torch.cuda.max_memory_allocated()}
+    log(f"{label}: {len(done)} requests, {s.prefill_tokens} prompt tokens "
+        f"in {s.prefill_calls} prefill calls ("
+        + ", ".join(f"{t:.1f}" for t in run["prefill_ms"]) + " ms), "
+        f"{s.generated_tokens} generated in {wall:.3f} s -> "
+        f"{run['tok_s']:.1f} tok/s; ttft p50 {run['ttft_p50']:.4f} s; "
+        f"{s.decode_steps} decode steps, median {run['decode_ms']:.2f} ms; "
+        f"{s.preempted} preemptions; peak {s.peak_blocks_in_use}/"
+        f"{eng.allocator.capacity} blocks; max_memory_allocated "
+        f"{run['peak'] / 2**30:.2f} GiB ({run['peak'] / 1e9:.2f} GB); "
+        f"launches {launches}")
+    return run
+
+
+def _grow_seq(torch, caches, length: int):
+    """Dense caches (prelude leaves (B, S, ...), stacked period leaves
+    (P, B, S, ...)) zero-padded along the sequence to ``length``."""
+    import torch.nn.functional as F
+    from repro_torch.tree import tree_map_with_path
+
+    def grow(path, c):
+        axis = 2 if "periods" in path else 1
+        pad = [0, 0] * (c.dim() - axis - 1) + [0, length - c.shape[axis]]
+        return F.pad(c, pad)
+    return tree_map_with_path(grow, caches)
+
+
+def phase_deepseek_serve(torch, cfg, card: str) -> dict:
+    """deepseek-v2-lite-16b in bf16 (random weights from a seed) at full
+    width through ``ServingEngine`` at the serve phase's geometry, as
+    deep as the printed arithmetic lets 90% of the card hold it (all 27
+    layers): (a) the measured run: 0 leaked blocks, no flash launch (MLA
+    with a cache attends in the absorbed form, as plain products); (b)
+    the paged path against the dense one: the engine's first prefill
+    logits equal ``prefill_batched`` on the same padded batch, and its
+    first decode step's logits within 2^-7 of their scale of
+    ``decode_step`` on that prefill's dense caches, which holds the 3-D
+    latent and rope-key leaves through the pages; (c) a second drain of
+    the same requests gives the same tokens; (d) a block-starved pool
+    preempts at least once and leaks nothing. Device time by role and
+    the share of routed assignments capacity dropped, on (a)'s first
+    prefill and first decode step. Returns (a)'s launch counts."""
+    from repro_torch.models import decode_step, init_params, prefill_batched
+    from repro_torch.serving import Request, ServingEngine
+    t_phase = time.perf_counter()
+    _release(torch)
+    big = _requests(Request, cfg, 8, seed=0)
+    B = 1 << (len(big) - 1).bit_length()
+    S = 1 << max(3, (max(len(r.prompt) for r in big) - 1).bit_length())
+
+    def engine_prefill(c):
+        p = init_params(c, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+        eng = ServingEngine(c, p, device="cuda", **GEOMETRY)
+        tokens = torch.ones((B, S), dtype=torch.int32, device="cuda")
+        plens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        return p, lambda eng=eng: prefill_batched(c, p, tokens, plens)
+    layers_n, _, _ = fit_depth(
+        torch, cfg, "deepseek_serve", engine_prefill,
+        f"P plus the pool ({GEOMETRY['num_blocks']} blocks of "
+        f"{GEOMETRY['block_size']}) and the prefill of B={B}, S={S}")
+    deep = dataclasses.replace(cfg, num_layers=layers_n)
+    t0 = time.perf_counter()
+    params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    log(f"deepseek_serve: {layers_n} of {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads, kv_lora_rank "
+        f"{cfg.kv_lora_rank}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.experts_per_token} + {cfg.moe.num_shared_experts} "
+        f"shared, {deep.param_count() / 1e9:.2f} B params "
+        f"({_param_bytes(params) / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    warm = ServingEngine(deep, params, device="cuda", **GEOMETRY)
+    for r in _requests(Request, deep, 1, seed=99, plen=(128, 128),
+                       max_new=2):
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+    _release(torch)
+
+    # (a) the measured run
+    eng = ServingEngine(deep, params, device="cuda", **GEOMETRY)
+    reqs = _requests(Request, deep, 8, seed=0)
+    record = _Steps(eng, reqs)
+    try:
+        run = _drain(torch, deep, eng, reqs, "deepseek_serve (a)")
+    finally:
+        record.restore()
+    s = run["stats"]
+    assert s.preempted == 0
+    assert run["launches"]["flash_attention"] == 0 and \
+        run["launches"]["flash_attention_bwd"] == 0, \
+        "MLA with a cache attends in the latent space: no flash launch"
+    first = record.first
+
+    # (b) paged against dense, on (a)'s first prefill and decode step
+    p_args, p_logits = first["prefill"]
+    (bt, toks, lens), d_logits = first["decode"]
+    n = len(reqs)
+    logits, dense = prefill_batched(deep, params, p_args[2], p_args[3])
+    same = torch.equal(logits[:, -1].float(), p_logits)
+    dense = _grow_seq(torch, dense, bt.shape[1] * GEOMETRY["block_size"])
+    want, _ = decode_step(deep, params, dense, toks, lens)
+    want = want[:n, -1].float()
+    diff = float((d_logits[:n] - want).abs().max())
+    scale = float(want.abs().max())
+    leaf = dense["periods"]["b0"]["mix"]
+    log(f"deepseek_serve (b): the engine's first prefill logits equal "
+        f"prefill_batched on the same padded batch {tuple(p_args[2].shape)}"
+        f": {same}; its first decode step (B={toks.shape[0]}, {n} rows) "
+        f"against decode_step on the prefill's dense caches (latent "
+        f"{tuple(leaf['c_kv'].shape)}, rope key "
+        f"{tuple(leaf['k_rope'].shape)}): max |diff| {diff:.3g}, "
+        f"{diff / scale:.3g} of the logits' scale {scale:.3g} (gate 2^-7)")
+    assert same, "deepseek_serve: the engine's prefill != prefill_batched"
+    assert diff <= 2.0 ** -7 * scale, "deepseek_serve: paged != dense"
+    del logits, dense, want, leaf
+
+    # where the time goes, and what capacity dropped
+    Bp, Sp = p_args[2].shape
+    prefill = _moe_profile(
+        torch, f"deepseek prefill B={Bp} S={Sp}",
+        lambda: prefill_batched(deep, params, p_args[2], p_args[3]), deep,
+        min(1024, Bp * Sp))
+    decode = _moe_profile(torch, f"deepseek decode step B={bt.shape[0]}",
+                          lambda: eng._decode(bt, toks, lens), deep,
+                          bt.shape[0])
+    drops = {"prefill": _moe_drops(torch, lambda: prefill_batched(
+        deep, params, p_args[2], p_args[3])),
+        "decode": _moe_drops(torch, lambda: eng._decode(bt, toks, lens))}
+    n_moe = deep.num_periods
+    for name, shares in drops.items():
+        assert len(shares) == n_moe
+        log(f"deepseek_serve: {name}: assignments dropped by capacity, "
+            f"mean over the {n_moe} MoE layers "
+            f"{statistics.mean(shares):.4f}, max {max(shares):.4f}, first "
+            f"{shares[0]:.4f}")
+    outs = {r.rid: list(run["done"][r.rid].output) for r in reqs}
+    del eng, record, first, p_args, p_logits, bt, toks, lens, d_logits
+    _release(torch)
+
+    # (c) a second drain of the same requests
+    eng = ServingEngine(deep, params, device="cuda", **GEOMETRY)
+    again = _drain(torch, deep, eng, _requests(Request, deep, 8, seed=0),
+                   "deepseek_serve (c)")
+    same_tokens = all(list(again["done"][rid].output) == o
+                      for rid, o in outs.items())
+    log(f"deepseek_serve (c): a second drain gives the same tokens: "
+        f"{same_tokens}")
+    assert same_tokens, "deepseek_serve: two drains differ"
+    del eng, again
+    _release(torch)
+
+    # (d) a block-starved pool
+    eng = ServingEngine(deep, params, device="cuda", **STARVED)
+    starved = _drain(torch, deep, eng, _requests(Request, deep, 8,
+                                                 seed=STARVED_SEED),
+                     "deepseek_serve (d)")
+    pre = starved["stats"].preempted
+    assert pre > 0, "deepseek_serve (d): the starved pool did not preempt"
+    del eng, starved
+    _release(torch)
+
+    log(f"deepseek_serve summary: {layers_n} layers, {run['tok_s']:.1f} "
+        f"tok/s, ttft p50 {run['ttft_p50'] * 1e3:.1f} ms, prefill "
+        f"{prefill['wall_ms']:.2f} ms (busy "
+        f"{prefill['busy_ms'] / prefill['wall_ms']:.1%}), decode median "
+        f"{run['decode_ms']:.2f} ms (profiled step {decode['wall_ms']:.2f} "
+        f"ms, busy {decode['busy_ms'] / decode['wall_ms']:.1%}), peak "
+        f"{run['peak'] / 2**30:.2f} GiB; dropped: first prefill "
+        f"{statistics.mean(drops['prefill']):.4f}, a decode step "
+        f"{statistics.mean(drops['decode']):.4f}; {STARVED['num_blocks']}"
+        f"-block pool: {pre} preemptions, 0 leaked; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    del params
+    log(f"deepseek_serve: {_release(torch):.3f} GiB left allocated")
+    return run["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the dense configs: gemma3-1b (hd 256, fma), qwen2.5-14b and starcoder2-7b
+# ---------------------------------------------------------------------------
+def _serve_cell(torch, cfg, label: str, variant: str, max_new: int,
+                windows) -> dict:
+    """``cfg`` served at full depth (bf16, random weights from a seed)
+    at the serve phase's geometry: 8 requests of 128-1024 prompt tokens,
+    ``max_new`` new each. Every prefill attention call launches the
+    ``variant`` kernel at the config's head dim, L per prefill call, at
+    the ``windows`` (per layer, in order) given."""
+    from repro_torch.models import init_params, layers as model_layers
+    from repro_torch.serving import Request, ServingEngine
+    _release(torch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    log(f"{label}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.param_count() / 1e9:.2f} B params "
+        f"({_param_bytes(params) / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    warm = ServingEngine(cfg, params, device="cuda", **GEOMETRY)
+    for r in _requests(Request, cfg, 1, seed=99, plen=(128, 128),
+                       max_new=2):
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+    _release(torch)
+    eng = ServingEngine(cfg, params, device="cuda", **GEOMETRY)
+    calls = []
+    mha = model_layers.multi_head_attention
+
+    def seen(q, k, v, **kw):
+        if q.shape[1] > 1:              # the calls that take the kernel
+            calls.append((q.shape[-1], kw["window"]))
+        return mha(q, k, v, **kw)
+    model_layers.multi_head_attention = seen
+    try:
+        run = _drain(torch, cfg, eng, _requests(Request, cfg, 8, seed=0,
+                                                max_new=max_new), label)
+    finally:
+        model_layers.multi_head_attention = mha
+    L, s = cfg.num_layers, run["stats"]
+    want = L * s.prefill_calls
+    got = run["launches"]
+    assert got["flash_attention"] == got[f"flash_attention/{variant}"] \
+        == want > 0, f"{label}: launches {got}, want {want} {variant}"
+    assert calls == [(cfg.head_dim, w) for w in windows] * s.prefill_calls, \
+        f"{label}: flash calls {sorted(set(map(str, calls)))} x {len(calls)}"
+    log(f"{label}: {got['flash_attention']} flash launches = {L} layers x "
+        f"{s.prefill_calls} prefill calls, all {variant} at hd "
+        f"{cfg.head_dim} (windows {sorted(set(map(str, windows)))})")
+    del eng, params
+    _release(torch)
+    return run
+
+
+def phase_dense_configs(torch, card: str) -> dict:
+    """The three dense configs at full width and depth, bf16, random
+    weights from a seed: gemma3-1b served (every prefill flash launch fma
+    at hd 256, window 1024 on 22 of 26 layers) and trained (eager SGD in
+    place, B=1, S=2048: 26 fma forward and 26 fma backward launches a
+    step, at window 1024 on the same 22); qwen2.5-14b and starcoder2-7b
+    served with a short drain, every prefill launch sm90. Returns
+    gemma3's launches by WIDE_CASES record, {(kernel name, case label):
+    launches}, split by window."""
+    from repro_torch.conformance import make_train_step
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, layers as model_layers
+    t_phase = time.perf_counter()
+    gemma = get_config("gemma3-1b")
+    kinds = list(gemma.prelude) + list(gemma.block_pattern) \
+        * gemma.num_periods
+    windows = [gemma.sliding_window if k.startswith("swa") else None
+               for k in kinds]
+    serve = _serve_cell(torch, gemma, "dense_configs gemma3-1b serve",
+                        "fma", 32, windows)
+    # _serve_cell held the calls to ``windows``, one a layer a prefill call
+    local = sum(w is not None for w in windows)
+    calls = serve["stats"].prefill_calls
+    split = {("flash_attention", "gemma3 prefill"): local * calls,
+             ("flash_attention", "gemma3 prefill global"):
+                 (len(windows) - local) * calls}
+
+    # gemma3-1b's SGD step, all 26 layers
+    B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    batch = _train_batch(torch, gemma, seed=4)
+    params = init_params(gemma, torch.Generator(device="cuda")
+                         .manual_seed(1), "cuda")
+    step = make_train_step(gemma, lr, in_place=True)
+    step(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen = []
+    mha = model_layers.multi_head_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[-1], kw["window"]))
+        return mha(q, k, v, **kw)
+    model_layers.multi_head_attention = spy
+    reset_counts()
+    try:
+        loss, _ = step(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        model_layers.multi_head_attention = mha
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = gemma.num_layers
+    want = {"flash_attention": L, "flash_attention/fma": L,
+            "flash_attention_bwd": L, "flash_attention_bwd/fma": L}
+    got = {k: launches[k] for k in want}
+    log(f"dense_configs gemma3-1b train: {L} layers, loss "
+        f"{float(loss):.4f} (ln {gemma.vocab_size} = "
+        f"{math.log(gemma.vocab_size):.4f}), launches {got}, "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    assert got == want, f"gemma3-1b train: launches {got}, want {want}"
+    # one forward call a layer, each launching the forward kernel once
+    # and, in the backward pass, the backward kernel once
+    assert seen == [(gemma.head_dim, w) for w in windows], \
+        f"gemma3-1b train: flash calls {seen}"
+    for name in ("flash_attention", "flash_attention_bwd"):
+        split[(name, "gemma3 train")] = local
+        split[(name, "gemma3 train global")] = L - local
+    log(f"dense_configs gemma3-1b train: {local} of {L} launches each way "
+        f"at window {gemma.sliding_window}, {L - local} at none")
+    assert math.isfinite(float(loss)) and \
+        abs(float(loss) - math.log(gemma.vocab_size)) < 2
+    step_ms = _wall_ms(torch, lambda: step(params, batch), n=5)
+    prof = _profile_step(torch, f"gemma3-1b train eager {L} layers B={B} "
+                         f"S={S}", lambda: step(params, batch),
+                         FLASH_KERNEL_NAMES)
+    flash = sum(prof["named_ms"].values())
+    log(f"dense_configs gemma3-1b train: median step {step_ms:.2f} ms, "
+        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
+        f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); the flash kernels "
+        f"{flash:.3f} ms ({flash / prof['busy_ms']:.1%} of device time); "
+        f"{card}")
+    del params, step, loss, batch
+    _release(torch)
+
+    runs = {}
+    for name in ("qwen2.5-14b", "starcoder2-7b"):
+        cfg = get_config(name)
+        runs[name] = _serve_cell(torch, cfg, f"dense_configs {name} serve",
+                                 "sm90", 8, [None] * cfg.num_layers)
+    log("dense_configs summary: " + "; ".join(
+        f"{name} {r['tok_s']:.1f} tok/s, ttft p50 "
+        f"{r['ttft_p50'] * 1e3:.1f} ms, decode median {r['decode_ms']:.2f} "
+        f"ms, peak {r['peak'] / 2**30:.2f} GiB"
+        for name, r in [("gemma3-1b", serve), *runs.items()])
+        + f"; gemma3-1b train step {step_ms:.2f} ms; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return split
 
 
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
           "plan_execute", "plan_serve", "train_kernels", "train",
           "calibrate", "rwkv_train_kernels", "rwkv_train", "launch_train",
-          "mixtral_serve", "mixtral_train")
+          "mixtral_serve", "mixtral_train", "wide_head_kernels",
+          "deepseek_serve", "deepseek_train", "dense_configs")
+
+
+class _Timed:
+    """Logs a phase's seconds when its block ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -4043,67 +4718,115 @@ def main(argv=None) -> int:
         f"{sys.version.split()[0]}")
     card = phase_card()
     if "build" in phases:
-        phase_build({"flash_attention": ops, "rwkv6": rops}, build)
+        with _Timed("build"):
+            phase_build({"flash_attention": ops, "rwkv6": rops}, build)
     record = rwkv_record = None
     if "kernels" in phases:
-        record = phase_kernels(torch, ops, ref)
+        with _Timed("kernels"):
+            record = phase_kernels(torch, ops, ref)
     if "rwkv_kernels" in phases:
-        rwkv_record = phase_rwkv_kernels(torch, rops, rref)
+        with _Timed("rwkv_kernels"):
+            rwkv_record = phase_rwkv_kernels(torch, rops, rref)
     cfg = get_config("granite-8b")
     if "serve" in phases:
-        launches = phase_serve(torch, ops, cfg)
+        with _Timed("serve"):
+            launches = phase_serve(torch, ops, cfg)
         if record is not None:
             record["launches"] = launches["flash_attention"]
             record["variant_launches"] = {
                 v: launches[f"flash_attention/{v}"] for v in ops.VARIANTS}
     if "token_equality" in phases:
-        phase_token_equality(torch, cfg)
+        with _Timed("token_equality"):
+            phase_token_equality(torch, cfg)
     rcfg = get_config("rwkv6-7b")
     if "rwkv_generate" in phases:
-        rwkv_launches = phase_rwkv_generate(torch, rcfg)
+        with _Timed("rwkv_generate"):
+            rwkv_launches = phase_rwkv_generate(torch, rcfg)
         if rwkv_record is not None:
             rwkv_record["launches"] = rwkv_launches["wkv6"]
             rwkv_record["variant_launches"] = {
                 v: rwkv_launches[f"wkv6/{v}"] for v in rops.VARIANTS}
     if "rwkv_equality" in phases:
-        phase_rwkv_equality(torch, rcfg)
+        with _Timed("rwkv_equality"):
+            phase_rwkv_equality(torch, rcfg)
     with tempfile.TemporaryDirectory() as tmp:
         # the plan phase saves the plan here; plan_serve serves it
         work = Path(tmp)
         plan_path = work / "granite-decode.plan.json"
         if "plan" in phases:
-            phase_plan(torch, cfg, plan_path)
+            with _Timed("plan"):
+                phase_plan(torch, cfg, plan_path)
         if "plan_execute" in phases:
-            phase_plan_execute(torch, cfg)
+            with _Timed("plan_execute"):
+                phase_plan_execute(torch, cfg)
         if "plan_serve" in phases:
-            launches = phase_plan_serve(torch, cfg, plan_path, work, card)
+            with _Timed("plan_serve"):
+                launches = phase_plan_serve(torch, cfg, plan_path, work,
+                                            card)
             if record is not None:
                 record["plan_serve_launches"] = launches["flash_attention"]
     train_record = None
     if "train_kernels" in phases or "train" in phases:
-        train_record = phase_train_kernel(torch, ops, ref, build)
+        with _Timed("train_kernels"):
+            train_record = phase_train_kernel(torch, ops, ref, build)
     if "train" in phases:
-        phase_train(torch, ops, cfg, card, train_record)
+        with _Timed("train"):
+            phase_train(torch, ops, cfg, card, train_record)
     if "calibrate" in phases:
-        phase_calibrate(torch, ops, cfg, card, train_record)
+        with _Timed("calibrate"):
+            phase_calibrate(torch, ops, cfg, card, train_record)
     rwkv_bwd_record = None
     if "rwkv_train_kernels" in phases or "rwkv_train" in phases:
-        rwkv_bwd_record = phase_rwkv_train_kernel(torch, rops, rref, build)
+        with _Timed("rwkv_train_kernels"):
+            rwkv_bwd_record = phase_rwkv_train_kernel(torch, rops, rref,
+                                                      build)
     if "rwkv_train" in phases:
-        phase_rwkv_train(torch, rcfg, card, rwkv_bwd_record)
+        with _Timed("rwkv_train"):
+            phase_rwkv_train(torch, rcfg, card, rwkv_bwd_record)
     if "launch_train" in phases:
-        phase_launch_train(torch, card)
+        with _Timed("launch_train"):
+            phase_launch_train(torch, card)
     mcfg = get_config("mixtral-8x7b")
     if "mixtral_serve" in phases:
-        launches = phase_mixtral_serve(torch, mcfg, card)
+        with _Timed("mixtral_serve"):
+            launches = phase_mixtral_serve(torch, mcfg, card)
         if record is not None:
             record["mixtral_serve_launches"] = launches["flash_attention"]
     if "mixtral_train" in phases:
-        phase_mixtral_train(torch, mcfg, card, train_record)
+        with _Timed("mixtral_train"):
+            launches = phase_moe_train(torch, mcfg, card, "mixtral_train",
+                                       "sm90")
+        if train_record is not None:
+            train_record["mixtral_train_launches"] = \
+                launches["flash_attention_bwd"]
+    # the fma kernels at the wide head dims: the deepseek_train and
+    # dense_configs main paths fill in their launches
+    wide = {}
+    if "wide_head_kernels" in phases:
+        with _Timed("wide_head_kernels"):
+            wide = {(r["name"], r["case"]): r
+                    for r in phase_wide_head_kernels(torch, ops, ref)}
+    dcfg = get_config("deepseek-v2-lite-16b")
+    if "deepseek_serve" in phases:
+        with _Timed("deepseek_serve"):
+            phase_deepseek_serve(torch, dcfg, card)
+    if "deepseek_train" in phases:
+        with _Timed("deepseek_train"):
+            launches = phase_moe_train(torch, dcfg, card, "deepseek_train",
+                                       "fma")
+        for name in ("flash_attention", "flash_attention_bwd"):
+            if (name, "deepseek train") in wide:
+                wide[(name, "deepseek train")]["launches"] = launches[name]
+    if "dense_configs" in phases:
+        with _Timed("dense_configs"):
+            dense = phase_dense_configs(torch, card)
+        for key, n in dense.items():
+            if key in wide:
+                wide[key]["launches"] = n
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record, rwkv_bwd_record)
-                                  if r is not None]}))
+                                  if r is not None] + list(wide.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,14 @@
 """Architecture registry — the configs the port runs so far: the dense
-granite-8b and repro-lm-100m, the recurrent rwkv6-7b and the MoE
-mixtral-8x7b."""
+granite-8b, gemma3-1b, qwen2.5-14b, starcoder2-7b and repro-lm-100m, the
+recurrent rwkv6-7b, the MoE mixtral-8x7b and the MLA + MoE
+deepseek-v2-lite-16b."""
 from .base import (ModelConfig, MoEConfig, MambaConfig, RWKVConfig,
                    REGISTRY, get_config, reduced, register, torch_dtype)
 
 # registration side-effects
-from . import (granite_8b, mixtral_8x7b, repro_lm_100m,  # noqa: F401
-               rwkv6_7b)
+from . import (deepseek_v2_lite_16b, gemma3_1b,  # noqa: F401
+               granite_8b, mixtral_8x7b, qwen2_5_14b, repro_lm_100m,
+               rwkv6_7b, starcoder2_7b)
 
 __all__ = ["ModelConfig", "MoEConfig", "MambaConfig", "RWKVConfig",
            "REGISTRY", "get_config", "reduced", "register", "torch_dtype"]

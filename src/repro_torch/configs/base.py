@@ -3,9 +3,9 @@
 One ``ModelConfig`` describes an architecture through a per-period
 ``block_pattern`` of layer kinds; the model stacks ``num_periods``
 periods of it after an optional ``prelude``. So far the port runs the
-``attn``, ``swa``, ``attn_moe``, ``swa_moe`` and ``rwkv`` kinds; the
-other kinds are listed so that a config reads the same as in the
-reference.
+``attn``, ``swa``, ``attn_moe``, ``swa_moe``, ``mla``, ``mla_moe`` and
+``rwkv`` kinds; the other kinds are listed so that a config reads the
+same as in the reference.
 
 Layer kinds (entries of ``block_pattern``):
   "attn"        — global attention (GQA) + dense MLP

@@ -263,6 +263,7 @@ cudaError_t dispatch(int D, const Params& p, cudaStream_t stream) {
     case 80: return launch<T, 80>(p, stream);
     case 96: return launch<T, 96>(p, stream);
     case 128: return launch<T, 128>(p, stream);
+    case 192: return launch<T, 192>(p, stream);
     case 256: return launch<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -38,8 +38,9 @@ from ..build import load_library
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-#: head dims the kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+#: head dims the kernels are instantiated for (192: MLA's nope + rope,
+#: deepseek-v2-lite's training branch, v zero-padded to it)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192, 256)
 #: bf16 head dims the Hopper kernel takes (at hd 256 two Q buffers would
 #: leave shared memory for one K/V slot, and O alone would take 128
 #: accumulator registers of a thread)

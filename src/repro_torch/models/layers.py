@@ -1,4 +1,5 @@
-"""Model building blocks, dense subset (port of ``repro.models.layers``).
+"""Model building blocks: norms, RoPE, the MLP, GQA and Multi-head
+Latent Attention (port of ``repro.models.layers``).
 
 Conventions, as in the reference:
   * params are nested dicts of tensors; weights are (in, out), applied
@@ -219,8 +220,106 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
+# ------------------------------------------------------------------- MLA
+def mla_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """Multi-head Latent Attention (DeepSeek-V2), the reference's tree:
+    K and V are compressed into a ``kv_lora_rank`` latent (``w_dkv``,
+    RMS-normalised by the float32 ``kv_norm``) plus one rope key shared
+    by the heads (``w_kr``); ``w_uk`` and ``w_uv`` up-project the
+    latent."""
+    d, dt = cfg.d_model, dtype_of(cfg)
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq": dense_init(generator, d, H * qk, dt),
+        "w_dkv": dense_init(generator, d, r, dt),
+        "w_kr": dense_init(generator, d, cfg.qk_rope_dim, dt),
+        "w_uk": dense_init(generator, r, H * cfg.qk_nope_dim, dt),
+        "w_uv": dense_init(generator, r, H * cfg.v_head_dim, dt),
+        "wo": dense_init(generator, H * cfg.v_head_dim, d, dt),
+        "kv_norm": torch.ones((r,), dtype=torch.float32,
+                              device=generator.device),
+    }
 
-__all__ = ["activation", "apply_gqa", "apply_mlp", "apply_norm",
-           "apply_rope", "dense_init", "dtype_of", "gqa_cache_init",
-           "gqa_init", "linear", "mlp_init", "multi_head_attention",
-           "norm_init", "rms_head_norm", "rope_freqs", "update_cache"]
+
+def apply_mla(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
+              kv_cache=None, cache_pos=None):
+    """MLA layer. Without a cache (training) K and V are materialised
+    per head from the latent and attention runs through
+    :func:`multi_head_attention` with q and k at head dim nope + rope and
+    v zero-padded from ``v_head_dim`` to that width: the flash kernel
+    takes one head dim, its scale 1/sqrt(nope + rope) is the
+    reference's, the zero columns of v leave the first ``v_head_dim``
+    output columns as they are, and the output is sliced back. With a
+    cache (prefill and decode) the latent ``c_kv`` (B, L, r) and the
+    shared rope key (B, L, rope) are written in place at ``cache_pos``
+    (an int or a per-row (B,) tensor) and attention runs in the
+    absorbed form, in the latent space, as plain products: ``w_uk``
+    folded into the query, scores in float32, ``w_uv`` applied after.
+    The rounding points are the reference's: the latent normalised in
+    float32 and cast to x's dtype, ``q_lat``, ``o_lat`` and the output
+    in x's dtype, the probabilities cast to the cache's dtype.
+
+    Returns (out, kv_cache)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    q = linear(x, p["wq"]).reshape(B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c = linear(x, p["w_dkv"]).float()                    # (B,S,r)
+    c_kv = (c * torch.rsqrt(c.square().mean(-1, keepdim=True)
+                            + cfg.norm_eps) * p["kv_norm"]).to(x.dtype)
+    k_rope = linear(x, p["w_kr"]).reshape(B, S, 1, rd)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+
+    if kv_cache is None:
+        if vd > nd + rd:
+            raise NotImplementedError(
+                f"MLA with v_head_dim {vd} wider than q and k "
+                f"({nd} + {rd})")
+        k_nope = linear(c_kv, p["w_uk"]).reshape(B, S, H, nd)
+        v = linear(c_kv, p["w_uv"]).reshape(B, S, H, vd)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], -1)
+        qq = torch.cat([q_nope, q_rope], -1)
+        v = F.pad(v, (0, nd + rd - vd))
+        out = multi_head_attention(qq, k, v, causal=cfg.causal, window=None,
+                                   q_offset=0)[..., :vd]
+        return linear(out.reshape(B, S, H * vd), p["wo"]), None
+
+    cc = update_cache(kv_cache["c_kv"], c_kv, cache_pos)
+    ck = update_cache(kv_cache["k_rope"], k_rope[:, :, 0], cache_pos)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope,
+                         p["w_uk"].reshape(r, H, nd))
+    # bf16 products are exact in float32: upcast operands give the
+    # reference's float32 scores from bf16 operands
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat.float(), cc.float())
+    s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), ck.float())
+    s = (s_lat + s_rope) * (1.0 / math.sqrt(nd + rd))
+    kp = torch.arange(cc.shape[1], device=x.device)
+    qp = torch.as_tensor(cache_pos, device=x.device).reshape(-1, 1) + \
+        torch.arange(S, device=x.device)                 # (B or 1, S)
+    s = s.masked_fill(kp[None, None, None, :] > qp[:, None, :, None],
+                      float("-inf"))
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", pr.to(cc.dtype), cc)
+    out = torch.einsum("bshr,rhv->bshv", o_lat, p["w_uv"].reshape(r, H, vd))
+    return linear(out.reshape(B, S, H * vd), p["wo"]), kv_cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> dict:
+    """The latent (B, L, r) and the shared rope key (B, L, rope)."""
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+__all__ = ["activation", "apply_gqa", "apply_mla", "apply_mlp",
+           "apply_norm", "apply_rope", "dense_init", "dtype_of",
+           "gqa_cache_init", "gqa_init", "linear", "mla_cache_init",
+           "mla_init", "mlp_init", "multi_head_attention", "norm_init",
+           "rms_head_norm", "rope_freqs", "update_cache"]

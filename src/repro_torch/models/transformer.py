@@ -5,8 +5,8 @@ of the ``cfg.num_periods`` identical periods are stacked along a leading
 axis, as in the reference, and :func:`forward` runs the periods in a
 Python loop that indexes the stacked tensors (the reference's
 ``lax.scan``). The port covers the ``attn``, ``swa``, ``attn_moe``,
-``swa_moe`` and ``rwkv`` block kinds; any other kind (``mla*``,
-``mamba*``) raises ``NotImplementedError``. :func:`forward` returns each
+``swa_moe``, ``mla``, ``mla_moe`` and ``rwkv`` block kinds; any other
+kind (``mamba*``) raises ``NotImplementedError``. :func:`forward` returns each
 MoE block's load-balancing loss summed over the layers, as the
 reference's does, and :func:`loss_fn` adds it at the config's
 ``router_aux_weight``; the dense and rwkv kinds have none.
@@ -39,7 +39,7 @@ from .moe import apply_moe, moe_init
 from .rwkv import (apply_rwkv_channelmix, apply_rwkv_timemix,
                    rwkv_cache_init, rwkv_init)
 
-_KINDS = ("attn", "swa", "attn_moe", "swa_moe", "rwkv")
+_KINDS = ("attn", "swa", "attn_moe", "swa_moe", "mla", "mla_moe", "rwkv")
 
 
 def _check_kind(kind: str) -> None:
@@ -55,7 +55,8 @@ def _block_init(cfg: ModelConfig, kind: str, generator: torch.Generator):
     if kind == "rwkv":
         return {"ln1": L.norm_init(cfg, dev), "tm": rwkv_init(cfg, generator),
                 "ln2": L.norm_init(cfg, dev)}
-    p = {"ln1": L.norm_init(cfg, dev), "mix": L.gqa_init(cfg, generator),
+    mix = L.mla_init if kind.startswith("mla") else L.gqa_init
+    p = {"ln1": L.norm_init(cfg, dev), "mix": mix(cfg, generator),
          "ln2": L.norm_init(cfg, dev),
          "ffn": (moe_init if kind.endswith("moe") else L.mlp_init)(
              cfg, generator)}
@@ -79,10 +80,15 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
         y2, _ = apply_rwkv_channelmix(cfg, p["tm"], h2,
                                       cache=cache and cache["cm"])
         return x + y2, cache, None
-    y, mix_cache = L.apply_gqa(cfg, p["mix"], h, positions=positions,
-                               is_global=not kind.startswith("swa"),
-                               kv_cache=cache and cache.get("mix"),
-                               cache_pos=cache_pos)
+    if kind.startswith("mla"):
+        y, mix_cache = L.apply_mla(cfg, p["mix"], h, positions=positions,
+                                   kv_cache=cache and cache.get("mix"),
+                                   cache_pos=cache_pos)
+    else:
+        y, mix_cache = L.apply_gqa(cfg, p["mix"], h, positions=positions,
+                                   is_global=not kind.startswith("swa"),
+                                   kv_cache=cache and cache.get("mix"),
+                                   cache_pos=cache_pos)
     if cfg.post_norm:
         y = L.apply_norm(cfg, p["pn1"], y)
     x = x + y
@@ -103,6 +109,8 @@ def _block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     _check_kind(kind)
     if kind == "rwkv":
         return rwkv_cache_init(cfg, batch, dtype, device)
+    if kind.startswith("mla"):
+        return {"mix": L.mla_cache_init(cfg, batch, max_len, dtype, device)}
     return {"mix": L.gqa_cache_init(cfg, batch, max_len, dtype, device)}
 
 
@@ -252,7 +260,9 @@ def forward(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
     """Zeroed caches: a list for the prelude and the stacked
-    ``(num_periods, batch, max_len, KV, hd)`` leaves for the periods."""
+    ``(num_periods, batch, max_len, ...)`` leaves for the periods (KV
+    heads and head dim for attention, the latent or the rope key for
+    MLA)."""
     dev = resolve_device(device)
     dt = L.dtype_of(cfg)
     prelude = [_block_cache_init(cfg, kind, batch, max_len, dt, dev)

@@ -37,6 +37,8 @@ FLASH_CASES = [
     (1, 4, 2, 128, 64, True, None, "bfloat16"),
     (1, 2, 2, 64, 32, True, 16, "bfloat16"),
     (2, 2, 1, 192, 64, True, 128, "float32"),      # window > block
+    (1, 4, 4, 100, 192, True, None, "float32"),    # MLA's nope + rope
+    (1, 2, 2, 128, 192, True, None, "bfloat16"),
 ]
 
 
@@ -258,6 +260,7 @@ def test_cuda_kernel_offset_softcap_strides(Sq, Sk, q_offset, softcap,
     ("bfloat16", 128, "sm90"),
     ("bfloat16", 32, "fma"),
     ("bfloat16", 80, "fma"),
+    ("bfloat16", 192, "fma"),
     ("bfloat16", 256, "fma"),
     ("float32", 64, "fma"),
     ("float32", 128, "fma"),
@@ -363,7 +366,9 @@ def test_ablations_apply_to_the_sm90_source():
     ("tiled", "bfloat16", 128, "unknown flash_attention variant"),
     ("sm90", "float32", 128, "sm90 kernel takes bfloat16"),
     ("sm90", "bfloat16", 32, "sm90 kernel takes bfloat16"),
+    ("sm90", "bfloat16", 192, "sm90 kernel takes bfloat16"),
     ("fma", "bfloat16", 128, "run on cuda"),
+    ("fma", "bfloat16", 192, "run on cuda"),
 ])
 def test_run_variant_refuses_what_its_kernel_cannot_take(variant, dtype, hd,
                                                          match):

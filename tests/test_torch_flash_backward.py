@@ -45,6 +45,7 @@ CASES = [
     (1, 2, 1, 16, 16, 64, True, None, 0, 5.0),       # softcap
     (1, 2, 2, 16, 16, 16, True, 4, -6, 0.0),         # fully masked rows
     (2, 8, 2, 16, 16, 64, True, None, 0, 0.0),       # G = 4
+    (1, 2, 2, 20, 20, 192, True, None, 0, 0.0),      # MLA's nope + rope
 ]
 IDS = [f"B{c[0]}H{c[1]}KV{c[2]}q{c[3]}k{c[4]}d{c[5]}"
        f"{'c' if c[6] else 'b'}w{c[7]}o{c[8]}s{c[9]:g}" for c in CASES]
@@ -279,8 +280,8 @@ def test_backward_wrapper_refuses(bad, error):
 
 @pytest.mark.parametrize("dtype, hd, variant", [
     ("bfloat16", 64, "sm90"), ("bfloat16", 128, "sm90"),
-    ("bfloat16", 32, "fma"), ("bfloat16", 256, "fma"),
-    ("float32", 128, "fma"),
+    ("bfloat16", 32, "fma"), ("bfloat16", 192, "fma"),
+    ("bfloat16", 256, "fma"), ("float32", 128, "fma"),
 ])
 def test_select_bwd_variant(dtype, hd, variant):
     """``sm90`` takes the forward's sm90 set; ``mma`` runs only by name."""
@@ -296,6 +297,7 @@ def test_select_bwd_variant(dtype, hd, variant):
     ("fma", "bfloat16", 64, "run on cuda"),
     ("sm90", "float32", 64, "sm90 backward takes bfloat16"),
     ("sm90", "bfloat16", 256, "sm90 backward takes bfloat16"),
+    ("sm90", "bfloat16", 192, "sm90 backward takes bfloat16"),
     ("sm90", "bfloat16", 32, "sm90 backward takes bfloat16"),
     ("sm90", "bfloat16", 64, "run on cuda"),
 ])
@@ -316,6 +318,7 @@ CUDA_CASES = CASES + [
     (1, 32, 8, 256, 256, 128, True, None, 0, 0.0),   # granite-8b heads
     (2, 12, 4, 200, 200, 64, True, None, 0, 0.0),    # repro-lm-100m heads
     (1, 2, 1, 70, 70, 256, True, None, 0, 0.0),      # hd 256
+    (1, 16, 16, 130, 130, 192, True, None, 0, 0.0),  # deepseek heads
 ]
 
 

@@ -27,7 +27,10 @@ import repro_torch.models.layers as tL  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["granite-8b", "mixtral-8x7b", "repro-lm-100m"]
+ARCHS = ["deepseek-v2-lite-16b", "gemma3-1b", "granite-8b", "mixtral-8x7b",
+         "qwen2.5-14b", "repro-lm-100m", "starcoder2-7b"]
+#: the archs whose first period block is a GQA layer
+GQA_ARCHS = [a for a in ARCHS if a != "deepseek-v2-lite-16b"]
 
 
 def _np(x):
@@ -87,10 +90,15 @@ def test_decode_step_per_row_positions_match(model):
     tokens, plens = _prompts(jc, seed=1)
     _, jcache = jm.prefill_batched(jc, jp, jnp.asarray(tokens),
                                    jnp.asarray(plens))
-    # grow the dense caches so every row has room for one more token
-    jcache = jax.tree_util.tree_map(
-        lambda c: jnp.pad(c, [(0, 0)] * 2 + [(0, 4)] + [(0, 0)] * 2),
-        jcache)
+    # grow the dense caches so every row has room for one more token: the
+    # sequence axis is 1 in the prelude's leaves and 2 in the stacked
+    # periods' (the leaves are 4-D and 5-D for GQA, 3-D and 4-D for MLA)
+    def grow(path, c):
+        axis = 2 if jax.tree_util.keystr(path).startswith("['periods']") \
+            else 1
+        return jnp.pad(c, [(0, 4) if i == axis else (0, 0)
+                           for i in range(c.ndim)])
+    jcache = jax.tree_util.tree_map_with_path(grow, jcache)
     tcache = params_from_numpy(jax.tree_util.tree_map(np.asarray, jcache),
                                "cpu")
     nxt = np.random.default_rng(2).integers(
@@ -116,6 +124,7 @@ def test_sequential_prefill_then_decode_match(model):
     np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
 
 
+@pytest.mark.parametrize("model", GQA_ARCHS, indirect=True)
 @pytest.mark.parametrize("is_global,S", [(True, 12), (False, 24)])
 def test_apply_gqa_matches(model, is_global, S):
     """One attention layer on its own; the sliding-window case runs a
@@ -140,10 +149,12 @@ def test_apply_norm_matches(model, dtype):
     jc, tc, _, _ = model
     rng = np.random.default_rng(5)
     x = rng.standard_normal((3, 7, jc.d_model), dtype=np.float32) * 3
-    scale = rng.standard_normal(jc.d_model, dtype=np.float32)
-    jo = jL.apply_norm(jc, {"scale": jnp.asarray(scale)},
+    p = {"scale": rng.standard_normal(jc.d_model, dtype=np.float32)}
+    if jc.norm == "layernorm":
+        p["bias"] = rng.standard_normal(jc.d_model, dtype=np.float32)
+    jo = jL.apply_norm(jc, {k: jnp.asarray(v) for k, v in p.items()},
                        jnp.asarray(x).astype(dtype))
-    to = tL.apply_norm(tc, {"scale": torch.from_numpy(scale)},
+    to = tL.apply_norm(tc, {k: torch.from_numpy(v) for k, v in p.items()},
                        torch.from_numpy(x).to(getattr(torch, dtype)))
     assert to.dtype == getattr(torch, dtype)
     tol = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
@@ -170,3 +181,20 @@ def test_other_block_kinds_are_refused():
                            "mamba": tcfg.MambaConfig()})
     with pytest.raises(NotImplementedError, match="mamba"):
         tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.parametrize("arch, published", [("gemma3-1b", 1.0e9),
+                                             ("qwen2.5-14b", 14.7e9),
+                                             ("starcoder2-7b", 7.2e9)])
+def test_dense_config_matches_reference(arch, published):
+    """Registered field for field as the reference registers it, with the
+    reference's parameter count, which tests/test_configs.py holds within
+    18% of the published size."""
+    j, t = jcfg.get_config(arch), tcfg.get_config(arch)
+    for f in j.__dataclass_fields__:
+        a, b = getattr(j, f), getattr(t, f)
+        if dataclasses.is_dataclass(a):
+            a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert a == b, f
+    assert t.param_count() == j.param_count()
+    assert abs(t.param_count() / published - 1) < 0.18

@@ -71,6 +71,12 @@ def _both(jc, tc, wp, x_np, dtype="float32"):
     ("G > 1 with drops", {"capacity_factor": 0.5}, (4, 512, 64)),
     ("shared expert", {"num_shared_experts": 1}, (2, 24, 64)),
     ("top-1 of 8", {"num_experts": 8, "experts_per_token": 1}, (3, 8, 64)),
+    # deepseek-v2-lite's routing: top-6, two shared experts
+    ("top-6 of 16, two shared", {"num_experts": 16, "experts_per_token": 6,
+                                 "num_shared_experts": 2}, (2, 24, 64)),
+    ("top-6 of 16, two shared, drops",
+     {"num_experts": 16, "experts_per_token": 6, "num_shared_experts": 2,
+      "capacity_factor": 0.5}, (2, 32, 64)),
 ])
 def test_apply_moe_matches_reference(case, moe, shape):
     jc, tc = _configs(**moe)

@@ -191,14 +191,14 @@ def _record_decode_logits(eng, port: bool) -> list:
     return seen
 
 
-def test_mixtral_engine_tokens_and_logits_equal_to_reference():
-    """Reduced mixtral (two swa_moe layers, window 16 < the longest
-    sequence) through both engines with the same requests, admissions
-    and evictions: every decode step's logits within 1e-4, the tokens
-    equal, no block leaked."""
-    jc = jcfg.reduced(jcfg.get_config("mixtral-8x7b"), layers=2)
-    tc = tcfg.reduced(tcfg.get_config("mixtral-8x7b"), layers=2)
-    jp = jm.init_params(jc, jax.random.PRNGKey(2))
+def _engines_equal(arch: str, key: int) -> None:
+    """Reduced ``arch`` through both engines with the same requests,
+    admissions and evictions: every decode step's logits within 1e-4,
+    the tokens equal, no block leaked. The longest sequence (12 + 10
+    tokens) passes the reduced window of 16."""
+    jc = jcfg.reduced(jcfg.get_config(arch), layers=2)
+    tc = tcfg.reduced(tcfg.get_config(arch), layers=2)
+    jp = jm.init_params(jc, jax.random.PRNGKey(key))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     rng = np.random.default_rng(8)
     prompts = [rng.integers(1, jc.vocab_size, n).astype(np.int32)
@@ -223,6 +223,32 @@ def test_mixtral_engine_tokens_and_logits_equal_to_reference():
         assert tdone[i].output == jdone[i].output, i
     assert teng.stats.leaked_blocks == 0
     assert teng.allocator.num_in_use == 0
+
+
+def test_mixtral_engine_tokens_and_logits_equal_to_reference():
+    """Reduced mixtral (two swa_moe layers, window 16 < the longest
+    sequence): :func:`_engines_equal`."""
+    _engines_equal("mixtral-8x7b", key=2)
+
+
+def test_deepseek_engine_tokens_and_logits_equal_to_reference():
+    """Reduced deepseek (an ``mla`` prelude and one ``mla_moe`` block):
+    :func:`_engines_equal` pages the 3-D latent and rope-key leaves
+    through admission, decode steps that cross block boundaries and
+    preemption."""
+    _engines_equal("deepseek-v2-lite-16b", key=2)
+
+
+@pytest.mark.parametrize("arch, key", [("gemma3-1b", 3),
+                                       ("qwen2.5-14b", 4),
+                                       ("starcoder2-7b", 5)])
+def test_dense_engine_tokens_and_logits_equal_to_reference(arch, key):
+    """The dense configs registered beside granite: gemma3-1b (its two
+    local prelude layers' list of caches and a period of five local and
+    one global layer, paged; window 16 < the longest sequence),
+    qwen2.5-14b (qkv bias) and starcoder2-7b (layernorm, GELU, biases):
+    :func:`_engines_equal`."""
+    _engines_equal(arch, key)
 
 
 def test_engine_rejects_overflow_and_small_pool(setup):

@@ -36,15 +36,24 @@ from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.tree import tree_flatten, tree_map  # noqa: E402
 
 TOL = dict(atol=2e-4, rtol=2e-4)
-ARCHS = ["granite-8b", "mixtral-8x7b", "repro-lm-100m", "rwkv6-7b"]
+ARCHS = ["deepseek-v2-lite-16b", "gemma3-1b", "granite-8b", "mixtral-8x7b",
+         "qwen2.5-14b", "repro-lm-100m", "rwkv6-7b", "starcoder2-7b"]
 B, S = 2, 16
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request):
     name = request.param
-    jc = jcfg.reduced(jcfg.get_config(name), layers=2)
-    tc = tcfg.reduced(tcfg.get_config(name), layers=2)
+    # three periods after the prelude: with one, a stacked leaf has the
+    # shape of one layer's tensor with a unit axis in front, and with two
+    # (= B) the shape of activations such as gemma3's (2, 16) tokens
+    # against its stacked (2, hd) qk-norm scales; the trace's whole-stack
+    # check would take such ops for the stack's
+    full = jcfg.get_config(name)
+    layers = len(full.prelude) + 3 * full.period
+    jc = jcfg.reduced(full, layers=layers)
+    tc = tcfg.reduced(tcfg.get_config(name), layers=layers)
+    assert tc.num_periods == 3 != B
     jp = jm.init_params(jc, jax.random.PRNGKey(3))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     rng = np.random.default_rng(4)
@@ -156,14 +165,18 @@ def test_forward_takes_unstacked_periods(model):
 def _dot_flops_formula(cfg, batch: int, seq: int) -> float:
     """3 x 2·T·(matmul parameters) + per layer, attention: 4·B·H·S²·hd
     forward and 8·B·H·S²·hd backward (dense S², as the reference's graph
-    of its ``_plain_gqa`` counts); or the RWKV6 recurrence's chunked
-    products, 2·B·H·n·(2·C²·hd + 2·C·hd²) forward (chunks of C = min(64,
-    S) tokens, n of them) and twice that backward. An MoE layer's FFN is
-    its router (3 x 2·T·d·E), the dispatch product (forward and the
-    activations' gradient: 2 x 2·G·N·E·C·d), the combine product (3 x
-    2·G·N·E·C·d: the combine weights take a gradient through the router)
-    and the three expert products on E·G·C rows (3 x 3 x 2·E·G·C·d·f),
-    for G groups of N tokens and C slots."""
+    of its ``_plain_gqa`` counts; an MLA layer's hd is nope + rope, the
+    width its padded v reaches the kernel at); or the RWKV6 recurrence's
+    chunked products, 2·B·H·n·(2·C²·hd + 2·C·hd²) forward (chunks of C =
+    min(64, S) tokens, n of them) and twice that backward. An MLA layer's
+    matmul parameters are its six projections (wq, w_dkv, w_kr, w_uk,
+    w_uv, wo). An MoE layer's FFN is its router (3 x 2·T·d·E), the
+    dispatch product (forward and the activations' gradient: 2 x
+    2·G·N·E·C·d), the combine product (3 x 2·G·N·E·C·d: the combine
+    weights take a gradient through the router), the expert products on
+    E·G·C rows (3 x m x 2·E·G·C·d·f for m matrices an expert) and the
+    shared experts' dense products, for G groups of N tokens and C
+    slots."""
     T = batch * seq
     d = cfg.d_model
     if cfg.rwkv is not None:
@@ -172,18 +185,32 @@ def _dot_flops_formula(cfg, batch: int, seq: int) -> float:
         C, n = min(64, seq), -(-seq // 64)
         mixer = 3 * 2 * batch * (d // hd) * n * (2 * C * C * hd
                                                   + 2 * C * hd * hd)
-    else:
-        per_layer = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
-        mixer = 12 * batch * cfg.num_heads * seq ** 2 * cfg.head_dim
-        if cfg.moe is None:
-            per_layer += 3 * d * cfg.d_ff
+        mm = cfg.num_layers * per_layer + d * cfg.padded_vocab
+        return 6.0 * T * mm + cfg.num_layers * mixer
+    mats = 3 if cfg.gated_mlp else 2
+    H = cfg.num_heads
+    mm, mixer = d * cfg.padded_vocab, 0.0
+    for kind in list(cfg.prelude) + list(cfg.block_pattern) \
+            * cfg.num_periods:
+        if kind.startswith("mla"):
+            r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim,
+                             cfg.qk_rope_dim, cfg.v_head_dim)
+            mm += (d * H * (nd + rd) + d * (r + rd) + r * H * (nd + vd)
+                   + H * vd * d)
+            mixer += 12 * batch * H * seq ** 2 * (nd + rd)
         else:
-            E, N = cfg.moe.num_experts, min(1024, T)
+            mm += d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+            mixer += 12 * batch * H * seq ** 2 * cfg.head_dim
+        if kind.endswith("moe"):
+            m = cfg.moe
+            E, N = m.num_experts, min(1024, T)
             G, C = T // N, moe_capacity(cfg, N)
+            mm += mats * d * m.d_ff * m.num_shared_experts
             mixer += (6 * T * d * E + 10 * G * N * E * C * d
-                      + 18 * E * G * C * d * cfg.moe.d_ff)
-    mm = cfg.num_layers * per_layer + d * cfg.padded_vocab
-    return 6.0 * T * mm + cfg.num_layers * mixer
+                      + 6 * mats * E * G * C * d * m.d_ff)
+        else:
+            mm += mats * d * cfg.d_ff
+    return 6.0 * T * mm + mixer
 
 
 def test_training_trace(model):
