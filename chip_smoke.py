@@ -227,17 +227,21 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    every leaf within TRAIN_GATE of the eager step; nodes, partition
    seconds, predicted makespan, async, sync and eager ms, logical peak
    per PE beside the plan's.
-20. wide head kernels: the fma flash kernels at the head dims this
-   slice puts on main paths, in bf16: hd 192 at deepseek-v2-lite's
-   training shape (B=1, S=2048, 16 heads, v zero-padded from 128, as
-   ``apply_mla`` pads it; forward and backward), hd 256 at gemma3-1b's
-   prefill shape (B=8, S=1024, 4 / 1 heads) and at its training shape
-   with window 1024 at S=2048 (forward and backward): each against its
-   plain version under the gates of phases 3 and 12, repeated calls
-   bit-equal, timed in turns with the plain version and SDPA at the same
-   shape (the backend that took it, v at its own width) beside the bound
-   of the work these inputs need; the sm90 forward held at qwen2.5-14b's
-   and starcoder2-7b's prefill shapes (GQA groups of 5 and 9);
+20. wide head kernels: the sm90 flash kernels at the wide head dims on
+   main paths, in bf16: q/k 192 with v at its own 128 at
+   deepseek-v2-lite's training shape (B=1, S=2048, 16 heads; forward and
+   backward), hd 256 at gemma3-1b's prefill shape (B=8, S=1024, 4 / 1
+   heads) and at its training shape with window 1024 at S=2048 (forward
+   and backward): each against its plain version under the gates of
+   phases 3 and 12, repeated calls bit-equal, its registers and spills
+   (ptxas), timed in turns with the fma kernel it replaces (held too; v
+   and dO zero-padded inside its wrapper), the plain version and SDPA at
+   the same shape (the backend that took it) beside the bound of the
+   work these inputs need, and faster than the fma kernel (the sm90
+   kernels replayed from a CUDA graph of 20 calls, since back to back
+   their eager calls time the host; the eager time is printed too); the sm90
+   forward held at qwen2.5-14b's and starcoder2-7b's prefill shapes (GQA
+   groups of 5 and 9);
 21. deepseek serve: deepseek-v2-lite-16b in bf16 (random weights from a
    seed) at full width and the depth the printed arithmetic lets 90% of
    the card hold (all 27 layers) at the serve phase's geometry: no flash
@@ -253,12 +257,13 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    routed assignments capacity dropped, on the first prefill and decode
    step;
 22. deepseek train: its SGD step as phase 19 runs mixtral's: eager at
-   the depth the printed arithmetic allows (all 27 layers), L fma flash
-   forward and L fma backward launches at hd 192, the cross entropy at
+   the depth the printed arithmetic allows (all 27 layers), L sm90 flash
+   forward and L sm90 backward launches at q/k 192 with v read at 128
+   (asserted call by call), the cross entropy at
    init near ln V; the K=4 plan at the deepest depth that folds onto the
    card, verified, async = sync, every leaf within TRAIN_GATE of eager;
 23. dense configs: gemma3-1b served and trained eagerly at all 26 layers
-   (every flash launch fma at hd 256, window 1024 on 22 of them);
+   (every flash launch sm90 at hd 256, window 1024 on 22 of them);
    qwen2.5-14b (48 layers) and starcoder2-7b (32) served with a short
    drain, every prefill launch sm90; tok/s, TTFT, decode ms and peak
    memory for each.
@@ -314,6 +319,9 @@ GRANITE_PREFILL = (8, 32, 8, 1024, 128, True, None, "bfloat16")
 GRANITE_PREFILL_F32 = GRANITE_PREFILL[:-1] + ("float32",)
 # mixtral-8x7b's prefill: granite's shape at its sliding window of 4096
 MIXTRAL_PREFILL = GRANITE_PREFILL[:6] + (4096, "bfloat16")
+#: the sm90 forward's and backward's ms at granite's prefill and training
+#: shapes before both were templated on (DQK, DV) (PERF.md, section 6)
+GRANITE_EARLIER_MS = (0.2411, 0.3977)
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 # At the granite shape 5e-2 is as large as a typical output, so every bf16
 # kernel output is also held to the plain version run in float32 on the
@@ -442,6 +450,27 @@ def timed_turns(torch, fns: dict, reps: dict, rounds: int = 3) -> dict:
             times[name].append(cuda_ms(torch, fn, reps=reps.get(name, 10),
                                        rounds=1))
     return {name: statistics.median(t) for name, t in times.items()}
+
+
+def graphed(torch, fn, calls: int):
+    """``calls`` back-to-back calls of ``fn`` captured in one CUDA graph
+    (after a warm-up on a side stream); its ``replay`` runs them with no
+    host work between launches. A kernel faster than its wrapper's host
+    time (the custom op's dispatch, the checks, the ctypes call: ~0.1 ms)
+    is timed by the host when eager calls run back to back; replayed,
+    the events time the card alone."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    torch.cuda.synchronize()
+    return g
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -3506,10 +3535,12 @@ def phase_launch_train(torch, card: str) -> None:
 # mixtral-8x7b: the MoE family served and trained at full width
 # ---------------------------------------------------------------------------
 #: the flash kernels by name (forward sm90 and fma; the sm90 backward's
-#: four kernels; the fma backward's three)
+#: four kernels; the fma backward's three, with the "<" of their template
+#: arguments, so that no name is a prefix of an sm90 kernel's and a sum
+#: over the names counts each launch once)
 FLASH_KERNEL_NAMES = FWD_KERNELS + ("bwd_delta_sm90", "bwd_dkdv_sm90",
                                     "bwd_reduce_sm90", BWD_KERNEL,
-                                    "bwd_prep", "bwd_dkdv", "bwd_dq")
+                                    "bwd_prep<", "bwd_dkdv<", "bwd_dq<")
 
 
 def _product_role(cfg, shapes, slots: int) -> str:
@@ -3863,7 +3894,8 @@ def phase_moe_train(torch, cfg, card: str, label: str,
     eager, in place, as deep as the printed arithmetic lets 90% of the
     card hold it: L flash forward and L backward launches, all of the
     kernel ``variant`` and at the config's attention head dim (for MLA
-    nope + rope, v zero-padded to it); (b) the step traced at the plan
+    q and k at nope + rope, v at its own width); (b) the step traced at
+    the plan
     depth (its own printed arithmetic: the runtime keeps new parameters
     and grads as outputs and returns clones of them; the search starts
     at the deepest L with PLAN_START x P(L) under 90% of the card),
@@ -3881,6 +3913,7 @@ def phase_moe_train(torch, cfg, card: str, label: str,
     t_phase = time.perf_counter()
     mla = bool(cfg.kv_lora_rank)
     hd = cfg.qk_nope_dim + cfg.qk_rope_dim if mla else cfg.head_dim
+    vd = cfg.v_head_dim if mla else hd
 
     def n_moe(c) -> int:
         return sum(k.endswith("moe") for k in
@@ -3951,7 +3984,7 @@ def phase_moe_train(torch, cfg, card: str, label: str,
     window = None if mla else cfg.sliding_window
     log(f"{label} eager: flash calls at (q/k head dim, v width as "
         f"called, window) {sorted(set(widths))} x {len(widths)}")
-    assert widths == [(hd, hd, window)] * layers_n, \
+    assert widths == [(hd, vd, window)] * layers_n, \
         f"{label}: attention calls {sorted(set(widths))} x {len(widths)}"
     log(f"{label} eager: {layers_n} layers, loss after one update "
         f"{float(loss):.4f} (ce + {cfg.moe.router_aux_weight} x aux), "
@@ -4098,13 +4131,13 @@ def phase_moe_train(torch, cfg, card: str, label: str,
 # ---------------------------------------------------------------------------
 # the wide head dims (MLA's 192, gemma3's 256) and the other GQA groups
 # ---------------------------------------------------------------------------
-#: the fma kernels' shapes on this slice's main paths, in bf16:
+#: the wide head dims' shapes on this slice's main paths, in bf16:
 #: (label, B, H, KV, S, q/k head dim, v width, window, backward). v is
-#: zero-padded from its width to the head dim as ``apply_mla`` pads it,
-#: and dO is zero there, as the slice after the kernel makes it.
-#: gemma3-1b's 22 local layers run at window 1024 and its 4 global ones
-#: at none: a case each (at S = 1024 the window does not bind; at 2048
-#: the global layers see 1.9x the pairs).
+#: read at its own width, as ``apply_mla`` passes it; the sm90 kernels
+#: take it so, the fma kernels zero-pad it (and dO) inside their
+#: wrappers. gemma3-1b's 22 local layers run at window 1024 and its 4
+#: global ones at none: a case each (at S = 1024 the window does not
+#: bind; at 2048 the global layers see 1.9x the pairs).
 WIDE_CASES = [
     ("deepseek train", 1, 16, 16, 2048, 192, 128, None, True),
     ("gemma3 prefill", 8, 4, 1, 1024, 256, 256, 1024, False),
@@ -4112,6 +4145,9 @@ WIDE_CASES = [
     ("gemma3 train", 1, 4, 1, 2048, 256, 256, 1024, True),
     ("gemma3 train global", 1, 4, 1, 2048, 256, 256, None, True),
 ]
+#: calls of the sm90 kernels captured in one CUDA graph to time them at
+#: WIDE_CASES (see :func:`graphed`)
+GRAPH_CALLS = 20
 #: the sm90 forward at the prefill shapes of the dense configs whose GQA
 #: group is not 4: qwen2.5-14b (40 / 8 heads, 5) and starcoder2-7b (36 /
 #: 4, 9)
@@ -4146,19 +4182,32 @@ def top_kernel(torch, fn) -> str:
     return max(evs, key=lambda e: e.self_device_time_total).key[:100]
 
 
-def phase_wide_head_kernels(torch, ops, ref) -> list:
-    """The fma flash kernels, forward and backward, at the wide head dims
-    this slice puts on main paths (WIDE_CASES), against their plain
-    versions (TOL and TIGHT forward, BWD_GATE backward), repeated calls
-    bit-equal; each timed in turns with its plain version and SDPA at
-    the same shape (the kernel it ran, v unpadded), beside
-    the bound of the work these inputs need (v at its own width). Then
-    the sm90 forward held at GROUP_CASES. Returns the records; their
-    launches are filled in by the main paths."""
-    import torch.nn.functional as F
+def _wide_ptxas(report: dict, kernels, hd: int, vd: int) -> dict:
+    """The ptxas lines of the sm90 kernels instantiated at (hd, vd):
+    {kernel: "Used ... registers ...; ... spill ..."}."""
+    tag = f"ILi{hd}ELi{vd}E"
+    return {k: used for k, used in report.items()
+            for name in kernels if f"{name}{tag}" in k}
+
+
+def phase_wide_head_kernels(torch, ops, ref, build) -> list:
+    """The sm90 flash kernels, forward and backward, at the wide head
+    dims this slice's main paths run (WIDE_CASES: (192, 128) with v at
+    its own width, (256, 256)), against their plain versions (TOL and
+    TIGHT forward, BWD_GATE backward), repeated calls bit-equal; each
+    timed in turns with the fma kernel it replaces (``earlier_ms``; v
+    and dO zero-padded inside its wrapper), its plain version and SDPA
+    at the same shape (v unpadded), beside the bound of the work these
+    inputs need (v at its own width), and faster than the fma kernel.
+    The sm90 kernels are timed from a CUDA graph of GRAPH_CALLS calls
+    (:func:`graphed`), since eager calls back to back time their
+    wrapper's host work; the eager figure is kept as ``eager_ms``.
+    Then the sm90 forward held at GROUP_CASES. Returns the records;
+    their launches are filled in by the main paths."""
     counts = ops.flash_attention.variant_launches
     bcounts = ops.flash_attention_bwd.variant_launches
     src = "src/repro_torch/kernels/flash_attention/csrc/"
+    report = ptxas_report(build, ops, "flash_attention")
     records = []
     for i, (label, B, H, KV, S, hd, vd, window, backward) in \
             enumerate(WIDE_CASES):
@@ -4166,112 +4215,148 @@ def phase_wide_head_kernels(torch, ops, ref) -> list:
 
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda").bfloat16()
-        q, k = rnd(B, S, H, hd), rnd(B, S, KV, hd)
-        v = F.pad(rnd(B, S, KV, vd), (0, hd - vd))
+        q, k, v = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, vd)
         kw = dict(causal=True, window=window)
         shape = (B, H, KV, S, hd, vd, True, window, "bfloat16")
-        assert ops.select_variant(q.dtype, hd) == "fma"
-        before = counts["fma"]
+        assert ops.select_variant(q.dtype, hd, vd) == "sm90"
+        before = dict(counts)
         out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
         again = ops.flash_attention(q, k, v, **kw)
-        assert counts["fma"] == before + 2, f"{label}: not the fma kernel"
+        assert counts["sm90"] == before["sm90"] + 2 and \
+            counts["fma"] == before["fma"], f"{label}: not the sm90 kernel"
         rep = torch.equal(out, again)
         del again
-        err, tight = _hold(torch, ref, f"{label} {shape} [fma]", out, q, k,
-                           v, "bfloat16", **kw)
-        zero = int(torch.count_nonzero(out[..., vd:]))
-        log(f"wide_head_kernels {label}: forward repeated call bit-equal "
-            f"{rep}; output columns past v's width {vd}: {zero} non-zero")
-        assert rep and zero == 0, f"{label}: forward not repeatable"
+        log(f"wide_head_kernels {label}: sm90 forward out "
+            f"{tuple(out.shape)}, repeated call bit-equal {rep}")
+        assert rep and out.shape == (B, S, H, vd), \
+            f"{label}: forward not repeatable"
+        err, tight = _hold(torch, ref, f"{label} {shape} [sm90]", out, q,
+                           k, v, "bfloat16", **kw)
+        fma_out, _ = ops.run_variant("fma", q, k, v, **kw)
+        _hold(torch, ref, f"{label} {shape} [fma, v padded inside]",
+              fma_out, q, k, v, "bfloat16", **kw)
+        del fma_out
         rep_q = q.transpose(1, 2)
         rep_k = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-        rep_v = v[..., :vd].repeat_interleave(H // KV, dim=2).transpose(1, 2)
+        rep_v = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
         sdpa = _sdpa(torch, rep_q, rep_k, rep_v, window)
         backend = top_kernel(torch, sdpa)
         lib_err = float((sdpa().transpose(1, 2).float()
-                         - out[..., :vd].float()).abs().max())
-        fns = {"fma": lambda: ops.flash_attention(q, k, v, **kw),
+                         - out.float()).abs().max())
+        sm90 = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+        graph = graphed(torch, sm90, GRAPH_CALLS)
+        fns = {"sm90": graph.replay, "sm90 eager": sm90,
+               "fma": lambda: ops.run_variant("fma", q, k, v, **kw),
                "plain": lambda: ref.flash_attention_ref(q, k, v, **kw),
                "sdpa": sdpa}
         pairs = visible_pairs(S, S, True, window)
         flops = 2 * B * H * pairs * (hd + vd)
         nbytes = 2 * (B * S * (H + KV) * hd + B * S * (KV + H) * vd)
-        ms = timed_turns(torch, fns, reps={"fma": 5, "plain": 3})
+        ms = timed_turns(torch, fns, reps={"sm90": 1, "sm90 eager": 20,
+                                           "fma": 3, "plain": 3})
+        ms["sm90"] /= GRAPH_CALLS
+        del graph
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        log(f"timing flash_attention at {label} {shape}, in turns: fma "
-            f"{ms['fma']:.4f} ms ({flops / ms['fma'] / 1e9:.2f} TFLOP/s of "
-            f"the work needed), plain {ms['plain']:.4f} ms, sdpa "
-            f"(top kernel {backend}; v at its width {vd}, unpadded) "
-            f"{ms['sdpa']:.4f} "
-            f"ms (max |sdpa - fma| {lib_err:.3g}); bound "
-            f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP on "
-            f"{B * H * pairs / 1e6:.2f} M visible (pair, head)s, "
-            f"{nbytes / 2**20:.1f} MiB)")
+        regs = _wide_ptxas(report, ("flash_fwd_sm90",), hd, vd)
+        log(f"timing flash_attention at {label} {shape}, in turns: sm90 "
+            f"{ms['sm90']:.4f} ms ({flops / ms['sm90'] / 1e9:.2f} TFLOP/s "
+            f"of the work needed; {GRAPH_CALLS} calls replayed from a CUDA "
+            f"graph; eager through the op, back to back "
+            f"{ms['sm90 eager']:.4f} ms), fma {ms['fma']:.4f} ms, plain "
+            f"{ms['plain']:.4f} ms, sdpa (top kernel {backend}; v at its "
+            f"width {vd}) {ms['sdpa']:.4f} ms (max |sdpa - sm90| "
+            f"{lib_err:.3g}); bound {max(t_ops, t_bytes):.4f} ms "
+            f"({flops / 1e9:.2f} GFLOP on {B * H * pairs / 1e6:.2f} M "
+            f"visible (pair, head)s, {nbytes / 2**20:.1f} MiB); ptxas "
+            f"{regs}")
+        assert ms["sm90"] < ms["fma"], \
+            f"{label}: the sm90 forward is not faster than fma"
         records.append({
-            "name": "flash_attention", "variant": "fma", "case": label,
+            "name": "flash_attention", "variant": "sm90", "case": label,
             "shape": list(shape), "route": "cuda",
-            "source": src + "flash_attention.cu",
+            "source": src + "flash_attention_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
             "launches": None, "max_abs_err": err, "tight_gate_ratio": tight,
-            "ms": ms["fma"], "plain_ms": ms["plain"],
+            "ms": ms["sm90"], "plain_ms": ms["plain"],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": ms["sdpa"], "library_kernel": backend,
-            "library_v_padded": False})
+            "earlier_variant": "fma", "earlier_ms": ms["fma"],
+            "eager_ms": ms["sm90 eager"], "ptxas": regs})
         if backward:
-            do = F.pad(rnd(B, S, H, vd), (0, hd - vd))
+            do = rnd(B, S, H, vd)
             want = ref.flash_attention_bwd_ref(do.float(), q.float(),
                                                k.float(), v.float(), **kw)
-            assert ops.select_bwd_variant(q.dtype, hd) == "fma"
-            before = bcounts["fma"]
+            assert ops.select_bwd_variant(q.dtype, hd, vd) == "sm90"
+            before = dict(bcounts)
             got = ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
             again = ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
-            assert bcounts["fma"] == before + 2
-            ratio, berr = _hold_bwd(torch, f"{label} {shape} [fma]", got,
+            assert bcounts["sm90"] == before["sm90"] + 2 and \
+                bcounts["fma"] == before["fma"]
+            assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+            ratio, berr = _hold_bwd(torch, f"{label} {shape} [sm90]", got,
                                     again, want, "bfloat16")
-            del want, again
+            got = ops.run_bwd_variant("fma", do, q, k, v, out, lse, **kw)
+            again = ops.run_bwd_variant("fma", do, q, k, v, out, lse, **kw)
+            _hold_bwd(torch, f"{label} {shape} [fma, v and dO padded "
+                      f"inside]", got, again, want, "bfloat16")
+            del want, again, got
             qg, kg, vg = (t.detach().requires_grad_()
                           for t in (rep_q, rep_k, rep_v))
             lib_out = _sdpa(torch, qg, kg, vg, window)()
-            dot = do[..., :vd].transpose(1, 2)
+            dot = do.transpose(1, 2)
 
             def sdpa_bwd():
                 return torch.autograd.grad(lib_out, (qg, kg, vg), dot,
                                            retain_graph=True)
             bbackend = top_kernel(torch, sdpa_bwd)
+
+            def bwd90():
+                return ops.flash_attention_bwd(do, q, k, v, out, lse, **kw)
+            graph = graphed(torch, bwd90, GRAPH_CALLS)
             bms = timed_turns(torch, {
-                "fma": lambda: ops.flash_attention_bwd(do, q, k, v, out, lse,
-                                                       **kw),
+                "sm90": graph.replay, "sm90 eager": bwd90,
+                "fma": lambda: ops.run_bwd_variant("fma", do, q, k, v, out,
+                                                   lse, **kw),
                 "plain": lambda: ref.flash_attention_bwd_ref(do, q, k, v,
                                                              **kw),
                 "sdpa": sdpa_bwd,
-            }, reps={"fma": 3, "plain": 2})
+            }, reps={"sm90": 1, "sm90 eager": 10, "fma": 2, "plain": 2})
+            bms["sm90"] /= GRAPH_CALLS
+            del graph
             bflops = 2 * B * H * pairs * (2 * hd + 2 * vd)
             bbytes = 2 * nbytes + 2 * B * S * H * vd
             b_ops = bflops / PEAK_FLOPS["bfloat16"] * 1e3
             b_bytes = bbytes / PEAK_BYTES * 1e3
+            bregs = _wide_ptxas(report, ("bwd_dkdv_sm90", "bwd_dq_sm90"),
+                                hd, vd)
             log(f"timing flash_attention_bwd at {label} {shape}, in turns: "
-                f"fma {bms['fma']:.4f} ms ({bflops / bms['fma'] / 1e9:.2f} "
-                f"TFLOP/s of the work needed), plain {bms['plain']:.4f} ms, "
-                f"sdpa backward (top kernel {bbackend}; v at {vd}, unpadded) "
-                f"{bms['sdpa']:.4f} ms; bound {max(b_ops, b_bytes):.4f} ms "
-                f"({bflops / 1e9:.2f} GFLOP of the four backward products, "
-                f"{bbytes / 2**20:.1f} MiB)")
+                f"sm90 {bms['sm90']:.4f} ms ({bflops / bms['sm90'] / 1e9:.2f}"
+                f" TFLOP/s of the work needed; from a CUDA graph; eager "
+                f"{bms['sm90 eager']:.4f} ms), fma {bms['fma']:.4f} ms, plain "
+                f"{bms['plain']:.4f} ms, sdpa backward (top kernel "
+                f"{bbackend}; v at {vd}) {bms['sdpa']:.4f} ms; bound "
+                f"{max(b_ops, b_bytes):.4f} ms ({bflops / 1e9:.2f} GFLOP of "
+                f"the four backward products, {bbytes / 2**20:.1f} MiB); "
+                f"ptxas {bregs}")
+            assert bms["sm90"] < bms["fma"], \
+                f"{label}: the sm90 backward is not faster than fma"
             records.append({
-                "name": "flash_attention_bwd", "variant": "fma",
+                "name": "flash_attention_bwd", "variant": "sm90",
                 "case": label, "shape": list(shape), "route": "cuda",
-                "source": src + "flash_attention_bwd.cu",
+                "source": src + "flash_attention_bwd_sm90.cu",
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
                 "note": "the gradient of that kernel; the reference has no "
                         "backward kernel",
                 "launches": None, "max_abs_err": berr, "gate_ratio": ratio,
-                "ms": bms["fma"], "plain_ms": bms["plain"],
+                "ms": bms["sm90"], "plain_ms": bms["plain"],
                 "bound_ms": max(b_ops, b_bytes),
                 "bound_by": "operations" if b_ops >= b_bytes else "bytes",
                 "library_ms": bms["sdpa"], "library_kernel": bbackend,
-                "library_v_padded": False})
-            del do, got, qg, kg, vg, lib_out, dot
+                "earlier_variant": "fma", "earlier_ms": bms["fma"],
+                "eager_ms": bms["sm90 eager"], "ptxas": bregs})
+            del do, qg, kg, vg, lib_out, dot
         del q, k, v, out, lse, rep_q, rep_k, rep_v
         _release(torch)
     for i, (label, case) in enumerate(GROUP_CASES):
@@ -4509,7 +4594,7 @@ def phase_deepseek_serve(torch, cfg, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the dense configs: gemma3-1b (hd 256, fma), qwen2.5-14b and starcoder2-7b
+# the dense configs: gemma3-1b (hd 256, sm90), qwen2.5-14b and starcoder2-7b
 # ---------------------------------------------------------------------------
 def _serve_cell(torch, cfg, label: str, variant: str, max_new: int,
                 windows) -> dict:
@@ -4568,9 +4653,9 @@ def _serve_cell(torch, cfg, label: str, variant: str, max_new: int,
 
 def phase_dense_configs(torch, card: str) -> dict:
     """The three dense configs at full width and depth, bf16, random
-    weights from a seed: gemma3-1b served (every prefill flash launch fma
+    weights from a seed: gemma3-1b served (every prefill flash launch sm90
     at hd 256, window 1024 on 22 of 26 layers) and trained (eager SGD in
-    place, B=1, S=2048: 26 fma forward and 26 fma backward launches a
+    place, B=1, S=2048: 26 sm90 forward and 26 sm90 backward launches a
     step, at window 1024 on the same 22); qwen2.5-14b and starcoder2-7b
     served with a short drain, every prefill launch sm90. Returns
     gemma3's launches by WIDE_CASES record, {(kernel name, case label):
@@ -4585,7 +4670,7 @@ def phase_dense_configs(torch, card: str) -> dict:
     windows = [gemma.sliding_window if k.startswith("swa") else None
                for k in kinds]
     serve = _serve_cell(torch, gemma, "dense_configs gemma3-1b serve",
-                        "fma", 32, windows)
+                        "sm90", 32, windows)
     # _serve_cell held the calls to ``windows``, one a layer a prefill call
     local = sum(w is not None for w in windows)
     calls = serve["stats"].prefill_calls
@@ -4618,8 +4703,8 @@ def phase_dense_configs(torch, card: str) -> dict:
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     L = gemma.num_layers
-    want = {"flash_attention": L, "flash_attention/fma": L,
-            "flash_attention_bwd": L, "flash_attention_bwd/fma": L}
+    want = {"flash_attention": L, "flash_attention/sm90": L,
+            "flash_attention_bwd": L, "flash_attention_bwd/sm90": L}
     got = {k: launches[k] for k in want}
     log(f"dense_configs gemma3-1b train: {L} layers, loss "
         f"{float(loss):.4f} (ln {gemma.vocab_size} = "
@@ -4724,6 +4809,9 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         with _Timed("kernels"):
             record = phase_kernels(torch, ops, ref)
+        log(f"kernels: the sm90 forward at granite's prefill shape "
+            f"{record['ms']:.4f} ms; before it was templated on (DQK, DV): "
+            f"{GRANITE_EARLIER_MS[0]} ms")
     if "rwkv_kernels" in phases:
         with _Timed("rwkv_kernels"):
             rwkv_record = phase_rwkv_kernels(torch, rops, rref)
@@ -4769,6 +4857,9 @@ def main(argv=None) -> int:
     if "train_kernels" in phases or "train" in phases:
         with _Timed("train_kernels"):
             train_record = phase_train_kernel(torch, ops, ref, build)
+        log(f"train_kernels: the sm90 backward at granite's training shape "
+            f"{train_record['ms']:.4f} ms; before it was templated on (DQK, "
+            f"DV): {GRANITE_EARLIER_MS[1]} ms")
     if "train" in phases:
         with _Timed("train"):
             phase_train(torch, ops, cfg, card, train_record)
@@ -4799,13 +4890,13 @@ def main(argv=None) -> int:
         if train_record is not None:
             train_record["mixtral_train_launches"] = \
                 launches["flash_attention_bwd"]
-    # the fma kernels at the wide head dims: the deepseek_train and
+    # the sm90 kernels at the wide head dims: the deepseek_train and
     # dense_configs main paths fill in their launches
     wide = {}
     if "wide_head_kernels" in phases:
         with _Timed("wide_head_kernels"):
             wide = {(r["name"], r["case"]): r
-                    for r in phase_wide_head_kernels(torch, ops, ref)}
+                    for r in phase_wide_head_kernels(torch, ops, ref, build)}
     dcfg = get_config("deepseek-v2-lite-16b")
     if "deepseek_serve" in phases:
         with _Timed("deepseek_serve"):
@@ -4813,7 +4904,7 @@ def main(argv=None) -> int:
     if "deepseek_train" in phases:
         with _Timed("deepseek_train"):
             launches = phase_moe_train(torch, dcfg, card, "deepseek_train",
-                                       "fma")
+                                       "sm90")
         for name in ("flash_attention", "flash_attention_bwd"):
             if (name, "deepseek train") in wide:
                 wide[(name, "deepseek train")]["launches"] = launches[name]

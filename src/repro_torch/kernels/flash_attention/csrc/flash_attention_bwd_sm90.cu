@@ -1,11 +1,13 @@
 // Flash attention backward for NVIDIA Hopper (sm_90a), designed for the
 // card: wgmma on TMA-fed, 128-byte swizzled tiles, the row LSE taken from
 // the forward, warp-specialised persistent blocks with a balanced walk.
-// bf16 q, k, v, o and dO at head dims 64 and 128
-// (repro_flash_attention_bwd_sm90 refuses others). Two earlier designs
-// compute the same function and stay as the comparison:
-// flash_attention_bwd_mma.cu (mma.sync) and flash_attention_bwd.cu
-// (float32 FMAs; float32 and the other head dims).
+// bf16 q, k, v, o and dO, templated on the q/k head dim DQK and the v
+// width DV and instantiated at (64, 64), (128, 128), (192, 128) (MLA,
+// v read at its own 128) and (256, 256) (repro_flash_attention_bwd_sm90
+// refuses other pairs). Two earlier designs compute the same function
+// and stay as the comparison: flash_attention_bwd_mma.cu (mma.sync, v as
+// wide as q) and flash_attention_bwd.cu (float32 FMAs; float32 and the
+// other shapes).
 //
 // The gradient of the forward kernels in this folder, which replace the
 // Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py:94 (the
@@ -16,12 +18,13 @@
 //   (a') bwd_delta_sm90, per row: D = rowsum(dO o O) in float32, and the
 //        forward's LSE times log2(e), into scratch padded to 128 rows
 //        (+inf and 0 past Sq, so tiles read them whole);
-//   (b') bwd_dkdv_sm90, per (128 keys, query head): dK and dV of that
-//        head over the query tiles that see the keys, float32 partials;
+//   (b') bwd_dkdv_sm90, per (128 keys, query head; 64 at (256, 256)):
+//        dK and dV of that head over the query tiles that see the keys,
+//        float32 partials;
 //   (c') bwd_reduce_sm90, per (key, KV head): the G heads' partials summed
 //        in a fixed order, dK times the scale, bf16 out;
-//   (d') bwd_dq_sm90, per (128 queries, head): dQ over the key tiles it
-//        sees.
+//   (d') bwd_dq_sm90, per (128 queries, head; 64 at (256, 256)): dQ over
+//        the key tiles it sees.
 //
 // Bound on the H100. At the granite-8b training shape (B=1, S=2048, H=32,
 // KV=8, hd=128, causal) the four backward products are 68.75 GFLOP, 0.0695
@@ -67,6 +70,23 @@
 //   them: 64 MiB written and read again, ~0.04 ms. (d') walks its 512
 //   items (128 queries of one head, latest first) the same way. dQ stays a
 //   kernel of its own, because fused into (b') it would need atomics.
+// * The wide shapes (Shape below). Registers are what binds. At (192,
+//   128) a (b') consumer would hold dK (96 a thread) and dV (64) beside
+//   S^T, dP^T (32 + 32) and their bf16 fragments (16 + 16): 256 of the
+//   240. So (b') takes each 64-query tile in two slices of 32 queries
+//   (m64n32k16 for S^T and dP^T; the dV and dK products over 32
+//   queries): 208. Shared memory there: K 2 x 24 KB and V 2 x 16 KB,
+//   ring stages of Q 24 plus dO 16 KB, 3 of them. At (256, 256) dK and
+//   dV alone would be 256 registers: the two consumers take the same 64
+//   keys and split the columns, consumer c owning [128c, 128c + 128) of
+//   dK and dV (and in (d') of dQ, over the same 64 queries). Each
+//   computes S^T and dP^T over all 256 columns itself (the half of the
+//   score products done twice, no exchange through shared memory):
+//   224 registers, as at hd 128. One K and one V tile of 32 KB, ring
+//   stages of 64 KB, 2 of them. This also doubles the items: gemma3's
+//   training shape (B=1, H=4, S=2048) has 128 of them for 132 SMs.
+//   ptxas: (b') spills 164 bytes a thread at (192, 128) and 36 at (128,
+//   128); (b') at (256, 256), (d') and (a'), (c') at every shape none.
 // * Tiles wholly outside the causal cone or the window are never loaded;
 //   a consumer waits for and releases the tiles none of its rows sees.
 //   Per-element masks run only on tiles that cross the diagonal or the
@@ -103,7 +123,7 @@ struct Params {
   int B, H, KV, Sq, Sk, G;
   int sq_pad;                   // rows of lse2 / delta per (b, h)
   int n_kv_work;                // (b') items
-  int n_qt, n_q_work;           // 128-query tiles; (d') items
+  int n_qt, n_q_work;           // (d') query tiles per (b, h); items
   float scale;
   float scale_log2;             // scale * log2(e)
   float softcap;                // <= 0: none
@@ -114,26 +134,37 @@ struct Params {
   int q_offset;
   const float* lse2;            // (B, H, sq_pad): LSE log2(e), +inf past Sq
   const float* delta;           // (B, H, sq_pad): rowsum(dO o O), 0 past Sq
-  float* dkp;                   // (B, H, Sk, D) float32 partials
-  float* dvp;
+  float* dkp;                   // (B, H, Sk, DQK) float32 partials
+  float* dvp;                   // (B, H, Sk, DV)
   bf16* dq;
   long long dq_sb, dq_ss, dq_sh;
 };
 
-template <int D>
-struct Tiles {
-  static constexpr int NBOX = D / BOX;
-  static constexpr uint32_t TILE = NBOX * TILE_BOX;   // 64 rows x D
+// How a (DQK, DV) pair is cut (see the header): CS consumers share one
+// 64-row tile and split the gradient's columns (2 at (256, 256), else
+// 1: each consumer its own 64 rows), and (b') takes its query tiles in
+// slices of QS queries (32 at (192, 128), else 64).
+template <int DQK, int DV>
+struct Shape {
+  static constexpr int CS = DQK + DV > 384 ? 2 : 1;
+  static constexpr int QS = CS == 1 && DQK + DV > 256 ? 32 : 64;
+  static constexpr int ROWS = NCW * BM / CS;   // keys / queries an item
+  static constexpr int TILES = NCW / CS;       // its 64-row tiles
+  static constexpr int KBOX = DQK / BOX, VBOX = DV / BOX;
+  static constexpr uint32_t TILE_QK = KBOX * TILE_BOX;   // 64 rows x DQK
+  static constexpr uint32_t TILE_V = VBOX * TILE_BOX;    // 64 rows x DV
+  // columns of dK or dQ, and of dV, one consumer owns
+  static constexpr int CQK = DQK / CS, CV = DV / CS;
 };
 
-// (b'): K and V of both consumers, then the ring of (Q, dO) slots, the
-// slots' statistics (lse2 and delta, 64 floats each) and the barriers.
-template <int D>
+// (b'): the item's K tiles, its V tiles, then the ring of (Q, dO) slots,
+// the slots' statistics (lse2 and delta, 64 floats each) and the barriers.
+template <int DQK, int DV>
 struct KVLayout {
-  static constexpr uint32_t TILE = Tiles<D>::TILE;
-  static constexpr uint32_t V_OFF = NCW * TILE;
-  static constexpr uint32_t RING_OFF = 2 * NCW * TILE;
-  static constexpr uint32_t STAGE = 2 * TILE;
+  using S = Shape<DQK, DV>;
+  static constexpr uint32_t V_OFF = S::TILES * S::TILE_QK;
+  static constexpr uint32_t RING_OFF = V_OFF + S::TILES * S::TILE_V;
+  static constexpr uint32_t STAGE = S::TILE_QK + S::TILE_V;   // Q, dO
   static constexpr uint32_t STAT = 2 * BM * 4;
   static constexpr int FIT = (227 * 1024 - RING_OFF - 4096) / (STAGE + STAT);
   static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
@@ -143,14 +174,15 @@ struct KVLayout {
   static constexpr size_t SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;
 };
 
-// (d'): Q and dO of both consumers, the ring of (K, V) slots, the items'
-// statistics (lse2 and delta, 128 rows each) and the barriers.
-template <int D>
+// (d'): the item's Q tiles, its dO tiles, the ring of (K, V) slots, the
+// items' statistics (lse2 and delta, room for 128 rows each) and the
+// barriers.
+template <int DQK, int DV>
 struct QLayout {
-  static constexpr uint32_t TILE = Tiles<D>::TILE;
-  static constexpr uint32_t DO_OFF = NCW * TILE;
-  static constexpr uint32_t RING_OFF = 2 * NCW * TILE;
-  static constexpr uint32_t STAGE = 2 * TILE;
+  using S = Shape<DQK, DV>;
+  static constexpr uint32_t DO_OFF = S::TILES * S::TILE_QK;
+  static constexpr uint32_t RING_OFF = DO_OFF + S::TILES * S::TILE_V;
+  static constexpr uint32_t STAGE = S::TILE_QK + S::TILE_V;   // K, V
   static constexpr uint32_t STAT = 2 * NCW * BM * 4;
   static constexpr int FIT =
       (227 * 1024 - RING_OFF - STAT - 4096) / STAGE;
@@ -192,7 +224,7 @@ struct Ring {
   }
 };
 
-// (b') item: 128 keys of one (batch, head), early key tiles (the heaviest
+// (b') item: ROWS keys of one (batch, head), early key tiles (the heaviest
 // under a causal mask) first, and the 64-query tiles that see them.
 struct KVItem {
   int b, h, k0, qt0, n_tiles;
@@ -206,20 +238,22 @@ __device__ __forceinline__ void query_range(const Params& p, int k_lo,
   if (p.window > 0) end = min(end, k_hi + p.window - p.q_offset);
 }
 
+template <int DQK, int DV>
 __device__ __forceinline__ KVItem kv_item(const Params& p, int w) {
+  constexpr int ROWS = Shape<DQK, DV>::ROWS;
   KVItem it;
   const int bh = p.B * p.H;
-  it.k0 = (w / bh) * (NCW * BM);
+  it.k0 = (w / bh) * ROWS;
   it.b = (w % bh) / p.H;
   it.h = w % p.H;
   int begin, end;
-  query_range(p, it.k0, min(it.k0 + NCW * BM, p.Sk) - 1, begin, end);
+  query_range(p, it.k0, min(it.k0 + ROWS, p.Sk) - 1, begin, end);
   it.qt0 = begin - begin % BM;
   it.n_tiles = end > it.qt0 ? (end - it.qt0 + BM - 1) / BM : 0;
   return it;
 }
 
-// (d') item: 128 queries of one (batch, head), last query tiles first,
+// (d') item: ROWS queries of one (batch, head), last query tiles first,
 // and the 64-key tiles they see.
 struct QItem {
   int b, h, q0, kt0, n_tiles;
@@ -234,14 +268,16 @@ __device__ __forceinline__ void key_range(const Params& p, int r0, int r1,
   if (p.window > 0) begin = max(0, p.q_offset + r0 - p.window + 1);
 }
 
+template <int DQK, int DV>
 __device__ __forceinline__ QItem q_item(const Params& p, int w) {
+  constexpr int ROWS = Shape<DQK, DV>::ROWS;
   QItem it;
   const int bh = p.B * p.H;
-  it.q0 = (p.n_qt - 1 - w / bh) * (NCW * BM);
+  it.q0 = (p.n_qt - 1 - w / bh) * ROWS;
   it.b = (w % bh) / p.H;
   it.h = w % p.H;
   int begin, end;
-  key_range(p, it.q0, min(it.q0 + NCW * BM, p.Sq), begin, end);
+  key_range(p, it.q0, min(it.q0 + ROWS, p.Sq), begin, end);
   it.kt0 = begin - begin % BM;
   it.n_tiles = end > it.kt0 ? (end - it.kt0 + BM - 1) / BM : 0;
   return it;
@@ -267,59 +303,76 @@ __device__ __forceinline__ bool visible(const Params& p, int q, int k) {
   return ok;
 }
 
-// A 64 x 64 product of two [row][hd] tiles over hd, both K-major: hd / 16
-// k-steps of 32 bytes, 4 per 128-byte box. C = A B^T.
-template <int D>
-__device__ __forceinline__ void issue_ss(float (&c)[32], uint32_t a,
+// A 64 x N product (N 64 or 32) of two [row][d] tiles over D columns,
+// both K-major: D / 16 k-steps of 32 bytes, 4 per 128-byte box. C = A B^T;
+// b may start at any multiple of 8 rows of its tile.
+template <int D, int N>
+__device__ __forceinline__ void issue_ss(float (&c)[N / 2], uint32_t a,
                                          uint32_t b) {
 #pragma unroll
   for (int k = 0; k < D / 16; ++k) {
     const uint32_t off = (k / 4) * TILE_BOX + (k % 4) * 32;
-    wgmma_ss_m64n64k16(c, make_desc(a + off, 16, 1024),
-                       make_desc(b + off, 16, 1024), k > 0);
+    if constexpr (N == 64)
+      wgmma_ss_m64n64k16(c, make_desc(a + off, 16, 1024),
+                         make_desc(b + off, 16, 1024), k > 0);
+    else
+      wgmma_ss_m64n32k16(c, make_desc(a + off, 16, 1024),
+                         make_desc(b + off, 16, 1024), k > 0);
   }
 }
 
-// C[64 x D] += A[64 x 64] T, A from registers (4 k-steps of 16 rows of T),
-// T a [row][hd] tile read MN-major: 16 rows of 128 bytes per k-step, the
-// next 64 columns one box further.
-template <int D>
-__device__ __forceinline__ void issue_rs(float (&c)[D / 2],
-                                         const uint32_t (&a)[4][4],
+// C[64 x N] += A[64 x 16 KS] T, A from registers (KS k-steps of 16 rows
+// of T), T N columns of a [row][d] tile read MN-major: 16 rows of 128
+// bytes per k-step, the next 64 columns one box further. At N 192 two
+// products, n128 into c[0, 64) and n64 into c[64, 96): the accumulator
+// fragment of columns [128, 192) starts at register 64.
+template <int N, int KS>
+__device__ __forceinline__ void issue_rs(float (&c)[N / 2],
+                                         const uint32_t (&a)[KS][4],
                                          uint32_t t) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const uint64_t desc = make_desc(t + kk * 16 * 128, TILE_BOX, 1024);
-    if constexpr (D == 64)
+    if constexpr (N == 64) {
       wgmma_rs_m64n64k16(c, a[kk], desc);
-    else
+    } else if constexpr (N == 128) {
       wgmma_rs_m64n128k16(c, a[kk], desc);
+    } else {
+      static_assert(N == 192, "issue_rs: N is 64, 128 or 192");
+      float(&c0)[64] = *reinterpret_cast<float(*)[64]>(&c[0]);
+      float(&c1)[32] = *reinterpret_cast<float(*)[32]>(&c[64]);
+      wgmma_rs_m64n128k16(c0, a[kk], desc);
+      wgmma_rs_m64n64k16(
+          c1, a[kk],
+          make_desc(t + 2 * TILE_BOX + kk * 16 * 128, TILE_BOX, 1024));
+    }
   }
 }
 
-// The float32 accumulator fragment of a 64 x 64 tile as bf16 A fragments,
+// The float32 accumulator fragment of a 64 x N tile as bf16 A fragments,
 // one per 16 columns.
-__device__ __forceinline__ void to_a(const float (&x)[32],
-                                     uint32_t (&a)[4][4]) {
+template <int N>
+__device__ __forceinline__ void to_a(const float (&x)[N / 2],
+                                     uint32_t (&a)[N / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
 }
 
 // P and dS (the softcap's derivative included, the scale not) of one
-// 64 x 64 tile in place: s holds the scores' dot products, dp the dP
+// 64 x N tile in place: s holds the scores' dot products, dp the dP
 // values. Element i of this thread sits at row ra + 8 ((i / 2) % 2),
 // column 8 (i / 4) + 2 tq + (i % 2) of the tile. `lse2`, `delta` give the
 // statistics of a query: by column (KEYS_ROWS, kernel (b')) or by row.
-template <bool KEYS_ROWS, bool MASK>
-__device__ __forceinline__ void probs(const Params& p, float (&s)[32],
-                                      float (&dp)[32], const float* lse2,
+template <int N, bool KEYS_ROWS, bool MASK>
+__device__ __forceinline__ void probs(const Params& p, float (&s)[N / 2],
+                                      float (&dp)[N / 2], const float* lse2,
                                       const float* delta, int row0, int col0,
                                       int ra, int tq) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int r = ra + 8 * ((i / 2) % 2);
     const int c = 8 * (i / 4) + 2 * tq + (i % 2);
     const int qi = KEYS_ROWS ? c : r;
@@ -345,12 +398,12 @@ __device__ __forceinline__ void probs(const Params& p, float (&s)[32],
 
 // (b') without a softcap, in two steps, so that dV's product runs while
 // dS is formed: P^T in place of S^T (keys are rows, queries columns) ...
-template <bool MASK>
-__device__ __forceinline__ void probs_t(const Params& p, float (&s)[32],
+template <int N, bool MASK>
+__device__ __forceinline__ void probs_t(const Params& p, float (&s)[N / 2],
                                         const float* lse2, int k0, int q0,
                                         int ra, int tq) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int r = ra + 8 * ((i / 2) % 2);
     const int c = 8 * (i / 4) + 2 * tq + (i % 2);
     float pr = fast_exp2(fmaf(s[i], p.scale_log2, -lse2[c]));
@@ -360,16 +413,17 @@ __device__ __forceinline__ void probs_t(const Params& p, float (&s)[32],
 }
 
 // ... then dS^T = P^T o (dP^T - D) in place of dP^T.
-__device__ __forceinline__ void dscores_t(const float (&s)[32],
-                                          float (&dp)[32],
+template <int N>
+__device__ __forceinline__ void dscores_t(const float (&s)[N / 2],
+                                          float (&dp)[N / 2],
                                           const float* delta, int tq) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i)
+  for (int i = 0; i < N / 2; ++i)
     dp[i] = s[i] * (dp[i] - delta[8 * (i / 4) + 2 * tq + (i % 2)]);
 }
 
 // ---------------------------------------------------------------- (a')
-// One row per D / 8 lanes, 16 bytes a lane.
+// One row per D / 8 lanes, 16 bytes a lane; D is v's width.
 template <int D>
 __global__ void __launch_bounds__(256)
     bwd_delta_sm90(const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -412,14 +466,14 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------- (b')
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT, 1)
     bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
                   const __grid_constant__ CUtensorMap tm_do, const Params p) {
-  using L = KVLayout<D>;
-  constexpr int NBOX = Tiles<D>::NBOX;
+  using L = KVLayout<DQK, DV>;
+  using S = Shape<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -454,19 +508,20 @@ __global__ void __launch_bounds__(NT, 1)
       for (int n = 0;; ++n) {
         const int w = item_of(n);
         if (w >= p.n_kv_work) break;
-        const KVItem it = kv_item(p, w);
+        const KVItem it = kv_item<DQK, DV>(p, w);
         const int kvh = it.h / p.G;
         // the second consumer's keys, unless they all lie past Sk
-        const int nk = it.k0 + BM < p.Sk ? 2 : 1;
+        const int nk = S::TILES == 2 && it.k0 + BM < p.Sk ? 2 : 1;
         mbar_wait(kv_empty, (n & 1) ^ 1);
-        mbar_arrive_expect_tx(kv_full, 2 * nk * L::TILE);
-        for (int c = 0; c < nk; ++c)
-          for (int x = 0; x < NBOX; ++x) {
-            tma_load_4d(base + c * L::TILE + x * TILE_BOX, &tm_k, kv_full,
+        mbar_arrive_expect_tx(kv_full, nk * (S::TILE_QK + S::TILE_V));
+        for (int c = 0; c < nk; ++c) {
+          for (int x = 0; x < S::KBOX; ++x)
+            tma_load_4d(base + c * S::TILE_QK + x * TILE_BOX, &tm_k, kv_full,
                         x * BOX, it.k0 + c * BM, kvh, it.b);
-            tma_load_4d(base + L::V_OFF + c * L::TILE + x * TILE_BOX, &tm_v,
-                        kv_full, x * BOX, it.k0 + c * BM, kvh, it.b);
-          }
+          for (int x = 0; x < S::VBOX; ++x)
+            tma_load_4d(base + L::V_OFF + c * S::TILE_V + x * TILE_BOX,
+                        &tm_v, kv_full, x * BOX, it.k0 + c * BM, kvh, it.b);
+        }
         const long long srow =
             (static_cast<long long>(it.b) * p.H + it.h) * p.sq_pad;
         for (int t = 0; t < it.n_tiles; ++t) {
@@ -475,12 +530,12 @@ __global__ void __launch_bounds__(NT, 1)
           const uint32_t bar = full + 8 * ring.stage;
           mbar_arrive_expect_tx(bar, L::STAGE + L::STAT);
           const uint32_t sQ = base + L::RING_OFF + ring.stage * L::STAGE;
-          for (int x = 0; x < NBOX; ++x) {
+          for (int x = 0; x < S::KBOX; ++x)
             tma_load_4d(sQ + x * TILE_BOX, &tm_q, bar, x * BOX, q0, it.h,
                         it.b);
-            tma_load_4d(sQ + L::TILE + x * TILE_BOX, &tm_do, bar, x * BOX,
-                        q0, it.h, it.b);
-          }
+          for (int x = 0; x < S::VBOX; ++x)
+            tma_load_4d(sQ + S::TILE_QK + x * TILE_BOX, &tm_do, bar,
+                        x * BOX, q0, it.h, it.b);
           const uint32_t st = base + L::STAT_OFF + ring.stage * L::STAT;
           bulk_load(st, p.lse2 + srow + q0, BM * 4, bar);
           bulk_load(st + BM * 4, p.delta + srow + q0, BM * 4, bar);
@@ -491,96 +546,112 @@ __global__ void __launch_bounds__(NT, 1)
     return;
   }
 
-  // ---- consumers: 64 keys each ----------------------------------------------
+  // ---- consumers: 64 keys each (the same 64 under a column split) ----------
   setmaxnreg_inc<CONSUMER_REGS>();
+  constexpr int QS = S::QS;
   const int wg = warp / 4;
   const int tid = threadIdx.x - 128 * wg;
   const int g = lane / 4, tq = lane % 4;
   const int ra = (tid / 32) * 16 + g;   // this thread's rows: ra, ra + 8
-  const uint32_t sK = base + wg * L::TILE;
-  const uint32_t sV = base + L::V_OFF + wg * L::TILE;
+  const int own = S::CS == 1 ? wg : 0;  // which of the item's 64-row tiles
+  const uint32_t sK = base + own * S::TILE_QK;
+  const uint32_t sV = base + L::V_OFF + own * S::TILE_V;
+  // this consumer's columns of dK and dV: their first box, first column
+  const int kbox = S::CS == 1 ? 0 : wg * (S::CQK / BOX);
+  const int vbox = S::CS == 1 ? 0 : wg * (S::CV / BOX);
   Ring ring;
   for (int n = 0;; ++n) {
     const int w = item_of(n);
     if (w >= p.n_kv_work) break;
-    const KVItem it = kv_item(p, w);
-    const int kc0 = it.k0 + wg * BM;    // this consumer's first key
+    const KVItem it = kv_item<DQK, DV>(p, w);
+    const int kc0 = it.k0 + own * BM;   // this consumer's first key
     int t_lo = 0, t_hi = 0;
     if (kc0 < p.Sk) {
       int begin, end;
       query_range(p, kc0, min(kc0 + BM, p.Sk) - 1, begin, end);
       own_tiles(it.qt0, it.n_tiles, begin, end, t_lo, t_hi);
     }
-    float dk[D / 2], dv[D / 2];
+    float dk[S::CQK / 2], dv[S::CV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < S::CQK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < S::CV / 2; ++i) dv[i] = 0.f;
     mbar_wait(kv_full, n & 1);
     for (int t = 0; t < it.n_tiles; ++t) {
       mbar_wait(full + 8 * ring.stage, ring.phase);
       if (t >= t_lo && t < t_hi) {
         const int q0 = it.qt0 + t * BM;
         const uint32_t sQ = base + L::RING_OFF + ring.stage * L::STAGE;
-        const uint32_t sG = sQ + L::TILE;
+        const uint32_t sG = sQ + S::TILE_QK;
         const float* st = stats + ring.stage * (L::STAT / 4);
         // a tile crosses the diagonal or the window's edge for some pair
         const bool mask =
             (p.causal && kc0 + BM - 1 > p.q_offset + q0) ||
             (p.window > 0 && kc0 <= p.q_offset + q0 + BM - 1 - p.window);
-        float s[32], dp[32];
-        uint32_t pa[4][4], da[4][4];
-        wgmma_fence();
-        issue_ss<D>(s, sK, sQ);           // S^T = K Q^T
-        wgmma_commit();
-        issue_ss<D>(dp, sV, sG);          // dP^T = V dO^T
-        wgmma_commit();
-        if (p.softcap > 0.f) {
-          // the softcap's derivative needs tanh of S: P and dS in one pass
+        // the tile's queries in slices of QS (one slice but at (192, 128))
+#pragma unroll
+        for (int h = 0; h < BM / QS; ++h) {
+          const uint32_t qoff = h * QS * 128;   // the slice's first row
+          const int qh = q0 + h * QS;
+          const float* sl = st + h * QS;        // its lse2; delta at + BM
+          const uint32_t sQh = sQ + qoff, sGh = sG + qoff;
+          float s[QS / 2], dp[QS / 2];
+          uint32_t pa[QS / 16][4], da[QS / 16][4];
+          wgmma_fence();
+          issue_ss<DQK, QS>(s, sK, sQh);        // S^T = K Q^T
+          wgmma_commit();
+          issue_ss<DV, QS>(dp, sV, sGh);        // dP^T = V dO^T
+          wgmma_commit();
+          if (p.softcap > 0.f) {
+            // the softcap's derivative needs tanh of S: P and dS in one
+            // pass
+            wgmma_wait<0>();
+            fence_regs(s);
+            fence_regs(dp);
+            if (mask)
+              probs<QS, true, true>(p, s, dp, sl, sl + BM, kc0, qh, ra, tq);
+            else
+              probs<QS, true, false>(p, s, dp, sl, sl + BM, kc0, qh, ra, tq);
+            to_a<QS>(s, pa);
+            to_a<QS>(dp, da);
+            fence_regs(dv);
+            fence_regs(dk);
+            fence_regs(pa);
+            fence_regs(da);
+            wgmma_fence();
+            issue_rs<S::CV, QS / 16>(dv, pa, sGh + vbox * TILE_BOX);
+            issue_rs<S::CQK, QS / 16>(dk, da, sQh + kbox * TILE_BOX);
+            wgmma_commit();                     // dV += P^T dO, dK += dS^T Q
+          } else {
+            // P^T while dP^T runs; then dS^T while dV's product runs
+            wgmma_wait<1>();
+            fence_regs(s);
+            if (mask)
+              probs_t<QS, true>(p, s, sl, kc0, qh, ra, tq);
+            else
+              probs_t<QS, false>(p, s, sl, kc0, qh, ra, tq);
+            to_a<QS>(s, pa);
+            fence_regs(dv);
+            fence_regs(pa);
+            wgmma_fence();
+            issue_rs<S::CV, QS / 16>(dv, pa, sGh + vbox * TILE_BOX);
+            wgmma_commit();                     // dV += P^T dO
+            wgmma_wait<1>();
+            fence_regs(dp);
+            dscores_t<QS>(s, dp, sl + BM, tq);
+            to_a<QS>(dp, da);
+            fence_regs(dk);
+            fence_regs(da);
+            wgmma_fence();
+            issue_rs<S::CQK, QS / 16>(dk, da, sQh + kbox * TILE_BOX);
+            wgmma_commit();                     // dK += dS^T Q
+          }
           wgmma_wait<0>();
-          fence_regs(s);
-          fence_regs(dp);
-          if (mask)
-            probs<true, true>(p, s, dp, st, st + BM, kc0, q0, ra, tq);
-          else
-            probs<true, false>(p, s, dp, st, st + BM, kc0, q0, ra, tq);
-          to_a(s, pa);
-          to_a(dp, da);
           fence_regs(dv);
           fence_regs(dk);
           fence_regs(pa);
           fence_regs(da);
-          wgmma_fence();
-          issue_rs<D>(dv, pa, sG);        // dV += P^T dO
-          issue_rs<D>(dk, da, sQ);        // dK += dS^T Q
-          wgmma_commit();
-        } else {
-          // P^T while dP^T runs; then dS^T while dV's product runs
-          wgmma_wait<1>();
-          fence_regs(s);
-          if (mask)
-            probs_t<true>(p, s, st, kc0, q0, ra, tq);
-          else
-            probs_t<false>(p, s, st, kc0, q0, ra, tq);
-          to_a(s, pa);
-          fence_regs(dv);
-          fence_regs(pa);
-          wgmma_fence();
-          issue_rs<D>(dv, pa, sG);        // dV += P^T dO
-          wgmma_commit();
-          wgmma_wait<1>();
-          fence_regs(dp);
-          dscores_t(s, dp, st + BM, tq);
-          to_a(dp, da);
-          fence_regs(dk);
-          fence_regs(da);
-          wgmma_fence();
-          issue_rs<D>(dk, da, sQ);        // dK += dS^T Q
-          wgmma_commit();
         }
-        wgmma_wait<0>();
-        fence_regs(dv);
-        fence_regs(dk);
-        fence_regs(pa);
-        fence_regs(da);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * ring.stage);
@@ -591,22 +662,28 @@ __global__ void __launch_bounds__(NT, 1)
     // this head's partials, float32, rows past Sk not stored
     const long long prow = (static_cast<long long>(it.b) * p.H + it.h) * p.Sk;
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < S::CQK / 2; i += 2) {
       const int k = kc0 + ra + 8 * ((i / 2) % 2);
-      const int c = 8 * (i / 4) + 2 * tq;
-      if (k < p.Sk) {
-        const long long off = (prow + k) * D + c;
-        *reinterpret_cast<float2*>(p.dkp + off) = make_float2(dk[i], dk[i + 1]);
-        *reinterpret_cast<float2*>(p.dvp + off) = make_float2(dv[i], dv[i + 1]);
-      }
+      const int c = kbox * BOX + 8 * (i / 4) + 2 * tq;
+      if (k < p.Sk)
+        *reinterpret_cast<float2*>(p.dkp + (prow + k) * DQK + c) =
+            make_float2(dk[i], dk[i + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < S::CV / 2; i += 2) {
+      const int k = kc0 + ra + 8 * ((i / 2) % 2);
+      const int c = vbox * BOX + 8 * (i / 4) + 2 * tq;
+      if (k < p.Sk)
+        *reinterpret_cast<float2*>(p.dvp + (prow + k) * DV + c) =
+            make_float2(dv[i], dv[i + 1]);
     }
   }
 }
 
 // ---------------------------------------------------------------- (c')
 // dK = scale x sum over the G heads of a KV head, dV the same unscaled,
-// four columns a thread, the heads in order.
-template <int D>
+// four columns a thread (of dK's DQK, dV's DV), the heads in order.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(256)
     bwd_reduce_sm90(const float* __restrict__ dkp,
                     const float* __restrict__ dvp, bf16* __restrict__ dk,
@@ -614,42 +691,54 @@ __global__ void __launch_bounds__(256)
                     long long dk_sb, long long dk_ss, long long dk_sh,
                     long long dv_sb, long long dv_ss, long long dv_sh,
                     float scale) {
+  constexpr int W = (DQK > DV ? DQK : DV) / 4;   // threads per (key, head)
   const long long i =
       static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-  const long long n = static_cast<long long>(B) * Sk * KV * (D / 4);
+  const long long n = static_cast<long long>(B) * Sk * KV * W;
   if (i >= n) return;
-  const int c = static_cast<int>(i % (D / 4)) * 4;
-  const int kvh = static_cast<int>((i / (D / 4)) % KV);
-  const long long bs = i / (D / 4) / KV;
+  const int c = static_cast<int>(i % W) * 4;
+  const int kvh = static_cast<int>((i / W) % KV);
+  const long long bs = i / W / KV;
   const int s = static_cast<int>(bs % Sk), b = static_cast<int>(bs / Sk);
   const int G = H / KV;
   float4 ak = make_float4(0.f, 0.f, 0.f, 0.f), av = ak;
   for (int gi = 0; gi < G; ++gi) {
-    const long long off =
-        ((static_cast<long long>(b) * H + kvh * G + gi) * Sk + s) * D + c;
-    const float4 x = *reinterpret_cast<const float4*>(dkp + off);
-    const float4 y = *reinterpret_cast<const float4*>(dvp + off);
-    ak.x += x.x; ak.y += x.y; ak.z += x.z; ak.w += x.w;
-    av.x += y.x; av.y += y.y; av.z += y.z; av.w += y.w;
+    const long long row =
+        (static_cast<long long>(b) * H + kvh * G + gi) * Sk + s;
+    if (c < DQK) {
+      const float4 x = *reinterpret_cast<const float4*>(dkp + row * DQK + c);
+      ak.x += x.x; ak.y += x.y; ak.z += x.z; ak.w += x.w;
+    }
+    if (c < DV) {
+      const float4 y = *reinterpret_cast<const float4*>(dvp + row * DV + c);
+      av.x += y.x; av.y += y.y; av.z += y.z; av.w += y.w;
+    }
   }
-  uint2 ok, ov;
-  ok.x = pack_bf16(ak.x * scale, ak.y * scale);
-  ok.y = pack_bf16(ak.z * scale, ak.w * scale);
-  ov.x = pack_bf16(av.x, av.y);
-  ov.y = pack_bf16(av.z, av.w);
-  *reinterpret_cast<uint2*>(dk + b * dk_sb + s * dk_ss + kvh * dk_sh + c) = ok;
-  *reinterpret_cast<uint2*>(dv + b * dv_sb + s * dv_ss + kvh * dv_sh + c) = ov;
+  if (c < DQK) {
+    uint2 ok;
+    ok.x = pack_bf16(ak.x * scale, ak.y * scale);
+    ok.y = pack_bf16(ak.z * scale, ak.w * scale);
+    *reinterpret_cast<uint2*>(dk + b * dk_sb + s * dk_ss + kvh * dk_sh + c) =
+        ok;
+  }
+  if (c < DV) {
+    uint2 ov;
+    ov.x = pack_bf16(av.x, av.y);
+    ov.y = pack_bf16(av.z, av.w);
+    *reinterpret_cast<uint2*>(dv + b * dv_sb + s * dv_ss + kvh * dv_sh + c) =
+        ov;
+  }
 }
 
 // ---------------------------------------------------------------- (d')
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT, 1)
     bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 const __grid_constant__ CUtensorMap tm_do, const Params p) {
-  using L = QLayout<D>;
-  constexpr int NBOX = Tiles<D>::NBOX;
+  using L = QLayout<DQK, DV>;
+  using S = Shape<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -683,35 +772,37 @@ __global__ void __launch_bounds__(NT, 1)
       for (int n = 0;; ++n) {
         const int w = item_of(n);
         if (w >= p.n_q_work) break;
-        const QItem it = q_item(p, w);
+        const QItem it = q_item<DQK, DV>(p, w);
         const int kvh = it.h / p.G;
-        const int nq = it.q0 + BM < p.Sq ? 2 : 1;
+        const int nq = S::TILES == 2 && it.q0 + BM < p.Sq ? 2 : 1;
         mbar_wait(q_empty, (n & 1) ^ 1);
-        mbar_arrive_expect_tx(q_full, 2 * nq * L::TILE + L::STAT);
-        for (int c = 0; c < nq; ++c)
-          for (int x = 0; x < NBOX; ++x) {
-            tma_load_4d(base + c * L::TILE + x * TILE_BOX, &tm_q, q_full,
+        mbar_arrive_expect_tx(q_full,
+                              nq * (S::TILE_QK + S::TILE_V) + 2 * S::ROWS * 4);
+        for (int c = 0; c < nq; ++c) {
+          for (int x = 0; x < S::KBOX; ++x)
+            tma_load_4d(base + c * S::TILE_QK + x * TILE_BOX, &tm_q, q_full,
                         x * BOX, it.q0 + c * BM, it.h, it.b);
-            tma_load_4d(base + L::DO_OFF + c * L::TILE + x * TILE_BOX, &tm_do,
-                        q_full, x * BOX, it.q0 + c * BM, it.h, it.b);
-          }
+          for (int x = 0; x < S::VBOX; ++x)
+            tma_load_4d(base + L::DO_OFF + c * S::TILE_V + x * TILE_BOX,
+                        &tm_do, q_full, x * BOX, it.q0 + c * BM, it.h, it.b);
+        }
         const long long srow =
             (static_cast<long long>(it.b) * p.H + it.h) * p.sq_pad + it.q0;
         const uint32_t st = base + L::STAT_OFF;
-        bulk_load(st, p.lse2 + srow, NCW * BM * 4, q_full);
-        bulk_load(st + NCW * BM * 4, p.delta + srow, NCW * BM * 4, q_full);
+        bulk_load(st, p.lse2 + srow, S::ROWS * 4, q_full);
+        bulk_load(st + NCW * BM * 4, p.delta + srow, S::ROWS * 4, q_full);
         for (int t = 0; t < it.n_tiles; ++t) {
           const int kt = it.kt0 + t * BM;
           mbar_wait(empty + 8 * ring.stage, ring.phase ^ 1);
           const uint32_t bar = full + 8 * ring.stage;
           mbar_arrive_expect_tx(bar, L::STAGE);
           const uint32_t sK = base + L::RING_OFF + ring.stage * L::STAGE;
-          for (int x = 0; x < NBOX; ++x) {
+          for (int x = 0; x < S::KBOX; ++x)
             tma_load_4d(sK + x * TILE_BOX, &tm_k, bar, x * BOX, kt, kvh,
                         it.b);
-            tma_load_4d(sK + L::TILE + x * TILE_BOX, &tm_v, bar, x * BOX, kt,
-                        kvh, it.b);
-          }
+          for (int x = 0; x < S::VBOX; ++x)
+            tma_load_4d(sK + S::TILE_QK + x * TILE_BOX, &tm_v, bar, x * BOX,
+                        kt, kvh, it.b);
           ring.next<L::STAGES>();
         }
       }
@@ -719,39 +810,42 @@ __global__ void __launch_bounds__(NT, 1)
     return;
   }
 
-  // ---- consumers: 64 query rows each -----------------------------------------
+  // ---- consumers: 64 query rows each (the same 64 under a column split) ---
   setmaxnreg_inc<CONSUMER_REGS>();
   const int wg = warp / 4;
   const int tid = threadIdx.x - 128 * wg;
   const int g = lane / 4, tq = lane % 4;
   const int ra = (tid / 32) * 16 + g;
-  const uint32_t sQ = base + wg * L::TILE;
-  const uint32_t sG = base + L::DO_OFF + wg * L::TILE;
-  const float* st_lse = stats + wg * BM;
-  const float* st_delta = stats + NCW * BM + wg * BM;
+  const int own = S::CS == 1 ? wg : 0;  // which of the item's 64-row tiles
+  const uint32_t sQ = base + own * S::TILE_QK;
+  const uint32_t sG = base + L::DO_OFF + own * S::TILE_V;
+  const float* st_lse = stats + own * BM;
+  const float* st_delta = stats + NCW * BM + own * BM;
+  // this consumer's columns of dQ: their first box
+  const int qbox = S::CS == 1 ? 0 : wg * (S::CQK / BOX);
   Ring ring;
   for (int n = 0;; ++n) {
     const int w = item_of(n);
     if (w >= p.n_q_work) break;
-    const QItem it = q_item(p, w);
-    const int w0 = it.q0 + wg * BM;     // this consumer's first row
+    const QItem it = q_item<DQK, DV>(p, w);
+    const int w0 = it.q0 + own * BM;    // this consumer's first row
     int t_lo = 0, t_hi = 0;
     if (w0 < p.Sq) {
       int begin, end;
       key_range(p, w0, min(w0 + BM, p.Sq), begin, end);
       own_tiles(it.kt0, it.n_tiles, begin, end, t_lo, t_hi);
     }
-    float dq[D / 2];
+    float dq[S::CQK / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < S::CQK / 2; ++i) dq[i] = 0.f;
     // keys past Sk read as zeros, which add nothing to dQ, but their
     // P = exp2(-lse2) could overflow: masked too
     auto dscores = [&](float (&s)[32], float (&dp)[32], int kt) {
       if (kt + BM > p.Sk || (p.causal && kt + BM - 1 > p.q_offset + w0) ||
           (p.window > 0 && kt <= p.q_offset + w0 + BM - 1 - p.window))
-        probs<false, true>(p, s, dp, st_lse, st_delta, w0, kt, ra, tq);
+        probs<64, false, true>(p, s, dp, st_lse, st_delta, w0, kt, ra, tq);
       else
-        probs<false, false>(p, s, dp, st_lse, st_delta, w0, kt, ra, tq);
+        probs<64, false, false>(p, s, dp, st_lse, st_delta, w0, kt, ra, tq);
     };
     auto release = [&](const Ring& r) {
       __syncwarp();
@@ -774,14 +868,14 @@ __global__ void __launch_bounds__(NT, 1)
       mbar_wait(full + 8 * ring.stage, ring.phase);
       uint32_t sK = base + L::RING_OFF + ring.stage * L::STAGE;
       wgmma_fence();
-      issue_ss<D>(s, sQ, sK);             // S = Q K^T
-      issue_ss<D>(dp, sG, sK + L::TILE);  // dP = dO V^T
+      issue_ss<DQK, 64>(s, sQ, sK);                // S = Q K^T
+      issue_ss<DV, 64>(dp, sG, sK + S::TILE_QK);   // dP = dO V^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
       dscores(s, dp, it.kt0 + t_lo * BM);
-      to_a(dp, da);
+      to_a<64>(dp, da);
       ring.next<L::STAGES>();
       for (int t = t_lo + 1; t < t_hi; ++t) {
         mbar_wait(full + 8 * ring.stage, ring.phase);
@@ -789,10 +883,12 @@ __global__ void __launch_bounds__(NT, 1)
         fence_regs(dq);
         fence_regs(da);
         wgmma_fence();
-        issue_ss<D>(s, sQ, sK);
-        issue_ss<D>(dp, sG, sK + L::TILE);
+        issue_ss<DQK, 64>(s, sQ, sK);
+        issue_ss<DV, 64>(dp, sG, sK + S::TILE_QK);
         wgmma_commit();
-        issue_rs<D>(dq, da, base + L::RING_OFF + prev.stage * L::STAGE);
+        issue_rs<S::CQK, 4>(dq, da, base + L::RING_OFF +
+                                        prev.stage * L::STAGE +
+                                        qbox * TILE_BOX);
         wgmma_commit();                   // dQ += dS K of the tile before
         wgmma_wait<1>();                  // S and dP done, dQ may run on
         fence_regs(s);
@@ -802,14 +898,16 @@ __global__ void __launch_bounds__(NT, 1)
         fence_regs(dq);
         fence_regs(da);
         release(prev);
-        to_a(dp, da);
+        to_a<64>(dp, da);
         prev = ring;
         ring.next<L::STAGES>();
       }
       fence_regs(dq);
       fence_regs(da);
       wgmma_fence();
-      issue_rs<D>(dq, da, base + L::RING_OFF + prev.stage * L::STAGE);
+      issue_rs<S::CQK, 4>(dq, da, base + L::RING_OFF +
+                                      prev.stage * L::STAGE +
+                                      qbox * TILE_BOX);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -821,9 +919,9 @@ __global__ void __launch_bounds__(NT, 1)
     if (lane == 0) mbar_arrive(q_empty);
     bf16* out = p.dq + it.b * p.dq_sb + it.h * p.dq_sh;
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < S::CQK / 2; i += 2) {
       const int r = w0 + ra + 8 * ((i / 2) % 2);
-      const int c = 8 * (i / 4) + 2 * tq;
+      const int c = qbox * BOX + 8 * (i / 4) + 2 * tq;
       if (r < p.Sq)
         *reinterpret_cast<uint32_t*>(out + r * p.dq_ss + c) =
             pack_bf16(dq[i] * p.scale, dq[i + 1] * p.scale);
@@ -851,45 +949,60 @@ cudaError_t launch_persistent(Kernel kernel, size_t smem, int n_work,
   return cudaGetLastError();
 }
 
-template <int D>
+// The shape's item counts go into p here: items are Shape::ROWS keys in
+// (b') and ROWS queries in (d').
+template <int DQK, int DV>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const CUtensorMap& tdo,
-                   const Params& p, const bf16* o, const bf16* dout,
+                   Params p, const bf16* o, const bf16* dout,
                    const float* lse, float* lse2, float* delta,
                    long long o_sb, long long o_ss, long long o_sh,
                    long long do_sb, long long do_ss, long long do_sh,
                    bf16* dk, bf16* dv, long long dk_sb, long long dk_ss,
                    long long dk_sh, long long dv_sb, long long dv_ss,
                    long long dv_sh, cudaStream_t stream) {
+  static_assert(KVLayout<DQK, DV>::SMEM <= 227 * 1024 &&
+                    QLayout<DQK, DV>::SMEM <= 227 * 1024,
+                "shared memory over 227 KB");
+  static_assert(KVLayout<DQK, DV>::STAGES >= 2 &&
+                    QLayout<DQK, DV>::STAGES >= 2,
+                "fewer than two ring slots");
+  constexpr int ROWS = Shape<DQK, DV>::ROWS;
+  p.n_kv_work = p.B * p.H * ((p.Sk + ROWS - 1) / ROWS);
+  p.n_qt = (p.Sq + ROWS - 1) / ROWS;
+  p.n_q_work = p.B * p.H * p.n_qt;
   const long long rows = static_cast<long long>(p.B) * p.H * p.sq_pad;
-  const long long delta_blocks = (rows * (D / 8) + 255) / 256;
-  bwd_delta_sm90<D><<<static_cast<unsigned>(delta_blocks), 256, 0, stream>>>(
+  const long long delta_blocks = (rows * (DV / 8) + 255) / 256;
+  bwd_delta_sm90<DV><<<static_cast<unsigned>(delta_blocks), 256, 0, stream>>>(
       o, dout, lse, lse2, delta, p.B, p.H, p.Sq, p.sq_pad, o_sb, o_ss, o_sh,
       do_sb, do_ss, do_sh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (p.n_kv_work > 0) {
-    err = launch_persistent(bwd_dkdv_sm90<D>, KVLayout<D>::SMEM, p.n_kv_work,
-                            tq, tk, tv, tdo, p, stream);
+    err = launch_persistent(bwd_dkdv_sm90<DQK, DV>, KVLayout<DQK, DV>::SMEM,
+                            p.n_kv_work, tq, tk, tv, tdo, p, stream);
     if (err != cudaSuccess) return err;
-    const long long n = static_cast<long long>(p.B) * p.Sk * p.KV * (D / 4);
-    bwd_reduce_sm90<D><<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                         stream>>>(p.dkp, p.dvp, dk, dv, p.B, p.H, p.KV,
-                                   p.Sk, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss,
-                                   dv_sh, p.scale);
+    const long long n = static_cast<long long>(p.B) * p.Sk * p.KV *
+                        ((DQK > DV ? DQK : DV) / 4);
+    bwd_reduce_sm90<DQK, DV><<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                               stream>>>(p.dkp, p.dvp, dk, dv, p.B, p.H, p.KV,
+                                         p.Sk, dk_sb, dk_ss, dk_sh, dv_sb,
+                                         dv_ss, dv_sh, p.scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return launch_persistent(bwd_dq_sm90<D>, QLayout<D>::SMEM, p.n_q_work, tq,
-                           tk, tv, tdo, p, stream);
+  return launch_persistent(bwd_dq_sm90<DQK, DV>, QLayout<DQK, DV>::SMEM,
+                           p.n_q_work, tq, tk, tv, tdo, p, stream);
 }
 
 }  // namespace
 
-// bf16 q, o, dout, dq: (B, Sq, H, D); k, v, dk, dv: (B, Sk, KV, D); D 64 or
-// 128; lse: the forward's float32 (B, H, Sq), contiguous. Scratch: lse2 and
-// delta float32 (B, H, sq_pad), sq_pad a multiple of 128 that is >= Sq;
-// dkp and dvp float32 (B, H, Sk, D). Strides in elements, the head dim
+// bf16 q, dq: (B, Sq, H, D); o, dout: (B, Sq, H, DV); k, dk: (B, Sk, KV,
+// D); v, dv: (B, Sk, KV, DV); (D, DV) one of (64, 64), (128, 128), (192,
+// 128), (256, 256); lse: the forward's float32 (B, H, Sq), contiguous.
+// Scratch: lse2 and delta float32 (B, H, sq_pad), sq_pad a multiple of 128
+// that is >= Sq; dkp float32 (B, H, Sk, D), dvp (B, H, Sk, DV). Strides in
+// elements, the head dim
 // contiguous; every base 16-byte aligned and every other stride a multiple
 // of 8 elements (TMA's rules; the wrapper checks). Returns 0, a cudaError_t
 // of the launches (> 0), or -CUresult when a tensor map cannot be encoded.
@@ -897,7 +1010,7 @@ extern "C" int repro_flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
     float* lse2, float* delta, float* dkp, float* dvp, int B, int H, int KV,
-    int Sq, int Sk, int D, int sq_pad, long long q_sb, long long q_ss,
+    int Sq, int Sk, int D, int DV, int sq_pad, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, long long do_sb, long long do_ss,
@@ -905,20 +1018,21 @@ extern "C" int repro_flash_attention_bwd_sm90(
     long long dk_sb, long long dk_ss, long long dk_sh, long long dv_sb,
     long long dv_ss, long long dv_sh, float scale, int causal, int window,
     int q_offset, float softcap, void* stream) {
+  const bool shape_ok = (D == 64 && DV == 64) || (D == 128 && DV == 128) ||
+                        (D == 192 && DV == 128) || (D == 256 && DV == 256);
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk < 0 ||
-      (D != 64 && D != 128) || sq_pad < Sq || sq_pad % PAD != 0)
+      !shape_ok || sq_pad < Sq || sq_pad % PAD != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, tdo;
   // Sk = 0: a one-row map that no tile reads
   const int sk = Sk > 0 ? Sk : 1;
   CUresult r = make_map(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, BM);
   if (r == CUDA_SUCCESS) r = make_map(&tk, k, B, sk, KV, D, k_sb, k_ss, k_sh, BM);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, v, B, sk, KV, D, v_sb, v_ss, v_sh, BM);
   if (r == CUDA_SUCCESS)
-    r = make_map(&tdo, dout, B, Sq, H, D, do_sb, do_ss, do_sh, BM);
+    r = make_map(&tv, v, B, sk, KV, DV, v_sb, v_ss, v_sh, BM);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&tdo, dout, B, Sq, H, DV, do_sb, do_ss, do_sh, BM);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-  const int n_kt = (Sk + NCW * BM - 1) / (NCW * BM);
-  const int n_qt = (Sq + NCW * BM - 1) / (NCW * BM);
   Params p{};
   p.B = B;
   p.H = H;
@@ -927,9 +1041,6 @@ extern "C" int repro_flash_attention_bwd_sm90(
   p.Sk = Sk;
   p.G = H / KV;
   p.sq_pad = sq_pad;
-  p.n_kv_work = B * H * n_kt;
-  p.n_qt = n_qt;
-  p.n_q_work = B * H * n_qt;
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   p.softcap = softcap;
@@ -951,13 +1062,13 @@ extern "C" int repro_flash_attention_bwd_sm90(
   bf16* dkb = static_cast<bf16*>(dk);
   bf16* dvb = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return static_cast<int>(launch<64>(tq, tk, tv, tdo, p, ob, gb, lse, lse2,
-                                       delta, o_sb, o_ss, o_sh, do_sb, do_ss,
-                                       do_sh, dkb, dvb, dk_sb, dk_ss, dk_sh,
-                                       dv_sb, dv_ss, dv_sh, s));
-  return static_cast<int>(launch<128>(tq, tk, tv, tdo, p, ob, gb, lse, lse2,
-                                      delta, o_sb, o_ss, o_sh, do_sb, do_ss,
-                                      do_sh, dkb, dvb, dk_sb, dk_ss, dk_sh,
-                                      dv_sb, dv_ss, dv_sh, s));
+  auto run = [&](auto kernel_launch) {
+    return static_cast<int>(kernel_launch(
+        tq, tk, tv, tdo, p, ob, gb, lse, lse2, delta, o_sb, o_ss, o_sh, do_sb,
+        do_ss, do_sh, dkb, dvb, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, s));
+  };
+  if (D == 64) return run(launch<64, 64>);
+  if (D == 128) return run(launch<128, 128>);
+  if (D == 192) return run(launch<192, 128>);
+  return run(launch<256, 256>);
 }

@@ -1,9 +1,11 @@
 // Flash attention forward for NVIDIA Hopper (sm_90a), bf16, designed for
 // the card: wgmma tensor cores, a TMA-fed K/V ring with mbarriers, one
-// producer and two consumer warpgroups, persistent blocks. It takes head
-// dims 64 and 128 (repro_torch_flash_attention_sm90_fwd refuses others;
-// hd 256 would leave room for one K/V slot beside two Q buffers). float32
-// inputs and the other head dims run the first design, flash_attention.cu.
+// producer and two consumer warpgroups, persistent blocks. It is
+// templated on the q/k head dim DQK and the v width DV and instantiated
+// at (64, 64), (128, 128), (192, 128) (MLA: 128 nope + 64 rope, v read
+// at its own 128) and (256, 256) (repro_flash_attention_sm90_fwd refuses
+// other pairs). float32 inputs and the other shapes run the first design,
+// flash_attention.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
 // kernel.py:94 (`flash_attention_kernel`, body `_flash_kernel`). The
@@ -21,13 +23,15 @@
 // operations. Splitting P (below) adds half again to the tensor-core
 // work: the floor becomes about 0.104 ms. What each choice does about it:
 //
-// * Both products on tensor cores with wgmma (m64n64k16 for S = Q K^T,
-//   m64n{hd}k16 for O += P V), float32 accumulators in registers: the
-//   only way to the bf16 rate.
+// * Both products on tensor cores with wgmma (m64n64k16 for S = Q K^T
+//   over DQK, m64n{DV}k16 for O += P V; at DV 256 two n128 halves),
+//   float32 accumulators in registers: the only way to the bf16 rate.
 // * A work item is 128 query rows of one (batch, head). A block has three
 //   warpgroups: a producer, whose one thread issues every TMA copy and
-//   gives its registers to the consumers (setmaxnreg 40 / 232), and two
-//   consumers of 64 rows each, which never compute an address of a load.
+//   gives its registers to the consumers (setmaxnreg 40 / 232; 24 / 240
+//   at DV 256, where a consumer holds O at 64 x 256, 128 registers,
+//   beside S and the P split's fragments, 32 + 32), and two consumers of
+//   64 rows each, which never compute an address of a load.
 // * Blocks are persistent, one per SM, and walk the items heaviest first
 //   (causal: the last q-tiles), round robin. The next item's Q and first
 //   K/V tiles load while this item computes, and its O store overlaps the
@@ -37,9 +41,17 @@
 //   mbarriers, in 128-byte swizzle (conflict-free for wgmma; an inner box
 //   of 64 bf16, so hd 128 is two boxes). TMA's out-of-bounds zero fill
 //   takes the ragged edges, and a K/V view of a larger cache is read
-//   through its strides.
+//   through its strides. Shared memory per shape: (192, 128) two Q
+//   buffers of 48 KB and 3 slots of 24 + 16 KB; (256, 256) does not fit
+//   two Q buffers beside two slots of 32 + 32 KB, so it keeps one Q
+//   buffer of 64 KB: the next item's Q loads after this item's O store.
 // * Each consumer issues S of tile t and O += P V of tile t - 1 together;
-//   its softmax of S_t runs while the tensor cores do that PV.
+//   its softmax of S_t runs while the tensor cores do that PV. At (256,
+//   256) ptxas spills 132 bytes a consumer thread (O 128 registers, S 32,
+//   P's two fragments 32, the softmax's state); the `serial` copy of
+//   ablate.py, which issues the two products one after the other,
+//   measured 1.7-3.0% slower at gemma3-1b's four shapes on the H100, so
+//   the overlap stays at every width.
 // * Softmax on the S accumulator in registers: scale * log2(e) folded
 //   into one multiply-add before ex2; a row lives in one quad, so its max
 //   takes two shuffles and its sum is reduced once at the end. Masks are
@@ -93,25 +105,34 @@ struct Params {
   float* lse;                    // (B, H, Sq) float32, natural log
 };
 
-template <int D>
+template <int DQK, int DV>
 struct Layout {
-  static constexpr int NBOX = D / BOX;
+  static constexpr int NBOX = DQK / BOX;                     // Q and K boxes
+  static constexpr int VBOX = DV / BOX;                      // V and O boxes
   static constexpr uint32_t Q_BOX = BQ * 128;                // bytes
   static constexpr uint32_t KV_BOX = BK * 128;
   static constexpr uint32_t Q_BYTES = NBOX * Q_BOX;
-  static constexpr uint32_t KV_BYTES = NBOX * KV_BOX;        // K or V tile
-  // two Q buffers (the next item's Q loads while this one's runs; each
-  // also stages its item's O), then the K/V ring in what is left of
-  // 227 KB, at most MAX_STAGES slots (fewer measured slower at hd 128)
+  static constexpr uint32_t K_BYTES = NBOX * KV_BOX;         // K tile
+  static constexpr uint32_t V_BYTES = VBOX * KV_BOX;         // V tile
+  // two Q buffers where two K/V slots fit beside them (the next item's Q
+  // loads while this one's runs), else one; each also stages its item's
+  // O. Then the K/V ring in what is left of 227 KB, at most MAX_STAGES
+  // slots (fewer measured slower at hd 128)
   static constexpr int MAX_STAGES = 4;
-  static constexpr int FIT = (227 * 1024 - 2 * Q_BYTES - 2048) /
-                             (2 * KV_BYTES);
+  static constexpr int NQ =
+      2 * Q_BYTES + 2 * (K_BYTES + V_BYTES) + 2048 <= 227 * 1024 ? 2 : 1;
+  static constexpr int FIT = (227 * 1024 - NQ * Q_BYTES - 2048) /
+                             (K_BYTES + V_BYTES);
   static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
-  static constexpr uint32_t K_OFF = 2 * Q_BYTES;
-  static constexpr uint32_t V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr uint32_t BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr uint32_t K_OFF = NQ * Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr uint32_t BAR_OFF = V_OFF + STAGES * V_BYTES;
   // kv full/empty [STAGES], q full/empty [2]; 1024 bytes to align the base
   static constexpr size_t SMEM = BAR_OFF + 8 * (2 * STAGES + 4) + 1024;
+  // registers a producer thread gives up and a consumer takes
+  // (setmaxnreg): 128 x (producer + 2 consumers) <= 64,512 of the SM's
+  static constexpr int PRODUCER_REGS = DV > 128 ? 24 : 40;
+  static constexpr int CONSUMER_REGS = DV > 128 ? 240 : 232;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -234,14 +255,14 @@ __device__ __forceinline__ void split_p(const float (&s)[32],
     }
 }
 
-// S = Q K^T for this warpgroup's 64 rows: hd / 16 k-steps of 32 bytes,
+// S = Q K^T for this warpgroup's 64 rows: DQK / 16 k-steps of 32 bytes,
 // 4 per 128-byte box (K-major A and B).
-template <int D>
+template <int DQK, int DV>
 __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sQw,
                                          uint32_t sK) {
-  using L = Layout<D>;
+  using L = Layout<DQK, DV>;
 #pragma unroll
-  for (int k = 0; k < D / 16; ++k) {
+  for (int k = 0; k < DQK / 16; ++k) {
     const uint32_t off = (k % 4) * 32;
     wgmma_ss_m64n64k16(s, make_desc(sQw + (k / 4) * L::Q_BOX + off, 16, 1024),
                        make_desc(sK + (k / 4) * L::KV_BOX + off, 16, 1024),
@@ -249,34 +270,45 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sQw,
   }
 }
 
-// O += P_hi V + P_lo V: V is MN-major (hd contiguous), 16 keys = 16 rows
-// of 128 bytes per k-step, the next 64 hd one box further.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+// O += P_hi V + P_lo V: V is MN-major (its columns contiguous), 16 keys =
+// 16 rows of 128 bytes per k-step, the next 64 columns one box further.
+// At DV 256 the product is two n128 halves: the accumulator fragment of
+// columns [0, 128) is o[0, 64), of [128, 256) o[64, 128).
+template <int DQK, int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
                                          const uint32_t (&hi)[4][4],
                                          const uint32_t (&lo)[4][4],
                                          uint32_t sV) {
-  using L = Layout<D>;
+  using L = Layout<DQK, DV>;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t dv = make_desc(sV + kk * 16 * 128, L::KV_BOX, 1024);
-    if constexpr (D == 64) {
+    if constexpr (DV == 64) {
       wgmma_rs_m64n64k16(o, hi[kk], dv);
       wgmma_rs_m64n64k16(o, lo[kk], dv);
-    } else {
+    } else if constexpr (DV == 128) {
       wgmma_rs_m64n128k16(o, hi[kk], dv);
       wgmma_rs_m64n128k16(o, lo[kk], dv);
+    } else {
+      float(&o0)[64] = *reinterpret_cast<float(*)[64]>(&o[0]);
+      float(&o1)[64] = *reinterpret_cast<float(*)[64]>(&o[64]);
+      const uint64_t dv1 = make_desc(sV + 2 * L::KV_BOX + kk * 16 * 128,
+                                     L::KV_BOX, 1024);
+      wgmma_rs_m64n128k16(o0, hi[kk], dv);
+      wgmma_rs_m64n128k16(o1, hi[kk], dv1);
+      wgmma_rs_m64n128k16(o0, lo[kk], dv);
+      wgmma_rs_m64n128k16(o1, lo[kk], dv1);
     }
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_o, const Params p) {
-  using L = Layout<D>;
+  using L = Layout<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -292,7 +324,7 @@ __global__ void __launch_bounds__(NT, 1)
       mbar_init(kv_full + 8 * s, 1);
       mbar_init(kv_empty + 8 * s, 8);   // one arrival per consumer warp
     }
-    for (int x = 0; x < 2; ++x) {
+    for (int x = 0; x < L::NQ; ++x) {
       mbar_init(q_full + 8 * x, 1);
       mbar_init(q_empty + 8 * x, 2);    // each consumer wg, O stored
     }
@@ -302,7 +334,7 @@ __global__ void __launch_bounds__(NT, 1)
 
   if (warp < 4) {
     // ---- producer warpgroup: one thread issues every TMA copy ----------
-    setmaxnreg_dec<40>();
+    setmaxnreg_dec<L::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       prefetch_tensormap(&tm_q);
       prefetch_tensormap(&tm_k);
@@ -311,8 +343,8 @@ __global__ void __launch_bounds__(NT, 1)
       for (int w = blockIdx.x, n = 0; w < p.n_work; w += gridDim.x, ++n) {
         const Item it = item(p, w);
         const int kvh = it.h / (p.H / p.KV);
-        const uint32_t qb = n & 1;
-        mbar_wait(q_empty + 8 * qb, ((n >> 1) & 1) ^ 1);
+        const uint32_t qb = n % L::NQ;
+        mbar_wait(q_empty + 8 * qb, ((n / L::NQ) & 1) ^ 1);
         mbar_arrive_expect_tx(q_full + 8 * qb, L::Q_BYTES);
         for (int x = 0; x < L::NBOX; ++x)
           tma_load_4d(base + qb * L::Q_BYTES + x * L::Q_BOX, &tm_q,
@@ -321,13 +353,13 @@ __global__ void __launch_bounds__(NT, 1)
           const int kt = it.kt0 + t * BK;
           mbar_wait(kv_empty + 8 * ring.stage, ring.phase ^ 1);
           const uint32_t full = kv_full + 8 * ring.stage;
-          mbar_arrive_expect_tx(full, 2 * L::KV_BYTES);
-          const uint32_t sK = base + L::K_OFF + ring.stage * L::KV_BYTES;
-          const uint32_t sV = base + L::V_OFF + ring.stage * L::KV_BYTES;
+          mbar_arrive_expect_tx(full, L::K_BYTES + L::V_BYTES);
+          const uint32_t sK = base + L::K_OFF + ring.stage * L::K_BYTES;
+          const uint32_t sV = base + L::V_OFF + ring.stage * L::V_BYTES;
           for (int x = 0; x < L::NBOX; ++x)
             tma_load_4d(sK + x * L::KV_BOX, &tm_k, full, x * BOX, kt, kvh,
                         it.b);
-          for (int x = 0; x < L::NBOX; ++x)
+          for (int x = 0; x < L::VBOX; ++x)
             tma_load_4d(sV + x * L::KV_BOX, &tm_v, full, x * BOX, kt, kvh,
                         it.b);
           ring.next<L::STAGES>();
@@ -338,7 +370,7 @@ __global__ void __launch_bounds__(NT, 1)
   }
 
   // ---- consumer warpgroups: 64 query rows of each item -------------------
-  setmaxnreg_inc<232>();
+  setmaxnreg_inc<L::CONSUMER_REGS>();
   const int wg = warp / 4 - 1;
   const int tid = threadIdx.x - 128 * (wg + 1);
   const int lane = tid % 32;
@@ -351,7 +383,7 @@ __global__ void __launch_bounds__(NT, 1)
   Ring ring;
   for (int w = blockIdx.x, n = 0; w < p.n_work; w += gridDim.x, ++n) {
     const Item it = item(p, w);
-    const uint32_t qb = n & 1;
+    const uint32_t qb = n % L::NQ;
     const int w0 = it.q0 + wg * WG_ROWS;          // first row of this wg
     const int qpos[2] = {p.q_offset + w0 + ra, p.q_offset + w0 + ra + 8};
     // this wg's own tiles [t_lo, t_hi) among the item's; the others are
@@ -379,12 +411,12 @@ __global__ void __launch_bounds__(NT, 1)
       ring.next<L::STAGES>();
     };
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};   // running max, log2 units
     float l[2] = {0.f, 0.f};               // this thread's share of the sum
-    mbar_wait(q_full + 8 * qb, (n >> 1) & 1);
+    mbar_wait(q_full + 8 * qb, (n / L::NQ) & 1);
     for (int t = 0; t < t_lo; ++t) skip();
     if (t_hi > t_lo) {
       // Tile t_lo: S, softmax. Then for each next tile: S of that tile
@@ -396,7 +428,7 @@ __global__ void __launch_bounds__(NT, 1)
       int kt = it.kt0 + t_lo * BK;
       mbar_wait(kv_full + 8 * ring.stage, ring.phase);
       wgmma_fence();
-      issue_qk<D>(s, sQw, base + L::K_OFF + ring.stage * L::KV_BYTES);
+      issue_qk<DQK, DV>(s, sQw, base + L::K_OFF + ring.stage * L::K_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -415,10 +447,11 @@ __global__ void __launch_bounds__(NT, 1)
         fence_regs(p_hi);
         fence_regs(p_lo);
         wgmma_fence();
-        issue_qk<D>(s, sQw, base + L::K_OFF + ring.stage * L::KV_BYTES);
+        issue_qk<DQK, DV>(s, sQw,
+                          base + L::K_OFF + ring.stage * L::K_BYTES);
         wgmma_commit();
-        issue_pv<D>(o, p_hi, p_lo,
-                    base + L::V_OFF + prev.stage * L::KV_BYTES);
+        issue_pv<DQK, DV>(o, p_hi, p_lo,
+                          base + L::V_OFF + prev.stage * L::V_BYTES);
         wgmma_commit();
         wgmma_wait<1>();                    // S done, PV may run on
         fence_regs(s);
@@ -437,7 +470,7 @@ __global__ void __launch_bounds__(NT, 1)
         prev = ring;
         ring.next<L::STAGES>();
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
+        for (int i = 0; i < DV / 2; ++i) o[i] *= corr[(i / 2) % 2];
         split_p(s, p_hi, p_lo);
       }
       // PV of the last tile
@@ -445,7 +478,8 @@ __global__ void __launch_bounds__(NT, 1)
       fence_regs(p_hi);
       fence_regs(p_lo);
       wgmma_fence();
-      issue_pv<D>(o, p_hi, p_lo, base + L::V_OFF + prev.stage * L::KV_BYTES);
+      issue_pv<DQK, DV>(o, p_hi, p_lo,
+                        base + L::V_OFF + prev.stage * L::V_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -457,8 +491,8 @@ __global__ void __launch_bounds__(NT, 1)
     for (int t = max(t_hi, t_lo); t < it.n_tiles; ++t) skip();
 
     // ---- epilogue: the rows' LSE; O / l as bf16 into this wg's rows of
-    // the Q buffer, then one TMA store; the buffer is released once the
-    // store has read it
+    // the Q buffer (DV / 64 of its DQK / 64 boxes), then one TMA store;
+    // the buffer is released once the store has read it
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -473,7 +507,7 @@ __global__ void __launch_bounds__(NT, 1)
     named_sync(1 + wg, 128);             // every Q read of this wg is done
     uint8_t* out = smem + qb * L::Q_BYTES + wg * (WG_ROWS * 128);
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < DV / 2; i += 2) {
       const int r = ra + 8 * ((i / 2) % 2);
       const int c = 8 * (i / 4) + 2 * tq;  // column of o[i], o[i + 1]
       const int x = c / BOX, cc = c % BOX;
@@ -487,7 +521,7 @@ __global__ void __launch_bounds__(NT, 1)
     named_sync(1 + wg, 128);
     if (tid == 0) {
       if (w0 < p.Sq) {
-        for (int x = 0; x < L::NBOX; ++x)
+        for (int x = 0; x < L::VBOX; ++x)
           tma_store_4d(&tm_o, sQw + x * L::Q_BOX, x * BOX, w0, it.h, it.b);
         tma_store_commit_and_wait();
       }
@@ -496,13 +530,15 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const CUtensorMap& to,
                    const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Layout<D>::SMEM;
+  constexpr size_t smem = Layout<DQK, DV>::SMEM;
+  static_assert(smem <= 227 * 1024, "shared memory over 227 KB");
+  static_assert(Layout<DQK, DV>::STAGES >= 2, "fewer than two K/V slots");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_sm90<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   // persistent: one block per SM walks the work items
@@ -513,13 +549,14 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                                  device);
   if (err != cudaSuccess) return err;
   const int grid = sms < p.n_work ? sms : p.n_work;
-  flash_fwd_sm90<D><<<grid, NT, smem, stream>>>(tq, tk, tv, to, p);
+  flash_fwd_sm90<DQK, DV><<<grid, NT, smem, stream>>>(tq, tk, tv, to, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 q (B,Sq,H,D), k and v (B,Sk,KV,D), o (B,Sq,H,D); lse float32
+// bf16 q (B,Sq,H,D), k (B,Sk,KV,D), v (B,Sk,KV,DV), o (B,Sq,H,DV), (D, DV)
+// one of (64, 64), (128, 128), (192, 128), (256, 256); lse float32
 // (B,H,Sq), contiguous; strides in elements, the head dim contiguous; every
 // base 16-byte aligned and every other stride a multiple of 8 elements
 // (TMA's rules; the wrapper checks).
@@ -528,27 +565,34 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 extern "C" int repro_flash_attention_sm90_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int B, int H,
-    int KV, int Sq, int Sk, int D, long long q_sb, long long q_ss,
+    int KV, int Sq, int Sk, int D, int DV, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, float scale, int causal, int window,
     int q_offset, float softcap, void* stream) {
+  const bool shape_ok = (D == 64 && DV == 64) || (D == 128 && DV == 128) ||
+                        (D == 192 && DV == 128) || (D == 256 && DV == 256);
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk < 0 ||
-      (D != 64 && D != 128))
+      !shape_ok)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, to;
   // Sk = 0: a one-row map that no tile reads (causal or not, k_end = 0)
   const int sk = Sk > 0 ? Sk : 1;
   CUresult r = make_map(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, BQ);
   if (r == CUDA_SUCCESS) r = make_map(&tk, k, B, sk, KV, D, k_sb, k_ss, k_sh, BK);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, v, B, sk, KV, D, v_sb, v_ss, v_sh, BK);
   if (r == CUDA_SUCCESS)
-    r = make_map(&to, o, B, Sq, H, D, o_sb, o_ss, o_sh, WG_ROWS);
+    r = make_map(&tv, v, B, sk, KV, DV, v_sb, v_ss, v_sh, BK);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&to, o, B, Sq, H, DV, o_sb, o_ss, o_sh, WG_ROWS);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   const int n_qtiles = (Sq + BQ - 1) / BQ;
   const Params p{B, H, KV, Sq, Sk, n_qtiles, B * H * n_qtiles, scale,
                  scale * LOG2E, softcap, causal, window, q_offset, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return static_cast<int>(launch<64>(tq, tk, tv, to, p, s));
-  return static_cast<int>(launch<128>(tq, tk, tv, to, p, s));
+  if (D == 64) return static_cast<int>(launch<64, 64>(tq, tk, tv, to, p, s));
+  if (D == 128)
+    return static_cast<int>(launch<128, 128>(tq, tk, tv, to, p, s));
+  if (D == 192)
+    return static_cast<int>(launch<192, 128>(tq, tk, tv, to, p, s));
+  return static_cast<int>(launch<256, 256>(tq, tk, tv, to, p, s));
 }

@@ -190,6 +190,18 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], both from shared memory,
+// both K-major. scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (the
 // accumulator-shaped fragment), B from shared memory MN-major (trans-b).
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],

@@ -2,19 +2,26 @@
 backward, and the PyTorch custom ops they go through.
 
 Five kernels, one library: ``csrc/flash_attention_sm90.cu`` (forward,
-bf16 at the head dims in :data:`SM90_HEAD_DIMS`: wgmma, TMA,
-warp-specialised), ``csrc/flash_attention.cu`` (forward, float32 FMAs:
-float32, and bf16 at the other head dims),
+bf16 at the (q/k head dim, v width) pairs in :data:`SM90_SHAPES`: wgmma,
+TMA, warp-specialised), ``csrc/flash_attention.cu`` (forward, float32
+FMAs: float32, and bf16 at the other shapes),
 ``csrc/flash_attention_bwd_sm90.cu`` (backward, bf16 at
-:data:`SM90_HEAD_DIMS`: wgmma, TMA, warp-specialised, the forward's
-LSE), ``csrc/flash_attention_bwd_mma.cu`` (backward, bf16 at
-:data:`MMA_BWD_HEAD_DIMS`: mma.sync tensor cores; the earlier design,
-kept to compare) and ``csrc/flash_attention_bwd.cu`` (backward, float32
-FMAs, every dtype and head dim). :func:`select_variant` picks the
-forward and :func:`select_bwd_variant` the backward from (dtype, head
-dim) alone. The library is built with ``nvcc`` at the first call on a
-CUDA tensor and bound through ``ctypes``; see
-:mod:`repro_torch.kernels.build`. Nothing is built at import.
+:data:`SM90_SHAPES`: wgmma, TMA, warp-specialised, the forward's LSE),
+``csrc/flash_attention_bwd_mma.cu`` (backward, bf16 at
+:data:`MMA_BWD_HEAD_DIMS` with v as wide as q: mma.sync tensor cores;
+the earlier design, kept to compare) and ``csrc/flash_attention_bwd.cu``
+(backward, float32 FMAs, every dtype and head dim). :func:`select_variant`
+picks the forward and :func:`select_bwd_variant` the backward from
+(dtype, head dim, v width) alone.
+
+v may be narrower than q and k (MLA: q/k 192, v 128). The sm90 kernels
+read it at its own width. The fma kernels take one width for all three:
+their wrappers zero-pad v (and dO) to the head dim and slice the output
+(and dv) back, which is those kernels' input convention.
+
+The library is built with ``nvcc`` at the first call on a CUDA tensor
+and bound through ``ctypes``; see :mod:`repro_torch.kernels.build`.
+Nothing is built at import.
 
 Both directions are PyTorch custom ops, ``repro_torch::flash_attention``
 (which returns the output and each row's log-sum-exp) and
@@ -38,18 +45,20 @@ from ..build import load_library
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-#: head dims the kernels are instantiated for (192: MLA's nope + rope,
-#: deepseek-v2-lite's training branch, v zero-padded to it)
+#: head dims the fma kernels are instantiated for (192: MLA's nope +
+#: rope, deepseek-v2-lite's training branch)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192, 256)
-#: bf16 head dims the Hopper kernel takes (at hd 256 two Q buffers would
-#: leave shared memory for one K/V slot, and O alone would take 128
-#: accumulator registers of a thread)
-SM90_HEAD_DIMS = (64, 128)
+#: the bf16 (q/k head dim, v width) pairs the Hopper kernels are
+#: instantiated for: (192, 128) is deepseek-v2-lite's MLA training branch
+#: (128 nope + 64 rope, v 128), (256, 256) gemma3-1b. Another head dim
+#: (hubert-xlarge's 80, say) joins here with an instantiation of both
+#: sm90 kernels; until then it runs fma.
+SM90_SHAPES = ((64, 64), (128, 128), (192, 128), (256, 256))
 #: the forward kernels: ``sm90`` in flash_attention_sm90.cu, ``fma`` in
 #: flash_attention.cu
 VARIANTS = ("sm90", "fma")
 #: the backward kernels: ``sm90`` in flash_attention_bwd_sm90.cu (bf16 at
-#: :data:`SM90_HEAD_DIMS`: wgmma, TMA, the forward's LSE), ``mma`` in
+#: :data:`SM90_SHAPES`: wgmma, TMA, the forward's LSE), ``mma`` in
 #: flash_attention_bwd_mma.cu (bf16 at :data:`MMA_BWD_HEAD_DIMS`,
 #: mma.sync; the earlier design), ``fma`` in flash_attention_bwd.cu (every
 #: dtype and head dim)
@@ -66,12 +75,15 @@ _c_ll = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [_c_ll] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_void_p])
+# the sm90 forward: no dtype code; the sizes with v's width after hd
+_SM90_ARGTYPES = _ARGTYPES[:5] + [ctypes.c_int] * 7 + _ARGTYPES[12:]
 # eight tensors, lse and delta; dtype and the sizes; eight stride triples
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [_c_ll] * 24
                  + _ARGTYPES[-6:])
 # q, k, v, out, dout, the forward's lse, dq, dk, dv and four scratch
-# tensors; the sizes and the padded row count; eight stride triples
-_SM90_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+# tensors; the sizes (v's width after hd) and the padded row count; eight
+# stride triples
+_SM90_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
                       + [_c_ll] * 24 + _ARGTYPES[-6:])
 
 
@@ -84,7 +96,7 @@ def load() -> ctypes.CDLL:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         sm90 = lib.repro_flash_attention_sm90_fwd
-        sm90.argtypes = _ARGTYPES[:5] + _ARGTYPES[6:]   # no dtype code
+        sm90.argtypes = _SM90_ARGTYPES
         sm90.restype = ctypes.c_int
         lib.repro_flash_attention_bwd.argtypes = _BWD_ARGTYPES
         lib.repro_flash_attention_bwd.restype = ctypes.c_int
@@ -99,19 +111,22 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def select_bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernel a CUDA call of this dtype and head dim
-    launches: ``sm90`` for bf16 at :data:`SM90_HEAD_DIMS`, else ``fma``
-    (``mma`` is launched only by name, through :func:`run_bwd_variant`)."""
-    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
-        return "sm90"
-    return "fma"
+def select_bwd_variant(dtype: torch.dtype, head_dim: int,
+                       v_dim: int | None = None) -> str:
+    """The backward kernel a CUDA call of this dtype, q/k head dim and v
+    width (default: the head dim) launches: ``sm90`` for bf16 at
+    :data:`SM90_SHAPES`, else ``fma`` (``mma`` is launched only by name,
+    through :func:`run_bwd_variant`)."""
+    return select_variant(dtype, head_dim, v_dim)
 
 
-def select_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call of this dtype and head dim launches:
-    ``sm90`` for bf16 at :data:`SM90_HEAD_DIMS`, else ``fma``."""
-    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+def select_variant(dtype: torch.dtype, head_dim: int,
+                   v_dim: int | None = None) -> str:
+    """The forward kernel a CUDA call of this dtype, q/k head dim and v
+    width (default: the head dim) launches: ``sm90`` for bf16 at
+    :data:`SM90_SHAPES`, else ``fma``."""
+    shape = (head_dim, head_dim if v_dim is None else v_dim)
+    if dtype == torch.bfloat16 and shape in SM90_SHAPES:
         return "sm90"
     return "fma"
 
@@ -143,10 +158,10 @@ def check_tma_layout(**tensors: torch.Tensor) -> None:
 
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention expects q (B,Sq,H,hd) and k, v "
-                         "(B,Sk,KV,hd)")
+        raise ValueError("flash_attention expects q (B,Sq,H,hd), k "
+                         "(B,Sk,KV,hd) and v (B,Sk,KV,dv)")
     B, _, H, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if H % k.shape[2]:
@@ -169,9 +184,10 @@ def _check_window(window) -> None:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, q_offset: int = 0,
                     softcap: float = 0.0, return_lse: bool = False):
-    """Attention forward. q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), the
+    """Attention forward. q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v: (B,
+    Sk, KV, dv), dv the v width (MLA's is narrower than q and k), the
     model's layout, read through strides (the head dim must be
-    contiguous). Returns (B, Sq, H, hd) in q's dtype; with
+    contiguous). Returns (B, Sq, H, dv) in q's dtype; with
     ``return_lse`` also each row's log-sum-exp over its scaled
     (soft-capped) visible scores, float32 (B, H, Sq), +inf for a row
     with every key masked: what :func:`flash_attention_bwd` takes.
@@ -184,8 +200,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     It runs the custom op ``repro_torch::flash_attention``, which is
     differentiable: its gradient is :func:`flash_attention_bwd`. A CUDA
     tensor launches one kernel on the current stream, the one
-    :func:`select_variant` names (float32 or bfloat16, hd in
-    :data:`HEAD_DIMS`), and adds one to ``flash_attention.launches`` and
+    :func:`select_variant` names (float32 or bfloat16; hd in
+    :data:`HEAD_DIMS` and dv <= hd, or a pair of :data:`SM90_SHAPES`),
+    and adds one to ``flash_attention.launches`` and
     to ``flash_attention.variant_launches[variant]``; anything it cannot
     take raises (the ``sm90`` kernel's tensors must also meet
     :func:`check_tma_layout`), and a failed launch raises. A CPU tensor
@@ -222,42 +239,53 @@ def run_variant(variant: str, q, k, v, *, causal: bool = True,
     output and its rows' LSE (both kernels write it), as the forward op
     does. :func:`flash_attention` calls it with the variant
     :func:`select_variant` names; ``chip_smoke.py`` also calls it to time
-    the ``fma`` kernel at a bf16 shape the ``sm90`` kernel takes."""
+    the ``fma`` kernel at a bf16 shape the ``sm90`` kernel takes. The
+    ``fma`` kernel takes v at the head dim: v narrower than that is
+    zero-padded to it here and the output sliced back (a copy)."""
     _check(q, k, v)
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk, KV, dv = k.shape[1], k.shape[2], v.shape[3]
     if variant not in VARIANTS:
         raise ValueError(f"unknown flash_attention variant {variant!r}")
-    if variant == "sm90" and select_variant(q.dtype, hd) != "sm90":
-        raise ValueError(f"the sm90 kernel takes bfloat16 at head dims "
-                         f"{SM90_HEAD_DIMS}, not {q.dtype} at {hd}")
+    if variant == "sm90" and select_variant(q.dtype, hd, dv) != "sm90":
+        raise ValueError(f"the sm90 kernel takes bfloat16 at (head dim, v "
+                         f"width) {SM90_SHAPES}, not {q.dtype} at "
+                         f"{(hd, dv)}")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernels run on cuda, not "
                          f"{q.device}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    if hd not in HEAD_DIMS or dv > hd:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS} "
+                         f"or v width {dv} above it")
     _check_window(window)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous head dim")
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if variant == "fma" and dv < hd:
+        out, lse = run_variant("fma", q, k, _pad_to(v, hd), causal=causal,
+                               window=window, q_offset=q_offset,
+                               softcap=softcap)
+        return out[..., :dv].contiguous(), lse
+    out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
     if variant == "sm90":
         check_tma_layout(q=q, k=k, v=v)
     lib = load()
-    args = (B, H, KV, Sq, Sk, hd, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], 1.0 / math.sqrt(hd),
-            int(causal), int(window or 0), int(q_offset), float(softcap))
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *out.stride()[:3], 1.0 / math.sqrt(hd), int(causal),
+               int(window or 0), int(q_offset), float(softcap))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if variant == "sm90":
-            err = lib.repro_flash_attention_sm90_fwd(*ptrs, *args, stream)
+            err = lib.repro_flash_attention_sm90_fwd(
+                *ptrs, B, H, KV, Sq, Sk, hd, dv, *strides, stream)
         else:
-            err = lib.repro_flash_attention_fwd(*ptrs, _DTYPE_CODE[q.dtype],
-                                                *args, stream)
+            err = lib.repro_flash_attention_fwd(
+                *ptrs, _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, hd, *strides,
+                stream)
     if err < 0:
         raise RuntimeError(f"flash_attention ({variant}): a TMA tensor map "
                            f"could not be encoded (CUresult {-err})")
@@ -275,8 +303,9 @@ def flash_attention_bwd(dout, q, k, v, out, lse, *, causal: bool = True,
                         softcap: float = 0.0):
     """Gradient of :func:`flash_attention`: (dq, dk, dv) for the
     cotangent ``dout`` of its output ``out`` at (q, k, v), each in its
-    input's shape and dtype (q, dout, out: (B, Sq, H, hd); k, v: (B, Sk,
-    KV, hd), read through strides with a contiguous head dim). ``lse`` is
+    input's shape and dtype (q: (B, Sq, H, hd); dout, out: (B, Sq, H,
+    dv); k: (B, Sk, KV, hd); v: (B, Sk, KV, dv), read through strides
+    with a contiguous head dim). ``lse`` is
     the forward's float32 (B, H, Sq) row log-sum-exp
     (``flash_attention(..., return_lse=True)``), which the ``sm90`` kernel
     reads. A row whose every key is masked gets zero gradients.
@@ -293,16 +322,24 @@ def flash_attention_bwd(dout, q, k, v, out, lse, *, causal: bool = True,
     :func:`flash_attention_bwd_ref`, which is not counted."""
     _check(q, k, v)
     _check_window(window)
-    if dout.shape != q.shape or out.shape != q.shape:
+    want = (*q.shape[:3], v.shape[3])
+    if dout.shape != want or out.shape != want:
         raise ValueError(f"dout {tuple(dout.shape)} and out "
-                         f"{tuple(out.shape)} must have q's shape "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(out.shape)} must have the forward "
+                         f"output's shape {want}")
     if dout.dtype != q.dtype or out.dtype != q.dtype:
         raise TypeError(f"dout ({dout.dtype}) and out ({out.dtype}) must "
                         f"have q's dtype {q.dtype}")
     _check_lse(lse, q)
     return _bwd_op(dout, q, k, v, out, lse, bool(causal), int(window or 0),
                    int(q_offset), float(softcap))
+
+
+def _pad_to(t, width: int):
+    """``t`` zero-padded in its last dim to ``width`` (itself if it is
+    that wide): the fma kernels' one head dim for q, k, v, out and dO."""
+    pad = width - t.shape[-1]
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def _check_lse(lse, q) -> None:
@@ -325,7 +362,9 @@ def run_bwd_variant(variant: str, dout, q, k, v, out, lse, *,
     :func:`select_bwd_variant` names; ``chip_smoke.py`` calls it to hold
     and time the earlier kernels (``mma``, ``fma``) at bf16 shapes the
     ``sm90`` kernel takes. ``sm90`` reads ``lse``; the others compute
-    their own and ignore it."""
+    their own and ignore it. ``fma`` takes v at the head dim: v, dout and
+    out narrower than that are zero-padded to it here and dv sliced back
+    (a copy)."""
     _check(q, k, v)
     _check_window(window)
     _check_lse(lse, q)
@@ -339,25 +378,34 @@ def _launch_bwd(variant, dout, q, k, v, out, lse, causal, window, q_offset,
     if variant not in BWD_VARIANTS:
         raise ValueError(f"unknown flash_attention_bwd variant {variant!r}")
     B, Sq, H, hd = q.shape
-    if variant == "sm90" and select_bwd_variant(q.dtype, hd) != "sm90":
-        raise ValueError(f"the sm90 backward takes bfloat16 at head dims "
-                         f"{SM90_HEAD_DIMS}, not {q.dtype} at {hd}")
-    if variant == "mma" and (q.dtype != torch.bfloat16
+    dvw = v.shape[3]
+    if variant == "sm90" and select_bwd_variant(q.dtype, hd, dvw) != "sm90":
+        raise ValueError(f"the sm90 backward takes bfloat16 at (head dim, "
+                         f"v width) {SM90_SHAPES}, not {q.dtype} at "
+                         f"{(hd, dvw)}")
+    if variant == "mma" and (q.dtype != torch.bfloat16 or dvw != hd
                              or hd not in MMA_BWD_HEAD_DIMS):
         raise ValueError(f"the mma backward takes bfloat16 at head dims "
-                         f"{MMA_BWD_HEAD_DIMS}, not {q.dtype} at {hd}")
+                         f"{MMA_BWD_HEAD_DIMS} (v as wide), not {q.dtype} "
+                         f"at {(hd, dvw)}")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd kernels run on cuda, not "
                          f"{q.device}")
     Sk, KV = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    if hd not in HEAD_DIMS or dvw > hd:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS} "
+                         f"or v width {dvw} above it")
     ins = (q, k, v, out, dout)
     if any(t.device != q.device for t in ins):
         raise ValueError("flash_attention_bwd: tensors on different "
                          "devices")
     if any(t.stride(-1) != 1 for t in ins):
         raise ValueError("flash_attention_bwd needs a contiguous head dim")
+    if variant == "fma" and dvw < hd:
+        dq, dk, dv = _launch_bwd("fma", *(_pad_to(t, hd) for t in
+                                          (dout, q, k, v, out)),
+                                 lse, causal, window, q_offset, softcap)
+        return dq, dk, dv[..., :dvw].contiguous()
     if variant == "sm90":
         check_tma_layout(q=q, k=k, v=v, out=out, dout=dout)
     elif variant == "mma":
@@ -366,7 +414,7 @@ def _launch_bwd(variant, dout, q, k, v, out, lse, causal, window, q_offset,
                         dict(q=q, k=k, v=v, out=out, dout=dout))
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KV, hd), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((B, Sk, KV, dvw), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     lib = load()
@@ -385,13 +433,15 @@ def _launch_bwd(variant, dout, q, k, v, out, lse, causal, window, q_offset,
             delta = torch.empty_like(lse2)
             dkp = torch.empty((B, H, Sk, hd), dtype=torch.float32,
                               device=q.device)
-            dvp = torch.empty_like(dkp)
+            dvp = torch.empty((B, H, Sk, dvw), dtype=torch.float32,
+                              device=q.device)
             lse = lse.contiguous()
             ptrs = (*(t.data_ptr() for t in ts[:5]), lse.data_ptr(),
                     *(t.data_ptr() for t in ts[5:]), lse2.data_ptr(),
                     delta.data_ptr(), dkp.data_ptr(), dvp.data_ptr())
             err = lib.repro_flash_attention_bwd_sm90(
-                *ptrs, B, H, KV, Sq, Sk, hd, pad, *strides, *scalars, stream)
+                *ptrs, B, H, KV, Sq, Sk, hd, dvw, pad, *strides, *scalars,
+                stream)
         else:
             # these designs compute their own row statistics: their first
             # kernel writes them and the others read them
@@ -424,7 +474,8 @@ def _launch_bwd(variant, dout, q, k, v, out, lse, causal, window, q_offset,
 def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: int, q_offset: int,
             softcap: float) -> tuple[torch.Tensor, torch.Tensor]:
-    return run_variant(select_variant(q.dtype, q.shape[-1]), q, k, v,
+    return run_variant(select_variant(q.dtype, q.shape[-1], v.shape[-1]),
+                       q, k, v,
                        causal=causal, window=window or None,
                        q_offset=q_offset, softcap=softcap)
 
@@ -441,7 +492,8 @@ def _fwd_cpu(q, k, v, causal, window, q_offset, softcap):
 @_fwd_op.register_fake
 def _fwd_fake(q, k, v, causal, window, q_offset, softcap):
     B, Sq, H, _ = q.shape
-    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+    return (q.new_empty((B, Sq, H, v.shape[-1])),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
 
 
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
@@ -450,8 +502,9 @@ def _bwd_op(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
             causal: bool, window: int, q_offset: int, softcap: float
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    return _launch_bwd(select_bwd_variant(q.dtype, q.shape[-1]), dout, q, k,
-                       v, out, lse, causal, window, q_offset, softcap)
+    return _launch_bwd(select_bwd_variant(q.dtype, q.shape[-1], v.shape[-1]),
+                       dout, q, k, v, out, lse, causal, window, q_offset,
+                       softcap)
 
 
 @_bwd_op.register_kernel("cpu")
@@ -491,7 +544,7 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 
 __all__ = ["BWD_VARIANTS", "HEAD_DIMS", "MMA_BWD_HEAD_DIMS",
-           "SM90_HEAD_DIMS", "VARIANTS", "check_tma_layout",
+           "SM90_SHAPES", "VARIANTS", "check_tma_layout",
            "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_ref", "load",
            "run_bwd_variant", "run_variant", "select_bwd_variant",

@@ -247,10 +247,9 @@ def apply_mla(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     """MLA layer. Without a cache (training) K and V are materialised
     per head from the latent and attention runs through
     :func:`multi_head_attention` with q and k at head dim nope + rope and
-    v zero-padded from ``v_head_dim`` to that width: the flash kernel
-    takes one head dim, its scale 1/sqrt(nope + rope) is the
-    reference's, the zero columns of v leave the first ``v_head_dim``
-    output columns as they are, and the output is sliced back. With a
+    v at ``v_head_dim``, as the reference calls it (the scale 1/sqrt(nope
+    + rope) is the reference's; the sm90 kernels take v at its own
+    width). With a
     cache (prefill and decode) the latent ``c_kv`` (B, L, r) and the
     shared rope key (B, L, rope) are written in place at ``cache_pos``
     (an int or a per-row (B,) tensor) and attention runs in the
@@ -276,17 +275,12 @@ def apply_mla(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        if vd > nd + rd:
-            raise NotImplementedError(
-                f"MLA with v_head_dim {vd} wider than q and k "
-                f"({nd} + {rd})")
         k_nope = linear(c_kv, p["w_uk"]).reshape(B, S, H, nd)
         v = linear(c_kv, p["w_uv"]).reshape(B, S, H, vd)
         k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], -1)
         qq = torch.cat([q_nope, q_rope], -1)
-        v = F.pad(v, (0, nd + rd - vd))
         out = multi_head_attention(qq, k, v, causal=cfg.causal, window=None,
-                                   q_offset=0)[..., :vd]
+                                   q_offset=0)
         return linear(out.reshape(B, S, H * vd), p["wo"]), None
 
     cc = update_cache(kv_cache["c_kv"], c_kv, cache_pos)

@@ -255,18 +255,26 @@ def test_cuda_kernel_offset_softcap_strides(Sq, Sk, q_offset, softcap,
     np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
 
 
-@pytest.mark.parametrize("dtype,hd,variant", [
-    ("bfloat16", 64, "sm90"),
-    ("bfloat16", 128, "sm90"),
-    ("bfloat16", 32, "fma"),
-    ("bfloat16", 80, "fma"),
-    ("bfloat16", 192, "fma"),
-    ("bfloat16", 256, "fma"),
-    ("float32", 64, "fma"),
-    ("float32", 128, "fma"),
+@pytest.mark.parametrize("dtype,hd,dv,variant", [
+    ("bfloat16", 64, 64, "sm90"),
+    ("bfloat16", 128, 128, "sm90"),
+    ("bfloat16", 32, 32, "fma"),
+    ("bfloat16", 80, 80, "fma"),
+    ("bfloat16", 192, 128, "sm90"),     # MLA: q/k 128 + 64, v 128
+    ("bfloat16", 256, 256, "sm90"),     # gemma3-1b
+    ("bfloat16", 192, 192, "fma"),
+    ("bfloat16", 128, 64, "fma"),
+    ("float32", 64, 64, "fma"),
+    ("float32", 128, 128, "fma"),
+    ("float32", 192, 128, "fma"),
 ])
-def test_variant_is_chosen_from_dtype_and_head_dim(dtype, hd, variant):
-    assert ops.select_variant(getattr(torch, dtype), hd) == variant
+def test_variant_is_chosen_from_dtype_and_head_dim(dtype, hd, dv, variant):
+    """sm90 exactly at the bf16 (hd, dv) pairs of SM90_SHAPES."""
+    assert ops.select_variant(getattr(torch, dtype), hd, dv) == variant
+    assert (variant == "sm90") == (dtype == "bfloat16"
+                                   and (hd, dv) in ops.SM90_SHAPES)
+    if hd == dv:
+        assert ops.select_variant(getattr(torch, dtype), hd) == variant
     assert variant in ops.flash_attention.variant_launches
 
 

@@ -278,16 +278,21 @@ def test_backward_wrapper_refuses(bad, error):
 
 
 
-@pytest.mark.parametrize("dtype, hd, variant", [
-    ("bfloat16", 64, "sm90"), ("bfloat16", 128, "sm90"),
-    ("bfloat16", 32, "fma"), ("bfloat16", 192, "fma"),
-    ("bfloat16", 256, "fma"), ("float32", 128, "fma"),
+@pytest.mark.parametrize("dtype, hd, dv, variant", [
+    ("bfloat16", 64, 64, "sm90"), ("bfloat16", 128, 128, "sm90"),
+    ("bfloat16", 32, 32, "fma"), ("bfloat16", 192, 128, "sm90"),
+    ("bfloat16", 256, 256, "sm90"), ("float32", 128, 128, "fma"),
+    ("bfloat16", 192, 192, "fma"), ("float32", 256, 256, "fma"),
 ])
-def test_select_bwd_variant(dtype, hd, variant):
-    """``sm90`` takes the forward's sm90 set; ``mma`` runs only by name."""
-    assert ops.select_bwd_variant(getattr(torch, dtype), hd) == variant
+def test_select_bwd_variant(dtype, hd, dv, variant):
+    """``sm90`` takes the forward's sm90 set, the bf16 pairs of
+    SM90_SHAPES; ``mma`` runs only by name."""
+    dt = getattr(torch, dtype)
+    assert ops.select_bwd_variant(dt, hd, dv) == variant
+    assert ops.select_variant(dt, hd, dv) == variant
     assert ops.BWD_VARIANTS == ("sm90", "mma", "fma")
-    assert ops.SM90_HEAD_DIMS == ops.MMA_BWD_HEAD_DIMS == (64, 128)
+    assert ops.SM90_SHAPES == ((64, 64), (128, 128), (192, 128), (256, 256))
+    assert ops.MMA_BWD_HEAD_DIMS == (64, 128)
 
 
 @pytest.mark.parametrize("variant, dtype, hd, error", [
@@ -296,7 +301,7 @@ def test_select_bwd_variant(dtype, hd, variant):
     ("wgmma", "bfloat16", 64, "unknown"),
     ("fma", "bfloat16", 64, "run on cuda"),
     ("sm90", "float32", 64, "sm90 backward takes bfloat16"),
-    ("sm90", "bfloat16", 256, "sm90 backward takes bfloat16"),
+    ("sm90", "bfloat16", 256, "run on cuda"),
     ("sm90", "bfloat16", 192, "sm90 backward takes bfloat16"),
     ("sm90", "bfloat16", 32, "sm90 backward takes bfloat16"),
     ("sm90", "bfloat16", 64, "run on cuda"),

@@ -108,9 +108,10 @@ def test_apply_mla_training_branch_matches_reference():
 
 def test_training_branch_pads_v_to_the_query_width(monkeypatch):
     """The training branch hands attention q and k at nope + rope and v
-    zero-padded to that width, and keeps the first v_head_dim columns:
-    the flash op sees one head dim, and its scale is 1/sqrt(nope + rope)
-    as in the reference."""
+    at its own v_head_dim, unpadded, as the reference does (the name
+    is the test's from when v was zero-padded to the query width; the
+    op now takes v at its own width). The flash op's scale is
+    1/sqrt(nope + rope) as in the reference."""
     _, tc = _configs()
     jc, _ = _configs()
     _, tp = _layer(jc, 3)
@@ -125,8 +126,9 @@ def test_training_branch_pads_v_to_the_query_width(monkeypatch):
     tL.apply_mla(tc, tp, tx, positions=torch.arange(10))
     (q, k, v), = seen
     qk = tc.qk_nope_dim + tc.qk_rope_dim
-    assert q.shape == k.shape == v.shape == (1, 10, tc.num_heads, qk)
-    assert torch.count_nonzero(v[..., tc.v_head_dim:]) == 0
+    assert q.shape == k.shape == (1, 10, tc.num_heads, qk)
+    assert v.shape == (1, 10, tc.num_heads, tc.v_head_dim) and \
+        tc.v_head_dim < qk
     # the rope key is one per position, shared by the heads
     assert torch.equal(k[:, :, :1, tc.qk_nope_dim:].expand_as(
         k[..., tc.qk_nope_dim:]), k[..., tc.qk_nope_dim:])
