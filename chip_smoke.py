@@ -8,8 +8,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 
 1. card (always run): the card's name and power limit, as nvidia-smi
    reports them;
-2. build: every CUDA kernel of the port (flash attention, RWKV6), from
-   the sources in this checkout, into ``build/repro_torch_kernels/``:
+2. build: every CUDA kernel of the port (flash attention, RWKV6, the
+   selective scan), from the sources in this checkout, into
+   ``build/repro_torch_kernels/``:
    one nvcc per source file, all started together, then one link per
    library;
 3. kernels: flash attention against its plain PyTorch version at the
@@ -267,6 +268,31 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    qwen2.5-14b (48 layers) and starcoder2-7b (32) served with a short
    drain, every prefill launch sm90; tok/s, TTFT, decode ms and peak
    memory for each.
+24. ssm kernels: Mamba's selective scan (``kernels/ssm``: the forward
+   and its backward, float32, one thread per (batch, channel, state))
+   against the plain versions at jamba's shapes (d_inner 8192, N 16):
+   prefill B=8, S=1024; training B=1, S=2048, forward and backward;
+   decode S=1 from a state; every output within ``SSM_GATE`` of its
+   largest magnitude, repeated calls bit-equal; each timed from a CUDA
+   graph of GRAPH_CALLS calls beside the plain version and the bound
+   (bytes at 3.35 TB/s or exponentials at the SFU rate, the larger); no
+   PyTorch call computes the scan; registers and spills (ptxas);
+25. jamba serve: jamba-v0.1-52b in bf16 (random weights from a seed) at
+   full width and 16 layers (two periods, by the printed parameter
+   arithmetic): one ``prefill`` of 8 x 1024 tokens, 31 decode steps; 14
+   scan launches in the prefill and 14 a decode step, 2 flash launches in
+   the prefill (sm90 at (128, 128)), none in decode; the first mamba
+   block, prompt and one decode step, through the kernel against the
+   plain scan; tok/s, TTFT, decode ms, peak memory, a profile of each
+   call;
+26. jamba train: its SGD step in place at 8 layers (B=1, S=2048, lr
+   1e-3, the loss with its router term): the cross entropy at init near
+   ln V, aux in [K/2, E] a MoE layer, 7 scan forward and 7 backward
+   launches, 1 sm90 flash forward and 1 backward; step ms, tokens/s,
+   peak memory, device time by role; then the step traced, partitioned
+   at K=4 and verified. The plan is not executed: the runtime returns
+   clones of the new parameters and grads, and 3P at 8 layers is over
+   90% of the card.
 
 Each phase's seconds are printed when it ends.
 
@@ -3592,7 +3618,8 @@ def _moe_profile(torch, label: str, fn, cfg, group: int) -> dict:
                            "plain attention", "other products",
                            "flash kernels")
                           + (("MLA attention",) if cfg.kv_lora_rank
-                             else ()), 0.0)
+                             else ())
+                          + (("scan kernels",) if cfg.mamba else ()), 0.0)
     calls = dict.fromkeys(roles, 0)
     for e in prof.key_averages(group_by_input_shape=True):
         if e.device_type != cuda and e.key in ("aten::mm", "aten::bmm"):
@@ -3603,6 +3630,9 @@ def _moe_profile(torch, label: str, fn, cfg, group: int) -> dict:
         if any(name in e.key for name in FLASH_KERNEL_NAMES):
             roles["flash kernels"] += e.self_device_time_total / 1e3
             calls["flash kernels"] += e.count
+        elif cfg.mamba and "ssm_" in e.key:
+            roles["scan kernels"] += e.self_device_time_total / 1e3
+            calls["scan kernels"] += e.count
     rest = busy_ms - sum(roles.values())
     log(f"profile {label}: wall {host_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({busy_ms / host_ms:.1%}), "
@@ -4751,12 +4781,503 @@ def phase_dense_configs(torch, card: str) -> dict:
     return split
 
 
+# ---------------------------------------------------------------------------
+# Mamba's selective scan and jamba-v0.1-52b
+# ---------------------------------------------------------------------------
+#: the scan's shapes on jamba's main paths, at its d_inner and d_state:
+#: (label, B, S, with h0, backward too, the factor on A). A at init
+#: (-1 ... -16) times dt ~ 1 forgets within a few tokens; the training
+#: case takes 0.02 A so that states and gradients carry over hundreds of
+#: steps.
+SSM_CASES = [("prefill", 8, 1024, False, False, 1.0),
+             ("train", 1, 2048, False, True, 0.02),
+             ("decode", 8, 1, True, False, 1.0)]
+SSM_WIDTH = (8192, 16)
+#: max |kernel - plain| over max |plain|, per output. Float32 throughout:
+#: the kernels differ from the plain version in the order of the sums
+#: (over the 16 states; for dBm and dCm over d_inner's 8192 channels) and
+#: in __expf's last bits
+SSM_GATE = {"forward": 1e-5, "backward": 3e-5}
+#: the exponentials a second of the H100 SXM's special-function units: 16
+#: a clock on each of 132 SMs at the 1.98 GHz boost clock
+SFU_RATE = 16 * 132 * 1.98e9
+SSM_SOURCE = "src/repro_torch/kernels/ssm/csrc/"
+SSM_REPLACES = ("none: src/repro/models/ssm.py:47 (_ssm_scan_chunked, "
+                "plain JAX; no Pallas kernel)")
+#: jamba's serving and training depths, from the printed arithmetic: whole
+#: periods of 8 whose parameters (serving) or parameters and grads
+#: (training in place) fit 90% of the card
+JAMBA = dict(serve_layers=16, train_layers=8, batch=8, prompt=1024,
+             new=32)
+
+
+def _ssm_inputs(torch, B, S, h0: bool, a_scale: float, seed: int):
+    """(u, dt, Bm, Cm, A, h0): u, Bm, Cm, h0 ~ N(0, 1); dt the model's
+    softplus of N(0, 0.5) around its bias; A = a_scale x -[1..N] a
+    channel, as at init."""
+    import torch.nn.functional as F
+    di, N = SSM_WIDTH
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    dt = F.softplus(0.5 * rnd(B, S, di) + math.log(math.e - 1))
+    A = -a_scale * torch.arange(1, N + 1, device="cuda",
+                                dtype=torch.float32)[None].repeat(di, 1)
+    return (rnd(B, S, di), dt, rnd(B, S, N), rnd(B, S, N), A,
+            rnd(B, di, N) if h0 else None)
+
+
+def _ssm_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def _ssm_bytes(B, S, h0: bool, backward: bool) -> int:
+    """Bytes the call must move, each input read once and each output
+    written once (float32): forward u, dt in, y out, Bm, Cm, A, h0, h_last;
+    backward u, dt, dy in, du, ddt out, Bm, Cm, dBm, dCm, A, dA, h0,
+    dh_last, dh0."""
+    di, N = SSM_WIDTH
+    big, small, state = B * S * di, B * S * N, B * di * N
+    if backward:
+        return 4 * (5 * big + 4 * small + 2 * di * N
+                    + (3 if h0 else 2) * state)
+    return 4 * (3 * big + 2 * small + di * N + (2 if h0 else 1) * state)
+
+
+def phase_ssm_kernels(torch, sops, sref, build) -> list:
+    """Both selective-scan kernels against their plain versions at
+    SSM_CASES (d_inner 8192, N 16: jamba's prefill, training and decode
+    shapes), under SSM_GATE, repeated calls bit-equal; each timed in turns
+    from a CUDA graph of GRAPH_CALLS calls (and eager, back to back)
+    beside its plain version and the bound (the bytes at 3.35 TB/s or the
+    exponentials at SFU_RATE, the larger); no PyTorch call computes the
+    scan; registers and spills from ptxas. Returns the two records (at
+    the prefill shape forward, the training shape backward); the main
+    paths fill in their launches."""
+    sops.load()
+    report = ptxas_report(build, sops, "ssm")
+    for kernel, used in report.items():
+        log(f"ssm_kernels: ptxas {kernel}: {used}")
+    di, N = SSM_WIDTH
+    cases, records = {}, []
+    for i, (label, B, S, h0, backward, a_scale) in enumerate(SSM_CASES):
+        u, dt, Bm, Cm, A, h = _ssm_inputs(torch, B, S, h0, a_scale,
+                                          seed=700 + i)
+        before = sops.selective_scan.launches
+        y, h_last = sops.selective_scan(u, dt, Bm, Cm, A, h)
+        y2, h_last2 = sops.selective_scan(u, dt, Bm, Cm, A, h)
+        torch.cuda.synchronize()
+        assert sops.selective_scan.launches == before + 2
+        rep = torch.equal(y, y2) and torch.equal(h_last, h_last2)
+        want_y, want_h = sref.selective_scan_ref(u, dt, Bm, Cm, A, h)
+        err = max(_ssm_err(y, want_y), _ssm_err(h_last, want_h))
+        abs_err = max(float((y - want_y).abs().max()),
+                      float((h_last - want_h).abs().max()))
+        log(f"ssm_kernels {label} (B={B}, S={S}, d_inner {di}, N {N}, h0 "
+            f"{h0}, A x {a_scale}): forward max |kernel - plain| "
+            f"{abs_err:.3g} = {err:.3g} of max |plain| (gate "
+            f"{SSM_GATE['forward']}); repeated call bit-equal {rep}")
+        assert rep, f"ssm_kernels {label}: forward not repeatable"
+        assert err <= SSM_GATE["forward"], \
+            f"ssm_kernels {label}: forward {err} over the gate"
+        del y2, h_last2, want_y, want_h
+
+        def fwd():
+            return sops.selective_scan(u, dt, Bm, Cm, A, h)
+        graph = graphed(torch, fwd, GRAPH_CALLS)
+        ms = timed_turns(torch, {
+            "kernel": graph.replay, "eager": fwd,
+            "plain": lambda: sref.selective_scan_ref(u, dt, Bm, Cm, A, h),
+        }, reps={"kernel": 1, "eager": 10, "plain": 1})
+        ms["kernel"] /= GRAPH_CALLS
+        del graph
+        nbytes = _ssm_bytes(B, S, h0, False)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = B * S * di * N / SFU_RATE * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"timing selective_scan at {label}, in turns: kernel "
+            f"{ms['kernel']:.4f} ms ({nbytes / ms['kernel'] / 1e6:.1f} GB/s;"
+            f" {GRAPH_CALLS} calls replayed from a CUDA graph; eager, back "
+            f"to back {ms['eager']:.4f} ms), plain {ms['plain']:.4f} ms, "
+            f"library: none; bound {bound:.4f} ms (bytes "
+            f"{nbytes / 2**20:.1f} MiB at 3.35 TB/s: {t_bytes:.4f} ms; "
+            f"{B * S * di * N / 1e9:.3f} G exponentials at the SFU's "
+            f"{SFU_RATE / 1e12:.2f} T/s: {t_ops:.4f} ms)")
+        cases[f"forward {label}"] = {
+            "shape": [B, S, di, N], "h0": h0, "max_abs_err": abs_err,
+            "rel_err": err, "ms": ms["kernel"], "eager_ms": ms["eager"],
+            "plain_ms": ms["plain"], "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        if backward:
+            g = torch.Generator(device="cuda").manual_seed(800 + i)
+            dy = torch.randn(y.shape, generator=g, device="cuda")
+            dh = torch.randn(h_last.shape, generator=g, device="cuda")
+            before = sops.selective_scan_bwd.launches
+            got = sops.selective_scan_bwd(u, dt, Bm, Cm, A, h, dy, dh)
+            again = sops.selective_scan_bwd(u, dt, Bm, Cm, A, h, dy, dh)
+            torch.cuda.synchronize()
+            assert sops.selective_scan_bwd.launches == before + 2
+            rep = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = sref.selective_scan_bwd_ref(u, dt, Bm, Cm, A, h, dy, dh)
+            names = ("du", "ddt", "dBm", "dCm", "dA", "dh0")
+            errs = {n: _ssm_err(a, b) for n, a, b in zip(names, got, want)}
+            babs = max(float((a - b).abs().max())
+                       for a, b in zip(got, want))
+            log(f"ssm_kernels {label}: backward max |kernel - plain| over "
+                f"max |plain|: " + ", ".join(f"{n} {e:.3g}"
+                                             for n, e in errs.items())
+                + f" (gate {SSM_GATE['backward']}); repeated call "
+                f"bit-equal {rep}")
+            assert rep, f"ssm_kernels {label}: backward not repeatable"
+            assert max(errs.values()) <= SSM_GATE["backward"], \
+                f"ssm_kernels {label}: backward {errs} over the gate"
+            del got, again, want
+
+            def bwd():
+                return sops.selective_scan_bwd(u, dt, Bm, Cm, A, h, dy, dh)
+            graph = graphed(torch, bwd, GRAPH_CALLS)
+            bms = timed_turns(torch, {
+                "kernel": graph.replay, "eager": bwd,
+                "plain": lambda: sref.selective_scan_bwd_ref(
+                    u, dt, Bm, Cm, A, h, dy, dh),
+            }, reps={"kernel": 1, "eager": 10, "plain": 1})
+            bms["kernel"] /= GRAPH_CALLS
+            del graph
+            bbytes = _ssm_bytes(B, S, h0, True)
+            b_bytes = bbytes / PEAK_BYTES * 1e3
+            bbound = max(b_bytes, t_ops)
+            log(f"timing selective_scan_bwd at {label}, in turns: kernel "
+                f"{bms['kernel']:.4f} ms ({bbytes / bms['kernel'] / 1e6:.1f}"
+                f" GB/s; from a CUDA graph; eager {bms['eager']:.4f} ms), "
+                f"plain {bms['plain']:.4f} ms, library: none; bound "
+                f"{bbound:.4f} ms (bytes {bbytes / 2**20:.1f} MiB: "
+                f"{b_bytes:.4f} ms; one exponential an element at the SFU "
+                f"rate: {t_ops:.4f} ms)")
+            records.append({
+                "name": "selective_scan_bwd", "case": f"jamba {label}",
+                "shape": [B, S, di, N], "route": "cuda",
+                "source": SSM_SOURCE + "selective_scan_bwd.cu",
+                "replaces": SSM_REPLACES + "; its gradient",
+                "launches": None, "max_abs_err": babs, "rel_errs": errs,
+                "ms": bms["kernel"], "eager_ms": bms["eager"],
+                "plain_ms": bms["plain"], "bound_ms": bbound,
+                "bound_by": "operations" if t_ops >= b_bytes else "bytes",
+                "library_ms": None,
+                "ptxas": {k: v for k, v in report.items() if "bwd" in k}})
+            del dy, dh
+        del u, dt, Bm, Cm, A, h, y, h_last
+        _release(torch)
+    main = cases["forward prefill"]
+    records.insert(0, {
+        "name": "selective_scan", "case": "jamba prefill",
+        "shape": main["shape"], "route": "cuda",
+        "source": SSM_SOURCE + "selective_scan.cu", "replaces": SSM_REPLACES,
+        "launches": None, "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"], "eager_ms": main["eager_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "cases": cases,
+        "ptxas": {k: v for k, v in report.items() if "fwd" in k}})
+    return records
+
+
+def _jamba_depths(cfg, total: float) -> None:
+    """Log the parameter arithmetic that fixes jamba's depths: whole
+    periods of 8 layers (P at 8, 16, 24 layers, bf16) against 90% of the
+    card: P for serving, 2P for training in place, 3P for a plan (the
+    runtime returns clones of the new parameters and the grads)."""
+    fit = 0.9 * total
+    for L in (8, 16, 24):
+        P = 2 * dataclasses.replace(cfg, num_layers=L).param_count()
+        log(f"jamba depth arithmetic: {L} layers: P = {P / 1e9:.2f} GB, "
+            f"2P = {2 * P / 1e9:.2f} GB, 3P = {3 * P / 1e9:.2f} GB against "
+            f"90% of the card, {fit / 1e9:.2f} GB: serving "
+            f"{'fits' if P <= fit else 'does not fit'}, training in place "
+            f"{'fits' if 2 * P <= fit else 'does not fit'}, a plan "
+            f"{'fits' if 3 * P <= fit else 'does not fit'}")
+
+
+def _hold_mamba_block(torch, cfg, params, tokens) -> None:
+    """The first mamba layer at full width on the card, bf16: a prompt of
+    64 tokens into a zero cache, then one decode step, through the scan
+    kernel and again with the op's plain version in its place; the bf16
+    outputs and conv window within one bf16 step (2^-7) of their largest
+    magnitude, the float32 state within 1e-5 of its (the two differ in
+    the order of the scan's sums only)."""
+    from repro_torch.kernels.ssm import ref as sref
+    from repro_torch.models import embed_inputs
+    from repro_torch.models import ssm as model_ssm
+    from repro_torch.tree import tree_map
+    p = tree_map(lambda t: t[0], params["periods"]["b0"]["mix"])
+    x = embed_inputs(cfg, params, {"tokens": tokens[:, :65]})
+    runs = {}
+    scan = model_ssm.selective_scan
+    for label in ("kernel", "plain"):
+        if label == "plain":
+            model_ssm.selective_scan = (
+                lambda u, dt, Bm, Cm, A, h0, chunk:
+                sref.selective_scan_ref(u, dt, Bm, Cm, A, h0))
+        try:
+            cache = model_ssm.mamba_cache_init(cfg, x.shape[0], x.dtype,
+                                               x.device)
+            out1, _ = model_ssm.apply_mamba(cfg, p, x[:, :64], cache=cache)
+            out2, _ = model_ssm.apply_mamba(cfg, p, x[:, 64:], cache=cache)
+        finally:
+            model_ssm.selective_scan = scan
+        runs[label] = (out1, out2, cache["h"], cache["conv"])
+    errs = []
+    for got, want, gate in zip(runs["kernel"], runs["plain"],
+                               (2.0 ** -7, 2.0 ** -7, 1e-5, 2.0 ** -7)):
+        assert bool(torch.isfinite(got).all())
+        err = _ssm_err(got.float(), want.float())
+        errs.append(err)
+        assert err <= gate, f"jamba_serve: mamba block {err} over {gate}"
+    log(f"jamba_serve: layer 0's mamba block, kernel against the plain "
+        f"scan (B={x.shape[0]}, 64 prompt tokens then 1 decode step, "
+        f"{x.dtype}): max |diff| over max |plain| prefill out {errs[0]:.3g}, "
+        f"decode out {errs[1]:.3g}, state {errs[2]:.3g}, conv window "
+        f"{errs[3]:.3g}")
+
+
+def phase_jamba_serve(torch, cfg, card: str) -> dict:
+    """jamba-v0.1-52b in bf16 (random weights from a seed) at full width
+    and JAMBA["serve_layers"] layers (two periods; the printed arithmetic):
+    one ``prefill`` of 8 x 1024 tokens (equal lengths: a right-padded
+    batch would run its pads into the recurrent state), then 31 greedy
+    ``decode_step`` calls. Asserts 14 scan launches in the prefill and 14
+    a decode step, 2 flash launches in the prefill, all sm90 at (128,
+    128), none in decode; the first mamba block through the kernel
+    against the plain scan (:func:`_hold_mamba_block`). Returns the run's
+    launch counts."""
+    from repro_torch.models import (decode_step, init_params,
+                                    layers as model_layers, prefill)
+    t_phase = time.perf_counter()
+    _release(torch)
+    total = torch.cuda.get_device_properties(0).total_memory
+    _jamba_depths(cfg, total)
+    L = JAMBA["serve_layers"]
+    deep = dataclasses.replace(cfg, num_layers=L)
+    kinds = list(deep.block_pattern) * deep.num_periods
+    n_scan = sum(k.startswith("mamba") for k in kinds)
+    n_attn = len(kinds) - n_scan
+    t0 = time.perf_counter()
+    params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    log(f"jamba_serve: {L} layers ({n_scan} mamba, {n_attn} attention, "
+        f"{sum(k.endswith('moe') for k in kinds)} MoE), "
+        f"{_param_bytes(params) / 1e9:.2f} GB of parameters, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    B, S, n_new = JAMBA["batch"], JAMBA["prompt"], JAMBA["new"]
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S + 1))
+                              .astype(np.int32)).cuda()
+    _greedy(torch, deep, params, tokens[:, :128], 2)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    widths = []
+    mha = model_layers.multi_head_attention
+
+    def seen(q, k, v, **kw):
+        if q.shape[1] > 1:
+            widths.append((q.shape[-1], v.shape[-1]))
+        return mha(q, k, v, **kw)
+    model_layers.multi_head_attention = seen
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        logits, caches = prefill(deep, params, {"tokens": tokens[:, :S]},
+                                 S + n_new)
+        out = [logits[:, -1].argmax(-1)]
+        out[-1].cpu()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        after_prefill = read_counts()
+        step_ms = []
+        for i in range(n_new - 1):
+            t1 = time.perf_counter()
+            logits, caches = decode_step(deep, params, caches,
+                                         out[-1][:, None], S + i)
+            out.append(logits[:, -1].argmax(-1))
+            out[-1].cpu()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        model_layers.multi_head_attention = mha
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.stack(out, 1)
+    assert gen.shape == (B, n_new) and bool(
+        ((gen >= 0) & (gen < cfg.vocab_size)).all())
+    assert bool(torch.isfinite(logits).all()), "jamba_serve: logits"
+    want_prefill = {"selective_scan": n_scan, "flash_attention": n_attn,
+                    "flash_attention/sm90": n_attn,
+                    "selective_scan_bwd": 0}
+    got = {k: after_prefill[k] for k in want_prefill}
+    assert got == want_prefill, \
+        f"jamba_serve prefill: launches {got}, want {want_prefill}"
+    assert widths == [(cfg.head_dim, cfg.head_dim)] * n_attn, \
+        f"jamba_serve: flash calls at {widths}"
+    want_all = dict(want_prefill, selective_scan=n_scan * n_new)
+    got = {k: launches[k] for k in want_all}
+    assert got == want_all, \
+        f"jamba_serve: launches {got}, want {want_all} ({n_scan} scans a " \
+        f"decode step, no flash launch)"
+    log(f"jamba_serve: launches in the prefill "
+        f"{after_prefill['selective_scan']} scans = {n_scan} mamba layers, "
+        f"{after_prefill['flash_attention']} "
+        f"flash = {n_attn} attention layers, all sm90 at (128, 128); "
+        f"{launches['selective_scan'] - n_scan} scans in {n_new - 1} decode "
+        f"steps ({n_scan} a step), 0 flash")
+    log(f"jamba_serve: {B} requests x {S} prompt tokens, {B * n_new} "
+        f"generated in {wall:.3f} s -> {B * n_new / wall:.1f} tok/s; "
+        f"prefill (= TTFT) {prefill_ms:.1f} ms; {n_new - 1} decode steps, "
+        f"median {statistics.median(step_ms):.2f} ms (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}); max_memory_allocated"
+        f" {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); {card}")
+    _hold_mamba_block(torch, deep, params, tokens)
+    profile(torch, f"jamba prefill B={B} S={S} ({L} layers)",
+            lambda: prefill(deep, params, {"tokens": tokens[:, :S]},
+                            S + n_new))
+    _, caches = prefill(deep, params, {"tokens": tokens[:, :S]}, S + n_new)
+    profile(torch, f"jamba decode step B={B} ({L} layers)",
+            lambda: decode_step(deep, params, caches, tokens[:, S:S + 1], S))
+    log(f"jamba_serve: phase {time.perf_counter() - t_phase:.1f} s")
+    del params, caches
+    _release(torch)
+    return launches
+
+
+def phase_jamba_train(torch, cfg, card: str) -> dict:
+    """jamba's SGD step at full width (bf16, random weights from a seed,
+    B=1, S=2048, lr 1e-3, the loss with its router term) at
+    JAMBA["train_layers"] layers, in place: the depth from the printed
+    parameter arithmetic (2P; ``fit_depth`` measures at 2 and 4 layers,
+    which jamba's period of 8 does not take), and the peak measured
+    there. Gates: the cross entropy at init near ln V, aux in [K/2, E] a
+    MoE layer, 7 scan forward and 7 backward launches, 1 flash forward
+    and 1 backward, all sm90. Then the step traced, partitioned at K=4
+    and verified; the plan is not executed (3P does not fit 90% of the
+    card: the runtime returns clones of the new parameters and grads).
+    Returns the step's launch counts."""
+    from repro_torch import api
+    from repro_torch.conformance import make_train_step
+    from repro_torch.models import init_params, loss_fn
+    t_phase = time.perf_counter()
+    _release(torch)
+    total = torch.cuda.get_device_properties(0).total_memory
+    L = JAMBA["train_layers"]
+    deep = dataclasses.replace(cfg, num_layers=L)
+    P = 2 * deep.param_count()
+    P16 = 2 * dataclasses.replace(cfg, num_layers=16).param_count()
+    log(f"jamba_train: {L} layers: 2P = {2 * P / 1e9:.2f} GB (parameters "
+        f"and grads; the update in place) against 90% of the card, "
+        f"{0.9 * total / 1e9:.2f} GB; at 16 layers 2P = "
+        f"{2 * P16 / 1e9:.2f} GB does not fit")
+    kinds = list(deep.block_pattern) * deep.num_periods
+    n_scan = sum(k.startswith("mamba") for k in kinds)
+    n_attn, n_moe = len(kinds) - n_scan, sum(k.endswith("moe")
+                                              for k in kinds)
+    params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    batch = _train_batch(torch, cfg, seed=2)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    step = make_train_step(deep, TRAIN["lr"], in_place=True)
+    with torch.no_grad():
+        _, parts = loss_fn(deep, params, batch)
+    ce, aux = float(parts["ce"]), float(parts["aux"])
+    log(f"jamba_train: at init ce {ce:.4f} (ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f}), aux {aux:.4f} over {n_moe} MoE "
+        f"layers ({aux / n_moe:.4f} a layer; K = "
+        f"{cfg.moe.experts_per_token}, E = {cfg.moe.num_experts})")
+    assert abs(ce - math.log(cfg.vocab_size)) < 2, \
+        f"jamba_train: ce {ce} far from ln V at init"
+    assert cfg.moe.experts_per_token / 2 <= aux / n_moe \
+        <= cfg.moe.num_experts, f"jamba_train: aux {aux / n_moe} a layer"
+    del parts
+    step(params, batch)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, _ = step(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"selective_scan": n_scan, "selective_scan_bwd": n_scan,
+            "flash_attention": n_attn, "flash_attention/sm90": n_attn,
+            "flash_attention_bwd": n_attn,
+            "flash_attention_bwd/sm90": n_attn}
+    got = {k: launches[k] for k in want}
+    log(f"jamba_train eager: {L} layers, loss after one update "
+        f"{float(loss):.4f}, launches {got}, max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB ({peak / 1e9:.2f} GB, measured at {L} "
+        f"layers), one step {first_s * 1e3:.1f} ms")
+    assert got == want, f"jamba_train: launches {got}, want {want}"
+    assert math.isfinite(float(loss)), f"jamba_train: loss {float(loss)}"
+    step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
+    prof = _moe_profile(torch, f"jamba_train eager {L} layers B={B} S={S}",
+                        lambda: step(params, batch), deep, min(1024, B * S))
+    log(f"jamba_train eager: median step {step_ms:.2f} ms, "
+        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
+        f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; {card}")
+    del step, loss
+
+    # the plan: traced on fake tensors, partitioned, verified, not executed
+    k = 4
+    grad_step = make_train_step(deep, TRAIN["lr"], return_grads=True)
+    t0 = time.perf_counter()
+    traced = api.trace(grad_step, params, batch, record=True, autograd=True)
+    trace_s = time.perf_counter() - t0
+    g = traced.graph
+    names = [n.split(".")[0] for n in g.names]
+    t0 = time.perf_counter()
+    plan = api.partition(traced, devices=k, memory=total / 2,
+                         meta={"arch": cfg.name, "layers": L,
+                               "static_argnums": [0]})
+    part_s = time.perf_counter() - t0
+    rep = plan.verify(strict=True)
+    c = rep.counts()
+    log(f"jamba_train plan: traced the {L}-layer step in {trace_s:.2f} s: "
+        f"{g.n} nodes, {names.count('selective_scan')} scan forward and "
+        f"{names.count('selective_scan_bwd')} backward nodes, "
+        f"{names.count('flash_attention')} flash forward and "
+        f"{names.count('flash_attention_bwd')} backward; K={k} under "
+        f"{total / 2 / 2**30:.3f} GiB per PE: partition {part_s:.2f} s, "
+        f"feasible={plan.feasible}, predicted makespan "
+        f"{plan.makespan * 1e3:.3f} ms, peaks [" + ", ".join(
+            f"{p / 2**30:.3f}" for p in plan.peak_mem)
+        + f"] GiB; verified {c['error']}E/{c['warn']}W/{c['info']}I")
+    assert names.count("selective_scan") == names.count(
+        "selective_scan_bwd") == n_scan
+    assert names.count("flash_attention") == names.count(
+        "flash_attention_bwd") == n_attn
+    a = plan.assignment
+    assert a.shape == (g.n,) and a.min() >= 0 and a.max() < k
+    assert c["error"] == 0, f"jamba_train plan: {c['error']} errors"
+    log(f"jamba_train plan: not executed, by the arithmetic above: the "
+        f"runtime returns clones of the new parameters and grads, so the "
+        f"card would hold 3P = {3 * P / 1e9:.2f} GB before any graph pool, "
+        f"over 90% of it ({0.9 * total / 1e9:.2f} GB)")
+    log(f"jamba_train: phase {time.perf_counter() - t_phase:.1f} s")
+    del plan, traced, params, grad_step
+    _release(torch)
+    return launches
+
+
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
           "plan_execute", "plan_serve", "train_kernels", "train",
           "calibrate", "rwkv_train_kernels", "rwkv_train", "launch_train",
           "mixtral_serve", "mixtral_train", "wide_head_kernels",
-          "deepseek_serve", "deepseek_train", "dense_configs")
+          "deepseek_serve", "deepseek_train", "dense_configs",
+          "ssm_kernels", "jamba_serve", "jamba_train")
 
 
 class _Timed:
@@ -4792,19 +5313,24 @@ def main(argv=None) -> int:
         from repro_torch.kernels.flash_attention import ops, ref
         from repro_torch.kernels.rwkv6 import ops as rops
         from repro_torch.kernels.rwkv6 import ref as rref
+        from repro_torch.kernels.ssm import ops as sops
+        from repro_torch.kernels.ssm import ref as sref
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
     COUNTED.update(flash_attention=ops.flash_attention,
                    flash_attention_bwd=ops.flash_attention_bwd,
-                   wkv6=rops.wkv6, wkv6_bwd=rops.wkv6_bwd)
+                   wkv6=rops.wkv6, wkv6_bwd=rops.wkv6_bwd,
+                   selective_scan=sops.selective_scan,
+                   selective_scan_bwd=sops.selective_scan_bwd)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     card = phase_card()
     if "build" in phases:
         with _Timed("build"):
-            phase_build({"flash_attention": ops, "rwkv6": rops}, build)
+            phase_build({"flash_attention": ops, "rwkv6": rops,
+                         "ssm": sops}, build)
     record = rwkv_record = None
     if "kernels" in phases:
         with _Timed("kernels"):
@@ -4914,10 +5440,30 @@ def main(argv=None) -> int:
         for key, n in dense.items():
             if key in wide:
                 wide[key]["launches"] = n
+    # the selective scan: jamba's serve and train paths fill in launches
+    ssm = []
+    if "ssm_kernels" in phases:
+        with _Timed("ssm_kernels"):
+            ssm = phase_ssm_kernels(torch, sops, sref, build)
+    jcfg = get_config("jamba-v0.1-52b")
+    if "jamba_serve" in phases:
+        with _Timed("jamba_serve"):
+            launches = phase_jamba_serve(torch, jcfg, card)
+        for r in ssm:
+            if r["name"] == "selective_scan":
+                r["launches"] = launches["selective_scan"]
+    if "jamba_train" in phases:
+        with _Timed("jamba_train"):
+            launches = phase_jamba_train(torch, jcfg, card)
+        for r in ssm:
+            key = "launches" if r["name"] == "selective_scan_bwd" \
+                else "train_launches"
+            r[key] = launches[r["name"]]
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record, rwkv_bwd_record)
-                                  if r is not None] + list(wide.values())}))
+                                  if r is not None] + list(wide.values())
+                      + ssm}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,6 +38,27 @@ The rules that make the two graphs comparable:
   node each, priced by the chunked form's products (as the reference's
   jaxpr counts ``_wkv_chunked``, forward and gradient) plus one pass on
   their outputs.
+* **Selective scan.** Mamba's custom ops (:data:`SCAN_OPS`) are one
+  node each, priced as the reference's jaxpr counts ``_ssm_scan_chunked``
+  (:func:`scan_flops`): the scan over chunks of C tokens (C = S // (S //
+  chunk), ``chunk`` the op's argument), in each chunk the associative
+  scan's slices, combines, concatenations and interleaving pads of its
+  log2(C) levels, and around it the exponentials, products,
+  broadcasts, reshapes, transposes and the einsum with C; the backward
+  node as the reference's ``vjp`` of it less the forward. Written with
+  E = B·S·d_inner·N, X = B·S·d_inner, Y = B·S·N, P = B·d_inner·N, n the
+  chunk count, the levels' lengths n_k (C, C // 2, ... while >= 2;
+  m_k = n_k // 2, k_k = m_k - [n_k even]), L1 = n·P·Σ n_k, Lc = n·P·#levels
+  and SL = n·P·Σ (4m_k + 2k_k + 2k_k[n_k even] + 2):
+
+    forward = 18E + 3X + Y + d_inner·N + n·P + 3n + 9L1 - 3Lc + SL
+              + P [no h0]
+    vjp     = 41E + 10X + 3Y + 3·d_inner·N + 6n·P + 34L1 - 10Lc + 2SL + 3
+              + 3P [no h0] + (2X + Y + n·P) [B = 1]
+
+  of which the products (dot_general) are 2E and 6E. The counts are the
+  reference tracer's own, matched term by term on its traces (B = 1
+  drops broadcasts of size-1 axes and adds reductions), for N >= 2.
 * **Attention.** The port's flash-attention custom ops
   (:data:`ATTENTION_OPS`) are one node each, priced as the reference
   prices the same attention in the same step: its jaxpr differentiates
@@ -192,6 +213,55 @@ ATTENTION_OPS = {
 #: states and A: ten products to the forward's four)
 RECURRENCE_OPS = {"wkv6": 1, "wkv6_bwd": 2}
 
+#: Mamba's selective-scan custom ops (the module docstring has the rule)
+SCAN_OPS = ("selective_scan", "selective_scan_bwd")
+
+
+def _scan_levels(C: int) -> tuple[int, int, int]:
+    """(Σ n_k, the number of levels, Σ slice elements per state) of the
+    reference's associative scan over C elements (jax.lax's recursion:
+    pairs combined, the odd half scanned, the even half combined, both
+    interleaved by pads)."""
+    total = count = slices = 0
+    n = C
+    while n >= 2:
+        m = n // 2
+        k = m - 1 if n % 2 == 0 else m
+        total += n
+        count += 1
+        slices += 4 * m + 2 * k + (2 * k if n % 2 == 0 else 0) + 2
+        n = m
+    return total, count, slices
+
+
+def scan_flops(B: int, S: int, di: int, N: int, chunk: int, h0: bool,
+               backward: bool) -> tuple[float, float]:
+    """(FLOPs, product FLOPs) of one selective-scan op at these sizes:
+    the reference's count of ``_ssm_scan_chunked`` (forward), or of its
+    vjp less that (backward)."""
+    n = max(S // chunk, 1)
+    E, X, Y = float(B) * S * di * N, float(B) * S * di, float(B) * S * N
+    P = float(B) * di * N
+    total, count, slices = _scan_levels(S // n)
+    L1, Lc, SL = n * P * total, n * P * count, n * P * slices
+    fwd = (18 * E + 3 * X + Y + di * N + n * P + 3 * n + 9 * L1 - 3 * Lc
+           + SL + (0 if h0 else P))
+    if not backward:
+        return fwd, 2 * E
+    vjp = (41 * E + 10 * X + 3 * Y + 3 * di * N + 6 * n * P + 34 * L1
+           - 10 * Lc + 2 * SL + 3 + (0 if h0 else 3 * P)
+           + (2 * X + Y + n * P if B == 1 else 0))
+    return vjp - fwd, 4 * E
+
+
+def _scan_op_flops(name, args) -> tuple[float, float]:
+    """:func:`scan_flops` of a scan op's call: u, A and h0 are its
+    first, fifth and sixth arguments, chunk its last."""
+    B, S, di = args[0].meta["val"].shape
+    N = args[4].meta["val"].shape[1]
+    return scan_flops(B, S, di, N, args[-1], args[5] is not None,
+                      name == "selective_scan_bwd")
+
 
 def _recurrence_dot_flops(name, args) -> float:
     """Product FLOPs of a recurrence op's call: chunks of ``min(chunk,
@@ -223,6 +293,8 @@ def dot_flops_of(op, args) -> float:
         return ATTENTION_OPS[name][2] * scores * hd
     if name in RECURRENCE_OPS:
         return _recurrence_dot_flops(name, args)
+    if name in SCAN_OPS:
+        return _scan_op_flops(name, args)[1]
     return 0.0
 
 
@@ -235,6 +307,8 @@ def flops_of(op, args, kwargs, in_vals, out_vals) -> float:
         scores, _ = _attention_sizes(name, args)
         return dot_flops_of(op, args) + scores * sum(
             _CHEAP_MULT.get(prim, 1.0) for prim in ATTENTION_OPS[name][3])
+    if name in SCAN_OPS:
+        return _scan_op_flops(name, args)[0]
     out_elems = sum(_numel(v) for v in out_vals)
     if name in RECURRENCE_OPS:
         return dot_flops_of(op, args) + out_elems
@@ -445,5 +519,5 @@ def _cost_graph(gm, out_structure, example_args: tuple, *,
 
 
 __all__ = ["ATEN_PRIMS", "ATTENTION_OPS", "DOT_OPS", "RECURRENCE_OPS",
-           "VIEW_OPS",
-           "dot_flops_of", "flops_of", "op_name", "trace_cost_graph"]
+           "SCAN_OPS", "VIEW_OPS", "dot_flops_of", "flops_of", "op_name",
+           "scan_flops", "trace_cost_graph"]

@@ -4,12 +4,13 @@ Layers are grouped into periods (``cfg.block_pattern``); the parameters
 of the ``cfg.num_periods`` identical periods are stacked along a leading
 axis, as in the reference, and :func:`forward` runs the periods in a
 Python loop that indexes the stacked tensors (the reference's
-``lax.scan``). The port covers the ``attn``, ``swa``, ``attn_moe``,
-``swa_moe``, ``mla``, ``mla_moe`` and ``rwkv`` block kinds; any other
-kind (``mamba*``) raises ``NotImplementedError``. :func:`forward` returns each
+``lax.scan``). The port covers every block kind of the reference:
+``attn``, ``swa``, ``attn_moe``, ``swa_moe``, ``mla``, ``mla_moe``,
+``rwkv``, ``mamba`` and ``mamba_moe``; an unknown kind raises
+``NotImplementedError``. :func:`forward` returns each
 MoE block's load-balancing loss summed over the layers, as the
 reference's does, and :func:`loss_fn` adds it at the config's
-``router_aux_weight``; the dense and rwkv kinds have none.
+``router_aux_weight``; the dense, rwkv and ``mamba`` kinds have none.
 
 Caches are written in place (see :func:`layers.update_cache`): the
 functions that take caches return the same tree they were given.
@@ -38,14 +39,16 @@ from . import layers as L
 from .moe import apply_moe, moe_init
 from .rwkv import (apply_rwkv_channelmix, apply_rwkv_timemix,
                    rwkv_cache_init, rwkv_init)
+from .ssm import apply_mamba, mamba_cache_init, mamba_init
 
-_KINDS = ("attn", "swa", "attn_moe", "swa_moe", "mla", "mla_moe", "rwkv")
+_KINDS = ("attn", "swa", "attn_moe", "swa_moe", "mla", "mla_moe", "rwkv",
+          "mamba", "mamba_moe")
 
 
 def _check_kind(kind: str) -> None:
     if kind not in _KINDS:
         raise NotImplementedError(
-            f"block kind '{kind}' is not ported yet (have {_KINDS})")
+            f"block kind '{kind}' is not a block kind (have {_KINDS})")
 
 
 # ----------------------------------------------------------------- blocks
@@ -55,7 +58,8 @@ def _block_init(cfg: ModelConfig, kind: str, generator: torch.Generator):
     if kind == "rwkv":
         return {"ln1": L.norm_init(cfg, dev), "tm": rwkv_init(cfg, generator),
                 "ln2": L.norm_init(cfg, dev)}
-    mix = L.mla_init if kind.startswith("mla") else L.gqa_init
+    mix = (mamba_init if kind.startswith("mamba") else
+           L.mla_init if kind.startswith("mla") else L.gqa_init)
     p = {"ln1": L.norm_init(cfg, dev), "mix": mix(cfg, generator),
          "ln2": L.norm_init(cfg, dev),
          "ffn": (moe_init if kind.endswith("moe") else L.mlp_init)(
@@ -80,7 +84,10 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
         y2, _ = apply_rwkv_channelmix(cfg, p["tm"], h2,
                                       cache=cache and cache["cm"])
         return x + y2, cache, None
-    if kind.startswith("mla"):
+    if kind.startswith("mamba"):
+        y, mix_cache = apply_mamba(cfg, p["mix"], h,
+                                   cache=cache and cache.get("mix"))
+    elif kind.startswith("mla"):
         y, mix_cache = L.apply_mla(cfg, p["mix"], h, positions=positions,
                                    kv_cache=cache and cache.get("mix"),
                                    cache_pos=cache_pos)
@@ -109,6 +116,8 @@ def _block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     _check_kind(kind)
     if kind == "rwkv":
         return rwkv_cache_init(cfg, batch, dtype, device)
+    if kind.startswith("mamba"):
+        return {"mix": mamba_cache_init(cfg, batch, dtype, device)}
     if kind.startswith("mla"):
         return {"mix": L.mla_cache_init(cfg, batch, max_len, dtype, device)}
     return {"mix": L.gqa_cache_init(cfg, batch, max_len, dtype, device)}
@@ -136,7 +145,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     The generator's stream differs from ``jax.random``; to hold the port
     against the reference, carry the reference's parameters across with
     :mod:`repro_torch.bridge` instead. Stacked period tensors are filled
-    one period at a time, so the peak is the model plus one period."""
+    one block at a time, so the peak is the model plus one block (jamba's
+    period of 8 blocks is half the card at full width)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters "
@@ -147,14 +157,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                               * 0.02).to(dt)}
     for i, kind in enumerate(cfg.prelude):
         params[f"prelude{i}"] = _block_init(cfg, kind, generator)
-    periods = None
+    periods: dict = {}
     for i in range(cfg.num_periods):
-        one = {f"b{j}": _block_init(cfg, kind, generator)
-               for j, kind in enumerate(cfg.block_pattern)}
-        if periods is None:
-            periods = tree_map(
-                lambda t: t.new_empty((cfg.num_periods,) + t.shape), one)
-        tree_map(lambda dst, src: dst[i].copy_(src), periods, one)
+        for j, kind in enumerate(cfg.block_pattern):
+            one = _block_init(cfg, kind, generator)
+            if i == 0:
+                periods[f"b{j}"] = tree_map(
+                    lambda t: t.new_empty((cfg.num_periods,) + t.shape), one)
+            tree_map(lambda dst, src: dst[i].copy_(src), periods[f"b{j}"],
+                     one)
+            del one
     params["periods"] = periods
     params["final_norm"] = L.norm_init(cfg, dev)
     if not cfg.tie_embeddings:

@@ -42,6 +42,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.bridge, repro_torch.kernels.rwkv6.ops, "
             "repro_torch.models.rwkv, repro_torch.api, "
+            "repro_torch.kernels.ssm.ops, repro_torch.models.ssm, "
+            "repro_torch.configs.jamba_v0_1_52b, "
             "repro_torch.core.modelgraphs, repro_torch.core.baselines, "
             "repro_torch.core.runtime, repro_torch.analysis, "
             "repro_torch.conformance, repro_torch.conformance.matrix, "

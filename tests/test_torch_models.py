@@ -27,10 +27,15 @@ import repro_torch.models.layers as tL  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["deepseek-v2-lite-16b", "gemma3-1b", "granite-8b", "mixtral-8x7b",
-         "qwen2.5-14b", "repro-lm-100m", "starcoder2-7b"]
+ARCHS = ["deepseek-v2-lite-16b", "gemma3-1b", "granite-8b",
+         "jamba-v0.1-52b", "mixtral-8x7b", "qwen2.5-14b", "repro-lm-100m",
+         "starcoder2-7b"]
 #: the archs whose first period block is a GQA layer
-GQA_ARCHS = [a for a in ARCHS if a != "deepseek-v2-lite-16b"]
+GQA_ARCHS = [a for a in ARCHS
+             if a not in ("deepseek-v2-lite-16b", "jamba-v0.1-52b")]
+#: the archs whose every cache leaf has a sequence axis to grow
+#: (jamba's mamba caches hold a conv window and a state)
+SEQ_CACHE_ARCHS = [a for a in ARCHS if a != "jamba-v0.1-52b"]
 
 
 def _np(x):
@@ -85,6 +90,7 @@ def test_prefill_batched_logits_and_caches_match(model):
     _assert_tree_close(jcache, tcache, **TOL)
 
 
+@pytest.mark.parametrize("model", SEQ_CACHE_ARCHS, indirect=True)
 def test_decode_step_per_row_positions_match(model):
     jc, tc, jp, tp = model
     tokens, plens = _prompts(jc, seed=1)
@@ -177,9 +183,8 @@ def test_init_params_tree_matches_reference(model):
 
 def test_other_block_kinds_are_refused():
     cfg = tcfg.reduced(tcfg.get_config("granite-8b"))
-    cfg = cfg.__class__(**{**cfg.__dict__, "block_pattern": ("mamba",),
-                           "mamba": tcfg.MambaConfig()})
-    with pytest.raises(NotImplementedError, match="mamba"):
+    cfg = cfg.__class__(**{**cfg.__dict__, "block_pattern": ("hyena",)})
+    with pytest.raises(NotImplementedError, match="hyena"):
         tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 

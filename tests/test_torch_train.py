@@ -36,8 +36,9 @@ from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.tree import tree_flatten, tree_map  # noqa: E402
 
 TOL = dict(atol=2e-4, rtol=2e-4)
-ARCHS = ["deepseek-v2-lite-16b", "gemma3-1b", "granite-8b", "mixtral-8x7b",
-         "qwen2.5-14b", "repro-lm-100m", "rwkv6-7b", "starcoder2-7b"]
+ARCHS = ["deepseek-v2-lite-16b", "gemma3-1b", "granite-8b",
+         "jamba-v0.1-52b", "mixtral-8x7b", "qwen2.5-14b", "repro-lm-100m",
+         "rwkv6-7b", "starcoder2-7b"]
 B, S = 2, 16
 
 
@@ -170,7 +171,10 @@ def _dot_flops_formula(cfg, batch: int, seq: int) -> float:
     chunked products, 2·B·H·n·(2·C²·hd + 2·C·hd²) forward (chunks of C =
     min(64, S) tokens, n of them) and twice that backward. An MLA layer's
     matmul parameters are its six projections (wq, w_dkv, w_kr, w_uk,
-    w_uv, wo). An MoE layer's FFN is its router (3 x 2·T·d·E), the
+    w_uv, wo); a mamba layer's are w_in, w_x, w_dt and w_out, and its
+    scan's einsum with C is 2·T·d_inner·N forward and twice that
+    backward (the tracer's price of the scan ops). An MoE layer's FFN is
+    its router (3 x 2·T·d·E), the
     dispatch product (forward and the activations' gradient: 2 x
     2·G·N·E·C·d), the combine product (3 x 2·G·N·E·C·d: the combine
     weights take a gradient through the router), the expert products on
@@ -192,7 +196,12 @@ def _dot_flops_formula(cfg, batch: int, seq: int) -> float:
     mm, mixer = d * cfg.padded_vocab, 0.0
     for kind in list(cfg.prelude) + list(cfg.block_pattern) \
             * cfg.num_periods:
-        if kind.startswith("mla"):
+        if kind.startswith("mamba"):
+            di, N = d * cfg.mamba.expand, cfg.mamba.d_state
+            R = max(d // 16, 1)
+            mm += 2 * d * di + di * (R + 2 * N) + R * di + di * d
+            mixer += 6 * T * di * N
+        elif kind.startswith("mla"):
             r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim,
                              cfg.qk_rope_dim, cfg.v_head_dim)
             mm += (d * H * (nd + rd) + d * (r + rd) + r * H * (nd + vd)
@@ -215,7 +224,8 @@ def _dot_flops_formula(cfg, batch: int, seq: int) -> float:
 
 def test_training_trace(model):
     """The fake-tensor trace of the step: one forward and one backward
-    kernel node per layer (flash attention, or the RWKV6 recurrence), no
+    kernel node per layer (flash attention, the RWKV6 recurrence, or
+    the selective scan of a mamba layer), no
     ``select_backward``, no node the size of a whole stacked leaf but
     each leaf's one restack, and product FLOPs equal to the count from
     the config."""
@@ -225,8 +235,12 @@ def test_training_trace(model):
     g = traced.graph
     ops = [n.split(".")[0] for n in g.names]
     fwd = "wkv6" if tc.rwkv is not None else "flash_attention"
-    assert ops.count(fwd) == tc.num_layers
-    assert ops.count(fwd + "_bwd") == tc.num_layers
+    n_scan = sum(k.startswith("mamba") for k in list(tc.prelude) + list(
+        tc.block_pattern) * tc.num_periods)
+    assert ops.count(fwd) == tc.num_layers - n_scan
+    assert ops.count(fwd + "_bwd") == tc.num_layers - n_scan
+    assert ops.count("selective_scan") == n_scan
+    assert ops.count("selective_scan_bwd") == n_scan
     assert "select_backward" not in ops
     # the shapes of the aten graph the cost graph was built from
     from repro_torch.core.tracing import _functional_graph, op_name
