@@ -269,30 +269,34 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    drain, every prefill launch sm90; tok/s, TTFT, decode ms and peak
    memory for each.
 24. ssm kernels: Mamba's selective scan (``kernels/ssm``: the forward
-   and its backward, float32, one thread per (batch, channel, state))
-   against the plain versions at jamba's shapes (d_inner 8192, N 16):
-   prefill B=8, S=1024; training B=1, S=2048, forward and backward;
-   decode S=1 from a state; every output within ``SSM_GATE`` of its
-   largest magnitude, repeated calls bit-equal; each timed from a CUDA
-   graph of GRAPH_CALLS calls beside the plain version and the bound
-   (bytes at 3.35 TB/s or exponentials at the SFU rate, the larger); no
-   PyTorch call computes the scan; registers and spills (ptxas);
+   and its backward, float32; ``reg``, the main path's kernels, states in
+   registers, and ``lane``, the first design, one thread per (batch,
+   channel, state), kept as the comparison) against the plain versions at
+   jamba's shapes (d_inner 8192, N 16): prefill B=8, S=1024; training
+   B=1, S=2048, forward and backward; decode S=1 from a state; every
+   output of both variants within ``SSM_GATE`` of its largest
+   magnitude, repeated calls bit-equal; each kernel timed in turns from
+   a CUDA graph of GRAPH_CALLS calls beside the plain version and the
+   bound (bytes at 3.35 TB/s or exponentials at the SFU rate, the
+   larger): GB/s and the share of the bound; no PyTorch call computes
+   the scan; registers and spills (ptxas);
 25. jamba serve: jamba-v0.1-52b in bf16 (random weights from a seed) at
    full width and 16 layers (two periods, by the printed parameter
    arithmetic): one ``prefill`` of 8 x 1024 tokens, 31 decode steps; 14
-   scan launches in the prefill and 14 a decode step, 2 flash launches in
-   the prefill (sm90 at (128, 128)), none in decode; the first mamba
-   block, prompt and one decode step, through the kernel against the
-   plain scan; tok/s, TTFT, decode ms, peak memory, a profile of each
-   call;
+   scan launches in the prefill and 14 a decode step (all ``reg``, none
+   ``lane``), 2 flash launches in the prefill (sm90 at (128, 128)), none
+   in decode; the first mamba block, prompt and one decode step, through
+   the kernel against the plain scan; tok/s, TTFT, decode ms, peak
+   memory, a profile of each call with the scan kernels' share of its
+   device time;
 26. jamba train: its SGD step in place at 8 layers (B=1, S=2048, lr
    1e-3, the loss with its router term): the cross entropy at init near
    ln V, aux in [K/2, E] a MoE layer, 7 scan forward and 7 backward
-   launches, 1 sm90 flash forward and 1 backward; step ms, tokens/s,
-   peak memory, device time by role; then the step traced, partitioned
-   at K=4 and verified. The plan is not executed: the runtime returns
-   clones of the new parameters and grads, and 3P at 8 layers is over
-   90% of the card.
+   launches (all ``reg``), 1 sm90 flash forward and 1 backward; step ms,
+   tokens/s, peak memory, device time by role; then the step traced,
+   partitioned at K=4 and verified. The plan is not executed: the
+   runtime returns clones of the new parameters and grads, and 3P at 8
+   layers is over 90% of the card.
 
 Each phase's seconds are printed when it ends.
 
@@ -694,10 +698,13 @@ def phase_kernels(torch, ops, ref) -> dict:
     return record
 
 
-def profile(torch, label: str, fn, top: int = 6) -> tuple[float, float]:
+def profile(torch, label: str, fn, top: int = 6,
+            part=None) -> tuple[float, float]:
     """Host time, device-busy time and the kernels that take the most
-    device time for one call of ``fn`` (torch.profiler, after warm-up).
-    Returns (wall ms, device-busy ms)."""
+    device time for one call of ``fn`` (torch.profiler, after warm-up);
+    with ``part`` = (name, substring), also the device time of the
+    kernels whose names hold the substring and their share of the busy
+    time. Returns (wall ms, device-busy ms)."""
     from torch.profiler import ProfilerActivity
     for _ in range(2):
         fn()
@@ -717,6 +724,12 @@ def profile(torch, label: str, fn, top: int = 6) -> tuple[float, float]:
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
             f"{e.key[:90]}")
+    if part is not None:
+        mine = [e for e in evs if part[1] in e.key]
+        part_ms = sum(e.self_device_time_total for e in mine) / 1e3
+        log(f"profile {label}: {part[0]} kernels {part_ms:.3f} ms "
+            f"(x{sum(e.count for e in mine)}) of {busy_ms:.2f} ms of device "
+            f"time ({part_ms / busy_ms:.1%})")
     return host_ms, busy_ms
 
 
@@ -4847,140 +4860,174 @@ def _ssm_bytes(B, S, h0: bool, backward: bool) -> int:
     return 4 * (3 * big + 2 * small + di * N + (2 if h0 else 1) * state)
 
 
+def _ssm_ptxas(report: dict, variant: str, backward: bool) -> dict:
+    """The ptxas lines of one variant's forward or backward kernels."""
+    tag = {("reg", False): "ssm_fwd_reg", ("reg", True): "ssm_bwd_reg",
+           ("lane", False): "ssm_fwd_kernel",
+           ("lane", True): "ssm_bwd_kernel"}[(variant, backward)]
+    return {k: v for k, v in report.items() if tag in k}
+
+
+def _hold_ssm(torch, label: str, run, want, gate: float, names) -> tuple:
+    """Two calls of ``run`` against ``want`` (the plain version's
+    outputs): every output within ``gate`` of its largest magnitude,
+    the calls bit-equal. Returns (max |got - want|, {name: rel err})."""
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    rep = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs = {n: _ssm_err(a, b) for n, a, b in zip(names, got, want)}
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    log(f"ssm_kernels {label}: max |kernel - plain| {abs_err:.3g}; over max "
+        f"|plain|: " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + f" (gate {gate}); repeated call bit-equal {rep}")
+    assert rep, f"ssm_kernels {label}: not repeatable"
+    assert max(errs.values()) <= gate, \
+        f"ssm_kernels {label}: {errs} over the gate"
+    return abs_err, errs
+
+
+def _time_ssm(torch, label: str, calls: dict, eager, plain, nbytes: int,
+              t_ops: float) -> dict:
+    """Each kernel variant in ``calls`` replayed from a CUDA graph of
+    GRAPH_CALLS calls, the op ``eager`` (back to back) and the plain
+    version, timed in turns; logs GB/s and the share of the bound (the
+    bytes at 3.35 TB/s or ``t_ops``, the larger). Returns the ms a call
+    and the bound."""
+    graphs = {v: graphed(torch, fn, GRAPH_CALLS) for v, fn in calls.items()}
+    ms = timed_turns(torch, {**{v: g.replay for v, g in graphs.items()},
+                             "eager": eager, "plain": plain},
+                     reps={**dict.fromkeys(graphs, 1), "eager": 10,
+                           "plain": 1})
+    for v in graphs:
+        ms[v] /= GRAPH_CALLS
+    del graphs
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"timing {label}, in turns ({GRAPH_CALLS} calls replayed from a "
+        f"CUDA graph): " + "; ".join(
+            f"{v} {ms[v]:.4f} ms ({nbytes / ms[v] / 1e6:.1f} GB/s, "
+            f"{bound / ms[v]:.1%} of the bound)" for v in calls)
+        + f"; the op eager, back to back {ms['eager']:.4f} ms; plain "
+        f"{ms['plain']:.4f} ms; library: none; bound {bound:.4f} ms (bytes "
+        f"{nbytes / 2**20:.1f} MiB at 3.35 TB/s: {t_bytes:.4f} ms; "
+        f"exponentials at the SFU's {SFU_RATE / 1e12:.2f} T/s: "
+        f"{t_ops:.4f} ms)")
+    return dict(ms, bound=bound,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_ssm_kernels(torch, sops, sref, build) -> list:
-    """Both selective-scan kernels against their plain versions at
-    SSM_CASES (d_inner 8192, N 16: jamba's prefill, training and decode
-    shapes), under SSM_GATE, repeated calls bit-equal; each timed in turns
-    from a CUDA graph of GRAPH_CALLS calls (and eager, back to back)
-    beside its plain version and the bound (the bytes at 3.35 TB/s or the
-    exponentials at SFU_RATE, the larger); no PyTorch call computes the
-    scan; registers and spills from ptxas. Returns the two records (at
-    the prefill shape forward, the training shape backward); the main
-    paths fill in their launches."""
+    """Both selective-scan kernel pairs (``reg``, the main path's, and
+    ``lane``, the first design, kept as the comparison) against their
+    plain versions at SSM_CASES (d_inner 8192, N 16: jamba's prefill,
+    training and decode shapes), under SSM_GATE, repeated calls
+    bit-equal; each
+    timed in turns from a CUDA graph of GRAPH_CALLS calls (and the op
+    eager, back to back) beside its plain version and the bound (the
+    bytes at 3.35 TB/s or the exponentials at SFU_RATE, the larger); no
+    PyTorch call computes the scan; registers and spills from ptxas.
+    Returns the two records of the ``reg`` kernels (at the prefill shape
+    forward, the training shape backward; ``lane`` as ``earlier_ms``);
+    the main paths fill in their launches."""
     sops.load()
     report = ptxas_report(build, sops, "ssm")
     for kernel, used in report.items():
         log(f"ssm_kernels: ptxas {kernel}: {used}")
     di, N = SSM_WIDTH
+    assert sops.select_variant(N) == "reg"
+    counts = sops.selective_scan.variant_launches
+    bcounts = sops.selective_scan_bwd.variant_launches
     cases, records = {}, []
     for i, (label, B, S, h0, backward, a_scale) in enumerate(SSM_CASES):
         u, dt, Bm, Cm, A, h = _ssm_inputs(torch, B, S, h0, a_scale,
                                           seed=700 + i)
-        before = sops.selective_scan.launches
+        log(f"ssm_kernels {label}: B={B}, S={S}, d_inner {di}, N {N}, h0 "
+            f"{h0}, A x {a_scale}; reg holds "
+            f"{sops.fwd_states(B, di, N)} states a thread forward, 4 "
+            f"backward")
+        want = sref.selective_scan_ref(u, dt, Bm, Cm, A, h)
+        before = dict(counts)
         y, h_last = sops.selective_scan(u, dt, Bm, Cm, A, h)
-        y2, h_last2 = sops.selective_scan(u, dt, Bm, Cm, A, h)
-        torch.cuda.synchronize()
-        assert sops.selective_scan.launches == before + 2
-        rep = torch.equal(y, y2) and torch.equal(h_last, h_last2)
-        want_y, want_h = sref.selective_scan_ref(u, dt, Bm, Cm, A, h)
-        err = max(_ssm_err(y, want_y), _ssm_err(h_last, want_h))
-        abs_err = max(float((y - want_y).abs().max()),
-                      float((h_last - want_h).abs().max()))
-        log(f"ssm_kernels {label} (B={B}, S={S}, d_inner {di}, N {N}, h0 "
-            f"{h0}, A x {a_scale}): forward max |kernel - plain| "
-            f"{abs_err:.3g} = {err:.3g} of max |plain| (gate "
-            f"{SSM_GATE['forward']}); repeated call bit-equal {rep}")
-        assert rep, f"ssm_kernels {label}: forward not repeatable"
-        assert err <= SSM_GATE["forward"], \
-            f"ssm_kernels {label}: forward {err} over the gate"
-        del y2, h_last2, want_y, want_h
-
-        def fwd():
-            return sops.selective_scan(u, dt, Bm, Cm, A, h)
-        graph = graphed(torch, fwd, GRAPH_CALLS)
-        ms = timed_turns(torch, {
-            "kernel": graph.replay, "eager": fwd,
-            "plain": lambda: sref.selective_scan_ref(u, dt, Bm, Cm, A, h),
-        }, reps={"kernel": 1, "eager": 10, "plain": 1})
-        ms["kernel"] /= GRAPH_CALLS
-        del graph
-        nbytes = _ssm_bytes(B, S, h0, False)
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = B * S * di * N / SFU_RATE * 1e3
-        bound = max(t_bytes, t_ops)
-        log(f"timing selective_scan at {label}, in turns: kernel "
-            f"{ms['kernel']:.4f} ms ({nbytes / ms['kernel'] / 1e6:.1f} GB/s;"
-            f" {GRAPH_CALLS} calls replayed from a CUDA graph; eager, back "
-            f"to back {ms['eager']:.4f} ms), plain {ms['plain']:.4f} ms, "
-            f"library: none; bound {bound:.4f} ms (bytes "
-            f"{nbytes / 2**20:.1f} MiB at 3.35 TB/s: {t_bytes:.4f} ms; "
-            f"{B * S * di * N / 1e9:.3f} G exponentials at the SFU's "
-            f"{SFU_RATE / 1e12:.2f} T/s: {t_ops:.4f} ms)")
+        assert counts["reg"] == before["reg"] + 1 and \
+            counts["lane"] == before["lane"], f"{label}: not the reg kernel"
+        held = {v: _hold_ssm(
+            torch, f"{label} forward ({v})",
+            lambda v=v: sops.run_variant(v, u, dt, Bm, Cm, A, h), want,
+            SSM_GATE["forward"], ("y", "h_last")) for v in sops.VARIANTS}
+        del want
+        ms = _time_ssm(
+            torch, f"selective_scan at {label}",
+            {v: (lambda v=v: sops.run_variant(v, u, dt, Bm, Cm, A, h))
+             for v in sops.VARIANTS},
+            lambda: sops.selective_scan(u, dt, Bm, Cm, A, h),
+            lambda: sref.selective_scan_ref(u, dt, Bm, Cm, A, h),
+            _ssm_bytes(B, S, h0, False), B * S * di * N / SFU_RATE * 1e3)
         cases[f"forward {label}"] = {
-            "shape": [B, S, di, N], "h0": h0, "max_abs_err": abs_err,
-            "rel_err": err, "ms": ms["kernel"], "eager_ms": ms["eager"],
-            "plain_ms": ms["plain"], "bound_ms": bound,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "shape": [B, S, di, N], "h0": h0,
+            "states_a_thread": sops.fwd_states(B, di, N),
+            "max_abs_err": held["reg"][0], "rel_err": held["reg"][1],
+            "earlier_max_abs_err": held["lane"][0], "ms": ms["reg"],
+            "earlier_ms": ms["lane"], "eager_ms": ms["eager"],
+            "plain_ms": ms["plain"], "bound_ms": ms["bound"],
+            "bound_by": ms["bound_by"]}
         if backward:
             g = torch.Generator(device="cuda").manual_seed(800 + i)
             dy = torch.randn(y.shape, generator=g, device="cuda")
             dh = torch.randn(h_last.shape, generator=g, device="cuda")
-            before = sops.selective_scan_bwd.launches
-            got = sops.selective_scan_bwd(u, dt, Bm, Cm, A, h, dy, dh)
-            again = sops.selective_scan_bwd(u, dt, Bm, Cm, A, h, dy, dh)
-            torch.cuda.synchronize()
-            assert sops.selective_scan_bwd.launches == before + 2
-            rep = all(torch.equal(a, b) for a, b in zip(got, again))
             want = sref.selective_scan_bwd_ref(u, dt, Bm, Cm, A, h, dy, dh)
-            names = ("du", "ddt", "dBm", "dCm", "dA", "dh0")
-            errs = {n: _ssm_err(a, b) for n, a, b in zip(names, got, want)}
-            babs = max(float((a - b).abs().max())
-                       for a, b in zip(got, want))
-            log(f"ssm_kernels {label}: backward max |kernel - plain| over "
-                f"max |plain|: " + ", ".join(f"{n} {e:.3g}"
-                                             for n, e in errs.items())
-                + f" (gate {SSM_GATE['backward']}); repeated call "
-                f"bit-equal {rep}")
-            assert rep, f"ssm_kernels {label}: backward not repeatable"
-            assert max(errs.values()) <= SSM_GATE["backward"], \
-                f"ssm_kernels {label}: backward {errs} over the gate"
-            del got, again, want
-
-            def bwd():
-                return sops.selective_scan_bwd(u, dt, Bm, Cm, A, h, dy, dh)
-            graph = graphed(torch, bwd, GRAPH_CALLS)
-            bms = timed_turns(torch, {
-                "kernel": graph.replay, "eager": bwd,
-                "plain": lambda: sref.selective_scan_bwd_ref(
-                    u, dt, Bm, Cm, A, h, dy, dh),
-            }, reps={"kernel": 1, "eager": 10, "plain": 1})
-            bms["kernel"] /= GRAPH_CALLS
-            del graph
-            bbytes = _ssm_bytes(B, S, h0, True)
-            b_bytes = bbytes / PEAK_BYTES * 1e3
-            bbound = max(b_bytes, t_ops)
-            log(f"timing selective_scan_bwd at {label}, in turns: kernel "
-                f"{bms['kernel']:.4f} ms ({bbytes / bms['kernel'] / 1e6:.1f}"
-                f" GB/s; from a CUDA graph; eager {bms['eager']:.4f} ms), "
-                f"plain {bms['plain']:.4f} ms, library: none; bound "
-                f"{bbound:.4f} ms (bytes {bbytes / 2**20:.1f} MiB: "
-                f"{b_bytes:.4f} ms; one exponential an element at the SFU "
-                f"rate: {t_ops:.4f} ms)")
+            before = dict(bcounts)
+            sops.selective_scan_bwd(u, dt, Bm, Cm, A, h, dy, dh)
+            assert bcounts["reg"] == before["reg"] + 1 and \
+                bcounts["lane"] == before["lane"], \
+                f"{label}: not the reg backward"
+            held = {v: _hold_ssm(
+                torch, f"{label} backward ({v})",
+                lambda v=v: sops.run_bwd_variant(v, u, dt, Bm, Cm, A, h, dy,
+                                                 dh),
+                want, SSM_GATE["backward"],
+                ("du", "ddt", "dBm", "dCm", "dA", "dh0"))
+                for v in sops.VARIANTS}
+            del want
+            bms = _time_ssm(
+                torch, f"selective_scan_bwd at {label}",
+                {v: (lambda v=v: sops.run_bwd_variant(
+                    v, u, dt, Bm, Cm, A, h, dy, dh)) for v in sops.VARIANTS},
+                lambda: sops.selective_scan_bwd(u, dt, Bm, Cm, A, h, dy, dh),
+                lambda: sref.selective_scan_bwd_ref(u, dt, Bm, Cm, A, h, dy,
+                                                    dh),
+                _ssm_bytes(B, S, h0, True), B * S * di * N / SFU_RATE * 1e3)
             records.append({
-                "name": "selective_scan_bwd", "case": f"jamba {label}",
-                "shape": [B, S, di, N], "route": "cuda",
-                "source": SSM_SOURCE + "selective_scan_bwd.cu",
+                "name": "selective_scan_bwd", "variant": "reg",
+                "case": f"jamba {label}", "shape": [B, S, di, N],
+                "route": "cuda",
+                "source": SSM_SOURCE + "selective_scan_reg_bwd.cu",
                 "replaces": SSM_REPLACES + "; its gradient",
-                "launches": None, "max_abs_err": babs, "rel_errs": errs,
-                "ms": bms["kernel"], "eager_ms": bms["eager"],
-                "plain_ms": bms["plain"], "bound_ms": bbound,
-                "bound_by": "operations" if t_ops >= b_bytes else "bytes",
-                "library_ms": None,
-                "ptxas": {k: v for k, v in report.items() if "bwd" in k}})
+                "launches": None, "variant_launches": None,
+                "max_abs_err": held["reg"][0], "rel_errs": held["reg"][1],
+                "ms": bms["reg"], "eager_ms": bms["eager"],
+                "plain_ms": bms["plain"], "bound_ms": bms["bound"],
+                "bound_by": bms["bound_by"], "library_ms": None,
+                "earlier_variant": "lane", "earlier_ms": bms["lane"],
+                "earlier_source": SSM_SOURCE + "selective_scan_bwd.cu",
+                "ptxas": _ssm_ptxas(report, "reg", True),
+                "earlier_ptxas": _ssm_ptxas(report, "lane", True)})
             del dy, dh
         del u, dt, Bm, Cm, A, h, y, h_last
         _release(torch)
     main = cases["forward prefill"]
     records.insert(0, {
-        "name": "selective_scan", "case": "jamba prefill",
+        "name": "selective_scan", "variant": "reg", "case": "jamba prefill",
         "shape": main["shape"], "route": "cuda",
-        "source": SSM_SOURCE + "selective_scan.cu", "replaces": SSM_REPLACES,
-        "launches": None, "max_abs_err": main["max_abs_err"],
+        "source": SSM_SOURCE + "selective_scan_reg.cu",
+        "replaces": SSM_REPLACES, "launches": None,
+        "variant_launches": None, "max_abs_err": main["max_abs_err"],
         "ms": main["ms"], "eager_ms": main["eager_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
-        "cases": cases,
-        "ptxas": {k: v for k, v in report.items() if "fwd" in k}})
+        "earlier_variant": "lane", "earlier_ms": main["earlier_ms"],
+        "earlier_source": SSM_SOURCE + "selective_scan.cu",
+        "cases": cases, "ptxas": _ssm_ptxas(report, "reg", False),
+        "earlier_ptxas": _ssm_ptxas(report, "lane", False)})
     return records
 
 
@@ -5113,7 +5160,8 @@ def phase_jamba_serve(torch, cfg, card: str) -> dict:
     assert gen.shape == (B, n_new) and bool(
         ((gen >= 0) & (gen < cfg.vocab_size)).all())
     assert bool(torch.isfinite(logits).all()), "jamba_serve: logits"
-    want_prefill = {"selective_scan": n_scan, "flash_attention": n_attn,
+    want_prefill = {"selective_scan": n_scan, "selective_scan/reg": n_scan,
+                    "selective_scan/lane": 0, "flash_attention": n_attn,
                     "flash_attention/sm90": n_attn,
                     "selective_scan_bwd": 0}
     got = {k: after_prefill[k] for k in want_prefill}
@@ -5121,13 +5169,15 @@ def phase_jamba_serve(torch, cfg, card: str) -> dict:
         f"jamba_serve prefill: launches {got}, want {want_prefill}"
     assert widths == [(cfg.head_dim, cfg.head_dim)] * n_attn, \
         f"jamba_serve: flash calls at {widths}"
-    want_all = dict(want_prefill, selective_scan=n_scan * n_new)
+    want_all = dict(want_prefill, selective_scan=n_scan * n_new,
+                    **{"selective_scan/reg": n_scan * n_new})
     got = {k: launches[k] for k in want_all}
     assert got == want_all, \
         f"jamba_serve: launches {got}, want {want_all} ({n_scan} scans a " \
         f"decode step, no flash launch)"
     log(f"jamba_serve: launches in the prefill "
-        f"{after_prefill['selective_scan']} scans = {n_scan} mamba layers, "
+        f"{after_prefill['selective_scan']} scans = {n_scan} mamba layers "
+        f"(all reg), "
         f"{after_prefill['flash_attention']} "
         f"flash = {n_attn} attention layers, all sm90 at (128, 128); "
         f"{launches['selective_scan'] - n_scan} scans in {n_new - 1} decode "
@@ -5141,10 +5191,11 @@ def phase_jamba_serve(torch, cfg, card: str) -> dict:
     _hold_mamba_block(torch, deep, params, tokens)
     profile(torch, f"jamba prefill B={B} S={S} ({L} layers)",
             lambda: prefill(deep, params, {"tokens": tokens[:, :S]},
-                            S + n_new))
+                            S + n_new), part=("scan", "ssm_"))
     _, caches = prefill(deep, params, {"tokens": tokens[:, :S]}, S + n_new)
     profile(torch, f"jamba decode step B={B} ({L} layers)",
-            lambda: decode_step(deep, params, caches, tokens[:, S:S + 1], S))
+            lambda: decode_step(deep, params, caches, tokens[:, S:S + 1], S),
+            part=("scan", "ssm_"))
     log(f"jamba_serve: phase {time.perf_counter() - t_phase:.1f} s")
     del params, caches
     _release(torch)
@@ -5209,6 +5260,8 @@ def phase_jamba_train(torch, cfg, card: str) -> dict:
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     want = {"selective_scan": n_scan, "selective_scan_bwd": n_scan,
+            "selective_scan/reg": n_scan, "selective_scan/lane": 0,
+            "selective_scan_bwd/reg": n_scan, "selective_scan_bwd/lane": 0,
             "flash_attention": n_attn, "flash_attention/sm90": n_attn,
             "flash_attention_bwd": n_attn,
             "flash_attention_bwd/sm90": n_attn}
@@ -5452,6 +5505,8 @@ def main(argv=None) -> int:
         for r in ssm:
             if r["name"] == "selective_scan":
                 r["launches"] = launches["selective_scan"]
+                r["variant_launches"] = {
+                    v: launches[f"selective_scan/{v}"] for v in sops.VARIANTS}
     if "jamba_train" in phases:
         with _Timed("jamba_train"):
             launches = phase_jamba_train(torch, jcfg, card)
@@ -5459,6 +5514,8 @@ def main(argv=None) -> int:
             key = "launches" if r["name"] == "selective_scan_bwd" \
                 else "train_launches"
             r[key] = launches[r["name"]]
+            r["variant_" + key] = {
+                v: launches[f"{r['name']}/{v}"] for v in sops.VARIANTS}
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record, rwkv_bwd_record)

@@ -1,10 +1,22 @@
 """Public wrappers around the CUDA selective-scan kernels (Mamba).
 
-One library, two kernels: ``csrc/selective_scan.cu`` (the forward) and
-``csrc/selective_scan_bwd.cu`` (its gradient), both float32 throughout
-and at ``d_state`` in :data:`STATES`. Neither replaces a Pallas kernel:
-the reference runs its scan as plain JAX (``models.ssm._ssm_scan_chunked``);
-the sources say why the port has a kernel for it and what bounds it.
+One library, two kernel pairs, each float32 throughout and at
+``d_state`` in :data:`STATES`:
+
+- ``reg`` (``csrc/selective_scan_reg.cu`` and
+  ``csrc/selective_scan_reg_bwd.cu``): the states in registers, several
+  to a thread (:func:`fwd_states`; four backward), one exponential an
+  element forward and two backward, loads through a ``cp.async`` ring.
+  Every main-path launch on a CUDA tensor.
+- ``lane`` (``csrc/selective_scan.cu`` and ``csrc/selective_scan_bwd.cu``):
+  the first design, one thread per (batch, channel, state), kept as the
+  comparison; reached only by name (:func:`run_variant`,
+  :func:`run_bwd_variant`).
+
+Neither replaces a Pallas kernel: the reference runs its scan as plain
+JAX (``models.ssm._ssm_scan_chunked``); the sources say why the port has
+a kernel for it and what bounds it. :func:`select_variant` names the
+kernel a call launches.
 
 Both directions are custom ops (``repro_torch::selective_scan`` and
 ``repro_torch::selective_scan_bwd``), so that autograd differentiates the
@@ -30,12 +42,25 @@ from .ref import selective_scan_bwd_ref, selective_scan_ref
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: the d_state values the kernels are instantiated for
 STATES = (8, 16)
-#: steps of the backward's tiles; it keeps the state before each
+#: the kernels: ``reg`` in selective_scan_reg*.cu, ``lane`` in
+#: selective_scan.cu and selective_scan_bwd.cu
+VARIANTS = ("reg", "lane")
+#: steps of the ``lane`` backward's tiles; it keeps the state before each
 TILE = 32
+#: threads (batch rows x channels) from which a ``reg`` forward thread
+#: holds all N states of its channel; below, four (more threads, each
+#: with four chains)
+FULL_STATE_THREADS = 32768
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
+_REG_FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
+# u, dt, Bm, Cm, A, h0, dy, dh_last; du, ddt, the partials of dBm and dCm,
+# of dA, dBm, dCm, dA, dh0, the state workspace; B, S, D, N; the stream
+_REG_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
 
 
@@ -50,9 +75,34 @@ def load() -> ctypes.CDLL:
         lib.repro_ssm_bwd.restype = ctypes.c_int
         lib.repro_ssm_channels_per_block.argtypes = [ctypes.c_int]
         lib.repro_ssm_channels_per_block.restype = ctypes.c_int
+        lib.repro_ssm_reg_fwd.argtypes = _REG_FWD_ARGTYPES
+        lib.repro_ssm_reg_fwd.restype = ctypes.c_int
+        lib.repro_ssm_reg_bwd.argtypes = _REG_BWD_ARGTYPES
+        lib.repro_ssm_reg_bwd.restype = ctypes.c_int
+        lib.repro_ssm_reg_bwd_channels.argtypes = [ctypes.c_int]
+        lib.repro_ssm_reg_bwd_channels.restype = ctypes.c_int
+        lib.repro_ssm_reg_bwd_steps.argtypes = []
+        lib.repro_ssm_reg_bwd_steps.restype = ctypes.c_int
         lib.repro_ssm_error_string.argtypes = [ctypes.c_int]
         lib.repro_ssm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def select_variant(d_state: int) -> str:
+    """The kernel pair a CUDA call at this ``d_state`` launches: ``reg``
+    for every N in :data:`STATES`; another N raises."""
+    if d_state not in STATES:
+        raise ValueError(f"d_state {d_state} not in the kernels' {STATES}")
+    return "reg"
+
+
+def fwd_states(batch: int, d_inner: int, d_state: int) -> int:
+    """States a thread of the ``reg`` forward holds: all ``d_state`` of
+    its channel where batch x d_inner reaches
+    :data:`FULL_STATE_THREADS` (jamba's prefill and decode, B=8: 65,536
+    threads of 16 chains), else 4 (its training, B=1: d_inner x 4 =
+    32,768 threads of four chains). The backward always holds 4."""
+    return d_state if batch * d_inner >= FULL_STATE_THREADS else 4
 
 
 def _check(u, dt, Bm, Cm, A, h0, chunk: int) -> None:
@@ -99,11 +149,12 @@ def selective_scan(u, dt, Bm, Cm, A, h0=None, chunk: int = 256):
     reference's sums, so neither version reads it; the tracer prices the
     op by it (:mod:`repro_torch.core.tracing`).
 
-    A CUDA tensor launches the forward kernel on the current stream (N
-    in :data:`STATES`) and adds one to ``selective_scan.launches``;
-    anything it cannot take raises, and a failed launch raises. A CPU
-    tensor runs the plain version :func:`selective_scan_ref`, which is
-    not counted."""
+    A CUDA tensor launches the forward kernel :func:`select_variant`
+    names on the current stream (N in :data:`STATES`) and adds one to
+    ``selective_scan.launches`` and to
+    ``selective_scan.variant_launches[variant]``; anything it cannot take
+    raises, and a failed launch raises. A CPU tensor runs the plain
+    version :func:`selective_scan_ref`, which is not counted."""
     _check(u, dt, Bm, Cm, A, h0, chunk)
     return _fwd_op(u, dt, Bm, Cm, A, h0, chunk)
 
@@ -115,14 +166,36 @@ def selective_scan_bwd(u, dt, Bm, Cm, A, h0, dy, dh_last, chunk: int = 256):
     Bm, Cm, A and the state; dh0 is the gradient of a zero state when
     ``h0`` is None.
 
-    A CUDA tensor launches the backward kernel on the current stream and
-    adds one to ``selective_scan_bwd.launches``; anything it cannot take
-    raises, and a failed launch raises. Repeated calls give the same
-    bits (no atomics: dBm, dCm and dA come back as partials summed here
-    in a fixed order). A CPU tensor runs the plain version
+    A CUDA tensor launches the backward kernel :func:`select_variant`
+    names on the current stream and adds one to
+    ``selective_scan_bwd.launches`` and to
+    ``selective_scan_bwd.variant_launches[variant]``; anything it cannot
+    take raises, and a failed launch raises. Repeated calls give the same
+    bits (no atomics: dBm, dCm and dA come back as partials summed in a
+    fixed order). A CPU tensor runs the plain version
     :func:`selective_scan_bwd_ref`, not counted."""
     _check_bwd(u, dt, Bm, Cm, A, h0, dy, dh_last, chunk)
     return _bwd_op(u, dt, Bm, Cm, A, h0, dy, dh_last, chunk)
+
+
+def run_variant(variant: str, u, dt, Bm, Cm, A, h0=None, chunk: int = 256):
+    """Launch the named forward kernel on CUDA tensors and count it, as
+    :func:`selective_scan` does with the variant :func:`select_variant`
+    names; ``chip_smoke.py`` calls it to hold and time the ``lane``
+    kernel beside ``reg``. Raises for an unknown name and for tensors
+    that are not on a CUDA device."""
+    _check(u, dt, Bm, Cm, A, h0, chunk)
+    return _launch(u, dt, Bm, Cm, A, h0, variant)
+
+
+def run_bwd_variant(variant: str, u, dt, Bm, Cm, A, h0, dy, dh_last,
+                    chunk: int = 256):
+    """Launch the named backward kernel on CUDA tensors and count it, as
+    :func:`selective_scan_bwd` does with the variant
+    :func:`select_variant` names. Raises for an unknown name and for
+    tensors that are not on a CUDA device."""
+    _check_bwd(u, dt, Bm, Cm, A, h0, dy, dh_last, chunk)
+    return _launch_bwd(u, dt, Bm, Cm, A, h0, dy, dh_last, variant)
 
 
 def _check_bwd(u, dt, Bm, Cm, A, h0, dy, dh_last, chunk: int) -> None:
@@ -139,16 +212,17 @@ def _check_bwd(u, dt, Bm, Cm, A, h0, dy, dh_last, chunk: int) -> None:
             raise ValueError(f"{name} on {t.device}, u on {u.device}")
 
 
-def _kernel_inputs(label: str, *tensors):
+def _kernel_inputs(label: str, variant: str, *tensors):
     """The kernels' own checks (inputs that :func:`_check` passed): a
-    CUDA device and an N they are built for. Returns the tensors made
-    contiguous."""
+    known variant, a CUDA device and an N they are built for. Returns
+    the tensors made contiguous (the ``reg`` kernels also refuse A and
+    the states off 16-byte alignment: they read them as float4)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown {label} variant {variant!r}")
     u, A = tensors[0], tensors[4]
     if u.device.type != "cuda":
         raise ValueError(f"{label} kernels run on cuda, not {u.device}")
-    if A.shape[1] not in STATES:
-        raise ValueError(f"d_state {A.shape[1]} not in the kernels' "
-                         f"{STATES}")
+    select_variant(A.shape[1])
     if u.shape[0] > 65535:
         raise ValueError(f"batch {u.shape[0]} > 65535 (the grid's y)")
     return [None if t is None else t.contiguous() for t in tensors]
@@ -165,44 +239,74 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _launch(u, dt, Bm, Cm, A, h0):
-    u, dt, Bm, Cm, A, h0 = _kernel_inputs("selective_scan", u, dt, Bm, Cm,
-                                          A, h0)
+def _launch(u, dt, Bm, Cm, A, h0, variant: Optional[str] = None):
+    """The forward kernel ``variant`` (by default the one
+    :func:`select_variant` names) on inputs that :func:`_check` passed."""
+    variant = variant or select_variant(A.shape[1])
+    u, dt, Bm, Cm, A, h0 = _kernel_inputs("selective_scan", variant, u, dt,
+                                          Bm, Cm, A, h0)
     B, S, di = u.shape
     N = A.shape[1]
     y = torch.empty((B, S, di), dtype=torch.float32, device=u.device)
     h_last = torch.empty((B, di, N), dtype=torch.float32, device=u.device)
     lib = load()
+    ptrs = map(_ptr, (u, dt, Bm, Cm, A, h0, y, h_last))
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.repro_ssm_fwd(*map(_ptr, (u, dt, Bm, Cm, A, h0, y,
-                                            h_last)), B, S, di, N, stream)
-    _raise_if(err, lib, "selective_scan")
+        if variant == "reg":
+            err = lib.repro_ssm_reg_fwd(*ptrs, B, S, di, N,
+                                        fwd_states(B, di, N), stream)
+        else:
+            err = lib.repro_ssm_fwd(*ptrs, B, S, di, N, stream)
+    _raise_if(err, lib, f"selective_scan ({variant})")
     selective_scan.launches += 1
+    selective_scan.variant_launches[variant] += 1
     return y, h_last
 
 
-def _launch_bwd(u, dt, Bm, Cm, A, h0, dy, dh_last):
+def _launch_bwd(u, dt, Bm, Cm, A, h0, dy, dh_last,
+                variant: Optional[str] = None):
+    """The backward kernel ``variant`` (by default the one
+    :func:`select_variant` names) on inputs that :func:`_check_bwd`
+    passed; it allocates the kernels' workspaces."""
+    variant = variant or select_variant(A.shape[1])
     u, dt, Bm, Cm, A, h0, dy, dh_last = _kernel_inputs(
-        "selective_scan_bwd", u, dt, Bm, Cm, A, h0, dy, dh_last)
+        "selective_scan_bwd", variant, u, dt, Bm, Cm, A, h0, dy, dh_last)
     B, S, di = u.shape
     N = A.shape[1]
     lib = load()
-    nblk = -(-di // lib.repro_ssm_channels_per_block(N))
     dev, f32 = u.device, torch.float32
     du, ddt = torch.empty_like(u), torch.empty_like(u)
-    dB_part = torch.empty((B, S, nblk, N), dtype=f32, device=dev)
-    dC_part = torch.empty((B, S, nblk, N), dtype=f32, device=dev)
     dA_part = torch.empty((B, di, N), dtype=f32, device=dev)
     dh0 = torch.empty((B, di, N), dtype=f32, device=dev)
-    ckpt = torch.empty((B, -(-S // TILE), di, N), dtype=f32, device=dev)
+    if variant == "reg":
+        nblk = -(-di // lib.repro_ssm_reg_bwd_channels(N))
+        steps = lib.repro_ssm_reg_bwd_steps()
+        part = torch.empty((B, S, nblk, 2 * N), dtype=f32, device=dev)
+        dBm = torch.empty((B, S, N), dtype=f32, device=dev)
+        dCm = torch.empty((B, S, N), dtype=f32, device=dev)
+        dA = torch.empty((di, N), dtype=f32, device=dev)
+        ckpt = torch.empty((B, -(-S // steps), di, N), dtype=f32,
+                           device=dev)
+        args = (u, dt, Bm, Cm, A, h0, dy, dh_last, du, ddt, part, dA_part,
+                dBm, dCm, dA, dh0, ckpt)
+        fn = lib.repro_ssm_reg_bwd
+    else:
+        nblk = -(-di // lib.repro_ssm_channels_per_block(N))
+        dB_part = torch.empty((B, S, nblk, N), dtype=f32, device=dev)
+        dC_part = torch.empty((B, S, nblk, N), dtype=f32, device=dev)
+        ckpt = torch.empty((B, -(-S // TILE), di, N), dtype=f32, device=dev)
+        args = (u, dt, Bm, Cm, A, h0, dy, dh_last, du, ddt, dB_part,
+                dC_part, dA_part, dh0, ckpt)
+        fn = lib.repro_ssm_bwd
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_ssm_bwd(
-            *map(_ptr, (u, dt, Bm, Cm, A, h0, dy, dh_last, du, ddt, dB_part,
-                        dC_part, dA_part, dh0, ckpt)), B, S, di, N, stream)
-    _raise_if(err, lib, "selective_scan_bwd")
+        err = fn(*map(_ptr, args), B, S, di, N, stream)
+    _raise_if(err, lib, f"selective_scan_bwd ({variant})")
     selective_scan_bwd.launches += 1
+    selective_scan_bwd.variant_launches[variant] += 1
+    if variant == "reg":  # summed in a fixed order by its second kernel
+        return du, ddt, dBm, dCm, dA, dh0
     # the partials summed in a fixed order: repeated calls are bit-equal
     return (du, ddt, dB_part.sum(2), dC_part.sum(2), dA_part.sum(0), dh0)
 
@@ -273,7 +377,11 @@ def _backward(ctx, dy, dh_last):
 _fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
 selective_scan.launches = 0
+selective_scan.variant_launches = dict.fromkeys(VARIANTS, 0)
 selective_scan_bwd.launches = 0
+selective_scan_bwd.variant_launches = dict.fromkeys(VARIANTS, 0)
 
-__all__ = ["STATES", "TILE", "load", "selective_scan", "selective_scan_bwd",
-           "selective_scan_bwd_ref", "selective_scan_ref"]
+__all__ = ["FULL_STATE_THREADS", "STATES", "TILE", "VARIANTS", "fwd_states",
+           "load", "run_bwd_variant", "run_variant", "select_variant",
+           "selective_scan", "selective_scan_bwd", "selective_scan_bwd_ref",
+           "selective_scan_ref"]

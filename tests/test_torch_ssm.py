@@ -194,6 +194,73 @@ def test_wrapper_refuses_what_it_cannot_take():
         ops._launch(u, dt, Bm, Cm, A, h0)
 
 
+@pytest.mark.parametrize("N", ops.STATES)
+def test_select_variant_names_reg(N):
+    """Every d_state the kernels take launches the ``reg`` pair."""
+    assert ops.select_variant(N) == "reg"
+    assert ops.select_variant(N) in ops.VARIANTS
+
+
+@pytest.mark.parametrize("N", [4, 32])
+def test_select_variant_refuses_other_states(N):
+    with pytest.raises(ValueError, match="d_state"):
+        ops.select_variant(N)
+
+
+@pytest.mark.parametrize("B,di,N,want", [
+    (8, 8192, 16, 16), (1, 8192, 16, 4), (8, 8192, 8, 8), (1, 1024, 16, 4),
+    (4, 8192, 16, 16), (2, 100, 8, 4)],
+    ids=["prefill", "training", "N8", "small", "B4", "tiny"])
+def test_fwd_states_split(B, di, N, want):
+    """The ``reg`` forward gives a thread all N states where batch x
+    d_inner fills the card (FULL_STATE_THREADS), else four."""
+    assert ops.fwd_states(B, di, N) == want
+    assert N % ops.fwd_states(B, di, N) == 0
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_run_variant_refuses_unknown_names_and_cpu_tensors(which):
+    """``run_variant`` and ``run_bwd_variant`` launch a kernel by name on
+    CUDA tensors only: an unknown name raises, and so does every known
+    name on CPU tensors (no plain fallback), counting nothing."""
+    u, dt, Bm, Cm, A, h0 = _t(_inputs(12, 1, 5, 4, 16, True))
+    fn, extra = ops.run_variant, ()
+    counts = ops.selective_scan.variant_launches
+    if which == "backward":
+        fn, extra = ops.run_bwd_variant, (torch.ones_like(u),
+                                         torch.ones_like(h0))
+        counts = ops.selective_scan_bwd.variant_launches
+    before = dict(counts)
+    with pytest.raises(ValueError, match="unknown"):
+        fn("fast", u, dt, Bm, Cm, A, h0, *extra)
+    for variant in ops.VARIANTS:
+        with pytest.raises(ValueError, match="run on cuda"):
+            fn(variant, u, dt, Bm, Cm, A, h0, *extra)
+    assert counts == before
+
+
+def test_cpu_scan_runs_plain_version_and_counts_no_variant():
+    """A CPU tensor through the op runs the plain versions, forward and
+    backward (autograd), bit for bit, and no kernel count moves."""
+    arrs = _inputs(13, 2, 11, 6, 16, True)
+    req = _grad_inputs(arrs, True)
+    counts = [dict(f.variant_launches) for f in (ops.selective_scan,
+                                                 ops.selective_scan_bwd)]
+    totals = (ops.selective_scan.launches, ops.selective_scan_bwd.launches)
+    y, h_last = ops.selective_scan(*req)
+    got = torch.autograd.grad(y.sum() + h_last.square().sum(), req)
+    assert counts == [dict(f.variant_launches) for f in (
+        ops.selective_scan, ops.selective_scan_bwd)]
+    assert totals == (ops.selective_scan.launches,
+                      ops.selective_scan_bwd.launches)
+    plain = [t.detach() for t in req]
+    wy, wh = selective_scan_ref(*plain)
+    assert torch.equal(y.detach(), wy) and torch.equal(h_last.detach(), wh)
+    want = selective_scan_bwd_ref(*plain, torch.ones_like(wy), 2 * wh)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 # -- the tracer's price ------------------------------------------------------
 #: (B, S, d_inner, N, chunk, h0): reduced jamba's training shape (two
 #: chunks of 8) and a one-row shape from a state (three chunks; at B = 1
@@ -388,20 +455,67 @@ def test_cuda_kernels_match_plain_versions(B, S, di, N, h0):
         assert err <= 1e-5, err
 
 
+#: the ``reg`` kernels' edges: the state split at small B (B=1, four
+#: states a thread), one token from a state at B=1 and B=8, S around the
+#: 8-step sub-tiles and 16-step tiles, d_inner not a multiple of a
+#: block's channels (64 or 128 backward, 32 or 128 forward), N = 8
+EDGE_CASES = [(1, 2048, 1024, 16, False), (1, 1, 1024, 16, True),
+              (8, 1, 1024, 16, True), (1, 31, 200, 16, True),
+              (2, 33, 200, 16, False), (1, 65, 72, 16, True),
+              (2, 65, 130, 8, True), (1, 17, 8192, 8, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,h0", CUDA_CASES + EDGE_CASES)
+@pytest.mark.parametrize("variant", ops.VARIANTS)
+def test_cuda_variants_match_plain_versions(variant, B, S, di, N, h0):
+    """Each kernel pair by name (``run_variant``, ``run_bwd_variant``)
+    against the plain versions, every output within 1e-5 of its largest
+    magnitude, repeated calls bit-equal, each launch counted under its
+    variant."""
+    _cuda()
+    u, dt, Bm, Cm, A, h = _t(_inputs(B * S + di + 1, B, S, di, N, h0),
+                             "cuda")
+    counts = (ops.selective_scan.variant_launches,
+              ops.selective_scan_bwd.variant_launches)
+    before = [dict(c) for c in counts]
+    out = ops.run_variant(variant, u, dt, Bm, Cm, A, h)
+    again = ops.run_variant(variant, u, dt, Bm, Cm, A, h)
+    dy, dh = torch.randn_like(out[0]), torch.randn_like(out[1])
+    grads = ops.run_bwd_variant(variant, u, dt, Bm, Cm, A, h, dy, dh)
+    grads2 = ops.run_bwd_variant(variant, u, dt, Bm, Cm, A, h, dy, dh)
+    torch.cuda.synchronize()
+    for c, b in zip(counts, before):
+        assert c == dict(b, **{variant: b[variant] + 2})
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    want = selective_scan_ref(u, dt, Bm, Cm, A, h)
+    want_grads = selective_scan_bwd_ref(u, dt, Bm, Cm, A, h, dy, dh)
+    for a, b in zip(out + grads, want + want_grads):
+        assert a.shape == b.shape
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err <= 1e-5, err
+
+
 @pytest.mark.cuda
 def test_cuda_autograd_runs_both_kernels():
     """Autograd through the op on the card launches the forward and the
-    backward kernel once each, and gives the plain version's gradient."""
+    backward kernel once each, both the ``reg`` variant, and gives the
+    plain version's gradient."""
     _cuda()
     arrs = _inputs(11, 2, 40, 64, 16, False)
     req = [t.requires_grad_() for t in _t(arrs[:5], "cuda")]
     before = (ops.selective_scan.launches, ops.selective_scan_bwd.launches)
+    variants = [dict(f.variant_launches) for f in (ops.selective_scan,
+                                                   ops.selective_scan_bwd)]
     y, h_last = ops.selective_scan(*req)
     got = torch.autograd.grad(y.square().sum() + h_last.sum(), req)
     torch.cuda.synchronize()
     assert (ops.selective_scan.launches,
             ops.selective_scan_bwd.launches) == (before[0] + 1,
                                                  before[1] + 1)
+    for f, b in zip((ops.selective_scan, ops.selective_scan_bwd), variants):
+        assert f.variant_launches == dict(b, reg=b["reg"] + 1)
     ref = [t.detach().clone().requires_grad_() for t in req]
     y2, h2 = selective_scan_ref(*ref)
     want = torch.autograd.grad(y2.square().sum() + h2.sum(), ref)
