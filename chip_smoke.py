@@ -120,7 +120,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    same inputs (BWD_CASES: the training shape in bf16 and float32, hd
    64 at repro-lm-100m widths, ragged S, window, q_offset, softcap,
    G = 1 and 4, fully masked rows, the training shape at mixtral's
-   window of 4096), each given the forward kernel's
+   window of 4096, internvl2-1b's training shape: hd 64, GQA group 7,
+   B=2, S=4096), each given the forward kernel's
    output and LSE, repeated calls bit-equal; at the training shape the
    three kernels, the plain version and SDPA's backward timed in turns
    beside the bound, the sm90 backward's four kernels (D, dK/dV, their
@@ -228,12 +229,14 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    every leaf within TRAIN_GATE of the eager step; nodes, partition
    seconds, predicted makespan, async, sync and eager ms, logical peak
    per PE beside the plan's.
-20. wide head kernels: the sm90 flash kernels at the wide head dims on
-   main paths, in bf16: q/k 192 with v at its own 128 at
+20. wide head kernels: the sm90 flash kernels at the head dims off 64
+   and 128 on main paths, in bf16: q/k 192 with v at its own 128 at
    deepseek-v2-lite's training shape (B=1, S=2048, 16 heads; forward and
    backward), hd 256 at gemma3-1b's prefill shape (B=8, S=1024, 4 / 1
    heads) and at its training shape with window 1024 at S=2048 (forward
-   and backward): each against its plain version under the gates of
+   and backward), hd 80 with every key visible at hubert-xlarge's
+   encoder shape (B=8, S=4096, 16 heads) and training shape (B=2;
+   forward and backward): each against its plain version under the gates of
    phases 3 and 12, repeated calls bit-equal, its registers and spills
    (ptxas), timed in turns with the fma kernel it replaces (held too; v
    and dO zero-padded inside its wrapper), the plain version and SDPA at
@@ -241,8 +244,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    work these inputs need, and faster than the fma kernel (the sm90
    kernels replayed from a CUDA graph of 20 calls, since back to back
    their eager calls time the host; the eager time is printed too); the sm90
-   forward held at qwen2.5-14b's and starcoder2-7b's prefill shapes (GQA
-   groups of 5 and 9);
+   forward held at qwen2.5-14b's, starcoder2-7b's and internvl2-1b's
+   prefill shapes (GQA groups of 5, 9 and 7) and internvl2-1b's training
+   shape (B=2, S=4096);
 21. deepseek serve: deepseek-v2-lite-16b in bf16 (random weights from a
    seed) at full width and the depth the printed arithmetic lets 90% of
    the card hold (all 27 layers) at the serve phase's geometry: no flash
@@ -297,6 +301,33 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    partitioned at K=4 and verified. The plan is not executed: the
    runtime returns clones of the new parameters and grads, and 3P at 8
    layers is over 90% of the card.
+27. hubert: hubert-xlarge (encoder-only, non-causal, hd 80; its audio
+   frontend stubbed: frame embeddings from a seed) in bf16 at full width
+   and all 48 layers: (i) ``encoder_logits`` through
+   ``train.build_prefill_step`` at B=8, S=4096: 48 sm90 forward launches
+   at (80, 80), non-causal, 0 fma; the logits against the same path
+   through the plain attention, a row at a time (``PATH_GATE``), and a
+   control that must miss the gate (the plain path with a causal mask
+   planted, one row); (ii) eager SGD in place
+   at B=2, S=4096 (B lowered only where the printed arithmetic says the
+   step does not fit): 48 sm90 forward and 48 sm90 backward launches a
+   step, 0 fma, the cross entropy at init near ln V; (iii) the step
+   traced, partitioned at K=4 under half the card per PE, verified and
+   executed with its PEs folded onto the card at the deepest depth whose
+   summed per-PE peaks and returned clones fit 90% of the card (all 48
+   when they do): async = sync, every leaf within TRAIN_GATE of eager.
+   Step ms, frames or tokens/s, busy share, peak memory (held under 90%
+   of the card) and the flash kernels' device time for each;
+28. internvl: internvl2-1b (its vision frontend stubbed) in bf16 at full
+   width and all 24 layers: (i) ``prefill`` of B=8 x (256 patch
+   embeddings + 768 prompt tokens) into caches of 1056: 24 sm90 forward
+   launches at (64, 64), causal, GQA group 7; the last logits against the
+   plain attention path (``PATH_GATE``); (ii) 31 greedy ``decode_step``
+   calls fed tokens, no flash launch (the paged engine refuses a
+   non-token frontend, as the reference's does); (iii) eager SGD in place
+   at B=2, S=4096: 24 sm90 forward and 24 sm90 backward launches a step,
+   0 fma; tok/s, TTFT, decode and step ms, busy share, peak memory (held
+   under 90% of the card) and the flash kernels' device time.
 
 Each phase's seconds are printed when it ends.
 
@@ -312,6 +343,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2085,6 +2117,7 @@ BWD_CASES = [
     (1, 16, 4, 256, 256, 64, False, None, 0, 0.0, "float32"),    # G = 4
     (1, 4, 2, 128, 128, 64, True, 64, 100, 0.0, "float32"),      # masked
     (1, 32, 8, 2048, 2048, 128, True, 4096, 0, 0.0, "bfloat16"),  # mixtral
+    (2, 14, 2, 4096, 4096, 64, True, None, 0, 0.0, "bfloat16"),  # internvl
 ]
 # The backward kernels against their plain version run in float32 on the
 # same inputs: max |kernel - plain| <= gate x max |plain|, per gradient.
@@ -2106,6 +2139,13 @@ BWD_KERNEL = "bwd_dq_sm90"
 #: them: D and the padded LSE, dK/dV partials, their sum, dQ
 SM90_BWD_KERNELS = ("bwd_delta_sm90", "bwd_dkdv_sm90", "bwd_reduce_sm90",
                     "bwd_dq_sm90")
+#: the flash kernels by name (forward sm90 and fma; the sm90 backward's
+#: four kernels; the fma backward's three, with the "<" of their template
+#: arguments, so that no name is a prefix of an sm90 kernel's and a sum
+#: over the names counts each launch once)
+FLASH_KERNEL_NAMES = FWD_KERNELS + ("bwd_delta_sm90", "bwd_dkdv_sm90",
+                                    "bwd_reduce_sm90", BWD_KERNEL,
+                                    "bwd_prep<", "bwd_dkdv<", "bwd_dq<")
 
 
 def _hold_bwd(torch, label, got, again, want, dt) -> tuple:
@@ -2316,12 +2356,22 @@ def phase_train_kernel(torch, ops, ref, build) -> dict:
     return record
 
 
-def _train_batch(torch, cfg, seed: int) -> dict:
+def _train_batch(torch, cfg, seed: int, batch: int = TRAIN["batch"],
+                 seq: int = TRAIN["seq"]) -> dict:
+    """Random targets and inputs: int32 tokens or, for a config with a
+    stubbed frontend, float32 embeddings (standard normals x 0.1), as
+    the conformance batch makes them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (TRAIN["batch"], TRAIN["seq"])
-    return {k: torch.randint(0, cfg.vocab_size, shape, generator=g,
-                             device="cuda", dtype=torch.int32)
-            for k in ("tokens", "targets")}
+    shape = (batch, seq)
+    if cfg.frontend is not None:
+        x = {"embeds": torch.randn((*shape, cfg.d_model), generator=g,
+                                   device="cuda") * 0.1}
+    else:
+        x = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    return {**x, "targets": torch.randint(0, cfg.vocab_size, shape,
+                                          generator=g, device="cuda",
+                                          dtype=torch.int32)}
 
 
 def train_dot_flops(cfg, batch: int, seq: int) -> float:
@@ -2547,6 +2597,122 @@ def fit_depth(torch, cfg, label: str, build, holds: str,
     return layers, pslope, pbytes[2] - 2 * pslope
 
 
+@contextlib.contextmanager
+def _attention_calls(plain: bool = False, causal=None):
+    """Yields a list that records (q/k head dim, v width, causal,
+    window) of every attention call with more than one query token (the
+    calls that take the flash kernel) while the block runs; with
+    ``plain`` those calls run the plain version instead, and launch
+    nothing; a ``causal`` given (with ``plain``) replaces the calls'
+    mask: a planted fault, the control of a path check."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers as model_layers
+    calls, mha = [], model_layers.multi_head_attention
+
+    def seen(q, k, v, **kw):
+        if q.shape[1] > 1:
+            calls.append((q.shape[-1], v.shape[-1], kw["causal"],
+                          kw["window"]))
+            if plain:
+                if causal is not None:
+                    kw = dict(kw, causal=causal)
+                return flash_attention_ref(q, k, v, **kw)
+        return mha(q, k, v, **kw)
+    model_layers.multi_head_attention = seen
+    try:
+        yield calls
+    finally:
+        model_layers.multi_head_attention = mha
+
+
+def _under_card(torch, label: str, peak: float) -> None:
+    """Logs a cell's measured peak (max_memory_allocated) against 90% of
+    the card and fails the phase above it."""
+    fit = 0.9 * torch.cuda.get_device_properties(0).total_memory
+    log(f"{label}: memory arithmetic: peak {peak / 1e9:.2f} GB against 90% "
+        f"of the card, {fit / 1e9:.2f} GB: "
+        f"{'fits' if peak <= fit else 'does not fit'}")
+    assert peak <= fit, \
+        f"{label}: peak {peak / 1e9:.2f} GB over {fit / 1e9:.2f} GB"
+
+
+def _flash_want(L: int, variant: str = "sm90") -> dict:
+    """The launch counts of a training step with L attention layers: L
+    flash forward and L backward launches, every one of ``variant``."""
+    from repro_torch.kernels.flash_attention import ops
+    want = {"flash_attention": L, "flash_attention_bwd": L}
+    for name, variants in (("flash_attention", ops.VARIANTS),
+                           ("flash_attention_bwd", ops.BWD_VARIANTS)):
+        want.update({f"{name}/{v}": L if v == variant else 0
+                     for v in variants})
+    return want
+
+
+def _eager_sgd(torch, cfg, label: str, params, batch: dict, lr: float,
+               card: str, want: dict, *, calls=None, in_place: bool = True,
+               near_ln_v: bool = True, reps: int = 3,
+               kernels=FLASH_KERNEL_NAMES, moe_group=None) -> dict:
+    """The eager SGD step of ``cfg`` on ``params`` (updated in place
+    unless ``in_place`` is false), one warm-up call, then one call with
+    the counts at 0. Gates: the launch counts ``want``, key for key;
+    with ``calls``, the (q/k head dim, v width, causal, window) of every
+    attention call in order; the peak under 90% of the card; the loss
+    finite and, with ``near_ln_v``, within 2 of ln V (the cross entropy
+    at init; an MoE loss adds its router term, and its phase holds the
+    cross entropy itself). Logs step ms (median of ``reps``), tokens/s,
+    device busy and the port's kernels' device time (``kernels`` by name
+    from :func:`_profile_step`, or with ``moe_group`` the flash and scan
+    roles of :func:`_moe_profile`). Returns the launch counts, the
+    median step ms and the peak."""
+    from repro_torch.conformance import make_train_step
+    L = cfg.num_layers
+    B, S = batch["targets"].shape
+    step = make_train_step(cfg, lr, in_place=in_place)
+
+    def fn():
+        return step(params, batch)
+    fn()                                # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with _attention_calls() as seen:
+        loss = float(fn()[0])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: launches[k] for k in want}
+    ln_v = math.log(cfg.vocab_size)
+    log(f"{label} eager: {L} layers, B={B}, S={S}, loss after one update "
+        f"{loss:.4f} (ln {cfg.vocab_size} = {ln_v:.4f}), launches {got}, "
+        f"flash calls at (q/k head dim, v width, causal, window) "
+        f"{sorted(set(seen), key=str)} x {len(seen)}, max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB ({peak / 1e9:.2f} GB), one step "
+        f"{first_ms:.1f} ms")
+    assert got == want, f"{label} eager: launches {got}, want {want}"
+    assert calls is None or seen == calls, f"{label} eager: flash calls " \
+        f"{sorted(set(seen), key=str)} x {len(seen)}"
+    _under_card(torch, f"{label} eager", peak)
+    assert math.isfinite(loss) and (not near_ln_v or abs(loss - ln_v) < 2), \
+        f"{label} eager: loss {loss} far from ln V at init"
+    step_ms = _wall_ms(torch, fn, n=reps)
+    name = f"{label} eager {L} layers B={B} S={S}"
+    if moe_group:
+        prof = _moe_profile(torch, name, fn, cfg, moe_group)
+        ours = prof["roles"]["flash kernels"] + prof["roles"].get(
+            "scan kernels", 0.0)
+    else:
+        prof = _profile_step(torch, name, fn, kernels)
+        ours = sum(prof["named_ms"].values())
+    log(f"{label} eager: median step {step_ms:.2f} ms, "
+        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
+        f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); the port's kernels "
+        f"{ours:.3f} ms ({ours / prof['busy_ms']:.1%} of device time); "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB; {card}")
+    return {"launches": launches, "step_ms": step_ms, "peak": peak}
+
+
 def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
     """The training main path at full granite-8b width (bf16, random
     weights from a seed, B=1, S=2048, SGD), after (a) the backward
@@ -2586,41 +2752,15 @@ def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
     deep = dataclasses.replace(cfg, num_layers=layers)
     params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    step = make_train_step(deep, lr)
-    step(params, batch)                 # warm-up: cuBLAS, the allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    loss, new = step(params, batch)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    del new
-    want = {"flash_attention": layers, "flash_attention/sm90": layers,
-            "flash_attention_bwd": layers, "flash_attention_bwd/sm90": layers,
-            "wkv6": 0}
-    got = {k: launches[k] for k in want}
-    log(f"train eager: {layers} layers, loss {float(loss):.4f} (ln "
-        f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}), launches "
-        f"{got}, max_memory_allocated {peak / 2**30:.3f} GiB, "
-        f"one step {first_s * 1e3:.1f} ms")
-    assert got == want, f"train eager: launches {got}, expected {want}"
-    assert math.isfinite(float(loss)) and \
-        abs(float(loss) - math.log(cfg.vocab_size)) < 2, \
-        f"train eager: loss {float(loss)} far from ln V at init"
-    step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
-    prof = _profile_step(torch, f"train eager {layers} layers B={B} S={S}",
-                         lambda: step(params, batch))
-    log(f"train eager: median step {step_ms:.2f} ms, "
-        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
-        f"{prof['busy_ms']:.2f} ms of {prof['wall_ms']:.2f} ms "
-        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); {card}")
+    hd = cfg.head_dim
+    launches = _eager_sgd(
+        torch, deep, "train", params, batch, lr, card,
+        {**_flash_want(layers), "wkv6": 0},
+        calls=[(hd, hd, True, None)] * layers, in_place=False)["launches"]
     record["launches"] = launches["flash_attention_bwd"]
     record["variant_launches"] = {
         v: launches[f"flash_attention_bwd/{v}"] for v in ops.BWD_VARIANTS}
-    del params, step, loss
+    del params
     _release(torch)
 
     # (c) ParDNN on the traced step
@@ -3311,41 +3451,16 @@ def phase_rwkv_train(torch, cfg, card: str, record: dict) -> dict:
     deep = dataclasses.replace(cfg, num_layers=layers)
     params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    step = make_train_step(deep, lr)
-    step(params, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    loss, new = step(params, batch)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    del new
-    want = {"wkv6": layers, "wkv6/mma": layers, "wkv6_bwd": layers,
-            "wkv6_bwd/mma": layers, "flash_attention": 0,
-            "flash_attention_bwd": 0}
-    got = {k: launches[k] for k in want}
-    log(f"rwkv train eager: {layers} layers, loss {float(loss):.4f} (ln "
-        f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}), launches "
-        f"{got}, max_memory_allocated {peak / 2**30:.3f} GiB, one step "
-        f"{first_s * 1e3:.1f} ms")
-    assert got == want, f"rwkv train eager: launches {got}, expected {want}"
-    assert math.isfinite(float(loss)) and \
-        abs(float(loss) - math.log(cfg.vocab_size)) < 2, \
-        f"rwkv train eager: loss {float(loss)} far from ln V at init"
+    launches = _eager_sgd(
+        torch, deep, "rwkv train", params, batch, lr, card,
+        {"wkv6": layers, "wkv6/mma": layers, "wkv6_bwd": layers,
+         "wkv6_bwd/mma": layers, "flash_attention": 0,
+         "flash_attention_bwd": 0},
+        calls=[], in_place=False, kernels=RWKV_KERNELS)["launches"]
     record["launches"] = launches["wkv6_bwd"]
     record["variant_launches"] = {v: launches[f"wkv6_bwd/{v}"]
                                   for v in ("mma", "fma")}
-    step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
-    prof = _profile_step(torch, f"rwkv train eager {layers} layers B={B} "
-                         f"S={S}", lambda: step(params, batch), RWKV_KERNELS)
-    log(f"rwkv train eager: median step {step_ms:.2f} ms, "
-        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
-        f"{prof['busy_ms']:.2f} ms of {prof['wall_ms']:.2f} ms "
-        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); {card}")
-    del params, step, loss
+    del params
     _release(torch)
 
     # (b) the traced step at plan_layers, K=4, executed folded
@@ -3573,15 +3688,6 @@ def phase_launch_train(torch, card: str) -> None:
 # ---------------------------------------------------------------------------
 # mixtral-8x7b: the MoE family served and trained at full width
 # ---------------------------------------------------------------------------
-#: the flash kernels by name (forward sm90 and fma; the sm90 backward's
-#: four kernels; the fma backward's three, with the "<" of their template
-#: arguments, so that no name is a prefix of an sm90 kernel's and a sum
-#: over the names counts each launch once)
-FLASH_KERNEL_NAMES = FWD_KERNELS + ("bwd_delta_sm90", "bwd_dkdv_sm90",
-                                    "bwd_reduce_sm90", BWD_KERNEL,
-                                    "bwd_prep<", "bwd_dkdv<", "bwd_dq<")
-
-
 def _product_role(cfg, shapes, slots: int) -> str:
     """The role of one aten mm / bmm in an MoE step, from its operands'
     shapes: an expert product has a dim of the expert d_ff; dispatch and
@@ -3752,8 +3858,7 @@ def phase_mixtral_serve(torch, cfg, card: str) -> dict:
     through ``ServingEngine`` at the serve phase's geometry, as deep as
     the printed arithmetic lets 90% of the card hold it. Returns the
     kernels' launch counts of the measured run."""
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.models import init_params, layers, prefill_batched
+    from repro_torch.models import init_params, prefill_batched
     from repro_torch.serving import Request, ServingEngine
     t_phase = time.perf_counter()
     _release(torch)
@@ -3796,20 +3901,13 @@ def phase_mixtral_serve(torch, cfg, card: str) -> dict:
     # (a) the measured run on the kernel path
     eng = ServingEngine(deep, params, device="cuda", **GEOMETRY)
     reqs = _requests(Request, deep, 8, seed=0)
-    windows = []
-    mha = layers.multi_head_attention
-
-    def seen(q, k, v, **kw):
-        if q.shape[1] > 1:              # the calls that take the kernel
-            windows.append(kw["window"])
-        return mha(q, k, v, **kw)
-    layers.multi_head_attention = seen
     record = _Steps(eng, reqs)
     try:
-        run = _drain(torch, deep, eng, reqs, "mixtral_serve")
+        with _attention_calls() as calls:
+            run = _drain(torch, deep, eng, reqs, "mixtral_serve")
     finally:
-        layers.multi_head_attention = mha
         record.restore()
+    windows = [c[3] for c in calls]
     s, launches, done = run["stats"], run["launches"], run["done"]
     want = layers_n * s.prefill_calls
     assert launches["flash_attention"] == want > 0, \
@@ -3856,13 +3954,7 @@ def phase_mixtral_serve(torch, cfg, card: str) -> dict:
     _release(torch)
 
     # (c) the same engine on the plain attention path, fed (a)'s tokens
-    def plain_attention(q, k, v, *, causal, window, q_offset=0,
-                        softcap=0.0):
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, softcap=softcap)
-    mha = layers.multi_head_attention
-    layers.multi_head_attention = plain_attention
-    try:
+    with _attention_calls(plain=True):
         reset_counts()
         plain_eng = ServingEngine(deep, params, device="cuda", **GEOMETRY)
         preqs = _requests(Request, deep, 8, seed=0)
@@ -3874,8 +3966,6 @@ def phase_mixtral_serve(torch, cfg, card: str) -> dict:
         finally:
             forced.restore()
         assert read_counts()["flash_attention"] == 0
-    finally:
-        layers.multi_head_attention = mha
     assert plain_eng.stats.leaked_blocks == 0
     assert plain_eng.stats.prefill_calls == s.prefill_calls and \
         plain_eng.stats.decode_steps == s.decode_steps, "admissions differ"
@@ -3930,135 +4020,29 @@ def _same_host(torch, got, host) -> bool:
 PLAN_START = 7
 
 
-def phase_moe_train(torch, cfg, card: str, label: str,
-                    variant: str) -> dict:
-    """An MoE config's SGD step at full width (bf16, random weights from
-    a seed, B=1, S=2048, lr 1e-3, the loss with its router term): (a)
-    eager, in place, as deep as the printed arithmetic lets 90% of the
-    card hold it: L flash forward and L backward launches, all of the
-    kernel ``variant`` and at the config's attention head dim (for MLA
-    q and k at nope + rope, v at its own width); (b) the step traced at
-    the plan
-    depth (its own printed arithmetic: the runtime keeps new parameters
-    and grads as outputs and returns clones of them; the search starts
-    at the deepest L with PLAN_START x P(L) under 90% of the card),
-    partitioned at K=4 under half the card per PE, verified, executed
-    with its PEs folded onto the card: async = sync bit for bit, every
-    leaf within TRAIN_GATE of the eager step. Returns the eager step's
-    launch counts."""
+def _plan_cell(torch, cfg, label: str, batch: dict, L: int, lr: float,
+               card: str, t_phase: float) -> None:
+    """(b) of the training phases that run a plan at full width: the SGD
+    step (``conformance.make_train_step``) at ``L`` layers traced,
+    partitioned at K=4 under half the card per PE, verified and executed
+    with its PEs folded onto the card. Folded onto one card, each PE
+    captures its segments into its own graph pool, which keeps that PE's
+    peak: the card holds the sum of the plan's peaks, and beside it the
+    clones a call returns (new parameters and grads, 2P). Where that is
+    over 90% of the card, a shallower depth (printed), down to 1. Gates: one
+    flash forward and one backward node a layer, one sort and cumsum a
+    MoE layer, no ``select_backward``, no whole-stack op but the
+    restacks, product FLOPs equal to the config's count, async = sync
+    bit for bit, every leaf within TRAIN_GATE of the eager step."""
     from repro_torch import api
     from repro_torch.conformance import make_train_step
     from repro_torch.core.graph import RESIDUAL
     from repro_torch.core.tracing import _functional_graph, op_name
-    from repro_torch.models import init_params, layers as model_layers
-    from repro_torch.models import loss_fn
+    from repro_torch.models import init_params
     from repro_torch.tree import tree_flatten
-    t_phase = time.perf_counter()
-    mla = bool(cfg.kv_lora_rank)
-    hd = cfg.qk_nope_dim + cfg.qk_rope_dim if mla else cfg.head_dim
-    vd = cfg.v_head_dim if mla else hd
-
-    def n_moe(c) -> int:
-        return sum(k.endswith("moe") for k in
-                   list(c.prelude) + list(c.block_pattern) * c.num_periods)
-    _release(torch)
-    B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    B, S = (batch["targets"].shape[0], batch["targets"].shape[1])
     total = torch.cuda.get_device_properties(0).total_memory
-    gb = 1e9
-    batch = _train_batch(torch, cfg, seed=2)
-    group = min(1024, B * S)
-
-    # (a) the eager step, in place
-    def sgd_step(c):
-        p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
-                        "cuda")
-        st = make_train_step(c, lr, in_place=True)
-        return p, lambda: st(p, batch)
-    layers_n, p1, p0 = fit_depth(
-        torch, cfg, label, sgd_step,
-        "2P (parameters and grads; the update in place)")
-    deep = dataclasses.replace(cfg, num_layers=layers_n)
-    params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
-                         "cuda")
-    step = make_train_step(deep, lr, in_place=True)
-    # the loss at init, without a gradient: its cross entropy near ln V;
-    # the router term adds w x aux. aux is E x sum_e (share of the
-    # assignments to e) x (mean probability of e) a layer: K when
-    # balanced, more when the routing is correlated, at most E
-    with torch.no_grad():
-        _, parts = loss_fn(deep, params, batch)
-    ce, aux = float(parts["ce"]), float(parts["aux"])
-    n_layers = n_moe(deep)
-    log(f"{label} eager: at init ce {ce:.4f} (ln {cfg.vocab_size} = "
-        f"{math.log(cfg.vocab_size):.4f}), aux {aux:.4f} over {n_layers} "
-        f"MoE layers ({aux / n_layers:.4f} a layer; K = "
-        f"{cfg.moe.experts_per_token})")
-    assert math.isfinite(aux) and abs(ce - math.log(cfg.vocab_size)) < 2, \
-        f"{label} eager: ce {ce} far from ln V at init"
-    assert cfg.moe.experts_per_token / 2 <= aux / n_layers \
-        <= cfg.moe.num_experts, \
-        f"{label} eager: aux {aux / n_layers} a layer outside [K/2, E]"
-    del parts
-    step(params, batch)                 # warm-up: cuBLAS, the allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    widths = []
-    mha = model_layers.multi_head_attention
-
-    def seen(q, k, v, **kw):
-        widths.append((q.shape[-1], v.shape[-1], kw["window"]))
-        return mha(q, k, v, **kw)
-    model_layers.multi_head_attention = seen
-    reset_counts()
-    t0 = time.perf_counter()
-    try:
-        loss, _ = step(params, batch)
-        torch.cuda.synchronize()
-    finally:
-        model_layers.multi_head_attention = mha
-    first_s = time.perf_counter() - t0
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": layers_n,
-            f"flash_attention/{variant}": layers_n,
-            "flash_attention_bwd": layers_n,
-            f"flash_attention_bwd/{variant}": layers_n, "wkv6": 0}
-    got = {k: launches[k] for k in want}
-    window = None if mla else cfg.sliding_window
-    log(f"{label} eager: flash calls at (q/k head dim, v width as "
-        f"called, window) {sorted(set(widths))} x {len(widths)}")
-    assert widths == [(hd, vd, window)] * layers_n, \
-        f"{label}: attention calls {sorted(set(widths))} x {len(widths)}"
-    log(f"{label} eager: {layers_n} layers, loss after one update "
-        f"{float(loss):.4f} (ce + {cfg.moe.router_aux_weight} x aux), "
-        f"launches {got}, "
-        f"max_memory_allocated {peak / 2**30:.3f} GiB ({peak / gb:.2f} GB),"
-        f" one step {first_s * 1e3:.1f} ms")
-    assert got == want, f"{label} eager: launches {got}, want {want}"
-    assert math.isfinite(float(loss)), f"{label} eager: loss {float(loss)}"
-    step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
-    prof = _moe_profile(torch, f"{label} eager {layers_n} layers "
-                        f"B={B} S={S}", lambda: step(params, batch), deep,
-                        group)
-    flash = prof["roles"]["flash kernels"]
-    log(f"{label} eager: median step {step_ms:.2f} ms, "
-        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
-        f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
-        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); the flash kernels "
-        f"{flash:.3f} ms ({flash / prof['busy_ms']:.1%} of device time); "
-        f"max_memory_allocated {peak / 2**30:.3f} GiB; {card}")
-    del params, step, loss
-    _release(torch)
-
-    # (b) the plan path. Folded onto one card, each PE captures its
-    # segments into its own graph pool, which keeps that PE's peak: the
-    # card holds the sum of the plan's peaks, and beside it the clones a
-    # call returns (new parameters and grads, 2P). The depth is the
-    # deepest from 5 P(L) <= 90% of the card down whose plan fits so.
-    k = 4
-    fit = 0.9 * total
-    L = max([n for n in range(1, layers_n + 1)
-             if PLAN_START * (p0 + n * p1) <= fit] or [1])
+    fit, gb, k = 0.9 * total, 1e9, 4
     while True:
         mid = dataclasses.replace(cfg, num_layers=L)
         params = init_params(mid, torch.Generator(device="cuda")
@@ -4085,7 +4069,9 @@ def phase_moe_train(torch, cfg, card: str, label: str,
             break
         del plan, traced, params, step
         _release(torch)
-        L -= 1
+        # need grows by about a layer's share a layer, on top of a fixed
+        # part: L x fit / need is at or above the deepest depth that fits
+        L = max(1, min(L - 1, int(L * fit / need)))
     g = traced.graph
     names = [n.split(".")[0] for n in g.names]
     dot, want_dot = float(g.op_dot_flops.sum()), \
@@ -4109,7 +4095,9 @@ def phase_moe_train(torch, cfg, card: str, label: str,
         f"product FLOPs {dot:.6g} (from the config {want_dot:.6g})")
     assert names.count("flash_attention") == L and \
         names.count("flash_attention_bwd") == L
-    assert names.count("sort") == names.count("cumsum") == n_moe(mid)
+    n_moe = sum(kind.endswith("moe") for kind in list(mid.prelude)
+                + list(mid.block_pattern) * mid.num_periods)
+    assert names.count("sort") == names.count("cumsum") == n_moe
     assert "select_backward" not in names
     assert whole == ["stack"] * len(stacked), \
         f"whole-stack nodes other than the restacks: {whole}"
@@ -4168,47 +4156,139 @@ def phase_moe_train(torch, cfg, card: str, label: str,
         f"{time.perf_counter() - t_phase:.1f} s; {card}")
     del plan, traced, params, step
     _release(torch)
+
+
+def _hold_moe_init(torch, label: str, cfg, params, batch: dict) -> None:
+    """An MoE config's loss at init, without a gradient: its cross
+    entropy within 2 of ln V, and the router term's aux within [K/2, E]
+    a MoE layer. aux is E x sum_e (share of the assignments to e) x
+    (mean probability of e) a layer: K when balanced, more when the
+    routing is correlated, at most E."""
+    from repro_torch.models import loss_fn
+    n_moe = sum(k.endswith("moe") for k in list(cfg.prelude)
+                + list(cfg.block_pattern) * cfg.num_periods)
+    with torch.no_grad():
+        _, parts = loss_fn(cfg, params, batch)
+    ce, aux = float(parts["ce"]), float(parts["aux"])
+    K, E = cfg.moe.experts_per_token, cfg.moe.num_experts
+    log(f"{label}: at init ce {ce:.4f} (ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f}), aux {aux:.4f} over {n_moe} MoE "
+        f"layers ({aux / n_moe:.4f} a layer; K = {K}, E = {E})")
+    assert math.isfinite(aux) and abs(ce - math.log(cfg.vocab_size)) < 2, \
+        f"{label}: ce {ce} far from ln V at init"
+    assert K / 2 <= aux / n_moe <= E, \
+        f"{label}: aux {aux / n_moe} a layer outside [K/2, E]"
+
+
+def phase_moe_train(torch, cfg, card: str, label: str,
+                    variant: str) -> dict:
+    """An MoE config's SGD step at full width (bf16, random weights from
+    a seed, B=1, S=2048, lr 1e-3, the loss with its router term): (a)
+    eager, in place, as deep as the printed arithmetic lets 90% of the
+    card hold it: L flash forward and L backward launches, all of the
+    kernel ``variant`` and at the config's attention head dim (for MLA
+    q and k at nope + rope, v at its own width); (b) the step traced at
+    the plan
+    depth (its own printed arithmetic: the runtime keeps new parameters
+    and grads as outputs and returns clones of them; the search starts
+    at the deepest L with PLAN_START x P(L) under 90% of the card),
+    partitioned at K=4 under half the card per PE, verified, executed
+    with its PEs folded onto the card: async = sync bit for bit, every
+    leaf within TRAIN_GATE of the eager step. Returns the eager step's
+    launch counts."""
+    from repro_torch.conformance import make_train_step
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    mla = bool(cfg.kv_lora_rank)
+    hd = cfg.qk_nope_dim + cfg.qk_rope_dim if mla else cfg.head_dim
+    vd = cfg.v_head_dim if mla else hd
+    _release(torch)
+    B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    batch = _train_batch(torch, cfg, seed=2)
+    group = min(1024, B * S)
+
+    # (a) the eager step, in place
+    def sgd_step(c):
+        p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                        "cuda")
+        st = make_train_step(c, lr, in_place=True)
+        return p, lambda: st(p, batch)
+    layers_n, p1, p0 = fit_depth(
+        torch, cfg, label, sgd_step,
+        "2P (parameters and grads; the update in place)")
+    deep = dataclasses.replace(cfg, num_layers=layers_n)
+    params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    _hold_moe_init(torch, label, deep, params, batch)
+    window = None if mla else cfg.sliding_window
+    launches = _eager_sgd(
+        torch, deep, label, params, batch, lr, card,
+        {**_flash_want(layers_n, variant), "wkv6": 0},
+        calls=[(hd, vd, True, window)] * layers_n, near_ln_v=False,
+        moe_group=group)["launches"]
+    del params
+    _release(torch)
+
+    # (b) the plan path. Folded onto one card, each PE captures its
+    # segments into its own graph pool, which keeps that PE's peak: the
+    # card holds the sum of the plan's peaks, and beside it the clones a
+    # call returns (new parameters and grads, 2P). The depth is the
+    # deepest from 5 P(L) <= 90% of the card down whose plan fits so.
+    fit = 0.9 * total
+    L = max([n for n in range(1, layers_n + 1)
+             if PLAN_START * (p0 + n * p1) <= fit] or [1])
+    _plan_cell(torch, cfg, label, batch, L, lr, card, t_phase)
     return launches
 
 
 # ---------------------------------------------------------------------------
-# the wide head dims (MLA's 192, gemma3's 256) and the other GQA groups
+# the head dims off 64 and 128 (MLA's 192, gemma3's 256, hubert's 80)
+# and the other GQA groups
 # ---------------------------------------------------------------------------
 #: the wide head dims' shapes on this slice's main paths, in bf16:
-#: (label, B, H, KV, S, q/k head dim, v width, window, backward). v is
-#: read at its own width, as ``apply_mla`` passes it; the sm90 kernels
-#: take it so, the fma kernels zero-pad it (and dO) inside their
+#: (label, B, H, KV, S, q/k head dim, v width, window, causal, backward).
+#: v is read at its own width, as ``apply_mla`` passes it; the sm90
+#: kernels take it so, the fma kernels zero-pad it (and dO) inside their
 #: wrappers. gemma3-1b's 22 local layers run at window 1024 and its 4
 #: global ones at none: a case each (at S = 1024 the window does not
-#: bind; at 2048 the global layers see 1.9x the pairs).
+#: bind; at 2048 the global layers see 1.9x the pairs). hubert-xlarge is
+#: an encoder: every key visible, hd 80 (five 16-column boxes), its
+#: encoder_logits at B=8 and its training step at B=2, S = 4096.
 WIDE_CASES = [
-    ("deepseek train", 1, 16, 16, 2048, 192, 128, None, True),
-    ("gemma3 prefill", 8, 4, 1, 1024, 256, 256, 1024, False),
-    ("gemma3 prefill global", 8, 4, 1, 1024, 256, 256, None, False),
-    ("gemma3 train", 1, 4, 1, 2048, 256, 256, 1024, True),
-    ("gemma3 train global", 1, 4, 1, 2048, 256, 256, None, True),
+    ("deepseek train", 1, 16, 16, 2048, 192, 128, None, True, True),
+    ("gemma3 prefill", 8, 4, 1, 1024, 256, 256, 1024, True, False),
+    ("gemma3 prefill global", 8, 4, 1, 1024, 256, 256, None, True, False),
+    ("gemma3 train", 1, 4, 1, 2048, 256, 256, 1024, True, True),
+    ("gemma3 train global", 1, 4, 1, 2048, 256, 256, None, True, True),
+    ("hubert encoder", 8, 16, 16, 4096, 80, 80, None, False, False),
+    ("hubert train", 2, 16, 16, 4096, 80, 80, None, False, True),
 ]
 #: calls of the sm90 kernels captured in one CUDA graph to time them at
 #: WIDE_CASES (see :func:`graphed`)
 GRAPH_CALLS = 20
-#: the sm90 forward at the prefill shapes of the dense configs whose GQA
-#: group is not 4: qwen2.5-14b (40 / 8 heads, 5) and starcoder2-7b (36 /
-#: 4, 9)
+#: the sm90 forward at the shapes of the configs whose GQA group is not
+#: 4: the prefills of qwen2.5-14b (40 / 8 heads, 5), starcoder2-7b (36 /
+#: 4, 9) and internvl2-1b (14 / 2 heads of 64, 7), and internvl2-1b's
+#: training step (B=2, S = 4096; its backward is a BWD_CASES row)
 GROUP_CASES = [
     ("qwen2.5-14b prefill", (8, 40, 8, 1024, 128, True, None, "bfloat16")),
     ("starcoder2-7b prefill", (8, 36, 4, 1024, 128, True, None,
                                "bfloat16")),
+    ("internvl2-1b prefill", (8, 14, 2, 1024, 64, True, None, "bfloat16")),
+    ("internvl2-1b train", (2, 14, 2, 4096, 64, True, None, "bfloat16")),
 ]
 
 
-def _sdpa(torch, q, k, v, window):
+def _sdpa(torch, q, k, v, window, causal: bool):
     """One SDPA call, PyTorch's own choice of backend, on (B, H, S, hd)
     ``q``, ``k`` and ``v`` (v at its own width, KV heads already
-    repeated), causal; a window goes in as a boolean mask. A yardstick:
-    the port never calls it."""
+    repeated), causal or with every key visible; a window (causal only)
+    goes in as a boolean mask. A yardstick: the port never calls it."""
     import torch.nn.functional as F
-    kw = {"is_causal": True}
+    kw = {"is_causal": causal}
     if window:
+        assert causal, "a window is taken with the causal mask only"
         i = torch.arange(q.shape[2], device=q.device)
         kw = {"attn_mask": (i[None, :] <= i[:, None])
               & (i[None, :] > i[:, None] - window)}
@@ -4234,9 +4314,10 @@ def _wide_ptxas(report: dict, kernels, hd: int, vd: int) -> dict:
 
 
 def phase_wide_head_kernels(torch, ops, ref, build) -> list:
-    """The sm90 flash kernels, forward and backward, at the wide head
-    dims this slice's main paths run (WIDE_CASES: (192, 128) with v at
-    its own width, (256, 256)), against their plain versions (TOL and
+    """The sm90 flash kernels, forward and backward, at the head dims
+    off 64 and 128 that main paths run (WIDE_CASES: (192, 128) with v at
+    its own width, (256, 256), and hubert's (80, 80) with every key
+    visible), against their plain versions (TOL and
     TIGHT forward, BWD_GATE backward), repeated calls bit-equal; each
     timed in turns with the fma kernel it replaces (``earlier_ms``; v
     and dO zero-padded inside its wrapper), its plain version and SDPA
@@ -4252,15 +4333,15 @@ def phase_wide_head_kernels(torch, ops, ref, build) -> list:
     src = "src/repro_torch/kernels/flash_attention/csrc/"
     report = ptxas_report(build, ops, "flash_attention")
     records = []
-    for i, (label, B, H, KV, S, hd, vd, window, backward) in \
+    for i, (label, B, H, KV, S, hd, vd, window, causal, backward) in \
             enumerate(WIDE_CASES):
         g = torch.Generator(device="cuda").manual_seed(500 + i)
 
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda").bfloat16()
         q, k, v = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, vd)
-        kw = dict(causal=True, window=window)
-        shape = (B, H, KV, S, hd, vd, True, window, "bfloat16")
+        kw = dict(causal=causal, window=window)
+        shape = (B, H, KV, S, hd, vd, causal, window, "bfloat16")
         assert ops.select_variant(q.dtype, hd, vd) == "sm90"
         before = dict(counts)
         out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
@@ -4282,7 +4363,7 @@ def phase_wide_head_kernels(torch, ops, ref, build) -> list:
         rep_q = q.transpose(1, 2)
         rep_k = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
         rep_v = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-        sdpa = _sdpa(torch, rep_q, rep_k, rep_v, window)
+        sdpa = _sdpa(torch, rep_q, rep_k, rep_v, window, causal)
         backend = top_kernel(torch, sdpa)
         lib_err = float((sdpa().transpose(1, 2).float()
                          - out.float()).abs().max())
@@ -4292,7 +4373,7 @@ def phase_wide_head_kernels(torch, ops, ref, build) -> list:
                "fma": lambda: ops.run_variant("fma", q, k, v, **kw),
                "plain": lambda: ref.flash_attention_ref(q, k, v, **kw),
                "sdpa": sdpa}
-        pairs = visible_pairs(S, S, True, window)
+        pairs = visible_pairs(S, S, causal, window)
         flops = 2 * B * H * pairs * (hd + vd)
         nbytes = 2 * (B * S * (H + KV) * hd + B * S * (KV + H) * vd)
         ms = timed_turns(torch, fns, reps={"sm90": 1, "sm90 eager": 20,
@@ -4347,7 +4428,7 @@ def phase_wide_head_kernels(torch, ops, ref, build) -> list:
             del want, again, got
             qg, kg, vg = (t.detach().requires_grad_()
                           for t in (rep_q, rep_k, rep_v))
-            lib_out = _sdpa(torch, qg, kg, vg, window)()
+            lib_out = _sdpa(torch, qg, kg, vg, window, causal)()
             dot = do.transpose(1, 2)
 
             def sdpa_bwd():
@@ -4646,7 +4727,7 @@ def _serve_cell(torch, cfg, label: str, variant: str, max_new: int,
     ``max_new`` new each. Every prefill attention call launches the
     ``variant`` kernel at the config's head dim, L per prefill call, at
     the ``windows`` (per layer, in order) given."""
-    from repro_torch.models import init_params, layers as model_layers
+    from repro_torch.models import init_params
     from repro_torch.serving import Request, ServingEngine
     _release(torch)
     t0 = time.perf_counter()
@@ -4666,25 +4747,17 @@ def _serve_cell(torch, cfg, label: str, variant: str, max_new: int,
     del warm
     _release(torch)
     eng = ServingEngine(cfg, params, device="cuda", **GEOMETRY)
-    calls = []
-    mha = model_layers.multi_head_attention
-
-    def seen(q, k, v, **kw):
-        if q.shape[1] > 1:              # the calls that take the kernel
-            calls.append((q.shape[-1], kw["window"]))
-        return mha(q, k, v, **kw)
-    model_layers.multi_head_attention = seen
-    try:
+    with _attention_calls() as calls:
         run = _drain(torch, cfg, eng, _requests(Request, cfg, 8, seed=0,
                                                 max_new=max_new), label)
-    finally:
-        model_layers.multi_head_attention = mha
     L, s = cfg.num_layers, run["stats"]
     want = L * s.prefill_calls
     got = run["launches"]
     assert got["flash_attention"] == got[f"flash_attention/{variant}"] \
         == want > 0, f"{label}: launches {got}, want {want} {variant}"
-    assert calls == [(cfg.head_dim, w) for w in windows] * s.prefill_calls, \
+    hd = cfg.head_dim
+    assert calls == [(hd, hd, True, w) for w in windows] \
+        * s.prefill_calls, \
         f"{label}: flash calls {sorted(set(map(str, calls)))} x {len(calls)}"
     log(f"{label}: {got['flash_attention']} flash launches = {L} layers x "
         f"{s.prefill_calls} prefill calls, all {variant} at hd "
@@ -4703,9 +4776,8 @@ def phase_dense_configs(torch, card: str) -> dict:
     served with a short drain, every prefill launch sm90. Returns
     gemma3's launches by WIDE_CASES record, {(kernel name, case label):
     launches}, split by window."""
-    from repro_torch.conformance import make_train_step
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params, layers as model_layers
+    from repro_torch.models import init_params
     t_phase = time.perf_counter()
     gemma = get_config("gemma3-1b")
     kinds = list(gemma.prelude) + list(gemma.block_pattern) \
@@ -4722,61 +4794,23 @@ def phase_dense_configs(torch, card: str) -> dict:
                  (len(windows) - local) * calls}
 
     # gemma3-1b's SGD step, all 26 layers
-    B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    lr = TRAIN["lr"]
     batch = _train_batch(torch, gemma, seed=4)
     params = init_params(gemma, torch.Generator(device="cuda")
                          .manual_seed(1), "cuda")
-    step = make_train_step(gemma, lr, in_place=True)
-    step(params, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    seen = []
-    mha = model_layers.multi_head_attention
-
-    def spy(q, k, v, **kw):
-        seen.append((q.shape[-1], kw["window"]))
-        return mha(q, k, v, **kw)
-    model_layers.multi_head_attention = spy
-    reset_counts()
-    try:
-        loss, _ = step(params, batch)
-        torch.cuda.synchronize()
-    finally:
-        model_layers.multi_head_attention = mha
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    L = gemma.num_layers
-    want = {"flash_attention": L, "flash_attention/sm90": L,
-            "flash_attention_bwd": L, "flash_attention_bwd/sm90": L}
-    got = {k: launches[k] for k in want}
-    log(f"dense_configs gemma3-1b train: {L} layers, loss "
-        f"{float(loss):.4f} (ln {gemma.vocab_size} = "
-        f"{math.log(gemma.vocab_size):.4f}), launches {got}, "
-        f"max_memory_allocated {peak / 2**30:.3f} GiB")
-    assert got == want, f"gemma3-1b train: launches {got}, want {want}"
+    L, hd = gemma.num_layers, gemma.head_dim
     # one forward call a layer, each launching the forward kernel once
     # and, in the backward pass, the backward kernel once
-    assert seen == [(gemma.head_dim, w) for w in windows], \
-        f"gemma3-1b train: flash calls {seen}"
+    step_ms = _eager_sgd(
+        torch, gemma, "dense_configs gemma3-1b train", params, batch, lr,
+        card, _flash_want(L), calls=[(hd, hd, True, w) for w in windows],
+        reps=5)["step_ms"]
     for name in ("flash_attention", "flash_attention_bwd"):
         split[(name, "gemma3 train")] = local
         split[(name, "gemma3 train global")] = L - local
     log(f"dense_configs gemma3-1b train: {local} of {L} launches each way "
         f"at window {gemma.sliding_window}, {L - local} at none")
-    assert math.isfinite(float(loss)) and \
-        abs(float(loss) - math.log(gemma.vocab_size)) < 2
-    step_ms = _wall_ms(torch, lambda: step(params, batch), n=5)
-    prof = _profile_step(torch, f"gemma3-1b train eager {L} layers B={B} "
-                         f"S={S}", lambda: step(params, batch),
-                         FLASH_KERNEL_NAMES)
-    flash = sum(prof["named_ms"].values())
-    log(f"dense_configs gemma3-1b train: median step {step_ms:.2f} ms, "
-        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
-        f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
-        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); the flash kernels "
-        f"{flash:.3f} ms ({flash / prof['busy_ms']:.1%} of device time); "
-        f"{card}")
-    del params, step, loss, batch
+    del params, batch
     _release(torch)
 
     runs = {}
@@ -5099,8 +5133,7 @@ def phase_jamba_serve(torch, cfg, card: str) -> dict:
     128), none in decode; the first mamba block through the kernel
     against the plain scan (:func:`_hold_mamba_block`). Returns the run's
     launch counts."""
-    from repro_torch.models import (decode_step, init_params,
-                                    layers as model_layers, prefill)
+    from repro_torch.models import decode_step, init_params, prefill
     t_phase = time.perf_counter()
     _release(torch)
     total = torch.cuda.get_device_properties(0).total_memory
@@ -5125,16 +5158,8 @@ def phase_jamba_serve(torch, cfg, card: str) -> dict:
     _greedy(torch, deep, params, tokens[:, :128], 2)     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    widths = []
-    mha = model_layers.multi_head_attention
-
-    def seen(q, k, v, **kw):
-        if q.shape[1] > 1:
-            widths.append((q.shape[-1], v.shape[-1]))
-        return mha(q, k, v, **kw)
-    model_layers.multi_head_attention = seen
     reset_counts()
-    try:
+    with _attention_calls() as widths:
         t0 = time.perf_counter()
         logits, caches = prefill(deep, params, {"tokens": tokens[:, :S]},
                                  S + n_new)
@@ -5152,8 +5177,6 @@ def phase_jamba_serve(torch, cfg, card: str) -> dict:
             step_ms.append((time.perf_counter() - t1) * 1e3)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        model_layers.multi_head_attention = mha
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     gen = torch.stack(out, 1)
@@ -5167,7 +5190,7 @@ def phase_jamba_serve(torch, cfg, card: str) -> dict:
     got = {k: after_prefill[k] for k in want_prefill}
     assert got == want_prefill, \
         f"jamba_serve prefill: launches {got}, want {want_prefill}"
-    assert widths == [(cfg.head_dim, cfg.head_dim)] * n_attn, \
+    assert widths == [(cfg.head_dim, cfg.head_dim, True, None)] * n_attn, \
         f"jamba_serve: flash calls at {widths}"
     want_all = dict(want_prefill, selective_scan=n_scan * n_new,
                     **{"selective_scan/reg": n_scan * n_new})
@@ -5216,7 +5239,7 @@ def phase_jamba_train(torch, cfg, card: str) -> dict:
     Returns the step's launch counts."""
     from repro_torch import api
     from repro_torch.conformance import make_train_step
-    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import init_params
     t_phase = time.perf_counter()
     _release(torch)
     total = torch.cuda.get_device_properties(0).total_memory
@@ -5230,57 +5253,19 @@ def phase_jamba_train(torch, cfg, card: str) -> dict:
         f"{2 * P16 / 1e9:.2f} GB does not fit")
     kinds = list(deep.block_pattern) * deep.num_periods
     n_scan = sum(k.startswith("mamba") for k in kinds)
-    n_attn, n_moe = len(kinds) - n_scan, sum(k.endswith("moe")
-                                              for k in kinds)
+    n_attn = len(kinds) - n_scan
     params = init_params(deep, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     batch = _train_batch(torch, cfg, seed=2)
     B, S = TRAIN["batch"], TRAIN["seq"]
-    step = make_train_step(deep, TRAIN["lr"], in_place=True)
-    with torch.no_grad():
-        _, parts = loss_fn(deep, params, batch)
-    ce, aux = float(parts["ce"]), float(parts["aux"])
-    log(f"jamba_train: at init ce {ce:.4f} (ln {cfg.vocab_size} = "
-        f"{math.log(cfg.vocab_size):.4f}), aux {aux:.4f} over {n_moe} MoE "
-        f"layers ({aux / n_moe:.4f} a layer; K = "
-        f"{cfg.moe.experts_per_token}, E = {cfg.moe.num_experts})")
-    assert abs(ce - math.log(cfg.vocab_size)) < 2, \
-        f"jamba_train: ce {ce} far from ln V at init"
-    assert cfg.moe.experts_per_token / 2 <= aux / n_moe \
-        <= cfg.moe.num_experts, f"jamba_train: aux {aux / n_moe} a layer"
-    del parts
-    step(params, batch)                        # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    loss, _ = step(params, batch)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    _hold_moe_init(torch, "jamba_train", deep, params, batch)
     want = {"selective_scan": n_scan, "selective_scan_bwd": n_scan,
             "selective_scan/reg": n_scan, "selective_scan/lane": 0,
             "selective_scan_bwd/reg": n_scan, "selective_scan_bwd/lane": 0,
-            "flash_attention": n_attn, "flash_attention/sm90": n_attn,
-            "flash_attention_bwd": n_attn,
-            "flash_attention_bwd/sm90": n_attn}
-    got = {k: launches[k] for k in want}
-    log(f"jamba_train eager: {L} layers, loss after one update "
-        f"{float(loss):.4f}, launches {got}, max_memory_allocated "
-        f"{peak / 2**30:.3f} GiB ({peak / 1e9:.2f} GB, measured at {L} "
-        f"layers), one step {first_s * 1e3:.1f} ms")
-    assert got == want, f"jamba_train: launches {got}, want {want}"
-    assert math.isfinite(float(loss)), f"jamba_train: loss {float(loss)}"
-    step_ms = _wall_ms(torch, lambda: step(params, batch), n=3)
-    prof = _moe_profile(torch, f"jamba_train eager {L} layers B={B} S={S}",
-                        lambda: step(params, batch), deep, min(1024, B * S))
-    log(f"jamba_train eager: median step {step_ms:.2f} ms, "
-        f"{B * S / step_ms * 1e3:.1f} tokens/s; device busy "
-        f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
-        f"({prof['busy_ms'] / prof['wall_ms']:.1%}); max_memory_allocated "
-        f"{peak / 2**30:.3f} GiB; {card}")
-    del step, loss
+            **_flash_want(n_attn)}
+    launches = _eager_sgd(torch, deep, "jamba_train", params, batch,
+                          TRAIN["lr"], card, want, near_ln_v=False,
+                          moe_group=min(1024, B * S))["launches"]
 
     # the plan: traced on fake tensors, partitioned, verified, not executed
     k = 4
@@ -5324,13 +5309,284 @@ def phase_jamba_train(torch, cfg, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the configs with a stubbed frontend: hubert-xlarge and internvl2-1b
+# ---------------------------------------------------------------------------
+#: hubert-xlarge's cells: encoder_logits at B=8 and the SGD step at B=2
+#: (the reference's train_4k length), S = 4096, all 48 layers
+HUBERT = dict(prefill_batch=8, train_batch=2, seq=4096, lr=1e-3)
+#: internvl2-1b's cells, all 24 layers: a prefill of B=8 x (256 patch
+#: embeddings + 768 prompt tokens), 31 greedy decode steps fed tokens
+#: (max_len 1056); the SGD step at B=2, S = 4096
+INTERNVL = dict(batch=8, patches=256, prompt=1024, new=32, train_batch=2,
+                seq=4096, lr=1e-3)
+#: a main path through the flash kernels against the same path with the
+#: plain attention in their place, bf16: max |diff| over max |plain| of
+#: the logits. The two differ by the kernels' rounding of each layer's
+#: attention output (about one bf16 step, 2^-8) grown through the
+#: layers. A smoke check beside the per-kernel gates, which hold the
+#: kernels themselves: hubert's phase reads a control (the plain path
+#: with a causal mask planted) and fails unless the control exceeds it
+PATH_GATE = 2.0 ** -4
+
+
+def _path_err(cfg, got, want) -> float:
+    """max |got - want| over max |want| of two logits tensors, over the
+    vocabulary's columns (the padding columns are -inf in both)."""
+    got, want = (t[..., :cfg.vocab_size].float() for t in (got, want))
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def phase_hubert(torch, cfg, card: str) -> dict:
+    """hubert-xlarge at full width and depth (48 layers, bf16, random
+    weights from a seed, frame embeddings from a seed; every attention
+    call non-causal at (80, 80)): (i) ``encoder_logits`` through
+    ``train.build_prefill_step`` at B=8, S=4096: 48 sm90 forward
+    launches, no fma, logits finite and, on all 8 rows, within PATH_GATE
+    of the same path through the plain attention, while the plain path
+    with a causal mask planted is not; (ii) eager SGD in place at
+    B=2, S=4096 (B lowered only where fit_depth's printed arithmetic says
+    the step does not fit at 48 layers): 48 sm90 forward and 48 sm90
+    backward launches a step, 0 fma (asserted); (iii) the step traced,
+    partitioned at K=4, verified and executed with its PEs folded onto
+    the card (:func:`_plan_cell`: full depth when the plan's summed peaks
+    and clones fit 90% of the card, else the deepest depth that does,
+    printed). Returns the launches by WIDE_CASES record."""
+    from repro_torch.conformance import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.train import build_prefill_step
+    t_phase = time.perf_counter()
+    _release(torch)
+    L, hd, S, lr = cfg.num_layers, cfg.head_dim, HUBERT["seq"], HUBERT["lr"]
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    log(f"hubert: {L} layers, d_model {cfg.d_model}, {cfg.num_heads} heads "
+        f"of {hd}, d_ff {cfg.d_ff}, {cfg.vocab_size} targets, "
+        f"{cfg.param_count() / 1e9:.3f} B params "
+        f"({_param_bytes(params) / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (i) encoder_logits, the encoder-only prefill step
+    B = HUBERT["prefill_batch"]
+    frames = {"embeds": _train_batch(torch, cfg, 5, B, S)["embeds"]}
+    prefill_step = build_prefill_step(cfg, max_len=S, device="cuda")
+    prefill_step(params, frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with _attention_calls() as calls:
+        logits, caches = prefill_step(params, frames)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": L, "flash_attention/sm90": L,
+            "flash_attention/fma": 0, "flash_attention_bwd": 0}
+    got = {k: launches[k] for k in want}
+    assert got == want, f"hubert encoder: launches {got}, want {want}"
+    _under_card(torch, "hubert encoder", peak)
+    assert calls == [(hd, hd, False, None)] * L, \
+        f"hubert encoder: flash calls {sorted(set(calls))} x {len(calls)}"
+    assert caches is None and logits.dtype == torch.float32 and \
+        logits.shape == (B, S, cfg.padded_vocab) and \
+        bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()), \
+        "hubert encoder: logits"
+    ms = _wall_ms(torch, lambda: prefill_step(params, frames), n=3)
+    prof = _profile_step(torch, f"hubert encoder_logits {L} layers B={B} "
+                         f"S={S}", lambda: prefill_step(params, frames),
+                         FLASH_KERNEL_NAMES)
+    flash = sum(prof["named_ms"].values())
+    log(f"hubert encoder: {L} sm90 forward launches a call at ({hd}, {hd}), "
+        f"non-causal, 0 fma; median {ms:.2f} ms, {B * S / ms * 1e3:.1f} "
+        f"frames/s; device busy {prof['busy_ms']:.2f} of "
+        f"{prof['wall_ms']:.2f} ms ({prof['busy_ms'] / prof['wall_ms']:.1%})"
+        f"; the flash kernels {flash:.3f} ms ({flash / prof['busy_ms']:.1%}"
+        f" of device time); max_memory_allocated {peak / 2**30:.3f} GiB; "
+        f"{card}")
+    # the counted call's logits against the plain attention path, a row
+    # at a time (the plain version holds each layer's scores in float32);
+    # the control: the plain path with the causal mask planted, a fault a
+    # kernel could make, which the gate must see
+    with _attention_calls(plain=True):
+        plain_logits = torch.cat([prefill_step(
+            params, {"embeds": frames["embeds"][b:b + 1]})[0]
+            for b in range(B)])
+    err = _path_err(cfg, logits, plain_logits)
+    with _attention_calls(plain=True, causal=True):
+        fault = prefill_step(params, {"embeds": frames["embeds"][:1]})[0]
+    control = _path_err(cfg, fault, plain_logits[:1])
+    log(f"hubert encoder: the {B} rows through the kernels against the "
+        f"plain attention, {L} layers: max |diff| / max |plain| {err:.3g} "
+        f"(gate {PATH_GATE:.3g}); control, the plain path with a causal "
+        f"mask planted, one row: {control:.3g}")
+    assert err <= PATH_GATE, f"hubert encoder: kernel path off by {err}"
+    assert control > PATH_GATE, \
+        f"hubert encoder: the gate does not see a planted mask ({control})"
+    del frames, logits, plain_logits, fault
+    _release(torch)
+
+    # (ii) the eager SGD step, in place, at the deepest B <= 2 that holds
+    # all 48 layers by the printed arithmetic
+    for B in range(HUBERT["train_batch"], 0, -1):
+        batch = _train_batch(torch, cfg, 6, B, S)
+
+        def sgd_step(c):
+            p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                            "cuda")
+            st = make_train_step(c, lr, in_place=True)
+            return p, lambda: st(p, batch)
+        fits, p1, p0 = fit_depth(torch, cfg, f"hubert train B={B}",
+                                 sgd_step, "2P (parameters and grads; the "
+                                 "update in place)")
+        if fits >= L or B == 1:
+            break
+    assert fits >= L, f"hubert train: {fits} of {L} layers fit at B=1"
+    train = _eager_sgd(torch, cfg, "hubert train", params, batch, lr, card,
+                       _flash_want(L),
+                       calls=[(hd, hd, False, None)] * L)["launches"]
+    del params
+    _release(torch)
+
+    # (iii) the plan path
+    _plan_cell(torch, cfg, "hubert train", batch, L, lr, card, t_phase)
+    return {("flash_attention", "hubert encoder"): launches[
+                "flash_attention"],
+            ("flash_attention", "hubert train"): train["flash_attention"],
+            ("flash_attention_bwd", "hubert train"):
+                train["flash_attention_bwd"]}
+
+
+def phase_internvl(torch, cfg, card: str) -> None:
+    """internvl2-1b at full width and depth (24 layers, bf16, random
+    weights from a seed; the vision frontend stubbed): (i) ``prefill``
+    of B=8 x 1024 embeddings, 256 patch embeddings from a seed and then
+    768 prompt tokens embedded by the model's table, into caches of
+    1056: 24 sm90 forward launches at (64, 64), causal, GQA group 7, no
+    fma; the last logits within PATH_GATE of the same prefill through the
+    plain attention; (ii) 31 greedy ``decode_step`` calls fed the tokens
+    (the paged engine refuses a non-token frontend, as the reference's
+    does): no flash launch, tokens in range; tok/s, TTFT, decode ms,
+    peak memory, device busy and the flash kernels' time; (iii) the SGD
+    step in place at B=2, S=4096: 24 sm90 forward and 24 sm90 backward
+    launches, 0 fma (asserted)."""
+    from repro_torch.models import decode_step, init_params, prefill
+    t_phase = time.perf_counter()
+    _release(torch)
+    L, hd = cfg.num_layers, cfg.head_dim
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    log(f"internvl: {L} layers, d_model {cfg.d_model}, {cfg.num_heads} / "
+        f"{cfg.num_kv_heads} heads of {hd}, vocab {cfg.vocab_size}, tied "
+        f"embeddings, {cfg.param_count() / 1e9:.3f} B params "
+        f"({_param_bytes(params) / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    B, S, P, n_new = (INTERNVL["batch"], INTERNVL["prompt"],
+                      INTERNVL["patches"], INTERNVL["new"])
+    g = torch.Generator(device="cuda").manual_seed(7)
+    patches = (torch.randn((B, P, cfg.d_model), generator=g, device="cuda")
+               * 0.02).bfloat16()
+    prompt = torch.randint(1, cfg.vocab_size, (B, S - P), generator=g,
+                           device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        embeds = torch.cat([patches, params["embed"][prompt.long()]], 1)
+        for _ in range(2):              # warm-up
+            prefill(cfg, params, {"embeds": embeds}, S + n_new)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with _attention_calls() as calls:
+            t0 = time.perf_counter()
+            logits, caches = prefill(cfg, params, {"embeds": embeds},
+                                     S + n_new)
+            out = [logits[:, -1].argmax(-1)]
+            out[-1].cpu()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            after_prefill = read_counts()
+            step_ms = []
+            for i in range(n_new - 1):
+                t1 = time.perf_counter()
+                logits, caches = decode_step(cfg, params, caches,
+                                             out[-1][:, None].int(), S + i)
+                out.append(logits[:, -1].argmax(-1))
+                out[-1].cpu()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        gen = torch.stack(out, 1)
+        assert gen.shape == (B, n_new) and bool(
+            ((gen >= 0) & (gen < cfg.vocab_size)).all())
+        assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()), \
+            "internvl: logits"
+        want = {"flash_attention": L, "flash_attention/sm90": L,
+                "flash_attention/fma": 0}
+        got = {k: after_prefill[k] for k in want}
+        assert got == want, f"internvl prefill: launches {got}, want {want}"
+        _under_card(torch, "internvl serve", peak)
+        assert calls == [(hd, hd, True, None)] * L, \
+            f"internvl: flash calls {sorted(set(calls))} x {len(calls)}"
+        assert launches["flash_attention"] == L, \
+            "internvl: a decode step launched the flash kernel"
+        log(f"internvl serve: {B} requests x ({P} patch embeddings + "
+            f"{S - P} prompt tokens), {B * n_new} tokens generated in "
+            f"{wall:.3f} s -> {B * n_new / wall:.1f} tok/s; prefill (= TTFT)"
+            f" {prefill_ms:.1f} ms with {L} sm90 launches at ({hd}, {hd}), "
+            f"causal, GQA group {cfg.num_heads // cfg.num_kv_heads}, 0 fma; "
+            f"{n_new - 1} decode steps, median "
+            f"{statistics.median(step_ms):.2f} ms (min {min(step_ms):.2f}, "
+            f"max {max(step_ms):.2f}), no flash launch; max_memory_allocated"
+            f" {peak / 2**30:.2f} GiB; {card}")
+        first = prefill(cfg, params, {"embeds": embeds}, S + n_new)[0]
+        with _attention_calls(plain=True):
+            plain = prefill(cfg, params, {"embeds": embeds}, S + n_new)[0]
+        err = _path_err(cfg, first, plain)
+        same = int((first[:, -1].argmax(-1) == plain[:, -1].argmax(-1))
+                   .sum())
+        log(f"internvl prefill: through the kernels against the plain "
+            f"attention, {L} layers: max |diff| / max |plain| of the last "
+            f"logits {err:.3g} (gate {PATH_GATE:.3g}); first tokens equal "
+            f"on {same} of {B} rows")
+        assert err <= PATH_GATE, f"internvl prefill: kernel path off by {err}"
+        del first, plain
+        prof = _profile_step(torch, f"internvl prefill B={B} S={S} ({L} "
+                             f"layers)", lambda: prefill(
+                                 cfg, params, {"embeds": embeds}, S + n_new),
+                             FLASH_KERNEL_NAMES)
+        flash = sum(prof["named_ms"].values())
+        log(f"internvl prefill: device busy {prof['busy_ms']:.2f} of "
+            f"{prof['wall_ms']:.2f} ms "
+            f"({prof['busy_ms'] / prof['wall_ms']:.1%}); the flash kernels "
+            f"{flash:.3f} ms ({flash / prof['busy_ms']:.1%} of device time)")
+        tok = gen[:, -1:].int()
+        _profile_step(torch, f"internvl decode step B={B} ({L} layers)",
+                      lambda: decode_step(cfg, params, caches, tok, S),
+                      FLASH_KERNEL_NAMES)
+    del embeds, caches, logits, patches, prompt
+    _release(torch)
+
+    # (iii) the eager SGD step at B=2, S=4096
+    batch = _train_batch(torch, cfg, 8, INTERNVL["train_batch"],
+                         INTERNVL["seq"])
+    _eager_sgd(torch, cfg, "internvl train", params, batch, INTERNVL["lr"],
+               card, _flash_want(L), calls=[(hd, hd, True, None)] * L)
+    del params, batch
+    _release(torch)
+    log(f"internvl: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
           "plan_execute", "plan_serve", "train_kernels", "train",
           "calibrate", "rwkv_train_kernels", "rwkv_train", "launch_train",
           "mixtral_serve", "mixtral_train", "wide_head_kernels",
           "deepseek_serve", "deepseek_train", "dense_configs",
-          "ssm_kernels", "jamba_serve", "jamba_train")
+          "ssm_kernels", "jamba_serve", "jamba_train", "hubert",
+          "internvl")
 
 
 class _Timed:
@@ -5516,6 +5772,15 @@ def main(argv=None) -> int:
             r[key] = launches[r["name"]]
             r["variant_" + key] = {
                 v: launches[f"{r['name']}/{v}"] for v in sops.VARIANTS}
+    if "hubert" in phases:
+        with _Timed("hubert"):
+            hubert = phase_hubert(torch, get_config("hubert-xlarge"), card)
+        for key, n in hubert.items():
+            if key in wide:
+                wide[key]["launches"] = n
+    if "internvl" in phases:
+        with _Timed("internvl"):
+            phase_internvl(torch, get_config("internvl2-1b"), card)
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record, rwkv_bwd_record)

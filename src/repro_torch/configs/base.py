@@ -2,10 +2,9 @@
 
 One ``ModelConfig`` describes an architecture through a per-period
 ``block_pattern`` of layer kinds; the model stacks ``num_periods``
-periods of it after an optional ``prelude``. So far the port runs the
-``attn``, ``swa``, ``attn_moe``, ``swa_moe``, ``mla``, ``mla_moe`` and
-``rwkv`` kinds; the other kinds are listed so that a config reads the
-same as in the reference.
+periods of it after an optional ``prelude``. The port runs every kind
+below. ``ShapeConfig``, ``SHAPES`` and ``shape_skip_reason`` are the
+assignment's shape table and its skip rules.
 
 Layer kinds (entries of ``block_pattern``):
   "attn"        — global attention (GQA) + dense MLP
@@ -233,3 +232,35 @@ def reduced(cfg: ModelConfig, layers: int | None = None) -> ModelConfig:
     if cfg.rwkv is not None:
         kw["rwkv"] = dataclasses.replace(cfg.rwkv, head_dim=16, lora_w=8)
     return dataclasses.replace(cfg, **kw).validate()
+
+
+# ---------------------------------------------------------------- shapes
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> str | None:
+    """Why the (arch, shape) cell is skipped, or None: an encoder-only
+    arch has no decode step, and a 500k context needs sub-quadratic
+    attention (the reference's rules, word for word)."""
+    if cfg.encoder_only and shape.kind == "decode":
+        return "encoder-only arch has no decode step"
+    if shape.name == "long_500k":
+        sub_quadratic = any(
+            b.startswith(("swa", "mamba", "rwkv"))
+            for b in cfg.block_pattern + cfg.prelude)
+        if not sub_quadratic:
+            return "pure full-attention arch; 500k needs sub-quadratic attention"
+    return None

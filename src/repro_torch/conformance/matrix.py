@@ -103,18 +103,25 @@ def reduced_config(spec: ArchSpec):
 
 
 def example_batch(cfg, spec: ArchSpec, device=None) -> dict:
-    """Random int32 tokens and targets of (spec.batch, spec.seq) in
-    [0, vocab), drawn from a generator seeded with ``spec.seed`` on
-    ``device``. The stream differs from the reference's ``jax.random``;
-    the tests carry the reference's batch across as numpy instead."""
+    """Random int32 targets of (spec.batch, spec.seq) in [0, vocab) and
+    the inputs: int32 tokens of the same shape and range or, for a
+    config with a stubbed frontend, float32 embeds (spec.batch,
+    spec.seq, d_model) of standard normals times 0.1; drawn from a
+    generator seeded with ``spec.seed`` on ``device``. The stream differs
+    from the reference's ``jax.random``; the tests carry the reference's
+    batch across as numpy instead."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(spec.seed)
     shape = (spec.batch, spec.seq)
-    tokens = torch.randint(0, cfg.vocab_size, shape, generator=g,
-                           device=dev, dtype=torch.int32)
+    if cfg.frontend is not None:
+        x = {"embeds": torch.randn((*shape, cfg.d_model), generator=g,
+                                   device=dev) * 0.1}
+    else:
+        x = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=g,
+                                     device=dev, dtype=torch.int32)}
     targets = torch.randint(0, cfg.vocab_size, shape, generator=g,
                             device=dev, dtype=torch.int32)
-    return {"tokens": tokens, "targets": targets}
+    return {**x, "targets": targets}
 
 
 def make_train_step(cfg, lr: float = 1e-3, *, return_grads: bool = False,
@@ -146,7 +153,10 @@ def make_train_step(cfg, lr: float = 1e-3, *, return_grads: bool = False,
         req = [t.detach().requires_grad_() for t in leaves]
         with torch.enable_grad():
             loss, _ = loss_fn(cfg, tree_unflatten(structure, req), batch)
-            flat_grads = torch.autograd.grad(loss, req)
+            # a leaf the loss does not read (hubert's token embedding,
+            # fed frame embeddings) gets zeros, as jax.grad gives it
+            flat_grads = torch.autograd.grad(loss, req,
+                                             materialize_grads=True)
         if in_place:
             flat_grads = list(flat_grads)
             with torch.no_grad():

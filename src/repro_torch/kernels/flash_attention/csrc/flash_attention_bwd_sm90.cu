@@ -3,11 +3,11 @@
 // the forward, warp-specialised persistent blocks with a balanced walk.
 // bf16 q, k, v, o and dO, templated on the q/k head dim DQK and the v
 // width DV and instantiated at (64, 64), (128, 128), (192, 128) (MLA,
-// v read at its own 128) and (256, 256) (repro_flash_attention_bwd_sm90
-// refuses other pairs). Two earlier designs compute the same function
-// and stay as the comparison: flash_attention_bwd_mma.cu (mma.sync, v as
-// wide as q) and flash_attention_bwd.cu (float32 FMAs; float32 and the
-// other shapes).
+// v read at its own 128), (256, 256) and (80, 80) (hubert-xlarge;
+// repro_flash_attention_bwd_sm90 refuses other pairs). Two earlier
+// designs compute the same function and stay as the comparison:
+// flash_attention_bwd_mma.cu (mma.sync, v as wide as q) and
+// flash_attention_bwd.cu (float32 FMAs; float32 and the other shapes).
 //
 // The gradient of the forward kernels in this folder, which replace the
 // Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py:94 (the
@@ -85,8 +85,18 @@
 //   224 registers, as at hd 128. One K and one V tile of 32 KB, ring
 //   stages of 64 KB, 2 of them. This also doubles the items: gemma3's
 //   training shape (B=1, H=4, S=2048) has 128 of them for 132 SMs.
-//   ptxas: (b') spills 164 bytes a thread at (192, 128) and 36 at (128,
-//   128); (b') at (256, 256), (d') and (a'), (c') at every shape none.
+//   ptxas: (b') spills 164 bytes a thread at (192, 128), 40 at (80, 80)
+//   and 36 at (128, 128); (b') at (256, 256), (d') and (a'), (c') at
+//   every shape none.
+// * hd 80 (no multiple of 64): every tile is five boxes of 16 columns in
+//   32-byte swizzle (box_cols in sm90_ptx.cuh), one layout over all 80
+//   columns. The score products take 5 k-steps, one a box; dV, dK and dQ
+//   are one m64n80k16 a k-step, whose MN-major descriptor steps from box
+//   to box by its lbo. Nothing is padded: the float32 partials and dQ
+//   are stored at the real width 80. A (b') consumer holds dK and dV (40
+//   + 40 a thread) beside S^T, dP^T (32 + 32): 64-query slices, one
+//   consumer a tile, as at hd 64 and 128. (a') gives a row 16 lanes, 10
+//   of which read its 80 columns.
 // * Tiles wholly outside the causal cone or the window are never loaded;
 //   a consumer waits for and releases the tiles none of its rows sees.
 //   Per-element masks run only on tiles that cross the diagonal or the
@@ -113,8 +123,6 @@ constexpr int PRODUCER_WARP = 4 * NCW;    // its first warp
 // (setmaxnreg): 128 x (2 x 240 + 24) = 64,512 of the SM's 65,536
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
-constexpr int BOX = 64;               // bf16 in one 128-byte swizzled row
-constexpr uint32_t TILE_BOX = BM * 128;   // one 64-row box of 64 columns
 constexpr int MAX_STAGES = 4;
 constexpr int PAD = 128;              // row padding of the statistics
 constexpr float LOG2E = 1.4426950408889634f;
@@ -140,6 +148,17 @@ struct Params {
   long long dq_sb, dq_ss, dq_sh;
 };
 
+// A tile's boxes of EB columns (sm90_ptx.cuh: box_cols): rows of RB
+// bytes, KPB k16-steps a box, TILE bytes a 64-row box.
+template <int EB>
+struct Box {
+  static constexpr int RB = 2 * EB;
+  static constexpr int KPB = EB / 16;
+  static constexpr uint32_t TILE = BM * RB;
+  static constexpr uint32_t SBO = 8 * RB;             // the next 8 rows
+  static constexpr uint64_t CODE = swizzle_code(EB);
+};
+
 // How a (DQK, DV) pair is cut (see the header): CS consumers share one
 // 64-row tile and split the gradient's columns (2 at (256, 256), else
 // 1: each consumer its own 64 rows), and (b') takes its query tiles in
@@ -150,9 +169,13 @@ struct Shape {
   static constexpr int QS = CS == 1 && DQK + DV > 256 ? 32 : 64;
   static constexpr int ROWS = NCW * BM / CS;   // keys / queries an item
   static constexpr int TILES = NCW / CS;       // its 64-row tiles
-  static constexpr int KBOX = DQK / BOX, VBOX = DV / BOX;
-  static constexpr uint32_t TILE_QK = KBOX * TILE_BOX;   // 64 rows x DQK
-  static constexpr uint32_t TILE_V = VBOX * TILE_BOX;    // 64 rows x DV
+  static constexpr int EB = box_cols(DQK, DV);
+  using X = Box<EB>;
+  static_assert(DQK % (EB * CS) == 0 && DV % (EB * CS) == 0,
+                "every consumer's columns in whole boxes");
+  static constexpr int KBOX = DQK / EB, VBOX = DV / EB;
+  static constexpr uint32_t TILE_QK = KBOX * X::TILE;   // 64 rows x DQK
+  static constexpr uint32_t TILE_V = VBOX * X::TILE;    // 64 rows x DV
   // columns of dK or dQ, and of dV, one consumer owns
   static constexpr int CQK = DQK / CS, CV = DV / CS;
 };
@@ -303,48 +326,55 @@ __device__ __forceinline__ bool visible(const Params& p, int q, int k) {
   return ok;
 }
 
-// A 64 x N product (N 64 or 32) of two [row][d] tiles over D columns,
-// both K-major: D / 16 k-steps of 32 bytes, 4 per 128-byte box. C = A B^T;
-// b may start at any multiple of 8 rows of its tile.
-template <int D, int N>
+// A 64 x N product (N 64 or 32) of two [row][d] tiles over D columns in
+// boxes of EB, both K-major: D / 16 k-steps of 32 bytes, 4 per 128-byte
+// box or 1 per 32-byte box. C = A B^T; b may start at any multiple of 8
+// rows of its tile.
+template <int D, int N, int EB>
 __device__ __forceinline__ void issue_ss(float (&c)[N / 2], uint32_t a,
                                          uint32_t b) {
+  using X = Box<EB>;
 #pragma unroll
   for (int k = 0; k < D / 16; ++k) {
-    const uint32_t off = (k / 4) * TILE_BOX + (k % 4) * 32;
+    const uint32_t off = (k / X::KPB) * X::TILE + (k % X::KPB) * 32;
     if constexpr (N == 64)
-      wgmma_ss_m64n64k16(c, make_desc(a + off, 16, 1024),
-                         make_desc(b + off, 16, 1024), k > 0);
+      wgmma_ss_m64n64k16(c, make_desc(a + off, 16, X::SBO, X::CODE),
+                         make_desc(b + off, 16, X::SBO, X::CODE), k > 0);
     else
-      wgmma_ss_m64n32k16(c, make_desc(a + off, 16, 1024),
-                         make_desc(b + off, 16, 1024), k > 0);
+      wgmma_ss_m64n32k16(c, make_desc(a + off, 16, X::SBO, X::CODE),
+                         make_desc(b + off, 16, X::SBO, X::CODE), k > 0);
   }
 }
 
 // C[64 x N] += A[64 x 16 KS] T, A from registers (KS k-steps of 16 rows
-// of T), T N columns of a [row][d] tile read MN-major: 16 rows of 128
-// bytes per k-step, the next 64 columns one box further. At N 192 two
-// products, n128 into c[0, 64) and n64 into c[64, 96): the accumulator
-// fragment of columns [128, 192) starts at register 64.
-template <int N, int KS>
+// of T), T N columns of a [row][d] tile in boxes of EB read MN-major: 16
+// rows of the box per k-step, the next box (64 or 16 columns) lbo
+// further. At N 192 two products, n128 into c[0, 64) and n64 into c[64,
+// 96): the accumulator fragment of columns [128, 192) starts at register
+// 64.
+template <int N, int KS, int EB>
 __device__ __forceinline__ void issue_rs(float (&c)[N / 2],
                                          const uint32_t (&a)[KS][4],
                                          uint32_t t) {
+  using X = Box<EB>;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const uint64_t desc = make_desc(t + kk * 16 * 128, TILE_BOX, 1024);
+    const uint64_t desc =
+        make_desc(t + kk * 16 * X::RB, X::TILE, X::SBO, X::CODE);
     if constexpr (N == 64) {
       wgmma_rs_m64n64k16(c, a[kk], desc);
+    } else if constexpr (N == 80) {
+      wgmma_rs_m64n80k16(c, a[kk], desc);
     } else if constexpr (N == 128) {
       wgmma_rs_m64n128k16(c, a[kk], desc);
     } else {
-      static_assert(N == 192, "issue_rs: N is 64, 128 or 192");
+      static_assert(N == 192, "issue_rs: N is 64, 80, 128 or 192");
       float(&c0)[64] = *reinterpret_cast<float(*)[64]>(&c[0]);
       float(&c1)[32] = *reinterpret_cast<float(*)[32]>(&c[64]);
       wgmma_rs_m64n128k16(c0, a[kk], desc);
-      wgmma_rs_m64n64k16(
-          c1, a[kk],
-          make_desc(t + 2 * TILE_BOX + kk * 16 * 128, TILE_BOX, 1024));
+      wgmma_rs_m64n64k16(c1, a[kk],
+                         make_desc(t + 2 * X::TILE + kk * 16 * X::RB,
+                                   X::TILE, X::SBO, X::CODE));
     }
   }
 }
@@ -423,7 +453,15 @@ __device__ __forceinline__ void dscores_t(const float (&s)[N / 2],
 }
 
 // ---------------------------------------------------------------- (a')
-// One row per D / 8 lanes, 16 bytes a lane; D is v's width.
+// Lanes a row: D / 8 (16 bytes a lane; D is v's width) rounded up to a
+// power of two, so that a row's lanes sit in one warp and sum by
+// shuffles; the lanes past D / 8 (6 of 16 at D 80) read nothing.
+__host__ __device__ constexpr int delta_lanes(int d) {
+  int n = 1;
+  while (n < d / 8) n *= 2;
+  return n;
+}
+
 template <int D>
 __global__ void __launch_bounds__(256)
     bwd_delta_sm90(const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -431,7 +469,7 @@ __global__ void __launch_bounds__(256)
                    float* __restrict__ delta, int B, int H, int Sq,
                    int sq_pad, long long o_sb, long long o_ss, long long o_sh,
                    long long do_sb, long long do_ss, long long do_sh) {
-  constexpr int LPR = D / 8;
+  constexpr int LPR = delta_lanes(D);
   const long long row =
       (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / LPR;
   const int j = threadIdx.x % LPR;
@@ -440,7 +478,7 @@ __global__ void __launch_bounds__(256)
   const int bh = static_cast<int>(row / sq_pad);
   const int b = bh / H, h = bh % H;
   float dot = 0.f;
-  if (row < rows && q < Sq) {
+  if (row < rows && q < Sq && 8 * j < D) {
     const uint4 ov = *reinterpret_cast<const uint4*>(
         o + b * o_sb + q * o_ss + h * o_sh + 8 * j);
     const uint4 gv = *reinterpret_cast<const uint4*>(
@@ -474,6 +512,7 @@ __global__ void __launch_bounds__(NT, 1)
                   const __grid_constant__ CUtensorMap tm_do, const Params p) {
   using L = KVLayout<DQK, DV>;
   using S = Shape<DQK, DV>;
+  using X = typename S::X;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -516,11 +555,11 @@ __global__ void __launch_bounds__(NT, 1)
         mbar_arrive_expect_tx(kv_full, nk * (S::TILE_QK + S::TILE_V));
         for (int c = 0; c < nk; ++c) {
           for (int x = 0; x < S::KBOX; ++x)
-            tma_load_4d(base + c * S::TILE_QK + x * TILE_BOX, &tm_k, kv_full,
-                        x * BOX, it.k0 + c * BM, kvh, it.b);
+            tma_load_4d(base + c * S::TILE_QK + x * X::TILE, &tm_k, kv_full,
+                        x * S::EB, it.k0 + c * BM, kvh, it.b);
           for (int x = 0; x < S::VBOX; ++x)
-            tma_load_4d(base + L::V_OFF + c * S::TILE_V + x * TILE_BOX,
-                        &tm_v, kv_full, x * BOX, it.k0 + c * BM, kvh, it.b);
+            tma_load_4d(base + L::V_OFF + c * S::TILE_V + x * X::TILE,
+                        &tm_v, kv_full, x * S::EB, it.k0 + c * BM, kvh, it.b);
         }
         const long long srow =
             (static_cast<long long>(it.b) * p.H + it.h) * p.sq_pad;
@@ -531,11 +570,11 @@ __global__ void __launch_bounds__(NT, 1)
           mbar_arrive_expect_tx(bar, L::STAGE + L::STAT);
           const uint32_t sQ = base + L::RING_OFF + ring.stage * L::STAGE;
           for (int x = 0; x < S::KBOX; ++x)
-            tma_load_4d(sQ + x * TILE_BOX, &tm_q, bar, x * BOX, q0, it.h,
+            tma_load_4d(sQ + x * X::TILE, &tm_q, bar, x * S::EB, q0, it.h,
                         it.b);
           for (int x = 0; x < S::VBOX; ++x)
-            tma_load_4d(sQ + S::TILE_QK + x * TILE_BOX, &tm_do, bar,
-                        x * BOX, q0, it.h, it.b);
+            tma_load_4d(sQ + S::TILE_QK + x * X::TILE, &tm_do, bar,
+                        x * S::EB, q0, it.h, it.b);
           const uint32_t st = base + L::STAT_OFF + ring.stage * L::STAT;
           bulk_load(st, p.lse2 + srow + q0, BM * 4, bar);
           bulk_load(st + BM * 4, p.delta + srow + q0, BM * 4, bar);
@@ -557,8 +596,8 @@ __global__ void __launch_bounds__(NT, 1)
   const uint32_t sK = base + own * S::TILE_QK;
   const uint32_t sV = base + L::V_OFF + own * S::TILE_V;
   // this consumer's columns of dK and dV: their first box, first column
-  const int kbox = S::CS == 1 ? 0 : wg * (S::CQK / BOX);
-  const int vbox = S::CS == 1 ? 0 : wg * (S::CV / BOX);
+  const int kbox = S::CS == 1 ? 0 : wg * (S::CQK / S::EB);
+  const int vbox = S::CS == 1 ? 0 : wg * (S::CV / S::EB);
   Ring ring;
   for (int n = 0;; ++n) {
     const int w = item_of(n);
@@ -591,16 +630,16 @@ __global__ void __launch_bounds__(NT, 1)
         // the tile's queries in slices of QS (one slice but at (192, 128))
 #pragma unroll
         for (int h = 0; h < BM / QS; ++h) {
-          const uint32_t qoff = h * QS * 128;   // the slice's first row
+          const uint32_t qoff = h * QS * X::RB;  // the slice's first row
           const int qh = q0 + h * QS;
           const float* sl = st + h * QS;        // its lse2; delta at + BM
           const uint32_t sQh = sQ + qoff, sGh = sG + qoff;
           float s[QS / 2], dp[QS / 2];
           uint32_t pa[QS / 16][4], da[QS / 16][4];
           wgmma_fence();
-          issue_ss<DQK, QS>(s, sK, sQh);        // S^T = K Q^T
+          issue_ss<DQK, QS, S::EB>(s, sK, sQh);   // S^T = K Q^T
           wgmma_commit();
-          issue_ss<DV, QS>(dp, sV, sGh);        // dP^T = V dO^T
+          issue_ss<DV, QS, S::EB>(dp, sV, sGh);   // dP^T = V dO^T
           wgmma_commit();
           if (p.softcap > 0.f) {
             // the softcap's derivative needs tanh of S: P and dS in one
@@ -619,8 +658,8 @@ __global__ void __launch_bounds__(NT, 1)
             fence_regs(pa);
             fence_regs(da);
             wgmma_fence();
-            issue_rs<S::CV, QS / 16>(dv, pa, sGh + vbox * TILE_BOX);
-            issue_rs<S::CQK, QS / 16>(dk, da, sQh + kbox * TILE_BOX);
+            issue_rs<S::CV, QS / 16, S::EB>(dv, pa, sGh + vbox * X::TILE);
+            issue_rs<S::CQK, QS / 16, S::EB>(dk, da, sQh + kbox * X::TILE);
             wgmma_commit();                     // dV += P^T dO, dK += dS^T Q
           } else {
             // P^T while dP^T runs; then dS^T while dV's product runs
@@ -634,7 +673,7 @@ __global__ void __launch_bounds__(NT, 1)
             fence_regs(dv);
             fence_regs(pa);
             wgmma_fence();
-            issue_rs<S::CV, QS / 16>(dv, pa, sGh + vbox * TILE_BOX);
+            issue_rs<S::CV, QS / 16, S::EB>(dv, pa, sGh + vbox * X::TILE);
             wgmma_commit();                     // dV += P^T dO
             wgmma_wait<1>();
             fence_regs(dp);
@@ -643,7 +682,7 @@ __global__ void __launch_bounds__(NT, 1)
             fence_regs(dk);
             fence_regs(da);
             wgmma_fence();
-            issue_rs<S::CQK, QS / 16>(dk, da, sQh + kbox * TILE_BOX);
+            issue_rs<S::CQK, QS / 16, S::EB>(dk, da, sQh + kbox * X::TILE);
             wgmma_commit();                     // dK += dS^T Q
           }
           wgmma_wait<0>();
@@ -664,7 +703,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
     for (int i = 0; i < S::CQK / 2; i += 2) {
       const int k = kc0 + ra + 8 * ((i / 2) % 2);
-      const int c = kbox * BOX + 8 * (i / 4) + 2 * tq;
+      const int c = kbox * S::EB + 8 * (i / 4) + 2 * tq;
       if (k < p.Sk)
         *reinterpret_cast<float2*>(p.dkp + (prow + k) * DQK + c) =
             make_float2(dk[i], dk[i + 1]);
@@ -672,7 +711,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
     for (int i = 0; i < S::CV / 2; i += 2) {
       const int k = kc0 + ra + 8 * ((i / 2) % 2);
-      const int c = vbox * BOX + 8 * (i / 4) + 2 * tq;
+      const int c = vbox * S::EB + 8 * (i / 4) + 2 * tq;
       if (k < p.Sk)
         *reinterpret_cast<float2*>(p.dvp + (prow + k) * DV + c) =
             make_float2(dv[i], dv[i + 1]);
@@ -739,6 +778,7 @@ __global__ void __launch_bounds__(NT, 1)
                 const __grid_constant__ CUtensorMap tm_do, const Params p) {
   using L = QLayout<DQK, DV>;
   using S = Shape<DQK, DV>;
+  using X = typename S::X;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -780,11 +820,12 @@ __global__ void __launch_bounds__(NT, 1)
                               nq * (S::TILE_QK + S::TILE_V) + 2 * S::ROWS * 4);
         for (int c = 0; c < nq; ++c) {
           for (int x = 0; x < S::KBOX; ++x)
-            tma_load_4d(base + c * S::TILE_QK + x * TILE_BOX, &tm_q, q_full,
-                        x * BOX, it.q0 + c * BM, it.h, it.b);
+            tma_load_4d(base + c * S::TILE_QK + x * X::TILE, &tm_q, q_full,
+                        x * S::EB, it.q0 + c * BM, it.h, it.b);
           for (int x = 0; x < S::VBOX; ++x)
-            tma_load_4d(base + L::DO_OFF + c * S::TILE_V + x * TILE_BOX,
-                        &tm_do, q_full, x * BOX, it.q0 + c * BM, it.h, it.b);
+            tma_load_4d(base + L::DO_OFF + c * S::TILE_V + x * X::TILE,
+                        &tm_do, q_full, x * S::EB, it.q0 + c * BM, it.h,
+                        it.b);
         }
         const long long srow =
             (static_cast<long long>(it.b) * p.H + it.h) * p.sq_pad + it.q0;
@@ -798,11 +839,11 @@ __global__ void __launch_bounds__(NT, 1)
           mbar_arrive_expect_tx(bar, L::STAGE);
           const uint32_t sK = base + L::RING_OFF + ring.stage * L::STAGE;
           for (int x = 0; x < S::KBOX; ++x)
-            tma_load_4d(sK + x * TILE_BOX, &tm_k, bar, x * BOX, kt, kvh,
+            tma_load_4d(sK + x * X::TILE, &tm_k, bar, x * S::EB, kt, kvh,
                         it.b);
           for (int x = 0; x < S::VBOX; ++x)
-            tma_load_4d(sK + S::TILE_QK + x * TILE_BOX, &tm_v, bar, x * BOX,
-                        kt, kvh, it.b);
+            tma_load_4d(sK + S::TILE_QK + x * X::TILE, &tm_v, bar,
+                        x * S::EB, kt, kvh, it.b);
           ring.next<L::STAGES>();
         }
       }
@@ -822,7 +863,7 @@ __global__ void __launch_bounds__(NT, 1)
   const float* st_lse = stats + own * BM;
   const float* st_delta = stats + NCW * BM + own * BM;
   // this consumer's columns of dQ: their first box
-  const int qbox = S::CS == 1 ? 0 : wg * (S::CQK / BOX);
+  const int qbox = S::CS == 1 ? 0 : wg * (S::CQK / S::EB);
   Ring ring;
   for (int n = 0;; ++n) {
     const int w = item_of(n);
@@ -868,8 +909,8 @@ __global__ void __launch_bounds__(NT, 1)
       mbar_wait(full + 8 * ring.stage, ring.phase);
       uint32_t sK = base + L::RING_OFF + ring.stage * L::STAGE;
       wgmma_fence();
-      issue_ss<DQK, 64>(s, sQ, sK);                // S = Q K^T
-      issue_ss<DV, 64>(dp, sG, sK + S::TILE_QK);   // dP = dO V^T
+      issue_ss<DQK, 64, S::EB>(s, sQ, sK);                // S = Q K^T
+      issue_ss<DV, 64, S::EB>(dp, sG, sK + S::TILE_QK);   // dP = dO V^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -883,12 +924,12 @@ __global__ void __launch_bounds__(NT, 1)
         fence_regs(dq);
         fence_regs(da);
         wgmma_fence();
-        issue_ss<DQK, 64>(s, sQ, sK);
-        issue_ss<DV, 64>(dp, sG, sK + S::TILE_QK);
+        issue_ss<DQK, 64, S::EB>(s, sQ, sK);
+        issue_ss<DV, 64, S::EB>(dp, sG, sK + S::TILE_QK);
         wgmma_commit();
-        issue_rs<S::CQK, 4>(dq, da, base + L::RING_OFF +
-                                        prev.stage * L::STAGE +
-                                        qbox * TILE_BOX);
+        issue_rs<S::CQK, 4, S::EB>(dq, da, base + L::RING_OFF +
+                                               prev.stage * L::STAGE +
+                                               qbox * X::TILE);
         wgmma_commit();                   // dQ += dS K of the tile before
         wgmma_wait<1>();                  // S and dP done, dQ may run on
         fence_regs(s);
@@ -905,9 +946,9 @@ __global__ void __launch_bounds__(NT, 1)
       fence_regs(dq);
       fence_regs(da);
       wgmma_fence();
-      issue_rs<S::CQK, 4>(dq, da, base + L::RING_OFF +
-                                      prev.stage * L::STAGE +
-                                      qbox * TILE_BOX);
+      issue_rs<S::CQK, 4, S::EB>(dq, da, base + L::RING_OFF +
+                                             prev.stage * L::STAGE +
+                                             qbox * X::TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -921,7 +962,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
     for (int i = 0; i < S::CQK / 2; i += 2) {
       const int r = w0 + ra + 8 * ((i / 2) % 2);
-      const int c = qbox * BOX + 8 * (i / 4) + 2 * tq;
+      const int c = qbox * S::EB + 8 * (i / 4) + 2 * tq;
       if (r < p.Sq)
         *reinterpret_cast<uint32_t*>(out + r * p.dq_ss + c) =
             pack_bf16(dq[i] * p.scale, dq[i + 1] * p.scale);
@@ -972,7 +1013,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   p.n_qt = (p.Sq + ROWS - 1) / ROWS;
   p.n_q_work = p.B * p.H * p.n_qt;
   const long long rows = static_cast<long long>(p.B) * p.H * p.sq_pad;
-  const long long delta_blocks = (rows * (DV / 8) + 255) / 256;
+  const long long delta_blocks = (rows * delta_lanes(DV) + 255) / 256;
   bwd_delta_sm90<DV><<<static_cast<unsigned>(delta_blocks), 256, 0, stream>>>(
       o, dout, lse, lse2, delta, p.B, p.H, p.Sq, p.sq_pad, o_sb, o_ss, o_sh,
       do_sb, do_ss, do_sh);
@@ -998,8 +1039,9 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 }  // namespace
 
 // bf16 q, dq: (B, Sq, H, D); o, dout: (B, Sq, H, DV); k, dk: (B, Sk, KV,
-// D); v, dv: (B, Sk, KV, DV); (D, DV) one of (64, 64), (128, 128), (192,
-// 128), (256, 256); lse: the forward's float32 (B, H, Sq), contiguous.
+// D); v, dv: (B, Sk, KV, DV); (D, DV) one of (64, 64), (80, 80), (128,
+// 128), (192, 128), (256, 256); lse: the forward's float32 (B, H, Sq),
+// contiguous.
 // Scratch: lse2 and delta float32 (B, H, sq_pad), sq_pad a multiple of 128
 // that is >= Sq; dkp float32 (B, H, Sk, D), dvp (B, H, Sk, DV). Strides in
 // elements, the head dim
@@ -1018,20 +1060,23 @@ extern "C" int repro_flash_attention_bwd_sm90(
     long long dk_sb, long long dk_ss, long long dk_sh, long long dv_sb,
     long long dv_ss, long long dv_sh, float scale, int causal, int window,
     int q_offset, float softcap, void* stream) {
-  const bool shape_ok = (D == 64 && DV == 64) || (D == 128 && DV == 128) ||
-                        (D == 192 && DV == 128) || (D == 256 && DV == 256);
+  const bool shape_ok = (D == 64 && DV == 64) || (D == 80 && DV == 80) ||
+                        (D == 128 && DV == 128) || (D == 192 && DV == 128) ||
+                        (D == 256 && DV == 256);
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk < 0 ||
       !shape_ok || sq_pad < Sq || sq_pad % PAD != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, tdo;
   // Sk = 0: a one-row map that no tile reads
   const int sk = Sk > 0 ? Sk : 1;
-  CUresult r = make_map(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, BM);
-  if (r == CUDA_SUCCESS) r = make_map(&tk, k, B, sk, KV, D, k_sb, k_ss, k_sh, BM);
+  const int c = box_cols(D, DV);
+  CUresult r = make_map(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, BM, c);
   if (r == CUDA_SUCCESS)
-    r = make_map(&tv, v, B, sk, KV, DV, v_sb, v_ss, v_sh, BM);
+    r = make_map(&tk, k, B, sk, KV, D, k_sb, k_ss, k_sh, BM, c);
   if (r == CUDA_SUCCESS)
-    r = make_map(&tdo, dout, B, Sq, H, DV, do_sb, do_ss, do_sh, BM);
+    r = make_map(&tv, v, B, sk, KV, DV, v_sb, v_ss, v_sh, BM, c);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&tdo, dout, B, Sq, H, DV, do_sb, do_ss, do_sh, BM, c);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   Params p{};
   p.B = B;
@@ -1068,6 +1113,7 @@ extern "C" int repro_flash_attention_bwd_sm90(
         do_ss, do_sh, dkb, dvb, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, s));
   };
   if (D == 64) return run(launch<64, 64>);
+  if (D == 80) return run(launch<80, 80>);
   if (D == 128) return run(launch<128, 128>);
   if (D == 192) return run(launch<192, 128>);
   return run(launch<256, 256>);

@@ -3,9 +3,9 @@
 // producer and two consumer warpgroups, persistent blocks. It is
 // templated on the q/k head dim DQK and the v width DV and instantiated
 // at (64, 64), (128, 128), (192, 128) (MLA: 128 nope + 64 rope, v read
-// at its own 128) and (256, 256) (repro_flash_attention_sm90_fwd refuses
-// other pairs). float32 inputs and the other shapes run the first design,
-// flash_attention.cu.
+// at its own 128), (256, 256) and (80, 80) (hubert-xlarge;
+// repro_flash_attention_sm90_fwd refuses other pairs). float32 inputs and
+// the other shapes run the first design, flash_attention.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
 // kernel.py:94 (`flash_attention_kernel`, body `_flash_kernel`). The
@@ -39,8 +39,14 @@
 // * TMA loads Q into one of two buffers and streams 64-key K/V tiles
 //   through a ring of up to 4 shared-memory slots with full and empty
 //   mbarriers, in 128-byte swizzle (conflict-free for wgmma; an inner box
-//   of 64 bf16, so hd 128 is two boxes). TMA's out-of-bounds zero fill
-//   takes the ragged edges, and a K/V view of a larger cache is read
+//   of 64 bf16, so hd 128 is two boxes). hd 80 is no multiple of 64: its
+//   tiles are five boxes of 16 columns in 32-byte swizzle (box_cols in
+//   sm90_ptx.cuh), so the layout is one and the same over all 80
+//   columns: S is 5 k-steps, one a box, and PV one m64n80k16 a k-step,
+//   whose MN-major descriptor steps from box to box by its lbo. No
+//   column is padded: the tensor work is the shape's own. TMA's
+//   out-of-bounds zero fill takes the ragged edges, and a K/V view of a
+//   larger cache is read
 //   through its strides. Shared memory per shape: (192, 128) two Q
 //   buffers of 48 KB and 3 slots of 24 + 16 KB; (256, 256) does not fit
 //   two Q buffers beside two slots of 32 + 32 KB, so it keeps one Q
@@ -89,7 +95,6 @@ constexpr int BQ = 128;          // query rows per work item
 constexpr int BK = 64;           // keys per K/V tile
 constexpr int WG_ROWS = 64;      // query rows per consumer warpgroup
 constexpr int NT = 384;          // producer + two consumer warpgroups
-constexpr int BOX = 64;          // bf16 per 128-byte swizzled row
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -107,10 +112,17 @@ struct Params {
 
 template <int DQK, int DV>
 struct Layout {
-  static constexpr int NBOX = DQK / BOX;                     // Q and K boxes
-  static constexpr int VBOX = DV / BOX;                      // V and O boxes
-  static constexpr uint32_t Q_BOX = BQ * 128;                // bytes
-  static constexpr uint32_t KV_BOX = BK * 128;
+  // boxes of EB columns, RB bytes a row (sm90_ptx.cuh: box_cols)
+  static constexpr int EB = box_cols(DQK, DV);
+  static constexpr int RB = 2 * EB;
+  static constexpr int KPB = EB / 16;                        // k16 a box
+  static constexpr uint32_t SBO = 8 * RB;                    // 8 rows
+  static constexpr uint64_t CODE = swizzle_code(EB);
+  static_assert(DQK % EB == 0 && DV % EB == 0, "widths in whole boxes");
+  static constexpr int NBOX = DQK / EB;                      // Q and K boxes
+  static constexpr int VBOX = DV / EB;                       // V and O boxes
+  static constexpr uint32_t Q_BOX = BQ * RB;                 // bytes
+  static constexpr uint32_t KV_BOX = BK * RB;
   static constexpr uint32_t Q_BYTES = NBOX * Q_BOX;
   static constexpr uint32_t K_BYTES = NBOX * KV_BOX;         // K tile
   static constexpr uint32_t V_BYTES = VBOX * KV_BOX;         // V tile
@@ -256,24 +268,25 @@ __device__ __forceinline__ void split_p(const float (&s)[32],
 }
 
 // S = Q K^T for this warpgroup's 64 rows: DQK / 16 k-steps of 32 bytes,
-// 4 per 128-byte box (K-major A and B).
+// 4 per 128-byte box or 1 per 32-byte box (K-major A and B).
 template <int DQK, int DV>
 __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sQw,
                                          uint32_t sK) {
   using L = Layout<DQK, DV>;
 #pragma unroll
   for (int k = 0; k < DQK / 16; ++k) {
-    const uint32_t off = (k % 4) * 32;
-    wgmma_ss_m64n64k16(s, make_desc(sQw + (k / 4) * L::Q_BOX + off, 16, 1024),
-                       make_desc(sK + (k / 4) * L::KV_BOX + off, 16, 1024),
-                       k > 0);
+    const uint32_t off = (k % L::KPB) * 32;
+    const int x = k / L::KPB;
+    wgmma_ss_m64n64k16(
+        s, make_desc(sQw + x * L::Q_BOX + off, 16, L::SBO, L::CODE),
+        make_desc(sK + x * L::KV_BOX + off, 16, L::SBO, L::CODE), k > 0);
   }
 }
 
 // O += P_hi V + P_lo V: V is MN-major (its columns contiguous), 16 keys =
-// 16 rows of 128 bytes per k-step, the next 64 columns one box further.
-// At DV 256 the product is two n128 halves: the accumulator fragment of
-// columns [0, 128) is o[0, 64), of [128, 256) o[64, 128).
+// 16 rows of the box per k-step, the next box (64 or 16 columns) lbo
+// further. At DV 256 the product is two n128 halves: the accumulator
+// fragment of columns [0, 128) is o[0, 64), of [128, 256) o[64, 128).
 template <int DQK, int DV>
 __device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
                                          const uint32_t (&hi)[4][4],
@@ -282,18 +295,23 @@ __device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
   using L = Layout<DQK, DV>;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t dv = make_desc(sV + kk * 16 * 128, L::KV_BOX, 1024);
+    const uint64_t dv =
+        make_desc(sV + kk * 16 * L::RB, L::KV_BOX, L::SBO, L::CODE);
     if constexpr (DV == 64) {
       wgmma_rs_m64n64k16(o, hi[kk], dv);
       wgmma_rs_m64n64k16(o, lo[kk], dv);
     } else if constexpr (DV == 128) {
       wgmma_rs_m64n128k16(o, hi[kk], dv);
       wgmma_rs_m64n128k16(o, lo[kk], dv);
+    } else if constexpr (DV == 80) {
+      wgmma_rs_m64n80k16(o, hi[kk], dv);
+      wgmma_rs_m64n80k16(o, lo[kk], dv);
     } else {
+      static_assert(DV == 256, "issue_pv: DV is 64, 80, 128 or 256");
       float(&o0)[64] = *reinterpret_cast<float(*)[64]>(&o[0]);
       float(&o1)[64] = *reinterpret_cast<float(*)[64]>(&o[64]);
-      const uint64_t dv1 = make_desc(sV + 2 * L::KV_BOX + kk * 16 * 128,
-                                     L::KV_BOX, 1024);
+      const uint64_t dv1 = make_desc(sV + 2 * L::KV_BOX + kk * 16 * L::RB,
+                                     L::KV_BOX, L::SBO, L::CODE);
       wgmma_rs_m64n128k16(o0, hi[kk], dv);
       wgmma_rs_m64n128k16(o1, hi[kk], dv1);
       wgmma_rs_m64n128k16(o0, lo[kk], dv);
@@ -348,7 +366,7 @@ __global__ void __launch_bounds__(NT, 1)
         mbar_arrive_expect_tx(q_full + 8 * qb, L::Q_BYTES);
         for (int x = 0; x < L::NBOX; ++x)
           tma_load_4d(base + qb * L::Q_BYTES + x * L::Q_BOX, &tm_q,
-                      q_full + 8 * qb, x * BOX, it.q0, it.h, it.b);
+                      q_full + 8 * qb, x * L::EB, it.q0, it.h, it.b);
         for (int t = 0; t < it.n_tiles; ++t) {
           const int kt = it.kt0 + t * BK;
           mbar_wait(kv_empty + 8 * ring.stage, ring.phase ^ 1);
@@ -357,10 +375,10 @@ __global__ void __launch_bounds__(NT, 1)
           const uint32_t sK = base + L::K_OFF + ring.stage * L::K_BYTES;
           const uint32_t sV = base + L::V_OFF + ring.stage * L::V_BYTES;
           for (int x = 0; x < L::NBOX; ++x)
-            tma_load_4d(sK + x * L::KV_BOX, &tm_k, full, x * BOX, kt, kvh,
+            tma_load_4d(sK + x * L::KV_BOX, &tm_k, full, x * L::EB, kt, kvh,
                         it.b);
           for (int x = 0; x < L::VBOX; ++x)
-            tma_load_4d(sV + x * L::KV_BOX, &tm_v, full, x * BOX, kt, kvh,
+            tma_load_4d(sV + x * L::KV_BOX, &tm_v, full, x * L::EB, kt, kvh,
                         it.b);
           ring.next<L::STAGES>();
         }
@@ -397,7 +415,7 @@ __global__ void __launch_bounds__(NT, 1)
         t_hi = min(it.n_tiles, (k_end - it.kt0 + BK - 1) / BK);
       }
     }
-    const uint32_t sQw = base + qb * L::Q_BYTES + wg * (WG_ROWS * 128);
+    const uint32_t sQw = base + qb * L::Q_BYTES + wg * (WG_ROWS * L::RB);
     // a tile needs per-element masks where it crosses Sk, the causal
     // diagonal or the window's edge for some row of this wg
     auto need_mask = [&](int kt) {
@@ -491,7 +509,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int t = max(t_hi, t_lo); t < it.n_tiles; ++t) skip();
 
     // ---- epilogue: the rows' LSE; O / l as bf16 into this wg's rows of
-    // the Q buffer (DV / 64 of its DQK / 64 boxes), then one TMA store;
+    // the Q buffer (DV / EB of its DQK / EB boxes), then one TMA store;
     // the buffer is released once the store has read it
     float inv[2];
 #pragma unroll
@@ -505,14 +523,13 @@ __global__ void __launch_bounds__(NT, 1)
             l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : INFINITY;
     }
     named_sync(1 + wg, 128);             // every Q read of this wg is done
-    uint8_t* out = smem + qb * L::Q_BYTES + wg * (WG_ROWS * 128);
+    uint8_t* out = smem + qb * L::Q_BYTES + wg * (WG_ROWS * L::RB);
 #pragma unroll
     for (int i = 0; i < DV / 2; i += 2) {
       const int r = ra + 8 * ((i / 2) % 2);
       const int c = 8 * (i / 4) + 2 * tq;  // column of o[i], o[i + 1]
-      const int x = c / BOX, cc = c % BOX;
-      const uint32_t off = x * L::Q_BOX + r * 128 +
-                           ((((cc * 2) / 16) ^ (r % 8)) * 16) + (cc * 2) % 16;
+      const int x = c / L::EB, cc = c % L::EB;
+      const uint32_t off = x * L::Q_BOX + swizzled(L::RB, r, cc * 2);
       const float sc = inv[(i / 2) % 2];
       *reinterpret_cast<uint32_t*>(out + off) =
           pack_bf16(o[i] * sc, o[i + 1] * sc);
@@ -522,7 +539,7 @@ __global__ void __launch_bounds__(NT, 1)
     if (tid == 0) {
       if (w0 < p.Sq) {
         for (int x = 0; x < L::VBOX; ++x)
-          tma_store_4d(&tm_o, sQw + x * L::Q_BOX, x * BOX, w0, it.h, it.b);
+          tma_store_4d(&tm_o, sQw + x * L::Q_BOX, x * L::EB, w0, it.h, it.b);
         tma_store_commit_and_wait();
       }
       mbar_arrive(q_empty + 8 * qb);
@@ -556,7 +573,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 }  // namespace
 
 // bf16 q (B,Sq,H,D), k (B,Sk,KV,D), v (B,Sk,KV,DV), o (B,Sq,H,DV), (D, DV)
-// one of (64, 64), (128, 128), (192, 128), (256, 256); lse float32
+// one of (64, 64), (80, 80), (128, 128), (192, 128), (256, 256); lse float32
 // (B,H,Sq), contiguous; strides in elements, the head dim contiguous; every
 // base 16-byte aligned and every other stride a multiple of 8 elements
 // (TMA's rules; the wrapper checks).
@@ -570,26 +587,30 @@ extern "C" int repro_flash_attention_sm90_fwd(
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, float scale, int causal, int window,
     int q_offset, float softcap, void* stream) {
-  const bool shape_ok = (D == 64 && DV == 64) || (D == 128 && DV == 128) ||
-                        (D == 192 && DV == 128) || (D == 256 && DV == 256);
+  const bool shape_ok = (D == 64 && DV == 64) || (D == 80 && DV == 80) ||
+                        (D == 128 && DV == 128) || (D == 192 && DV == 128) ||
+                        (D == 256 && DV == 256);
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk < 0 ||
       !shape_ok)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, to;
   // Sk = 0: a one-row map that no tile reads (causal or not, k_end = 0)
   const int sk = Sk > 0 ? Sk : 1;
-  CUresult r = make_map(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, BQ);
-  if (r == CUDA_SUCCESS) r = make_map(&tk, k, B, sk, KV, D, k_sb, k_ss, k_sh, BK);
+  const int c = box_cols(D, DV);
+  CUresult r = make_map(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, BQ, c);
   if (r == CUDA_SUCCESS)
-    r = make_map(&tv, v, B, sk, KV, DV, v_sb, v_ss, v_sh, BK);
+    r = make_map(&tk, k, B, sk, KV, D, k_sb, k_ss, k_sh, BK, c);
   if (r == CUDA_SUCCESS)
-    r = make_map(&to, o, B, Sq, H, DV, o_sb, o_ss, o_sh, WG_ROWS);
+    r = make_map(&tv, v, B, sk, KV, DV, v_sb, v_ss, v_sh, BK, c);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&to, o, B, Sq, H, DV, o_sb, o_ss, o_sh, WG_ROWS, c);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   const int n_qtiles = (Sq + BQ - 1) / BQ;
   const Params p{B, H, KV, Sq, Sk, n_qtiles, B * H * n_qtiles, scale,
                  scale * LOG2E, softcap, causal, window, q_offset, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return static_cast<int>(launch<64, 64>(tq, tk, tv, to, p, s));
+  if (D == 80) return static_cast<int>(launch<80, 80>(tq, tk, tv, to, p, s));
   if (D == 128)
     return static_cast<int>(launch<128, 128>(tq, tk, tv, to, p, s));
   if (D == 192)

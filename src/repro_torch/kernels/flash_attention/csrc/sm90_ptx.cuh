@@ -137,19 +137,48 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // ---- wgmma ---------------------------------------------------------------
 
-// Shared-memory matrix descriptor, 128-byte swizzle. Addresses and byte
-// offsets are encoded >> 4. The swizzle repeats every 1024 bytes, so the
-// tile base must be 1024-byte aligned (base offset 0).
-//   K-major operand (rows of 64 bf16 = 128 bytes, 8-row atoms):
-//     lbo unused, sbo = 1024 (next 8 rows); +32 bytes per k16 step.
-//   MN-major operand (trans-b; rows of 64 MN-elements, one per k):
-//     lbo = byte offset of the next 64 MN-elements, sbo = 1024 (next
-//     8 k); +16 rows * 128 bytes per k16 step.
+// Swizzled shared-memory tiles. A tile is stored as boxes of `cols` bf16
+// columns: rows of 2 * cols bytes, 64 columns in 128-byte swizzle where the
+// widths are multiples of 64, else 16 columns in 32-byte swizzle (hd 80:
+// five boxes). The swizzle XORs the 16-byte chunk of a row (byte bits
+// 4..) with the address bits above the 128-byte line (bits 7..): bits 4-6
+// with 7-9 for 128-byte rows (row % 8), bit 4 with bit 7 for 32-byte rows
+// (row / 4 % 2). The pattern repeats every 8 rows: 1024 or 256 bytes.
+__host__ __device__ constexpr int box_cols(int dqk, int dv) {
+  return dqk % 64 == 0 && dv % 64 == 0 ? 64 : 16;
+}
+static_assert(box_cols(80, 80) == 16 && box_cols(192, 128) == 64,
+              "box widths");
+
+// The wgmma descriptor's layout code of a box of `cols` bf16 columns
+// (bits 62-63): 1 = 128-byte swizzle, 3 = 32-byte swizzle.
+__host__ __device__ constexpr uint64_t swizzle_code(int cols) {
+  return cols == 64 ? 1ull : 3ull;
+}
+
+// The byte offset of (row r, byte b of the row) in a box whose rows are
+// `row_bytes` (128 or 32) wide, as TMA's swizzle lays it out.
+__device__ __forceinline__ uint32_t swizzled(int row_bytes, int r, int b) {
+  const uint32_t a = static_cast<uint32_t>(r * row_bytes + b);
+  return a ^ (((a >> 7) & static_cast<uint32_t>(row_bytes / 16 - 1)) << 4);
+}
+
+// Shared-memory matrix descriptor of a swizzled box (see above; `code`
+// from swizzle_code). Addresses and byte offsets are encoded >> 4. The
+// tile base must be aligned to the swizzle's repeat (1024 bytes for
+// 128-byte rows, 256 for 32-byte rows; base offset 0).
+//   K-major operand ([row][col] boxes, 8-row atoms): lbo unused, sbo = 8
+//     rows of the box; +32 bytes per k16 step inside a box, the next box
+//     after 2 * cols / 32 steps.
+//   MN-major operand (trans-b; a box is `cols` MN-elements, one row per
+//     k): lbo = byte offset of the next box (the next `cols`
+//     MN-elements), sbo = 8 rows (the next 8 k); +16 rows per k16 step.
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint64_t code) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (code << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -213,6 +242,18 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
+// D[64 x 80] += A[64 x 16] B[16 x 80]: A from registers (the
+// accumulator-shaped fragment), B from shared memory MN-major (trans-b):
+// five 16-column boxes in 32-byte swizzle, lbo apart.
+__device__ __forceinline__ void wgmma_rs_m64n80k16(float (&d)[40], const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
 // D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers (the
 // accumulator-shaped fragment), B from shared memory MN-major (trans-b).
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
@@ -254,22 +295,25 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A (B, S, H, D) bf16 tensor with element strides (sb, ss, sh, 1) as a 4-d
-// tensor map {D, S, H, B}, boxes of {64, rows, 1, 1} in 128-byte swizzle
-// (64 bf16 are one 128-byte row). Rows past S read as zeros.
+// tensor map {D, S, H, B}, boxes of {cols, rows, 1, 1}: 64 columns in
+// 128-byte swizzle (one 128-byte row) or 16 in 32-byte swizzle (see
+// box_cols). Rows past S read as zeros.
 inline CUresult make_map(CUtensorMap* map, const void* ptr, int B, int S,
                          int H, int D, long long sb, long long ss,
-                         long long sh, int rows) {
+                         long long sh, int rows, int cols) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H),
                               cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2,
                                  cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {64, cuuint32_t(rows), 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(cols), cuuint32_t(rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

@@ -50,10 +50,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192, 256)
 #: the bf16 (q/k head dim, v width) pairs the Hopper kernels are
 #: instantiated for: (192, 128) is deepseek-v2-lite's MLA training branch
-#: (128 nope + 64 rope, v 128), (256, 256) gemma3-1b. Another head dim
-#: (hubert-xlarge's 80, say) joins here with an instantiation of both
-#: sm90 kernels; until then it runs fma.
-SM90_SHAPES = ((64, 64), (128, 128), (192, 128), (256, 256))
+#: (128 nope + 64 rope, v 128), (256, 256) gemma3-1b, (80, 80)
+#: hubert-xlarge (five 16-column boxes in 32-byte swizzle). Another pair
+#: joins here with an instantiation of both sm90 kernels; until then it
+#: runs fma.
+SM90_SHAPES = ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256))
 #: the forward kernels: ``sm90`` in flash_attention_sm90.cu, ``fma`` in
 #: flash_attention.cu
 VARIANTS = ("sm90", "fma")

@@ -376,6 +376,16 @@ def prefill_batched(cfg: ModelConfig, params, tokens: torch.Tensor,
     return _logits(cfg, params, last), caches
 
 
+def encoder_logits(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
+    """Encoder-only (HuBERT): full-sequence logits (B, S, V) float32 for
+    masked prediction, with no cache. ``batch``: ``embeds`` (B, S, D)
+    or ``tokens`` (B, S)."""
+    x = embed_inputs(cfg, params, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    hidden, _, _ = forward(cfg, params, x, positions=positions)
+    return _logits(cfg, params, hidden)
+
+
 def decode_step(cfg: ModelConfig, params, caches, tokens_or_embeds,
                 cache_pos):
     """One autoregressive step. ``tokens_or_embeds``: (B,1) int tokens
@@ -397,6 +407,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens_or_embeds,
 
 
 __all__ = ["REMAT_POLICIES", "check_remat_policy", "chunked_cross_entropy",
-           "decode_step", "embed_inputs", "forward", "init_cache",
-           "init_params", "lm_head_weight", "loss_fn", "mask_pad_logits",
-           "prefill", "prefill_batched", "unstack_periods"]
+           "decode_step", "embed_inputs", "encoder_logits", "forward",
+           "init_cache", "init_params", "lm_head_weight", "loss_fn",
+           "mask_pad_logits", "prefill", "prefill_batched",
+           "unstack_periods"]

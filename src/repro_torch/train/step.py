@@ -1,6 +1,7 @@
-"""The training step for one device (port of ``repro.train.step``'s
-``build_train_step``; its sharded forms wait for ``launch/mesh.py``,
-ROADMAP queue 1).
+"""The step builders for one device (port of ``repro.train.step``'s
+``build_train_step``, ``build_encoder_train_step`` and
+``build_prefill_step``; their sharded forms, and ``build_serve_step``,
+wait for ``launch/mesh.py``, ROADMAP queue 1): no mesh, no shardings.
 
 The gradient is taken as ``conformance.make_train_step`` takes it:
 ``torch.autograd.grad`` over per-layer leaves (the periods unbound by
@@ -15,7 +16,8 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from ..models import check_remat_policy, loss_fn, unstack_periods
+from ..models import (check_remat_policy, encoder_logits, loss_fn, prefill,
+                      unstack_periods)
 from ..tree import tree_flatten, tree_unflatten
 from .optimizer import AdamWConfig, apply_updates
 
@@ -45,7 +47,10 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
         with torch.enable_grad():
             loss, parts = loss_fn(cfg, tree_unflatten(structure, req), batch,
                                   remat_policy=remat_policy)
-            grads = torch.autograd.grad(loss, req)
+            # a leaf the loss does not read (hubert's token embedding,
+            # fed frame embeddings) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, req,
+                                        materialize_grads=True)
         del req
         state = {k: unstack_periods(cfg, v) if k in _PARAM_SHAPED else v
                  for k, v in opt_state.items()}
@@ -59,4 +64,32 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     return train_step
 
 
-__all__ = ["build_train_step"]
+def build_encoder_train_step(cfg: ModelConfig,
+                             opt_cfg: AdamWConfig | None = None,
+                             remat_policy: str = "full", device=None):
+    """Encoder-only archs use the same loss (masked prediction == CE on
+    provided targets), so the standard builder applies."""
+    return build_train_step(cfg, opt_cfg, remat_policy, device)
+
+
+def build_prefill_step(cfg: ModelConfig, max_len: int, device=None):
+    """``prefill_step(params, batch)`` on ``device`` (``None``: cuda),
+    without autograd: ``(encoder_logits (B, S, V) float32, None)`` for an
+    encoder-only config, else :func:`~repro_torch.models.prefill`'s
+    ``(last_logits (B, 1, V) float32, caches of length max_len)``.
+    ``batch`` holds numpy arrays or tensors (``tokens`` or ``embeds``),
+    moved to the device."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if cfg.encoder_only:
+            return encoder_logits(cfg, params, batch), None
+        return prefill(cfg, params, batch, max_len)
+
+    return prefill_step
+
+
+__all__ = ["build_encoder_train_step", "build_prefill_step",
+           "build_train_step"]

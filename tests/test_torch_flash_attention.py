@@ -39,6 +39,8 @@ FLASH_CASES = [
     (2, 2, 1, 192, 64, True, 128, "float32"),      # window > block
     (1, 4, 4, 100, 192, True, None, "float32"),    # MLA's nope + rope
     (1, 2, 2, 128, 192, True, None, "bfloat16"),
+    (1, 4, 4, 128, 80, False, None, "float32"),    # hubert's hd, encoder
+    (1, 4, 4, 128, 80, False, None, "bfloat16"),
 ]
 
 
@@ -101,6 +103,17 @@ def test_flash_attention_matches_jax_kernel(jx, B, H, KV, S, hd, causal,
         causal=causal, window=window).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
     np.testing.assert_allclose(_np(out), _np(oracle), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hd80_non_causal_matches_plain_gqa(jx, dtype):
+    """hubert-xlarge's attention (hd 80, every key visible, MHA) on the
+    CPU: the op against the reference's ``_plain_gqa``, ragged S."""
+    (jq, jk, jv), (q, k, v) = _both(jx, _inputs(80, 2, 4, 4, 70, 70, 80),
+                                    dtype)
+    out = ops.flash_attention(q, k, v, causal=False)
+    ref = jx.plain_gqa(jq, jk, jv, causal=False, window=None, q_offset=0)
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol(dtype))
 
 
 @pytest.mark.parametrize("Sq,Sk,q_offset,softcap,window,dtype", [
@@ -259,7 +272,7 @@ def test_cuda_kernel_offset_softcap_strides(Sq, Sk, q_offset, softcap,
     ("bfloat16", 64, 64, "sm90"),
     ("bfloat16", 128, 128, "sm90"),
     ("bfloat16", 32, 32, "fma"),
-    ("bfloat16", 80, 80, "fma"),
+    ("bfloat16", 80, 80, "sm90"),      # hubert-xlarge
     ("bfloat16", 192, 128, "sm90"),     # MLA: q/k 128 + 64, v 128
     ("bfloat16", 256, 256, "sm90"),     # gemma3-1b
     ("bfloat16", 192, 192, "fma"),

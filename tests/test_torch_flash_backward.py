@@ -283,6 +283,7 @@ def test_backward_wrapper_refuses(bad, error):
     ("bfloat16", 32, 32, "fma"), ("bfloat16", 192, 128, "sm90"),
     ("bfloat16", 256, 256, "sm90"), ("float32", 128, 128, "fma"),
     ("bfloat16", 192, 192, "fma"), ("float32", 256, 256, "fma"),
+    ("bfloat16", 80, 80, "sm90"), ("float32", 80, 80, "fma"),
 ])
 def test_select_bwd_variant(dtype, hd, dv, variant):
     """``sm90`` takes the forward's sm90 set, the bf16 pairs of
@@ -291,7 +292,8 @@ def test_select_bwd_variant(dtype, hd, dv, variant):
     assert ops.select_bwd_variant(dt, hd, dv) == variant
     assert ops.select_variant(dt, hd, dv) == variant
     assert ops.BWD_VARIANTS == ("sm90", "mma", "fma")
-    assert ops.SM90_SHAPES == ((64, 64), (128, 128), (192, 128), (256, 256))
+    assert ops.SM90_SHAPES == ((64, 64), (80, 80), (128, 128), (192, 128),
+                               (256, 256))
     assert ops.MMA_BWD_HEAD_DIMS == (64, 128)
 
 
@@ -324,6 +326,7 @@ CUDA_CASES = CASES + [
     (2, 12, 4, 200, 200, 64, True, None, 0, 0.0),    # repro-lm-100m heads
     (1, 2, 1, 70, 70, 256, True, None, 0, 0.0),      # hd 256
     (1, 16, 16, 130, 130, 192, True, None, 0, 0.0),  # deepseek heads
+    (1, 16, 16, 130, 130, 80, False, None, 0, 0.0),  # hubert heads
 ]
 
 

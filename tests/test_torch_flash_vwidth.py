@@ -9,8 +9,10 @@ orders) and the reference's bf16 tolerance of 5e-2. The custom ops'
 registrations (fake shapes, ``opcheck``) and a ``make_fx`` trace of
 MLA's training branch need no card either.
 
-The ``cuda``-marked tests hold the sm90 kernels at the two wide pairs,
-(192, 128) and (256, 256), to the plain version on the card (forward:
+The ``cuda``-marked tests hold the sm90 kernels at the wide pairs,
+(192, 128) and (256, 256), at hubert-xlarge's (80, 80) (five 16-column
+boxes; causal and not) and at (128, 128) without a mask, to the plain
+version on the card (forward:
 the bf16 tolerance and, against the plain version run in float32, one
 bf16 step; backward: 2^-6 of each gradient's largest magnitude, as
 ``tests/test_torch_flash_backward.py`` explains), repeated calls
@@ -259,6 +261,12 @@ CUDA_CASES = [
     (1, 4, 1, 1000, 1000, 256, 256, True, None, 0, 0.0, False),  # ragged
     (1, 4, 1, 256, 256, 256, 256, True, None, 0, 30.0, False),   # softcap
     (1, 4, 2, 300, 700, 256, 256, True, 128, 400, 0.0, True),    # views
+    (2, 16, 16, 512, 512, 80, 80, False, None, 0, 0.0, False),   # hubert
+    (1, 4, 2, 300, 300, 80, 80, True, None, 0, 0.0, False),      # ragged
+    (1, 4, 2, 130, 400, 80, 80, True, 64, 270, 0.0, True),       # views
+    (1, 4, 4, 200, 200, 80, 80, False, None, 0, 20.0, False),    # softcap
+    (1, 8, 8, 384, 384, 128, 128, False, None, 0, 0.0, False),   # bidir.
+    (1, 4, 2, 257, 257, 128, 128, False, None, 0, 0.0, False),   # G 2
 ]
 CUDA_IDS = [f"q{c[3]}k{c[4]}d{c[5]}v{c[6]}{'c' if c[7] else 'b'}w{c[8]}"
             f"o{c[9]}s{c[10]:g}{'view' if c[11] else ''}" for c in CUDA_CASES]

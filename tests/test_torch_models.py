@@ -28,14 +28,17 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["deepseek-v2-lite-16b", "gemma3-1b", "granite-8b",
-         "jamba-v0.1-52b", "mixtral-8x7b", "qwen2.5-14b", "repro-lm-100m",
-         "starcoder2-7b"]
+         "hubert-xlarge", "internvl2-1b", "jamba-v0.1-52b", "mixtral-8x7b",
+         "qwen2.5-14b", "repro-lm-100m", "starcoder2-7b"]
 #: the archs whose first period block is a GQA layer
 GQA_ARCHS = [a for a in ARCHS
              if a not in ("deepseek-v2-lite-16b", "jamba-v0.1-52b")]
+#: the archs with a cache, a prefill and a decode step (hubert-xlarge is
+#: encoder-only)
+CACHE_ARCHS = [a for a in ARCHS if a != "hubert-xlarge"]
 #: the archs whose every cache leaf has a sequence axis to grow
 #: (jamba's mamba caches hold a conv window and a state)
-SEQ_CACHE_ARCHS = [a for a in ARCHS if a != "jamba-v0.1-52b"]
+SEQ_CACHE_ARCHS = [a for a in CACHE_ARCHS if a != "jamba-v0.1-52b"]
 
 
 def _np(x):
@@ -78,6 +81,7 @@ def _assert_tree_close(a, b, **tol):
                                    err_msg=jax.tree_util.keystr(path))
 
 
+@pytest.mark.parametrize("model", CACHE_ARCHS, indirect=True)
 def test_prefill_batched_logits_and_caches_match(model):
     jc, tc, jp, tp = model
     tokens, plens = _prompts(jc)
@@ -117,6 +121,7 @@ def test_decode_step_per_row_positions_match(model):
     _assert_tree_close(jcache2, tcache2, **TOL)
 
 
+@pytest.mark.parametrize("model", CACHE_ARCHS, indirect=True)
 def test_sequential_prefill_then_decode_match(model):
     jc, tc, jp, tp = model
     prompt = np.random.default_rng(3).integers(1, jc.vocab_size, (1, 6))
@@ -203,3 +208,71 @@ def test_dense_config_matches_reference(arch, published):
         assert a == b, f
     assert t.param_count() == j.param_count()
     assert abs(t.param_count() / published - 1) < 0.18
+
+
+def _embeds(cfg, seed, B, S):
+    """Patch or frame embeddings as a stubbed frontend hands them over."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+            * 0.1)
+
+
+@pytest.mark.parametrize("model", ["hubert-xlarge"], indirect=True)
+def test_encoder_logits_match(model):
+    """The encoder-only path: every position's logits from frame
+    embeddings, non-causal attention, layernorm and a plain GELU MLP."""
+    jc, tc, jp, tp = model
+    assert tc.encoder_only and not tc.causal
+    x = _embeds(jc, 6, 2, 12)
+    jl = jm.encoder_logits(jc, jp, {"embeds": jnp.asarray(x)})
+    tl = tm.encoder_logits(tc, tp, {"embeds": torch.from_numpy(x)})
+    assert tl.shape == jl.shape == (2, 12, tc.padded_vocab)
+    assert tl.dtype == torch.float32
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+
+
+@pytest.mark.parametrize("model", ["internvl2-1b"], indirect=True)
+def test_prefill_from_embeds_then_decode_from_tokens_match(model):
+    """The VLM's use: patch-and-prompt embeddings in, every cache leaf
+    filled, then greedy text decoding fed tokens."""
+    jc, tc, jp, tp = model
+    x = _embeds(jc, 7, 2, 9)
+    jl, jcache = jm.prefill(jc, jp, {"embeds": jnp.asarray(x)}, 16)
+    tl, tcache = tm.prefill(tc, tp, {"embeds": torch.from_numpy(x)}, 16)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+    _assert_tree_close(jcache, tcache, **TOL)
+    tok = np.argmax(np.asarray(jl)[:, -1], axis=-1).astype(np.int32)[:, None]
+    for pos in (9, 10):
+        jl, jcache = jm.decode_step(jc, jp, jcache, jnp.asarray(tok), pos)
+        tl, tcache = tm.decode_step(tc, tp, tcache, torch.from_numpy(tok),
+                                    pos)
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+        tok = np.argmax(np.asarray(jl)[:, -1], axis=-1).astype(
+            np.int32)[:, None]
+    _assert_tree_close(jcache, tcache, **TOL)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "hubert-xlarge"])
+def test_frontend_config_matches_reference(arch):
+    """The two configs with a stubbed frontend, registered field for
+    field as the reference registers them, with its parameter count."""
+    j, t = jcfg.get_config(arch), tcfg.get_config(arch)
+    for f in j.__dataclass_fields__:
+        assert getattr(j, f) == getattr(t, f), f
+    assert t.param_count() == j.param_count()
+    assert t.frontend is not None and t.source == j.source
+
+
+
+@pytest.mark.parametrize("arch, words", [
+    ("internvl2-1b", "non-token frontend has no token prompts to serve"),
+    ("hubert-xlarge", "encoder-only arch has no decode step"),
+])
+def test_paged_serving_refuses_frontend_configs(arch, words):
+    """The paged engine refuses both, with the reference's words: the
+    VLM serves through ``prefill`` from embeddings and ``decode_step``,
+    the encoder through ``encoder_logits``."""
+    from repro.serving.kvcache import supported_reason as jax_reason
+    from repro_torch.serving.kvcache import supported_reason
+    want = jax_reason(jcfg.get_config(arch))
+    assert supported_reason(tcfg.get_config(arch)) == want == words

@@ -37,8 +37,8 @@ from repro_torch.tree import tree_flatten, tree_map  # noqa: E402
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 ARCHS = ["deepseek-v2-lite-16b", "gemma3-1b", "granite-8b",
-         "jamba-v0.1-52b", "mixtral-8x7b", "qwen2.5-14b", "repro-lm-100m",
-         "rwkv6-7b", "starcoder2-7b"]
+         "hubert-xlarge", "internvl2-1b", "jamba-v0.1-52b", "mixtral-8x7b",
+         "qwen2.5-14b", "repro-lm-100m", "rwkv6-7b", "starcoder2-7b"]
 B, S = 2, 16
 
 
@@ -58,7 +58,14 @@ def model(request):
     jp = jm.init_params(jc, jax.random.PRNGKey(3))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     rng = np.random.default_rng(4)
-    batch = {"tokens": rng.integers(0, jc.vocab_size, (B, S), np.int32),
+    if jc.frontend is not None:
+        # a stubbed frontend's patch or frame embeddings, as the
+        # reference's conformance batch makes them
+        x = {"embeds": rng.standard_normal((B, S, jc.d_model),
+                                           dtype=np.float32) * 0.1}
+    else:
+        x = {"tokens": rng.integers(0, jc.vocab_size, (B, S), np.int32)}
+    batch = {**x,
              "targets": rng.integers(0, jc.vocab_size, (B, S), np.int32)}
     return jc, tc, jp, tp, batch
 

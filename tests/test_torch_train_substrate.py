@@ -454,6 +454,18 @@ def test_launch_train_cli_then_resume(tmp_path):
     assert res.returncode != 0 and "launch/mesh.py" in res.stderr
 
 
+def test_launch_train_cli_hubert_trains_on_frames(tmp_path):
+    """``python -m repro_torch.launch.train --arch hubert-xlarge --reduced
+    --device cpu`` runs 2 steps: the data pipeline hands the stubbed
+    frontend frame embeddings, and the token embedding they leave unused
+    takes a zero gradient, as ``jax.grad`` gives it."""
+    res = _cli("repro_torch.launch.train", "--arch", "hubert-xlarge",
+               "--reduced", "--device", "cpu", "--steps", "2", "--batch",
+               "2", "--seq", "16", cwd=tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "done at step 2" in res.stdout
+
+
 def test_launch_serve_restores_checkpoint_params(tmp_path):
     """``launch.serve --ckpt-dir`` serves the checkpoint's parameters,
     not the seed's."""
