@@ -188,7 +188,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    TRAIN_GATE;
 17. launch train: ``repro_torch.launch.train``'s body in process for
    granite-8b and rwkv6-7b at full width (bf16, B=1, S=2048, AdamW,
-   remat full): (a) 4 steps at the depth the printed AdamW arithmetic
+   remat full, passed by name: ``build_train_step`` defaults to the
+   reference's ``dots``): (a) 4 steps at the depth the printed AdamW arithmetic
    allows (16 bytes a parameter plus the activations, measured at 2 and
    4 layers): step ms, tokens/s, peak memory, 2L forward and L backward
    launches a step (rwkv's backward all mma), one step more under
@@ -328,6 +329,27 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    at B=2, S=4096: 24 sm90 forward and 24 sm90 backward launches a step,
    0 fma; tok/s, TTFT, decode and step ms, busy share, peak memory (held
    under 90% of the card) and the flash kernels' device time.
+29. dryrun: the single-device tools on the card, in the order (b), then
+   (c) in a child process while (a) traces, then (d). (a)
+   ``launch.dryrun.run_cell`` at full width and each shape's full global
+   batch, remat ``dots``, traced on fake tensors: granite-8b
+   ``train_4k``, hubert-xlarge ``prefill_32k``, jamba-v0.1-52b
+   ``decode_32k``, each status OK with a finite roofline (nodes, trace
+   seconds, the one-PE peak and whether one card holds it, the bound and
+   its dominant term, model FLOPs and the useful ratio); (b)
+   ``run_pardnn_plan`` for reduced granite-8b (float32), K=4 folded onto
+   the card, executed, linted and traced: 0 verifier errors, compiled
+   within PARDNN_DRIFT of the interpreter, at least one fma flash forward
+   launch, the trace valid; measured and predicted peaks per PE; (c)
+   ``python -m repro_torch.analysis`` on that plan with ``--arch
+   granite-8b`` in a child process: exit 0; (d) granite-8b at full width
+   and REMAT["layers"] layers, bf16, B=1, S=2048, AdamW without warm-up,
+   one step under each remat policy (none, full, dots, dots_no_batch)
+   from the same parameters and batch: L, 2L, L and 2L flash forward
+   launches and L backward, all sm90; the loss, grad norm, new
+   parameters and first moments within TRAIN_GATE of the none step; step
+   ms, max_memory_allocated and the peak of the loss and its gradient
+   alone.
 
 Each phase's seconds are printed when it ends.
 
@@ -3523,7 +3545,7 @@ def phase_rwkv_train(torch, cfg, card: str, record: dict) -> dict:
 #: launch.train's run: B=1, S=2048, 4 steps, a checkpoint every 2; the
 #: checkpoint and resume run at CKPT_LAYERS (see phase_launch_train)
 LAUNCH = dict(batch=1, seq=2048, steps=4, ckpt_every=2, lr=3e-4)
-CKPT_LAYERS = 2
+CKPT_LAYERS = 1
 
 
 def _launch_run(torch, train, cfg, label: str, **kw):
@@ -3584,7 +3606,8 @@ def phase_launch_train(torch, card: str) -> None:
             p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
                             "cuda")
             o = init_state(ocfg, p)
-            st = build_train_step(c, ocfg, device="cuda")
+            st = build_train_step(c, ocfg, remat_policy="full",
+                                  device="cuda")
             return p, lambda: st(p, o, batch)
         layers, p1, p0 = fit_depth(
             torch, cfg, f"launch {arch}", adamw_step,
@@ -5579,6 +5602,234 @@ def phase_internvl(torch, cfg, card: str) -> None:
     log(f"internvl: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the single-device tools (launch.dryrun, the analysis CLI) and the
+# remat policies at full width
+# ---------------------------------------------------------------------------
+# (arch, shape) of the dry-run cells traced at full width, remat "dots"
+DRYRUN_CELLS = (("granite-8b", "train_4k"), ("hubert-xlarge", "prefill_32k"),
+                ("jamba-v0.1-52b", "decode_32k"))
+# the remat policies' step: full granite-8b width, a fixed depth that fits
+# under every policy (the arithmetic is logged), AdamW with no warm-up so
+# that the step moves every parameter
+REMAT = dict(layers=4, batch=1, seq=2048, lr=3e-4)
+# flash forward launches a layer a step: "none" and "dots" run each
+# layer's forward once ("dots" keeps the flash op's outputs: a product
+# with batch dims), "full" and "dots_no_batch" once more in the backward
+REMAT_FWD = {"none": 1, "full": 2, "dots": 1, "dots_no_batch": 2}
+# the dry run's --pardnn-execute plan: compiled against the interpreter
+PARDNN_DRIFT = 1e-5
+
+
+def _dryrun_cells(torch, card: str) -> None:
+    """(a) ``launch.dryrun.run_cell`` at full width: status OK, a finite
+    roofline; nodes, trace seconds, the one-PE peak, the bound and the
+    model FLOPs logged."""
+    from repro_torch.launch import dryrun
+    for arch, shape in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, "single", remat="dots",
+                            device="cuda")
+        assert r["status"] == "OK", f"dryrun {arch} {shape}: {r}"
+        rf = r["roofline"]
+        assert r["nodes"] > 0 and r["graph_flops"] > 0 and \
+            math.isfinite(rf["bound_s"]) and rf["bound_s"] > 0, \
+            f"dryrun {arch} {shape}: {r}"
+        sh = dryrun.SHAPES[shape]
+        log(f"dryrun cell {arch} {shape} (remat dots, B={sh.global_batch}, "
+            f"S={sh.seq_len}): "
+            f"{r['status']}, {r['nodes']} nodes traced in {r['trace_s']} s; "
+            f"one-PE peak {r['per_device_total_bytes'] / 2 ** 30:.2f} GiB, "
+            f"fits one card {r['fits']}; graph {r['graph_flops']:.4g} FLOPs "
+            f"{r['graph_bytes']:.4g} bytes; roofline bound "
+            f"{rf['bound_s'] * 1e3:.3f} ms ({rf['dominant']}; compute "
+            f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.3f}"
+            f" ms); model FLOPs {r['model_flops']:.4g}, useful ratio "
+            f"{r['useful_flops_ratio']:.4f}; {card}")
+
+
+def _dryrun_pardnn(torch, work: Path) -> str:
+    """(b) ``run_pardnn_plan`` on the card: reduced granite-8b (float32),
+    K=4 folded onto it, executed, linted and traced. Returns the saved
+    plan's path."""
+    from repro_torch.launch import dryrun
+    from repro_torch.obs.trace import validate_trace
+    trace = work / "granite.dryrun.trace.json"
+    reset_counts()
+    res = dryrun.run_pardnn_plan("granite-8b", 4, str(work), execute=True,
+                                 lint=True, trace=str(trace))
+    counts = read_counts()
+    rt, dc = res["runtime"], res["diagnostics"]["counts"]
+    log(f"dryrun --pardnn granite-8b (reduced, float32) K=4 on the card: "
+        f"{res['ops']} ops, verified {dc['error']}E/{dc['warn']}W/"
+        f"{dc['info']}I, {rt['num_segments']} segments, compiled "
+        f"{rt['compiled_s'] * 1e3:.2f} ms (sync "
+        f"{rt['compiled_sync_s'] * 1e3:.2f}) against the interpreter's "
+        f"{rt['interpreter_s'] * 1e3:.1f} ms, output drift "
+        f"{rt['output_drift']:.3g}; peaks per PE measured "
+        f"{[round(b / 2 ** 20, 3) for b in rt['measured_peak_bytes']]} "
+        f"MiB, predicted "
+        f"{[round(b / 2 ** 20, 3) for b in rt['predicted_peak_bytes']]} "
+        f"MiB; flash launches {counts['flash_attention']} (fma "
+        f"{counts['flash_attention/fma']})")
+    assert res["verify_errors"] == 0, f"dryrun --pardnn: {dc}"
+    assert rt["output_drift"] <= PARDNN_DRIFT, \
+        f"dryrun --pardnn: output drift {rt['output_drift']}"
+    assert counts["flash_attention/fma"] >= 1, \
+        f"dryrun --pardnn: no fma flash forward launched: {counts}"
+    problems = validate_trace(str(trace))
+    assert not problems, f"dryrun --pardnn trace: {problems[:5]}"
+    return res["path"]
+
+
+def _dryrun_cli(path: str):
+    """(c) ``python -m repro_torch.analysis PLAN --arch granite-8b`` in a
+    child process, started (the caller waits for it with
+    :func:`_dryrun_cli_wait`)."""
+    from repro_torch.conformance.subproc import child_env
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.analysis",
+                             path, "--arch", "granite-8b"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=child_env())
+
+
+def _dryrun_cli_wait(cli, path: str, t0: float) -> None:
+    out, err = cli.communicate(timeout=300)
+    log(f"dryrun: python -m repro_torch.analysis {Path(path).name} --arch "
+        f"granite-8b: exit {cli.returncode}, {time.perf_counter() - t0:.1f}"
+        f" s after its start; {out.strip().splitlines()[:2]}")
+    assert cli.returncode == 0, \
+        f"the analysis CLI exited {cli.returncode}: {out[-2000:]} " \
+        f"{err[-2000:]}"
+
+
+def _dryrun_remat(torch, card: str) -> None:
+    """(d) granite-8b at full width and REMAT["layers"] layers, bf16,
+    B=1, S=2048, one AdamW step under each remat policy from the same
+    parameters and batch: the flash launches (REMAT_FWD), the loss, the
+    grad norm, the new parameters and the first moments (the clipped
+    gradients, float32) within TRAIN_GATE of the "none" step; step ms
+    and max_memory_allocated, and the peak of the loss and its gradient
+    alone over the parameters and state (the activations the policy
+    keeps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import init_params, unstack_periods
+    from repro_torch.train import AdamWConfig, build_train_step, init_state
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_flatten, tree_map
+    cfg = dataclasses.replace(get_config("granite-8b"),
+                              num_layers=REMAT["layers"])
+    L, P = cfg.num_layers, cfg.param_count()
+    fit = 0.9 * torch.cuda.get_device_properties(0).total_memory
+    log(f"dryrun remat: memory arithmetic at {L} layers: P = {P / 1e9:.3f} "
+        f"B parameters; the untouched copy (2P bytes), the step's bf16 "
+        f"parameters and grads and float32 master, mu and nu (16P), and the "
+        f"none step's parameters and mu kept for the comparison (6P): "
+        f"{24 * P / 1e9:.2f} GB before activations, against 90% of the "
+        f"card, {fit / 1e9:.2f} GB")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pristine = init_params(cfg, gen, "cuda")
+    ocfg = AdamWConfig(lr=REMAT["lr"], warmup_steps=0, total_steps=2)
+    batch = make_batch(DataConfig(batch_size=REMAT["batch"],
+                                  seq_len=REMAT["seq"],
+                                  vocab_size=cfg.vocab_size), 0)
+    tbatch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    base = None
+    summary = []
+    for policy in REMAT_FWD:
+        step = build_train_step(cfg, ocfg, remat_policy=policy,
+                                device="cuda")
+        for rep in range(2):          # a warm-up, then the measured step
+            params = tree_map(lambda t: t.clone(), pristine)
+            state = init_state(ocfg, params)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            _, _, met = step(params, state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        want = _flash_want(L)
+        want["flash_attention"] = want["flash_attention/sm90"] = \
+            REMAT_FWD[policy] * L
+        got = {k: counts[k] for k in want}
+        assert got == want, f"dryrun remat {policy}: launches {got}, " \
+            f"want {want}"
+        _under_card(torch, f"dryrun remat {policy}", peak)
+        leaves = [met["loss"], met["grad_norm"]] + \
+            tree_flatten((params, state["mu"]))[0]
+        if base is None:
+            base, bits, worst = leaves, len(leaves), 0.0
+        else:
+            bits, worst = 0, 0.0
+            for a, b in zip(leaves, base):
+                if torch.equal(a, b):
+                    bits += 1
+                    continue
+                worst = max(worst, float((a.float() - b.float()).abs().max())
+                            / (TRAIN_GATE * max(float(b.float().abs().max()),
+                                                1e-30)))
+        log(f"dryrun remat {policy}: step {ms:.2f} ms, max_memory_allocated "
+            f"{peak / 2 ** 30:.3f} GiB ({(peak - before) / 2 ** 30:.3f} GiB "
+            f"over the {before / 2 ** 30:.3f} GiB held before the step); "
+            f"loss {float(met['loss']):.6f}, grad norm "
+            f"{float(met['grad_norm']):.6f}; launches {got}; against none: "
+            f"{bits} of {len(leaves)} leaves (loss, grad norm, new "
+            f"parameters, mu) bit-equal, worst other / (2^-7 x max |none|) "
+            f"{worst:.3g}; {card}")
+        assert all(bool(torch.isfinite(x.float()).all()) for x in leaves) \
+            and worst <= 1, f"dryrun remat {policy}: disagrees with none"
+        # the loss and its gradient alone: the activations each policy
+        # keeps, without the optimizer's temporaries over the step's
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = loss_and_grads(cfg, unstack_periods(cfg, params), tbatch,
+                               policy)
+        torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated() - held
+        del grads
+        log(f"dryrun remat {policy}: the loss and its gradient alone peak "
+            f"{grad_peak / 2 ** 30:.3f} GiB over the parameters and state")
+        summary.append(f"{policy} {ms:.2f} ms, {peak / 2 ** 30:.2f} GiB "
+                       f"(gradient {grad_peak / 2 ** 30:.3f} GiB)")
+        del params, state, met, step, leaves
+        _release(torch)
+    log(f"dryrun remat summary ({L} layers, B=1, S=2048, AdamW): "
+        f"{'; '.join(summary)}; {card}")
+    del base, pristine
+    _release(torch)
+
+
+def phase_dryrun(torch, card: str) -> None:
+    """The single-device tools of ``launch.dryrun`` and the analysis CLI
+    on the card, and the remat policies at full width: (b), then (c) in
+    a child process while (a) traces on the host (the child's start,
+    imports and the card's context, overlaps the traces), then (d) once
+    the child has ended, so that no other process shares its timings."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = _dryrun_pardnn(torch, Path(tmp))
+        t1 = time.perf_counter()
+        cli = _dryrun_cli(path)
+        try:
+            _dryrun_cells(torch, card)
+            t2 = time.perf_counter()
+            _dryrun_cli_wait(cli, path, t1)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.communicate()
+    t3 = time.perf_counter()
+    _dryrun_remat(torch, card)
+    log(f"dryrun: --pardnn {t1 - t0:.1f} s, cells {t2 - t1:.1f} s (the "
+        f"analysis CLI beside them), its wait {t3 - t2:.1f} s, remat "
+        f"policies {time.perf_counter() - t3:.1f} s; {card}")
+
+
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
           "plan_execute", "plan_serve", "train_kernels", "train",
@@ -5586,7 +5837,7 @@ PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "mixtral_serve", "mixtral_train", "wide_head_kernels",
           "deepseek_serve", "deepseek_train", "dense_configs",
           "ssm_kernels", "jamba_serve", "jamba_train", "hubert",
-          "internvl")
+          "internvl", "dryrun")
 
 
 class _Timed:
@@ -5781,6 +6032,9 @@ def main(argv=None) -> int:
     if "internvl" in phases:
         with _Timed("internvl"):
             phase_internvl(torch, get_config("internvl2-1b"), card)
+    if "dryrun" in phases:
+        with _Timed("dryrun"):
+            phase_dryrun(torch, card)
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record, rwkv_bwd_record)

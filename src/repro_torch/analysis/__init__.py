@@ -19,9 +19,11 @@ Entry points:
   :class:`~repro_torch.api.PartitionPlan`, adding artifact-level checks
   (schema, fingerprint).
 
-The reference's command line, mutation harness and random-program
-generator are not copied; the tests drive this analyzer with the
-reference's. The code registry is :data:`repro_torch.core.errors.CODES`.
+Beside them, as in the reference: the command line
+(``python -m repro_torch.analysis PLAN [--arch A]``), the mutation
+harness (:mod:`.mutate`) and the random-program generator
+(:mod:`.synth`). The code registry is
+:data:`repro_torch.core.errors.CODES`.
 
 The memory certificate replays the reference's schedule, donation
 included. The port's runtime does not donate, so with PEs on different

@@ -182,6 +182,19 @@ class ModelConfig:
                 total += mlp_mats * D * dff
         return float(total)
 
+    def active_param_count(self) -> float:
+        """Per-token active params (MoE: only routed-to experts); the
+        reference's function as it is (``MODEL_FLOPS`` of the dry run)."""
+        if self.moe is None:
+            return self.param_count()
+        full = self.param_count()
+        m = self.moe
+        kinds = list(self.prelude) + list(self.block_pattern) * self.num_periods
+        n_moe = sum(1 for kk in kinds if kk.endswith("moe"))
+        inactive = n_moe * (m.num_experts - m.experts_per_token) \
+            * (3 if self.gated_mlp else 2) * self.d_model * m.d_ff
+        return float(full - inactive)
+
 
 def register(cfg: ModelConfig) -> ModelConfig:
     cfg = cfg.validate()

@@ -457,3 +457,7 @@ def main(argv=None) -> int:
 __all__ = ["ArchSpec", "JSON_MARK", "MATRIX_OVERRIDES", "build_matrix",
            "example_batch", "main", "make_train_step", "reduced_config",
            "run_conformance", "spec_for"]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

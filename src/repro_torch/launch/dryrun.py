@@ -1,0 +1,528 @@
+"""Dry run on one H100 (port of ``repro.launch.dryrun``): prove every
+(architecture x input shape) cell traces at its full config and the
+shape's full global batch, and price it.
+
+Per cell it records into ``results/dryrun_torch/<cell>.json``:
+
+  * the step traced by ``api.trace`` on fake tensors of
+    ``models.io_spec``'s shapes, so nothing is allocated: train cells the
+    loss and its gradient under ``--remat``, prefill cells
+    ``train.build_prefill_step``, decode cells ``train.build_serve_step``;
+  * ``graph_flops`` and ``graph_bytes``, summed over the cost graph's
+    nodes (the reference's ``hlo_flops`` and ``hlo_bytes``; the port's
+    trace is flat, so no unroll-1 / unroll-2 extrapolation is needed);
+  * ``per_device_total_bytes``: the one-PE peak that ParDNN's emulator
+    prices for the graph with every node on PE 0, and ``fits`` against
+    the card's 80 GiB;
+  * the three roofline terms and the dominant one, on the H100's
+    constants (``core.costmodel``), and ``model_flops`` (the reference's
+    formula).
+
+It differs from the reference where the card differs: no ``XLA_FLAGS``
+line and no forced device count; the results go to
+``results/dryrun_torch`` (the reference writes ``results/dryrun``, with
+the same cell names, and each would read the other's files as
+``[cached]``); ``--mesh multi`` cells are ``SKIP``, since the mesh waits
+for ``launch/mesh.py`` and ``sharding/rules.py``, and on one card
+``collective_bytes`` is 0. The reference's ``collective_bytes_from_hlo``
+has no counterpart: PyTorch has no HLO; it waits with the mesh (ROADMAP
+M4).
+
+Usage:
+  python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
+  python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
+  python -m repro_torch.launch.dryrun --list
+  python -m repro_torch.launch.dryrun --pardnn --arch gemma3-1b \\
+      --pardnn-devices 4                       # emit PartitionPlan files
+  python -m repro_torch.launch.dryrun --calibrate --arch repro-lm-100m \\
+      --pardnn-devices 4   # profile ops/links, fit + save a
+                           # CalibrationProfile, report stage MAPE
+Flags for perf iterations: --remat, --tag (variant label kept in the
+result file name so baselines are never overwritten). ``--device``
+(default ``cuda``; ``cpu`` on a machine without a card) is where the
+cells trace their fake tensors and where ``--pardnn`` and
+``--calibrate`` run.
+
+``--pardnn`` goes through the ``repro_torch.api`` facade: it traces each
+arch's reduced loss, partitions it, and writes the versioned plan
+artifact next to the dry-run results; on one card the K PEs fold onto it
+(``api.fold_device_map``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs import ASSIGNED_ARCHS, SHAPES, get_config, shape_skip_reason
+from ..core.costmodel import (H100_HBM_BW, H100_HBM_BYTES, H100_NVLINK_BW,
+                              H100_PEAK_FLOPS)
+
+RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                           "results", "dryrun_torch")
+
+#: why a ``--mesh multi`` cell does not run
+MULTI_SKIP = ("the multi-card mesh waits for launch/mesh.py and "
+              "sharding/rules.py (ROADMAP M4)")
+
+
+def roofline_terms(flops: float, hbm_bytes: float, coll_bytes: float,
+                   chips: int) -> dict:
+    t_c = flops / (chips * H100_PEAK_FLOPS)
+    t_m = hbm_bytes / (chips * H100_HBM_BW)
+    t_x = coll_bytes / (chips * H100_NVLINK_BW)
+    dom = max((t_c, "compute"), (t_m, "memory"), (t_x, "collective"))
+    return {"compute_s": t_c, "memory_s": t_m, "collective_s": t_x,
+            "dominant": dom[1], "bound_s": dom[0]}
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS = 6·N·D (dense) / 6·N_active·D (MoE); decode D=batch
+    tokens; train includes the 3x backward factor already (6 = 2 fwd + 4
+    bwd per param per token)."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * tokens
+    return 2.0 * n_active * shape.global_batch  # decode: 1 token/slot
+
+
+def _loss_and_grad(cfg, remat: str):
+    """``step(params, batch) -> (loss, grads)``: the loss and its
+    gradient over the per-layer leaves, as the train steps take it."""
+    from ..models import unstack_periods
+    from ..train.step import loss_and_grads
+
+    def step(params, batch):
+        loss, _, grads = loss_and_grads(cfg, unstack_periods(cfg, params),
+                                        batch, remat)
+        return loss, grads
+
+    return step
+
+
+def _fake_on(tree, dev: torch.device):
+    """The meta tensors of ``tree`` as fake tensors on ``dev``, all of
+    one fake mode: shapes, strides and dtypes, no storage. The kernel
+    wrappers take cuda or cpu tensors, not meta ones."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..tree import tree_map
+    with FakeTensorMode():
+        return tree_map(lambda t: torch.empty_strided(
+            t.shape, t.stride(), dtype=t.dtype, device=dev), tree)
+
+
+def _trace_cell(cfg, shape, remat: str, dev: torch.device):
+    """The cell's step traced on fake tensors on ``dev`` (nothing is
+    allocated)."""
+    from .. import api
+    from ..models.io_spec import input_specs, params_spec
+    from ..train.step import build_prefill_step, build_serve_step
+    params, spec = _fake_on((params_spec(cfg), input_specs(cfg, shape)),
+                            dev)
+    if shape.kind == "train":
+        return api.trace(_loss_and_grad(cfg, remat), params, spec["batch"],
+                         autograd=True)
+    if shape.kind == "prefill":
+        return api.trace(build_prefill_step(cfg, shape.seq_len, dev),
+                         params, spec["batch"])
+    return api.trace(build_serve_step(cfg, shape, dev), params,
+                     spec["caches"], spec["tokens"], spec["cache_pos"])
+
+
+def one_pe_peak(graph) -> float:
+    """Bytes ParDNN's emulator prices for the graph with every node on
+    PE 0: the memory one card needs for the step."""
+    from ..core.emulator import emulate
+    from ..core.memops import compute_profile
+    zero = np.zeros(graph.n, dtype=np.int64)
+    return float(compute_profile(graph, zero, emulate(graph, zero, 1),
+                                 1).peak[0])
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
+             remat: str = "dots", tag: str = "", device=None) -> dict:
+    """One dry-run cell on one H100 (``mesh_kind="single"``; ``"multi"``
+    is ``SKIP``), traced on fake tensors on ``device`` (``None``: cuda,
+    which raises where there is none): nothing is allocated. The record
+    keeps the reference's keys where they mean the same (``status``,
+    ``chips``, ``remat``, ``tag``, ``roofline``, ``model_flops``,
+    ``useful_flops_ratio``, ``per_device_total_bytes``,
+    ``collective_bytes``); ``trace_s`` stands for ``lower_s`` and
+    ``compile_s``, ``graph_flops`` and ``graph_bytes`` for ``hlo_flops``
+    and ``hlo_bytes``."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    skip = shape_skip_reason(cfg, shape)
+    if skip is None and mesh_kind == "multi":
+        skip = MULTI_SKIP
+    if skip:
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+                "status": "SKIP", "reason": skip}
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    traced = _trace_cell(cfg, shape, remat, dev)
+    trace_s = time.perf_counter() - t0
+    g = traced.graph
+    flops = float(np.sum(g.op_flops))
+    nbytes = float(np.sum(g.op_bytes))
+    peak = one_pe_peak(g)
+    mf = model_flops(cfg, shape)
+    return {
+        "arch": arch, "shape": shape_name, "mesh": mesh_kind,
+        "status": "OK", "tag": tag, "remat": remat, "chips": 1,
+        "trace_s": round(trace_s, 2), "nodes": g.n,
+        "graph_flops": flops, "graph_bytes": nbytes,
+        "per_device_total_bytes": peak,
+        "fits": bool(peak <= H100_HBM_BYTES),
+        "collective_bytes": 0.0,
+        "roofline": roofline_terms(flops, nbytes, 0.0, 1),
+        "model_flops": mf,
+        "useful_flops_ratio": mf / flops if flops else None,
+    }
+
+
+def reduced_loss_trace(arch: str, device=None, record: bool = True):
+    """``(params, traced)``: the parameters of the arch's reduced config
+    from seed 0 on ``device`` (``None``: cuda) and the trace of its loss
+    on the smoke batch (the graph ``--pardnn`` partitions, which
+    ``python -m repro_torch.analysis --arch`` rebuilds to bind a saved
+    plan)."""
+    from .. import api
+    from ..configs import reduced
+    from ..models import init_params, loss_fn, smoke_batch
+    dev = resolve_device(device)
+    cfg = reduced(get_config(arch))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    batch = smoke_batch(cfg, device=dev)
+    traced = api.trace(lambda p: loss_fn(cfg, p, batch)[0], params,
+                       record=record)
+    return params, traced
+
+
+def _placement(devices: int, dev: torch.device):
+    """(devices, device_map) that fold ``devices`` PEs onto ``dev``'s
+    kind: the CPU, or every visible card."""
+    from .. import api
+    devs = [dev] if dev.type == "cpu" else None
+    return devs, api.fold_device_map(devices, devs)
+
+
+def run_pardnn_plan(arch: str, devices: int, out_dir: str,
+                    mem_cap_mb: float | None = None,
+                    execute: bool = False, lint: bool = False,
+                    trace: str | None = None, device=None) -> dict:
+    """Trace the arch's reduced loss and emit a versioned
+    :class:`repro_torch.api.PartitionPlan` artifact (JSON header + npz).
+
+    With ``execute=True`` the placement is additionally *run* through
+    both execution engines on ``device`` (``None``: cuda), its PEs folded
+    onto the card (or the CPU): the op-by-op interpreter and the compiled
+    segment runtime, and the result records the interpreter-vs-compiled
+    speedup plus measured-vs-predicted peak bytes per PE.
+
+    With ``lint=True`` the program is recorded even without execution so
+    the full static verifier (``repro_torch.analysis``) can run, and the
+    diagnostic report is written next to the plan. Either way
+    ``plan.save`` refuses to write a plan carrying error-severity
+    diagnostics: the caller sees the raise, not a silent artifact."""
+    from .. import api
+    dev = resolve_device(device)
+    params, traced = reduced_loss_trace(arch, dev, record=execute or lint)
+    plan = api.partition(
+        traced, devices=devices,
+        memory=mem_cap_mb * 1e6 if mem_cap_mb else None,
+        meta={"arch": arch, "config": "reduced", "source": "dryrun"})
+    path = os.path.join(out_dir, f"{arch}__pardnn_k{devices}.plan.json")
+    res = {"arch": arch, "ops": plan.n, "path": path,
+           "makespan_s": plan.makespan, "feasible": plan.feasible}
+    vrep = plan.verify()
+    res["diagnostics"] = vrep.summary_dict()
+    res["verify_errors"] = len(vrep.errors)
+    if lint:
+        lpath = os.path.join(out_dir,
+                             f"{arch}__pardnn_k{devices}.diagnostics.json")
+        with open(lpath, "w") as f:
+            json.dump(vrep.to_dict(), f, indent=1)
+        res["diagnostics_path"] = lpath
+    if execute:
+        devs, device_map = _placement(devices, dev)
+        res["runtime"] = plan.benchmark_runtimes(
+            params, reps=1, devices=devs, device_map=device_map)
+        plan.meta["runtime"] = res["runtime"]
+        if trace:
+            # one traced execution on top of the benchmark: merged
+            # measured + predicted segment lanes (see repro_torch.obs)
+            plan.execute(params, devices=devs, device_map=device_map,
+                         trace=trace)
+            res["trace_path"] = trace
+    plan.save(path)
+    return res
+
+
+def run_calibration_cell(arch: str, devices: int, out_dir: str,
+                         tiny: bool = False, device=None) -> dict:
+    """Close the predict→execute loop for one arch on ``device``
+    (``None``: cuda): profile the reduced loss's ops + copies, fit the
+    device model, save the :class:`~repro_torch.profiling.
+    CalibrationProfile` artifact next to the dry-run results,
+    re-annotate, re-partition, and score the Step-2 emulator's per-stage
+    predictions against the segment runtime's measured times
+    (``PartitionPlan.accuracy_report``)."""
+    from .. import api
+    from ..configs import reduced
+    from ..models import init_params, loss_fn, smoke_batch
+    from ..profiling import MeasureSpec, quick_spec
+    dev = resolve_device(device)
+    cfg = reduced(get_config(arch))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    batch = smoke_batch(cfg, batch=2, seq=16 if tiny else 32, device=dev)
+    traced = api.trace(lambda p: loss_fn(cfg, p, batch)[0], params,
+                       record=True)
+    ppath = os.path.join(out_dir, f"{arch}__calibration.json")
+    spec = quick_spec(reps=2) if tiny else MeasureSpec()
+    profile = api.calibrate(traced, spec=spec, device=dev,
+                            max_signatures=40 if tiny else None,
+                            meta={"arch": arch, "source": "dryrun"},
+                            save=ppath)
+    traced.annotate(profile)
+    devs, device_map = _placement(devices, dev)
+    plan = api.partition(traced, devices=devices,
+                         meta={"arch": arch, "source": "dryrun",
+                               "calibration": ppath})
+    acc = plan.accuracy_report(params, devices=devs, device_map=device_map,
+                               reps=2 if tiny else 3)
+    return {"arch": arch, "ops": plan.n, "profile": ppath,
+            "signatures": len(profile.ops), "fitted": profile.fitted,
+            "stage_mape_pct": acc["stage_mape_pct"],
+            "device_mape_pct": acc["device_mape_pct"],
+            "measured_wall_s": acc["measured_wall_s"],
+            "predicted_makespan_s": acc["predicted_makespan_s"],
+            "summary": profile.summary()}
+
+
+def cell_name(arch, shape, mesh_kind, tag=""):
+    t = f"__{tag}" if tag else ""
+    return f"{arch}__{shape}__{mesh_kind}{t}"
+
+
+def _arch_path(path: str | None, arch: str, multi: bool) -> str | None:
+    """Suffix the arch into ``path`` before the extension when one flag
+    value has to fan out over several archs."""
+    if path is None or not multi:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.{arch}{ext or '.json'}"
+
+
+def _write_metrics(path: str, source: str, records: dict) -> None:
+    from ..obs.metrics import wrap_metrics
+    with open(path, "w") as f:
+        json.dump(wrap_metrics(source, {"records": records}), f, indent=1)
+    print(f"wrote metrics {path}", flush=True)
+
+
+def _calibrate_main(args, dev) -> int:
+    os.makedirs(args.out, exist_ok=True)
+    archs = ASSIGNED_ARCHS if args.arch is None else [args.arch]
+    records = {}
+    for a in archs:
+        t0 = time.perf_counter()
+        try:
+            res = run_calibration_cell(a, args.pardnn_devices, args.out,
+                                       tiny=args.calibrate_tiny, device=dev)
+            records[a] = res
+            path = os.path.join(args.out, f"{a}__calibration_report.json")
+            with open(path, "w") as f:
+                json.dump(res, f, indent=1)
+            mape = res["stage_mape_pct"]   # None: nothing scorable
+            print(f"[OK] {a}: {res['summary']}; stage MAPE "
+                  f"{'n/a' if mape is None else f'{mape:.1f}%'}, wall "
+                  f"{res['measured_wall_s'] * 1e3:.1f} ms vs "
+                  f"predicted {res['predicted_makespan_s'] * 1e3:.1f}"
+                  f" ms -> {res['profile']} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        except Exception as e:
+            records[a] = {"arch": a, "error": f"{type(e).__name__}: {e}"}
+            print(f"[FAIL] {a}: {type(e).__name__}: {e}", flush=True)
+    if args.metrics:
+        _write_metrics(args.metrics, "dryrun_calibrate", records)
+    return 0
+
+
+def _print_runtime(rt: dict) -> None:
+    mvp = " ".join(
+        f"d{i}:{m / 1e6:.1f}/{p / 1e6:.1f}MB"
+        for i, (m, p) in enumerate(zip(rt["measured_peak_bytes"],
+                                       rt["predicted_peak_bytes"])))
+    print(f"     runtime: {rt['num_segments']} segments, "
+          f"{rt['transfers']} transfers, compiled "
+          f"{rt['compiled_s'] * 1e3:.1f} ms vs interpreter "
+          f"{rt['interpreter_s'] * 1e3:.0f} ms "
+          f"({rt['speedup']:.0f}x); measured/predicted "
+          f"peaks {mvp}", flush=True)
+    print(f"     overlap: async {rt['compiled_s'] * 1e3:.1f} ms vs sync "
+          f"{rt['compiled_sync_s'] * 1e3:.1f} ms "
+          f"({rt['overlap_speedup']:.2f}x), "
+          f"{rt['prefetched_transfers']}/{rt['transfers']} transfers "
+          f"prefetched ({rt['deferred_transfers']} deferred), sync/async "
+          f"drift {rt['sync_async_drift']:.3g}", flush=True)
+    if rt["output_drift"] > 1e-5:
+        print(f"     WARNING: output drift {rt['output_drift']:.3g}",
+              flush=True)
+
+
+def _pardnn_main(args, dev) -> int:
+    os.makedirs(args.out, exist_ok=True)
+    archs = ASSIGNED_ARCHS if args.arch is None else [args.arch]
+    failed = 0
+    records = {}
+    multi = len(archs) > 1
+    for a in archs:
+        t0 = time.perf_counter()
+        try:
+            res = run_pardnn_plan(a, args.pardnn_devices, args.out,
+                                  args.pardnn_mem_cap_mb,
+                                  execute=args.pardnn_execute,
+                                  lint=args.lint,
+                                  trace=_arch_path(args.trace, a, multi),
+                                  device=dev)
+            records[a] = res
+            dcounts = res["diagnostics"]["counts"]
+            print(f"[OK] {a}: {res['ops']} ops, makespan "
+                  f"{res['makespan_s'] * 1e3:.3f} ms, "
+                  f"feasible={res['feasible']}, verified "
+                  f"({dcounts['error']}E/{dcounts['warn']}W/"
+                  f"{dcounts['info']}I) -> {res['path']} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            if res.get("runtime"):
+                _print_runtime(res["runtime"])
+        except Exception as e:
+            # includes PlanValidationError RP107: plan.save refuses
+            # to write a plan with error-severity diagnostics
+            records[a] = {"arch": a, "error": f"{type(e).__name__}: {e}"}
+            print(f"[FAIL] {a}: {type(e).__name__}: {e}", flush=True)
+            failed += 1
+    if args.metrics:
+        _write_metrics(args.metrics, "dryrun_pardnn", records)
+    return 1 if failed else 0
+
+
+def _cells_main(args, dev) -> int:
+    cells = []
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    archs = ASSIGNED_ARCHS if (args.all or args.arch is None) \
+        else [args.arch]
+    shapes = list(SHAPES) if (args.all or args.shape is None) \
+        else [args.shape]
+    for a in archs:
+        for s in shapes:
+            for m in meshes:
+                cells.append((a, s, m))
+
+    if args.list:
+        for a, s, m in cells:
+            skip = shape_skip_reason(get_config(a), SHAPES[s])
+            if skip is None and m == "multi":
+                skip = MULTI_SKIP
+            print(f"{cell_name(a, s, m):60s} "
+                  f"{'SKIP: ' + skip if skip else 'RUN'}")
+        return 0
+
+    os.makedirs(args.out, exist_ok=True)
+    for a, s, m in cells:
+        name = cell_name(a, s, m, args.tag)
+        path = os.path.join(args.out, name + ".json")
+        if os.path.exists(path) and not args.force:
+            print(f"[cached] {name}")
+            continue
+        print(f"[run] {name} ...", flush=True)
+        t0 = time.perf_counter()
+        try:
+            res = run_cell(a, s, m, remat=args.remat, tag=args.tag,
+                           device=dev)
+        except Exception as e:
+            res = {"arch": a, "shape": s, "mesh": m, "status": "FAIL",
+                   "error": f"{type(e).__name__}: {e}",
+                   "traceback": traceback.format_exc()[-4000:]}
+        res["wall_s"] = round(time.perf_counter() - t0, 1)
+        with open(path, "w") as f:
+            json.dump(res, f, indent=1)
+        status = res["status"]
+        extra = ""
+        if status == "OK":
+            r = res["roofline"]
+            extra = (f"dom={r['dominant']} bound={r['bound_s']:.4f}s "
+                     f"flops={res['graph_flops']:.3g} mem/dev="
+                     f"{res['per_device_total_bytes'] / 2**30:.1f}G "
+                     f"fits={res['fits']}")
+        elif status == "FAIL":
+            extra = res["error"][:200]
+        print(f"[{status}] {name} ({res['wall_s']}s) {extra}", flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="both",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--list", action="store_true")
+    ap.add_argument("--remat", default="full")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--out", default=RESULTS_DIR)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--pardnn", action="store_true",
+                    help="emit PartitionPlan artifacts via the "
+                         "repro_torch.api facade instead of the cells")
+    ap.add_argument("--pardnn-devices", type=int, default=4)
+    ap.add_argument("--pardnn-mem-cap-mb", type=float, default=None)
+    ap.add_argument("--pardnn-execute", action="store_true",
+                    help="also run the plan through both execution "
+                         "engines and report interpreter-vs-compiled "
+                         "speedup + measured-vs-predicted peak bytes")
+    ap.add_argument("--lint", action="store_true",
+                    help="with --pardnn: record the program so the full "
+                         "static verifier runs, and write each plan's "
+                         "diagnostic report next to its artifact")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="profile real op/copy costs, fit the device "
+                         "model, save a CalibrationProfile per arch and "
+                         "report predicted-vs-measured stage MAPE")
+    ap.add_argument("--calibrate-tiny", action="store_true",
+                    help="cheap calibration settings (CI smoke)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="with --pardnn --pardnn-execute: write a "
+                         "Perfetto trace (measured + predicted lanes) of "
+                         "each plan's compiled execution; multi-arch runs "
+                         "suffix the arch before the extension")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="write the per-arch result records as one "
+                         "versioned repro-metrics envelope JSON")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    if args.calibrate:
+        return _calibrate_main(args, dev)
+    if args.pardnn:
+        return _pardnn_main(args, dev)
+    return _cells_main(args, dev)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

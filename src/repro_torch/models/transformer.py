@@ -28,8 +28,10 @@ their sum (2L - 1) whole-stack tensors per leaf.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
@@ -199,16 +201,99 @@ def embed_inputs(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
     return x
 
 
-#: remat policies :func:`forward` takes; the reference's "dots" and
-#: "dots_no_batch" (save the products' outputs) are not ported
-REMAT_POLICIES = (None, "none", "full")
+#: remat policies :func:`forward` takes, the reference's: ``None`` and
+#: ``"none"`` keep every activation, ``"full"`` recomputes each period,
+#: ``"dots"`` and ``"dots_no_batch"`` recompute each period but what
+#: ``_SAVED`` names
+REMAT_POLICIES = (None, "none", "full", "dots", "dots_no_batch")
+
+#: products without batch dims: the weight products (the reference's
+#: einsums of (B, S, in) by (in, out) are dot_generals without batch dims)
+_NO_BATCH_PRODUCTS = frozenset({"aten::mm", "aten::addmm"})
+#: products with batch dims. Each custom op joins by what its reference
+#: counterpart is under ``jax.checkpoint``, as
+#: ``jax.ad_checkpoint.print_saved_residuals`` shows on the reduced
+#: configs: its output is, or is summed from, the output of a product
+#: with batch dims, which ``dots_saveable`` saves and
+#: ``dots_with_no_batch_dims_saveable`` does not:
+#:
+#: - ``repro_torch::flash_attention``: ``layers._plain_gqa``, the scores
+#:   and the PV product, einsums over (batch, KV head, group);
+#: - ``repro_torch::wkv6``: ``rwkv._wkv_chunked``, per-chunk einsums over
+#:   (batch, head);
+#: - ``repro_torch::selective_scan``: ``ssm._ssm_scan_chunked``, whose y
+#:   is ``einsum("bsdn,bsn->bsd")`` over (b, s).
+_BATCH_PRODUCTS = frozenset({"aten::bmm", "aten::baddbmm",
+                             "repro_torch::flash_attention",
+                             "repro_torch::wkv6",
+                             "repro_torch::selective_scan"})
+
+
+class _KeepProducts(TorchDispatchMode):
+    """A period's forward under a ``dots`` policy: runs every op and keeps
+    the outputs of the ops named in ``saved`` in call order, detached,
+    with their version counters."""
+
+    def __init__(self, saved: frozenset, kept: list):
+        super().__init__()
+        self.saved, self.kept = saved, kept
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.name() in self.saved:
+            outs = out if isinstance(out, tuple) else (out,)
+            # detached with ADInplaceOrView on, the copy shares the
+            # version counter that the recompute checks
+            with torch._C._SetExcludeDispatchKeyGuard(
+                    torch._C.DispatchKey.ADInplaceOrView, False):
+                self.kept.append((isinstance(out, tuple),
+                                  [(t.detach(), t._version) for t in outs]))
+        return out
+
+
+class _ReuseProducts(TorchDispatchMode):
+    """The same period's recompute: every op runs again but those named
+    in ``saved``, which return what :class:`_KeepProducts` kept."""
+
+    def __init__(self, saved: frozenset, kept: list):
+        super().__init__()
+        self.saved, self.kept = saved, kept
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.name() not in self.saved:
+            return func(*args, **(kwargs or {}))
+        is_tuple, entries = self.kept.pop(0)
+        if any(t._version != v for t, v in entries):
+            raise RuntimeError(f"remat: an output of {func.name()} was "
+                               f"written in place after it was kept")
+        vals = tuple(t for t, _ in entries)
+        return vals if is_tuple else vals[0]
+
+
+def _remat_contexts(saved: frozenset):
+    """``checkpoint``'s ``context_fn`` for a ``dots`` policy: the forward
+    keeps the products' outputs, the recompute reuses them and runs the
+    rest. torch's ``create_selective_checkpoint_contexts`` does the same
+    when run, but under a tracing proxy mode (``make_fx``, which
+    ``api.trace`` uses) it keeps every op's output and leaves the
+    recompute to a compiler's partitioner, so a traced step would hold
+    no recompute at all; the port's planner and runtime run the traced
+    graph as it stands."""
+    kept: list = []
+    return _KeepProducts(saved, kept), _ReuseProducts(saved, kept)
+
+
+#: per policy, the ops whose outputs the period's checkpoint saves (the
+#: reference's ``dots_saveable`` and ``dots_with_no_batch_dims_saveable``)
+_SAVED = {"dots": _NO_BATCH_PRODUCTS | _BATCH_PRODUCTS,
+          "dots_no_batch": _NO_BATCH_PRODUCTS}
 
 
 def check_remat_policy(remat_policy) -> None:
     if remat_policy not in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat policy {remat_policy!r} is not ported (have "
-            f"{REMAT_POLICIES[1:]}); ROADMAP queue 1: --remat dots")
+        raise ValueError(
+            f"unknown remat policy {remat_policy!r}; have "
+            f"{REMAT_POLICIES[1:]}")
 
 
 def _add_aux(total, aux):
@@ -243,7 +328,13 @@ def forward(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
     ``remat_policy="full"`` (without caches) runs each period under
     ``torch.utils.checkpoint``: its backward recomputes the period from
     its input, as the reference's ``jax.checkpoint`` of the scan body
-    does; ``None`` or ``"none"`` keeps every activation."""
+    does; ``"dots"`` and ``"dots_no_batch"`` do the same under a
+    selective-checkpoint policy that saves the outputs of every product
+    (``dots``) or of the products without batch dims (``dots_no_batch``)
+    and recomputes the rest, as ``jax.checkpoint_policies``'
+    ``dots_saveable`` and ``dots_with_no_batch_dims_saveable`` do (see
+    :data:`_BATCH_PRODUCTS` for the custom ops); ``None`` or ``"none"``
+    keeps every activation."""
     check_remat_policy(remat_policy)
     periods = params["periods"]
     aux = None
@@ -253,13 +344,16 @@ def forward(cfg: ModelConfig, params, x: torch.Tensor, *, positions,
                                positions=positions, cache=c,
                                cache_pos=cache_pos)
         aux = _add_aux(aux, a)
-    remat = remat_policy == "full" and caches is None
+    remat = remat_policy not in (None, "none") and caches is None
+    kw = {}
+    if remat_policy in _SAVED:
+        kw["context_fn"] = partial(_remat_contexts, _SAVED[remat_policy])
     for n in range(cfg.num_periods):
         pp = periods[n] if isinstance(periods, list) else _at(periods, n)
         pc = _at(caches["periods"], n) if caches is not None else None
         if remat:
             x, a = checkpoint(_period_apply, cfg, pp, x, positions, None,
-                              cache_pos, use_reentrant=False)
+                              cache_pos, use_reentrant=False, **kw)
         else:
             x, a = _period_apply(cfg, pp, x, positions, pc, cache_pos)
         aux = _add_aux(aux, a)

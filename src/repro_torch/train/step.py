@@ -1,7 +1,7 @@
 """The step builders for one device (port of ``repro.train.step``'s
-``build_train_step``, ``build_encoder_train_step`` and
-``build_prefill_step``; their sharded forms, and ``build_serve_step``,
-wait for ``launch/mesh.py``, ROADMAP queue 1): no mesh, no shardings.
+``build_train_step``, ``build_encoder_train_step``, ``build_prefill_step``
+and ``build_serve_step``; their sharded forms wait for
+``launch/mesh.py``, ROADMAP queue 1): no mesh, no shardings.
 
 The gradient is taken as ``conformance.make_train_step`` takes it:
 ``torch.autograd.grad`` over per-layer leaves (the periods unbound by
@@ -15,9 +15,9 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from ..configs.base import ModelConfig
-from ..models import (check_remat_policy, encoder_logits, loss_fn, prefill,
-                      unstack_periods)
+from ..configs.base import ModelConfig, ShapeConfig
+from ..models import (check_remat_policy, decode_step, encoder_logits,
+                      loss_fn, prefill, unstack_periods)
 from ..tree import tree_flatten, tree_unflatten
 from .optimizer import AdamWConfig, apply_updates
 
@@ -26,10 +26,11 @@ _PARAM_SHAPED = ("master", "mu", "nu")
 
 
 def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
-                     remat_policy: str = "full", device=None):
+                     remat_policy: str = "dots", device=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on ``device`` (``None``: cuda): the loss and its gradient
-    (``remat_policy`` ``"full"`` or ``"none"``, see
+    (``remat_policy`` one of ``"dots"``, the reference's default,
+    ``"dots_no_batch"``, ``"full"`` or ``"none"``, see
     :func:`~repro_torch.models.forward`), then one AdamW step **in place**
     (the returned trees are the ones given). ``batch`` holds numpy arrays
     or tensors (``tokens`` or ``embeds``, ``targets``), moved to the
@@ -42,31 +43,38 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     def train_step(params, opt_state, batch):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         unstacked = unstack_periods(cfg, params)
-        leaves, structure = tree_flatten(unstacked)
-        req = [t.detach().requires_grad_() for t in leaves]
-        with torch.enable_grad():
-            loss, parts = loss_fn(cfg, tree_unflatten(structure, req), batch,
-                                  remat_policy=remat_policy)
-            # a leaf the loss does not read (hubert's token embedding,
-            # fed frame embeddings) gets zeros, as jax.grad gives it
-            grads = torch.autograd.grad(loss, req,
-                                        materialize_grads=True)
-        del req
+        loss, parts, grads = loss_and_grads(cfg, unstacked, batch,
+                                            remat_policy)
         state = {k: unstack_periods(cfg, v) if k in _PARAM_SHAPED else v
                  for k, v in opt_state.items()}
-        _, _, om = apply_updates(opt_cfg, unstacked,
-                                 tree_unflatten(structure, list(grads)),
-                                 state)
-        metrics = {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in parts.items()}, **om}
+        _, _, om = apply_updates(opt_cfg, unstacked, grads, state)
+        metrics = {"loss": loss, **parts, **om}
         return params, opt_state, metrics
 
     return train_step
 
 
+def loss_and_grads(cfg: ModelConfig, unstacked, batch: dict,
+                   remat_policy: str | None = None):
+    """``(loss, parts, grads)``: :func:`~repro_torch.models.loss_fn` on
+    ``unstacked`` (parameters with the periods unbound,
+    :func:`~repro_torch.models.unstack_periods`) and its gradient, a tree
+    like ``unstacked``, all detached. A leaf the loss does not read
+    (hubert's token embedding, fed frame embeddings) gets zeros, as
+    ``jax.grad`` gives it."""
+    leaves, structure = tree_flatten(unstacked)
+    req = [t.detach().requires_grad_() for t in leaves]
+    with torch.enable_grad():
+        loss, parts = loss_fn(cfg, tree_unflatten(structure, req), batch,
+                              remat_policy=remat_policy)
+        grads = torch.autograd.grad(loss, req, materialize_grads=True)
+    return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+            tree_unflatten(structure, list(grads)))
+
+
 def build_encoder_train_step(cfg: ModelConfig,
                              opt_cfg: AdamWConfig | None = None,
-                             remat_policy: str = "full", device=None):
+                             remat_policy: str = "dots", device=None):
     """Encoder-only archs use the same loss (masked prediction == CE on
     provided targets), so the standard builder applies."""
     return build_train_step(cfg, opt_cfg, remat_policy, device)
@@ -91,5 +99,32 @@ def build_prefill_step(cfg: ModelConfig, max_len: int, device=None):
     return prefill_step
 
 
+def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, device=None):
+    """``serve_step(params, caches, tokens, cache_pos) -> (next_tok,
+    logits, new_caches)`` on ``device`` (``None``: cuda), without
+    autograd: one-token decode (``shape``, a decode shape, sizes the
+    caches the caller gives, ``cache_spec(cfg, shape.global_batch,
+    shape.seq_len)``). ``next_tok`` is the greedy (B, 1) int32 token;
+    the caches are written in place and returned. ``cache_pos`` is an
+    int or a tensor; a 0-d tensor is taken for every row, as a (B,)
+    tensor, so that a trace on fake tensors never reads its value."""
+    if shape.kind != "decode":
+        raise ValueError(f"build_serve_step needs a decode shape, got "
+                         f"{shape.name} ({shape.kind})")
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def serve_step(params, caches, tokens, cache_pos):
+        tokens = torch.as_tensor(tokens, device=dev)
+        if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 0:
+            cache_pos = cache_pos.to(dev).expand(tokens.shape[0])
+        logits, new_caches = decode_step(cfg, params, caches, tokens,
+                                         cache_pos)
+        next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        return next_tok, logits, new_caches
+
+    return serve_step
+
+
 __all__ = ["build_encoder_train_step", "build_prefill_step",
-           "build_train_step"]
+           "build_serve_step", "build_train_step", "loss_and_grads"]

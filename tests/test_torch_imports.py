@@ -48,7 +48,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.runtime, repro_torch.analysis, "
             "repro_torch.conformance, repro_torch.conformance.matrix, "
             "repro_torch.train, repro_torch.data, repro_torch.checkpoint, "
-            "repro_torch.launch.train, repro_torch.profiling; "
+            "repro_torch.launch.train, repro_torch.profiling, "
+            "repro_torch.launch.dryrun, repro_torch.analysis.mutate, "
+            "repro_torch.analysis.synth, repro_torch.analysis.__main__, "
+            "repro_torch.conformance.subproc; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

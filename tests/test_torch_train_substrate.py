@@ -14,6 +14,7 @@ products summed in other orders); the loop's resume equal to an
 uninterrupted run bit for bit (the reference's own resume test fails,
 ROADMAP queue 3).
 """
+import inspect
 import os
 import signal
 import subprocess
@@ -295,26 +296,27 @@ def model(request):
     return jc, tc, jax.tree_util.tree_map(np.asarray, jp), batch
 
 
-def _reference_step(jc, jp_np, batch, ocfg):
+def _reference_step(jc, jp_np, batch, ocfg, remat="full"):
     from jax.sharding import AxisType
 
     from repro.train.step import build_train_step as jax_build
     mesh = jax.make_mesh((1, 1), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     built = jax_build(jc, mesh, jopt.AdamWConfig(**ocfg),
-                      remat_policy="full", donate=False)
+                      remat_policy=remat, donate=False)
     jp = jax.tree_util.tree_map(jnp.asarray, jp_np)
     return built.fn(jp, jopt.init_state(jopt.AdamWConfig(**ocfg), jp),
                     batch)
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots", "dots_no_batch"])
 def test_build_train_step_matches_reference(model, remat):
     """One AdamW step: loss, metrics, new parameters and the optimizer
-    state against the reference's ``build_train_step`` (remat "full")."""
+    state against the reference's ``build_train_step`` under the same
+    remat policy."""
     jc, tc, jp_np, batch = model
     ocfg = dict(lr=1e-3, warmup_steps=0)
-    jnew, jstate, jmet = _reference_step(jc, jp_np, batch, ocfg)
+    jnew, jstate, jmet = _reference_step(jc, jp_np, batch, ocfg, remat)
     tp = params_from_numpy(jp_np, "cpu")
     ts = init_state(AdamWConfig(**ocfg), tp)
     step = build_train_step(tc, AdamWConfig(**ocfg), remat_policy=remat,
@@ -329,11 +331,14 @@ def test_build_train_step_matches_reference(model, remat):
     _assert_trees_close(tstate, jstate, **tol)
 
 
-def test_remat_policies_not_ported_raise():
+def test_unknown_remat_policy_raises():
+    """An unknown policy raises and names the policies there are; the
+    default is the reference's, "dots"."""
     cfg = tcfg.reduced(tcfg.get_config("granite-8b"), layers=2)
-    for policy in ("dots", "dots_no_batch"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_train_step(cfg, remat_policy=policy, device="cpu")
+    with pytest.raises(ValueError, match="'dots', 'dots_no_batch'"):
+        build_train_step(cfg, remat_policy="bogus", device="cpu")
+    assert inspect.signature(build_train_step).parameters[
+        "remat_policy"].default == "dots"
 
 
 # -------------------------------------------------------------------- loop
