@@ -77,7 +77,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    (``device_map=[0] * 4``), through ``PartitionPlan.execute``: (a) 2
    layers in float32, the compiled runtime against the eager step
    within 2e-5; (b) full granite-8b in bf16, the verified K=4 plan
-   (half cap), its parameters read in place and its other inputs copied
+   (half cap; the plan phase's trace and plan when it ran: the graph
+   depends on shapes and dtypes only), its parameters read in place and
+   its other inputs copied
    into the runtime's buffers (a call with other pools leaves the first
    call's as they were): compiled async bit-equal to sync over three
    calls each, both against
@@ -104,8 +106,11 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    with no capture after the first, all prefill flash launches sm90;
    (b) a block-starved pool (``STARVED``), its own K=4 half-cap plan,
    plan-served against local: preemptions equal and above 0, tokens
-   equal under the same rule; (c) the engine traces valid (a lane per
-   request, an ``evicted`` instant per preemption), and one
+   equal under the same rule; then the same requests admitted in a
+   shuffled order: the in-order plan-served tokens request for request
+   (the rule with (b)'s d), 0 leaked blocks; (c) the engine traces
+   valid (a lane per request, an ``evicted`` instant per preemption),
+   and one
    ``plan.execute(trace=)`` of a decode step: measured lanes (CUDA
    events) and predicted lanes with the same ``seg{sid}`` names,
    predicted against measured makespan; (d) ``launch.serve --plan-devices
@@ -113,6 +118,17 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    plan-served and local tok/s, TTFT p50 and decode ms side by side,
    segments, capture seconds and max_memory_allocated beside the card's
    name and power limit.
+11b. conformance serving: ``python -m repro_torch.conformance --arch
+   granite-8b --serving --devices 4 --fold --trace PATH`` in a child
+   process (``conformance.subproc``): the reference's serving scenario,
+   reduced granite-8b (float32) served through ``plan.serve`` at K=4
+   folded onto the card under a block-starved pool (block 4, 10 blocks,
+   max_batch 4, max_len 20) and a shuffled admission order: exit 0 and
+   ok, preemptions forced, 0 leaked blocks in both schedules, 4 requests
+   completed, every pool leaf on a PE of the plan, the trace valid (both
+   lane groups, an ``evicted`` instant per preemption), at least one
+   flash launch and all of them fma (float32, hd 16). With phase 29 it
+   runs beside that phase's cells, which time nothing on the card.
 12. train kernels: the three flash backward kernels (``sm90``: bf16 at
    hd 64/128, wgmma and the forward's LSE; ``mma``, the earlier
    mma.sync design, and ``fma``, the first, on every bf16 case too; fma
@@ -146,8 +162,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 14. calibrate: ``repro_torch.profiling`` on the card, closing the
    predict-measure loop on two plans folded onto it: (a) full granite-8b's
    paged decode step (bf16, 36 layers, the serve geometry), the K=4
-   half-cap plan; (b) granite-8b's training step (B=1, S=2048,
-   TRAIN["plan_layers"] layers), K=4 under half the card per PE. Each:
+   half-cap plan (the plan phase's trace and plan when it ran); (b)
+   granite-8b's training step (B=1, S=2048, TRAIN["plan_layers"]
+   layers), K=4 under half the card per PE. Each:
    ``accuracy_report`` (segments serialised, CUDA events around each
    graph replay), ``api.calibrate`` (every op signature timed by the
    robust estimator, the copy ladder, the dispatch overhead, the
@@ -171,10 +188,10 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    one ``select_bwd_variant`` names, and in bf16 at hd 64 the fma kernel
    by name too, each gradient under the gate written in rwkv6_bwd.cu,
    repeated calls bit-equal; at the training shape, in turns, the mma
-   kernel, the fma kernel, the plain version and the fma kernel cut
-   after its forward walk (a copy of its source built apart), beside the
-   bound; the mma kernel's two stages timed apart, registers, spills and
-   blocks per SM;
+   kernel, the fma kernel and the fma kernel cut after its forward walk
+   (a copy of its source built apart), then one call of the plain
+   version (``once_ms``), beside the bound; the mma kernel's two stages
+   timed apart, registers, spills and blocks per SM;
 16. rwkv train: rwkv6-7b's SGD step at full width (bf16, random weights
    from a seed, B=1, S=2048, lr 1e-3), after phase 15 (which it runs
    too): (a) the eager step at the depth the printed memory arithmetic
@@ -240,8 +257,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    forward and backward): each against its plain version under the gates of
    phases 3 and 12, repeated calls bit-equal, its registers and spills
    (ptxas), timed in turns with the fma kernel it replaces (held too; v
-   and dO zero-padded inside its wrapper), the plain version and SDPA at
-   the same shape (the backend that took it) beside the bound of the
+   and dO zero-padded inside its wrapper) and SDPA at the same shape
+   (the backend that took it), then one call of the plain version,
+   beside the bound of the
    work these inputs need, and faster than the fma kernel (the sm90
    kernels replayed from a CUDA graph of 20 calls, since back to back
    their eager calls time the host; the eager time is printed too); the sm90
@@ -281,8 +299,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    B=1, S=2048, forward and backward; decode S=1 from a state; every
    output of both variants within ``SSM_GATE`` of its largest
    magnitude, repeated calls bit-equal; each kernel timed in turns from
-   a CUDA graph of GRAPH_CALLS calls beside the plain version and the
-   bound (bytes at 3.35 TB/s or exponentials at the SFU rate, the
+   a CUDA graph of GRAPH_CALLS calls beside one call of the plain version
+   and the bound (bytes at 3.35 TB/s or exponentials at the SFU rate, the
    larger): GB/s and the share of the bound; no PyTorch call computes
    the scan; registers and spills (ptxas);
 25. jamba serve: jamba-v0.1-52b in bf16 (random weights from a seed) at
@@ -330,12 +348,14 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    0 fma; tok/s, TTFT, decode and step ms, busy share, peak memory (held
    under 90% of the card) and the flash kernels' device time.
 29. dryrun: the single-device tools on the card, in the order (b), then
-   (c) in a child process while (a) traces, then (d). (a)
+   (c) in a child process (and phase 11b's) while (a) and (d)'s priced
+   peaks trace, then (d). (a)
    ``launch.dryrun.run_cell`` at full width and each shape's full global
    batch, remat ``dots``, traced on fake tensors: granite-8b
    ``train_4k``, hubert-xlarge ``prefill_32k``, jamba-v0.1-52b
    ``decode_32k``, each status OK with a finite roofline (nodes, trace
-   seconds, the one-PE peak and whether one card holds it, the bound and
+   seconds, the one-card peak in the trace's order and whether one card
+   holds it, the emulator's one-PE peak, the bound and
    its dominant term, model FLOPs and the useful ratio); (b)
    ``run_pardnn_plan`` for reduced granite-8b (float32), K=4 folded onto
    the card, executed, linted and traced: 0 verifier errors, compiled
@@ -349,7 +369,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    launches and L backward, all sm90; the loss, grad norm, new
    parameters and first moments within TRAIN_GATE of the none step; step
    ms, max_memory_allocated and the peak of the loss and its gradient
-   alone.
+   alone over what the card held before, against the dry run's
+   trace-order peak of the same call (traced on fake tensors) less its
+   inputs: within F11_FACTOR either way.
 
 Each phase's seconds are printed when it ends.
 
@@ -521,6 +543,14 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 3,
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def once_ms(torch, fn) -> float:
+    """Device ms of one call of ``fn`` after one warm-up call (CUDA
+    events around it), for a plain version of ms to seconds: timed in
+    rounds it adds seconds to the run and nothing to the number's use,
+    a yardstick."""
+    return cuda_ms(torch, fn, reps=1, warmup=1, rounds=1)
 
 
 def timed_turns(torch, fns: dict, reps: dict, rounds: int = 3) -> dict:
@@ -1350,7 +1380,7 @@ def _half_cap_plan(api, traced, card: float, quarter=None, meta=None):
     return plans["half"]
 
 
-def phase_plan(torch, cfg, plan_path: Path) -> None:
+def phase_plan(torch, cfg, plan_path: Path) -> tuple:
     """Trace → partition → plan for the paged decode step at full
     granite-8b width (bf16, random weights from a seed) at the serve
     phase's geometry: trace on cuda with the program recorded, the
@@ -1359,7 +1389,8 @@ def phase_plan(torch, cfg, plan_path: Path) -> None:
     to ``plan_path`` (the plan_serve phase serves it), load it and bind
     it to a fresh trace; the predicted step time beside the measured
     eager step. First, at the reduced size, the graph's fingerprint must
-    be the same for a trace on the CPU and on the card."""
+    be the same for a trace on the CPU and on the card. Returns the trace
+    and the verified half-cap plan (plan_execute runs them)."""
     from repro_torch import api
     from repro_torch.configs import reduced
     from repro_torch.core.costmodel import H100
@@ -1497,8 +1528,12 @@ def phase_plan(torch, cfg, plan_path: Path) -> None:
         f"ms wall over {len(walls)} steps; profiled {wall_ms:.2f} ms wall, "
         f"{busy_ms:.2f} ms device; predicted one PE {one_pe * 1e3:.3f} ms, "
         f"K={k} {plans['quarter'].makespan * 1e3:.3f} ms (quarter cap)")
-    del eng, params, traced, fresh, plans, plan, loaded
+    # the recorded program keeps its example arguments (these parameters,
+    # for calibration): plan_execute draws its own
+    traced.program.in_tree_example = None
+    del eng, params, fresh, plans, loaded
     _release(torch)
+    return traced, plan
 
 
 # compiled vs eager in bf16: the logits within 2^-7 of their largest
@@ -1698,10 +1733,11 @@ def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms):
     return ms, prof, st
 
 
-def phase_plan_execute(torch, cfg) -> None:
+def phase_plan_execute(torch, cfg, planned: tuple | None = None) -> None:
     """Execute ParDNN plans of the paged decode step on the card, with PEs
     folded onto it: (1) full granite-8b bf16 at K=4 (half cap: the
-    verifier refuses the quarter-cap plan), the
+    verifier refuses the quarter-cap plan; ``planned``, the plan phase's
+    trace and half-cap plan, when that phase ran), the
     compiled runtime async and sync against the eager step, every
     segment replayed from a CUDA graph; (2) the same trace at K=1, one
     graph for the whole step; (3) the op-by-op interpreter at 8 layers
@@ -1748,12 +1784,19 @@ def phase_plan_execute(torch, cfg) -> None:
     inputs = _decode_inputs(torch, eng, seed=4)
     eng.pools = None                    # the inputs carry their own pools
     t0 = time.perf_counter()
-    traced = api.trace(eng._decode_impl, params, *inputs, record=True)
-    plan, cap = _half_cap_plan(api, traced, card), "half"
+    if planned is None:
+        traced = api.trace(eng._decode_impl, params, *inputs, record=True)
+        plan = _half_cap_plan(api, traced, card)
+    else:
+        # the plan phase's trace of the same step (its graph depends on
+        # the shapes and dtypes only) and its verified half-cap plan
+        traced, plan = planned
     one = api.partition(traced, devices=1)
-    log(f"plan_execute: traced and partitioned {cfg.name} ({traced.n} nodes)"
-        f" at K=4 ({cap} cap, feasible={plan.feasible}, predicted "
-        f"{plan.makespan * 1e3:.3f} ms) and K=1 in "
+    whose = "traced and partitioned here" if planned is None else \
+        "the plan phase's trace and plan"
+    log(f"plan_execute: {cfg.name} ({traced.n} nodes) at K=4 (half cap, "
+        f"feasible={plan.feasible}, predicted {plan.makespan * 1e3:.3f} ms;"
+        f" {whose}) and at K=1, partitioned in "
         f"{time.perf_counter() - t0:.2f} s")
     one_pe_ms = one.makespan * 1e3
     cells = {}
@@ -1895,14 +1938,19 @@ def _serve_run(torch, cfg, eng, reqs, label: str) -> dict:
     return run
 
 
-def _hold_tokens(torch, label: str, local: dict, served: dict) -> None:
+def _hold_tokens(torch, label: str, local: dict, served: dict,
+                 d: float | None = None) -> float:
     """Plan-served tokens against the local engine's, request for
     request, under phase 6's near-tie rule: d is the largest logit
-    difference of the two engines' first decode steps (the same inputs),
+    difference of the two engines' first decode steps (the same inputs;
+    passed in when the two runs admitted the requests in other orders),
     and a request may diverge only at a step where the local engine's
-    top-2 gap is within 4 d; the step and the margin are printed."""
-    d = float((served["watch"]["first"] - local["watch"]["first"])
-              .abs().max())
+    top-2 gap is within 4 d; the step and the margin are printed.
+    Returns d."""
+    given = d is not None
+    if not given:
+        d = float((served["watch"]["first"] - local["watch"]["first"])
+                  .abs().max())
     limit = 4 * d
     ties, mismatched = [], []
     for rid, req in sorted(local["done"].items()):
@@ -1915,13 +1963,15 @@ def _hold_tokens(torch, label: str, local: dict, served: dict) -> None:
             (rid, i, gap))
     gaps = local["watch"]["gaps"].values()
     log(f"plan_serve {label}: max |logits plan - local| at the first decode "
-        f"step {d:.3g}, near-tie limit {limit:.3g}; min top-2 gap "
+        f"step{' (given)' if given else ''} {d:.3g}, near-tie limit "
+        f"{limit:.3g}; min top-2 gap "
         f"{min(gaps):.3g}; tokens equal on "
         f"{len(local['done']) - len(ties) - len(mismatched)} of "
         f"{len(local['done'])} requests; divergent at near-ties "
         f"(request, step, gap) {ties}; mismatched {mismatched}")
     assert not mismatched, f"plan_serve {label}: plan-served tokens != " \
         f"local at {mismatched}"
+    return d
 
 
 def _hold_replays(label: str, run: dict) -> tuple:
@@ -2077,7 +2127,7 @@ def phase_plan_serve(torch, cfg, plan_path: Path, work: Path,
         Request, cfg, 8, seed=STARVED_SEED), "(b) plan")
     pre = (local_b["stats"].preempted, served_b["stats"].preempted)
     assert pre[0] == pre[1] > 0, f"(b): preemptions local/plan {pre}"
-    _hold_tokens(torch, "(b)", local_b, served_b)
+    d_b = _hold_tokens(torch, "(b)", local_b, served_b)
     _hold_replays("(b)", served_b)
     evicted = sum(e.get("name") == "evicted"
                   for e in served_b["doc"]["traceEvents"])
@@ -2085,7 +2135,21 @@ def phase_plan_serve(torch, cfg, plan_path: Path, work: Path,
         f"(b): {evicted} evicted instants for {pre[1]} preemptions"
     log(f"plan_serve (b): {pre[1]} preemptions on both engines, {evicted} "
         f"evicted instants in the plan engine's trace")
-    del eng, starved, local_b, served_b, params
+    # the same requests admitted in a shuffled order: the in-order
+    # plan-served tokens, request for request (the near-tie rule with the
+    # plan-versus-local difference above), nothing leaked
+    del eng
+    _release(torch)
+    order = [int(i) for i in np.random.default_rng(STARVED_SEED)
+             .permutation(8)]
+    reqs = _requests(Request, cfg, 8, seed=STARVED_SEED)
+    eng = starved.serve(cfg, params, device_map=fold,
+                        trace=str(work / "plan_b_shuffled.trace.json"))
+    shuffled = _serve_run(torch, cfg, eng, [reqs[i] for i in order],
+                          f"(b) plan, admitted in the order {order}")
+    _hold_tokens(torch, "(b) shuffled against in order", served_b, shuffled,
+                 d=d_b)
+    del eng, starved, local_b, served_b, shuffled, params
     _release(torch)
 
     # (d) the launcher, in process: a folded K=4 plan at its defaults
@@ -2115,6 +2179,68 @@ def phase_plan_serve(torch, cfg, plan_path: Path, work: Path,
         f"{capture_s:.2f} s; max_memory_allocated while plan-served "
         f"{peak / 2**30:.3f} GiB")
     return launches
+
+
+# ------------------------------------------------------------------ serving
+# conformance: the reference's serving scenario in a child process
+# ---------------------------------------------------------------------------
+#: the child's command line, the trace path appended
+SERVING_ARGV = ["-m", "repro_torch.conformance", "--arch", "granite-8b",
+                "--serving", "--devices", "4", "--fold", "--trace"]
+
+
+def _serving_start(work: Path) -> tuple:
+    """Start the conformance_serving child (``conformance.subproc.
+    start_json``); returns what :func:`_serving_check` takes."""
+    from repro_torch.conformance.subproc import start_json
+    path = work / "conformance.serving.trace.json"
+    return start_json(SERVING_ARGV + [str(path)]), path, time.perf_counter()
+
+
+def _serving_check(started: tuple, card: str) -> None:
+    """Wait for the conformance_serving child and hold its record: exit
+    0 and ok, preemptions forced, 0 leaked blocks in both schedules, 4
+    requests completed, every pool leaf on a PE of the plan, the trace
+    valid (checked here again), every prefill attention call a launch of
+    the fma kernel (float32, hd 16)."""
+    from repro_torch.conformance.subproc import wait_json
+    from repro_torch.obs.trace import validate_trace
+    proc, path, t0 = started
+    rec = wait_json(proc, timeout=600)
+    fl = rec["flash_launches"]
+    st = rec["serving_stats"]
+    log(f"conformance_serving: {' '.join(SERVING_ARGV)} PATH exited 0 "
+        f"{time.perf_counter() - t0:.1f} s after its start; ok {rec['ok']}, "
+        f"{rec['num_nodes']} nodes partitioned in {rec['partition_s']:.2f} "
+        f"s, device_map {rec['device_map']}; {rec['evictions']} evictions, "
+        f"leaked blocks {rec['leaked_blocks_evict']} (in order) and "
+        f"{rec['leaked_blocks_shuffled']} (admitted in the order "
+        f"{rec['admission_order']}); {rec['completed']} requests completed "
+        f"in {st['ticks']} ticks, {st['prefill_calls']} prefill calls, "
+        f"{st['decode_steps']} decode steps; pool leaves on PEs "
+        f"{rec['pool_pes']} ({rec['pool_devices']}); reference min top-2 "
+        f"gap {rec['reference_min_gap']:.3g}; the schedule with evictions "
+        f"served in {rec['serve_s']:.2f} s; flash launches {fl}; {card}")
+    assert rec["ok"] and not rec["violations"], rec["violations"]
+    assert rec["evictions"] > 0 and rec["leaked_blocks_evict"] == 0 and \
+        rec["leaked_blocks_shuffled"] == 0, rec
+    assert rec["completed"] == st["completed"] == 4, rec
+    assert rec["pool_pes"] and set(rec["pool_pes"]) <= set(range(4)), rec
+    assert validate_trace(str(path)) == [] and \
+        rec["trace_path"] == str(path), "the scenario's trace is invalid"
+    assert fl["fma"] >= 1 and fl["total"] == fl["fma"], \
+        f"conformance_serving: flash launches {fl}"
+
+
+def phase_conformance_serving(torch, work: Path, card: str) -> None:
+    """``python -m repro_torch.conformance --arch granite-8b --serving
+    --devices 4 --fold --trace PATH`` in a child process: reduced
+    granite-8b (float32) served through ``plan.serve`` at K=4 folded onto
+    the card under the reference's block-starved pool and a shuffled
+    admission order, held by :func:`_serving_check`. With the dryrun
+    phase it runs beside that phase's cells instead (no card timing
+    there)."""
+    _serving_check(_serving_start(work), card)
 
 
 # ------------------------------------------------------------------ train
@@ -2475,6 +2601,37 @@ def _train_leaves(out) -> list:
     return tree_flatten(out)[0]
 
 
+def _trace_aten(step, params, batch):
+    """``api.trace(step, params, batch, record=True, autograd=True)`` and
+    the aten graph it is built from, of one trace: the graph's shapes
+    tell an op that makes a whole stacked leaf from another op of the
+    same size (at full width a stacked wq, the embedding and the float32
+    logits can have the same bytes)."""
+    from repro_torch import api
+    from repro_torch.core import tracing
+    from repro_torch.core.costmodel import H100
+    gm, out = tracing._functional_graph(step, (params, batch),
+                                        autograd=True)
+    g, prog = tracing._cost_graph(gm, out, (params, batch), dev=H100,
+                                  params_residual=True, record=True)
+    return api.TracedModel(graph=g, program=prog,
+                           fingerprint=g.fingerprint(),
+                           device_model=H100), gm
+
+
+def _whole_stack_ops(torch, gm, params) -> tuple[list, list]:
+    """(the ops of ``gm`` whose output has a stacked period leaf's shape,
+    those shapes)."""
+    from repro_torch.core.tracing import op_name
+    from repro_torch.tree import tree_flatten
+    stacked = [tuple(t.shape) for t in tree_flatten(params["periods"])[0]]
+    whole = sorted(op_name(n.target) for n in gm.graph.nodes
+                   if n.op == "call_function"
+                   and isinstance(n.meta.get("val"), torch.Tensor)
+                   and tuple(n.meta["val"].shape) in stacked)
+    return whole, stacked
+
+
 def _hold_train(torch, label: str, got, want) -> bool:
     """(loss, new params, grads) against the eager step's: every leaf
     finite, and bit-equal or within TRAIN_GATE x its max |eager|.
@@ -2751,9 +2908,7 @@ def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
     from repro_torch.conformance import make_train_step
     from repro_torch.core.costmodel import H100
     from repro_torch.core.graph import RESIDUAL
-    from repro_torch.core.tracing import _functional_graph, op_name
     from repro_torch.models import init_params
-    from repro_torch.tree import tree_flatten
     B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
     gb = 1e9
 
@@ -2792,23 +2947,18 @@ def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
                          "cuda")
     step = make_train_step(mid, lr, return_grads=True)
     t0 = time.perf_counter()
-    traced = api.trace(step, params, batch, record=True, autograd=True)
+    traced, gm = _trace_aten(step, params, batch)
     trace_s = time.perf_counter() - t0
     g = traced.graph
     names = [n.split(".")[0] for n in g.names]
     res_bytes = float(g.mem[g.ntype == RESIDUAL].sum())
     transient = float(g.mem[g.ntype != RESIDUAL].max())
     dot, want_dot = float(g.op_dot_flops.sum()), train_dot_flops(mid, B, S)
-    # the aten graph's shapes (a second trace): which ops make a tensor
-    # of a whole stacked leaf's shape; sizes alone coincide at this
-    # width (the embedding, the logits and a stacked wq are 402,653,184
-    # bytes each at 12 layers)
-    gm, _ = _functional_graph(step, (params, batch), autograd=True)
-    stacked = [tuple(t.shape) for t in tree_flatten(params["periods"])[0]]
-    whole = sorted(op_name(n.target) for n in gm.graph.nodes
-                   if n.op == "call_function"
-                   and isinstance(n.meta.get("val"), torch.Tensor)
-                   and tuple(n.meta["val"].shape) in stacked)
+    # the aten graph's shapes: which ops make a tensor of a whole stacked
+    # leaf's shape; sizes alone coincide at this width (the embedding,
+    # the logits and a stacked wq are 402,653,184 bytes each at 12
+    # layers)
+    whole, stacked = _whole_stack_ops(torch, gm, params)
     del gm
     log(f"train plan: traced the {L}-layer step on cuda in {trace_s:.2f} s: "
         f"{g.n} nodes, {names.count('flash_attention')} flash forward and "
@@ -3055,10 +3205,12 @@ def _calibrate_cell(torch, api, label: str, traced, plan, args, cap: float,
             "signatures": m["signatures_measured"]}
 
 
-def phase_calibrate(torch, ops, cfg, card: str, train_record) -> None:
+def phase_calibrate(torch, ops, cfg, card: str, train_record,
+                    planned: tuple | None = None) -> None:
     """Profile and calibrate on the card, then score ParDNN's plans before
     and after: (a) full granite-8b's paged decode step (bf16, 36 layers,
-    the serve phase's geometry), K=4 half-cap plan; (b) granite-8b's
+    the serve phase's geometry), K=4 half-cap plan (``planned``: the plan
+    phase's trace and plan, when it ran); (b) granite-8b's
     training step (B=1, S=2048, TRAIN["plan_layers"] layers), K=4 under
     half the card per PE; each through :func:`_calibrate_cell`; (c)
     ``benchmark_runtimes`` on a TRAIN["interp_layers"]-layer training
@@ -3083,9 +3235,14 @@ def phase_calibrate(torch, ops, cfg, card: str, train_record) -> None:
         inputs = _decode_inputs(torch, eng, seed=4)
         eng.pools = None
         args = (params,) + tuple(inputs)
-        traced = api.trace(eng._decode_impl, *args, record=True)
-        plan = _half_cap_plan(api, traced, total,
-                              meta=_serving_meta(cfg, GEOMETRY))
+        if planned is None:
+            traced = api.trace(eng._decode_impl, *args, record=True)
+            plan = _half_cap_plan(api, traced, total,
+                                  meta=_serving_meta(cfg, GEOMETRY))
+        else:
+            # the plan phase's trace of this step and its verified
+            # half-cap plan (the calibration annotates the trace)
+            traced, plan = planned
         pools, bt, toks, lens = inputs
         want = eng._decode_impl(params, tree_map(torch.clone, pools), bt,
                                 toks, lens)
@@ -3331,12 +3488,12 @@ def phase_rwkv_train_kernel(torch, rops, rref, build) -> dict:
     of RWKV_BWD_CASES: the one ``select_bwd_variant`` names (``mma`` in
     bf16 at hd 64, else ``fma``) and in bf16 at hd 64 the ``fma`` kernel
     by name too, repeated calls bit-equal. At the training shape, in
-    turns: the mma kernel, the fma kernel, the plain version and the fma
-    kernel cut after its forward walk (built meanwhile from a copy of its
-    source), beside the bound; the mma kernel's two stages timed apart
-    (torch.profiler), the kernels' registers and spills (ptxas) and the
-    mma kernel's blocks per SM. Returns the mma kernel's record
-    (launches filled in by the rwkv_train phase)."""
+    turns: the mma kernel, the fma kernel and the fma kernel cut after
+    its forward walk (built meanwhile from a copy of its source), then
+    one call of the plain version, beside the bound; the mma kernel's
+    two stages timed apart (torch.profiler), the kernels' registers and
+    spills (ptxas) and the mma kernel's blocks per SM. Returns the mma
+    kernel's record (launches filled in by the rwkv_train phase)."""
     pool = ThreadPoolExecutor(1)
     walk_only = pool.submit(_fma_walk_only, torch, rops, build)
     worst = {}
@@ -3376,9 +3533,9 @@ def phase_rwkv_train_kernel(torch, rops, rref, build) -> dict:
     ms = timed_turns(torch, {
         "mma": lambda: rops.wkv6_bwd(*args, chunk),
         "fma": lambda: rops.run_bwd_variant("fma", *args, chunk),
-        "plain": lambda: rref.wkv_bwd_ref(*args, chunk),
         "fma walk": lambda: fma_walk(args, chunk),
-    }, reps={"fma": 3, "plain": 3, "fma walk": 5})
+    }, reps={"fma": 3, "fma walk": 5})
+    ms["plain"] = once_ms(torch, lambda: rref.wkv_bwd_ref(*args, chunk))
     split = kernel_split(torch, lambda: rops.wkv6_bwd(*args, chunk),
                          RWKV_BWD_STAGES)
     outs = rops.wkv6_bwd(*args, chunk)
@@ -4060,9 +4217,7 @@ def _plan_cell(torch, cfg, label: str, batch: dict, L: int, lr: float,
     from repro_torch import api
     from repro_torch.conformance import make_train_step
     from repro_torch.core.graph import RESIDUAL
-    from repro_torch.core.tracing import _functional_graph, op_name
     from repro_torch.models import init_params
-    from repro_torch.tree import tree_flatten
     B, S = (batch["targets"].shape[0], batch["targets"].shape[1])
     total = torch.cuda.get_device_properties(0).total_memory
     fit, gb, k = 0.9 * total, 1e9, 4
@@ -4072,8 +4227,7 @@ def _plan_cell(torch, cfg, label: str, batch: dict, L: int, lr: float,
                              .manual_seed(3), "cuda")
         step = make_train_step(mid, lr, return_grads=True)
         t0 = time.perf_counter()
-        traced = api.trace(step, params, batch, record=True,
-                           autograd=True)
+        traced, gm = _trace_aten(step, params, batch)
         trace_s = time.perf_counter() - t0
         meta = {"arch": cfg.name, "layers": L, "static_argnums": [0]}
         t0 = time.perf_counter()
@@ -4090,7 +4244,7 @@ def _plan_cell(torch, cfg, label: str, batch: dict, L: int, lr: float,
             f"{'fits' if need <= fit else 'does not fit'}")
         if need <= fit or L == 1:
             break
-        del plan, traced, params, step
+        del plan, traced, gm, params, step
         _release(torch)
         # need grows by about a layer's share a layer, on top of a fixed
         # part: L x fit / need is at or above the deepest depth that fits
@@ -4099,12 +4253,7 @@ def _plan_cell(torch, cfg, label: str, batch: dict, L: int, lr: float,
     names = [n.split(".")[0] for n in g.names]
     dot, want_dot = float(g.op_dot_flops.sum()), \
         train_dot_flops(mid, B, S)
-    gm, _ = _functional_graph(step, (params, batch), autograd=True)
-    stacked = [tuple(t.shape) for t in tree_flatten(params["periods"])[0]]
-    whole = sorted(op_name(n.target) for n in gm.graph.nodes
-                   if n.op == "call_function"
-                   and isinstance(n.meta.get("val"), torch.Tensor)
-                   and tuple(n.meta["val"].shape) in stacked)
+    whole, stacked = _whole_stack_ops(torch, gm, params)
     del gm
     log(f"{label} plan: traced the {L}-layer step in {trace_s:.2f} "
         f"s: {g.n} nodes, {names.count('flash_attention')} flash forward "
@@ -4343,9 +4492,10 @@ def phase_wide_head_kernels(torch, ops, ref, build) -> list:
     visible), against their plain versions (TOL and
     TIGHT forward, BWD_GATE backward), repeated calls bit-equal; each
     timed in turns with the fma kernel it replaces (``earlier_ms``; v
-    and dO zero-padded inside its wrapper), its plain version and SDPA
-    at the same shape (v unpadded), beside the bound of the work these
-    inputs need (v at its own width), and faster than the fma kernel.
+    and dO zero-padded inside its wrapper) and SDPA at the same shape (v
+    unpadded), and one call of its plain version, beside the bound of
+    the work these inputs need (v at its own width), and faster than the
+    fma kernel.
     The sm90 kernels are timed from a CUDA graph of GRAPH_CALLS calls
     (:func:`graphed`), since eager calls back to back time their
     wrapper's host work; the eager figure is kept as ``eager_ms``.
@@ -4394,14 +4544,15 @@ def phase_wide_head_kernels(torch, ops, ref, build) -> list:
         graph = graphed(torch, sm90, GRAPH_CALLS)
         fns = {"sm90": graph.replay, "sm90 eager": sm90,
                "fma": lambda: ops.run_variant("fma", q, k, v, **kw),
-               "plain": lambda: ref.flash_attention_ref(q, k, v, **kw),
                "sdpa": sdpa}
         pairs = visible_pairs(S, S, causal, window)
         flops = 2 * B * H * pairs * (hd + vd)
         nbytes = 2 * (B * S * (H + KV) * hd + B * S * (KV + H) * vd)
         ms = timed_turns(torch, fns, reps={"sm90": 1, "sm90 eager": 20,
-                                           "fma": 3, "plain": 3})
+                                           "fma": 3})
         ms["sm90"] /= GRAPH_CALLS
+        ms["plain"] = once_ms(
+            torch, lambda: ref.flash_attention_ref(q, k, v, **kw))
         del graph
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -4466,11 +4617,12 @@ def phase_wide_head_kernels(torch, ops, ref, build) -> list:
                 "sm90": graph.replay, "sm90 eager": bwd90,
                 "fma": lambda: ops.run_bwd_variant("fma", do, q, k, v, out,
                                                    lse, **kw),
-                "plain": lambda: ref.flash_attention_bwd_ref(do, q, k, v,
-                                                             **kw),
                 "sdpa": sdpa_bwd,
-            }, reps={"sm90": 1, "sm90 eager": 10, "fma": 2, "plain": 2})
+            }, reps={"sm90": 1, "sm90 eager": 10, "fma": 2})
             bms["sm90"] /= GRAPH_CALLS
+            bms["plain"] = once_ms(
+                torch, lambda: ref.flash_attention_bwd_ref(do, q, k, v,
+                                                           **kw))
             del graph
             bflops = 2 * B * H * pairs * (2 * hd + 2 * vd)
             bbytes = 2 * nbytes + 2 * B * S * H * vd
@@ -4946,15 +5098,15 @@ def _hold_ssm(torch, label: str, run, want, gate: float, names) -> tuple:
 def _time_ssm(torch, label: str, calls: dict, eager, plain, nbytes: int,
               t_ops: float) -> dict:
     """Each kernel variant in ``calls`` replayed from a CUDA graph of
-    GRAPH_CALLS calls, the op ``eager`` (back to back) and the plain
-    version, timed in turns; logs GB/s and the share of the bound (the
-    bytes at 3.35 TB/s or ``t_ops``, the larger). Returns the ms a call
-    and the bound."""
+    GRAPH_CALLS calls and the op ``eager`` (back to back), timed in
+    turns, then one call of the plain version; logs GB/s and the share
+    of the bound (the bytes at 3.35 TB/s or ``t_ops``, the larger).
+    Returns the ms a call and the bound."""
     graphs = {v: graphed(torch, fn, GRAPH_CALLS) for v, fn in calls.items()}
     ms = timed_turns(torch, {**{v: g.replay for v, g in graphs.items()},
-                             "eager": eager, "plain": plain},
-                     reps={**dict.fromkeys(graphs, 1), "eager": 10,
-                           "plain": 1})
+                             "eager": eager},
+                     reps={**dict.fromkeys(graphs, 1), "eager": 10})
+    ms["plain"] = once_ms(torch, plain)
     for v in graphs:
         ms[v] /= GRAPH_CALLS
     del graphs
@@ -4980,7 +5132,8 @@ def phase_ssm_kernels(torch, sops, sref, build) -> list:
     training and decode shapes), under SSM_GATE, repeated calls
     bit-equal; each
     timed in turns from a CUDA graph of GRAPH_CALLS calls (and the op
-    eager, back to back) beside its plain version and the bound (the
+    eager, back to back) beside one call of its plain version and the
+    bound (the
     bytes at 3.35 TB/s or the exponentials at SFU_RATE, the larger); no
     PyTorch call computes the scan; registers and spills from ptxas.
     Returns the two records of the ``reg`` kernels (at the prefill shape
@@ -5619,6 +5772,11 @@ REMAT = dict(layers=4, batch=1, seq=2048, lr=3e-4)
 REMAT_FWD = {"none": 1, "full": 2, "dots": 1, "dots_no_batch": 2}
 # the dry run's --pardnn-execute plan: compiled against the interpreter
 PARDNN_DRIFT = 1e-5
+# the dry run's one-card peak (launch.dryrun.trace_order_peak, the step
+# traced on fake tensors) over what it holds besides its inputs, against
+# the same step's measured peak over the memory held before it: the
+# larger of the two ratios at most this
+F11_FACTOR = 1.5
 
 
 def _dryrun_cells(torch, card: str) -> None:
@@ -5702,7 +5860,7 @@ def _dryrun_cli_wait(cli, path: str, t0: float) -> None:
         f"{err[-2000:]}"
 
 
-def _dryrun_remat(torch, card: str) -> None:
+def _dryrun_remat(torch, card: str, priced: dict) -> None:
     """(d) granite-8b at full width and REMAT["layers"] layers, bf16,
     B=1, S=2048, one AdamW step under each remat policy from the same
     parameters and batch: the flash launches (REMAT_FWD), the loss, the
@@ -5710,7 +5868,8 @@ def _dryrun_remat(torch, card: str) -> None:
     gradients, float32) within TRAIN_GATE of the "none" step; step ms
     and max_memory_allocated, and the peak of the loss and its gradient
     alone over the parameters and state (the activations the policy
-    keeps)."""
+    keeps), held within F11_FACTOR of ``priced[policy]``, the dry run's
+    figure for the same call (:func:`_dryrun_priced`)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.models import init_params, unstack_periods
@@ -5794,8 +5953,19 @@ def _dryrun_remat(torch, card: str) -> None:
         del grads
         log(f"dryrun remat {policy}: the loss and its gradient alone peak "
             f"{grad_peak / 2 ** 30:.3f} GiB over the parameters and state")
+        traced = priced[policy]
         summary.append(f"{policy} {ms:.2f} ms, {peak / 2 ** 30:.2f} GiB "
-                       f"(gradient {grad_peak / 2 ** 30:.3f} GiB)")
+                       f"(gradient {grad_peak / 2 ** 30:.3f} GiB, priced "
+                       f"{traced / 2 ** 30:.3f})")
+        ratio = max(traced / grad_peak, grad_peak / traced)
+        log(f"dryrun remat {policy}: the dry run's trace-order one-card peak "
+            f"of the same loss and gradient, less its inputs, "
+            f"{traced / 2 ** 30:.3f} GiB against the measured "
+            f"{grad_peak / 2 ** 30:.3f} GiB: {ratio:.3f}x (at most "
+            f"{F11_FACTOR}x); {card}")
+        assert ratio <= F11_FACTOR, \
+            f"dryrun remat {policy}: priced peak {traced} B against the " \
+            f"measured {grad_peak} B"
         del params, state, met, step, leaves
         _release(torch)
     log(f"dryrun remat summary ({L} layers, B=1, S=2048, AdamW): "
@@ -5804,35 +5974,72 @@ def _dryrun_remat(torch, card: str) -> None:
     _release(torch)
 
 
-def phase_dryrun(torch, card: str) -> None:
+def _dryrun_priced(torch, device: str) -> dict:
+    """Per remat policy, the dry run's one-card peak of REMAT's step (the
+    loss and gradient of granite-8b at REMAT["layers"] layers, B and S;
+    ``launch.dryrun.trace_order_peak``), traced on fake tensors on
+    ``device`` (nothing runs: the graph depends on shapes and dtypes
+    only), less the bytes of its inputs (the parameters and the
+    batch)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    cfg = dataclasses.replace(get_config("granite-8b"),
+                              num_layers=REMAT["layers"])
+    shape = ShapeConfig("remat", REMAT["seq"], REMAT["batch"], "train")
+    return {p: _priced(torch, cfg, shape, p, device) for p in REMAT_FWD}
+
+
+def _priced(torch, cfg, shape, policy: str, device: str) -> float:
+    """One policy's figure of :func:`_dryrun_priced`."""
+    from repro_torch.launch import dryrun
+    traced = dryrun._trace_cell(cfg, shape, policy, torch.device(device))
+    prog, mem = traced.program, traced.graph.mem
+    held = sum(float(mem[n]) for n in prog.input_nodes) + \
+        sum(float(mem[n]) for n, _ in prog.const_nodes)
+    return dryrun.trace_order_peak(traced) - held
+
+
+def phase_dryrun(torch, card: str, serving: bool = False,
+                 priced: dict | None = None) -> None:
     """The single-device tools of ``launch.dryrun`` and the analysis CLI
     on the card, and the remat policies at full width: (b), then (c) in
-    a child process while (a) traces on the host (the child's start,
-    imports and the card's context, overlaps the traces), then (d) once
-    the child has ended, so that no other process shares its timings."""
+    a child process (and, with ``serving``, the conformance_serving
+    child) while (a) traces on the host (the children's start, imports
+    and the card's context overlap the traces, which time nothing on the
+    card), and the remat cell's priced peaks unless ``priced`` has them,
+    then (d) once the children have ended, so that no other process
+    shares its timings."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         path = _dryrun_pardnn(torch, Path(tmp))
         t1 = time.perf_counter()
         cli = _dryrun_cli(path)
+        started = _serving_start(Path(tmp)) if serving else None
         try:
             _dryrun_cells(torch, card)
+            if priced is None:
+                priced = _dryrun_priced(torch, "cuda")
             t2 = time.perf_counter()
             _dryrun_cli_wait(cli, path, t1)
+            if started is not None:
+                _serving_check(started, card)
         finally:
-            if cli.poll() is None:
-                cli.kill()
-                cli.communicate()
+            for proc in (cli, started[0] if started else None):
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     t3 = time.perf_counter()
-    _dryrun_remat(torch, card)
+    _dryrun_remat(torch, card, priced)
     log(f"dryrun: --pardnn {t1 - t0:.1f} s, cells {t2 - t1:.1f} s (the "
-        f"analysis CLI beside them), its wait {t3 - t2:.1f} s, remat "
-        f"policies {time.perf_counter() - t3:.1f} s; {card}")
+        f"analysis CLI"
+        f"{' and the conformance_serving child' if serving else ''} beside "
+        f"them), their wait {t3 - t2:.1f} s, remat policies "
+        f"{time.perf_counter() - t3:.1f} s; {card}")
 
 
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "token_equality", "rwkv_generate", "rwkv_equality", "plan",
-          "plan_execute", "plan_serve", "train_kernels", "train",
+          "plan_execute", "plan_serve", "conformance_serving",
+          "train_kernels", "train",
           "calibrate", "rwkv_train_kernels", "rwkv_train", "launch_train",
           "mixtral_serve", "mixtral_train", "wide_head_kernels",
           "deepseek_serve", "deepseek_train", "dense_configs",
@@ -5887,10 +6094,20 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     card = phase_card()
+    priced = None
     if "build" in phases:
-        with _Timed("build"):
+        with _Timed("build"), ThreadPoolExecutor(1) as pool:
+            # the dryrun phase's priced peaks trace on fake CPU tensors
+            # while nvcc runs, joined before any kernel does
+            pricing = pool.submit(_dryrun_priced, torch, "cpu") \
+                if "dryrun" in phases else None
             phase_build({"flash_attention": ops, "rwkv6": rops,
                          "ssm": sops}, build)
+            priced = pricing.result() if pricing else None
+            if priced:
+                log("build: beside it, the dryrun phase's priced peaks "
+                    + ", ".join(f"{p} {b / 2**30:.3f} GiB"
+                                for p, b in priced.items()))
     record = rwkv_record = None
     if "kernels" in phases:
         with _Timed("kernels"):
@@ -5927,18 +6144,23 @@ def main(argv=None) -> int:
         # the plan phase saves the plan here; plan_serve serves it
         work = Path(tmp)
         plan_path = work / "granite-decode.plan.json"
+        planned = None
         if "plan" in phases:
             with _Timed("plan"):
-                phase_plan(torch, cfg, plan_path)
+                planned = phase_plan(torch, cfg, plan_path)
         if "plan_execute" in phases:
             with _Timed("plan_execute"):
-                phase_plan_execute(torch, cfg)
+                phase_plan_execute(torch, cfg, planned)
         if "plan_serve" in phases:
             with _Timed("plan_serve"):
                 launches = phase_plan_serve(torch, cfg, plan_path, work,
                                             card)
             if record is not None:
                 record["plan_serve_launches"] = launches["flash_attention"]
+        # with the dryrun phase it runs beside that phase's cells
+        if "conformance_serving" in phases and "dryrun" not in phases:
+            with _Timed("conformance_serving"):
+                phase_conformance_serving(torch, work, card)
     train_record = None
     if "train_kernels" in phases or "train" in phases:
         with _Timed("train_kernels"):
@@ -5951,7 +6173,8 @@ def main(argv=None) -> int:
             phase_train(torch, ops, cfg, card, train_record)
     if "calibrate" in phases:
         with _Timed("calibrate"):
-            phase_calibrate(torch, ops, cfg, card, train_record)
+            phase_calibrate(torch, ops, cfg, card, train_record, planned)
+    del planned
     rwkv_bwd_record = None
     if "rwkv_train_kernels" in phases or "rwkv_train" in phases:
         with _Timed("rwkv_train_kernels"):
@@ -6034,7 +6257,8 @@ def main(argv=None) -> int:
             phase_internvl(torch, get_config("internvl2-1b"), card)
     if "dryrun" in phases:
         with _Timed("dryrun"):
-            phase_dryrun(torch, card)
+            phase_dryrun(torch, card, serving="conformance_serving" in phases,
+                         priced=priced)
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record, rwkv_bwd_record)

@@ -894,6 +894,24 @@ class PartitionPlan:
                 for m, p in zip(measured, predicted)],
         }
 
+    def to_pipeline_stages(self, layer_costs, layer_mem, act_bytes: float,
+                           num_stages: int | None = None,
+                           mem_cap: float | None = None, **kw):
+        """Bridge to the pipeline planner
+        (:func:`repro_torch.pipeline.plan_stages`): contiguous stage
+        boundaries for a layer chain, the stage count defaulting to this
+        plan's K and the stage memory cap to its largest per-device
+        capacity."""
+        from .pipeline.pardnn_pp import plan_stages
+        if num_stages is None:
+            num_stages = self.k
+        if mem_cap is None and self.devices is not None \
+                and self.devices.memory is not None:
+            m = self.devices.memory
+            mem_cap = float(m) if np.isscalar(m) else float(np.max(m))
+        return plan_stages(layer_costs, layer_mem, act_bytes=act_bytes,
+                           num_stages=num_stages, mem_cap=mem_cap, **kw)
+
     def compare(self, baselines: Sequence[str] = ("rr", "topo"),
                 graph: CostGraph | None = None) -> dict:
         """Run baseline partitioners on the same graph; returns

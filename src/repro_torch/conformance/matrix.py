@@ -28,10 +28,21 @@ its own stream, and the record says so (``device_map``, ``folded``). On
 CUDA folding must be asked for (``fold=True``); the CPU has one device
 and always folds.
 
-Run one arch from the command line::
+:func:`run_serving_conformance` is the reference's serving scenario:
+reduced granite-8b served through ``plan.serve`` at K=4 under a
+block-starved pool and a shuffled admission order, token for token
+against the sequential reference, with no leaked block and every pool
+leaf on its PE's device.
+
+Run one arch from the command line (``--trace PATH`` writes and holds a
+Perfetto trace of the run)::
 
     PYTHONPATH=src python -m repro_torch.conformance --arch granite-8b \\
         --devices 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.conformance --arch granite-8b \\
+        --serving --devices 4 --device cpu --trace /tmp/serving.json
+    python -m repro_torch.conformance --arch granite-8b --serving \\
+        --devices 4 --fold          # on one card
 """
 from __future__ import annotations
 
@@ -216,20 +227,20 @@ def _tree_close(a, b, rtol: float, atol: float) -> str | None:
     return None
 
 
-def _placement(spec: ArchSpec, dev: torch.device, fold: bool):
-    """(devices, device_map) the plan's PEs run on."""
+def _placement(arch: str, k: int, dev: torch.device, fold: bool):
+    """(devices, device_map) the plan's ``k`` PEs run on."""
     if dev.type == "cpu":
-        return ["cpu"], [0] * spec.devices
+        return ["cpu"], [0] * k
     n = torch.cuda.device_count()
-    if n >= spec.devices:
+    if n >= k:
         return [torch.device("cuda", i) for i in range(n)], None
     if not fold:
         raise RuntimeError(
-            f"conformance for {spec.arch} needs {spec.devices} devices, "
-            f"the process has {n} CUDA devices: pass fold=True (--fold) "
-            f"to fold the PEs onto them")
+            f"conformance for {arch} needs {k} devices, the process has "
+            f"{n} CUDA devices: pass fold=True (--fold) to fold the PEs "
+            f"onto them")
     return ([torch.device("cuda", i) for i in range(n)],
-            [i % n for i in range(spec.devices)])
+            [i % n for i in range(k)])
 
 
 def run_conformance(spec: ArchSpec, save_dir: str | None = None,
@@ -252,7 +263,7 @@ def run_conformance(spec: ArchSpec, save_dir: str | None = None,
         "peak_factor": spec.peak_factor, "peak_slack": spec.peak_slack}}
 
     dev = resolve_device(device)
-    devices, device_map = _placement(spec, dev, fold)
+    devices, device_map = _placement(spec.arch, spec.devices, dev, fold)
     rec["device"] = str(dev)
     rec["device_map"] = device_map
     rec["folded"] = device_map is not None
@@ -420,6 +431,220 @@ def run_conformance(spec: ArchSpec, save_dir: str | None = None,
 
 
 # ---------------------------------------------------------------------------
+# serving scenario
+# ---------------------------------------------------------------------------
+#: the scenario's block-starved pool (the reference's): 4 requests of up
+#: to 18 tokens (72 in all) against 9 allocatable blocks of 4 (36 tokens)
+#: force preemption
+SERVING_GEOMETRY = dict(block_size=4, num_blocks=10, max_batch=4,
+                        max_len=20)
+SERVING_REQUESTS = 4
+SERVING_NEW_TOKENS = 10
+#: cache length of the sequential reference
+SERVING_REFERENCE_LEN = 32
+
+
+def serving_prompts(cfg, rng: np.random.Generator) -> list[np.ndarray]:
+    """The scenario's prompts, drawn as the reference draws them: 3-8
+    int32 tokens each in [1, vocab)."""
+    return [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+            for n in rng.integers(3, 9, size=SERVING_REQUESTS)]
+
+
+@torch.no_grad()
+def sequential_tokens(cfg, params, prompt: np.ndarray, max_new: int,
+                      device=None) -> tuple[list[int], list[float]]:
+    """The un-partitioned sequential reference of one request: ``prefill``
+    into caches of :data:`SERVING_REFERENCE_LEN`, then greedy
+    ``decode_step`` calls, one token each. Returns the tokens and, for
+    each, its top-1 / top-2 logit gap."""
+    from ..models import decode_step, prefill
+    dev = resolve_device(device)
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
+    logits, caches = prefill(cfg, params, {"tokens": toks},
+                             max_len=SERVING_REFERENCE_LEN)
+    out: list[int] = []
+    gaps: list[float] = []
+    pos = toks.shape[1]
+    while True:
+        top = logits[0, -1].float().topk(2)
+        out.append(int(top.indices[0]))
+        gaps.append(float(top.values[0] - top.values[1]))
+        if len(out) == max_new:
+            return out, gaps
+        logits, caches = decode_step(
+            cfg, params, caches,
+            torch.tensor([[out[-1]]], dtype=torch.int32, device=dev), pos)
+        pos += 1
+
+
+def _serving_trace_problems(path: str, n_req: int, preempted: int
+                            ) -> list[str]:
+    """What is wrong with a serving engine's trace: an invalid Perfetto
+    document, a missing lane group (the engine lane, one lane per
+    request), or an ``evicted`` instant count other than the
+    preemptions."""
+    from ..obs.trace import SERVING_PID, load_trace, validate_trace
+    doc = load_trace(path)
+    problems = list(validate_trace(doc))
+    events = doc.get("traceEvents", [])
+    lanes = sorted(e["args"]["name"] for e in events
+                   if e.get("name") == "thread_name"
+                   and e.get("pid") == SERVING_PID)
+    want = sorted(["engine"] + [f"request {i}" for i in range(n_req)])
+    if lanes != want:
+        problems.append(f"serving lanes {lanes}, want {want}")
+    evicted = sum(e.get("name") == "evicted" and e.get("ph") == "i"
+                  and e.get("pid") == SERVING_PID for e in events)
+    if evicted != preempted:
+        problems.append(f"{evicted} evicted instants on the request lanes "
+                        f"for {preempted} preemptions")
+    return problems
+
+
+def run_serving_conformance(arch: str = "granite-8b", devices: int = 4,
+                            seed: int = 0, trace_path: str | None = None,
+                            *, device=None, fold: bool = False) -> dict:
+    """Serve a registered dense arch (reduced) through ``plan.serve`` at
+    K=``devices`` on ``device`` (``None`` means ``cuda``) and check the
+    reference's serving invariants:
+
+      * **token equality**: plan-served continuous-batched greedy decode
+        equals the un-partitioned sequential reference
+        (:func:`sequential_tokens`) token for token per request, under
+        (a) the block-starved pool of :data:`SERVING_GEOMETRY`, which
+        forces eviction and resume, and (b) a shuffled admission order;
+      * **zero leaked blocks** in both schedules;
+      * **placement residency**: every pool leaf lies on the device of
+        the PE the plan assigns its input node, a PE of the plan.
+
+    The K PEs fold onto fewer devices as :func:`run_conformance` folds
+    them (the CPU always; CUDA with ``fold``). ``trace_path``: schedule
+    (a) writes the engine's Perfetto trace there; an invalid document, a
+    missing lane group or an ``evicted`` count other than the
+    preemptions is a violation. Checks never raise: each failure is an
+    entry of ``violations``. Dense archs only,
+    as in the reference: MoE capacity couples the rows of a batch."""
+    from ..configs import get_config, reduced
+    from ..kernels.flash_attention.ops import flash_attention
+    from ..models import init_params
+    from ..serving import Request, partition_for_serving
+
+    violations: list[str] = []
+    rec: dict = {"scenario": "serving", "arch": arch, "devices": devices}
+    launched = (flash_attention.launches,
+                dict(flash_attention.variant_launches))
+    dev = resolve_device(device)
+    devs, device_map = _placement(arch, devices, dev, fold)
+    rec["device"] = str(dev)
+    rec["device_map"] = device_map
+    rec["folded"] = device_map is not None
+
+    cfg = reduced(get_config(arch))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    rng = np.random.default_rng(seed)
+    prompts = serving_prompts(cfg, rng)
+    refs = [sequential_tokens(cfg, params, p, SERVING_NEW_TOKENS, dev)
+            for p in prompts]
+    rec["reference_min_gap"] = min(g for _, gaps in refs for g in gaps)
+    refs = [toks for toks, _ in refs]
+
+    t0 = time.perf_counter()
+    plan = partition_for_serving(cfg, params, devices=devices, device=dev,
+                                 **SERVING_GEOMETRY)
+    rec["partition_s"] = time.perf_counter() - t0
+    rec["num_nodes"] = plan.n
+    rec["feasible"] = bool(plan.feasible)
+
+    def serve_schedule(order, trace=None):
+        eng = plan.serve(cfg, params, devices=devs, device_map=device_map,
+                         trace=trace, device=dev)
+        for i in order:
+            eng.submit(Request(rid=int(i), prompt=prompts[i],
+                               max_new_tokens=SERVING_NEW_TOKENS))
+        return eng, eng.run_until_drained()
+
+    def hold(name: str, eng, done) -> None:
+        if eng.stats.leaked_blocks:
+            violations.append(f"{name} schedule leaked "
+                              f"{eng.stats.leaked_blocks} blocks")
+        for i, ref in enumerate(refs):
+            got = done[i].output if i in done else None
+            if got != ref:
+                violations.append(
+                    f"{name} schedule: request {i} diverged from the "
+                    f"sequential reference ({got} != {ref})")
+
+    # (a) in-order admission, starved pool: forced eviction and resume
+    t0 = time.perf_counter()
+    eng_a, done_a = serve_schedule(range(SERVING_REQUESTS),
+                                   trace=trace_path)
+    rec["serve_s"] = time.perf_counter() - t0
+    sa = eng_a.stats
+    rec["evictions"] = sa.preempted
+    rec["leaked_blocks_evict"] = sa.leaked_blocks
+    rec["completed"] = sa.completed
+    if trace_path is not None:
+        rec["trace_path"] = trace_path
+        violations += [f"trace: {p}" for p in _serving_trace_problems(
+            trace_path, SERVING_REQUESTS, sa.preempted)]
+    if sa.preempted == 0:
+        violations.append("starved schedule forced no eviction: the "
+                          "scenario is not exercising preemption")
+    hold("eviction", eng_a, done_a)
+
+    # (b) shuffled admission order
+    order = [int(i) for i in rng.permutation(SERVING_REQUESTS)]
+    eng_b, done_b = serve_schedule(order)
+    rec["admission_order"] = order
+    rec["leaked_blocks_shuffled"] = eng_b.stats.leaked_blocks
+    hold("shuffled", eng_b, done_b)
+    for name, st in (("eviction", sa), ("shuffled", eng_b.stats)):
+        if st.completed != SERVING_REQUESTS:
+            violations.append(f"{name} schedule completed {st.completed} "
+                              f"of {SERVING_REQUESTS} requests")
+
+    # placement residency: each pool leaf on its PE's device
+    pe_devs = plan._torch_devices(devs, device_map)
+    n_params = len(tree_flatten(params)[0])
+    prog = plan.traced.program
+    leaves = tree_flatten(eng_b.pools)[0]
+    want = [int(plan.assignment[prog.input_nodes[n_params + i]])
+            for i in range(len(leaves))]
+    rec["pool_pes"] = sorted(set(eng_b.pool_pes or []))
+    rec["pool_devices"] = sorted({str(t.device) for t in leaves})
+    if not leaves or eng_b.pool_pes is None:
+        violations.append("plan-backed engine resolved no pool devices")
+    elif eng_b.pool_pes != want:
+        violations.append(f"pool leaves on PEs {eng_b.pool_pes}, the plan "
+                          f"assigns {want}")
+    else:
+        for i, t in enumerate(leaves):
+            if not 0 <= want[i] < plan.k or t.device != pe_devs[want[i]]:
+                violations.append(
+                    f"pool leaf {i} on {t.device}, outside PE {want[i]}'s "
+                    f"device of the plan's {plan.k}")
+                break
+
+    # the flash kernels the scenario launched (its prefills; a CPU
+    # tensor runs the plain version and launches none)
+    rec["flash_launches"] = {
+        "total": flash_attention.launches - launched[0],
+        **{v: n - launched[1][v]
+           for v, n in flash_attention.variant_launches.items()}}
+    rec["serving_stats"] = plan.report.serving
+    rec["violations"] = violations
+    rec["ok"] = not violations
+    return rec
+
+
+def matrix_archs() -> list[str]:
+    """The registered archs the matrix runs, sorted."""
+    return sorted(build_matrix())
+
+
+# ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
@@ -438,7 +663,22 @@ def main(argv=None) -> int:
                     help="layers of the reduced config (whole periods)")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq", type=int, default=None)
+    ap.add_argument("--serving", action="store_true",
+                    help="run the serving scenario (plan.serve token "
+                         "equality and block accounting under a starved "
+                         "pool and a shuffled order) instead of the "
+                         "train-step loop")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Perfetto trace of the run (measured and "
+                         "predicted segment lanes; request lanes with "
+                         "--serving) and hold its validity")
     args = ap.parse_args(argv)
+    if args.serving:
+        rec = run_serving_conformance(arch=args.arch, devices=args.devices,
+                                      trace_path=args.trace,
+                                      device=args.device, fold=args.fold)
+        print(JSON_MARK + json.dumps(rec))
+        return 0 if rec["ok"] else 1
     from ..configs import get_config
     overrides: dict = {"devices": args.devices}
     if args.layers is not None:
@@ -449,14 +689,17 @@ def main(argv=None) -> int:
         if v is not None:
             overrides[k] = v
     rec = run_conformance(spec_for(args.arch, **overrides),
-                          device=args.device, fold=args.fold)
+                          trace_path=args.trace, device=args.device,
+                          fold=args.fold)
     print(JSON_MARK + json.dumps(rec))
     return 0 if rec["ok"] else 1
 
 
-__all__ = ["ArchSpec", "JSON_MARK", "MATRIX_OVERRIDES", "build_matrix",
-           "example_batch", "main", "make_train_step", "reduced_config",
-           "run_conformance", "spec_for"]
+__all__ = ["ArchSpec", "JSON_MARK", "MATRIX_OVERRIDES", "SERVING_GEOMETRY",
+           "build_matrix", "example_batch", "main", "make_train_step",
+           "matrix_archs", "reduced_config", "run_conformance",
+           "run_serving_conformance", "sequential_tokens",
+           "serving_prompts", "spec_for"]
 
 
 if __name__ == "__main__":

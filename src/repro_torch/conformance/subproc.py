@@ -60,21 +60,40 @@ def run_py(code: str, timeout: int = 600) -> str:
     return r.stdout
 
 
-def run_json(argv: list[str], timeout: int = 900) -> dict:
-    """Run ``python <argv...>`` in a child process and parse the last
-    ``CONFORMANCE_JSON:`` line of stdout as the structured result."""
-    r = subprocess.run([sys.executable] + list(argv), capture_output=True,
-                       text=True, timeout=timeout, env=child_env())
-    if r.returncode != 0:
+def start_json(argv: list[str]) -> subprocess.Popen:
+    """Start ``python <argv...>`` in a child process, its output piped;
+    :func:`wait_json` reads its result. The caller may work meanwhile."""
+    return subprocess.Popen([sys.executable] + list(argv),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=child_env())
+
+
+def wait_json(proc: subprocess.Popen, timeout: int = 900) -> dict:
+    """Wait for a child from :func:`start_json` (killing it after
+    ``timeout`` seconds, as ``subprocess.run`` does) and parse the last
+    ``CONFORMANCE_JSON:`` line of its stdout as the structured result."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    argv = " ".join(proc.args[1:])
+    if proc.returncode != 0:
         raise SubprocessError(
-            f"{' '.join(argv)} exited {r.returncode}:\n"
-            f"stderr: {r.stderr[-4000:]}\nstdout: {r.stdout[-1000:]}")
-    for line in reversed(r.stdout.splitlines()):
+            f"{argv} exited {proc.returncode}:\n"
+            f"stderr: {err[-4000:]}\nstdout: {out[-1000:]}")
+    for line in reversed(out.splitlines()):
         if line.startswith(JSON_MARK):
             return json.loads(line[len(JSON_MARK):])
     raise SubprocessError(
-        f"{' '.join(argv)}: no {JSON_MARK} payload in stdout:\n"
-        f"{r.stdout[-2000:]}")
+        f"{argv}: no {JSON_MARK} payload in stdout:\n{out[-2000:]}")
+
+
+def run_json(argv: list[str], timeout: int = 900) -> dict:
+    """Run ``python <argv...>`` in a child process and parse the last
+    ``CONFORMANCE_JSON:`` line of stdout as the structured result."""
+    return wait_json(start_json(argv), timeout)
 
 
 def run_arch_subprocess(arch: str, devices: int = 4, device=None,

@@ -11,9 +11,12 @@ Per cell it records into ``results/dryrun_torch/<cell>.json``:
   * ``graph_flops`` and ``graph_bytes``, summed over the cost graph's
     nodes (the reference's ``hlo_flops`` and ``hlo_bytes``; the port's
     trace is flat, so no unroll-1 / unroll-2 extrapolation is needed);
-  * ``per_device_total_bytes``: the one-PE peak that ParDNN's emulator
-    prices for the graph with every node on PE 0, and ``fits`` against
-    the card's 80 GiB;
+  * ``per_device_total_bytes``: the bytes live at the peak of the step
+    run on one card in the order the trace recorded it, which is the
+    order the eager step runs (:func:`trace_order_peak`), and ``fits``
+    against the card's 80 GiB on it; ``emulated_peak_bytes`` beside it,
+    the one-PE peak that ParDNN's emulator prices (its list order runs a
+    recompute as soon as its inputs exist, so remat does not lower it);
   * the three roofline terms and the dominant one, on the H100's
     constants (``core.costmodel``), and ``model_flops`` (the reference's
     formula).
@@ -22,11 +25,11 @@ It differs from the reference where the card differs: no ``XLA_FLAGS``
 line and no forced device count; the results go to
 ``results/dryrun_torch`` (the reference writes ``results/dryrun``, with
 the same cell names, and each would read the other's files as
-``[cached]``); ``--mesh multi`` cells are ``SKIP``, since the mesh waits
-for ``launch/mesh.py`` and ``sharding/rules.py``, and on one card
-``collective_bytes`` is 0. The reference's ``collective_bytes_from_hlo``
-has no counterpart: PyTorch has no HLO; it waits with the mesh (ROADMAP
-M4).
+``[cached]``); ``--mesh multi`` cells are ``SKIP``, since a step over
+the mesh waits for ``pipeline_apply``, ``train/compression.py`` and the
+process group, and on one card ``collective_bytes`` is 0. The
+reference's ``collective_bytes_from_hlo`` has no counterpart: PyTorch
+has no HLO; it waits with the mesh (ROADMAP M4.1b).
 
 Usage:
   python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
@@ -68,8 +71,9 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 
 #: why a ``--mesh multi`` cell does not run
-MULTI_SKIP = ("the multi-card mesh waits for launch/mesh.py and "
-              "sharding/rules.py (ROADMAP M4)")
+MULTI_SKIP = ("a step over the multi-card mesh waits for "
+              "pipeline_apply, train/compression.py and the process group "
+              "(ROADMAP M4.1b)")
 
 
 def roofline_terms(flops: float, hbm_bytes: float, coll_bytes: float,
@@ -132,17 +136,57 @@ def _trace_cell(cfg, shape, remat: str, dev: torch.device):
                             dev)
     if shape.kind == "train":
         return api.trace(_loss_and_grad(cfg, remat), params, spec["batch"],
-                         autograd=True)
+                         autograd=True, record=True)
     if shape.kind == "prefill":
         return api.trace(build_prefill_step(cfg, shape.seq_len, dev),
-                         params, spec["batch"])
+                         params, spec["batch"], record=True)
     return api.trace(build_serve_step(cfg, shape, dev), params,
-                     spec["caches"], spec["tokens"], spec["cache_pos"])
+                     spec["caches"], spec["tokens"], spec["cache_pos"],
+                     record=True)
+
+
+def trace_order_peak(traced) -> float:
+    """Bytes live at the peak of the traced step run on one device in
+    the order the trace recorded its nodes, the order the eager step
+    runs them: the inputs and constants throughout, each node's outputs
+    from the node until the last node that reads them or a view of them,
+    and the step's outputs to the end. A view allocates nothing and
+    keeps its base alive. Needs the recorded program (``record=True``)."""
+    from ..core.tracing import VIEW_OPS
+    prog = traced.program
+    mem = np.asarray(traced.graph.mem, dtype=np.float64)
+    consumers, outputs = prog.liveness()
+    roots = set(prog.input_nodes) | {nid for nid, _ in prog.const_nodes}
+    live = float(sum(mem[nid] for nid in roots))
+    nodes = sorted(prog.program)
+    base: dict[int, int] = {}
+    last: dict[int, float] = {}
+    for nid in nodes:
+        op, _, inputs = prog.program[nid]
+        src = next((i[1] for i in inputs if i[0] == "slot"), None)
+        is_view = op.overloadpacket.__name__ in VIEW_OPS
+        b = base.get(src, src) if is_view and src is not None else nid
+        base[nid] = b
+        end = (np.inf if nid in outputs
+               else max(consumers.get(nid, ()), default=nid))
+        last[b] = max(last.get(b, nid), end)
+    frees: dict[float, list[int]] = {}
+    for b, end in last.items():
+        if b not in roots:
+            frees.setdefault(end, []).append(b)
+    peak = live
+    for nid in nodes:
+        if base[nid] == nid:
+            live += mem[nid]
+            peak = max(peak, live)
+        for b in frees.get(nid, ()):
+            live -= mem[b]
+    return float(peak)
 
 
 def one_pe_peak(graph) -> float:
     """Bytes ParDNN's emulator prices for the graph with every node on
-    PE 0: the memory one card needs for the step."""
+    PE 0 (its list order, not the trace's)."""
     from ..core.emulator import emulate
     from ..core.memops import compute_profile
     zero = np.zeros(graph.n, dtype=np.int64)
@@ -157,10 +201,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     which raises where there is none): nothing is allocated. The record
     keeps the reference's keys where they mean the same (``status``,
     ``chips``, ``remat``, ``tag``, ``roofline``, ``model_flops``,
-    ``useful_flops_ratio``, ``per_device_total_bytes``,
-    ``collective_bytes``); ``trace_s`` stands for ``lower_s`` and
-    ``compile_s``, ``graph_flops`` and ``graph_bytes`` for ``hlo_flops``
-    and ``hlo_bytes``."""
+    ``useful_flops_ratio``, ``collective_bytes``);
+    ``per_device_total_bytes`` is the one-card peak in the trace's order
+    (:func:`trace_order_peak`) where the reference reads XLA's buffer
+    assignment, and ``fits`` is judged on it; ``emulated_peak_bytes`` is
+    the emulator's one-PE peak (:func:`one_pe_peak`); ``trace_s`` stands
+    for ``lower_s`` and ``compile_s``, ``graph_flops`` and
+    ``graph_bytes`` for ``hlo_flops`` and ``hlo_bytes``."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     skip = shape_skip_reason(cfg, shape)
@@ -176,7 +223,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     g = traced.graph
     flops = float(np.sum(g.op_flops))
     nbytes = float(np.sum(g.op_bytes))
-    peak = one_pe_peak(g)
+    peak = trace_order_peak(traced)
     mf = model_flops(cfg, shape)
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
@@ -184,6 +231,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         "trace_s": round(trace_s, 2), "nodes": g.n,
         "graph_flops": flops, "graph_bytes": nbytes,
         "per_device_total_bytes": peak,
+        "emulated_peak_bytes": one_pe_peak(g),
         "fits": bool(peak <= H100_HBM_BYTES),
         "collective_bytes": 0.0,
         "roofline": roofline_terms(flops, nbytes, 0.0, 1),

@@ -10,8 +10,9 @@ step skipping (``train/optimizer.py``); async atomic checkpoints every
 ``--ckpt-every`` steps and a synchronous final one, ``--resume auto``,
 SIGTERM-safe, a straggler watchdog (``train/loop.py``). The flags are the
 reference's, plus ``--device`` (default ``cuda``). The reference's mesh
-flags take only 1: a mesh over several devices waits for
-``launch/mesh.py`` (ROADMAP queue 1, the multi-device modules).
+flags take only 1: a step over a mesh of several devices waits for
+``pipeline_apply``, ``train/compression.py`` and the process group
+(ROADMAP M4.1b; the mesh shapes and sharding rules are ported).
 Parameters are drawn from ``--seed`` with the port's generator, not the
 reference's ``jax.random`` stream.
 """
@@ -82,8 +83,9 @@ def main(argv=None):
     if args.model_parallel != 1 or args.pods != 1:
         raise NotImplementedError(
             f"--model-parallel {args.model_parallel} --pods {args.pods}: "
-            f"the port trains on one device; a mesh waits for "
-            f"launch/mesh.py (ROADMAP queue 1, the multi-device modules)")
+            f"the port trains on one device; a step over a mesh waits "
+            f"for pipeline_apply, train/compression.py and the process "
+            f"group (ROADMAP M4.1b)")
 
     from repro_torch.configs import get_config, reduced
     cfg = get_config(args.arch)

@@ -1,7 +1,8 @@
 """The step builders for one device (port of ``repro.train.step``'s
 ``build_train_step``, ``build_encoder_train_step``, ``build_prefill_step``
-and ``build_serve_step``; their sharded forms wait for
-``launch/mesh.py``, ROADMAP queue 1): no mesh, no shardings.
+and ``build_serve_step``, and ``rules_total_dp``; their sharded forms wait
+for ``pipeline_apply``, ``train/compression.py`` and the process group,
+ROADMAP M4.1b): no mesh, no shardings.
 
 The gradient is taken as ``conformance.make_train_step`` takes it:
 ``torch.autograd.grad`` over per-layer leaves (the periods unbound by
@@ -126,5 +127,16 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, device=None):
     return serve_step
 
 
+def rules_total_dp(mesh) -> int:
+    """Data-parallel ways of ``mesh``: the product of the sizes of the
+    axes the global batch shards over (:func:`repro_torch.sharding.rules.
+    batch_axes`), 1 when it has none."""
+    import math
+
+    from ..sharding import rules
+    return math.prod(mesh.shape[a] for a in rules.batch_axes(mesh))
+
+
 __all__ = ["build_encoder_train_step", "build_prefill_step",
-           "build_serve_step", "build_train_step", "loss_and_grads"]
+           "build_serve_step", "build_train_step", "loss_and_grads",
+           "rules_total_dp"]

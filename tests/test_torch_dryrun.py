@@ -110,9 +110,48 @@ def test_reduced_cell_is_ok(small, arch, shape, remat):
     assert rf["bound_s"] == max(rf["compute_s"], rf["memory_s"]) > 0
 
 
+def test_trace_order_peak_falls_under_remat(small):
+    """The cell's one-card peak is priced in the trace's order, so a
+    policy that recomputes lowers it; the emulator's figure stays under
+    its own key."""
+    r = {p: dryrun.run_cell("granite-8b", "train_4k", "single", remat=p,
+                            device="cpu")
+         for p in ("none", "full")}
+    assert r["full"]["per_device_total_bytes"] < \
+        r["none"]["per_device_total_bytes"]
+    for rec in r.values():
+        assert rec["emulated_peak_bytes"] > 0
+        assert rec["fits"] == (rec["per_device_total_bytes"]
+                               <= dryrun.H100_HBM_BYTES)
+
+
+def test_trace_order_peak_by_hand():
+    """x (64 floats) held; a = x * 2, v = a viewed, b = v + 1, c = b * 3
+    returned with v: a lives while its view does, b dies at c."""
+    def f(x):
+        a = x * 2
+        v = a.view(8, 8)
+        b = v + 1
+        return b * 3, v
+
+    traced = api.trace(f, torch.zeros(64), record=True)
+    n = 64 * 4
+    # x, a (kept by the returned view), b and c together
+    assert dryrun.trace_order_peak(traced) == 4 * n
+
+    def g(x):
+        a = x * 2
+        b = a * 3
+        c = b * 4
+        return c * 5
+
+    traced = api.trace(g, torch.zeros(64), record=True)
+    assert dryrun.trace_order_peak(traced) == 3 * n
+
+
 def test_multi_mesh_and_skips(small):
     r = dryrun.run_cell("granite-8b", "train_4k", "multi", device="cpu")
-    assert r["status"] == "SKIP" and "launch/mesh.py" in r["reason"]
+    assert r["status"] == "SKIP" and "pipeline_apply" in r["reason"]
     r = dryrun.run_cell("hubert-xlarge", "decode_32k", "single",
                         device="cpu")
     assert r["status"] == "SKIP" and "encoder-only" in r["reason"]
@@ -184,7 +223,7 @@ def test_list_prints_every_cell(capsys):
     assert len(lines) == len(tcfg.ASSIGNED_ARCHS) * len(dryrun.SHAPES) * 2
     multi = [ln for ln in lines if "__multi" in ln]
     assert multi and all("SKIP" in ln for ln in multi)
-    assert sum("launch/mesh.py" in ln for ln in lines) == sum(
+    assert sum("pipeline_apply" in ln for ln in lines) == sum(
         "RUN" in ln for ln in lines)        # every single cell that runs
     assert any(ln.rstrip().endswith("RUN") for ln in lines)
 

@@ -51,7 +51,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.train, repro_torch.profiling, "
             "repro_torch.launch.dryrun, repro_torch.analysis.mutate, "
             "repro_torch.analysis.synth, repro_torch.analysis.__main__, "
-            "repro_torch.conformance.subproc; "
+            "repro_torch.conformance.subproc, repro_torch.launch.mesh, "
+            "repro_torch.sharding, repro_torch.sharding.rules, "
+            "repro_torch.pipeline, repro_torch.pipeline.pardnn_pp; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

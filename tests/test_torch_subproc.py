@@ -1,8 +1,10 @@
 """``repro_torch.conformance.subproc`` on the CPU: the conformance loop
 run in a child process returns the record the same call makes in
 process; ``run_json`` and ``run_py`` raise ``SubprocessError`` on a
-nonzero exit or a missing payload; ``child_env`` puts the running
-checkout's ``src`` first on ``PYTHONPATH``."""
+nonzero exit or a missing payload; ``start_json`` lets the caller work
+while the child runs and ``wait_json`` kills it at its timeout;
+``child_env`` puts the running checkout's ``src`` first on
+``PYTHONPATH``."""
 import os
 
 import pytest
@@ -15,7 +17,7 @@ from repro_torch.conformance import (JSON_MARK, run_conformance,  # noqa: E402
 from repro_torch.conformance.subproc import (SubprocessError,  # noqa: E402
                                              child_env, repo_src_path,
                                              run_arch_subprocess, run_json,
-                                             run_py)
+                                             run_py, start_json, wait_json)
 
 #: the record's fields that do not depend on timing
 CHECKS = ("ok", "violations", "arch", "device", "device_map", "folded",
@@ -48,6 +50,21 @@ def test_run_json_parses_the_last_payload():
     code = (f"print('{JSON_MARK}' + '{{\"n\": 1}}'); "
             f"print('{JSON_MARK}' + '{{\"n\": 2}}'); print('done')")
     assert run_json(["-c", code]) == {"n": 2}
+
+
+def test_start_json_runs_beside_the_caller_until_waited_for():
+    proc = start_json(["-c", f"import time; time.sleep(0.5); "
+                             f"print('{JSON_MARK}' + '{{\"n\": 3}}')"])
+    assert proc.poll() is None          # still running: the caller works
+    assert wait_json(proc, timeout=60) == {"n": 3}
+    assert proc.returncode == 0
+
+
+def test_wait_json_kills_the_child_at_its_timeout():
+    proc = start_json(["-c", "import time; time.sleep(60)"])
+    with pytest.raises(Exception, match="timed out"):
+        wait_json(proc, timeout=1)
+    assert proc.returncode is not None
 
 
 def test_run_py_returns_stdout_and_raises_on_error():

@@ -456,7 +456,7 @@ def test_launch_train_cli_then_resume(tmp_path):
         res.stdout
     assert CheckpointManager(ck).all_steps() == [2, 3, 4]
     res = _cli(*base, "--steps", "1", "--model-parallel", "2", cwd=tmp_path)
-    assert res.returncode != 0 and "launch/mesh.py" in res.stderr
+    assert res.returncode != 0 and "pipeline_apply" in res.stderr
 
 
 def test_launch_train_cli_hubert_trains_on_frames(tmp_path):
