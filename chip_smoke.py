@@ -372,8 +372,31 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    alone over what the card held before, against the dry run's
    trace-order peak of the same call (traced on fake tensors) less its
    inputs: within F11_FACTOR either way.
+30. distributed: the collective parts (``repro_torch.distributed``) in
+   one launch of 4 ranks sharing the card (``conformance.subproc.
+   start_ranks``; each rank its own CUDA context; gloo, every payload
+   staged through host memory, as the run says), with phase 29 beside
+   its cells: (a) ``pipeline_apply`` over 4 stages of one full-width
+   granite-8b block (bf16), 4 microbatches of (1, 1024), forward and
+   backward: 7 sm90 flash forward and 7 backward launches a rank (the
+   ticks), 0 fma, the outputs, loss and every gradient of the rank's
+   block within 2^-7 of its scale of the same 4 blocks run on one rank;
+   (b) ``launch.train``'s body over the (pod 2, data 2, model 1) mesh at
+   the depth the launch phase's AdamW arithmetic lets 90% of the card
+   hold for 4 ranks: ZeRO-1, global batch 4 x 1024, 3 steps, every loss
+   finite and the same on every rank, the first within DIST_LOSS_GATE of
+   the one-rank loss on the global batch, 2L sm90 forward and L backward
+   launches a step; its state checkpointed (gathered, rank 0 writes) and
+   restored onto 2 ranks in a second launch, each rank's blocks equal to
+   the saving rank's; (c) ``make_compressed_psum`` over ``pod`` on each
+   rank's first full-width gradient tree, in groups of leaves: within 0.03
+   of the exact mean, residual + dequantized equal to the input within
+   2 ulp of the scale. Prints the backend, the bytes each collective
+   moved a step and each rank's step ms (host-staged transport on a
+   shared card: no measure of NVLink or NCCL).
 
-Each phase's seconds are printed when it ends.
+Each phase's seconds are printed when it ends. ``--rank-body`` (not
+for users) runs one rank of phase 30.
 
 ``--phases`` (a comma list of the names in ``PHASES``; default all) runs
 a subset, for iterating on one kernel; the card's name is always read.
@@ -396,6 +419,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -2738,14 +2762,17 @@ def _param_bytes(params) -> int:
 
 
 def fit_depth(torch, cfg, label: str, build, holds: str,
-              fraction: float = 0.9) -> tuple[int, float, float]:
+              fraction: float = 0.9, measured: dict | None = None
+              ) -> tuple[int, float, float]:
     """The depth at which one step of ``cfg`` fits on the card: ``build(c)``
     gives (params, step) for a config ``c``; the step runs twice at 2 and
     at 4 layers and max_memory_allocated of its second call, parameters
     included, is extrapolated linearly to ``cfg.num_layers``. Logs the
     arithmetic; returns ``cfg.num_layers`` or the depth that keeps the
     peak under ``fraction`` of the card, and the parameters' bytes per
-    layer and at 0 layers."""
+    layer and at 0 layers. ``measured``, when given, receives the peak at
+    2 layers and the slope (``"peak2"``, ``"slope"``) for
+    :func:`depth_within`."""
     total = torch.cuda.get_device_properties(0).total_memory
     gb = 1e9
     peaks, pbytes = {}, {}
@@ -2761,6 +2788,8 @@ def fit_depth(torch, cfg, label: str, build, holds: str,
         del params, step
         _release(torch)
     slope, pslope = (peaks[4] - peaks[2]) / 2, (pbytes[4] - pbytes[2]) / 2
+    if measured is not None:
+        measured.update(peak2=peaks[2], slope=slope)
     layers = cfg.num_layers
     need = peaks[2] + slope * (layers - 2)
     log(f"{label}: depth arithmetic: parameters P(L) = {pslope / gb:.4f} L "
@@ -2774,6 +2803,21 @@ def fit_depth(torch, cfg, label: str, build, holds: str,
         log(f"{label}: the step does not fit at {cfg.num_layers} layers "
             f"in {fraction:.0%} of the card: cut to {layers}")
     return layers, pslope, pbytes[2] - 2 * pslope
+
+
+def depth_within(torch, cfg, label: str, measured: dict,
+                 fraction: float) -> int:
+    """The depth whose step, by :func:`fit_depth`'s measured arithmetic
+    (``measured``), keeps its peak under ``fraction`` of the card (at
+    most ``cfg.num_layers``); logged."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    layers = min(cfg.num_layers, 2 + int((fraction * total
+                                          - measured["peak2"])
+                                         // measured["slope"]))
+    log(f"{label}: {measured['peak2'] / 1e9:.3f} GB at 2 layers + "
+        f"{measured['slope'] / 1e9:.3f} GB a layer under {fraction:.4f} of "
+        f"the card's {total / 1e9:.2f} GB: {layers} layers")
+    return layers
 
 
 @contextlib.contextmanager
@@ -3729,7 +3773,7 @@ def _launch_run(torch, train, cfg, label: str, **kw):
     return loop, ms, peak
 
 
-def phase_launch_train(torch, card: str) -> None:
+def phase_launch_train(torch, card: str) -> dict:
     """``repro_torch.launch.train`` in process (its body, ``train(cfg,
     ...)``) for granite-8b and rwkv6-7b at full width in bf16, B=1,
     S=2048, AdamW: (a) at the depth the printed AdamW arithmetic allows
@@ -3742,7 +3786,8 @@ def phase_launch_train(torch, card: str) -> None:
     alone: its parameters and optimizer state against the uninterrupted
     run's (bit-equal, or within TRAIN_GATE); (c) for granite,
     ``launch.serve --ckpt-dir`` serves 4 requests from that directory's
-    newest checkpoint (the resumed run's parameters)."""
+    newest checkpoint (the resumed run's parameters). Returns granite's
+    depth arithmetic (:func:`fit_depth`'s ``measured``)."""
     import shutil
 
     from repro_torch.configs import get_config
@@ -3752,6 +3797,7 @@ def phase_launch_train(torch, card: str) -> None:
     from repro_torch.models import init_params
     from repro_torch.train import AdamWConfig, build_train_step, init_state
     from repro_torch.tree import tree_flatten
+    measured: dict = {}
     for arch in ("granite-8b", "rwkv6-7b"):
         cfg = get_config(arch)
         ocfg = AdamWConfig(lr=LAUNCH["lr"], total_steps=LAUNCH["steps"])
@@ -3769,7 +3815,8 @@ def phase_launch_train(torch, card: str) -> None:
         layers, p1, p0 = fit_depth(
             torch, cfg, f"launch {arch}", adamw_step,
             "8P (bf16 parameters and grads, float32 mu, nu and master; "
-            "remat full)")
+            "remat full)",
+            measured=measured if cfg.rwkv is None else None)
         fwd, bwd = ("wkv6", "wkv6_bwd") if cfg.rwkv is not None else \
             ("flash_attention", "flash_attention_bwd")
         reset_counts()
@@ -3863,6 +3910,7 @@ def phase_launch_train(torch, card: str) -> None:
                 del eng, served
             del resumed
             log(f"launch {arch}: {_release(torch):.3f} GiB left allocated")
+    return measured
 
 
 # ---------------------------------------------------------------------------
@@ -5999,22 +6047,31 @@ def _priced(torch, cfg, shape, policy: str, device: str) -> float:
 
 
 def phase_dryrun(torch, card: str, serving: bool = False,
-                 priced: dict | None = None) -> None:
+                 priced: dict | None = None,
+                 distributed: int | None = None) -> dict | None:
     """The single-device tools of ``launch.dryrun`` and the analysis CLI
     on the card, and the remat policies at full width: (b), then (c) in
     a child process (and, with ``serving``, the conformance_serving
-    child) while (a) traces on the host (the children's start, imports
-    and the card's context overlap the traces, which time nothing on the
-    card), and the remat cell's priced peaks unless ``priced`` has them,
-    then (d) once the children have ended, so that no other process
-    shares its timings."""
+    child; with ``distributed``, a depth, the distributed phase's ranks)
+    while (a) traces on the host (the children's start, imports and the
+    card's context overlap the traces, which time nothing on the card),
+    and the remat cell's priced peaks unless ``priced`` has them, then
+    (d) once the children have ended, so that no other process shares
+    its timings. Returns the distributed phase's launches, when it ran."""
+    from repro_torch.conformance.subproc import stop_ranks
+    launches = None
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         path = _dryrun_pardnn(torch, Path(tmp))
         t1 = time.perf_counter()
         cli = _dryrun_cli(path)
         started = _serving_start(Path(tmp)) if serving else None
+        ranks = None
         try:
+            if distributed is not None:
+                (Path(tmp) / "distributed").mkdir()
+                ranks = _distributed_start(Path(tmp) / "distributed",
+                                           distributed)
             _dryrun_cells(torch, card)
             if priced is None:
                 priced = _dryrun_priced(torch, "cuda")
@@ -6022,18 +6079,507 @@ def phase_dryrun(torch, card: str, serving: bool = False,
             _dryrun_cli_wait(cli, path, t1)
             if started is not None:
                 _serving_check(started, card)
+            if ranks is not None:
+                launches = _distributed_check(torch, ranks, card)
         finally:
             for proc in (cli, started[0] if started else None):
                 if proc is not None and proc.poll() is None:
                     proc.kill()
                     proc.communicate()
+            if ranks is not None:
+                stop_ranks(ranks[0])
+                stop_ranks(ranks[1])
     t3 = time.perf_counter()
     _dryrun_remat(torch, card, priced)
-    log(f"dryrun: --pardnn {t1 - t0:.1f} s, cells {t2 - t1:.1f} s (the "
-        f"analysis CLI"
-        f"{' and the conformance_serving child' if serving else ''} beside "
-        f"them), their wait {t3 - t2:.1f} s, remat policies "
-        f"{time.perf_counter() - t3:.1f} s; {card}")
+    beside = ["the analysis CLI"] + (["the conformance_serving child"]
+                                     if serving else []) + \
+        (["the distributed phase's ranks"] if distributed else [])
+    log(f"dryrun: --pardnn {t1 - t0:.1f} s, cells {t2 - t1:.1f} s ("
+        f"{', '.join(beside)} beside them), their wait {t3 - t2:.1f} s, "
+        f"remat policies {time.perf_counter() - t3:.1f} s; {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# distributed: the collective parts over 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+#: the ranks of the launch, the pipeline case (stages of one granite-8b
+#: block, microbatches of (1, S)) and the data-parallel run: the global
+#: batch (B rows of S), steps, pods
+DIST = dict(ranks=4, micro=4, seq=1024, batch=4, steps=3, pods=2, seed=5,
+            lr=3e-4, restore_ranks=2)
+#: (a) and each (c) leaf's bound, relative to the leaf's largest magnitude
+DIST_GATE = 2.0 ** -7
+#: (b): the first loss against the one-rank loss (the reference's
+#: tolerance across meshes, tests/test_multidevice.py)
+DIST_LOSS_GATE = 1e-3
+#: (c): the reference's bound on the compressed mean
+COMPRESSION_BOUND = 0.03
+DIST_MARK = "DIST_JSON:"
+
+
+def _flash_counts(ops) -> dict:
+    out = {"flash_attention": ops.flash_attention.launches,
+           "flash_attention_bwd": ops.flash_attention_bwd.launches}
+    for name, fn in (("flash_attention", ops.flash_attention),
+                     ("flash_attention_bwd", ops.flash_attention_bwd)):
+        out.update({f"{name}/{v}": n for v, n in fn.variant_launches.items()})
+    return out
+
+
+def _reset_flash(ops) -> None:
+    for fn in (ops.flash_attention, ops.flash_attention_bwd):
+        fn.launches = 0
+        fn.variant_launches.update(dict.fromkeys(fn.variant_launches, 0))
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def _rank_pipeline(torch, ops, mesh) -> dict:
+    """(a) ``pipeline_apply`` over the 4 ranks' ``stage`` axis, one
+    granite-8b block a stage, M microbatches of (1, S) forward and
+    backward, against the same 4 blocks run on this rank microbatch by
+    microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ProcessMesh
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import _block_apply
+    from repro_torch.pipeline.pardnn_pp import (pipeline_apply, plan_stages,
+                                                stack_stage_params)
+    from repro_torch.tree import tree_flatten, tree_map
+    P_, M, S = DIST["ranks"], DIST["micro"], DIST["seq"]
+    stages = ProcessMesh(MeshShape((P_,), ("stage",)), "cuda")
+    sid = stages.axis_index("stage")
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=P_)
+    gen = torch.Generator(device="cuda").manual_seed(DIST["seed"])
+    params = init_params(cfg, gen, "cuda")
+    blocks = params["periods"]["b0"]          # (4, ...) stacked
+    toks = torch.randint(0, cfg.vocab_size, (M, 1, S), generator=gen,
+                         device="cuda")
+    x = params["embed"][toks].detach()        # (M, 1, S, D) bf16
+    del params
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+
+    def layer(p, h):
+        return _block_apply(cfg, "attn", p, h, positions=pos)[0]
+
+    plan = plan_stages(np.ones(P_), np.ones(P_), 0.0, P_)
+    sp, mask = stack_stage_params(blocks, plan.boundaries)
+    mine = tree_map(lambda a: a[sid].detach().clone().requires_grad_(), sp)
+    del sp
+    # the process's first block, forward and backward: its cold start
+    t0 = time.perf_counter()
+    layer(mine, x[0]).float().square().mean().backward()
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    for t in tree_flatten(mine)[0]:
+        t.grad = None
+    _reset_flash(ops)
+    stages.reset_moved()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline_apply(stages, layer, mine, mask[sid], x)
+    loss = (out.float() ** 2).mean()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = {"cold": cold_ms, "forward": (t1 - t0) * 1e3,
+          "backward": (time.perf_counter() - t1) * 1e3}
+    counts = _flash_counts(ops)
+    moved = {"bytes": dict(stages.moved), "seconds": dict(stages.seconds)}
+    # the same 4 blocks on this rank, microbatch by microbatch
+    ref = [tree_map(lambda a, i=i: a[i].detach().requires_grad_(), blocks)
+           for i in range(P_)]
+    outs = []
+    for m in range(M):
+        h = x[m]
+        for i in range(P_):
+            h = layer(ref[i], h)
+        outs.append(h)
+    want = torch.stack(outs)
+    ref_loss = (want.float() ** 2).mean()
+    ref_loss.backward()
+    errs = {"out": max(_rel(out[m], want[m]) for m in range(M)),
+            "loss": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+            "grad": max(_rel(g.grad, w.grad) for g, w in zip(
+                tree_flatten(mine)[0], tree_flatten(ref[sid])[0]))}
+    del mine, ref, out, want, x, blocks
+    return {"ms": ms, "counts": counts, "moved": moved, "errs": errs,
+            "loss": float(loss), "ticks": M + P_ - 1}
+
+
+def _rank_compression(torch, mesh, cfg, local: dict) -> dict:
+    """(c) ``make_compressed_psum`` over ``pod`` on this rank's first
+    full-width gradient tree (the step-0 batch slice at the initial
+    parameters), in groups of leaves: each leaf's mean against the exact
+    mean (on the pod-0 ranks), and residual + dequantized against what
+    went in (on every rank)."""
+    from repro_torch.models import init_params, unstack_periods
+    from repro_torch.train.compression import (init_error_state,
+                                               make_compressed_psum)
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_flatten
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        DIST["seed"]), "cuda")
+    _, _, grads = loss_and_grads(cfg, unstack_periods(cfg, params), local,
+                                 "full")
+    fn = make_compressed_psum(mesh, "pod")
+    mesh.reset_moved()
+    checks = mesh.rank == mesh.members("pod")[0]
+    worst = {"rel": 0.0 if checks else None, "feedback": 0.0,
+             "residual": 0.0}
+    n = 0
+    # the tree in groups of about 2^28 elements (a float32 GiB): each
+    # group one call, its tensors' collectives overlapped
+    groups, group = [], []
+    for g in tree_flatten(grads)[0]:
+        if group and sum(t.numel() for t in group) + g.numel() > 2 ** 28:
+            groups.append(group)
+            group = []
+        group.append(g)
+    groups.append(group)
+    for group in groups:
+        blocks = [g[None] for g in group]
+        red, err = fn(blocks, init_error_state(group))
+        scales = mesh.pmax(torch.stack([b.float().abs().max()
+                                        for b in blocks]), "pod")
+        for b, r, e, s in zip(blocks, red, err, scales):
+            # the exact mean, on the pod-0 rank of each pod group (the
+            # mean is the same on every rank of it): the pods' bf16 blocks
+            # gathered there, summed in float32
+            parts = mesh.gather(b, "pod", dst=mesh.members("pod")[0])
+            if parts is not None:
+                exact = torch.cat(parts).to(b.device).float().mean(0)
+                worst["rel"] = max(worst["rel"], _rel(r[0], exact))
+                del exact, parts
+            gf = b.float()
+            scale = s / 127.0 + 1e-12           # float32, as the sender's
+            q = torch.round((gf - e) / scale)
+            assert float(q.abs().max()) <= 127
+            ulp = float(np.spacing(np.float32(float(scale) * 127)))
+            worst["feedback"] = max(worst["feedback"], float(
+                (e + q * scale - gf).abs().max()) / ulp)
+            worst["residual"] = max(worst["residual"], float(
+                e.abs().max()) / float(scale))
+            n += b.numel()
+            del gf, q
+        del red, err
+    moved = dict(mesh.moved)
+    del grads
+    return {"worst": worst, "moved": moved, "elements": n}
+
+
+def _local_sums(torch, tree) -> list:
+    from repro_torch.tree import tree_flatten
+    return [float(t.double().sum()) for t in tree_flatten(tree)[0]]
+
+
+def rank_distributed(torch, work: Path, layers: int) -> None:
+    """One rank of the ``distributed`` phase (``chip_smoke.py --rank-body
+    distributed WORK LAYERS``, 4 ranks sharing the card over gloo): (a),
+    (c), then (b): ``launch.train``'s body at ``layers`` layers over the
+    (pod 2, data 2, model 1) mesh, its checkpoint written by rank 0.
+    Prints its results as a ``DIST_JSON:`` line."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.distributed import ProcessMesh, process_group
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import mesh_over
+    from repro_torch.launch.train import train
+    from repro_torch.models import loss_fn
+    res: dict = {}
+    # the flash library's first call in a process (seconds) while the
+    # process group starts: a tiny forward, its launch not counted
+    warm = threading.Thread(target=lambda: ops.flash_attention(
+        *(torch.zeros((1, 128, 8, 128), dtype=torch.bfloat16,
+                      device="cuda"),) * 3, causal=True))
+    warm.start()
+    with process_group("cuda") as backend:
+        warm.join()
+        res["backend"] = backend
+        mesh = ProcessMesh(mesh_over(DIST["ranks"], pod=DIST["pods"]), "cuda")
+        res["rank"], res["coords"] = mesh.rank, mesh.coords
+        t0 = time.perf_counter()
+        res["pipeline"] = _rank_pipeline(torch, ops, mesh)
+        _release(torch)
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(get_config("granite-8b"), num_layers=layers)
+        dc = DataConfig(batch_size=DIST["batch"], seq_len=DIST["seq"],
+                        vocab_size=cfg.vocab_size, seed=DIST["seed"])
+        local = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in make_batch(dc, 0).items()}
+        res["compression"] = _rank_compression(torch, mesh, cfg, local)
+        _release(torch)
+        # the one-rank loss of the first step: the global batch on rank 0
+        whole = {k: mesh.all_gather(v, ("pod", "data"), 0)
+                 for k, v in local.items()}
+        if mesh.rank == 0:
+            from repro_torch.models import init_params
+            with torch.no_grad():
+                p = init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(DIST["seed"]), "cuda")
+                res["one_rank_loss"] = float(loss_fn(cfg, p, whole)[0])
+                del p
+        del whole, local
+        _release(torch)
+        if mesh.rank == 0:      # the restore ranks may start their contexts
+            (work / "train_started").touch()
+        t2 = time.perf_counter()
+        _reset_flash(ops)
+        mesh.reset_moved()
+        torch.cuda.reset_peak_memory_stats()
+        loop = train(cfg, steps=DIST["steps"], batch=DIST["batch"],
+                     seq=DIST["seq"], lr=DIST["lr"], remat="full",
+                     seed=DIST["seed"], device="cuda", log_every=1,
+                     mesh=mesh)
+        torch.cuda.synchronize()
+        res["train"] = {
+            "counts": _flash_counts(ops), "moved": dict(mesh.moved),
+            "collective_s": dict(mesh.seconds),
+            "staged": mesh.staged_bytes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": [h["loss"] for h in loop.state.history],
+            "ms": [h["time"] * 1e3 for h in loop.state.history],
+            "skipped": loop.state.skipped}
+        t3 = time.perf_counter()
+        ck = CheckpointManager(str(work / "ckpt"))
+        ck.save(DIST["steps"], {"params": loop.params,
+                                "opt": loop.opt_state},
+                extra={"step": DIST["steps"]}, shardings=loop.shardings)
+        res["sums"] = _local_sums(torch, {"params": loop.params,
+                                          "opt": loop.opt_state})
+        res["seconds"] = {"pipeline": t1 - t0, "compression": t2 - t1,
+                          "train": t3 - t2,
+                          "checkpoint": time.perf_counter() - t3}
+    print(DIST_MARK + json.dumps(res), flush=True)
+
+
+def rank_restore(torch, work: Path, layers: int) -> None:
+    """One rank of the elastic restore (``--rank-body restore``, 2 ranks):
+    the checkpoint of 4 ranks into the ZeRO-1 layout of the (data 2,
+    model 1) mesh; prints each leaf's local sum as a ``DIST_JSON:``
+    line."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ProcessMesh, process_group
+    from repro_torch.launch.mesh import mesh_over
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.step import init_zero1_state, train_state_shardings
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=layers)
+    # started with the 4 ranks: no CUDA context before their (b) starts,
+    # so that the 6 processes do not start their contexts at once
+    while not (work / "train_started").exists():
+        time.sleep(0.2)
+    with process_group("cuda"):
+        mesh = ProcessMesh(mesh_over(DIST["restore_ranks"]), "cuda")
+        # started with the 4 ranks: wait for their checkpoint (renamed
+        # into place whole), or for the parent to end this rank; the
+        # card holds nothing of this rank's meanwhile
+        ck = CheckpointManager(str(work / "ckpt"))
+        while ck.latest_step() != DIST["steps"]:
+            time.sleep(0.2)
+        t0 = time.perf_counter()
+        p = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+        o = init_zero1_state(AdamWConfig(), p, mesh)
+        tree = {"params": p, "opt": o}
+        _, extra = ck.restore(tree,
+                              shardings=train_state_shardings(p, o, mesh))
+        res = {"rank": mesh.rank, "coords": mesh.coords, "extra": extra,
+               "sums": _local_sums(torch, tree),
+               "seconds": time.perf_counter() - t0}
+    print(DIST_MARK + json.dumps(res), flush=True)
+
+
+def _dist_json(out: str, label: str) -> dict:
+    for line in reversed(out.splitlines()):
+        if line.startswith(DIST_MARK):
+            return json.loads(line[len(DIST_MARK):])
+    raise AssertionError(f"{label}: no {DIST_MARK} line in {out[-2000:]}")
+
+
+def _distributed_start(work: Path, layers: int):
+    """Start the 4 ranks of the phase (:func:`rank_distributed`) and the
+    2 that restore their checkpoint (:func:`rank_restore`, which start
+    their contexts meanwhile and wait for it); returns what
+    :func:`_distributed_check` takes."""
+    from repro_torch.conformance.subproc import start_ranks, stop_ranks
+    me = str(Path(__file__).resolve())
+    ranks = start_ranks([me, "--rank-body", "distributed", str(work),
+                         str(layers)], DIST["ranks"])
+    try:
+        restore = start_ranks([me, "--rank-body", "restore", str(work),
+                               str(layers)], DIST["restore_ranks"])
+    except BaseException:
+        stop_ranks(ranks)
+        raise
+    return ranks, restore, work, layers, time.perf_counter()
+
+
+def _distributed_check(torch, started, card: str) -> dict:
+    """Wait for the 4 ranks, hold their results to the gates, restore
+    their checkpoint onto 2 ranks, and log the figures. Returns the flash
+    launches a rank: (a)'s forward and backward, (b)'s."""
+    from repro_torch.conformance.subproc import stop_ranks, wait_ranks
+    launch, restore, work, layers, t0 = started
+    try:
+        outs = wait_ranks(launch, timeout=600)
+    except BaseException:
+        stop_ranks(restore)
+        raise
+    ran_s = time.perf_counter() - t0
+    res = [_dist_json(o, f"distributed rank {r}") for r, o in enumerate(outs)]
+    M, P_ = DIST["micro"], DIST["ranks"]
+    T = M + P_ - 1
+    steps = DIST["steps"]
+    log(f"distributed: {P_} ranks over {res[0]['backend']} sharing "
+        f"{torch.cuda.get_device_name(0)} ({card}); each rank its own CUDA "
+        f"context; every payload staged through host memory; the ranks "
+        f"ran {ran_s:.1f} s from their start, stages "
+        + "; ".join(f"rank {r['rank']} " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in r["seconds"].items())
+            for r in res))
+    for r in res:
+        pl, tr, co = r["pipeline"], r["train"], r["compression"]
+        want_a = {"flash_attention": T, "flash_attention/sm90": T,
+                  "flash_attention/fma": 0, "flash_attention_bwd": T,
+                  "flash_attention_bwd/sm90": T}
+        got_a = {k: pl["counts"][k] for k in want_a}
+        assert got_a == want_a, f"distributed (a) rank {r['rank']}: " \
+            f"launches {got_a}, want {want_a}"
+        want_b = {"flash_attention": 2 * layers * steps,
+                  "flash_attention/sm90": 2 * layers * steps,
+                  "flash_attention/fma": 0,
+                  "flash_attention_bwd": layers * steps,
+                  "flash_attention_bwd/sm90": layers * steps}
+        got_b = {k: tr["counts"][k] for k in want_b}
+        assert got_b == want_b, f"distributed (b) rank {r['rank']}: " \
+            f"launches {got_b}, want {want_b}"
+        assert max(pl["errs"].values()) <= DIST_GATE, \
+            f"distributed (a) rank {r['rank']}: {pl['errs']}"
+        assert len(tr["losses"]) == steps and tr["skipped"] == 0 and all(
+            math.isfinite(x) for x in tr["losses"]), f"distributed (b): {tr}"
+        assert co["worst"]["rel"] is None or \
+            co["worst"]["rel"] < COMPRESSION_BOUND, \
+            f"distributed (c) rank {r['rank']}: {co['worst']}"
+        assert co["worst"]["feedback"] <= 2 and \
+            co["worst"]["residual"] <= 0.5 * (1 + 1e-5), \
+            f"distributed (c) rank {r['rank']}: {co['worst']}"
+        log(f"distributed (a) rank {r['rank']}: pipeline_apply over 4 "
+            f"stages of one granite-8b block (bf16), {M} microbatches of "
+            f"(1, {DIST['seq']}), {T} ticks: forward "
+            f"{pl['ms']['forward']:.1f} ms and backward "
+            f"{pl['ms']['backward']:.1f} ms after one block's cold start "
+            f"({pl['ms']['cold']:.1f} ms) (host-staged transport on a "
+            f"shared card: no measure of NVLink or NCCL); launches {got_a}; "
+            f"largest error "
+            f"against the 4 blocks on one rank / max |leaf|: out "
+            f"{pl['errs']['out']:.3g}, loss {pl['errs']['loss']:.3g}, "
+            f"grad {pl['errs']['grad']:.3g} (gate {DIST_GATE:.4g}); bytes "
+            f"moved {pl['moved']}")
+        log(f"distributed (b) rank {r['rank']} {r['coords']}: launch.train "
+            f"granite-8b at {layers} layers, global batch {DIST['batch']} x "
+            f"{DIST['seq']}, losses ["
+            f"{', '.join(f'{x:.6f}' for x in tr['losses'])}], "
+            f"step ms [{', '.join(f'{x:.1f}' for x in tr['ms'])}] "
+            f"(host-staged transport on a shared card: no measure of NVLink "
+            f"or NCCL); bytes a step by collective "
+            f"{ {k: v // steps for k, v in tr['moved'].items()} } in "
+            f"{ {k: round(v / steps, 3) for k, v in tr['collective_s']
+                 .items()} } s, staged through the host "
+            f"{tr['staged'] // steps} a step; "
+            f"launches "
+            f"{got_b}; max_memory_allocated {tr['peak_gb']:.2f} GB")
+        log(f"distributed (c) rank {r['rank']}: make_compressed_psum over "
+            f"pod on the first gradient tree ({co['elements']} elements): "
+            f"worst leaf |mean - exact| / max |exact| "
+            + ("- (checked on the pod-0 rank)" if co["worst"]["rel"] is None
+               else f"{co['worst']['rel']:.4g} (bound {COMPRESSION_BOUND})")
+            + f"; "
+            f"residual + dequantized - input at most "
+            f"{co['worst']['feedback']:.3g} ulp of the scale, |residual| at "
+            f"most {co['worst']['residual']:.3g} scale; bytes {co['moved']}")
+    checked = [r for r in res if r["compression"]["worst"]["rel"] is not None]
+    assert len(checked) == P_ // DIST["pods"], \
+        f"distributed (c): the exact mean checked on {len(checked)} ranks"
+    first = [r["train"]["losses"][0] for r in res]
+    one = res[0]["one_rank_loss"]
+    log(f"distributed (b): first loss {first[0]:.6f} on every rank "
+        f"{len(set(first)) == 1}; the one-rank loss on the global batch "
+        f"{one:.6f}; difference {abs(first[0] - one):.3g} (gate "
+        f"{DIST_LOSS_GATE})")
+    assert len(set(first)) == 1, f"distributed (b): first losses {first}"
+    assert abs(first[0] - one) <= DIST_LOSS_GATE, \
+        f"distributed (b): first loss {first[0]} against one rank {one}"
+    # the checkpoint of 4 ranks restored onto 2
+    back = [_dist_json(o, f"restore rank {r}") for r, o in enumerate(
+        wait_ranks(restore, timeout=300))]
+    for b in back:
+        # the same ZeRO-1 blocks as the saving rank with this data index
+        saved = next(r for r in res if r["coords"]["data"] ==
+                     b["coords"]["data"] and r["coords"]["pod"] == 0)
+        assert b["extra"] == {"step": steps}, b["extra"]
+        assert b["sums"] == saved["sums"], \
+            f"restore rank {b['rank']}: leaves differ from rank " \
+            f"{saved['rank']}'s"
+    log(f"distributed: the checkpoint of {P_} ranks (rank 0 wrote it) "
+        f"restored onto {DIST['restore_ranks']} ranks (started with the 4) "
+        f"in {max(b['seconds'] for b in back):.1f} s, ended "
+        f"{time.perf_counter() - t0:.1f} s after the start: every rank's "
+        f"{len(back[0]['sums'])} leaves equal to the saving rank's blocks; "
+        f"{card}")
+    return {"flash_attention": {"pipeline": T, "train": 2 * layers * steps},
+            "flash_attention_bwd": {"pipeline": T, "train": layers * steps}}
+
+
+def _distributed_depth(torch, cfg, measured: dict | None) -> int:
+    """(b)'s depth: the AdamW step's arithmetic of the launch_train phase
+    (measured here when that phase did not run) under 90% of the card
+    shared by the 4 ranks. A rank holds less than that step (ZeRO-1: half
+    of master, mu and nu), so the cut errs on the safe side."""
+    if measured is None:
+        from repro_torch.models import init_params
+        from repro_torch.train import (AdamWConfig, build_train_step,
+                                       init_state)
+        ocfg = AdamWConfig(lr=DIST["lr"])
+        batch = {"tokens": np.zeros((1, DIST["seq"]), np.int32),
+                 "targets": np.zeros((1, DIST["seq"]), np.int32)}
+
+        def adamw_step(c):
+            p = init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                            "cuda")
+            o = init_state(ocfg, p)
+            st = build_train_step(c, ocfg, remat_policy="full",
+                                  device="cuda")
+            return p, lambda: st(p, o, batch)
+        measured = {}
+        fit_depth(torch, cfg, "distributed", adamw_step, "8P (AdamW, remat "
+                  "full)", measured=measured)
+    return depth_within(torch, cfg, "distributed (b) depth", measured,
+                        0.9 / DIST["ranks"])
+
+
+def phase_distributed(torch, card: str, layers: int) -> dict:
+    """The collective parts over 4 ranks sharing the card (gloo, host
+    staging): (a) ``pipeline_apply`` at full width, (b) ``launch.train``
+    over (pod 2, data 2) with ZeRO-1 and rank-0 checkpoints, restored
+    onto 2 ranks, (c) ``make_compressed_psum`` over ``pod``. Run alone;
+    with the dryrun phase it runs beside that phase's cells."""
+    from repro_torch.conformance.subproc import stop_ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        started = _distributed_start(Path(tmp), layers)
+        try:
+            return _distributed_check(torch, started, card)
+        finally:
+            stop_ranks(started[0])
+            stop_ranks(started[1])
 
 
 PHASES = ("build", "kernels", "rwkv_kernels", "serve",
@@ -6044,7 +6590,7 @@ PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "mixtral_serve", "mixtral_train", "wide_head_kernels",
           "deepseek_serve", "deepseek_train", "dense_configs",
           "ssm_kernels", "jamba_serve", "jamba_train", "hubert",
-          "internvl", "dryrun")
+          "internvl", "distributed", "dryrun")
 
 
 class _Timed:
@@ -6064,7 +6610,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run (default: all)")
-    phases = ap.parse_args(argv).phases.split(",")
+    ap.add_argument("--rank-body", nargs=3, metavar=("BODY", "WORK",
+                                                     "LAYERS"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.rank_body:
+        # one rank of the distributed phase, started by that phase
+        import torch
+        sys.path.insert(0, str(ROOT / "src"))
+        body, work, layers = args.rank_body
+        {"distributed": rank_distributed, "restore": rank_restore}[body](
+            torch, Path(work), int(layers))
+        return 0
+    phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
         ap.error(f"unknown phases {unknown}; known: {', '.join(PHASES)}")
@@ -6183,9 +6741,10 @@ def main(argv=None) -> int:
     if "rwkv_train" in phases:
         with _Timed("rwkv_train"):
             phase_rwkv_train(torch, rcfg, card, rwkv_bwd_record)
+    launch_depth = None
     if "launch_train" in phases:
         with _Timed("launch_train"):
-            phase_launch_train(torch, card)
+            launch_depth = phase_launch_train(torch, card)
     mcfg = get_config("mixtral-8x7b")
     if "mixtral_serve" in phases:
         with _Timed("mixtral_serve"):
@@ -6255,10 +6814,22 @@ def main(argv=None) -> int:
     if "internvl" in phases:
         with _Timed("internvl"):
             phase_internvl(torch, get_config("internvl2-1b"), card)
+    dist_layers = dist_launches = None
+    if "distributed" in phases:
+        dist_layers = _distributed_depth(torch, cfg, launch_depth)
+        if "dryrun" not in phases:
+            with _Timed("distributed"):
+                dist_launches = phase_distributed(torch, card, dist_layers)
     if "dryrun" in phases:
         with _Timed("dryrun"):
-            phase_dryrun(torch, card, serving="conformance_serving" in phases,
-                         priced=priced)
+            launches = phase_dryrun(
+                torch, card, serving="conformance_serving" in phases,
+                priced=priced, distributed=dist_layers)
+        dist_launches = dist_launches or launches
+    if dist_launches:
+        for r in (record, train_record):
+            if r is not None:
+                r["distributed_launches"] = dist_launches[r["name"]]
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record, rwkv_bwd_record)

@@ -12,14 +12,24 @@ builds its environment is :func:`child_env`, and the ``devices`` of
 :func:`run_arch_subprocess` is the plan's PE count (K), passed to the
 CLI's ``--devices``. Structured results cross the process boundary as a
 last ``CONFORMANCE_JSON:`` line (:data:`JSON_MARK`).
+
+The counterpart of the reference's ``run_py(code, devices=4)`` for the
+port's multi-device code is :func:`run_ranks`: N local processes, one
+per rank, under a ``torch.distributed`` process group
+(:mod:`repro_torch.distributed`). Each launch gets a ``file://`` store in
+a temporary directory of its own, so that launches never share a port.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import textwrap
+import time
+from dataclasses import dataclass
 
 from .matrix import JSON_MARK
 
@@ -58,6 +68,104 @@ def run_py(code: str, timeout: int = 600) -> str:
         raise SubprocessError(
             f"subprocess exited {r.returncode}:\n{r.stderr[-4000:]}")
     return r.stdout
+
+
+@dataclass
+class RankLaunch:
+    """The processes of :func:`start_ranks`, one per rank, their output
+    files and the launch's temporary directory."""
+    procs: list
+    outs: list
+    errs: list
+    directory: str
+
+
+def start_ranks(code_or_argv, nprocs: int, *, env: dict | None = None
+                ) -> RankLaunch:
+    """Start ``nprocs`` local ranks of ``python -c code`` (a string) or
+    ``python <argv...>`` (a list), each with ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE`` and a ``file://`` store in a new
+    temporary directory (:data:`repro_torch.distributed.STORE_ENV`), and
+    the environment of :func:`child_env` over ``env``; unless that sets
+    ``OMP_NUM_THREADS``, each rank gets its share of this host's cores,
+    as ``torchrun`` does (idle intra-op threads of one rank otherwise
+    spin on the cores the others' collectives need). Their output goes
+    to files there; :func:`wait_ranks` reads it. The caller may work
+    meanwhile."""
+    from ..distributed import STORE_ENV
+    argv = (["-c", textwrap.dedent(code_or_argv)]
+            if isinstance(code_or_argv, str) else list(code_or_argv))
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    launch = RankLaunch([], [], [], tmp)
+    try:
+        for r in range(nprocs):
+            e = child_env(env)
+            e.setdefault("OMP_NUM_THREADS",
+                         str(max(1, (os.cpu_count() or 1) // nprocs)))
+            e.update(RANK=str(r), WORLD_SIZE=str(nprocs), LOCAL_RANK=str(r),
+                     LOCAL_WORLD_SIZE=str(nprocs),
+                     **{STORE_ENV: "file://" + os.path.join(tmp, "store")})
+            launch.outs.append(os.path.join(tmp, f"rank{r}.out"))
+            launch.errs.append(os.path.join(tmp, f"rank{r}.err"))
+            with open(launch.outs[-1], "w") as out, \
+                    open(launch.errs[-1], "w") as err:
+                launch.procs.append(subprocess.Popen(
+                    [sys.executable] + argv, stdout=out, stderr=err,
+                    env=e))
+    except BaseException:
+        stop_ranks(launch)
+        raise
+    return launch
+
+
+def stop_ranks(launch: RankLaunch) -> None:
+    """End every rank of ``launch`` still running and remove its
+    directory (what :func:`wait_ranks` does however it ends)."""
+    for p in launch.procs:
+        if p.poll() is None:
+            p.kill()
+    for p in launch.procs:
+        p.wait()
+    shutil.rmtree(launch.directory, ignore_errors=True)
+
+
+def _read(path: str) -> str:
+    with open(path, errors="replace") as f:
+        return f.read()
+
+
+def wait_ranks(launch: RankLaunch, timeout: float = 600) -> list[str]:
+    """Wait for every rank of :func:`start_ranks` and return their
+    stdout, rank by rank. The first rank that exits nonzero, or the
+    ``timeout``, ends the others and raises :class:`SubprocessError` with
+    that rank's output; every process has ended when this returns."""
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            codes = [p.poll() for p in launch.procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                r = bad[0]
+                raise SubprocessError(
+                    f"rank {r} of {len(codes)} exited {codes[r]}:\n"
+                    f"stderr: {_read(launch.errs[r])[-4000:]}\n"
+                    f"stdout: {_read(launch.outs[r])[-2000:]}")
+            if all(c == 0 for c in codes):
+                return [_read(o) for o in launch.outs]
+            if time.monotonic() > deadline:
+                raise SubprocessError(
+                    f"ranks still running after {timeout} s (exit codes "
+                    f"{codes}); rank 0's stderr: "
+                    f"{_read(launch.errs[0])[-4000:]}")
+            time.sleep(0.05)
+    finally:
+        stop_ranks(launch)
+
+
+def run_ranks(code_or_argv, nprocs: int, timeout: float = 600,
+              env: dict | None = None) -> list[str]:
+    """:func:`start_ranks` then :func:`wait_ranks`: each rank's stdout."""
+    return wait_ranks(start_ranks(code_or_argv, nprocs, env=env), timeout)
 
 
 def start_json(argv: list[str]) -> subprocess.Popen:

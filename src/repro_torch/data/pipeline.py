@@ -1,12 +1,16 @@
 """Deterministic synthetic token pipeline with background prefetch (port
-of ``repro.data.pipeline``, for one process).
+of ``repro.data.pipeline``).
 
-Each step's batch is a pure function of (seed, step): pure numpy drawn
-from ``SeedSequence([seed, step, 0])``, the reference's stream for its
-first (here the only) host slice, so the port's batches are bit-equal to
-the reference's, and restoring a checkpoint at step N reproduces exactly
-the stream the interrupted run would have seen, with no state file.
-Batches are numpy arrays; the train step moves them to its device.
+Each step's batch is a pure function of (seed, step, host slice): pure
+numpy drawn from ``SeedSequence([seed, step, start])``, the reference's
+stream, so the port's batches are bit-equal to the reference's, and
+restoring a checkpoint at step N reproduces exactly the stream the
+interrupted run would have seen, with no state file. Each process makes
+only its slice of the global batch (:func:`_host_slice`): the reference
+reads its slice from ``jax.process_index``/``process_count``, the port
+from its rank and the world size (one process, one slice, without a
+process group). Batches are numpy arrays; the train step moves them to
+its device.
 """
 from __future__ import annotations
 
@@ -28,9 +32,16 @@ class DataConfig:
     prefetch: int = 2
 
 
+def _host_slice(cfg: DataConfig) -> tuple[int, int]:
+    """(first row, rows) of this process's slice of the global batch."""
+    from ..distributed import rank, world_size
+    per = cfg.batch_size // world_size()
+    return rank() * per, per
+
+
 def make_batch(cfg: DataConfig, step: int) -> dict:
-    """Pure: (cfg, step) -> batch dict of numpy arrays."""
-    start, per = 0, cfg.batch_size            # one process: one host slice
+    """Pure: (cfg, step, host slice) -> batch dict of numpy arrays."""
+    start, per = _host_slice(cfg)
     rng = np.random.default_rng(
         np.random.SeedSequence([cfg.seed, step, start]))
     if cfg.embed_dim:

@@ -26,10 +26,10 @@ line and no forced device count; the results go to
 ``results/dryrun_torch`` (the reference writes ``results/dryrun``, with
 the same cell names, and each would read the other's files as
 ``[cached]``); ``--mesh multi`` cells are ``SKIP``, since a step over
-the mesh waits for ``pipeline_apply``, ``train/compression.py`` and the
-process group, and on one card ``collective_bytes`` is 0. The
-reference's ``collective_bytes_from_hlo`` has no counterpart: PyTorch
-has no HLO; it waits with the mesh (ROADMAP M4.1b).
+that mesh needs tensor parallelism, and on one card ``collective_bytes``
+is 0. The reference's ``collective_bytes_from_hlo`` has no counterpart:
+PyTorch has no HLO; counting the traced graph's collectives waits with
+the multi-card cells (ROADMAP M4.1c).
 
 Usage:
   python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
@@ -71,9 +71,9 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 
 #: why a ``--mesh multi`` cell does not run
-MULTI_SKIP = ("a step over the multi-card mesh waits for "
-              "pipeline_apply, train/compression.py and the process group "
-              "(ROADMAP M4.1b)")
+MULTI_SKIP = ("a step over the multi-card mesh needs tensor parallelism "
+              "(layers.shard, activation_sharding) and the traced graph's "
+              "collectives priced (ROADMAP M4.1c)")
 
 
 def roofline_terms(flops: float, hbm_bytes: float, coll_bytes: float,

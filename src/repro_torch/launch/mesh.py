@@ -6,8 +6,9 @@ sizes, ``.shape`` mapping each name to its size in the reference's
 order. It touches no device, so :func:`make_production_mesh` describes
 the production pod whatever the process holds, and the sharding rules
 (:mod:`repro_torch.sharding.rules`) read it as they read a JAX mesh.
-Placing tensors over a mesh waits for the process group (ROADMAP
-M4.1b).
+:class:`repro_torch.distributed.ProcessMesh` lays the ranks of a process
+group over one (:func:`mesh_over` gives the reference's layout for a
+number of ranks).
 
 Axes:
   pod   — across pods: pure data parallelism (the paper's §4 hybrid:
@@ -62,12 +63,19 @@ def make_host_mesh(data: int | None = None, model: int = 1, pod: int = 1,
                    *, device=None) -> MeshShape:
     """A mesh over the devices this process has (:func:`host_device_count`);
     ``data`` defaults to what ``model`` and ``pod`` leave."""
-    n = host_device_count(device)
+    return mesh_over(host_device_count(device), data, model, pod)
+
+
+def mesh_over(n: int, data: int | None = None, model: int = 1,
+              pod: int = 1) -> MeshShape:
+    """The reference's host mesh over ``n`` devices (or ranks): (data,
+    model), or (pod, data, model) with ``pod`` > 1; ``data`` defaults to
+    what ``model`` and ``pod`` leave."""
     if data is None:
         data = n // (model * pod)
     if pod * data * model > n or min(pod, data, model) < 1:
         raise ValueError(f"mesh pod={pod} x data={data} x model={model} "
-                         f"does not fit the {n} devices of this process")
+                         f"does not fit {n} devices")
     if pod > 1:
         return MeshShape((pod, data, model), ("pod", "data", "model"))
     return MeshShape((data, model), ("data", "model"))
@@ -79,4 +87,4 @@ def mesh_num_chips(mesh) -> int:
 
 
 __all__ = ["MeshShape", "host_device_count", "make_host_mesh",
-           "make_production_mesh", "mesh_num_chips"]
+           "make_production_mesh", "mesh_num_chips", "mesh_over"]

@@ -1,32 +1,42 @@
-"""Training launcher (port of ``repro.launch.train``), one device:
+"""Training launcher (port of ``repro.launch.train``):
 
     python -m repro_torch.launch.train --arch granite-8b --steps 1000 \\
         --batch 8 --seq 2048 --ckpt-dir /path/to/ckpts --resume auto
     python -m repro_torch.launch.train --arch rwkv6-7b --reduced \\
         --device cpu --steps 3 --ckpt-dir /tmp/ckpt
+    python -m repro_torch.distributed --nproc 4 -m repro_torch.launch.train \\
+        --arch granite-8b --reduced --pods 2 --device cpu --steps 3
 
 AdamW with float32 master weights, global-norm clipping and non-finite
 step skipping (``train/optimizer.py``); async atomic checkpoints every
-``--ckpt-every`` steps and a synchronous final one, ``--resume auto``,
+``--ckpt-every`` steps and a synchronous final one (unless the last
+periodic one holds the final step), ``--resume auto``,
 SIGTERM-safe, a straggler watchdog (``train/loop.py``). The flags are the
-reference's, plus ``--device`` (default ``cuda``). The reference's mesh
-flags take only 1: a step over a mesh of several devices waits for
-``pipeline_apply``, ``train/compression.py`` and the process group
-(ROADMAP M4.1b; the mesh shapes and sharding rules are ported).
-Parameters are drawn from ``--seed`` with the port's generator, not the
-reference's ``jax.random`` stream.
+reference's, plus ``--device`` (default ``cuda``). Started as N ranks
+(``python -m repro_torch.distributed --nproc N``, or ``torchrun``), it
+trains data parallel over the mesh (pod, data, model) of the reference's
+``make_host_mesh(model=1, pod=--pods)`` with data = N / pods: each rank
+draws its slice of every batch (``data/pipeline.py``), the step is the
+ZeRO-1 one (``train/step.py``) and rank 0 writes the checkpoints.
+``--model-parallel`` above 1 raises: tensor parallelism is ROADMAP
+M4.1c. Parameters are drawn from ``--seed`` with the port's generator,
+not the reference's ``jax.random`` stream.
 """
 import argparse
+import os
 
 
 def train(cfg, *, steps: int = 1000, batch: int = 8, seq: int = 512,
           lr: float = 3e-4, remat: str = "full", ckpt_dir=None,
           ckpt_every: int = 200, resume: str = "auto", seed: int = 0,
-          device="cuda", log_every: int = 10):
+          device="cuda", log_every: int = 10, mesh=None):
     """Train ``cfg`` (any :class:`~repro_torch.configs.base.ModelConfig`,
     a depth-cut one included) for ``steps`` steps; the body of the CLI.
-    Returns the :class:`~repro_torch.train.TrainLoop` after its run (its
-    ``params``, ``opt_state`` and ``state``)."""
+    With ``mesh`` (a :class:`~repro_torch.distributed.ProcessMesh`) every
+    rank calls it, and ``batch`` is the global batch. Returns the
+    :class:`~repro_torch.train.TrainLoop` after its run (its ``params``,
+    ``opt_state`` and ``state``; under a mesh the optimizer state holds
+    this rank's blocks)."""
     import torch
 
     from repro_torch import resolve_device
@@ -35,15 +45,24 @@ def train(cfg, *, steps: int = 1000, batch: int = 8, seq: int = 512,
     from repro_torch.models import init_params
     from repro_torch.train import (AdamWConfig, LoopConfig, TrainLoop,
                                    build_train_step, init_state)
+    from repro_torch.train.step import (init_zero1_state, rules_total_dp,
+                                        train_state_shardings)
 
     dev = resolve_device(device)
+    where = "" if mesh is None else \
+        f", rank {mesh.rank} of mesh {mesh.shape}"
     print(f"[launch] {cfg.name}: {cfg.num_layers} layers, "
-          f"{cfg.param_count() / 1e9:.2f}B params on {dev}")
+          f"{cfg.param_count() / 1e9:.2f}B params on {dev}{where}")
+    if mesh is not None and batch % rules_total_dp(mesh):
+        raise ValueError(f"--batch {batch} does not split over the "
+                         f"{rules_total_dp(mesh)} data-parallel ranks")
     ocfg = AdamWConfig(lr=lr, total_steps=steps)
-    step_fn = build_train_step(cfg, ocfg, remat_policy=remat, device=dev)
+    step_fn = build_train_step(cfg, ocfg, remat_policy=remat, device=dev,
+                               mesh=mesh)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dev)
-    opt = init_state(ocfg, params)
+    opt = init_state(ocfg, params) if mesh is None else \
+        init_zero1_state(ocfg, params, mesh)
     dc = DataConfig(batch_size=batch, seq_len=seq,
                     vocab_size=cfg.vocab_size, seed=seed,
                     embed_dim=cfg.d_model if cfg.frontend else None)
@@ -52,7 +71,9 @@ def train(cfg, *, steps: int = 1000, batch: int = 8, seq: int = 512,
                      data=DataIterator(dc), ckpt=ckpt,
                      cfg=LoopConfig(total_steps=steps,
                                     checkpoint_every=ckpt_every,
-                                    log_every=log_every, resume=resume))
+                                    log_every=log_every, resume=resume),
+                     shardings=None if mesh is None else
+                     train_state_shardings(params, opt, mesh))
     resumed = loop.maybe_resume()
     if resumed:
         print(f"[launch] resumed from step {resumed}")
@@ -80,21 +101,33 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1 or args.pods != 1:
+    if args.model_parallel != 1:
         raise NotImplementedError(
-            f"--model-parallel {args.model_parallel} --pods {args.pods}: "
-            f"the port trains on one device; a step over a mesh waits "
-            f"for pipeline_apply, train/compression.py and the process "
-            f"group (ROADMAP M4.1b)")
+            f"--model-parallel {args.model_parallel}: tensor parallelism "
+            f"(layers.shard and activation_sharding in every model "
+            f"family) is ROADMAP M4.1c; the port trains data parallel "
+            f"(--pods, ZeRO-1 over data)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world % args.pods:
+        raise ValueError(f"--pods {args.pods} does not divide {world} "
+                         f"ranks: start them with `python -m "
+                         f"repro_torch.distributed --nproc N` or torchrun")
 
     from repro_torch.configs import get_config, reduced
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                 lr=args.lr, remat=args.remat, ckpt_dir=args.ckpt_dir,
-                 ckpt_every=args.ckpt_every, resume=args.resume,
-                 seed=args.seed, device=args.device)
+    run = dict(steps=args.steps, batch=args.batch, seq=args.seq,
+               lr=args.lr, remat=args.remat, ckpt_dir=args.ckpt_dir,
+               ckpt_every=args.ckpt_every, resume=args.resume,
+               seed=args.seed, device=args.device)
+    if world == 1:
+        return train(cfg, **run)
+    from repro_torch.distributed import ProcessMesh, process_group
+    from repro_torch.launch.mesh import mesh_over
+    with process_group(args.device):
+        mesh = ProcessMesh(mesh_over(world, pod=args.pods), args.device)
+        return train(cfg, mesh=mesh, **run)
 
 
 if __name__ == "__main__":

@@ -17,12 +17,11 @@ stage map. This module has:
   * :func:`stack_stage_params` — a layer-stacked parameter tree packed
     into per-stage slots with an active mask, so unequal boundaries keep
     static shapes;
+  * :func:`pipeline_apply` — the runtime: GPipe over the ``stage`` axis
+    of a :class:`~repro_torch.distributed.ProcessMesh`, one stage a
+    rank, activations handed to the next stage by ``ppermute``;
   * :func:`layer_flops` and :func:`config_stage_plan` — the coarse
     per-layer cost model of a config's layer chain, and its plan.
-
-The runtime, ``pipeline_apply`` (GPipe microbatches with activations
-handed between stage ranks), waits for the process group (ROADMAP
-M4.1b).
 """
 from __future__ import annotations
 
@@ -162,6 +161,86 @@ def stack_stage_params(layer_params, boundaries: list[tuple[int, int]]):
     return tree_map(pack, layer_params), mask
 
 
+def pipeline_apply(mesh, layer_fn, stage_params, mask, x_micro,
+                   *, stage_axis: str = "stage"):
+    """GPipe forward over ``stage_axis`` of ``mesh``, run by every rank
+    for its stage (the body of the reference's ``shard_map``).
+
+    ``layer_fn(layer_params, h) -> h`` is one layer; ``stage_params`` is
+    this rank's row of :func:`stack_stage_params` (a tree of (Lmax, ...)
+    tensors) and ``mask`` its (Lmax,) row; ``x_micro`` (M, mb, ...) the
+    microbatched input, the same on every rank. Over ``T = M + P - 1``
+    ticks stage 0 reads microbatch ``clip(t, 0, M-1)``, the others what
+    the stage before sent at the tick before (every rank computes every
+    tick, as the reference does), and each stage's output goes to the
+    next by ``ppermute``; the last stage's outputs reach every rank by a
+    masked ``psum``. Returns the (M, mb, ...) outputs.
+
+    Autograd through it is the GPipe backward, as ``jax.grad`` is
+    through the reference's: each ppermute's gradient runs back along
+    the inverse permutation. As ``shard_map`` transposes its replicated
+    output and input (``P()``), the output's incoming gradient is divided
+    by the stage count before the psum's own psum, and ``x_micro``'s
+    gradient is summed over the stages."""
+    P_ = mesh.axis_size(stage_axis)
+    M = x_micro.shape[0]
+    T = M + P_ - 1
+    sid = mesh.axis_index(stage_axis)
+    Lmax = mask.shape[0]
+    perm = [(i, i + 1) for i in range(P_ - 1)]
+    layers = [tree_map(lambda a, j=j: a[j], stage_params)
+              for j in range(Lmax)]
+    mask = mask.to(x_micro.device)
+    x_micro = _ReplicatedIn.apply(x_micro, mesh, stage_axis)
+    first = torch.tensor(sid == 0, device=x_micro.device)
+
+    def run_stage(h):
+        for j in range(Lmax):
+            h = torch.where(mask[j] > 0, layer_fn(layers[j], h), h)
+        return h
+
+    recv = torch.zeros_like(x_micro[0])
+    ys = []
+    for t in range(T):
+        # the received tensor enters every rank's graph (stage 0's too,
+        # masked out), so that every rank runs each ppermute's backward
+        h_out = run_stage(torch.where(first, x_micro[min(t, M - 1)], recv))
+        ys.append(h_out)
+        if t < T - 1 and P_ > 1:   # the last tick's send reaches no one
+            recv = mesh.ppermute(h_out, stage_axis, perm)
+    outs = torch.stack(ys[P_ - 1:P_ - 1 + M])
+    is_last = float(sid == P_ - 1)
+    return _ReplicatedOut.apply(mesh.psum(outs * is_last, stage_axis), P_)
+
+
+class _ReplicatedOut(torch.autograd.Function):
+    """Identity; the gradient divided by ``n`` (``shard_map``'s transpose
+    of an output replicated over ``n`` devices)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _ReplicatedIn(torch.autograd.Function):
+    """Identity; the gradient summed over ``axis`` (``shard_map``'s
+    transpose of an input replicated over it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.axis, "sum"), None, None
+
+
 # ----------------------------------------------------------- cost model
 def layer_flops(cfg, kind: str, tokens: float, seq: int = 4096) -> float:
     """One layer's forward FLOPs at ``tokens`` tokens (coarse, analytic):
@@ -216,5 +295,6 @@ def config_stage_plan(cfg, num_stages: int, *, tokens: float = 1e6,
                        num_stages=num_stages, mem_cap=mem_cap)
 
 
-__all__ = ["StagePlan", "config_stage_plan", "layer_flops", "plan_stages",
-           "plan_stages_emulated", "stack_stage_params", "uniform_plan"]
+__all__ = ["StagePlan", "config_stage_plan", "layer_flops", "pipeline_apply",
+           "plan_stages", "plan_stages_emulated", "stack_stage_params",
+           "uniform_plan"]

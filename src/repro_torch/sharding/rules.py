@@ -12,9 +12,9 @@ any mesh whose ``.shape`` maps axis names to sizes
 (:class:`repro_torch.launch.mesh.MeshShape`) and trees of anything with
 a ``.shape`` (the ``meta`` tensors of :mod:`repro_torch.models.io_spec`).
 A spec tree mirrors the tensor tree; since its leaves are tuples, read
-it with :func:`spec_leaves`, not ``tree_flatten``. Placing tensors by
-these specs (``param_shardings``) waits for the process group (ROADMAP
-M4.1b).
+it with :func:`spec_leaves`, not ``tree_flatten``.
+:func:`param_shardings` places tensors by these specs over a
+:class:`~repro_torch.distributed.ProcessMesh`.
 
 Mesh axes:
   pod   — pure data parallelism across pods (the paper's §4 hybrid)
@@ -169,6 +169,15 @@ def param_specs(params_shape: Any, mesh) -> Any:
     return tree_map_with_path(one, params_shape)
 
 
+def param_shardings(params_shape: Any, mesh) -> Any:
+    """A :class:`~repro_torch.distributed.NamedSharding` over ``mesh`` (a
+    :class:`~repro_torch.distributed.ProcessMesh`) for every leaf of a
+    parameter tree, by :func:`param_specs`: ``.shard(t)`` is this rank's
+    block of a leaf, ``.gather(block)`` the leaf back."""
+    from ..distributed import shardings
+    return shardings(mesh, param_specs(params_shape, mesh), params_shape)
+
+
 # ------------------------------------------------------------ activations
 def batch_axes(mesh) -> tuple:
     """Axes the global batch shards over."""
@@ -275,4 +284,4 @@ def zero1_specs(pspecs: Any, params_shape: Any, mesh) -> Any:
 
 
 __all__ = ["activation_plan", "batch_axes", "batch_specs", "cache_specs",
-           "param_specs", "spec_leaves", "zero1_specs"]
+           "param_shardings", "param_specs", "spec_leaves", "zero1_specs"]

@@ -1,5 +1,5 @@
 """Training loop with the reference's fault tolerance (port of
-``repro.train.loop``, one process):
+``repro.train.loop``):
 
   * checkpoint/restart — async checkpoints every ``checkpoint_every``
     steps, atomic; ``resume="auto"`` restarts from the newest one;
@@ -8,6 +8,13 @@
   * straggler watchdog — a step slower than ``straggler_factor`` x the
     EWMA of step times is counted and logged;
   * non-finite steps — the optimizer skips them; the loop counts them.
+
+Under several ranks (``shardings``, the placement of ``{"params",
+"opt"}``: :func:`~repro_torch.train.step.train_state_shardings`) every
+rank runs the loop; checkpoints are gathered and written by rank 0 and
+restored by the placement. The final checkpoint is written unless the
+last step's periodic one already holds that step (the loop waits for it
+instead).
 
 A step's time is read once its loss is on the host (``float(loss)``,
 which waits for the card), as the reference reads it.
@@ -47,13 +54,14 @@ class LoopState:
 class TrainLoop:
     def __init__(self, *, step_fn: Callable, params: Any, opt_state: Any,
                  data: DataIterator, ckpt: CheckpointManager | None,
-                 cfg: LoopConfig):
+                 cfg: LoopConfig, shardings: Any = None):
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
         self.data = data
         self.ckpt = ckpt
         self.cfg = cfg
+        self.shardings = shardings
         self.state = LoopState()
         self._stop_requested = False
         self._orig_handlers: dict = {}
@@ -82,7 +90,8 @@ class TrainLoop:
         if latest is None:
             return 0
         _, extra = self.ckpt.restore(
-            {"params": self.params, "opt": self.opt_state}, step=latest)
+            {"params": self.params, "opt": self.opt_state}, step=latest,
+            shardings=self.shardings)
         self.state.step = int(extra.get("step", latest))
         self.data.step = self.state.step
         return self.state.step
@@ -93,6 +102,7 @@ class TrainLoop:
     def run(self) -> LoopState:
         self._install_signal_handlers()
         st = self.state
+        saved = None
         try:
             start = st.step
             while st.step < self.cfg.total_steps:
@@ -129,12 +139,17 @@ class TrainLoop:
                 if (self.ckpt is not None
                         and st.step % self.cfg.checkpoint_every == 0):
                     self.ckpt.save_async(st.step, self._checkpoint_tree(),
-                                         extra={"step": st.step})
-            # final checkpoint (synchronous: preemption-safe)
+                                         extra={"step": st.step},
+                                         shardings=self.shardings)
+                    saved = st.step
+            # final checkpoint (synchronous: preemption-safe); the wait
+            # makes a periodic one of this step durable instead
             if self.ckpt is not None:
                 self.ckpt.wait()
-                self.ckpt.save(st.step, self._checkpoint_tree(),
-                               extra={"step": st.step})
+                if saved != st.step:
+                    self.ckpt.save(st.step, self._checkpoint_tree(),
+                                   extra={"step": st.step},
+                                   shardings=self.shardings)
         finally:
             self._restore_signal_handlers()
             self.data.close()

@@ -72,11 +72,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state: dict):
+def apply_updates(cfg: AdamWConfig, params, grads, state: dict,
+                  gnorm: torch.Tensor | None = None):
     """One AdamW step, in place. Returns (params, state, metrics) — the
     trees it was given — with metrics ``grad_norm``, ``lr`` and
-    ``skipped`` (0-d tensors)."""
-    gnorm = global_norm(grads)
+    ``skipped`` (0-d tensors). ``gnorm``, when given, is the norm the
+    gradient is clipped by and the step judged finite by, in place of
+    ``global_norm(grads)``: under ZeRO-1 each rank updates its block of
+    every tensor (``params``, ``grads`` and ``state`` hold the blocks),
+    clipped by the whole gradient's norm."""
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     finite = bool(torch.isfinite(gnorm))
     scale = torch.where(gnorm > cfg.grad_clip,
                         cfg.grad_clip / (gnorm + 1e-9),

@@ -1,8 +1,6 @@
-"""The step builders for one device (port of ``repro.train.step``'s
+"""The step builders (port of ``repro.train.step``'s
 ``build_train_step``, ``build_encoder_train_step``, ``build_prefill_step``
-and ``build_serve_step``, and ``rules_total_dp``; their sharded forms wait
-for ``pipeline_apply``, ``train/compression.py`` and the process group,
-ROADMAP M4.1b): no mesh, no shardings.
+and ``build_serve_step``, and ``rules_total_dp``).
 
 The gradient is taken as ``conformance.make_train_step`` takes it:
 ``torch.autograd.grad`` over per-layer leaves (the periods unbound by
@@ -10,8 +8,24 @@ The gradient is taken as ``conformance.make_train_step`` takes it:
 tensors), then :func:`.optimizer.apply_updates` writes AdamW's update
 into the stacked parameters and optimizer state through the same views,
 so no whole stack is copied.
+
+``build_train_step(..., mesh=)`` is the data-parallel step with ZeRO-1
+over a :class:`~repro_torch.distributed.ProcessMesh` whose ``model`` axis
+is 1 (tensor parallelism is ROADMAP M4.1c): each rank takes the loss and
+gradient of its slice of the batch; the gradients are mean-reduced over
+the batch axes (``pod`` x ``data``) in float32; AdamW's ``master``,
+``mu`` and ``nu`` hold each rank's block of every tensor by
+``rules.zero1_specs`` (:func:`init_zero1_state`); each rank updates its
+blocks, clipped by the whole gradient's norm, casts them to the
+parameters' dtype and all-gathers them over ``data`` (the reference
+forces the cast before the gather: ``repro/train/step.py:64-67``). Each
+rank needs only its block of the mean gradient, so a leaf split over
+``data`` is reduce-scattered over it and then all-reduced over ``pod``:
+a rank moves about half the bytes of one all-reduce over both axes.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,15 +33,15 @@ from .. import resolve_device
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import (check_remat_policy, decode_step, encoder_logits,
                       loss_fn, prefill, unstack_periods)
-from ..tree import tree_flatten, tree_unflatten
-from .optimizer import AdamWConfig, apply_updates
+from ..tree import tree_flatten, tree_map, tree_unflatten
+from .optimizer import AdamWConfig, apply_updates, init_state
 
 #: the optimizer-state trees that have the parameters' shape
 _PARAM_SHAPED = ("master", "mu", "nu")
 
 
 def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
-                     remat_policy: str = "dots", device=None):
+                     remat_policy: str = "dots", device=None, mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on ``device`` (``None``: cuda): the loss and its gradient
     (``remat_policy`` one of ``"dots"``, the reference's default,
@@ -36,10 +50,18 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     (the returned trees are the ones given). ``batch`` holds numpy arrays
     or tensors (``tokens`` or ``embeds``, ``targets``), moved to the
     device. ``metrics``: 0-d tensors ``loss``, ``ce``, ``aux``,
-    ``grad_norm``, ``lr`` and ``skipped``."""
+    ``grad_norm``, ``lr`` and ``skipped``.
+
+    With ``mesh`` the step is the ZeRO-1 data-parallel one of the
+    module's docstring: ``batch`` is this rank's slice, ``opt_state``
+    comes from :func:`init_zero1_state`, and the metrics are the global
+    ones (the loss averaged over the ranks, the whole gradient's
+    norm)."""
     opt_cfg = opt_cfg or AdamWConfig()
     check_remat_policy(remat_policy)
     dev = resolve_device(device)
+    if mesh is not None:
+        return _zero1_train_step(cfg, opt_cfg, remat_policy, dev, mesh)
 
     def train_step(params, opt_state, batch):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -50,6 +72,127 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
                  for k, v in opt_state.items()}
         _, _, om = apply_updates(opt_cfg, unstacked, grads, state)
         metrics = {"loss": loss, **parts, **om}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _check_mesh(mesh) -> None:
+    if "data" not in mesh.shape:
+        raise ValueError(f"a ZeRO-1 step needs a data axis, not the mesh "
+                         f"{mesh.shape}")
+    if mesh.shape.get("model", 1) != 1:
+        raise NotImplementedError(
+            f"a mesh with model={mesh.shape['model']}: tensor parallelism "
+            f"(layers.shard, activation_sharding) is ROADMAP M4.1c; the "
+            f"port's step runs data parallel with ZeRO-1 (model=1)")
+
+
+def zero1_shardings(params, mesh):
+    """The ZeRO-1 placement of every parameter-shaped optimizer tree
+    (``rules.zero1_specs``) over ``mesh``: a tree like ``params`` of
+    :class:`~repro_torch.distributed.NamedSharding`."""
+    from ..distributed import shardings
+    from ..sharding import rules
+    specs = rules.zero1_specs(rules.param_specs(params, mesh), params, mesh)
+    return shardings(mesh, specs, params)
+
+
+def init_zero1_state(opt_cfg: AdamWConfig, params, mesh) -> dict:
+    """AdamW's state for ``params`` (whole, the same on every rank) under
+    ZeRO-1 on ``mesh``: ``master``, ``mu`` and ``nu`` of this rank's
+    blocks only."""
+    _check_mesh(mesh)
+    blocks = tree_map(lambda p, sh: sh.shard(p), params,
+                      zero1_shardings(params, mesh))
+    return init_state(opt_cfg, blocks)
+
+
+def train_state_shardings(params, opt_state, mesh) -> dict:
+    """The placement of ``{"params": params, "opt": opt_state}`` (the
+    checkpointed tree) under the ZeRO-1 step: the parameters by
+    ``rules.param_specs``, the parameter-shaped state by
+    :func:`zero1_shardings`, the count replicated."""
+    from ..distributed import NamedSharding
+    from ..sharding import rules
+    z = zero1_shardings(params, mesh)
+    return {"params": rules.param_shardings(params, mesh),
+            "opt": {k: z if k in _PARAM_SHAPED else NamedSharding(mesh, ())
+                    for k in opt_state}}
+
+
+def _split_dim(sh, axis: str) -> int | None:
+    """The dimension the placement ``sh`` splits over ``axis`` alone, or
+    None."""
+    return next((i for i, e in enumerate(sh.spec) if e == axis), None)
+
+
+def _stacked_grad(grads, path: tuple) -> torch.Tensor:
+    """The gradient of the parameter at ``path`` of the stacked tree,
+    from ``grads``, a tree like the unstacked parameters."""
+    from ..sharding.rules import _at
+    if path[0] == "periods":
+        return torch.stack([_at(g, path[1:]) for g in grads["periods"]])
+    return _at(grads, path)
+
+
+def _zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                      remat_policy: str, dev, mesh):
+    from ..sharding import rules
+    from ..sharding.rules import _paths
+    _check_mesh(mesh)
+    dp = rules.batch_axes(mesh)
+    n_dp = math.prod(mesh.shape[a] for a in dp)
+    placement: list = []
+
+    def mean(x: torch.Tensor) -> torch.Tensor:
+        return mesh.all_reduce(x, dp, "sum") / n_dp
+
+    def train_step(params, opt_state, batch):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, parts, grads = loss_and_grads(
+            cfg, unstack_periods(cfg, params), batch, remat_policy)
+        leaves, structure = tree_flatten(params)
+        if not placement:
+            placement.extend(tree_flatten(zero1_shardings(params, mesh))[0])
+        with torch.no_grad():
+            # the sum over the batch axes of each gradient, this rank's
+            # block of it: a leaf split over "data" reduce-scattered over
+            # it, then all-reduced over the rest; the others all-reduced
+            # whole. The all-reduces all start before the first is waited
+            # for (under gloo they run while the next leaves are staged).
+            # The norm from the blocks: summed over "data" for the split
+            pending = []
+            for path, sh in zip(_paths(params), placement):
+                g = _stacked_grad(grads, path).to(torch.float32)
+                dim = _split_dim(sh, "data")
+                if dim is not None:
+                    g = mesh.reduce_scatter(g, "data", dim)
+                rest = tuple(a for a in dp if dim is None or a != "data")
+                pending.append((mesh.all_reduce_start(g, rest),
+                                None if dim is not None else sh.shard))
+                del g
+            del grads
+            g_blocks, sq = [], torch.zeros(2, dtype=torch.float32,
+                                           device=dev)
+            for (pend, part), sh in zip(pending, placement):
+                block = pend.wait(part) / n_dp
+                sq[int(_split_dim(sh, "data") is not None)] += torch.sum(
+                    torch.square(block))
+                g_blocks.append(block)
+            del pending
+            sq = sq[0] + mesh.all_reduce(sq[1], "data")
+            p_blocks = [sh.shard(p).clone() for p, sh in zip(leaves,
+                                                               placement)]
+            _, _, om = apply_updates(
+                opt_cfg, tree_unflatten(structure, p_blocks),
+                tree_unflatten(structure, g_blocks), opt_state,
+                gnorm=torch.sqrt(sq))
+            if not int(om["skipped"]):
+                for p, sh, block in zip(leaves, placement, p_blocks):
+                    p.copy_(sh.gather(block))
+            metrics = {"loss": mean(loss),
+                       **{k: mean(v) for k, v in parts.items()}, **om}
         return params, opt_state, metrics
 
     return train_step
@@ -138,5 +281,6 @@ def rules_total_dp(mesh) -> int:
 
 
 __all__ = ["build_encoder_train_step", "build_prefill_step",
-           "build_serve_step", "build_train_step", "loss_and_grads",
-           "rules_total_dp"]
+           "build_serve_step", "build_train_step", "init_zero1_state",
+           "loss_and_grads", "rules_total_dp", "train_state_shardings",
+           "zero1_shardings"]

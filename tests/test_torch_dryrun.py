@@ -151,7 +151,7 @@ def test_trace_order_peak_by_hand():
 
 def test_multi_mesh_and_skips(small):
     r = dryrun.run_cell("granite-8b", "train_4k", "multi", device="cpu")
-    assert r["status"] == "SKIP" and "pipeline_apply" in r["reason"]
+    assert r["status"] == "SKIP" and "M4.1c" in r["reason"]
     r = dryrun.run_cell("hubert-xlarge", "decode_32k", "single",
                         device="cpu")
     assert r["status"] == "SKIP" and "encoder-only" in r["reason"]
@@ -223,7 +223,7 @@ def test_list_prints_every_cell(capsys):
     assert len(lines) == len(tcfg.ASSIGNED_ARCHS) * len(dryrun.SHAPES) * 2
     multi = [ln for ln in lines if "__multi" in ln]
     assert multi and all("SKIP" in ln for ln in multi)
-    assert sum("pipeline_apply" in ln for ln in lines) == sum(
+    assert sum("M4.1c" in ln for ln in lines) == sum(
         "RUN" in ln for ln in lines)        # every single cell that runs
     assert any(ln.rstrip().endswith("RUN") for ln in lines)
 

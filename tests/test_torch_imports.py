@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.analysis.synth, repro_torch.analysis.__main__, "
             "repro_torch.conformance.subproc, repro_torch.launch.mesh, "
             "repro_torch.sharding, repro_torch.sharding.rules, "
-            "repro_torch.pipeline, repro_torch.pipeline.pardnn_pp; "
+            "repro_torch.pipeline, repro_torch.pipeline.pardnn_pp, "
+            "repro_torch.distributed, repro_torch.train.compression; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
