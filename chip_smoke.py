@@ -356,7 +356,12 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    ``decode_32k``, each status OK with a finite roofline (nodes, trace
    seconds, the one-card peak in the trace's order and whether one card
    holds it, the emulator's one-PE peak, the bound and
-   its dominant term, model FLOPs and the useful ratio); (b)
+   its dominant term, model FLOPs and the useful ratio); then the
+   granite-8b ``train_4k`` cell on ``--mesh multi``: rank 0 of (pod 2,
+   data 16, model 16) traced with its collectives (trace seconds, nodes,
+   the rank's peak and fits, collective bytes by kind, the collective
+   share of the roofline), its all-reduce bytes within MULTI_GATE of
+   the count from the shapes (:func:`multi_all_reduce_bytes`); (b)
    ``run_pardnn_plan`` for reduced granite-8b (float32), K=4 folded onto
    the card, executed, linted and traced: 0 verifier errors, compiled
    within PARDNN_DRIFT of the interpreter, at least one fma flash forward
@@ -389,11 +394,24 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    launches a step; its state checkpointed (gathered, rank 0 writes) and
    restored onto 2 ranks in a second launch, each rank's blocks equal to
    the saving rank's; (c) ``make_compressed_psum`` over ``pod`` on each
-   rank's first full-width gradient tree, in groups of leaves: within 0.03
+   rank's first full-width gradient tree of one layer (the embedding,
+   the head and a block), in groups of leaves: within 0.03
    of the exact mean, residual + dequantized equal to the input within
-   2 ulp of the scale. Prints the backend, the bytes each collective
-   moved a step and each rank's step ms (host-staged transport on a
-   shared card: no measure of NVLink or NCCL).
+   2 ulp of the scale; then tensor parallelism over ``model``, in bf16
+   at full width: (d) TP["blocks"] granite-8b blocks over (data 1, model
+   4), B=1, S=1024, each rank its Megatron blocks (8 query and 2 KV heads
+   of 128), forward and backward: the output, the loss and every
+   gradient within 2^-7 of its scale of the same blocks run whole (each
+   rank's block of the whole gradient), L sm90 flash forward and L
+   backward launches a rank, 0 fma, all-reduce bytes 4 x B·S·D x 2 a
+   layer; (e) one mixtral-8x7b layer over (data 1, model 4), 2 experts a
+   rank, under the same gate, its aux and dropped share against the
+   whole layer's; (f) ``launch.train``'s body over (data 2, model 2) at
+   (b)'s depth, TP["train_steps"] steps, no checkpoint: the first loss
+   within DIST_LOSS_GATE of the one-rank loss, 2L sm90 forward and L
+   backward launches a step. Prints the backend, the bytes each
+   collective moved a step and each rank's step ms (host-staged
+   transport on a shared card: no measure of NVLink or NCCL).
 
 Each phase's seconds are printed when it ends. ``--rank-body`` (not
 for users) runs one rank of phase 30.
@@ -5810,6 +5828,11 @@ def phase_internvl(torch, cfg, card: str) -> None:
 # (arch, shape) of the dry-run cells traced at full width, remat "dots"
 DRYRUN_CELLS = (("granite-8b", "train_4k"), ("hubert-xlarge", "prefill_32k"),
                 ("jamba-v0.1-52b", "decode_32k"))
+# the multi-card cell traced at full width: rank 0 of (pod 2, data 16,
+# model 16), remat "dots"; its all-reduce bytes against the arithmetic
+# count of :func:`multi_all_reduce_bytes` within this share
+DRYRUN_MULTI = ("granite-8b", "train_4k")
+MULTI_GATE = 0.01
 # the remat policies' step: full granite-8b width, a fixed depth that fits
 # under every policy (the arithmetic is logged), AdamW with no warm-up so
 # that the step moves every parameter
@@ -5851,6 +5874,60 @@ def _dryrun_cells(torch, card: str) -> None:
             f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.3f}"
             f" ms); model FLOPs {r['model_flops']:.4g}, useful ratio "
             f"{r['useful_flops_ratio']:.4f}; {card}")
+
+
+def multi_all_reduce_bytes(cfg, shape, pod=2, data=16, model=16) -> int:
+    """The all-reduce bytes of one rank's step of the dense config
+    ``cfg`` (bf16; query, MLP and vocab dims split by ``model``) at
+    ``shape`` over (pod, data, model) under remat "dots", from the
+    shapes: per layer the forward's *g* after attention and after the
+    MLP, the recompute's attention *g* (the MLP's feeds nothing the
+    backward reads) and the backward's two *f*, one (rows, S, D) bf16
+    activation each, and the head's *f* once; the vocab-parallel
+    cross entropy's pmax, psum of exponentials and psum of the target
+    logit (a float32 a token each); the gradient norm's three squares;
+    and each gradient's ZeRO-1 block all-reduced over ``pod`` in
+    float32: 1/(model x data) of a tensor split over ``model``, 1/data
+    of a norm's scale, which every rank of ``model`` holds whole."""
+    L, D, V, F = cfg.num_layers, cfg.d_model, cfg.padded_vocab, cfg.d_ff
+    kv = cfg.num_kv_heads * cfg.head_dim
+    T = shape.global_batch // (pod * data) * shape.seq_len
+    act = T * D * 2
+    norms = (2 * L + 1) * D
+    P = 2 * V * D + D + L * (2 * D + 2 * D * D + 2 * D * kv + 3 * D * F)
+    grads = 4 * ((P - norms) // (model * data) + norms // data)
+    return (5 * L + 1) * act + 3 * T * 4 + 3 * 4 + grads
+
+
+def _dryrun_multi(torch, card: str) -> None:
+    """(a) continued: the multi-card train cell at full width, rank 0 of
+    the 512-chip mesh traced with its collectives; its all-reduce bytes
+    against :func:`multi_all_reduce_bytes`."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    arch, shape = DRYRUN_MULTI
+    r = dryrun.run_cell(arch, shape, "multi", remat="dots", device="cuda")
+    assert r["status"] == "OK" and r["chips"] == 512, \
+        f"dryrun {arch} {shape} multi: {r}"
+    by, rf = r["rank_collective_bytes"], r["roofline"]
+    want = multi_all_reduce_bytes(get_config(arch), dryrun.SHAPES[shape])
+    rel = abs(by["all-reduce"] - want) / want
+    sh = dryrun.SHAPES[shape]
+    log(f"dryrun cell {arch} {shape} multi (remat dots, rank 0 of (pod 2, "
+        f"data 16, model 16), its {sh.global_batch // 32} of "
+        f"{sh.global_batch} rows x {sh.seq_len}): {r['status']}, "
+        f"{r['nodes']} nodes traced in {r['trace_s']} s; the rank's peak "
+        f"{r['per_device_total_bytes'] / 2 ** 30:.2f} GiB, fits "
+        f"{r['fits']}; the rank's collective bytes {by}, counts "
+        f"{r['collective_schedule']}; all-reduce {by['all-reduce']:.0f} "
+        f"against {want} counted from the shapes ({rel:.3g} off, gate "
+        f"{MULTI_GATE}); roofline bound {rf['bound_s'] * 1e3:.3f} ms "
+        f"({rf['dominant']}; compute {rf['compute_s'] * 1e3:.3f}, memory "
+        f"{rf['memory_s'] * 1e3:.3f}, collective "
+        f"{rf['collective_s'] * 1e3:.3f} ms at NVLink's rate: "
+        f"{rf['collective_s'] / rf['bound_s']:.3f} of the bound); {card}")
+    assert rel <= MULTI_GATE, f"dryrun multi: all-reduce {by['all-reduce']}"\
+        f" against {want}"
 
 
 def _dryrun_pardnn(torch, work: Path) -> str:
@@ -6073,6 +6150,7 @@ def phase_dryrun(torch, card: str, serving: bool = False,
                 ranks = _distributed_start(Path(tmp) / "distributed",
                                            distributed)
             _dryrun_cells(torch, card)
+            _dryrun_multi(torch, card)
             if priced is None:
                 priced = _dryrun_priced(torch, "cuda")
             t2 = time.perf_counter()
@@ -6116,6 +6194,10 @@ DIST_LOSS_GATE = 1e-3
 #: (c): the reference's bound on the compressed mean
 COMPRESSION_BOUND = 0.03
 DIST_MARK = "DIST_JSON:"
+#: (d), (e): tensor parallel over (data 1, model 4): granite-8b blocks (as
+#: many as (a) holds) and one mixtral-8x7b layer, tokens (1, seq); (f):
+#: launch.train over (data 2, model 2), steps, no checkpoint
+TP = dict(blocks=4, seq=1024, seed=7, train_model=2, train_steps=2)
 
 
 def _flash_counts(ops) -> dict:
@@ -6217,20 +6299,30 @@ def _rank_compression(torch, mesh, cfg, local: dict) -> dict:
     """(c) ``make_compressed_psum`` over ``pod`` on this rank's first
     full-width gradient tree (the step-0 batch slice at the initial
     parameters), in groups of leaves: each leaf's mean against the exact
-    mean (on the pod-0 ranks), and residual + dequantized against what
-    went in (on every rank)."""
+    mean (on the pod-0 ranks, which compute the other pod's gradient on
+    its rows themselves: the same seeded parameters), and residual +
+    dequantized against what went in (on every rank)."""
     from repro_torch.models import init_params, unstack_periods
     from repro_torch.train.compression import (init_error_state,
                                                make_compressed_psum)
     from repro_torch.train.step import loss_and_grads
     from repro_torch.tree import tree_flatten
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        DIST["seed"]), "cuda")
-    _, _, grads = loss_and_grads(cfg, unstack_periods(cfg, params), local,
-                                 "full")
+    params = unstack_periods(cfg, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(DIST["seed"]),
+        "cuda"))
+    _, _, grads = loss_and_grads(cfg, params, local, "full")
+    checks = mesh.rank == mesh.members("pod")[0]
+    # the pods' rows, in pod order (a few KB); the other pod's gradient
+    rows = {k: mesh.all_gather(v, "pod", 0) for k, v in local.items()}
+    other = None
+    if checks:
+        per = local["tokens"].shape[0]
+        other = tree_flatten(loss_and_grads(
+            cfg, params, {k: v[per:] for k, v in rows.items()},
+            "full")[2])[0]
+    del params, rows
     fn = make_compressed_psum(mesh, "pod")
     mesh.reset_moved()
-    checks = mesh.rank == mesh.members("pod")[0]
     worst = {"rel": 0.0 if checks else None, "feedback": 0.0,
              "residual": 0.0}
     n = 0
@@ -6243,6 +6335,7 @@ def _rank_compression(torch, mesh, cfg, local: dict) -> dict:
             group = []
         group.append(g)
     groups.append(group)
+    i = 0
     for group in groups:
         blocks = [g[None] for g in group]
         red, err = fn(blocks, init_error_state(group))
@@ -6250,13 +6343,14 @@ def _rank_compression(torch, mesh, cfg, local: dict) -> dict:
                                         for b in blocks]), "pod")
         for b, r, e, s in zip(blocks, red, err, scales):
             # the exact mean, on the pod-0 rank of each pod group (the
-            # mean is the same on every rank of it): the pods' bf16 blocks
-            # gathered there, summed in float32
-            parts = mesh.gather(b, "pod", dst=mesh.members("pod")[0])
-            if parts is not None:
-                exact = torch.cat(parts).to(b.device).float().mean(0)
+            # mean is the same on every rank of it): the pods' bf16
+            # blocks summed in float32
+            if other is not None:
+                exact = (b[0].float() + other[i].float()) / 2
+                other[i] = None
                 worst["rel"] = max(worst["rel"], _rel(r[0], exact))
-                del exact, parts
+                del exact
+            i += 1
             gf = b.float()
             scale = s / 127.0 + 1e-12           # float32, as the sender's
             q = torch.round((gf - e) / scale)
@@ -6272,6 +6366,198 @@ def _rank_compression(torch, mesh, cfg, local: dict) -> dict:
     moved = dict(mesh.moved)
     del grads
     return {"worst": worst, "moved": moved, "elements": n}
+
+
+def _rank_tensor_parallel(torch, ops, cfg, kind: str) -> dict:
+    """(d), (e): ``cfg``'s periods of one ``kind`` block at full width
+    (bf16) over the (data 1, model 4) mesh: each rank its blocks
+    (``train.step.shard_params``) under ``activation_sharding``, forward
+    and backward of (out^2).mean() plus the MoE aux; then the same blocks
+    run whole on this rank in bf16, and in float32 (the ranks in turn,
+    so that one float32 copy is on the card at a time; the seeded
+    weights are the same on every rank). Per quantity (the output, the
+    loss, every gradient: this rank's block of the whole runs', the
+    ranks' blocks together being the whole gradient) the largest error
+    over the largest magnitude of the tensor-parallel run and of the
+    whole bf16 run against the float32 run, and of the one against the
+    other. For MoE the whole runs take the tensor-parallel run's expert
+    choices and slots (each run's own probabilities): a token that
+    inputs differing by rounding send to another expert would differ by
+    a whole expert's output; the whole bf16 layer is also run with its
+    own routing, whose aux, dropped share (assignments kept of those
+    made) and changed assignments are reported. Also the flash launches
+    and bytes of the tensor-parallel run."""
+    from repro_torch.distributed import ProcessMesh
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import activation_sharding
+    from repro_torch.models.transformer import _block_apply
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import shard_params
+    from repro_torch.tree import tree_flatten, tree_map
+    mesh = ProcessMesh(MeshShape((1, DIST["ranks"]), ("data", "model")),
+                       "cuda")
+    S = TP["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(TP["seed"])
+    params = init_params(cfg, gen, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                         device="cuda")
+    x = params["embed"][toks].detach()
+    whole = {"periods": params["periods"]}            # stacked (L, ...)
+    del params
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    places = tree_flatten(rules.param_shardings(whole, mesh))[0]
+    mine = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                    shard_params(whole, mesh))
+    plan = rules.activation_plan(mesh, cfg, kind="train")
+    seen: list = []          # each route's (top_e, onehot, slots)
+    pinned: list = []        # the routing the whole runs take, in order
+    real = M.route
+
+    def spy(c, router, xg):
+        probs, top_p, top_e, onehot, poh = real(c, router, xg)
+        if pinned:
+            top_e, onehot, poh = pinned[len(seen)]
+            top_p = probs.gather(-1, top_e)
+            top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+        seen.append((top_e, onehot, poh))
+        return probs, top_p, top_e, onehot, poh
+
+    def dropped():
+        made = sum(float(o.sum()) for _, o, _ in seen)
+        return 1 - sum(float(p.sum()) for _, _, p in seen) / made \
+            if seen else None
+
+    def run(c, tree, h):
+        seen.clear()
+        aux = None
+        for i in range(c.num_periods):
+            p = tree_map(lambda t: t[i], tree["periods"]["b0"])
+            h, _, a = _block_apply(c, kind, p, h, positions=pos)
+            aux = a if aux is None else (aux + a if a is not None else aux)
+        loss = (h.float() ** 2).mean()
+        return h.detach(), loss if aux is None else loss + aux, aux
+
+    def finish(c, tree, h):
+        """The whole run's output, loss, aux, dropped share and this
+        rank's block of each gradient (float32)."""
+        out, loss, aux = run(c, tree, h)
+        loss.backward()
+        blocks = [sh.shard(t.grad).float() for t, sh in zip(
+            tree_flatten(tree)[0], places)]
+        return {"out": out.float(), "loss": float(loss), "blocks": blocks,
+                "aux": None if aux is None else float(aux),
+                "dropped": dropped()}
+
+    M.route = spy
+    try:
+        _reset_flash(ops)
+        mesh.reset_moved()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with activation_sharding(plan, mesh) as kinds:
+            out, loss, aux = run(cfg, mine, x)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _flash_counts(ops)
+        moved = dict(mesh.moved)
+        tp = {"out": out.float(), "loss": float(loss),
+              "blocks": [t.grad.float() for t in tree_flatten(mine)[0]],
+              "aux": None if aux is None else float(aux),
+              "dropped": dropped()}
+        routing = list(seen)
+        del mine, out, loss, aux
+        own = None
+        if routing:
+            # the whole bf16 layer with its own routing: aux, dropped
+            # share, and the (token, k) assignments that changed
+            with torch.no_grad():
+                _, _, a = run(cfg, whole, x)
+            own = {"aux": float(a), "dropped": dropped(),
+                   "changed": sum(int((e != t).sum()) for (e, _, _), (
+                       t, _, _) in zip(seen, routing))}
+            pinned[:] = routing
+        bf16 = finish(cfg, tree_map(lambda t: t.detach().requires_grad_(),
+                                    whole), x)
+        f32 = None
+        # every rank gives its cached blocks back to the card first: 6
+        # processes share it
+        _release(torch)
+        for turn in range(DIST["ranks"]):
+            mesh.all_reduce(torch.zeros(1, device="cuda"), "model")
+            if mesh.rank == turn:
+                f32_tree = tree_map(lambda t: t.detach().float()
+                                    .requires_grad_(), whole)
+                whole = None
+                f32 = finish(dataclasses.replace(cfg, dtype="float32"),
+                             f32_tree, x.float())
+                del f32_tree
+                _release(torch)
+        mesh.all_reduce(torch.zeros(1, device="cuda"), "model")
+    finally:
+        M.route = real
+
+    def errs(a, b):
+        return {"out": _rel(a["out"], b["out"]),
+                "loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "grad": [_rel(g, w) for g, w in zip(a["blocks"],
+                                                    b["blocks"])]}
+    res = {"tp_f32": errs(tp, f32), "bf16_f32": errs(bf16, f32),
+           "tp_bf16": errs(tp, bf16), "counts": counts, "moved": moved,
+           "ms": ms, "kinds": sorted(set(kinds)), "loss": tp["loss"],
+           "blocks": cfg.num_periods, "own": own}
+    for k in ("aux", "dropped"):
+        if tp[k] is not None:
+            res[k] = {"tp": tp[k], "bf16": bf16[k], "f32": f32[k]}
+    del x, tp, bf16, f32, routing, seen[:], pinned[:]
+    return res
+
+
+def _rank_model_parallel_train(torch, ops, layers: int) -> dict:
+    """(f) ``launch.train``'s body for granite-8b at ``layers`` layers
+    over (data 2, model 2): the ZeRO-1 step tensor parallel over
+    ``model``, TP["train_steps"] steps, no checkpoint; and on rank 0 the
+    one-rank loss on the global batch (the two data groups' rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.distributed import ProcessMesh
+    from repro_torch.launch.mesh import mesh_over
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params, loss_fn
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=layers)
+    mesh = ProcessMesh(mesh_over(DIST["ranks"], model=TP["train_model"]),
+                       "cuda")
+    dc = DataConfig(batch_size=DIST["batch"], seq_len=DIST["seq"],
+                    vocab_size=cfg.vocab_size, seed=DIST["seed"],
+                    model_parallel=TP["train_model"])
+    whole = {k: mesh.all_gather(torch.as_tensor(v, device="cuda"), "data", 0)
+             for k, v in make_batch(dc, 0).items()}
+    res: dict = {"mesh": mesh.shape}
+    if mesh.rank == 0:
+        with torch.no_grad():
+            p = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+                DIST["seed"]), "cuda")
+            res["one_rank_loss"] = float(loss_fn(cfg, p, whole)[0])
+            del p
+    del whole
+    _release(torch)
+    _reset_flash(ops)
+    mesh.reset_moved()
+    torch.cuda.reset_peak_memory_stats()
+    loop = train(cfg, steps=TP["train_steps"], batch=DIST["batch"],
+                 seq=DIST["seq"], lr=DIST["lr"], remat="full",
+                 seed=DIST["seed"], device="cuda", log_every=1, mesh=mesh)
+    torch.cuda.synchronize()
+    res.update(counts=_flash_counts(ops), moved=dict(mesh.moved),
+               collective_s=dict(mesh.seconds),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=[h["loss"] for h in loop.state.history],
+               ms=[h["time"] * 1e3 for h in loop.state.history],
+               skipped=loop.state.skipped)
+    del loop
+    return res
 
 
 def _local_sums(torch, tree) -> list:
@@ -6314,7 +6600,9 @@ def rank_distributed(torch, work: Path, layers: int) -> None:
                         vocab_size=cfg.vocab_size, seed=DIST["seed"])
         local = {k: torch.as_tensor(v, device="cuda")
                  for k, v in make_batch(dc, 0).items()}
-        res["compression"] = _rank_compression(torch, mesh, cfg, local)
+        # (c) on the tree of one layer (embedding, head and a block)
+        res["compression"] = _rank_compression(
+            torch, mesh, dataclasses.replace(cfg, num_layers=1), local)
         _release(torch)
         # the one-rank loss of the first step: the global batch on rank 0
         whole = {k: mesh.all_gather(v, ("pod", "data"), 0)
@@ -6354,9 +6642,24 @@ def rank_distributed(torch, work: Path, layers: int) -> None:
                 extra={"step": DIST["steps"]}, shardings=loop.shardings)
         res["sums"] = _local_sums(torch, {"params": loop.params,
                                           "opt": loop.opt_state})
+        del loop
+        _release(torch)
+        t4 = time.perf_counter()
+        res["tp_dense"] = _rank_tensor_parallel(
+            torch, ops, dataclasses.replace(get_config("granite-8b"),
+                                            num_layers=TP["blocks"]), "attn")
+        _release(torch)
+        t5 = time.perf_counter()
+        res["tp_moe"] = _rank_tensor_parallel(
+            torch, ops, dataclasses.replace(get_config("mixtral-8x7b"),
+                                            num_layers=1), "swa_moe")
+        _release(torch)
+        t6 = time.perf_counter()
+        res["tp_train"] = _rank_model_parallel_train(torch, ops, layers)
         res["seconds"] = {"pipeline": t1 - t0, "compression": t2 - t1,
-                          "train": t3 - t2,
-                          "checkpoint": time.perf_counter() - t3}
+                          "train": t3 - t2, "checkpoint": t4 - t3,
+                          "tp_dense": t5 - t4, "tp_moe": t6 - t5,
+                          "tp_train": time.perf_counter() - t6}
     print(DIST_MARK + json.dumps(res), flush=True)
 
 
@@ -6506,6 +6809,7 @@ def _distributed_check(torch, started, card: str) -> dict:
             f"residual + dequantized - input at most "
             f"{co['worst']['feedback']:.3g} ulp of the scale, |residual| at "
             f"most {co['worst']['residual']:.3g} scale; bytes {co['moved']}")
+    tp_launches = _tensor_parallel_check(res, layers, card)
     checked = [r for r in res if r["compression"]["worst"]["rel"] is not None]
     assert len(checked) == P_ // DIST["pods"], \
         f"distributed (c): the exact mean checked on {len(checked)} ranks"
@@ -6535,8 +6839,117 @@ def _distributed_check(torch, started, card: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s after the start: every rank's "
         f"{len(back[0]['sums'])} leaves equal to the saving rank's blocks; "
         f"{card}")
-    return {"flash_attention": {"pipeline": T, "train": 2 * layers * steps},
-            "flash_attention_bwd": {"pipeline": T, "train": layers * steps}}
+    return {"flash_attention": {"pipeline": T, "train": 2 * layers * steps,
+                                **tp_launches["flash_attention"]},
+            "flash_attention_bwd": {"pipeline": T, "train": layers * steps,
+                                    **tp_launches["flash_attention_bwd"]}}
+
+
+def _tensor_parallel_check(res: list, layers: int, card: str) -> dict:
+    """Hold the ranks' (d), (e) and (f) to their gates and log them;
+    returns their flash launches a rank."""
+    from repro_torch.configs import get_config
+    D = get_config("granite-8b").d_model
+    act = TP["seq"] * D * 2               # one (1, S, D) bf16 activation
+    steps, tm_ = TP["train_steps"], TP["train_model"]
+
+    def want(fwd: int, bwd: int) -> dict:
+        return {"flash_attention": fwd, "flash_attention/sm90": fwd,
+                "flash_attention/fma": 0, "flash_attention_bwd": bwd,
+                "flash_attention_bwd/sm90": bwd}
+    for r in res:
+        d, e, f = r["tp_dense"], r["tp_moe"], r["tp_train"]
+        L_ = d["blocks"]
+        for label, case, w in (("(d)", d, want(L_, L_)), ("(e)", e, want(1, 1)),
+                               ("(f)", f, want(2 * layers * steps,
+                                               layers * steps))):
+            got = {k: case["counts"][k] for k in w}
+            assert got == w, f"distributed {label} rank {r['rank']}: " \
+                f"launches {got}, want {w}"
+        for label, case in (("(d)", d), ("(e)", e)):
+            # each quantity of the tensor-parallel run as close to the
+            # float32 run as the whole bf16 run is, within DIST_GATE: two
+            # bf16 runs that round differently sit a bf16 rounding
+            # distance apart, the whole run's own distance from float32
+            tp_, bf = case["tp_f32"], case["bf16_f32"]
+            pairs = [("out", tp_["out"], bf["out"]),
+                     ("loss", tp_["loss"], bf["loss"])] + [
+                (f"grad {i}", a, b) for i, (a, b) in enumerate(
+                    zip(tp_["grad"], bf["grad"]))]
+            worse = [(k, a, b) for k, a, b in pairs if a > b + DIST_GATE]
+            assert not worse, f"distributed {label} rank {r['rank']}: " \
+                f"further from float32 than the whole bf16 run by more " \
+                f"than {DIST_GATE}: {worse}"
+        # (d): each block's forward g twice (attention, MLP) and its
+        # backward f twice, one activation each
+        assert d["moved"] == {"psum": 4 * L_ * act}, \
+            f"distributed (d) rank {r['rank']}: moved {d['moved']}"
+        # (e): on the same routing the dropped share is the same and aux
+        # within the gate; the whole layer's own routing, by the same gate
+        aux, drop, own = e["aux"], e["dropped"], e["own"]
+        aux_err = abs(aux["tp"] - aux["bf16"]) / abs(aux["bf16"])
+        own_err = abs(aux["tp"] - own["aux"]) / abs(own["aux"])
+        assert aux_err <= DIST_GATE and drop["tp"] == drop["bf16"] and \
+            own_err <= DIST_GATE and \
+            abs(drop["tp"] - own["dropped"]) <= DIST_GATE, \
+            f"distributed (e) rank {r['rank']}: aux {aux}, dropped " \
+            f"{drop}, the whole layer's own routing {own}"
+        assert len(f["losses"]) == steps and f["skipped"] == 0 and all(
+            math.isfinite(x) for x in f["losses"]), f"distributed (f): {f}"
+        def errs_text(case):
+            return "; ".join(
+                f"{name}: out {case[k]['out']:.4g}, loss "
+                f"{case[k]['loss']:.3g}, grad max {max(case[k]['grad']):.4g}"
+                for k, name in (("tp_f32", "tensor parallel against float32"),
+                                ("bf16_f32", "whole bf16 against float32"),
+                                ("tp_bf16", "tensor parallel against whole "
+                                            "bf16")))
+        log(f"distributed (d) rank {r['rank']}: {L_} full-width granite-8b "
+            f"blocks (bf16, (1, {TP['seq']})) over (data 1, model "
+            f"{DIST['ranks']}), 8 query and 2 KV heads of 128 a rank, "
+            f"forward and backward {d['ms']:.1f} ms (host-staged transport "
+            f"on a shared card); launches {want(L_, L_)}; all-reduce bytes "
+            f"{d['moved']['psum']} = 4 x B·S·D x 2 bytes a layer "
+            f"({4 * act} a layer); largest error / max |leaf|: "
+            f"{errs_text(d)} (gate: tensor parallel within {DIST_GATE:.4g} "
+            f"of the whole bf16 run's own error); shard kinds {d['kinds']}")
+        log(f"distributed (e) rank {r['rank']}: one full-width mixtral-8x7b "
+            f"layer over (data 1, model {DIST['ranks']}), 2 experts a rank, "
+            f"forward and backward {e['ms']:.1f} ms; launches {want(1, 1)}; "
+            f"bytes {e['moved']}; largest error / max |leaf|: "
+            f"{errs_text(e)} (the whole runs on the tensor-parallel run's "
+            f"routing); aux {aux['tp']:.7f}, whole bf16 {aux['bf16']:.7f} "
+            f"(relative {aux_err:.3g}), float32 {aux['f32']:.7f}; dropped "
+            f"share {drop['tp']:.6f}, whole bf16 {drop['bf16']:.6f}; the "
+            f"whole bf16 layer on its own routing: aux {own['aux']:.7f} "
+            f"(relative {own_err:.3g}), dropped share "
+            f"{own['dropped']:.6f}, {own['changed']} of "
+            f"{TP['seq'] * 2} (token, k) assignments to another expert; "
+            f"shard kinds {e['kinds']}")
+        log(f"distributed (f) rank {r['rank']} {f['mesh']}: launch.train "
+            f"granite-8b at {layers} layers, model-parallel {tm_}, global "
+            f"batch {DIST['batch']} x {DIST['seq']}, losses ["
+            f"{', '.join(f'{x:.6f}' for x in f['losses'])}], step ms ["
+            f"{', '.join(f'{x:.1f}' for x in f['ms'])}]; bytes a step "
+            f"{ {k: v // steps for k, v in f['moved'].items()} } in "
+            f"{ {k: round(v / steps, 3) for k, v in f['collective_s'].items()} }"
+            f" s; max_memory_allocated {f['peak_gb']:.2f} GB")
+    first = [r["tp_train"]["losses"][0] for r in res]
+    one = res[0]["tp_train"]["one_rank_loss"]
+    log(f"distributed (f): first loss {first[0]:.6f} on every rank "
+        f"{len(set(first)) == 1}; the one-rank loss on the global batch "
+        f"{one:.6f}; difference {abs(first[0] - one):.3g} (gate "
+        f"{DIST_LOSS_GATE}); {card}")
+    assert len(set(first)) == 1, f"distributed (f): first losses {first}"
+    assert abs(first[0] - one) <= DIST_LOSS_GATE, \
+        f"distributed (f): first loss {first[0]} against one rank {one}"
+    L_ = res[0]["tp_dense"]["blocks"]
+    return {"flash_attention": {"tensor_parallel_blocks": L_,
+                                "tensor_parallel_moe": 1,
+                                "tensor_parallel_train": 2 * layers * steps},
+            "flash_attention_bwd": {"tensor_parallel_blocks": L_,
+                                    "tensor_parallel_moe": 1,
+                                    "tensor_parallel_train": layers * steps}}
 
 
 def _distributed_depth(torch, cfg, measured: dict | None) -> int:

@@ -66,6 +66,10 @@ The rules that make the two graphs comparable:
   the softmax forward, and 8·B·H·Sq·Sk·hd and one elementwise pass on
   the scores backward. Their ``mem`` is their outputs: unlike the
   reference's graph, no node holds the S² probabilities.
+* **Collectives.** The custom ops of ``distributed.TracingMesh``
+  (:data:`COLLECTIVE_OPS`: one rank's program traced with its
+  collectives) are one node each with no FLOPs; the bytes they touch are
+  their operand and their result.
 * **Training steps** (``autograd=True``). ``functionalize`` refuses a
   function that makes leaves require grad, which a step differentiated
   with ``torch.autograd`` does; such a step is traced in two passes,
@@ -216,6 +220,11 @@ RECURRENCE_OPS = {"wkv6": 1, "wkv6_bwd": 2}
 #: Mamba's selective-scan custom ops (the module docstring has the rule)
 SCAN_OPS = ("selective_scan", "selective_scan_bwd")
 
+#: the collective custom ops of ``distributed.TracingMesh`` -> the kind
+#: the reference's ``collective_bytes_from_hlo`` names it by
+COLLECTIVE_OPS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                  "reduce_scatter": "reduce-scatter"}
+
 
 def _scan_levels(C: int) -> tuple[int, int, int]:
     """(Σ n_k, the number of levels, Σ slice elements per state) of the
@@ -309,6 +318,8 @@ def flops_of(op, args, kwargs, in_vals, out_vals) -> float:
             _CHEAP_MULT.get(prim, 1.0) for prim in ATTENTION_OPS[name][3])
     if name in SCAN_OPS:
         return _scan_op_flops(name, args)[0]
+    if name in COLLECTIVE_OPS:
+        return 0.0
     out_elems = sum(_numel(v) for v in out_vals)
     if name in RECURRENCE_OPS:
         return dot_flops_of(op, args) + out_elems
@@ -518,6 +529,7 @@ def _cost_graph(gm, out_structure, example_args: tuple, *,
     return g, prog
 
 
-__all__ = ["ATEN_PRIMS", "ATTENTION_OPS", "DOT_OPS", "RECURRENCE_OPS",
+__all__ = ["ATEN_PRIMS", "ATTENTION_OPS", "COLLECTIVE_OPS", "DOT_OPS",
+           "RECURRENCE_OPS",
            "SCAN_OPS", "VIEW_OPS", "dot_flops_of", "flops_of", "op_name",
            "scan_flops", "trace_cost_graph"]

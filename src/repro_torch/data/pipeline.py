@@ -9,8 +9,10 @@ interrupted run would have seen, with no state file. Each process makes
 only its slice of the global batch (:func:`_host_slice`): the reference
 reads its slice from ``jax.process_index``/``process_count``, the port
 from its rank and the world size (one process, one slice, without a
-process group). Batches are numpy arrays; the train step moves them to
-its device.
+process group). Under tensor parallelism (``model_parallel`` > 1) the
+ranks of one ``model`` group, consecutive in rank order as the mesh lays
+them, read the same slice. Batches are numpy arrays; the train step
+moves them to its device.
 """
 from __future__ import annotations
 
@@ -30,13 +32,15 @@ class DataConfig:
     seed: int = 0
     embed_dim: int | None = None      # frontend-stub archs: emit embeddings
     prefetch: int = 2
+    model_parallel: int = 1           # ranks that read the same slice
 
 
 def _host_slice(cfg: DataConfig) -> tuple[int, int]:
     """(first row, rows) of this process's slice of the global batch."""
     from ..distributed import rank, world_size
-    per = cfg.batch_size // world_size()
-    return rank() * per, per
+    m = cfg.model_parallel
+    per = cfg.batch_size // (world_size() // m)
+    return rank() // m * per, per
 
 
 def make_batch(cfg: DataConfig, step: int) -> dict:

@@ -36,6 +36,15 @@ body for itself:
   gradient of a psum is a psum, that of a ppermute the inverse
   permutation. Each counts the bytes it moves (:attr:`ProcessMesh.moved`)
   and the host seconds it takes (:attr:`ProcessMesh.seconds`).
+* Tensor parallelism's regions (explicit SPMD, where the reference lets
+  GSPMD insert the collectives): :meth:`~ProcessMesh.copy_to`
+  (Megatron's *f*: identity forward, psum backward),
+  :meth:`~ProcessMesh.reduce_from` (*g*: psum forward, identity
+  backward) and :meth:`~ProcessMesh.gather_from` (an all-gather whose
+  backward takes the rank's block of a whole gradient or reduce-scatters
+  partial ones). :class:`TracingMesh` is one rank of a mesh with no
+  process group, whose collectives are custom ops, for tracing a rank's
+  program (the dry run's multi-card cells).
 * :class:`NamedSharding` places a tensor by a spec (one entry per
   dimension: ``None``, an axis name or a tuple of names, as
   :mod:`repro_torch.sharding.rules` gives them): :meth:`~NamedSharding.
@@ -315,6 +324,31 @@ class ProcessMesh:
         """``jax.lax.pmax(x, axes)`` (no gradient)."""
         return self.all_reduce(x, axes, "max")
 
+    # ------------------------------------------ tensor-parallel regions
+    def copy_to(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Megatron's *f*: ``x`` (the same on every rank of ``axis``)
+        entering compute split over ``axis``. Identity forward; backward
+        the psum of the ranks' partial gradients."""
+        return _CopyTo.apply(x, self, self._axes(axis))
+
+    def reduce_from(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Megatron's *g*: the sum over ``axis`` of the ranks' partial
+        ``x``, leaving split compute. psum forward; backward the identity
+        (the incoming gradient is the whole one on every rank). Not
+        :meth:`psum`, whose backward psums again: used here it would
+        multiply every upstream gradient by the axis size."""
+        return _ReduceFrom.apply(x, self, self._axes(axis))
+
+    def gather_from(self, x: torch.Tensor, axis: str, dim: int,
+                    partial: bool = False) -> torch.Tensor:
+        """The ranks' blocks of ``x`` concatenated along ``dim`` over
+        ``axis``. Backward: this rank's block of the incoming gradient
+        when what reads the result runs the same on every rank (the
+        gradient is whole and equal there), or with ``partial`` the
+        gradient reduce-scattered (summed over the ranks, each keeping
+        its block) when each rank reads only its part of the result."""
+        return _GatherFrom.apply(x, self, axis, dim % x.dim(), partial)
+
     def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
         """``jax.lax.ppermute(x, axis, perm)``: for each ``(src, dst)`` of
         ``perm`` (indices along ``axis``) the rank at ``dst`` receives the
@@ -461,6 +495,99 @@ class PendingReduce:
         return out
 
 
+# ------------------------------------------------------ the tracing mesh
+@torch.library.custom_op("repro_torch::all_reduce", mutates_args=())
+def _all_reduce_op(x: torch.Tensor, op: str, n: int) -> torch.Tensor:
+    return x * n if op == "sum" else x.clone()
+
+
+@_all_reduce_op.register_fake
+def _(x, op, n):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::all_gather", mutates_args=())
+def _all_gather_op(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    return torch.cat([x] * n, dim)
+
+
+@_all_gather_op.register_fake
+def _(x, dim, n):
+    shape = list(x.shape)
+    shape[dim] *= n
+    return x.new_empty(shape)
+
+
+@torch.library.custom_op("repro_torch::reduce_scatter", mutates_args=())
+def _reduce_scatter_op(x: torch.Tensor, dim: int, n: int,
+                       index: int) -> torch.Tensor:
+    return x.chunk(n, dim)[index] * n
+
+
+@_reduce_scatter_op.register_fake
+def _(x, dim, n, index):
+    shape = list(x.shape)
+    shape[dim] //= n
+    return x.new_empty(shape)
+
+
+class TracingMesh(ProcessMesh):
+    """Rank ``rank`` of ``shape`` with no process group, for tracing one
+    rank's program (the dry run's multi-card cells): each collective is a
+    custom op (``repro_torch::all_reduce``, ``::all_gather``,
+    ``::reduce_scatter``; ``core.tracing.COLLECTIVE_OPS``) whose fake
+    implementation gives the result's shape, so a trace on fake tensors
+    records every collective as a node with its operand. On real tensors
+    they compute as if every rank held this rank's tensor. Bytes are
+    counted in :attr:`moved` as :class:`ProcessMesh` counts them."""
+
+    def __init__(self, shape, rank: int = 0, device=None):
+        self.mesh_shape = shape
+        self.axis_names = tuple(shape.axis_names)
+        self.sizes = tuple(int(s) for s in shape.axis_sizes)
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names, _unravel(rank, self.sizes)))
+        self.device = resolve_device(device)
+        self.backend, self.staged = None, False
+        self.moved: Counter = Counter()
+        self.staged_bytes = 0
+        self.seconds: Counter = Counter()
+
+    def _group(self, axes):
+        raise NotImplementedError("a TracingMesh has no process group")
+
+    def _n(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def all_reduce_start(self, x, axes, op: str = "sum") -> PendingReduce:
+        n = self._n(axes)
+        x = x.detach()
+        if n == 1:
+            return PendingReduce(self, None, x.clone(), x, "")
+        self._count("psum" if op == "sum" else "pmax", x)
+        return PendingReduce(self, None,
+                             torch.ops.repro_torch.all_reduce(x, op, n), x,
+                             "")
+
+    def all_gather(self, x, axes, dim: int = 0):
+        n = self._n(axes)
+        x = x.detach()
+        if n == 1:
+            return x.clone()
+        self._count("all_gather", x)
+        return torch.ops.repro_torch.all_gather(x, dim % x.dim(), n)
+
+    def reduce_scatter(self, x, axis: str, dim: int):
+        n = self._n(axis)
+        x = x.detach()
+        if n == 1:
+            return x.clone()
+        self.moved["reduce_scatter"] += \
+            x.numel() * x.element_size() * (n - 1) // n
+        return torch.ops.repro_torch.reduce_scatter(
+            x, dim % x.dim(), n, self.coords[axis])
+
+
 def _unravel(i: int, sizes) -> list[int]:
     out = []
     for s in reversed(sizes):
@@ -485,6 +612,45 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.all_reduce(g, ctx.axes, "sum"), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.axes, "sum"), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x, axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, partial):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.partial = mesh, axis, dim, partial
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        if ctx.partial:
+            out = mesh.reduce_scatter(g.contiguous(), axis, dim)
+        else:
+            n = mesh.axis_size(axis)
+            out = g.narrow(dim, mesh.axis_index(axis) * (g.shape[dim] // n),
+                           g.shape[dim] // n).contiguous()
+        return out, None, None, None, None
 
 
 class _PPermute(torch.autograd.Function):
@@ -624,8 +790,8 @@ def main(argv=None) -> int:
     return 0
 
 
-__all__ = ["NamedSharding", "PendingReduce", "ProcessMesh", "STORE_ENV",
-           "choose_backend",
+__all__ = ["NamedSharding", "PendingReduce",
+           "ProcessMesh", "STORE_ENV", "TracingMesh", "choose_backend",
            "destroy_process_group", "init_process_group", "process_group",
            "rank", "shardings", "world_size"]
 

@@ -21,15 +21,31 @@ Per cell it records into ``results/dryrun_torch/<cell>.json``:
     constants (``core.costmodel``), and ``model_flops`` (the reference's
     formula).
 
+``--mesh multi`` train cells trace one rank's program instead: rank 0
+of ``make_production_mesh(multi_pod=True)`` (pod 2, data 16, model 16;
+512 chips) over a :class:`~repro_torch.distributed.TracingMesh`, on fake
+tensors of that rank's shapes (its blocks of the parameters, its
+``global_batch / 32`` rows): the tensor-parallel loss and gradient, the
+gradient's reduction over the batch axes and the parameters' gather
+after the update (AdamW's own arithmetic left out, as the single cells
+leave it out), with every collective a node of the graph.
+:func:`collective_bytes_from_graph` counts them by the reference's
+kinds, the counterpart of ``collective_bytes_from_hlo``; the record's
+``collective_bytes`` and the roofline's collective term (the H100's
+NVLink rate) come from it, and ``per_device_total_bytes`` and ``fits``
+are the rank's. The numbers are not the reference's: its HLO moves
+GSPMD's sequence-parallel all-gathers and reduce-scatters around each
+block (the plan's ``btd`` over ``model``), where the port runs Megatron's
+all-reduces (one forward and one backward a block's attention and MLP,
+and again in a recompute). Multi prefill and decode cells, and the
+cells of configs with MLA, RWKV or Mamba blocks, are ``SKIP``, naming
+the ROADMAP item that brings them (:func:`multi_skip_reason`).
+
 It differs from the reference where the card differs: no ``XLA_FLAGS``
 line and no forced device count; the results go to
 ``results/dryrun_torch`` (the reference writes ``results/dryrun``, with
 the same cell names, and each would read the other's files as
-``[cached]``); ``--mesh multi`` cells are ``SKIP``, since a step over
-that mesh needs tensor parallelism, and on one card ``collective_bytes``
-is 0. The reference's ``collective_bytes_from_hlo`` has no counterpart:
-PyTorch has no HLO; counting the traced graph's collectives waits with
-the multi-card cells (ROADMAP M4.1c).
+``[cached]``); on one card ``collective_bytes`` is 0.
 
 Usage:
   python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
@@ -70,10 +86,46 @@ from ..core.costmodel import (H100_HBM_BW, H100_HBM_BYTES, H100_NVLINK_BW,
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 
-#: why a ``--mesh multi`` cell does not run
-MULTI_SKIP = ("a step over the multi-card mesh needs tensor parallelism "
-              "(layers.shard, activation_sharding) and the traced graph's "
-              "collectives priced (ROADMAP M4.1c)")
+#: why a ``--mesh multi`` prefill or decode cell does not run
+MULTI_SERVE_SKIP = ("serving over the multi-card mesh (tensor-parallel "
+                    "prefill and decode with cache_specs, the "
+                    "context-parallel long_500k) is ROADMAP M4.1d")
+
+_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                "collective-permute")
+
+
+def multi_skip_reason(cfg, shape) -> str | None:
+    """Why the ``--mesh multi`` cell of ``cfg`` at ``shape`` does not run
+    (the single cell's reason first), or None."""
+    from ..models.transformer import check_tensor_parallel
+    skip = shape_skip_reason(cfg, shape)
+    if skip is None and shape.kind != "train":
+        skip = MULTI_SERVE_SKIP
+    if skip is None:
+        try:
+            check_tensor_parallel(cfg)
+        except NotImplementedError as e:
+            skip = str(e)
+    return skip
+
+
+def collective_bytes_from_graph(graph) -> dict:
+    """The collectives of a traced rank's program (the nodes of
+    ``core.tracing.COLLECTIVE_OPS``), by the reference's kinds: each
+    one's operand bytes (what it touches less its result), summed, and
+    counted (``{"bytes", "counts", "total_bytes"}``, the counterpart of
+    the reference's ``collective_bytes_from_hlo``)."""
+    from ..core.tracing import COLLECTIVE_OPS
+    out = {k: 0.0 for k in _COLLECTIVES}
+    counts = {k: 0 for k in _COLLECTIVES}
+    for name, touched, mem in zip(graph.names, graph.op_bytes, graph.mem):
+        kind = COLLECTIVE_OPS.get(name)
+        if kind is not None:
+            out[kind] += float(touched - mem)
+            counts[kind] += 1
+    return {"bytes": out, "counts": counts,
+            "total_bytes": float(sum(out.values()))}
 
 
 def roofline_terms(flops: float, hbm_bytes: float, coll_bytes: float,
@@ -145,6 +197,45 @@ def _trace_cell(cfg, shape, remat: str, dev: torch.device):
                      record=True)
 
 
+def trace_rank_step(cfg, shape, remat: str, mesh, dev: torch.device):
+    """The train step of one rank of ``mesh`` (a
+    :class:`~repro_torch.distributed.TracingMesh`) traced on fake tensors
+    on ``dev`` of that rank's shapes: its blocks of the parameters
+    (``rules.param_specs``) and its ``global_batch / (pod x data)`` rows.
+    The program: the tensor-parallel loss and gradient and the gradient's
+    reduction (``train.step.grad_blocks``), then each block cast to the
+    parameter's dtype and gathered over ``data``, as the update's
+    parameters are (AdamW's arithmetic left out)."""
+    from .. import api
+    from ..models.io_spec import params_spec, train_batch_spec
+    from ..sharding import rules
+    from ..train.step import _placements, grad_blocks, rules_total_dp
+    from ..tree import tree_flatten, tree_map
+    n_dp = rules_total_dp(mesh)
+    if shape.global_batch % n_dp:
+        raise ValueError(f"{shape.name}: a global batch of "
+                         f"{shape.global_batch} does not split over "
+                         f"{n_dp} data-parallel ranks")
+    whole = params_spec(cfg)
+    local = tree_map(lambda p, sh: torch.empty(
+        sh.shard_shape(p.shape), dtype=p.dtype, device=p.device), whole,
+        rules.param_shardings(whole, mesh))
+    params, batch = _fake_on((local, train_batch_spec(
+        cfg, shape.global_batch // n_dp, shape.seq_len)), dev)
+    placement = _placements(cfg, mesh)
+    plan = rules.activation_plan(mesh, cfg, kind="train")
+
+    def step(params, batch):
+        loss, _, blocks, gnorm = grad_blocks(cfg, mesh, plan, placement,
+                                             params, batch, remat)
+        with torch.no_grad():
+            new = [sh.gather(b.to(p.dtype)) for p, b, (_, sh) in zip(
+                tree_flatten(params)[0], blocks, placement)]
+        return loss, gnorm, new
+
+    return api.trace(step, params, batch, autograd=True, record=True)
+
+
 def trace_order_peak(traced) -> float:
     """Bytes live at the peak of the traced step run on one device in
     the order the trace recorded its nodes, the order the eager step
@@ -196,48 +287,72 @@ def one_pe_peak(graph) -> float:
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              remat: str = "dots", tag: str = "", device=None) -> dict:
-    """One dry-run cell on one H100 (``mesh_kind="single"``; ``"multi"``
-    is ``SKIP``), traced on fake tensors on ``device`` (``None``: cuda,
-    which raises where there is none): nothing is allocated. The record
-    keeps the reference's keys where they mean the same (``status``,
-    ``chips``, ``remat``, ``tag``, ``roofline``, ``model_flops``,
-    ``useful_flops_ratio``, ``collective_bytes``);
-    ``per_device_total_bytes`` is the one-card peak in the trace's order
-    (:func:`trace_order_peak`) where the reference reads XLA's buffer
-    assignment, and ``fits`` is judged on it; ``emulated_peak_bytes`` is
-    the emulator's one-PE peak (:func:`one_pe_peak`); ``trace_s`` stands
-    for ``lower_s`` and ``compile_s``, ``graph_flops`` and
-    ``graph_bytes`` for ``hlo_flops`` and ``hlo_bytes``."""
+    """One dry-run cell, traced on fake tensors on ``device`` (``None``:
+    cuda, which raises where there is none): nothing is allocated.
+    ``mesh_kind="single"``: the step on one H100; ``"multi"``: rank 0's
+    program on the 512-chip production mesh (:func:`trace_rank_step`;
+    train cells of the dense and MoE configs, the others ``SKIP``). The
+    record keeps the reference's keys where they mean the same
+    (``status``, ``chips``, ``remat``, ``tag``, ``roofline``,
+    ``model_flops``, ``useful_flops_ratio``, ``collective_bytes``,
+    ``collective_bytes_by_op`` and ``collective_schedule``; on the multi
+    mesh the FLOPs, bytes and collective bytes are the rank's times the
+    chips, as the reference's are per device times chips, and
+    ``rank_collective_bytes`` is the rank's own by kind);
+    ``per_device_total_bytes`` is the one-card (or the rank's) peak in
+    the trace's order (:func:`trace_order_peak`) where the reference
+    reads XLA's buffer assignment, and ``fits`` is judged on it;
+    ``emulated_peak_bytes`` is the emulator's one-PE peak
+    (:func:`one_pe_peak`); ``trace_s`` stands for ``lower_s`` and
+    ``compile_s``, ``graph_flops`` and ``graph_bytes`` for ``hlo_flops``
+    and ``hlo_bytes``."""
+    from ..distributed import TracingMesh
+    from .mesh import make_production_mesh, mesh_num_chips
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
-    skip = shape_skip_reason(cfg, shape)
-    if skip is None and mesh_kind == "multi":
-        skip = MULTI_SKIP
+    multi = mesh_kind == "multi"
+    skip = multi_skip_reason(cfg, shape) if multi else \
+        shape_skip_reason(cfg, shape)
     if skip:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
                 "status": "SKIP", "reason": skip}
     dev = resolve_device(device)
+    chips = 1
     t0 = time.perf_counter()
-    traced = _trace_cell(cfg, shape, remat, dev)
+    if multi:
+        shape_m = make_production_mesh(multi_pod=True)
+        chips = mesh_num_chips(shape_m)
+        traced = trace_rank_step(cfg, shape, remat,
+                                 TracingMesh(shape_m, 0, dev), dev)
+    else:
+        traced = _trace_cell(cfg, shape, remat, dev)
     trace_s = time.perf_counter() - t0
     g = traced.graph
-    flops = float(np.sum(g.op_flops))
-    nbytes = float(np.sum(g.op_bytes))
+    flops = float(np.sum(g.op_flops)) * chips
+    nbytes = float(np.sum(g.op_bytes)) * chips
+    coll = collective_bytes_from_graph(g)
+    coll_bytes = coll["total_bytes"] * chips
     peak = trace_order_peak(traced)
     mf = model_flops(cfg, shape)
-    return {
+    rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
-        "status": "OK", "tag": tag, "remat": remat, "chips": 1,
+        "status": "OK", "tag": tag, "remat": remat, "chips": chips,
         "trace_s": round(trace_s, 2), "nodes": g.n,
         "graph_flops": flops, "graph_bytes": nbytes,
         "per_device_total_bytes": peak,
         "emulated_peak_bytes": one_pe_peak(g),
         "fits": bool(peak <= H100_HBM_BYTES),
-        "collective_bytes": 0.0,
-        "roofline": roofline_terms(flops, nbytes, 0.0, 1),
+        "collective_bytes": coll_bytes,
+        "roofline": roofline_terms(flops, nbytes, coll_bytes, chips),
         "model_flops": mf,
         "useful_flops_ratio": mf / flops if flops else None,
     }
+    if multi:
+        rec.update(collective_schedule=coll["counts"],
+                   collective_bytes_by_op={k: v * chips for k, v in
+                                           coll["bytes"].items()},
+                   rank_collective_bytes=coll["bytes"])
+    return rec
 
 
 def reduced_loss_trace(arch: str, device=None, record: bool = True):
@@ -482,9 +597,9 @@ def _cells_main(args, dev) -> int:
 
     if args.list:
         for a, s, m in cells:
-            skip = shape_skip_reason(get_config(a), SHAPES[s])
-            if skip is None and m == "multi":
-                skip = MULTI_SKIP
+            cfg, shape = get_config(a), SHAPES[s]
+            skip = multi_skip_reason(cfg, shape) if m == "multi" else \
+                shape_skip_reason(cfg, shape)
             print(f"{cell_name(a, s, m):60s} "
                   f"{'SKIP: ' + skip if skip else 'RUN'}")
         return 0

@@ -6,6 +6,9 @@
         --device cpu --steps 3 --ckpt-dir /tmp/ckpt
     python -m repro_torch.distributed --nproc 4 -m repro_torch.launch.train \\
         --arch granite-8b --reduced --pods 2 --device cpu --steps 3
+    python -m repro_torch.distributed --nproc 4 -m repro_torch.launch.train \\
+        --arch mixtral-8x7b --reduced --model-parallel 2 --device cpu \\
+        --steps 3
 
 AdamW with float32 master weights, global-norm clipping and non-finite
 step skipping (``train/optimizer.py``); async atomic checkpoints every
@@ -14,13 +17,16 @@ periodic one holds the final step), ``--resume auto``,
 SIGTERM-safe, a straggler watchdog (``train/loop.py``). The flags are the
 reference's, plus ``--device`` (default ``cuda``). Started as N ranks
 (``python -m repro_torch.distributed --nproc N``, or ``torchrun``), it
-trains data parallel over the mesh (pod, data, model) of the reference's
-``make_host_mesh(model=1, pod=--pods)`` with data = N / pods: each rank
-draws its slice of every batch (``data/pipeline.py``), the step is the
-ZeRO-1 one (``train/step.py``) and rank 0 writes the checkpoints.
-``--model-parallel`` above 1 raises: tensor parallelism is ROADMAP
-M4.1c. Parameters are drawn from ``--seed`` with the port's generator,
-not the reference's ``jax.random`` stream.
+trains over the mesh (pod, data, model) of the reference's
+``make_host_mesh(model=--model-parallel, pod=--pods)`` with data = N /
+(pods x model): each rank holds its blocks of the parameters
+(``train.step.shard_params``), draws its slice of every batch over pod x
+data (the ranks of one model group the same rows; ``data/pipeline.py``),
+the step is the ZeRO-1 one, tensor parallel over ``model``
+(``train/step.py``), and rank 0 writes the checkpoints. A config with
+MLA, RWKV or Mamba blocks refuses ``--model-parallel`` above 1, naming
+the ROADMAP item. Parameters are drawn from ``--seed`` with the port's
+generator, not the reference's ``jax.random`` stream.
 """
 import argparse
 import os
@@ -42,11 +48,11 @@ def train(cfg, *, steps: int = 1000, batch: int = 8, seq: int = 512,
     from repro_torch import resolve_device
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import DataConfig, DataIterator
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, params_spec
     from repro_torch.train import (AdamWConfig, LoopConfig, TrainLoop,
                                    build_train_step, init_state)
     from repro_torch.train.step import (init_zero1_state, rules_total_dp,
-                                        train_state_shardings)
+                                        shard_params, train_state_shardings)
 
     dev = resolve_device(device)
     where = "" if mesh is None else \
@@ -61,11 +67,16 @@ def train(cfg, *, steps: int = 1000, batch: int = 8, seq: int = 512,
                                mesh=mesh)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dev)
-    opt = init_state(ocfg, params) if mesh is None else \
-        init_zero1_state(ocfg, params, mesh)
+    model = 1 if mesh is None else mesh.shape.get("model", 1)
+    if mesh is None:
+        opt = init_state(ocfg, params)
+    else:
+        opt = init_zero1_state(ocfg, params, mesh)
+        params = shard_params(params, mesh)
     dc = DataConfig(batch_size=batch, seq_len=seq,
                     vocab_size=cfg.vocab_size, seed=seed,
-                    embed_dim=cfg.d_model if cfg.frontend else None)
+                    embed_dim=cfg.d_model if cfg.frontend else None,
+                    model_parallel=model)
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     loop = TrainLoop(step_fn=step_fn, params=params, opt_state=opt,
                      data=DataIterator(dc), ckpt=ckpt,
@@ -73,7 +84,8 @@ def train(cfg, *, steps: int = 1000, batch: int = 8, seq: int = 512,
                                     checkpoint_every=ckpt_every,
                                     log_every=log_every, resume=resume),
                      shardings=None if mesh is None else
-                     train_state_shardings(params, opt, mesh))
+                     train_state_shardings(params, opt, mesh,
+                                           params_spec(cfg)))
     resumed = loop.maybe_resume()
     if resumed:
         print(f"[launch] resumed from step {resumed}")
@@ -101,22 +113,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: tensor parallelism "
-            f"(layers.shard and activation_sharding in every model "
-            f"family) is ROADMAP M4.1c; the port trains data parallel "
-            f"(--pods, ZeRO-1 over data)")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world % args.pods:
-        raise ValueError(f"--pods {args.pods} does not divide {world} "
-                         f"ranks: start them with `python -m "
-                         f"repro_torch.distributed --nproc N` or torchrun")
-
     from repro_torch.configs import get_config, reduced
+    from repro_torch.models.transformer import check_tensor_parallel
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.model_parallel > 1:
+        check_tensor_parallel(cfg)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world % (args.pods * args.model_parallel):
+        raise ValueError(f"--pods {args.pods} x --model-parallel "
+                         f"{args.model_parallel} does not divide {world} "
+                         f"ranks: start them with `python -m "
+                         f"repro_torch.distributed --nproc N` or torchrun")
     run = dict(steps=args.steps, batch=args.batch, seq=args.seq,
                lr=args.lr, remat=args.remat, ckpt_dir=args.ckpt_dir,
                ckpt_every=args.ckpt_every, resume=args.resume,
@@ -126,7 +135,8 @@ def main(argv=None):
     from repro_torch.distributed import ProcessMesh, process_group
     from repro_torch.launch.mesh import mesh_over
     with process_group(args.device):
-        mesh = ProcessMesh(mesh_over(world, pod=args.pods), args.device)
+        mesh = ProcessMesh(mesh_over(world, model=args.model_parallel,
+                                     pod=args.pods), args.device)
         return train(cfg, mesh=mesh, **run)
 
 

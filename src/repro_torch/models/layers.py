@@ -6,9 +6,24 @@ Conventions, as in the reference:
     as ``x @ W``;
   * activations: x is (B, S, D); attention heads (B, S, H, hd);
   * norms, RoPE and softmax run in float32 and cast back to x's dtype.
+
+**Tensor parallelism.** The reference marks layout boundaries with
+``shard(x, kind)`` (``with_sharding_constraint`` under the plan that
+:func:`activation_sharding` installs) and lets XLA insert the
+collectives. The port has no compiler to do that: under
+:func:`activation_sharding` with a :class:`~repro_torch.distributed.
+ProcessMesh` whose ``model`` axis is above 1, each rank computes with its
+blocks of the parameters, as ``rules.param_specs`` stores them, and calls
+the collectives itself (Megatron's layout, explicit SPMD): a layer reads
+which tensors are split from their shapes against the config's. Where a
+stored block does not hold whole heads (or the rules' divisibility test
+left a layout that has no split product), the layer gathers it over
+``model`` (:func:`whole`) and computes that part on every rank.
+:func:`shard` itself computes nothing: it records each kind it sees.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -20,6 +35,68 @@ from ..kernels.flash_attention import ops as fops
 # reference, which was never a Pallas kernel; the kernel's plain version
 # is that same function.
 from ..kernels.flash_attention.ref import flash_attention_ref as _plain_gqa
+
+
+# ------------------------------------------------------ the sharding plan
+#: the plan :func:`activation_sharding` installed: ``{"plan", "mesh",
+#: "kinds"}``, or None
+_ACT: dict | None = None
+
+
+@contextlib.contextmanager
+def activation_sharding(plan: dict, mesh):
+    """Install ``plan`` (``rules.activation_plan`` of the mesh) and the
+    :class:`~repro_torch.distributed.ProcessMesh` ``mesh`` for the block;
+    yields the list :func:`shard` appends each kind it sees to. With a
+    ``model`` axis above 1 the layers run tensor parallel over it (the
+    module's docstring)."""
+    global _ACT
+    old = _ACT
+    _ACT = {"plan": plan, "mesh": mesh, "kinds": []}
+    try:
+        yield _ACT["kinds"]
+    finally:
+        _ACT = old
+
+
+def shard(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The reference's layout boundary (``with_sharding_constraint`` by
+    the plan's spec for ``kind``): ``x`` itself. Under a plan the kind is
+    recorded; the collectives are the layers' own."""
+    if _ACT is not None:
+        _ACT["kinds"].append(kind)
+    return x
+
+
+def plan_value(key: str, default=None):
+    """An entry of the installed plan (the reference's non-spec entries)."""
+    return default if _ACT is None else _ACT["plan"].get(key, default)
+
+
+def model_mesh():
+    """The installed mesh when its ``model`` axis is above 1 (the layers
+    then run tensor parallel over it), else None."""
+    mesh = None if _ACT is None else _ACT["mesh"]
+    return mesh if mesh is not None and \
+        mesh.shape.get("model", 1) > 1 else None
+
+
+def whole(t: torch.Tensor, shape, split: bool) -> torch.Tensor:
+    """The whole parameter of ``shape`` from this rank's block ``t``,
+    under :func:`model_mesh`: ``t`` gathered over ``model`` along the
+    dimension its block cuts (or ``t`` itself when whole). ``split``
+    says whether what reads it computes a different part on each rank:
+    then each rank's gradient is partial, and it is summed over
+    ``model`` (reduce-scattered for a block, all-reduced for a whole
+    tensor); otherwise each rank's is the whole gradient already."""
+    mesh = model_mesh()
+    shape = tuple(shape)
+    if mesh is None or (tuple(t.shape) == shape and not split):
+        return t
+    if tuple(t.shape) == shape:
+        return mesh.copy_to(t, "model")
+    dim = next(i for i, (a, b) in enumerate(zip(t.shape, shape)) if a != b)
+    return mesh.gather_from(t, "model", dim, partial=split)
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -135,12 +212,21 @@ def mlp_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The MLP; under :func:`model_mesh` with ``w_up`` split by columns
+    (and so ``w_gate`` too, and ``w_down`` by rows) Megatron's: *f*, the
+    rank's hidden columns, *g*. The rules split all three or none."""
+    mesh = model_mesh()
+    tp = mesh is not None and p["w_up"].shape[1] < cfg.d_ff
+    if tp:
+        x = mesh.copy_to(x, "model")
     up = linear(x, p["w_up"])
     if cfg.gated_mlp:
         up = activation(cfg, linear(x, p["w_gate"])) * up
     else:
         up = activation(cfg, up)
-    return linear(up, p["w_down"])
+    up = shard(up, "btf")
+    y = linear(up, p["w_down"])
+    return mesh.reduce_from(y, "model") if tp else y
 
 
 # ------------------------------------------------------------- attention
@@ -176,15 +262,75 @@ def multi_head_attention(q, k, v, *, causal: bool, window: int | None,
                       q_offset=q_offset, softcap=softcap)
 
 
+def _kv_select(t: torch.Tensor, heads: list, hd: int) -> torch.Tensor:
+    """The columns (the last dim) of KV heads ``heads`` of a whole
+    ``wk``, ``wv``, ``bk`` or ``bv``: a slice where they are consecutive
+    and distinct, else gathered (with repeats)."""
+    if heads == list(range(heads[0], heads[0] + len(heads))):
+        return t.narrow(-1, heads[0] * hd, len(heads) * hd)
+    idx = torch.tensor(heads, device=t.device)
+    cols = (idx[:, None] * hd + torch.arange(hd, device=t.device)).flatten()
+    return t.index_select(-1, cols)
+
+
+def _gqa_tensor_parallel(cfg: ModelConfig, p, mesh):
+    """(p, H_l, KV_l, split) for this rank of :func:`model_mesh`: the
+    weights it computes with, its query and KV head counts, and whether
+    they are its own heads (Megatron: *f* before, *g* after) or every
+    head (``split`` False: the gathered weights, the same compute on
+    every rank). With ``wq`` split by whole heads the rank takes query
+    heads ``[r·H/m, (r+1)·H/m)``; the KV heads they read are its own
+    block of ``wk`` and ``wv`` when ``KV % m == 0``, else gathered over
+    ``model`` and selected (one per query head where the heads they read
+    do not form equal groups)."""
+    H, KV, hd, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.d_model
+    m, r = mesh.axis_size("model"), mesh.axis_index("model")
+    split = p["wq"].shape[1] < cfg.q_dim and H % m == 0
+    shapes = {"wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim),
+              "wv": (D, cfg.kv_dim), "wo": (cfg.q_dim, D),
+              "bq": (cfg.q_dim,), "bk": (cfg.kv_dim,), "bv": (cfg.kv_dim,),
+              "q_norm": (hd,), "k_norm": (hd,)}
+    if not split:
+        return ({k: whole(t, shapes[k], False) for k, t in p.items()}, H,
+                KV, False)
+    Hl, g = H // m, H // KV
+    mine = [h // g for h in range(r * Hl, (r + 1) * Hl)]
+    need = sorted(set(mine))
+    if Hl % len(need) or mine != [need[i // (Hl // len(need))]
+                                  for i in range(Hl)]:
+        need = mine
+    out = dict(p)
+    for k in ("q_norm", "k_norm"):
+        if k in p:
+            out[k] = whole(p[k], shapes[k], True)
+    own = p["wk"].shape[1] < cfg.kv_dim and KV % m == 0
+    for k in ("wk", "wv", "bk", "bv"):
+        if k in p and not own:
+            out[k] = _kv_select(whole(p[k], shapes[k], True), need, hd)
+    return out, Hl, len(need), True
+
+
 def apply_gqa(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
               is_global: bool, kv_cache=None, cache_pos=None):
     """GQA attention layer. Prefill/training: ``kv_cache`` None → full
     sequence. Decode: ``kv_cache = dict(k=(B,Smax,KV,hd), v=...)``,
-    written in place at ``cache_pos``.
+    written in place at ``cache_pos``. Under :func:`model_mesh` (no
+    cache) the rank's heads (:func:`_gqa_tensor_parallel`).
 
     Returns (out, kv_cache)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mesh = model_mesh()
+    split = False
+    if mesh is not None:
+        if kv_cache is not None:
+            raise NotImplementedError(
+                "tensor-parallel attention with a KV cache (serving over "
+                "a mesh) is ROADMAP M4.1d")
+        p, H, KV, split = _gqa_tensor_parallel(cfg, p, mesh)
+        if split:
+            x = mesh.copy_to(x, "model")
     q = linear(x, p["wq"])
     k = linear(x, p["wk"])
     v = linear(x, p["wv"])
@@ -201,6 +347,7 @@ def apply_gqa(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     if not cfg.encoder_only:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
+    q, k, v = shard(q, "bshd"), shard(k, "bskd"), shard(v, "bskd")
     window = None if is_global else cfg.sliding_window
     if kv_cache is None:
         out = multi_head_attention(q, k, v, causal=cfg.causal, window=window,
@@ -210,7 +357,10 @@ def apply_gqa(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
         cv = update_cache(kv_cache["v"], v, cache_pos)
         out = multi_head_attention(q, ck, cv, causal=True, window=window,
                                    q_offset=cache_pos, softcap=cfg.softcap)
+    out = shard(out, "bshd")
     out = linear(out.reshape(B, S, H * hd), p["wo"])
+    if split:
+        out = mesh.reduce_from(out, "model")
     return out, kv_cache
 
 
@@ -312,8 +462,9 @@ def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                   dtype=dtype, device=device)}
 
 
-__all__ = ["activation", "apply_gqa", "apply_mla", "apply_mlp",
-           "apply_norm", "apply_rope", "dense_init", "dtype_of",
+__all__ = ["activation", "activation_sharding", "apply_gqa", "apply_mla",
+           "apply_mlp", "apply_norm", "apply_rope", "dense_init", "dtype_of",
            "gqa_cache_init", "gqa_init", "linear", "mla_cache_init",
-           "mla_init", "mlp_init", "multi_head_attention", "norm_init",
-           "rms_head_norm", "rope_freqs", "update_cache"]
+           "mla_init", "mlp_init", "model_mesh", "multi_head_attention",
+           "norm_init", "plan_value", "rms_head_norm", "rope_freqs", "shard",
+           "update_cache", "whole"]

@@ -22,6 +22,16 @@ semantics are the reference's, rounding points included:
 
 Every shape is static (no ``nonzero``, no boolean indexing), so the
 routing traces with ``make_fx`` and replays inside a CUDA graph.
+
+Under tensor parallelism (:func:`~repro_torch.models.layers.model_mesh`)
+the experts split over ``model`` as the rule ``expert3`` stores them: by
+expert when ``E % m == 0`` (each rank runs its ``E/m`` experts on their
+dispatched slots), else by the hidden dim (every expert on each rank,
+``F/m`` of its hidden columns). Either way the routing runs on every
+rank on the same tokens, the rank's part of the combine is summed with
+the shared experts' (column and row split) and reduced over ``model``
+once (*g*); the tokens stay replicated, so no all-to-all is needed.
+``aux`` is the one-rank value.
 """
 from __future__ import annotations
 
@@ -30,7 +40,8 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import activation, dense_init, dtype_of, linear
+from .layers import (activation, dense_init, dtype_of, linear, model_mesh,
+                     shard, whole)
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -121,32 +132,81 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor,
             f"group of {N} tokens; pad the batch to a multiple of "
             f"{group_size}")
     G = T // N
-    xg = x.reshape(G, N, D)
+    xg = shard(x.reshape(G, N, D), "gnd")
     probs, top_p, _, onehot, poh = route(cfg, p["router"], xg)
     C = poh.shape[-1]
+    mesh = model_mesh()
+    experts, tp = _expert_split(cfg, p, mesh)
+    xs = xg
+    if tp:
+        xs, top_p = mesh.copy_to(xg, "model"), mesh.copy_to(top_p, "model")
+    elif mesh is not None:
+        p = {k: whole(t, _moe_shapes(cfg)[k], False) for k, t in p.items()}
+    El = experts.stop - experts.start
+    if El < E:
+        poh = poh[:, :, :, experts]
     # each (group, expert, slot) holds at most one (token, k): the sums
     # over k are exact, as the reference's einsums over k are
-    dispatch = poh.sum(2).to(x.dtype)                         # (G,N,E,C)
-    combine = (top_p[..., None, None] * poh).sum(2).to(x.dtype)
+    dispatch = shard(poh.sum(2).to(x.dtype), "gnec")          # (G,N,E,C)
+    combine = shard((top_p[..., None, None] * poh).sum(2).to(x.dtype),
+                    "gnec")
     # "gnec,gnd->egcd": (G, E·C, N) @ (G, N, D)
-    xe = torch.bmm(dispatch.reshape(G, N, E * C).transpose(1, 2), xg)
-    xe = xe.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-    ye = _expert_ffn(cfg, p, xe).reshape(E, G, C, D)
+    xe = torch.bmm(dispatch.reshape(G, N, El * C).transpose(1, 2), xs)
+    xe = shard(xe.reshape(G, El, C, D).transpose(0, 1).reshape(
+        El, G * C, D), "egd")
+    ye = shard(_expert_ffn(cfg, p, xe), "egd").reshape(El, G, C, D)
     # "gnec,egcd->gnd": (G, N, E·C) @ (G, E·C, D)
-    out = torch.bmm(combine.reshape(G, N, E * C),
-                    ye.transpose(0, 1).reshape(G, E * C, D))
+    out = torch.bmm(combine.reshape(G, N, El * C),
+                    ye.transpose(0, 1).reshape(G, El * C, D))
     if m.num_shared_experts:
-        up = linear(xg, p["shared_up"])
+        # split by columns and rows with the experts, or whole
+        shared = p["shared_up"].shape[1] < m.d_ff * m.num_shared_experts
+        xsh = xs if shared or not tp else xg
+        up = linear(xsh, p["shared_up"])
         if cfg.gated_mlp:
-            up = activation(cfg, linear(xg, p["shared_gate"])) * up
+            up = activation(cfg, linear(xsh, p["shared_gate"])) * up
         else:
             up = activation(cfg, up)
-        out = out + linear(up, p["shared_down"])
+        y = linear(up, p["shared_down"])
+        if tp and not shared:
+            out = mesh.reduce_from(out, "model") + y
+            tp = False
+        else:
+            out = out + y
+    if tp:
+        out = mesh.reduce_from(out, "model")
     # Switch-style load balancing loss
     frac_tokens = onehot.sum(2).mean(1)                       # (G,E)
     frac_probs = probs.mean(1)                                # (G,E)
     aux = E * (frac_tokens * frac_probs).sum(-1).mean()
     return out.reshape(B, S, D).to(x.dtype), aux.float()
+
+
+def _moe_shapes(cfg: ModelConfig) -> dict:
+    """The whole shape of each MoE parameter."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff, m.num_experts
+    fs = f * m.num_shared_experts
+    return {"router": (d, E), "w_up": (E, d, f), "w_gate": (E, d, f),
+            "w_down": (E, f, d), "shared_up": (d, fs), "shared_gate": (d, fs),
+            "shared_down": (fs, d)}
+
+
+def _expert_split(cfg: ModelConfig, p, mesh) -> tuple[slice, bool]:
+    """(the experts this rank runs, whether its compute is split over
+    ``model``): its ``E/m`` experts when the stacks are split by expert,
+    every expert on ``F/m`` hidden columns when they are split by the
+    hidden dim, or every expert whole (the stacks gathered) for any other
+    layout the rules leave, and without a :func:`model_mesh`."""
+    E = cfg.moe.num_experts
+    if mesh is None:
+        return slice(0, E), False
+    El, F = p["w_up"].shape[0], cfg.moe.d_ff
+    if El < E:
+        r = mesh.axis_index("model")
+        return slice(r * El, (r + 1) * El), True
+    hidden = p["w_up"].shape[2] < F and p["w_down"].shape[1] < F
+    return slice(0, E), hidden
 
 
 def dropped_share(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor,

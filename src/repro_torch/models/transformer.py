@@ -15,6 +15,14 @@ reference's does, and :func:`loss_fn` adds it at the config's
 Caches are written in place (see :func:`layers.update_cache`): the
 functions that take caches return the same tree they were given.
 
+Under tensor parallelism (:func:`layers.activation_sharding` with a
+``model`` axis above 1; :data:`TP_KINDS` only) the embedding table is
+split on D: each rank looks up its columns and they are all-gathered; the
+head is vocab-parallel where ``lm_head``'s V is split (each rank's
+logits, the log-sum-exp from a ``pmax`` and a psum of exponentials, the
+target logit psummed from the rank that holds it) and row-parallel where
+the tied table is the head (the partial logits psummed).
+
 Training (:func:`loss_fn`) differentiates the parameters with the
 periods unbound: :func:`unstack_periods` gives ``params["periods"]`` as
 a list of per-period trees (views of the stacked tensors, made once
@@ -47,10 +55,28 @@ _KINDS = ("attn", "swa", "attn_moe", "swa_moe", "mla", "mla_moe", "rwkv",
           "mamba", "mamba_moe")
 
 
+#: the block kinds that run tensor parallel over ``model``
+TP_KINDS = ("attn", "swa", "attn_moe", "swa_moe")
+#: what waits: the next ROADMAP item
+TP_PENDING = ("tensor parallelism for MLA, RWKV6 and Mamba blocks, and "
+              "serving over a mesh, is ROADMAP M4.1d")
+
+
 def _check_kind(kind: str) -> None:
     if kind not in _KINDS:
         raise NotImplementedError(
             f"block kind '{kind}' is not a block kind (have {_KINDS})")
+
+
+def check_tensor_parallel(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` (naming the ROADMAP item) when
+    ``cfg`` has a block that does not run tensor parallel."""
+    other = sorted((set(cfg.prelude) | set(cfg.block_pattern))
+                   - set(TP_KINDS))
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(other)} blocks over a model axis above "
+            f"1: {TP_PENDING}")
 
 
 # ----------------------------------------------------------------- blocks
@@ -77,6 +103,8 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
     """One layer. Returns (x, cache, aux): ``aux`` is an MoE block's
     float32 load-balancing loss, None for the other kinds."""
     _check_kind(kind)
+    if kind not in TP_KINDS and L.model_mesh() is not None:
+        check_tensor_parallel(cfg)
     h = L.apply_norm(cfg, p["ln1"], x)
     if kind == "rwkv":
         y, _ = apply_rwkv_timemix(cfg, p["tm"], h,
@@ -109,7 +137,7 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
         y2 = L.apply_mlp(cfg, p["ffn"], h2)
     if cfg.post_norm:
         y2 = L.apply_norm(cfg, p["pn2"], y2)
-    x = x + y2
+    x = L.shard(x + y2, "btd")
     return x, (None if cache is None else {"mix": mix_cache}), aux
 
 
@@ -191,14 +219,21 @@ def mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 def embed_inputs(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
+    """The token embeddings (or the given ``embeds``), scaled where the
+    config says. Under tensor parallelism the rank's D-columns of the
+    rows, all-gathered over ``model``."""
     if "embeds" in batch:
         x = batch["embeds"].to(L.dtype_of(cfg))
     else:
-        x = params["embed"][batch["tokens"].long()]
+        table, tokens = params["embed"], batch["tokens"].long()
+        mesh = L.model_mesh()
+        x = table[tokens]
+        if mesh is not None and table.shape[1] < cfg.d_model:
+            x = mesh.gather_from(x, "model", -1)
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
-    return x
+    return L.shard(x, "btd")
 
 
 #: remat policies :func:`forward` takes, the reference's: ``None`` and
@@ -400,18 +435,62 @@ def chunked_cross_entropy(cfg: ModelConfig, hidden: torch.Tensor,
         n -= 1
     # split, not sliced or indexed: the backward of a slice or a select
     # is a zero tensor of the whole input's shape per chunk
+    mode, h = _head_split(cfg, h, head_w)
     chunks = [(h, t)] if n == 1 else list(zip(h.split(T // n),
                                               t.split(T // n)))
     loss_sum = hidden.new_zeros((), dtype=torch.float32)
     count = hidden.new_zeros((), dtype=torch.float32)
     for hx, tx in chunks:
-        logits = mask_pad_logits(cfg, (hx @ head_w).float())     # (c, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, tx.clamp(min=0)[:, None]).squeeze(-1)
+        if mode == "vocab":
+            lse, tgt = _vocab_parallel_ce(cfg, hx, head_w, tx)
+        else:
+            logits = (hx @ head_w).float()                       # (c, V)
+            if mode == "rows":
+                logits = L.model_mesh().reduce_from(logits, "model")
+            logits = mask_pad_logits(cfg, logits)
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, tx.clamp(min=0)[:, None]).squeeze(-1)
         valid = (tx >= 0).float()
         loss_sum = loss_sum + ((lse - tgt) * valid).sum()
         count = count + valid.sum()
     return loss_sum / count.clamp(min=1.0)
+
+
+def _head_split(cfg: ModelConfig, h: torch.Tensor, head_w: torch.Tensor):
+    """(mode, the hidden states the head reads) under
+    :func:`layers.model_mesh`: ``"vocab"`` where ``head_w``'s columns are
+    this rank's block of V, ``"rows"`` where its rows are the rank's
+    block of D (a tied table; the hidden states cut to it), else
+    ``"whole"``. Split, the hidden states enter it through *f*."""
+    mesh = L.model_mesh()
+    if mesh is None or tuple(head_w.shape) == (cfg.d_model,
+                                               cfg.padded_vocab):
+        return "whole", h
+    h = mesh.copy_to(h, "model")
+    if head_w.shape[1] < cfg.padded_vocab:
+        return "vocab", h
+    Dl = head_w.shape[0]
+    return "rows", h.narrow(-1, mesh.axis_index("model") * Dl, Dl)
+
+
+def _vocab_parallel_ce(cfg: ModelConfig, hx, head_w, tx):
+    """(lse, target logit) of the tokens ``hx`` from this rank's columns
+    ``head_w`` of the vocab: pad columns masked by their global index,
+    the log-sum-exp from the ``pmax`` of the rows' maxima and the psum of
+    the exponentials, the target logit from the rank that holds it."""
+    mesh = L.model_mesh()
+    Vl = head_w.shape[1]
+    v0 = mesh.axis_index("model") * Vl
+    logits = (hx @ head_w).float()                               # (c, Vl)
+    if cfg.padded_vocab != cfg.vocab_size:
+        cols = torch.arange(v0, v0 + Vl, device=logits.device)
+        logits = torch.where(cols < cfg.vocab_size, logits, float("-inf"))
+    mx = mesh.pmax(logits.detach().amax(-1), "model")
+    se = mesh.reduce_from(torch.exp(logits - mx[:, None]).sum(-1), "model")
+    own = (tx >= v0) & (tx < v0 + Vl)
+    mine = logits.gather(-1, (tx - v0).clamp(0, Vl - 1)[:, None])
+    tgt = mesh.reduce_from(torch.where(own, mine.squeeze(-1), 0.0), "model")
+    return torch.log(se) + mx, tgt
 
 
 def loss_fn(cfg: ModelConfig, params, batch: dict,
@@ -435,7 +514,16 @@ def loss_fn(cfg: ModelConfig, params, batch: dict,
 
 # ---------------------------------------------------------------- serving
 def _logits(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
-    logits = L.linear(hidden, lm_head_weight(cfg, params)).float()
+    """Float32 logits (..., V), pad columns masked; under tensor
+    parallelism the ranks' vocab blocks all-gathered, or the tied
+    table's partial products psummed."""
+    w = lm_head_weight(cfg, params)
+    mode, hidden = _head_split(cfg, hidden, w)
+    logits = L.linear(hidden, w).float()
+    if mode == "vocab":
+        logits = L.model_mesh().gather_from(logits, "model", -1)
+    elif mode == "rows":
+        logits = L.model_mesh().reduce_from(logits, "model")
     return mask_pad_logits(cfg, logits)
 
 
@@ -500,7 +588,8 @@ def decode_step(cfg: ModelConfig, params, caches, tokens_or_embeds,
     return _logits(cfg, params, hidden), caches
 
 
-__all__ = ["REMAT_POLICIES", "check_remat_policy", "chunked_cross_entropy",
+__all__ = ["REMAT_POLICIES", "TP_KINDS", "TP_PENDING", "check_remat_policy",
+           "check_tensor_parallel", "chunked_cross_entropy",
            "decode_step", "embed_inputs", "encoder_logits", "forward",
            "init_cache", "init_params", "lm_head_weight", "loss_fn",
            "mask_pad_logits", "prefill", "prefill_batched",

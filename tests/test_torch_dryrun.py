@@ -7,6 +7,7 @@ against the reference's, and ``--pardnn --lint`` writing a plan that
 both packages load and the analysis CLI passes."""
 import dataclasses
 import json
+import math
 import os
 
 import numpy as np
@@ -150,11 +151,155 @@ def test_trace_order_peak_by_hand():
 
 
 def test_multi_mesh_and_skips(small):
-    r = dryrun.run_cell("granite-8b", "train_4k", "multi", device="cpu")
-    assert r["status"] == "SKIP" and "M4.1c" in r["reason"]
+    """Multi prefill and decode cells wait for serving over a mesh, and
+    the single cells' own reasons still hold."""
+    r = dryrun.run_cell("granite-8b", "prefill_32k", "multi", device="cpu")
+    assert r["status"] == "SKIP" and "M4.1d" in r["reason"]
+    r = dryrun.run_cell("jamba-v0.1-52b", "decode_32k", "multi",
+                        device="cpu")
+    assert r["status"] == "SKIP" and "M4.1d" in r["reason"]
     r = dryrun.run_cell("hubert-xlarge", "decode_32k", "single",
                         device="cpu")
     assert r["status"] == "SKIP" and "encoder-only" in r["reason"]
+
+
+@pytest.mark.parametrize("arch, kind", [("deepseek-v2-lite-16b", "mla"),
+                                        ("rwkv6-7b", "rwkv"),
+                                        ("jamba-v0.1-52b", "mamba")])
+def test_multi_train_cells_skip_mla_rwkv_mamba(arch, kind):
+    """The multi train cell of a config with MLA, RWKV or Mamba blocks
+    is ``SKIP``, naming the blocks and ROADMAP M4.1d (checked before
+    anything traces)."""
+    r = dryrun.run_cell(arch, "train_4k", "multi", device="cpu")
+    assert r["status"] == "SKIP" and "M4.1d" in r["reason"] and \
+        kind in r["reason"]
+
+
+def _hand_count(cfg, mesh, rows, seq, remat):
+    """All-reduce, all-gather and reduce-scatter operand bytes of one
+    rank's step of reduced granite (float32) over ``mesh`` (pod, data,
+    model), worked out from the shapes: per layer the forward's two *g*
+    (attention and MLP out) and the backward's two *f* (into them), one
+    activation A = rows x seq x D each, and with a recompute the
+    attention's *g* once more (its MLP *g* feeds nothing the backward
+    reads); the head's *f* (A); the vocab-parallel CE's pmax, psum of
+    exponentials and psum of the target logit (seq x rows floats each);
+    the norm's three squares (over data, model, both); and each
+    gradient's block all-reduced over pod. All-gathers: the embedding's
+    D-columns, then each updated block over data. Reduce-scatters: each
+    gradient over data (its operand the model block)."""
+    from repro_torch.train.step import zero1_shardings
+    L, D, f32 = cfg.num_layers, cfg.d_model, 4
+    A = rows * seq * D * f32
+    blocks = [math.prod(sh.shard_shape(p.shape)) * f32 for sh, p in zip(
+        tree_flatten(zero1_shardings(io_spec.params_spec(cfg), mesh))[0],
+        tree_flatten(io_spec.params_spec(cfg))[0])]
+    per_layer = 4 + (remat != "none")
+    m = mesh.shape["model"]
+    return {"all-reduce": per_layer * L * A + A + 3 * rows * seq * f32
+            + 3 * f32 + sum(blocks),
+            "all-gather": A // m + sum(blocks),
+            "reduce-scatter": mesh.shape["data"] * sum(blocks)}, \
+        {"all-reduce": per_layer * L + 1 + 3 + 3 + len(blocks),
+         "all-gather": 1 + len(blocks), "reduce-scatter": len(blocks)}
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_collective_bytes_from_graph_by_hand(remat):
+    """``collective_bytes_from_graph`` on reduced granite's step traced
+    for rank 0 of a (pod 2, data 2, model 2) tracing mesh: every kind's
+    bytes and count as :func:`_hand_count` works them out, and the
+    tracing mesh's own count of what it moved the same."""
+    from repro_torch.distributed import TracingMesh
+    from repro_torch.launch.mesh import MeshShape
+    cfg = tcfg.reduced(tcfg.get_config("granite-8b"), layers=2)
+    mesh = TracingMesh(MeshShape((2, 2, 2), ("pod", "data", "model")), 0,
+                       "cpu")
+    rows, seq = 2, 32
+    traced = dryrun.trace_rank_step(cfg, ShapeConfig("t", seq, 4 * rows,
+                                                     "train"),
+                                    remat, mesh, torch.device("cpu"))
+    got = dryrun.collective_bytes_from_graph(traced.graph)
+    want, counts = _hand_count(cfg, mesh, rows, seq, remat)
+    assert {k: got["bytes"][k] for k in want} == want
+    assert {k: got["counts"][k] for k in counts} == counts
+    assert got["bytes"]["all-to-all"] == got["bytes"][
+        "collective-permute"] == 0
+    assert got["total_bytes"] == sum(want.values())
+    assert mesh.moved["psum"] + mesh.moved["pmax"] == want["all-reduce"]
+
+
+def test_multi_train_cell_is_ok(small, monkeypatch):
+    """A multi train cell (reduced granite, its global batch 64 so that
+    each of the 32 data-parallel ranks takes 2 rows): rank 0 of the
+    512-chip mesh traced, OK, collective bytes counted by kind (the
+    rank's times the chips), the roofline's collective term from them on
+    the H100's NVLink rate. At model 16 the 4 query heads do not split:
+    the attention gathers its weights and runs whole on every rank."""
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k",
+                        ShapeConfig("train_4k", 32, 64, "train"))
+    r = dryrun.run_cell("granite-8b", "train_4k", "multi", device="cpu")
+    assert r["status"] == "OK" and r["chips"] == 512 and r["fits"]
+    assert r["collective_bytes"] > 0
+    by = r["rank_collective_bytes"]
+    assert by["all-reduce"] > 0 and by["all-gather"] > 0 and \
+        by["reduce-scatter"] > 0
+    assert r["collective_bytes"] == pytest.approx(512 * sum(by.values()))
+    assert r["collective_bytes_by_op"]["all-reduce"] == 512 * \
+        by["all-reduce"]
+    assert r["collective_schedule"]["all-reduce"] > 0
+    rf = r["roofline"]
+    assert rf["collective_s"] == pytest.approx(
+        r["collective_bytes"] / (512 * H100_NVLINK_BW))
+    assert r["per_device_total_bytes"] > 0 and r["nodes"] > 0
+
+
+def test_cli_multi_cell_writes_its_record(small, monkeypatch, tmp_path,
+                                          capsys):
+    """``--mesh multi`` through the CLI: the cell's record OK on 512
+    chips with the collectives by kind, and the line printed."""
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k",
+                        ShapeConfig("train_4k", 32, 64, "train"))
+    assert dryrun.main(["--arch", "granite-8b", "--shape", "train_4k",
+                        "--mesh", "multi", "--remat", "dots", "--device",
+                        "cpu", "--out", str(tmp_path)]) == 0
+    assert "[OK] granite-8b__train_4k__multi" in capsys.readouterr().out
+    rec = json.loads((tmp_path / "granite-8b__train_4k__multi.json")
+                     .read_text())
+    assert rec["status"] == "OK" and rec["chips"] == 512
+    assert rec["remat"] == "dots" and rec["wall_s"] > 0
+    assert set(rec["rank_collective_bytes"]) == {
+        "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+        "collective-permute"}
+
+
+def test_abstract_args_match_reference():
+    """``abstract_train_args`` and ``abstract_serve_args``: every leaf's
+    shape and dtype as the reference's ``ShapeDtypeStruct``s, in its
+    leaf order."""
+    from repro.train.step import abstract_serve_args as jserve
+    from repro.train.step import abstract_train_args as jtrain
+    from repro_torch.train.step import (abstract_serve_args,
+                                        abstract_train_args)
+
+    def leaves(tree, jax_tree=False):
+        if jax_tree:
+            return [(tuple(x.shape), str(x.dtype))
+                    for x in jax.tree_util.tree_leaves(tree)]
+        return [(tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                for t in tree_flatten(tree)[0]]
+    for arch in ("granite-8b", "mixtral-8x7b", "hubert-xlarge"):
+        jc = jcfg.reduced(jcfg.get_config(arch), layers=2)
+        tc = tcfg.reduced(tcfg.get_config(arch), layers=2)
+        for got, want in zip(abstract_train_args(tc, None, SMALL["train_4k"]),
+                             jtrain(jc, None, SMALL["train_4k"])):
+            assert leaves(got) == leaves(want, True), arch
+            assert all(t.device.type == "meta" for t in tree_flatten(got)[0])
+    jc = jcfg.reduced(jcfg.get_config("granite-8b"), layers=2)
+    tc = tcfg.reduced(tcfg.get_config("granite-8b"), layers=2)
+    for got, want in zip(abstract_serve_args(tc, SMALL["decode_32k"]),
+                         jserve(jc, SMALL["decode_32k"])):
+        assert leaves(got) == leaves(want, True)
 
 
 def test_cell_asks_for_the_card_by_default(small):
@@ -218,14 +363,28 @@ def test_serve_step_matches_reference():
 
 
 def test_list_prints_every_cell(capsys):
+    """Every cell, single and multi: a multi cell runs where its single
+    cell runs, its shape trains and its config's blocks run tensor
+    parallel; every other multi cell the single one would run names
+    ROADMAP M4.1d."""
+    from repro_torch.models.transformer import TP_KINDS
     assert dryrun.main(["--list", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == len(tcfg.ASSIGNED_ARCHS) * len(dryrun.SHAPES) * 2
-    multi = [ln for ln in lines if "__multi" in ln]
-    assert multi and all("SKIP" in ln for ln in multi)
-    assert sum("M4.1c" in ln for ln in lines) == sum(
-        "RUN" in ln for ln in lines)        # every single cell that runs
-    assert any(ln.rstrip().endswith("RUN") for ln in lines)
+    runs = {ln.split()[0] for ln in lines if ln.rstrip().endswith("RUN")}
+    for a in tcfg.ASSIGNED_ARCHS:
+        cfg = tcfg.get_config(a)
+        dense = set(cfg.prelude + cfg.block_pattern) <= set(TP_KINDS)
+        for s, shape in dryrun.SHAPES.items():
+            single = dryrun.cell_name(a, s, "single") in runs
+            multi = dryrun.cell_name(a, s, "multi")
+            assert (multi in runs) == (single and dense and
+                                       shape.kind == "train"), multi
+            if single and multi not in runs:
+                line = next(ln for ln in lines if ln.split()[0] == multi)
+                assert "M4.1d" in line, line
+    assert any(ln.split()[0].endswith("__multi") for ln in lines
+               if ln.rstrip().endswith("RUN"))
 
 
 def test_cli_cell_writes_its_record(small, tmp_path, capsys):
