@@ -433,6 +433,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -536,8 +537,21 @@ SPLIT_GATE = 1e-4
 
 
 # The kernel wrappers whose launch counts the main paths read, by name
-# (filled in by main()).
+# (filled in by count_kernels()).
 COUNTED: dict = {}
+
+
+def count_kernels() -> None:
+    """Fill :data:`COUNTED` with the six kernel wrappers (in the main
+    process and in each rank of the distributed phase)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rwkv6 import ops as rops
+    from repro_torch.kernels.ssm import ops as sops
+    COUNTED.update(flash_attention=ops.flash_attention,
+                   flash_attention_bwd=ops.flash_attention_bwd,
+                   wkv6=rops.wkv6, wkv6_bwd=rops.wkv6_bwd,
+                   selective_scan=sops.selective_scan,
+                   selective_scan_bwd=sops.selective_scan_bwd)
 
 
 def log(msg: str) -> None:
@@ -6188,31 +6202,97 @@ DIST = dict(ranks=4, micro=4, seq=1024, batch=4, steps=3, pods=2, seed=5,
             lr=3e-4, restore_ranks=2)
 #: (a) and each (c) leaf's bound, relative to the leaf's largest magnitude
 DIST_GATE = 2.0 ** -7
+#: (g)-(i): a quantity over DIST_GATE by its largest element passes only
+#: as bf16 rounding: the same split run in float32 within TP32_GATE of
+#: the whole float32 run by its largest element (the CPU tests' bound on
+#: each gradient against one rank), its L2 error within DIST_GATE, and
+#: its largest element's error within TP_ROUNDING times the whole bf16
+#: run's (a sum of m partials each rounded, then rounded at each hop,
+#: has about twice the one product's rounding)
+TP32_GATE = 1e-4
+TP_ROUNDING = 2.0
+#: (d)-(i): the bytes of a rank's blocks above which its gradients wait
+#: in host memory, and the float32 whole runs' bytes (parameters and
+#: gradients) the card holds at once, in turns of ranks
+TP_STAGE = 2 ** 30
+TP_F32 = 24 * 2 ** 30
 #: (b): the first loss against the one-rank loss (the reference's
 #: tolerance across meshes, tests/test_multidevice.py)
 DIST_LOSS_GATE = 1e-3
 #: (c): the reference's bound on the compressed mean
 COMPRESSION_BOUND = 0.03
 DIST_MARK = "DIST_JSON:"
-#: (d), (e): tensor parallel over (data 1, model 4): granite-8b blocks (as
-#: many as (a) holds) and one mixtral-8x7b layer, tokens (1, seq); (f):
-#: launch.train over (data 2, model 2), steps, no checkpoint
+#: (d), (e), (g)-(i): tensor parallel over (data 1, model 4): granite-8b
+#: blocks (as many as (a) holds), one mixtral-8x7b layer, deepseek's MLA
+#: prelude layer and an mla_moe layer, 2 rwkv6-7b layers, a jamba mamba
+#: and mamba_moe block; tokens (1, seq); (f): launch.train over (data 2,
+#: model 2), steps, no checkpoint
 TP = dict(blocks=4, seq=1024, seed=7, train_model=2, train_steps=2)
+#: the seed of (d)-(i)'s weights and tokens, where ``--tp-seed`` does
+#: not set another (passed to the ranks in the environment)
+TP_SEED_ENV = "CHIP_SMOKE_TP_SEED"
+#: the wrappers whose launches a tensor-parallel case counts
+TP_KERNELS = ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd",
+              "selective_scan", "selective_scan_bwd")
 
 
-def _flash_counts(ops) -> dict:
-    out = {"flash_attention": ops.flash_attention.launches,
-           "flash_attention_bwd": ops.flash_attention_bwd.launches}
-    for name, fn in (("flash_attention", ops.flash_attention),
-                     ("flash_attention_bwd", ops.flash_attention_bwd)):
-        out.update({f"{name}/{v}": n for v, n in fn.variant_launches.items()})
-    return out
+def _tp_cases(get_config) -> dict:
+    """(d), (e), (g)-(i): the full-width config whose blocks each runs,
+    the kernels (wrapper: launches a rank, all of the variant named) its
+    tensor-parallel run launches (the others launch none), and whether
+    its blocks are chained (each block's output the next one's input:
+    (d) and (e)) or side by side (each on the
+    embedded tokens: a chained RWKV or Mamba block at random weights
+    amplifies the rounding of the blocks before it, the model's
+    sensitivity and not the split's, ``PERF.md`` §6)."""
+    import dataclasses as dc
+    layers = TP["blocks"]
+    return {
+        "(d)": (dc.replace(get_config("granite-8b"), num_layers=layers),
+                {"flash_attention": (layers, "sm90"),
+                 "flash_attention_bwd": (layers, "sm90")}, True),
+        "(e)": (dc.replace(get_config("mixtral-8x7b"), num_layers=1),
+                {"flash_attention": (1, "sm90"),
+                 "flash_attention_bwd": (1, "sm90")}, True),
+        "(g)": (dc.replace(get_config("deepseek-v2-lite-16b"), num_layers=2),
+                {"flash_attention": (2, "sm90"),
+                 "flash_attention_bwd": (2, "sm90")}, False),
+        "(h)": (dc.replace(get_config("rwkv6-7b"), num_layers=2),
+                {"wkv6": (2, "mma"), "wkv6_bwd": (2, "mma")}, False),
+        "(i)": (dc.replace(get_config("jamba-v0.1-52b"), num_layers=2,
+                           block_pattern=("mamba", "mamba_moe")),
+                {"selective_scan": (2, "reg"),
+                 "selective_scan_bwd": (2, "reg")}, False),
+    }
 
 
-def _reset_flash(ops) -> None:
-    for fn in (ops.flash_attention, ops.flash_attention_bwd):
-        fn.launches = 0
-        fn.variant_launches.update(dict.fromkeys(fn.variant_launches, 0))
+def _tp_psum_bytes(cfg, seq: int) -> int:
+    """The bytes a rank all-reduces in one forward and backward of
+    ``cfg``'s blocks over model 4 at (1, seq) in bf16, every block split,
+    each sum in its operands' dtype: per block each mixer's *g* forward
+    and *f* backward (A, one (1, seq, D) bf16 activation, each), and
+    MLA's backward sums of ``w_dkv``, ``w_kr`` (bf16) and ``kv_norm``
+    (float32); the RWKV time mix's of its five token-shift coefficients
+    and ``w_lora_a`` (bf16), its channel mix's *g* and *f* (2A); Mamba's
+    ``w_x`` product summed forward and its gradient backward (seq x (R +
+    2N) bf16 each); an MLP's 2A, an MoE's *f* into the experts (A), into
+    the float32 top-p weights (seq x K) and its *g* (A)."""
+    D, bf16, f32 = cfg.d_model, 2, 4
+    A = seq * D
+    total = 0
+    for kind in cfg.prelude + cfg.block_pattern * cfg.num_periods:
+        total += 4 * A * bf16
+        if kind == "rwkv":
+            total += (5 * D + D * cfg.rwkv.lora_w) * bf16
+        elif kind.startswith("mla"):
+            total += (D * cfg.kv_lora_rank + D * cfg.qk_rope_dim) * bf16 + \
+                cfg.kv_lora_rank * f32
+        elif kind.startswith("mamba"):
+            total += 2 * seq * (max(D // 16, 1) + 2 * cfg.mamba.d_state) * \
+                bf16
+        if kind.endswith("moe"):
+            total += seq * cfg.moe.experts_per_token * f32
+    return total
 
 
 def _rel(got, want) -> float:
@@ -6220,7 +6300,13 @@ def _rel(got, want) -> float:
         float(want.float().abs().max()), 1e-30)
 
 
-def _rank_pipeline(torch, ops, mesh) -> dict:
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, over every element."""
+    return float((got.float() - want.float()).norm()) / max(
+        float(want.float().norm()), 1e-30)
+
+
+def _rank_pipeline(torch, mesh) -> dict:
     """(a) ``pipeline_apply`` over the 4 ranks' ``stage`` axis, one
     granite-8b block a stage, M microbatches of (1, S) forward and
     backward, against the same 4 blocks run on this rank microbatch by
@@ -6260,7 +6346,7 @@ def _rank_pipeline(torch, ops, mesh) -> dict:
     cold_ms = (time.perf_counter() - t0) * 1e3
     for t in tree_flatten(mine)[0]:
         t.grad = None
-    _reset_flash(ops)
+    reset_counts()
     stages.reset_moved()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6272,7 +6358,7 @@ def _rank_pipeline(torch, ops, mesh) -> dict:
     torch.cuda.synchronize()
     ms = {"cold": cold_ms, "forward": (t1 - t0) * 1e3,
           "backward": (time.perf_counter() - t1) * 1e3}
-    counts = _flash_counts(ops)
+    counts = read_counts()
     moved = {"bytes": dict(stages.moved), "seconds": dict(stages.seconds)}
     # the same 4 blocks on this rank, microbatch by microbatch
     ref = [tree_map(lambda a, i=i: a[i].detach().requires_grad_(), blocks)
@@ -6368,25 +6454,46 @@ def _rank_compression(torch, mesh, cfg, local: dict) -> dict:
     return {"worst": worst, "moved": moved, "elements": n}
 
 
-def _rank_tensor_parallel(torch, ops, cfg, kind: str) -> dict:
-    """(d), (e): ``cfg``'s periods of one ``kind`` block at full width
-    (bf16) over the (data 1, model 4) mesh: each rank its blocks
+def _tp_blocks(cfg, tree):
+    """(parameters, kind) of each block of ``tree`` (prelude and stacked
+    periods) in layer order."""
+    from repro_torch.tree import tree_map
+    for i, kind in enumerate(cfg.prelude):
+        yield tree[f"prelude{i}"], kind
+    for n in range(cfg.num_periods):
+        for j, kind in enumerate(cfg.block_pattern):
+            yield tree_map(lambda t: t[n], tree["periods"][f"b{j}"]), kind
+
+
+def _rank_tensor_parallel(torch, cfg, chained: bool) -> dict:
+    """(d), (e), (g)-(i): ``cfg``'s blocks at full width (bf16) over the
+    (data 1, model 4) mesh: each rank its blocks
     (``train.step.shard_params``) under ``activation_sharding``, forward
-    and backward of (out^2).mean() plus the MoE aux; then the same blocks
-    run whole on this rank in bf16, and in float32 (the ranks in turn,
-    so that one float32 copy is on the card at a time; the seeded
-    weights are the same on every rank). Per quantity (the output, the
-    loss, every gradient: this rank's block of the whole runs', the
-    ranks' blocks together being the whole gradient) the largest error
-    over the largest magnitude of the tensor-parallel run and of the
-    whole bf16 run against the float32 run, and of the one against the
-    other. For MoE the whole runs take the tensor-parallel run's expert
-    choices and slots (each run's own probabilities): a token that
-    inputs differing by rounding send to another expert would differ by
-    a whole expert's output; the whole bf16 layer is also run with its
-    own routing, whose aux, dropped share (assignments kept of those
-    made) and changed assignments are reported. Also the flash launches
-    and bytes of the tensor-parallel run."""
+    and backward of (out^2).mean() plus the MoE aux, the blocks
+    ``chained`` (out the last block's) or side by side on the embedded
+    tokens (the sum of each block's loss; :func:`_tp_cases`). Then the
+    same blocks run whole on this rank in bf16 and in float32 (the ranks
+    in turns of as many as :data:`TP_F32` holds; the seeded weights are
+    the same on every rank). Per quantity (the
+    output, the loss, every gradient: this rank's block of the whole
+    runs', the ranks' blocks together being the whole gradient) the
+    largest error over the largest magnitude, and the relative L2
+    error, of the bf16 tensor-parallel run and of the whole bf16 run
+    against the float32 run, and of the one against the other. Side by
+    side, where a quantity of the tensor-parallel run is further from
+    float32 than the whole run's by more than DIST_GATE by its largest
+    element on some rank, the same split runs in float32 and each such
+    quantity's largest error against the whole float32 run over its
+    largest magnitude is reported. For MoE every run after the first
+    takes the bf16 tensor-parallel run's expert choices and slots (each
+    run's own probabilities): a token that inputs differing by rounding
+    send to
+    another expert would differ by a whole expert's output; the whole
+    bf16 layer is also run with its own routing, whose aux, dropped
+    share (assignments kept of those made) and changed assignments are
+    reported, and each of this rank's experts its tokens kept and its
+    errors. Also the launches of :data:`TP_KERNELS` and the bytes of the
+    bf16 tensor-parallel run."""
     from repro_torch.distributed import ProcessMesh
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import init_params
@@ -6394,25 +6501,31 @@ def _rank_tensor_parallel(torch, ops, cfg, kind: str) -> dict:
     from repro_torch.models.layers import activation_sharding
     from repro_torch.models.transformer import _block_apply
     from repro_torch.sharding import rules
+    from repro_torch.sharding.rules import _paths
     from repro_torch.train.step import shard_params
     from repro_torch.tree import tree_flatten, tree_map
     mesh = ProcessMesh(MeshShape((1, DIST["ranks"]), ("data", "model")),
                        "cuda")
     S = TP["seq"]
-    gen = torch.Generator(device="cuda").manual_seed(TP["seed"])
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(os.environ.get(TP_SEED_ENV, TP["seed"])))
     params = init_params(cfg, gen, "cuda")
     toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                          device="cuda")
     x = params["embed"][toks].detach()
-    whole = {"periods": params["periods"]}            # stacked (L, ...)
+    # the blocks: the prelude's and the stacked periods' (L, ...)
+    whole = {k: v for k, v in params.items()
+             if k == "periods" or k.startswith("prelude")}
+    names = ["/".join(map(str, q)) for q in _paths(whole)]
     del params
     pos = torch.arange(S, dtype=torch.int32, device="cuda")
     places = tree_flatten(rules.param_shardings(whole, mesh))[0]
     mine = tree_map(lambda t: t.detach().clone().requires_grad_(),
                     shard_params(whole, mesh))
     plan = rules.activation_plan(mesh, cfg, kind="train")
+    c32 = dataclasses.replace(cfg, dtype="float32")
     seen: list = []          # each route's (top_e, onehot, slots)
-    pinned: list = []        # the routing the whole runs take, in order
+    pinned: list = []        # the routing the later runs take, in order
     real = M.route
 
     def spy(c, router, xg):
@@ -6431,28 +6544,65 @@ def _rank_tensor_parallel(torch, ops, cfg, kind: str) -> dict:
 
     def run(c, tree, h):
         seen.clear()
-        aux = None
-        for i in range(c.num_periods):
-            p = tree_map(lambda t: t[i], tree["periods"]["b0"])
-            h, _, a = _block_apply(c, kind, p, h, positions=pos)
+        aux, outs, loss = None, [], 0.0
+        for p, kind in _tp_blocks(c, tree):
+            y, _, a = _block_apply(c, kind, p, h, positions=pos)
             aux = a if aux is None else (aux + a if a is not None else aux)
-        loss = (h.float() ** 2).mean()
-        return h.detach(), loss if aux is None else loss + aux, aux
+            if chained:
+                h = y
+            else:
+                loss = loss + (y.float() ** 2).mean()
+                outs.append(y.detach())
+        if chained:
+            loss, outs = (h.float() ** 2).mean(), [h.detach()]
+        return torch.stack(outs), loss if aux is None else loss + aux, aux
 
-    def finish(c, tree, h):
-        """The whole run's output, loss, aux, dropped share and this
-        rank's block of each gradient (float32)."""
+    def finish(c, tree, h, where: str):
+        """The whole run's output, loss, aux, dropped share and a copy of
+        this rank's block of each gradient on ``where``."""
         out, loss, aux = run(c, tree, h)
         loss.backward()
-        blocks = [sh.shard(t.grad).float() for t, sh in zip(
-            tree_flatten(tree)[0], places)]
+        blocks = [sh.shard(t.grad).to(where, copy=True)
+                  for t, sh in zip(tree_flatten(tree)[0], places)]
         return {"out": out.float(), "loss": float(loss), "blocks": blocks,
                 "aux": None if aux is None else float(aux),
                 "dropped": dropped()}
 
+    def errs(a, b):
+        """Per quantity the largest error over the largest magnitude and
+        the relative L2 error (``_l2``)."""
+        pairs = [(g.to("cuda"), w.to("cuda")) for g, w in zip(
+            a["blocks"], b["blocks"])]
+        return {"out": _rel(a["out"], b["out"]),
+                "out_l2": _rel_l2(a["out"], b["out"]),
+                "loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "grad": [_rel(g, w) for g, w in pairs],
+                "grad_l2": [_rel_l2(g, w) for g, w in pairs]}
+
+    def per_expert(f32):
+        """Each expert stack of an MoE layer (this rank's experts on
+        axis 1): per expert its tokens kept and the bf16 runs' largest
+        errors over the stack's largest magnitude."""
+        if len(routing) != 1:
+            return None
+        E = cfg.moe.num_experts
+        out = {}
+        for i, (name, w) in enumerate(zip(names, f32["blocks"])):
+            El = w.shape[1] if w.dim() == 4 else E
+            if "/ffn/w_" not in name or El == E:
+                continue
+            first = mesh.axis_index("model") * El
+            kept = routing[0][2][..., first:first + El, :].sum((0, 1, 2, 4))
+            scale = float(w.abs().max())
+            out[name] = {"tokens": [int(n) for n in kept.tolist()]}
+            for k, run_ in (("tp", tp), ("bf16", bf16)):
+                d = (run_["blocks"][i].to("cuda").float() - w).abs()
+                out[name][k] = (d.amax((0, 2, 3)) / scale).tolist()
+        return out
+
     M.route = spy
     try:
-        _reset_flash(ops)
+        reset_counts()
         mesh.reset_moved()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6461,14 +6611,23 @@ def _rank_tensor_parallel(torch, ops, cfg, kind: str) -> dict:
         loss.backward()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        counts = _flash_counts(ops)
+        counts = {k: n for k, n in read_counts().items()
+                  if k.split("/")[0] in TP_KERNELS}
         moved = dict(mesh.moved)
+        # the gradients wait for the float32 run on the card, or in host
+        # memory where a rank's blocks pass TP_STAGE bytes: the card
+        # holds the float32 runs and six processes' blocks at a time
+        leaves = tree_flatten(mine)[0]
+        stage = "cpu" if sum(t.numel() * t.element_size()
+                             for t in leaves) > TP_STAGE else "cuda"
         tp = {"out": out.float(), "loss": float(loss),
-              "blocks": [t.grad.float() for t in tree_flatten(mine)[0]],
+              "blocks": [t.grad.to(stage, copy=True) for t in leaves],
               "aux": None if aux is None else float(aux),
               "dropped": dropped()}
         routing = list(seen)
-        del mine, out, loss, aux
+        for t in tree_flatten(mine)[0]:
+            t.grad = None
+        del out, loss, aux
         own = None
         if routing:
             # the whole bf16 layer with its own routing: aux, dropped
@@ -6480,42 +6639,68 @@ def _rank_tensor_parallel(torch, ops, cfg, kind: str) -> dict:
                        t, _, _) in zip(seen, routing))}
             pinned[:] = routing
         bf16 = finish(cfg, tree_map(lambda t: t.detach().requires_grad_(),
-                                    whole), x)
-        f32 = None
+                                    whole), x, stage)
+        f32 = res = None
+        kept: dict = {}      # leaf index (-1 the output): float32 whole
         # every rank gives its cached blocks back to the card first: 6
-        # processes share it
+        # processes share it; the float32 runs in turns of as many ranks
+        # as TP_F32 holds (parameters and gradients)
         _release(torch)
-        for turn in range(DIST["ranks"]):
+        group = max(1, int(TP_F32 // (8 * sum(
+            t.numel() for t in tree_flatten(whole)[0]))))
+        for turn in range(-(-DIST["ranks"] // group)):
             mesh.all_reduce(torch.zeros(1, device="cuda"), "model")
-            if mesh.rank == turn:
+            if mesh.rank // group == turn:
                 f32_tree = tree_map(lambda t: t.detach().float()
                                     .requires_grad_(), whole)
                 whole = None
-                f32 = finish(dataclasses.replace(cfg, dtype="float32"),
-                             f32_tree, x.float())
+                f32 = finish(c32, f32_tree, x.float(), "cuda")
                 del f32_tree
+                res = {"tp_f32": errs(tp, f32), "bf16_f32": errs(bf16, f32),
+                       "tp_bf16": errs(tp, bf16),
+                       "experts": per_expert(f32)}
+                if not chained:
+                    # what is over the gate by its largest element keeps
+                    # its float32 whole value for the witness below
+                    a, b = res["tp_f32"], res["bf16_f32"]
+                    kept = {i: w.to("cpu") for i, (w, e, e_) in enumerate(
+                        zip(f32["blocks"], a["grad"], b["grad"]))
+                        if e > e_ + DIST_GATE}
+                    if a["out"] > b["out"] + DIST_GATE:
+                        kept[-1] = f32["out"].to("cpu")
+                f32["blocks"] = None
                 _release(torch)
+        # the witness that such a gap is bf16 rounding: the same split in
+        # float32, whose distance from the whole float32 run is the
+        # split's own (run where any rank of the case needs it)
+        res["split32"] = {}
+        need = mesh.all_reduce(torch.tensor([float(len(kept))],
+                                            device="cuda"), "model")
+        if float(need[0]):
+            tree32 = tree_map(lambda t: t.detach().float().requires_grad_(),
+                              mine)
+            with activation_sharding(plan, mesh):
+                out32, loss32, _ = run(c32, tree32, x.float())
+            loss32.backward()
+            got = [out32] + [t.grad for t in tree_flatten(tree32)[0]]
+            res["split32"] = {"out" if i < 0 else names[i]: _rel(
+                got[i + 1], w.to("cuda")) for i, w in kept.items()}
+            del tree32, out32, loss32, got
         mesh.all_reduce(torch.zeros(1, device="cuda"), "model")
     finally:
         M.route = real
 
-    def errs(a, b):
-        return {"out": _rel(a["out"], b["out"]),
-                "loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
-                "grad": [_rel(g, w) for g, w in zip(a["blocks"],
-                                                    b["blocks"])]}
-    res = {"tp_f32": errs(tp, f32), "bf16_f32": errs(bf16, f32),
-           "tp_bf16": errs(tp, bf16), "counts": counts, "moved": moved,
-           "ms": ms, "kinds": sorted(set(kinds)), "loss": tp["loss"],
-           "blocks": cfg.num_periods, "own": own}
+    res.update(counts=counts, moved=moved, ms=ms, kinds=sorted(set(kinds)),
+               loss=tp["loss"], blocks=cfg.num_layers, own=own,
+               leaves=names, chained=chained)
     for k in ("aux", "dropped"):
         if tp[k] is not None:
             res[k] = {"tp": tp[k], "bf16": bf16[k], "f32": f32[k]}
-    del x, tp, bf16, f32, routing, seen[:], pinned[:]
+    del x, mine, kept, tp, bf16, f32, routing, seen[:], pinned[:]
     return res
 
 
-def _rank_model_parallel_train(torch, ops, layers: int) -> dict:
+def _rank_model_parallel_train(torch, layers: int) -> dict:
     """(f) ``launch.train``'s body for granite-8b at ``layers`` layers
     over (data 2, model 2): the ZeRO-1 step tensor parallel over
     ``model``, TP["train_steps"] steps, no checkpoint; and on rank 0 the
@@ -6543,14 +6728,14 @@ def _rank_model_parallel_train(torch, ops, layers: int) -> dict:
             del p
     del whole
     _release(torch)
-    _reset_flash(ops)
+    reset_counts()
     mesh.reset_moved()
     torch.cuda.reset_peak_memory_stats()
     loop = train(cfg, steps=TP["train_steps"], batch=DIST["batch"],
                  seq=DIST["seq"], lr=DIST["lr"], remat="full",
                  seed=DIST["seed"], device="cuda", log_every=1, mesh=mesh)
     torch.cuda.synchronize()
-    res.update(counts=_flash_counts(ops), moved=dict(mesh.moved),
+    res.update(counts=read_counts(), moved=dict(mesh.moved),
                collective_s=dict(mesh.seconds),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                losses=[h["loss"] for h in loop.state.history],
@@ -6579,6 +6764,7 @@ def rank_distributed(torch, work: Path, layers: int) -> None:
     from repro_torch.launch.mesh import mesh_over
     from repro_torch.launch.train import train
     from repro_torch.models import loss_fn
+    count_kernels()
     res: dict = {}
     # the flash library's first call in a process (seconds) while the
     # process group starts: a tiny forward, its launch not counted
@@ -6592,7 +6778,7 @@ def rank_distributed(torch, work: Path, layers: int) -> None:
         mesh = ProcessMesh(mesh_over(DIST["ranks"], pod=DIST["pods"]), "cuda")
         res["rank"], res["coords"] = mesh.rank, mesh.coords
         t0 = time.perf_counter()
-        res["pipeline"] = _rank_pipeline(torch, ops, mesh)
+        res["pipeline"] = _rank_pipeline(torch, mesh)
         _release(torch)
         t1 = time.perf_counter()
         cfg = dataclasses.replace(get_config("granite-8b"), num_layers=layers)
@@ -6619,7 +6805,7 @@ def rank_distributed(torch, work: Path, layers: int) -> None:
         if mesh.rank == 0:      # the restore ranks may start their contexts
             (work / "train_started").touch()
         t2 = time.perf_counter()
-        _reset_flash(ops)
+        reset_counts()
         mesh.reset_moved()
         torch.cuda.reset_peak_memory_stats()
         loop = train(cfg, steps=DIST["steps"], batch=DIST["batch"],
@@ -6628,7 +6814,7 @@ def rank_distributed(torch, work: Path, layers: int) -> None:
                      mesh=mesh)
         torch.cuda.synchronize()
         res["train"] = {
-            "counts": _flash_counts(ops), "moved": dict(mesh.moved),
+            "counts": read_counts(), "moved": dict(mesh.moved),
             "collective_s": dict(mesh.seconds),
             "staged": mesh.staged_bytes,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -6644,22 +6830,17 @@ def rank_distributed(torch, work: Path, layers: int) -> None:
                                           "opt": loop.opt_state})
         del loop
         _release(torch)
-        t4 = time.perf_counter()
-        res["tp_dense"] = _rank_tensor_parallel(
-            torch, ops, dataclasses.replace(get_config("granite-8b"),
-                                            num_layers=TP["blocks"]), "attn")
-        _release(torch)
-        t5 = time.perf_counter()
-        res["tp_moe"] = _rank_tensor_parallel(
-            torch, ops, dataclasses.replace(get_config("mixtral-8x7b"),
-                                            num_layers=1), "swa_moe")
-        _release(torch)
+        seconds = {"pipeline": t1 - t0, "compression": t2 - t1,
+                   "train": t3 - t2, "checkpoint": time.perf_counter() - t3}
+        res["tp"] = {}
+        for label, (c, _, chained) in _tp_cases(get_config).items():
+            t4 = time.perf_counter()
+            res["tp"][label] = _rank_tensor_parallel(torch, c, chained)
+            _release(torch)
+            seconds[label] = time.perf_counter() - t4
         t6 = time.perf_counter()
-        res["tp_train"] = _rank_model_parallel_train(torch, ops, layers)
-        res["seconds"] = {"pipeline": t1 - t0, "compression": t2 - t1,
-                          "train": t3 - t2, "checkpoint": t4 - t3,
-                          "tp_dense": t5 - t4, "tp_moe": t6 - t5,
-                          "tp_train": time.perf_counter() - t6}
+        res["tp_train"] = _rank_model_parallel_train(torch, layers)
+        res["seconds"] = dict(seconds, **{"(f)": time.perf_counter() - t6})
     print(DIST_MARK + json.dumps(res), flush=True)
 
 
@@ -6728,8 +6909,9 @@ def _distributed_start(work: Path, layers: int):
 
 def _distributed_check(torch, started, card: str) -> dict:
     """Wait for the 4 ranks, hold their results to the gates, restore
-    their checkpoint onto 2 ranks, and log the figures. Returns the flash
-    launches a rank: (a)'s forward and backward, (b)'s."""
+    their checkpoint onto 2 ranks, and log the figures. Returns the
+    launches a rank by wrapper and case ((a), (b), (d)-(f), (h), (i);
+    :func:`_tensor_parallel_check`), (g)'s under ``"mla"``."""
     from repro_torch.conformance.subproc import stop_ranks, wait_ranks
     launch, restore, work, layers, t0 = started
     try:
@@ -6839,93 +7021,165 @@ def _distributed_check(torch, started, card: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s after the start: every rank's "
         f"{len(back[0]['sums'])} leaves equal to the saving rank's blocks; "
         f"{card}")
-    return {"flash_attention": {"pipeline": T, "train": 2 * layers * steps,
-                                **tp_launches["flash_attention"]},
-            "flash_attention_bwd": {"pipeline": T, "train": layers * steps,
-                                    **tp_launches["flash_attention_bwd"]}}
+    tp_launches["flash_attention"].update(pipeline=T,
+                                          train=2 * layers * steps)
+    tp_launches["flash_attention_bwd"].update(pipeline=T,
+                                              train=layers * steps)
+    return tp_launches
 
 
 def _tensor_parallel_check(res: list, layers: int, card: str) -> dict:
-    """Hold the ranks' (d), (e) and (f) to their gates and log them;
-    returns their flash launches a rank."""
+    """Hold the ranks' (d)-(i) to their gates and log them; returns their
+    launches a rank: by wrapper and case, and under ``"mla"`` by wrapper
+    (g)'s, whose attention runs at (192, 128)."""
     from repro_torch.configs import get_config
-    D = get_config("granite-8b").d_model
-    act = TP["seq"] * D * 2               # one (1, S, D) bf16 activation
     steps, tm_ = TP["train_steps"], TP["train_model"]
+    cases = _tp_cases(get_config)
+    f_want = {"flash_attention": 2 * layers * steps,
+              "flash_attention/sm90": 2 * layers * steps,
+              "flash_attention/fma": 0,
+              "flash_attention_bwd": layers * steps,
+              "flash_attention_bwd/sm90": layers * steps}
 
-    def want(fwd: int, bwd: int) -> dict:
-        return {"flash_attention": fwd, "flash_attention/sm90": fwd,
-                "flash_attention/fma": 0, "flash_attention_bwd": bwd,
-                "flash_attention_bwd/sm90": bwd}
+    def want(kernels: dict) -> dict:
+        out = dict.fromkeys(TP_KERNELS, 0)
+        out.update({"flash_attention/fma": 0, "flash_attention_bwd/fma": 0})
+        for name, (n, variant) in kernels.items():
+            out[name] = out[f"{name}/{variant}"] = n
+        return out
+
+    def errs_text(case):
+        return "; ".join(
+            f"{name}: out {case[k]['out']:.4g} (L2 {case[k]['out_l2']:.4g}), "
+            f"loss {case[k]['loss']:.3g}, grad max {max(case[k]['grad']):.4g}"
+            f" (L2 {max(case[k]['grad_l2']):.4g})"
+            for k, name in (("tp_f32", "tensor parallel against float32"),
+                            ("bf16_f32", "whole bf16 against float32"),
+                            ("tp_bf16", "tensor parallel against whole "
+                                        "bf16")))
+    what = {"(d)": "full-width granite-8b blocks, 8 query and 2 KV heads of "
+                   "128 a rank",
+            "(e)": "full-width mixtral-8x7b layer, 2 experts a rank",
+            "(g)": "full-width deepseek-v2-lite-16b layers (its mla prelude "
+                   "layer and an mla_moe layer), 4 heads at (192, 128) and "
+                   "16 of 64 experts a rank",
+            "(h)": "full-width rwkv6-7b layers, 16 of 64 heads a rank",
+            "(i)": "full-width jamba-v0.1-52b blocks (mamba, mamba_moe), "
+                   "2048 of 8192 channels and 4 of 16 experts a rank"}
+    failed: list = []        # every case is logged before any gate fails
     for r in res:
-        d, e, f = r["tp_dense"], r["tp_moe"], r["tp_train"]
-        L_ = d["blocks"]
-        for label, case, w in (("(d)", d, want(L_, L_)), ("(e)", e, want(1, 1)),
-                               ("(f)", f, want(2 * layers * steps,
-                                               layers * steps))):
-            got = {k: case["counts"][k] for k in w}
-            assert got == w, f"distributed {label} rank {r['rank']}: " \
-                f"launches {got}, want {w}"
-        for label, case in (("(d)", d), ("(e)", e)):
+        f = r["tp_train"]
+        got = {k: f["counts"][k] for k in f_want}
+        assert got == f_want, f"distributed (f) rank {r['rank']}: " \
+            f"launches {got}, want {f_want}"
+        for label, (c, kernels, _) in cases.items():
+            case = r["tp"][label]
+            w = want(kernels)
+            got = {k: case["counts"].get(k, 0) for k in w}
+            if got != w:
+                failed.append(f"distributed {label} rank {r['rank']}: "
+                              f"launches {got}, want {w}")
             # each quantity of the tensor-parallel run as close to the
             # float32 run as the whole bf16 run is, within DIST_GATE: two
             # bf16 runs that round differently sit a bf16 rounding
-            # distance apart, the whole run's own distance from float32
-            tp_, bf = case["tp_f32"], case["bf16_f32"]
-            pairs = [("out", tp_["out"], bf["out"]),
-                     ("loss", tp_["loss"], bf["loss"])] + [
-                (f"grad {i}", a, b) for i, (a, b) in enumerate(
-                    zip(tp_["grad"], bf["grad"]))]
-            worse = [(k, a, b) for k, a, b in pairs if a > b + DIST_GATE]
-            assert not worse, f"distributed {label} rank {r['rank']}: " \
-                f"further from float32 than the whole bf16 run by more " \
-                f"than {DIST_GATE}: {worse}"
-        # (d): each block's forward g twice (attention, MLP) and its
-        # backward f twice, one activation each
-        assert d["moved"] == {"psum": 4 * L_ * act}, \
-            f"distributed (d) rank {r['rank']}: moved {d['moved']}"
-        # (e): on the same routing the dropped share is the same and aux
-        # within the gate; the whole layer's own routing, by the same gate
-        aux, drop, own = e["aux"], e["dropped"], e["own"]
-        aux_err = abs(aux["tp"] - aux["bf16"]) / abs(aux["bf16"])
-        own_err = abs(aux["tp"] - own["aux"]) / abs(own["aux"])
-        assert aux_err <= DIST_GATE and drop["tp"] == drop["bf16"] and \
-            own_err <= DIST_GATE and \
-            abs(drop["tp"] - own["dropped"]) <= DIST_GATE, \
-            f"distributed (e) rank {r['rank']}: aux {aux}, dropped " \
-            f"{drop}, the whole layer's own routing {own}"
+            # distance apart, the whole run's own distance from float32;
+            # by the largest element's error and by the relative L2 one
+            tp_, bf, s32 = case["tp_f32"], case["bf16_f32"], case["split32"]
+            names = ["out"] + case["leaves"]
+            big = list(zip(names, [tp_["out"]] + tp_["grad"],
+                           [bf["out"]] + bf["grad"]))
+            l2 = list(zip(names, [tp_["out_l2"]] + tp_["grad_l2"],
+                          [bf["out_l2"]] + bf["grad_l2"]))
+            over = [q for q in big if q[1] > q[2] + DIST_GATE]
+            # side by side, a quantity over the gate by its largest
+            # element is held by the witness that its gap is bf16
+            # rounding: the same split in float32 within TP32_GATE of the
+            # whole float32 run (the split computes the same function),
+            # its L2 error within the gate (below) and its largest
+            # element's within TP_ROUNDING times the whole run's
+            # (PERF.md §6)
+            witnessed = [q for q in over if s32.get(q[0], 1.0) <= TP32_GATE
+                         and q[1] <= TP_ROUNDING * q[2]]
+            worse = [q for q in over if q not in witnessed] + [
+                (k + " L2", a_, b_) for k, a_, b_ in l2
+                if a_ > b_ + DIST_GATE]
+            if tp_["loss"] > bf["loss"] + DIST_GATE:
+                worse.append(("loss", tp_["loss"], bf["loss"]))
+            if worse:
+                failed.append(f"distributed {label} rank {r['rank']}: "
+                              f"further from float32 than the whole bf16 "
+                              f"run by more than {DIST_GATE} (quantity, "
+                              f"tensor parallel, whole): {worse}; the "
+                              f"float32 split {s32}")
+            gap = max(big, key=lambda q: q[1] - q[2])
+            gap_l2 = max(l2, key=lambda q: q[1] - q[2])
+            text = (f"; the largest gaps, leaf by leaf (tensor parallel - "
+                    f"whole bf16, against float32): {gap[0]} {gap[1]:.5f} "
+                    f"- {gap[2]:.5f} = {gap[1] - gap[2]:.5f}, by L2 "
+                    f"{gap_l2[0]} {gap_l2[1]:.5f} - {gap_l2[2]:.5f} = "
+                    f"{gap_l2[1] - gap_l2[2]:.5f}; over {DIST_GATE:.4g} by "
+                    f"the largest element and held by the rounding "
+                    f"witness (its float32 split against the whole float32 "
+                    f"run, gate {TP32_GATE}): " + (", ".join(
+                        f"{k} {a_:.5f} - {b_:.5f} (float32 split "
+                        f"{s32[k]:.3g})" for k, a_, b_ in witnessed)
+                        or "none"))
+            for name, ex in (case["experts"] or {}).items():
+                i = case["leaves"].index(name)
+                if tp_["grad"][i] - bf["grad"][i] < DIST_GATE / 2:
+                    continue
+                e = max(range(len(ex["tp"])), key=lambda j: ex["tp"][j])
+                text += (f"; {name}: tokens kept a rank expert "
+                         f"{min(ex['tokens'])}-{max(ex['tokens'])}, the "
+                         f"largest error in expert {e} ({ex['tokens'][e]} "
+                         f"tokens): tensor parallel {ex['tp'][e]:.5f}, "
+                         f"whole bf16 {ex['bf16'][e]:.5f}")
+            psum = _tp_psum_bytes(c, TP["seq"])
+            if case["moved"] != {"psum": psum}:
+                failed.append(f"distributed {label} rank {r['rank']}: moved "
+                              f"{case['moved']}, the count from the shapes "
+                              f"{psum}")
+            if "aux" in case:
+                kinds = c.prelude + c.block_pattern * c.num_periods
+                made = TP["seq"] * c.moe.experts_per_token * sum(
+                    k.endswith("moe") for k in kinds)
+                # on the same routing the dropped share is the same and
+                # aux within the gate; the whole layer's own routing, by
+                # the same gate
+                aux, drop, own = case["aux"], case["dropped"], case["own"]
+                aux_err = abs(aux["tp"] - aux["bf16"]) / abs(aux["bf16"])
+                own_err = abs(aux["tp"] - own["aux"]) / abs(own["aux"])
+                if not (aux_err <= DIST_GATE and drop["tp"] == drop["bf16"]
+                        and own_err <= DIST_GATE and
+                        abs(drop["tp"] - own["dropped"]) <= DIST_GATE):
+                    failed.append(f"distributed {label} rank {r['rank']}: "
+                                  f"aux {aux}, dropped {drop}, the whole "
+                                  f"layers' own routing {own}")
+                text += (f"; the whole runs on the tensor-parallel run's "
+                        f"routing: aux {aux['tp']:.7f}, whole bf16 "
+                        f"{aux['bf16']:.7f} (relative {aux_err:.3g}), "
+                        f"float32 {aux['f32']:.7f}; dropped share "
+                        f"{drop['tp']:.6f}, whole bf16 {drop['bf16']:.6f}; "
+                        f"the whole bf16 layers on their own routing: aux "
+                        f"{own['aux']:.7f} (relative {own_err:.3g}), dropped "
+                        f"share {own['dropped']:.6f}, {own['changed']} of "
+                        f"{made} (token, k) assignments to another expert")
+            log(f"distributed {label} rank {r['rank']}: {case['blocks']} "
+                f"{what[label]} (bf16, (1, {TP['seq']})) over (data 1, "
+                f"model {DIST['ranks']}), forward and backward "
+                f"{case['ms']:.1f} ms (blocks "
+                f"{'chained' if case['chained'] else 'side by side'}; "
+                f"host-staged transport on a shared card); launches "
+                f"{ {k: n for k, n in case['counts'].items() if n} }; "
+                f"bytes {case['moved']} (all-reduce: the count from the "
+                f"shapes {psum}); "
+                f"largest error / max |leaf| (relative L2): "
+                f"{errs_text(case)} (gate: each error of the tensor "
+                f"parallel run, the largest element's and the relative L2, "
+                f"within {DIST_GATE:.4g} of the whole bf16 run's){text}; "
+                f"shard kinds {case['kinds']}")
         assert len(f["losses"]) == steps and f["skipped"] == 0 and all(
             math.isfinite(x) for x in f["losses"]), f"distributed (f): {f}"
-        def errs_text(case):
-            return "; ".join(
-                f"{name}: out {case[k]['out']:.4g}, loss "
-                f"{case[k]['loss']:.3g}, grad max {max(case[k]['grad']):.4g}"
-                for k, name in (("tp_f32", "tensor parallel against float32"),
-                                ("bf16_f32", "whole bf16 against float32"),
-                                ("tp_bf16", "tensor parallel against whole "
-                                            "bf16")))
-        log(f"distributed (d) rank {r['rank']}: {L_} full-width granite-8b "
-            f"blocks (bf16, (1, {TP['seq']})) over (data 1, model "
-            f"{DIST['ranks']}), 8 query and 2 KV heads of 128 a rank, "
-            f"forward and backward {d['ms']:.1f} ms (host-staged transport "
-            f"on a shared card); launches {want(L_, L_)}; all-reduce bytes "
-            f"{d['moved']['psum']} = 4 x B·S·D x 2 bytes a layer "
-            f"({4 * act} a layer); largest error / max |leaf|: "
-            f"{errs_text(d)} (gate: tensor parallel within {DIST_GATE:.4g} "
-            f"of the whole bf16 run's own error); shard kinds {d['kinds']}")
-        log(f"distributed (e) rank {r['rank']}: one full-width mixtral-8x7b "
-            f"layer over (data 1, model {DIST['ranks']}), 2 experts a rank, "
-            f"forward and backward {e['ms']:.1f} ms; launches {want(1, 1)}; "
-            f"bytes {e['moved']}; largest error / max |leaf|: "
-            f"{errs_text(e)} (the whole runs on the tensor-parallel run's "
-            f"routing); aux {aux['tp']:.7f}, whole bf16 {aux['bf16']:.7f} "
-            f"(relative {aux_err:.3g}), float32 {aux['f32']:.7f}; dropped "
-            f"share {drop['tp']:.6f}, whole bf16 {drop['bf16']:.6f}; the "
-            f"whole bf16 layer on its own routing: aux {own['aux']:.7f} "
-            f"(relative {own_err:.3g}), dropped share "
-            f"{own['dropped']:.6f}, {own['changed']} of "
-            f"{TP['seq'] * 2} (token, k) assignments to another expert; "
-            f"shard kinds {e['kinds']}")
         log(f"distributed (f) rank {r['rank']} {f['mesh']}: launch.train "
             f"granite-8b at {layers} layers, model-parallel {tm_}, global "
             f"batch {DIST['batch']} x {DIST['seq']}, losses ["
@@ -6934,6 +7188,7 @@ def _tensor_parallel_check(res: list, layers: int, card: str) -> dict:
             f"{ {k: v // steps for k, v in f['moved'].items()} } in "
             f"{ {k: round(v / steps, 3) for k, v in f['collective_s'].items()} }"
             f" s; max_memory_allocated {f['peak_gb']:.2f} GB")
+    assert not failed, "\n".join(failed)
     first = [r["tp_train"]["losses"][0] for r in res]
     one = res[0]["tp_train"]["one_rank_loss"]
     log(f"distributed (f): first loss {first[0]:.6f} on every rank "
@@ -6943,13 +7198,18 @@ def _tensor_parallel_check(res: list, layers: int, card: str) -> dict:
     assert len(set(first)) == 1, f"distributed (f): first losses {first}"
     assert abs(first[0] - one) <= DIST_LOSS_GATE, \
         f"distributed (f): first loss {first[0]} against one rank {one}"
-    L_ = res[0]["tp_dense"]["blocks"]
-    return {"flash_attention": {"tensor_parallel_blocks": L_,
-                                "tensor_parallel_moe": 1,
-                                "tensor_parallel_train": 2 * layers * steps},
-            "flash_attention_bwd": {"tensor_parallel_blocks": L_,
-                                    "tensor_parallel_moe": 1,
-                                    "tensor_parallel_train": layers * steps}}
+    out: dict = {name: {} for name in TP_KERNELS + ("mla",)}
+    names = {"(d)": "tensor_parallel_blocks", "(e)": "tensor_parallel_moe",
+             "(h)": "tensor_parallel_rwkv", "(i)": "tensor_parallel_mamba"}
+    for label, (_, kernels, _) in cases.items():
+        for name, (n, _) in kernels.items():
+            if label == "(g)":
+                out["mla"][name] = n
+            else:
+                out[name][names[label]] = n
+    out["flash_attention"]["tensor_parallel_train"] = 2 * layers * steps
+    out["flash_attention_bwd"]["tensor_parallel_train"] = layers * steps
+    return out
 
 
 def _distributed_depth(torch, cfg, measured: dict | None) -> int:
@@ -7023,6 +7283,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run (default: all)")
+    ap.add_argument("--tp-seed", type=int, default=TP["seed"],
+                    help="the seed of the tensor-parallel cases' weights "
+                    "and tokens (default %(default)s)")
     ap.add_argument("--rank-body", nargs=3, metavar=("BODY", "WORK",
                                                      "LAYERS"),
                     help=argparse.SUPPRESS)
@@ -7036,6 +7299,7 @@ def main(argv=None) -> int:
             torch, Path(work), int(layers))
         return 0
     phases = args.phases.split(",")
+    os.environ[TP_SEED_ENV] = str(args.tp_seed)      # read by the ranks
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
         ap.error(f"unknown phases {unknown}; known: {', '.join(PHASES)}")
@@ -7057,11 +7321,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
-    COUNTED.update(flash_attention=ops.flash_attention,
-                   flash_attention_bwd=ops.flash_attention_bwd,
-                   wkv6=rops.wkv6, wkv6_bwd=rops.wkv6_bwd,
-                   selective_scan=sops.selective_scan,
-                   selective_scan_bwd=sops.selective_scan_bwd)
+    count_kernels()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     card = phase_card()
@@ -7240,8 +7500,13 @@ def main(argv=None) -> int:
                 priced=priced, distributed=dist_layers)
         dist_launches = dist_launches or launches
     if dist_launches:
-        for r in (record, train_record):
-            if r is not None:
+        # (g)'s attention at (192, 128) into the deepseek records
+        for name, n in dist_launches["mla"].items():
+            if (name, "deepseek train") in wide:
+                wide[(name, "deepseek train")]["distributed_launches"] = {
+                    "tensor_parallel_mla": n}
+        for r in [record, train_record, rwkv_record, rwkv_bwd_record] + ssm:
+            if r is not None and r["name"] in dist_launches:
                 r["distributed_launches"] = dist_launches[r["name"]]
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,

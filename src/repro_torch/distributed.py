@@ -670,48 +670,62 @@ class NamedSharding:
     """A tensor's placement over ``mesh``: ``spec[i]`` (``None``, an axis
     name or a tuple of names; missing trailing entries are ``None``)
     splits dimension ``i`` into equal blocks over those axes, the first
-    name the major one (``jax.sharding.NamedSharding``)."""
+    name the major one (``jax.sharding.NamedSharding``). ``parts[i]``
+    (1 where missing) lays ``parts[i]`` equal parts side by side along
+    dimension ``i``, each split over the axes on its own: a rank's block
+    is its block of every part, in part order (Mamba's ``w_in``, its two
+    halves, :func:`repro_torch.sharding.rules.param_parts`)."""
 
-    def __init__(self, mesh: ProcessMesh, spec):
+    def __init__(self, mesh: ProcessMesh, spec, parts=()):
         self.mesh = mesh
         self.spec = tuple(spec)
+        self.parts = tuple(parts)
 
     def __repr__(self) -> str:
-        return f"NamedSharding({self.mesh.shape}, {self.spec})"
+        parts = f", parts {self.parts}" if self.parts else ""
+        return f"NamedSharding({self.mesh.shape}, {self.spec}{parts})"
 
     def _entries(self, ndim: int):
+        """(dimension, its axes, its parts) of every dimension."""
         if len(self.spec) > ndim:
             raise ValueError(f"spec {self.spec} for a {ndim}-d tensor")
         for i, e in enumerate(self.spec + (None,) * (ndim - len(self.spec))):
             axes = () if e is None else (e,) if isinstance(e, str) \
                 else tuple(e)
-            yield i, axes
+            yield i, axes, self.parts[i] if i < len(self.parts) else 1
 
     def shard_shape(self, shape) -> tuple[int, ...]:
         """The shape of each rank's block of a tensor of ``shape``."""
         out = list(shape)
-        for i, axes in self._entries(len(shape)):
+        for i, axes, k in self._entries(len(shape)):
             n = math.prod(self.mesh.shape[a] for a in axes)
-            if out[i] % n:
+            if out[i] % (n * k):
                 raise ValueError(f"dimension {i} of {tuple(shape)} does not "
-                                 f"split into {n} blocks ({self})")
+                                 f"split into {k} x {n} blocks ({self})")
             out[i] //= n
         return tuple(out)
 
     def shard(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the whole tensor ``t`` (a view)."""
+        """This rank's block of the whole tensor ``t`` (a view; a copy
+        where a dimension has parts)."""
         local = self.shard_shape(t.shape)
-        for i, axes in self._entries(t.dim()):
+        for i, axes, k in self._entries(t.dim()):
             if axes:
-                t = t.narrow(i, self.mesh._index(axes) * local[i], local[i])
+                lp = local[i] // k
+                t = t.unflatten(i, (k, -1)).narrow(
+                    i + 1, self.mesh._index(axes) * lp, lp).flatten(i, i + 1)
         return t
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The whole tensor from every rank's block (``local`` is this
         rank's): all-gathers along each sharded dimension."""
-        for i, axes in self._entries(local.dim()):
+        for i, axes, k in self._entries(local.dim()):
             if axes:
+                n = math.prod(self.mesh.shape[a] for a in axes)
                 local = self.mesh.all_gather(local, axes, dim=i)
+                if k > 1:       # (rank, part, ...) -> (part, rank, ...)
+                    local = local.unflatten(i, (n, k, -1)).transpose(
+                        i, i + 1).flatten(i, i + 2)
         return local
 
     def gather_to_rank0(self, local: torch.Tensor) -> torch.Tensor | None:
@@ -721,7 +735,7 @@ class NamedSharding:
         move nothing)."""
         mesh = self.mesh
         entries = list(self._entries(local.dim()))
-        axes = tuple(a for _, ax in entries for a in ax)
+        axes = tuple(a for _, ax, _ in entries for a in ax)
         if not axes:
             return local.detach().to("cpu", copy=True) \
                 if mesh.rank == 0 else None
@@ -731,32 +745,38 @@ class NamedSharding:
         if parts is None:
             return None
         whole = torch.empty(tuple(n * math.prod(mesh.shape[a] for a in ax)
-                                  for n, (_, ax) in zip(local.shape,
-                                                        entries)),
+                                  for n, (_, ax, _) in zip(local.shape,
+                                                           entries)),
                             dtype=local.dtype)
         for m, part in zip(mesh._group(axes)[1], parts):
             coords = dict(zip(mesh.axis_names, _unravel(m, mesh.sizes)))
             block = whole
-            for i, ax in entries:
+            # the last dimension first: a split dimension's index does
+            # not move when a later one is cut into parts
+            for i, ax, k in reversed(entries):
                 if ax:
-                    k = _ravel([coords[a] for a in ax],
+                    j = _ravel([coords[a] for a in ax],
                                [mesh.shape[a] for a in ax])
-                    block = block.narrow(i, k * local.shape[i],
-                                         local.shape[i])
+                    lp = local.shape[i] // k
+                    block = block.unflatten(i, (k, -1)).narrow(i + 1, j * lp,
+                                                               lp)
+                    part = part.unflatten(i, (k, lp))
             block.copy_(part)
         return whole
 
 
-def shardings(mesh: ProcessMesh, specs, tree):
+def shardings(mesh: ProcessMesh, specs, tree, parts=None):
     """A :class:`NamedSharding` for every leaf of ``tree``, from the spec
-    tree ``specs`` that mirrors it (:mod:`repro_torch.sharding.rules`)."""
+    tree ``specs`` that mirrors it (:mod:`repro_torch.sharding.rules`);
+    ``parts(path, spec, shape)``, where given, is the leaf's parts."""
     from .tree import tree_map_with_path
 
-    def one(path, _):
+    def one(path, leaf):
         spec = specs
         for key in path:
             spec = spec[key]
-        return NamedSharding(mesh, spec)
+        return NamedSharding(mesh, spec, () if parts is None else
+                             parts(path, spec, tuple(leaf.shape)))
 
     return tree_map_with_path(one, tree)
 

@@ -36,10 +36,11 @@ NVLink rate) come from it, and ``per_device_total_bytes`` and ``fits``
 are the rank's. The numbers are not the reference's: its HLO moves
 GSPMD's sequence-parallel all-gathers and reduce-scatters around each
 block (the plan's ``btd`` over ``model``), where the port runs Megatron's
-all-reduces (one forward and one backward a block's attention and MLP,
-and again in a recompute). Multi prefill and decode cells, and the
-cells of configs with MLA, RWKV or Mamba blocks, are ``SKIP``, naming
-the ROADMAP item that brings them (:func:`multi_skip_reason`).
+all-reduces (one forward and one backward a block's attention, MLA,
+RWKV mix, Mamba mixer or MLP, and again in a recompute; Mamba's
+``w_x`` product psummed both ways). Multi prefill and decode cells are
+``SKIP``, naming the ROADMAP item that brings serving over a mesh
+(:func:`multi_skip_reason`).
 
 It differs from the reference where the card differs: no ``XLA_FLAGS``
 line and no forced device count; the results go to
@@ -89,7 +90,7 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 #: why a ``--mesh multi`` prefill or decode cell does not run
 MULTI_SERVE_SKIP = ("serving over the multi-card mesh (tensor-parallel "
                     "prefill and decode with cache_specs, the "
-                    "context-parallel long_500k) is ROADMAP M4.1d")
+                    "context-parallel long_500k) is ROADMAP M4.1e")
 
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -98,15 +99,9 @@ _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
 def multi_skip_reason(cfg, shape) -> str | None:
     """Why the ``--mesh multi`` cell of ``cfg`` at ``shape`` does not run
     (the single cell's reason first), or None."""
-    from ..models.transformer import check_tensor_parallel
     skip = shape_skip_reason(cfg, shape)
     if skip is None and shape.kind != "train":
         skip = MULTI_SERVE_SKIP
-    if skip is None:
-        try:
-            check_tensor_parallel(cfg)
-        except NotImplementedError as e:
-            skip = str(e)
     return skip
 
 
@@ -291,7 +286,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     cuda, which raises where there is none): nothing is allocated.
     ``mesh_kind="single"``: the step on one H100; ``"multi"``: rank 0's
     program on the 512-chip production mesh (:func:`trace_rank_step`;
-    train cells of the dense and MoE configs, the others ``SKIP``). The
+    train cells; prefill and decode ``SKIP``). The
     record keeps the reference's keys where they mean the same
     (``status``, ``chips``, ``remat``, ``tag``, ``roofline``,
     ``model_flops``, ``useful_flops_ratio``, ``collective_bytes``,

@@ -9,6 +9,9 @@
     python -m repro_torch.distributed --nproc 4 -m repro_torch.launch.train \\
         --arch mixtral-8x7b --reduced --model-parallel 2 --device cpu \\
         --steps 3
+    python -m repro_torch.distributed --nproc 2 -m repro_torch.launch.train \\
+        --arch jamba-v0.1-52b --reduced --model-parallel 2 --device cpu \\
+        --steps 3
 
 AdamW with float32 master weights, global-norm clipping and non-finite
 step skipping (``train/optimizer.py``); async atomic checkpoints every
@@ -23,9 +26,9 @@ trains over the mesh (pod, data, model) of the reference's
 (``train.step.shard_params``), draws its slice of every batch over pod x
 data (the ranks of one model group the same rows; ``data/pipeline.py``),
 the step is the ZeRO-1 one, tensor parallel over ``model``
-(``train/step.py``), and rank 0 writes the checkpoints. A config with
-MLA, RWKV or Mamba blocks refuses ``--model-parallel`` above 1, naming
-the ROADMAP item. Parameters are drawn from ``--seed`` with the port's
+(``train/step.py``; every block kind), and rank 0 writes the
+checkpoints, which any other mesh, one rank included, resumes from.
+Parameters are drawn from ``--seed`` with the port's
 generator, not the reference's ``jax.random`` stream.
 """
 import argparse
@@ -114,12 +117,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     from repro_torch.configs import get_config, reduced
-    from repro_torch.models.transformer import check_tensor_parallel
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if args.model_parallel > 1:
-        check_tensor_parallel(cfg)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world % (args.pods * args.model_parallel):
         raise ValueError(f"--pods {args.pods} x --model-parallel "

@@ -20,10 +20,21 @@ stored block does not hold whole heads (or the rules' divisibility test
 left a layout that has no split product), the layer gathers it over
 ``model`` (:func:`whole`) and computes that part on every rank.
 :func:`shard` itself computes nothing: it records each kind it sees.
+
+Where to put *f*: at a block's input when every path from it runs split
+compute (attention, MLA, the RWKV time mix, Mamba), and then each whole
+tensor that the block reads before its split products (the q/k norms,
+MLA's latent projections) gets the ranks' partial gradients summed by
+:func:`whole` with ``split``; right before the split product where a
+whole branch reads the same input (the RWKV channel mix's ``cm_r``),
+since *f* at the input would sum that branch's whole gradient ``model``
+times. A layer with a cache (serving over a mesh) raises under a
+``model`` axis above 1 (:data:`CACHE_PENDING`).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -79,6 +90,36 @@ def model_mesh():
     mesh = None if _ACT is None else _ACT["mesh"]
     return mesh if mesh is not None and \
         mesh.shape.get("model", 1) > 1 else None
+
+
+#: what waits: serving over a mesh
+CACHE_PENDING = ("a cache under a model axis above 1 (serving over a "
+                 "mesh: tensor-parallel prefill and decode with "
+                 "cache_specs) is ROADMAP M4.1e")
+
+
+def refuse_cache(cache, block: str) -> None:
+    """Raise ``NotImplementedError`` (naming the ROADMAP item) for a
+    ``block`` layer given a cache under :func:`model_mesh`."""
+    if cache is not None and model_mesh() is not None:
+        raise NotImplementedError(f"tensor-parallel {block} with a cache: "
+                                  f"{CACHE_PENDING}")
+
+
+@functools.lru_cache(maxsize=None)
+def init_shapes(init, cfg: ModelConfig) -> dict:
+    """The whole shape of each parameter ``init(cfg, generator)`` builds
+    (a block's flat tree), drawn on the ``meta`` device: what
+    :func:`whole` gathers a rank's block to, and what a layer compares
+    its block with to see whether the rules split it. Outside any
+    dispatch mode: a trace of the layer (``make_fx``) records none of
+    it."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    from .io_spec import _MetaGenerator
+    with _disable_current_modes():
+        tree = init(cfg, _MetaGenerator())
+    return {k: tuple(t.shape) for k, t in tree.items()}
 
 
 def whole(t: torch.Tensor, shape, split: bool) -> torch.Tensor:
@@ -283,14 +324,10 @@ def _gqa_tensor_parallel(cfg: ModelConfig, p, mesh):
     block of ``wk`` and ``wv`` when ``KV % m == 0``, else gathered over
     ``model`` and selected (one per query head where the heads they read
     do not form equal groups)."""
-    H, KV, hd, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
-        cfg.d_model
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     m, r = mesh.axis_size("model"), mesh.axis_index("model")
-    split = p["wq"].shape[1] < cfg.q_dim and H % m == 0
-    shapes = {"wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim),
-              "wv": (D, cfg.kv_dim), "wo": (cfg.q_dim, D),
-              "bq": (cfg.q_dim,), "bk": (cfg.kv_dim,), "bv": (cfg.kv_dim,),
-              "q_norm": (hd,), "k_norm": (hd,)}
+    shapes = init_shapes(gqa_init, cfg)
+    split = p["wq"].shape[1] < shapes["wq"][1] and H % m == 0
     if not split:
         return ({k: whole(t, shapes[k], False) for k, t in p.items()}, H,
                 KV, False)
@@ -323,11 +360,8 @@ def apply_gqa(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     mesh = model_mesh()
     split = False
+    refuse_cache(kv_cache, "attention")
     if mesh is not None:
-        if kv_cache is not None:
-            raise NotImplementedError(
-                "tensor-parallel attention with a KV cache (serving over "
-                "a mesh) is ROADMAP M4.1d")
         p, H, KV, split = _gqa_tensor_parallel(cfg, p, mesh)
         if split:
             x = mesh.copy_to(x, "model")
@@ -392,6 +426,25 @@ def mla_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     }
 
 
+def _mla_tensor_parallel(cfg: ModelConfig, p, mesh):
+    """(p, H_l, split) for this rank of :func:`model_mesh`: with ``wq``
+    split by whole heads (``w_uk``, ``w_uv`` and ``wo`` with it) the
+    rank's heads, *f* before and *g* after, and ``w_dkv``, ``w_kr`` and
+    ``kv_norm`` whole, their partial gradients summed: the latent and
+    the rope key are computed whole on every rank and read by its heads
+    alone. Else every weight gathered and every head on every rank."""
+    H, m = cfg.num_heads, mesh.axis_size("model")
+    shapes = init_shapes(mla_init, cfg)
+    split = p["wq"].shape[1] < shapes["wq"][1] and H % m == 0
+    if not split:
+        return {k: whole(t, shapes[k], False) for k, t in p.items()}, H, \
+            False
+    out = dict(p)
+    for k in ("w_dkv", "w_kr", "kv_norm"):
+        out[k] = whole(p[k], shapes[k], True)
+    return out, H // m, True
+
+
 def apply_mla(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
               kv_cache=None, cache_pos=None):
     """MLA layer. Without a cache (training) K and V are materialised
@@ -407,13 +460,22 @@ def apply_mla(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     folded into the query, scores in float32, ``w_uv`` applied after.
     The rounding points are the reference's: the latent normalised in
     float32 and cast to x's dtype, ``q_lat``, ``o_lat`` and the output
-    in x's dtype, the probabilities cast to the cache's dtype.
+    in x's dtype, the probabilities cast to the cache's dtype. Under
+    :func:`model_mesh` (no cache) the rank's heads
+    (:func:`_mla_tensor_parallel`).
 
     Returns (out, kv_cache)."""
     B, S, _ = x.shape
     H = cfg.num_heads
     r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
+    mesh = model_mesh()
+    split = False
+    refuse_cache(kv_cache, "MLA")
+    if mesh is not None:
+        p, H, split = _mla_tensor_parallel(cfg, p, mesh)
+        if split:
+            x = mesh.copy_to(x, "model")
     q = linear(x, p["wq"]).reshape(B, S, H, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -431,7 +493,8 @@ def apply_mla(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
         qq = torch.cat([q_nope, q_rope], -1)
         out = multi_head_attention(qq, k, v, causal=cfg.causal, window=None,
                                    q_offset=0)
-        return linear(out.reshape(B, S, H * vd), p["wo"]), None
+        out = linear(out.reshape(B, S, H * vd), p["wo"])
+        return (mesh.reduce_from(out, "model") if split else out), None
 
     cc = update_cache(kv_cache["c_kv"], c_kv, cache_pos)
     ck = update_cache(kv_cache["k_rope"], k_rope[:, :, 0], cache_pos)
@@ -462,9 +525,10 @@ def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                   dtype=dtype, device=device)}
 
 
-__all__ = ["activation", "activation_sharding", "apply_gqa", "apply_mla",
-           "apply_mlp", "apply_norm", "apply_rope", "dense_init", "dtype_of",
-           "gqa_cache_init", "gqa_init", "linear", "mla_cache_init",
-           "mla_init", "mlp_init", "model_mesh", "multi_head_attention",
-           "norm_init", "plan_value", "rms_head_norm", "rope_freqs", "shard",
-           "update_cache", "whole"]
+__all__ = ["CACHE_PENDING", "activation", "activation_sharding",
+           "apply_gqa", "apply_mla", "apply_mlp", "apply_norm", "apply_rope",
+           "dense_init", "dtype_of", "gqa_cache_init", "gqa_init",
+           "init_shapes", "linear",
+           "mla_cache_init", "mla_init", "mlp_init", "model_mesh",
+           "multi_head_attention", "norm_init", "plan_value", "refuse_cache",
+           "rms_head_norm", "rope_freqs", "shard", "update_cache", "whole"]

@@ -40,8 +40,8 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import (activation, dense_init, dtype_of, linear, model_mesh,
-                     shard, whole)
+from .layers import (activation, dense_init, dtype_of, init_shapes, linear,
+                     model_mesh, shard, whole)
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -141,7 +141,8 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor,
     if tp:
         xs, top_p = mesh.copy_to(xg, "model"), mesh.copy_to(top_p, "model")
     elif mesh is not None:
-        p = {k: whole(t, _moe_shapes(cfg)[k], False) for k, t in p.items()}
+        shapes = init_shapes(moe_init, cfg)
+        p = {k: whole(t, shapes[k], False) for k, t in p.items()}
     El = experts.stop - experts.start
     if El < E:
         poh = poh[:, :, :, experts]
@@ -180,16 +181,6 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor,
     frac_probs = probs.mean(1)                                # (G,E)
     aux = E * (frac_tokens * frac_probs).sum(-1).mean()
     return out.reshape(B, S, D).to(x.dtype), aux.float()
-
-
-def _moe_shapes(cfg: ModelConfig) -> dict:
-    """The whole shape of each MoE parameter."""
-    m = cfg.moe
-    d, f, E = cfg.d_model, m.d_ff, m.num_experts
-    fs = f * m.num_shared_experts
-    return {"router": (d, E), "w_up": (E, d, f), "w_gate": (E, d, f),
-            "w_down": (E, f, d), "shared_up": (d, fs), "shared_gate": (d, fs),
-            "shared_down": (fs, d)}
 
 
 def _expert_split(cfg: ModelConfig, p, mesh) -> tuple[slice, bool]:

@@ -19,6 +19,15 @@ mix's parameters live beside the time mix's (``p["tm"]`` in the block).
 The cache is ``{"tm": {"x_prev", "S"}, "cm": {"x_prev"}}`` with ``S``
 float32; the functions that take a cache write it **in place** (as
 :func:`.layers.update_cache` does) and return the same dicts.
+
+Under tensor parallelism (:func:`.layers.model_mesh`, no cache) the time
+mix runs the rank's H/m heads: ``w_r``, ``w_k``, ``w_v``, ``w_g`` and
+``w_lora_b`` by columns, ``w0``, ``ln_x`` and ``u`` by heads, ``w_o`` by
+rows; *f* at its input (every path from it reaches a split product),
+the token-shift coefficients and ``w_lora_a`` whole with their partial
+gradients summed, *g* after ``w_o``. The channel mix is Megatron's MLP
+(``cm_k`` by columns, ``cm_v`` by rows) beside the whole ``cm_r``: its
+*f* sits right before ``cm_k``, since ``xm`` feeds ``cm_r`` too.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.rwkv6.ops import wkv6
-from .layers import dense_init, dtype_of
+from .layers import (dense_init, dtype_of, init_shapes, model_mesh,
+                     refuse_cache, shard, whole)
 
 
 def rwkv_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -72,13 +82,44 @@ def _shifted(x: torch.Tensor, cache) -> torch.Tensor:
     return torch.cat([first, x[:, :-1]], 1)
 
 
+#: the time mix's whole tensors read before its split products
+_TM_WHOLE = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w_lora_a")
+_TM_SPLIT = ("w_r", "w_k", "w_v", "w_g", "w_o", "w0", "w_lora_b", "u",
+             "ln_x")
+
+
+def _timemix_tensor_parallel(cfg: ModelConfig, p, mesh):
+    """(p, split) for this rank of :func:`.layers.model_mesh`: with
+    ``w_r`` split by whole heads the rank's blocks and the whole tensors
+    of :data:`_TM_WHOLE`, whose partial gradients are summed; else every
+    tensor gathered (the same compute on every rank)."""
+    shapes = init_shapes(rwkv_init, cfg)
+    H = cfg.d_model // cfg.rwkv.head_dim
+    split = p["w_r"].shape[1] < shapes["w_r"][1] and \
+        H % mesh.axis_size("model") == 0
+    keys = _TM_WHOLE + _TM_SPLIT
+    if not split:
+        return {k: whole(p[k], shapes[k], False) for k in keys}, False
+    return dict({k: p[k] for k in _TM_SPLIT},
+                **{k: whole(p[k], shapes[k], True) for k in _TM_WHOLE}), True
+
+
 def apply_rwkv_timemix(cfg: ModelConfig, p, x: torch.Tensor, *,
                        cache=None, chunk: int = 64):
     """x: (B, S, D). cache: {"x_prev": (B, D), "S": (B, H, hd, hd)},
-    written in place. Returns (out, cache)."""
+    written in place. Returns (out, cache). Under
+    :func:`.layers.model_mesh` the rank's heads (the module's
+    docstring)."""
     B, S, D = x.shape
     hd = cfg.rwkv.head_dim
-    H = D // hd
+    mesh = model_mesh()
+    split = False
+    refuse_cache(cache, "RWKV time mix")
+    if mesh is not None:
+        p, split = _timemix_tensor_parallel(cfg, p, mesh)
+        if split:
+            x = mesh.copy_to(x, "model")
+    H = p["w_r"].shape[1] // hd
     x_prev = _shifted(x, cache)
 
     def mix(mu):
@@ -92,6 +133,7 @@ def apply_rwkv_timemix(cfg: ModelConfig, p, x: torch.Tensor, *,
     w_log = p["w0"] + (torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
                        ).float()
     w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, hd)  # decay in (0,1)
+    r, k, v = shard(r, "bshd"), shard(k, "bshd"), shard(v, "bshd")
 
     if cache is None or S > 1:
         # training and prefill; with a cache, prefill-with-state seeded
@@ -117,21 +159,34 @@ def apply_rwkv_timemix(cfg: ModelConfig, p, x: torch.Tensor, *,
     mu = yf.mean(-1, keepdim=True)
     var = yf.var(-1, keepdim=True, unbiased=False)
     yf = (yf - mu) * torch.rsqrt(var + 64e-5)
-    y = (yf.reshape(B, S, D) * p["ln_x"]).to(x.dtype)
-    return (y * g) @ p["w_o"], cache
+    y = (yf.reshape(B, S, H * hd) * p["ln_x"]).to(x.dtype)
+    out = (y * g) @ p["w_o"]
+    return (mesh.reduce_from(out, "model") if split else out), cache
 
 
 def apply_rwkv_channelmix(cfg: ModelConfig, p, x: torch.Tensor, *,
                           cache=None):
     """Squared-ReLU channel mixing. cache: {"x_prev": (B, D)}, written in
-    place. Returns (out, cache)."""
+    place. Returns (out, cache). Under :func:`.layers.model_mesh` the
+    rank's hidden columns where ``cm_k`` is split (the module's
+    docstring), else ``cm_k`` and ``cm_v`` gathered."""
+    mesh = model_mesh()
+    refuse_cache(cache, "RWKV channel mix")
+    shapes = init_shapes(rwkv_init, cfg)
+    split = mesh is not None and p["cm_k"].shape[1] < shapes["cm_k"][1]
+    if mesh is not None and not split:
+        p = {k: whole(p[k], shapes[k], False)
+             for k in ("cm_mu", "cm_k", "cm_v", "cm_r")}
     x_prev = _shifted(x, cache)
     if cache is not None:
         cache["x_prev"].copy_(x[:, -1])
     xm = x * p["cm_mu"] + x_prev * (1 - p["cm_mu"])
-    kk = torch.square(torch.relu(xm @ p["cm_k"]))
+    kk = torch.square(torch.relu(
+        (mesh.copy_to(xm, "model") if split else xm) @ p["cm_k"]))
+    kk = shard(kk, "btf")
     rr = torch.sigmoid(xm @ p["cm_r"])
-    return rr * (kk @ p["cm_v"]), cache
+    vv = kk @ p["cm_v"]
+    return rr * (mesh.reduce_from(vv, "model") if split else vv), cache
 
 
 def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> dict:

@@ -21,6 +21,16 @@ before the softplus, and ``y + u · D`` in float32.
 The cache is ``{"conv": (B, d_conv - 1, d_inner) in the model's dtype,
 "h": (B, d_inner, N) float32}``; :func:`apply_mamba` writes it **in
 place** (as :func:`.layers.update_cache` does) and returns the same dict.
+
+Under tensor parallelism (:func:`.layers.model_mesh`, no cache) a rank
+runs its d_inner/m channels: its channels of ``w_in``'s two halves (the
+layout of ``rules.param_parts``), of ``conv_w``, ``conv_b``, ``w_dt``,
+``dt_bias``, ``A_log`` and ``D``, and its rows of ``w_x`` and
+``w_out``. *f* at the input; ``w_x``'s product is a partial sum, so it
+is summed (*g*), and its gradient summed too (*f*), since ``dt_lr``,
+``Bm`` and ``Cm`` are then whole tensors that each rank's channels read;
+*g* after ``w_out``. Where ``model`` does not divide d_inner, the weights are
+gathered and every rank runs every channel.
 """
 from __future__ import annotations
 
@@ -31,7 +41,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.ssm.ops import selective_scan
-from .layers import dense_init, dtype_of, linear
+from .layers import (dense_init, dtype_of, init_shapes, linear, model_mesh,
+                     refuse_cache, shard, whole)
 
 
 def _dt_rank(cfg: ModelConfig) -> int:
@@ -86,13 +97,24 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 
 def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
     """x: (B, S, D). cache: {"conv": (B, d_conv - 1, d_inner), "h": (B,
-    d_inner, N)}, written in place. Returns (out, cache)."""
+    d_inner, N)}, written in place. Returns (out, cache). Under
+    :func:`.layers.model_mesh` the rank's channels (the module's
+    docstring)."""
     mb = cfg.mamba
     B, S, D = x.shape
-    di = D * mb.expand
     N = mb.d_state
     R = _dt_rank(cfg)
+    mesh = model_mesh()
+    refuse_cache(cache, "Mamba")
+    shapes = init_shapes(mamba_init, cfg)
+    split = mesh is not None and p["conv_w"].shape[1] < shapes["conv_w"][1]
+    if split:
+        x = mesh.copy_to(x, "model")
+    elif mesh is not None:
+        p = {k: whole(t, shapes[k], False) for k, t in p.items()}
+    di = p["conv_w"].shape[1]              # d_inner, or the rank's share
     xi, z = linear(x, p["w_in"]).split(di, dim=-1)          # (B, S, di)
+    xi = shard(xi, "bsi")
 
     K = mb.d_conv
     pad = (x.new_zeros((B, K - 1, di)) if cache is None
@@ -100,7 +122,10 @@ def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
     xpad = torch.cat([pad, xi], 1)                         # (B, S+K-1, di)
     xc = _silu(_causal_conv(xpad, p["conv_w"], S) + p["conv_b"])
 
-    dt_lr, Bm, Cm = linear(xc, p["w_x"]).split([R, N, N], dim=-1)
+    proj = linear(xc, p["w_x"])
+    if split:       # g, then f: dt_lr, Bm and Cm feed the rank's channels
+        proj = mesh.copy_to(mesh.reduce_from(proj, "model"), "model")
+    dt_lr, Bm, Cm = proj.split([R, N, N], dim=-1)
     dt = F.softplus(linear(dt_lr, p["w_dt"]) + p["dt_bias"])   # float32
     A = -torch.exp(p["A_log"])                             # (di, N)
     u = xc.float()
@@ -111,7 +136,8 @@ def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
         cache["conv"].copy_(xpad[:, -(K - 1):])
         cache["h"].copy_(h_last)
     y = y + u * p["D"]
-    return linear(y.to(x.dtype) * _silu(z), p["w_out"]), cache
+    out = linear(y.to(x.dtype) * _silu(z), p["w_out"])
+    return (mesh.reduce_from(out, "model") if split else out), cache
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> dict:

@@ -16,12 +16,13 @@ Caches are written in place (see :func:`layers.update_cache`): the
 functions that take caches return the same tree they were given.
 
 Under tensor parallelism (:func:`layers.activation_sharding` with a
-``model`` axis above 1; :data:`TP_KINDS` only) the embedding table is
-split on D: each rank looks up its columns and they are all-gathered; the
-head is vocab-parallel where ``lm_head``'s V is split (each rank's
-logits, the log-sum-exp from a ``pmax`` and a psum of exponentials, the
-target logit psummed from the rank that holds it) and row-parallel where
-the tied table is the head (the partial logits psummed).
+``model`` axis above 1; every block kind, without a cache) the embedding
+table is split on D: each rank looks up its columns and they are
+all-gathered; the head is vocab-parallel where ``lm_head``'s V is split
+(each rank's logits, the log-sum-exp from a ``pmax`` and a psum of
+exponentials, the target logit psummed from the rank that holds it) and
+row-parallel where the tied table is the head (the partial logits
+psummed).
 
 Training (:func:`loss_fn`) differentiates the parameters with the
 periods unbound: :func:`unstack_periods` gives ``params["periods"]`` as
@@ -55,28 +56,10 @@ _KINDS = ("attn", "swa", "attn_moe", "swa_moe", "mla", "mla_moe", "rwkv",
           "mamba", "mamba_moe")
 
 
-#: the block kinds that run tensor parallel over ``model``
-TP_KINDS = ("attn", "swa", "attn_moe", "swa_moe")
-#: what waits: the next ROADMAP item
-TP_PENDING = ("tensor parallelism for MLA, RWKV6 and Mamba blocks, and "
-              "serving over a mesh, is ROADMAP M4.1d")
-
-
 def _check_kind(kind: str) -> None:
     if kind not in _KINDS:
         raise NotImplementedError(
             f"block kind '{kind}' is not a block kind (have {_KINDS})")
-
-
-def check_tensor_parallel(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) when
-    ``cfg`` has a block that does not run tensor parallel."""
-    other = sorted((set(cfg.prelude) | set(cfg.block_pattern))
-                   - set(TP_KINDS))
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(other)} blocks over a model axis above "
-            f"1: {TP_PENDING}")
 
 
 # ----------------------------------------------------------------- blocks
@@ -103,8 +86,6 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
     """One layer. Returns (x, cache, aux): ``aux`` is an MoE block's
     float32 load-balancing loss, None for the other kinds."""
     _check_kind(kind)
-    if kind not in TP_KINDS and L.model_mesh() is not None:
-        check_tensor_parallel(cfg)
     h = L.apply_norm(cfg, p["ln1"], x)
     if kind == "rwkv":
         y, _ = apply_rwkv_timemix(cfg, p["tm"], h,
@@ -588,8 +569,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens_or_embeds,
     return _logits(cfg, params, hidden), caches
 
 
-__all__ = ["REMAT_POLICIES", "TP_KINDS", "TP_PENDING", "check_remat_policy",
-           "check_tensor_parallel", "chunked_cross_entropy",
+__all__ = ["REMAT_POLICIES", "check_remat_policy", "chunked_cross_entropy",
            "decode_step", "embed_inputs", "encoder_logits", "forward",
            "init_cache", "init_params", "lm_head_weight", "loss_fn",
            "mask_pad_logits", "prefill", "prefill_batched",

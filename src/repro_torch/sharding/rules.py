@@ -25,6 +25,12 @@ Mesh axes:
 Rules are divisibility-aware: a dim is only sharded when its size
 divides the axis size (InternVL2's 151655 vocab stays replicated;
 Mixtral's 8 experts fall back to intra-expert TP on a 16-way axis).
+
+One deviation from the reference's placement, which GSPMD's resharding
+hides there: Mamba's ``w_in`` (D, 2·d_inner) is the input ``xi`` and the
+gate ``z`` side by side, and the port's rank holds its channels of each
+(:func:`param_parts`), not the contiguous block of columns the spec
+names. The specs themselves stay the reference's.
 """
 from __future__ import annotations
 
@@ -169,13 +175,47 @@ def param_specs(params_shape: Any, mesh) -> Any:
     return tree_map_with_path(one, params_shape)
 
 
+#: parameters whose last dimension is equal parts side by side (Mamba's
+#: ``w_in``: the input ``xi`` and the gate ``z``, ``d_inner`` each)
+_PARTS: list[tuple[str, int]] = [(r"mix/w_in$", 2)]
+
+
+def param_parts(mesh, path: tuple, spec: Spec, shape: tuple) -> tuple:
+    """The parts of the parameter at ``path`` (a tree path, under
+    ``params/`` or an optimizer tree's key too) whose spec over ``mesh``
+    is ``spec``: ``(1, ..., k)`` when its last dimension is :data:`_PARTS`'
+    k parts split over ``model`` and each part splits, else ``()``.
+
+    A deviation from the reference, which GSPMD's resharding hides there:
+    the spec splits ``w_in``'s (D, 2·d_inner) columns into contiguous
+    blocks, which at ``model`` 4 would give ranks 0-1 all of ``xi`` and
+    ranks 2-3 all of ``z``. The port's rank holds its channels of each
+    half, ``xi``'s then ``z``'s, so that it runs the scan on its own
+    channels with no exchange; :func:`param_shardings`, the ZeRO-1
+    placements, sharded checkpoints and the elastic restore all place
+    the tensor so (:class:`~repro_torch.distributed.NamedSharding`'s
+    ``parts``). A part that ``model`` does not divide leaves the blocks
+    contiguous, and the layer gathers the tensor whole."""
+    msize = mesh.shape.get("model", 1)
+    s = _path_str(path)
+    for pat, k in _PARTS:
+        if re.search(pat, s) and spec and spec[-1] == "model" and \
+                shape[-1] % (k * msize) == 0:
+            return (1,) * (len(shape) - 1) + (k,)
+    return ()
+
+
 def param_shardings(params_shape: Any, mesh) -> Any:
     """A :class:`~repro_torch.distributed.NamedSharding` over ``mesh`` (a
     :class:`~repro_torch.distributed.ProcessMesh`) for every leaf of a
-    parameter tree, by :func:`param_specs`: ``.shard(t)`` is this rank's
-    block of a leaf, ``.gather(block)`` the leaf back."""
+    parameter tree, by :func:`param_specs` and :func:`param_parts`:
+    ``.shard(t)`` is this rank's block of a leaf, ``.gather(block)`` the
+    leaf back."""
+    from functools import partial
+
     from ..distributed import shardings
-    return shardings(mesh, param_specs(params_shape, mesh), params_shape)
+    return shardings(mesh, param_specs(params_shape, mesh), params_shape,
+                     partial(param_parts, mesh))
 
 
 # ------------------------------------------------------------ activations
@@ -284,4 +324,5 @@ def zero1_specs(pspecs: Any, params_shape: Any, mesh) -> Any:
 
 
 __all__ = ["activation_plan", "batch_axes", "batch_specs", "cache_specs",
-           "param_shardings", "param_specs", "spec_leaves", "zero1_specs"]
+           "param_parts", "param_shardings", "param_specs", "spec_leaves",
+           "zero1_specs"]

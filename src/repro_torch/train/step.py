@@ -12,10 +12,9 @@ so no whole stack is copied.
 ``build_train_step(..., mesh=)`` is the step over a
 :class:`~repro_torch.distributed.ProcessMesh`: data parallel with ZeRO-1
 over the batch axes (``pod`` x ``data``), and tensor parallel over
-``model`` when that axis is above 1 (the dense and MoE block kinds,
-``models.transformer.TP_KINDS``; the others raise, naming the ROADMAP
-item). Each rank holds its block of every parameter as
-``rules.param_specs`` places it (:func:`shard_params`; whole when
+``model`` when that axis is above 1 (every block kind). Each rank holds
+its block of every parameter as ``rules.param_specs`` and
+``rules.param_parts`` place it (:func:`shard_params`; whole when
 ``model`` is 1) and takes the loss and gradient of its slice of the
 batch with its blocks, under ``layers.activation_sharding``; its
 gradients are then blocks of the whole gradient already (a tensor held
@@ -44,7 +43,6 @@ from ..models import (check_remat_policy, decode_step, encoder_logits,
                       input_specs, loss_fn, params_spec, prefill,
                       unstack_periods)
 from ..models.layers import activation_sharding
-from ..models.transformer import check_tensor_parallel
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from .optimizer import AdamWConfig, apply_updates, init_state
 
@@ -89,23 +87,23 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     return train_step
 
 
-def _check_mesh(mesh, cfg: ModelConfig | None = None) -> None:
+def _check_mesh(mesh) -> None:
     if "data" not in mesh.shape:
         raise ValueError(f"a ZeRO-1 step needs a data axis, not the mesh "
                          f"{mesh.shape}")
-    if cfg is not None and mesh.shape.get("model", 1) > 1:
-        check_tensor_parallel(cfg)
 
 
 def zero1_shardings(params, mesh):
     """The ZeRO-1 placement of every parameter-shaped optimizer tree
-    (``rules.zero1_specs``) over ``mesh``: a tree like ``params`` (whole
-    tensors, or anything with their ``.shape``) of
-    :class:`~repro_torch.distributed.NamedSharding`."""
+    (``rules.zero1_specs``, with ``rules.param_parts``) over ``mesh``: a
+    tree like ``params`` (whole tensors, or anything with their
+    ``.shape``) of :class:`~repro_torch.distributed.NamedSharding`."""
+    from functools import partial
+
     from ..distributed import shardings
     from ..sharding import rules
     specs = rules.zero1_specs(rules.param_specs(params, mesh), params, mesh)
-    return shardings(mesh, specs, params)
+    return shardings(mesh, specs, params, partial(rules.param_parts, mesh))
 
 
 def shard_params(params, mesh):
@@ -218,7 +216,7 @@ def _stacked_grad(grads, path: tuple) -> torch.Tensor:
 def _zero1_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                       remat_policy: str, dev, mesh):
     from ..sharding import rules
-    _check_mesh(mesh, cfg)
+    _check_mesh(mesh)
     dp = rules.batch_axes(mesh)
     n_dp = math.prod(mesh.shape[a] for a in dp)
     plan = rules.activation_plan(mesh, cfg, kind="train")

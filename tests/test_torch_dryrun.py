@@ -151,13 +151,13 @@ def test_trace_order_peak_by_hand():
 
 
 def test_multi_mesh_and_skips(small):
-    """Multi prefill and decode cells wait for serving over a mesh, and
-    the single cells' own reasons still hold."""
+    """Multi prefill and decode cells wait for serving over a mesh
+    (ROADMAP M4.1e), and the single cells' own reasons still hold."""
     r = dryrun.run_cell("granite-8b", "prefill_32k", "multi", device="cpu")
-    assert r["status"] == "SKIP" and "M4.1d" in r["reason"]
+    assert r["status"] == "SKIP" and "M4.1e" in r["reason"]
     r = dryrun.run_cell("jamba-v0.1-52b", "decode_32k", "multi",
                         device="cpu")
-    assert r["status"] == "SKIP" and "M4.1d" in r["reason"]
+    assert r["status"] == "SKIP" and "M4.1e" in r["reason"]
     r = dryrun.run_cell("hubert-xlarge", "decode_32k", "single",
                         device="cpu")
     assert r["status"] == "SKIP" and "encoder-only" in r["reason"]
@@ -166,13 +166,36 @@ def test_multi_mesh_and_skips(small):
 @pytest.mark.parametrize("arch, kind", [("deepseek-v2-lite-16b", "mla"),
                                         ("rwkv6-7b", "rwkv"),
                                         ("jamba-v0.1-52b", "mamba")])
-def test_multi_train_cells_skip_mla_rwkv_mamba(arch, kind):
+def test_multi_train_cells_skip_mla_rwkv_mamba(small_families, monkeypatch,
+                                               arch, kind):
     """The multi train cell of a config with MLA, RWKV or Mamba blocks
-    is ``SKIP``, naming the blocks and ROADMAP M4.1d (checked before
-    anything traces)."""
+    no longer skips (the test that held their skip, kept under its name,
+    now holds that the cells run): reduced, its global batch 64 (2 rows for each of the
+    32 data-parallel ranks; 32 x 32 tokens, so that a rank's 64 tokens
+    are one MoE group), rank 0 of the 512-chip mesh traced, OK and
+    fitting, the rank's collectives counted by kind. At model 16 the 4
+    heads do not split (the layers gather their weights and run every
+    head on every rank) and 4 experts split by the hidden dim; jamba's
+    128 Mamba channels do split, 8 a rank."""
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k",
+                        ShapeConfig("train_4k", 32, 64, "train"))
+    cfg = tcfg.get_config(arch)
+    assert kind in cfg.prelude + cfg.block_pattern
     r = dryrun.run_cell(arch, "train_4k", "multi", device="cpu")
-    assert r["status"] == "SKIP" and "M4.1d" in r["reason"] and \
-        kind in r["reason"]
+    assert r["status"] == "OK" and r["chips"] == 512 and r["fits"]
+    by = r["rank_collective_bytes"]
+    assert by["all-reduce"] > 0 and by["all-gather"] > 0 and \
+        by["reduce-scatter"] > 0
+    assert r["collective_bytes"] == pytest.approx(512 * sum(by.values()))
+
+
+@pytest.fixture
+def small_families(monkeypatch):
+    """deepseek, rwkv6 and jamba reduced, under their own names."""
+    for name in ("deepseek-v2-lite-16b", "rwkv6-7b", "jamba-v0.1-52b"):
+        c = tcfg.get_config(name)
+        monkeypatch.setitem(REGISTRY, name, dataclasses.replace(
+            tcfg.reduced(c), name=name))
 
 
 def _hand_count(cfg, mesh, rows, seq, remat):
@@ -225,6 +248,86 @@ def test_collective_bytes_from_graph_by_hand(remat):
     assert {k: got["counts"][k] for k in counts} == counts
     assert got["bytes"]["all-to-all"] == got["bytes"][
         "collective-permute"] == 0
+    assert got["total_bytes"] == sum(want.values())
+    assert mesh.moved["psum"] + mesh.moved["pmax"] == want["all-reduce"]
+
+
+def _block_terms(cfg, kind, A, T):
+    """(all-reduce bytes, count) of one split block's activations in a
+    step without recompute (float32; A one (rows, seq, D) activation, T
+    the rank's tokens): each mixer's *g* forward and *f* backward (2A),
+    and
+      * MLA: the backward sums of ``w_dkv``, ``w_kr`` and ``kv_norm``,
+        whole tensors that the rank's heads read;
+      * the RWKV time mix: those of the five token-shift coefficients and
+        ``w_lora_a``; its channel mix another 2A;
+      * Mamba: ``w_x``'s product psummed forward and its gradient psummed
+        backward, T x (R + 2N) each;
+    then the FFN: an MLP's 2A, or an MoE's *f* into the experts (A),
+    into the top-p weights (T x K) and its *g* (A)."""
+    f32, D = 4, cfg.d_model
+    if kind == "rwkv":
+        return 4 * A + (5 * D + D * cfg.rwkv.lora_w) * f32, 4 + 6
+    if kind.startswith("mla"):
+        r = cfg.kv_lora_rank
+        b, n = 2 * A + (D * r + D * cfg.qk_rope_dim + r) * f32, 5
+    elif kind.startswith("mamba"):
+        R, N = max(D // 16, 1), cfg.mamba.d_state
+        b, n = 2 * A + 2 * T * (R + 2 * N) * f32, 4
+    else:
+        b, n = 2 * A, 2
+    if kind.endswith("moe"):
+        return b + 2 * A + T * cfg.moe.experts_per_token * f32, n + 3
+    return b + 2 * A, n + 2
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "rwkv6-7b",
+                                  "jamba-v0.1-52b"])
+def test_collective_bytes_by_hand_families(arch):
+    """``collective_bytes_from_graph`` on the step of reduced deepseek
+    (the MLA prelude layer with its MLP and an ``mla_moe`` layer), rwkv6
+    (2 layers) and jamba (a period: 7 Mamba and 1 attention mixers, 4
+    MLPs, 4 MoE FFNs), traced without recompute for rank 0 of a (pod 2,
+    data 2, model 2) tracing mesh, where every block splits: every kind's
+    bytes and count worked out from the shapes. Per block
+    :func:`_block_terms`; then, as for granite (:func:`_hand_count`), the
+    head's *f* (A), the CE's pmax and two psums (T floats each), the
+    norm's three squares, and each gradient's ZeRO-1 block all-reduced
+    over pod (or over pod and data where data splits none of its dims).
+    All-gathers: the embedding's D-columns and each updated block that
+    data splits; reduce-scatters: each of those gradients over data (its
+    operand the model block)."""
+    from repro_torch.distributed import TracingMesh
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.train.step import zero1_shardings
+    cfg = tcfg.reduced(tcfg.get_config(arch),
+                       layers=2 if arch == "rwkv6-7b" else None)
+    mesh = TracingMesh(MeshShape((2, 2, 2), ("pod", "data", "model")), 0,
+                       "cpu")
+    # a rank's 1,024 tokens: one MoE group
+    rows, seq = 2, (512 if cfg.moe else 32)
+    traced = dryrun.trace_rank_step(cfg, ShapeConfig("t", seq, 4 * rows,
+                                                     "train"),
+                                    "none", mesh, torch.device("cpu"))
+    got = dryrun.collective_bytes_from_graph(traced.graph)
+    f32, T = 4, rows * seq
+    A = T * cfg.d_model * f32
+    blocks = [_block_terms(cfg, kind, A, T) for kind in
+              cfg.prelude + cfg.block_pattern * cfg.num_periods]
+    zb, split = [], []
+    for sh, p in zip(tree_flatten(zero1_shardings(
+            io_spec.params_spec(cfg), mesh))[0],
+            tree_flatten(io_spec.params_spec(cfg))[0]):
+        zb.append(math.prod(sh.shard_shape(p.shape)) * f32)
+        split.append("data" in sh.spec)
+    ds = sum(b for b, s in zip(zb, split) if s)
+    want = {"all-reduce": sum(b for b, _ in blocks) + A + 3 * T * f32
+            + 3 * f32 + sum(zb),
+            "all-gather": A // 2 + ds, "reduce-scatter": 2 * ds}
+    counts = {"all-reduce": sum(k for _, k in blocks) + 1 + 3 + 3 + len(zb),
+              "all-gather": 1 + sum(split), "reduce-scatter": sum(split)}
+    assert {k: got["bytes"][k] for k in want} == want
+    assert {k: got["counts"][k] for k in counts} == counts
     assert got["total_bytes"] == sum(want.values())
     assert mesh.moved["psum"] + mesh.moved["pmax"] == want["all-reduce"]
 
@@ -364,25 +467,22 @@ def test_serve_step_matches_reference():
 
 def test_list_prints_every_cell(capsys):
     """Every cell, single and multi: a multi cell runs where its single
-    cell runs, its shape trains and its config's blocks run tensor
-    parallel; every other multi cell the single one would run names
-    ROADMAP M4.1d."""
-    from repro_torch.models.transformer import TP_KINDS
+    cell runs and its shape trains (every config, every block kind);
+    every other multi cell the single one would run, prefill and decode,
+    names ROADMAP M4.1e."""
     assert dryrun.main(["--list", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == len(tcfg.ASSIGNED_ARCHS) * len(dryrun.SHAPES) * 2
     runs = {ln.split()[0] for ln in lines if ln.rstrip().endswith("RUN")}
     for a in tcfg.ASSIGNED_ARCHS:
-        cfg = tcfg.get_config(a)
-        dense = set(cfg.prelude + cfg.block_pattern) <= set(TP_KINDS)
         for s, shape in dryrun.SHAPES.items():
             single = dryrun.cell_name(a, s, "single") in runs
             multi = dryrun.cell_name(a, s, "multi")
-            assert (multi in runs) == (single and dense and
-                                       shape.kind == "train"), multi
+            assert (multi in runs) == (single and shape.kind == "train"), \
+                multi
             if single and multi not in runs:
                 line = next(ln for ln in lines if ln.split()[0] == multi)
-                assert "M4.1d" in line, line
+                assert "M4.1e" in line and shape.kind != "train", line
     assert any(ln.split()[0].endswith("__multi") for ln in lines
                if ln.rstrip().endswith("RUN"))
 

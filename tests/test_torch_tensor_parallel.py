@@ -1,8 +1,10 @@
-"""Tensor parallelism over ``model`` (the dense and MoE families) against
-the reference, over gloo ranks on the CPU: the ZeRO-1 step's losses,
-every gradient gathered whole, expert parallelism and its hidden-dim
-fallback, the tied head, the ``shard`` kinds, the region functions, the
-data slice and ``launch.train --model-parallel``.
+"""Tensor parallelism over ``model`` (every block kind: the dense and MoE
+families, MLA, RWKV6 and Mamba) against the reference, over gloo ranks
+on the CPU: the ZeRO-1 step's losses, every gradient gathered whole,
+expert parallelism and its hidden-dim fallback, the tied head, the
+``shard`` kinds, the region functions, the data slice, the RWKV channel
+mix's whole branch, Mamba's ``w_in`` halves, the refusal of a cache and
+``launch.train --model-parallel``.
 
 The reference runs in two child processes on one host device (the
 weights, then, beside the port's 4 ranks, the losses), on a one-device
@@ -69,9 +71,21 @@ CASES = {
                   S=32, meshes={"2": [[1, 2]]}),
     "gemma3": dict(arch="gemma3-1b", layers=None, over={}, moe={}, B=4, S=32,
                    meshes={"4": [[1, 4], [2, 2]], "2": [[1, 2]]}),
+    # the MLA prelude layer and one mla_moe layer; 4 heads, 4 experts
+    "deepseek": dict(arch="deepseek-v2-lite-16b", layers=None, over={},
+                     moe={}, B=4, S=512,
+                     meshes={"4": [[1, 4], [2, 2]], "2": [[1, 2]]}),
+    "rwkv6": dict(arch="rwkv6-7b", layers=2, over={}, moe={}, B=4, S=32,
+                  meshes={"4": [[1, 4], [2, 2]], "2": [[1, 2]]}),
+    # one period: 6 mamba and 1 attention layer, MoE on 4 of them
+    "jamba": dict(arch="jamba-v0.1-52b", layers=None, over={}, moe={}, B=4,
+                  S=512, meshes={"4": [[1, 4], [2, 2]], "2": [[1, 2]]}),
 }
 #: the reference's layout boundaries these families pass through
-KIND_CASES = ("granite", "mixtral")
+KIND_CASES = ("granite", "mixtral", "deepseek", "rwkv6", "jamba")
+#: per case, the leaves whose whole gradient every rank holds (not only
+#: its block): the RWKV channel mix's whole branch
+WHOLE_GRAD_LEAVES = {"rwkv6": ("tm/cm_r", "tm/cm_mu")}
 #: the case whose loss after one AdamW step is held to the reference's
 STEP_CASES = ("granite",)
 
@@ -192,6 +206,8 @@ from repro_torch.tree import tree_flatten
 d = os.environ["TEST_DIR"]
 cases = json.loads(os.environ["CASES"])
 ocfg = AdamWConfig(**json.loads(os.environ["OPT"]))
+WHOLE_GRAD_LEAVES = {k: tuple(v) for k, v in json.loads(
+    os.environ["WHOLE_GRAD_LEAVES"]).items()}
 out = {}
 
 with process_group("cpu") as backend:
@@ -228,11 +244,23 @@ with process_group("cpu") as backend:
             with activation_sharding(plan, m):
                 out[f"{key}_logits"] = T._logits(cfg, blocks, hidden).numpy()
             places = tree_flatten(rules.param_shardings(params, m))[0]
+            keep = WHOLE_GRAD_LEAVES.get(name, ())
             for i, (path, sh) in enumerate(zip(_paths(params), places)):
                 gl = m.all_reduce(_stacked_grad(g, path), "data") / shape[0]
                 whole = sh.gather(gl)
                 if r == 0:
                     out[f"{key}_grad_{i}"] = whole.numpy()
+                if "/".join(map(str, path)).endswith(keep):
+                    out[f"{key}_local_grad_{i}"] = gl.numpy()
+            if name == "jamba":
+                # the first mamba block's w_in: this rank's block, and the
+                # whole tensor gathered back from the blocks
+                path = ("periods", "b0", "mix", "w_in")
+                sh = dict(zip(_paths(params), places))[path]
+                w = blocks["periods"]["b0"]["mix"]["w_in"]
+                # a copy: the steps below update the blocks in place
+                out[f"{key}_w_in_block"] = w.clone().numpy()
+                out[f"{key}_w_in_gathered"] = sh.gather(w).numpy()
             del g
             o = init_zero1_state(ocfg, params, m)
             step = build_train_step(cfg, ocfg, remat_policy="full",
@@ -256,6 +284,17 @@ with process_group("cpu") as backend:
         (z * torch.arange(4.0 * n)).sum().backward()
         out[f"gather_{partial}"] = z.detach().numpy()
         out[f"gather_grad_{partial}"] = x.grad.numpy()
+    # bf16 partials (r + 1) / 8, whose sums are exact in bf16
+    c = (r + 1) / 8
+    xb = torch.ones(3, dtype=torch.bfloat16, requires_grad=True)
+    m.reset_moved()
+    g = m.reduce_from(xb * c, "model")
+    out["g_bf16_dtype"] = np.array(str(g.dtype))
+    out["g_bf16"] = g.detach().float().numpy()
+    (m.copy_to(xb, "model") * c).sum().backward()
+    out["f_grad_bf16_dtype"] = np.array(str(xb.grad.dtype))
+    out["f_grad_bf16"] = xb.grad.float().numpy()
+    out["bf16_sum_bytes"] = np.array(m.moved["psum"])
 
     # the data slice: a model group of 2 ranks reads the same rows
     if n == 4:
@@ -271,7 +310,8 @@ print("OK", r)
 def _env(d) -> dict:
     return {"TEST_DIR": str(d), "OPT": json.dumps(OPT),
             "CASES": json.dumps(CASES), "KIND_CASES": json.dumps(KIND_CASES),
-            "STEP_CASES": json.dumps(STEP_CASES)}
+            "STEP_CASES": json.dumps(STEP_CASES),
+            "WHOLE_GRAD_LEAVES": json.dumps(WHOLE_GRAD_LEAVES)}
 
 
 @pytest.fixture(scope="module")
@@ -537,6 +577,21 @@ def test_region_functions_carry_megatrons_gradients(run, n):
                                       n * w[4 * r:4 * r + 4])
 
 
+@pytest.mark.parametrize("n", [4, 2])
+def test_region_sums_keep_the_partials_dtype(run, n):
+    """*g*'s sum and *f*'s backward sum of bf16 partials are taken in
+    bf16, as Megatron's all-reduces are: each moves its 3 elements at 2
+    bytes (12 bytes for the two) and gives bf16, the sum of the ranks'
+    (r + 1) / 8."""
+    want = n * (n + 1) / 16
+    for o in run[n]:
+        assert int(o["bf16_sum_bytes"]) == 2 * 3 * 2
+        assert str(o["g_bf16_dtype"]) == str(o["f_grad_bf16_dtype"]) \
+            == "torch.bfloat16"
+        np.testing.assert_array_equal(o["g_bf16"], np.full(3, want))
+        np.testing.assert_array_equal(o["f_grad_bf16"], np.full(3, want))
+
+
 def test_model_group_reads_the_same_rows(run):
     """Under ``model_parallel`` 2 the ranks of a model group (0, 1 and
     2, 3) read the same slice, and the two data groups different ones."""
@@ -547,18 +602,154 @@ def test_model_group_reads_the_same_rows(run):
     assert not np.array_equal(t[0], t[2])
 
 
+def test_rwkv_channel_mix_whole_branch_gradients(run, one_rank):
+    """The RWKV channel mix reads ``xm`` in ``cm_k`` (split) and ``cm_r``
+    (whole): *f* sits right before ``cm_k``, so ``cm_r``'s and
+    ``cm_mu``'s gradients are whole on every rank of every mesh (not
+    summed ``model`` times): each rank's own, the mean over data taken,
+    within 1e-4 of the leaf's largest magnitude of the one-rank
+    gradient."""
+    grads = one_rank["rwkv6"][0]
+    idx = [_leaf("rwkv6", suffix) for suffix in WHOLE_GRAD_LEAVES["rwkv6"]]
+    for n, shape in _meshes("rwkv6"):
+        for r, o in enumerate(run[n]):
+            for i in idx:
+                want = grads[i]
+                got = o[f"{_key('rwkv6', shape)}_local_grad_{i}"]
+                assert got.shape == want.shape
+                scale = float(np.abs(want).max())
+                assert float(np.abs(got - want).max()) <= 1e-4 * scale, \
+                    (shape, r, i)
+
+
+def test_mamba_w_in_block_is_its_channels_of_both_halves(run):
+    """``w_in`` is (D, 2·d_inner), ``xi`` then ``z``: a rank's block (by
+    ``shard_params``) is its d_inner/m channels of ``xi`` followed by the
+    same channels of ``z``, not a contiguous block of the columns, and
+    the blocks gathered (``NamedSharding.gather``, which the update and
+    the tests use) give the whole tensor back."""
+    cfg = _cfg(tcfg, CASES["jamba"])
+    di = cfg.d_model * cfg.mamba.expand
+    host = dict(np.load(run["dir"] / "params_jamba.npz",
+                        allow_pickle=True))["tree"].item()
+    w = np.asarray(host["periods"]["b0"]["mix"]["w_in"])   # (P, D, 2 di)
+    for n, shape in _meshes("jamba"):
+        m = shape[1]
+        dl = di // m
+        for r, o in enumerate(run[n]):
+            j = r % m                       # the rank's model index
+            block = o[f"{_key('jamba', shape)}_w_in_block"]
+            want = np.concatenate([w[..., j * dl:(j + 1) * dl],
+                                   w[..., di + j * dl:di + (j + 1) * dl]],
+                                  -1)
+            np.testing.assert_array_equal(block, want)
+            np.testing.assert_array_equal(
+                o[f"{_key('jamba', shape)}_w_in_gathered"], w)
+
+
+def test_param_parts_only_where_each_half_splits():
+    """``rules.param_parts`` cuts ``w_in``'s columns into two parts where
+    ``model`` divides d_inner, under ``params/`` and the optimizer's
+    trees too, and nowhere else; ``NamedSharding`` with those parts takes
+    each rank's channels of both halves (a tracing mesh per rank: no
+    collective)."""
+    from repro_torch.distributed import NamedSharding
+    from repro_torch.sharding import rules
+    mesh = MeshShape((1, 2), ("data", "model"))
+    got = rules.param_parts(mesh, ("periods", "b0", "mix", "w_in"),
+                            (None, None, "model"), (3, 8, 12))
+    assert got == (1, 1, 2)
+    assert rules.param_parts(mesh, ("opt", "mu", "periods", "b0", "mix",
+                                    "w_in"), (None, "data", "model"),
+                             (3, 8, 12)) == (1, 1, 2)
+    # model 4 does not divide d_inner 6: contiguous blocks, gathered whole
+    # by the layer
+    assert rules.param_parts(MeshShape((1, 4), ("data", "model")),
+                             ("mix", "w_in"), (None, "model"), (8, 12)) == ()
+    assert rules.param_parts(mesh, ("mix", "w_out"), ("model", None),
+                             (12, 8)) == ()
+    assert rules.param_parts(mesh, ("mix", "w_in"), (None, None),
+                             (8, 12)) == ()
+    t = torch.arange(2 * 12.0).reshape(2, 12)
+    for r in range(2):
+        sh = NamedSharding(TracingMesh(mesh, r, "cpu"), (None, "model"),
+                           (1, 2))
+        assert sh.shard_shape(t.shape) == (2, 6)
+        want = torch.cat([t[:, 3 * r:3 * r + 3], t[:, 6 + 3 * r:9 + 3 * r]],
+                         1)
+        assert torch.equal(sh.shard(t), want)
+
+
 # ------------------------------------------------------------ refusals
+def _step_over_model_2(arch):
+    """(cfg, mesh, rank 0's blocks, tokens) after one ZeRO-1 step of
+    reduced ``arch`` over (data 1, model 2) on rank 0's blocks (a
+    tracing mesh: the collectives computed as if every rank held this
+    rank's tensor, so only finiteness is checked), and its loss."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.step import shard_params
+    cfg = tcfg.reduced(tcfg.get_config(arch))
+    mesh = TracingMesh(MeshShape((1, 2), ("data", "model")), 0, "cpu")
+    ocfg = AdamWConfig(**OPT)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    o = init_zero1_state(ocfg, params, mesh)
+    blocks = shard_params(params, mesh)
+    step = build_train_step(cfg, ocfg, remat_policy="full", device="cpu",
+                            mesh=mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    _, _, met = step(blocks, o, {"tokens": tokens, "targets": tokens})
+    return cfg, mesh, blocks, tokens, float(met["loss"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "rwkv6-7b",
+                                  "jamba-v0.1-52b"])
+def test_mla_rwkv_mamba_step_over_model_axis(arch):
+    """MLA, RWKV and Mamba blocks train over a model axis above 1: the
+    step over (data 1, model 2) builds and takes a step on rank 0's
+    blocks, its loss finite."""
+    assert np.isfinite(_step_over_model_2(arch)[-1])
+
+
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "rwkv6-7b",
                                   "jamba-v0.1-52b"])
 def test_mla_rwkv_mamba_refuse_model_parallel(arch):
-    """A step over a model axis above 1 refuses MLA, RWKV and Mamba
-    blocks, naming the next ROADMAP item; model 1 builds."""
+    """MLA, RWKV and Mamba blocks refuse a model axis above 1 with a
+    cache (serving over a mesh): a prefill of the blocks that have just
+    trained over (data 1, model 2), under the prefill plan, raises
+    naming ROADMAP M4.1e."""
+    from repro_torch.models import prefill
+    from repro_torch.models.layers import activation_sharding
+    from repro_torch.sharding import rules
+    cfg, mesh, blocks, tokens, _ = _step_over_model_2(arch)
+    with activation_sharding(rules.activation_plan(mesh, cfg, kind="prefill"),
+                             mesh):
+        with pytest.raises(NotImplementedError, match="M4.1e"):
+            prefill(cfg, blocks, {"tokens": tokens}, 32)
+
+
+@pytest.mark.parametrize("arch, block", [
+    ("granite-8b", "attention"), ("deepseek-v2-lite-16b", "MLA"),
+    ("rwkv6-7b", "RWKV time mix"), ("jamba-v0.1-52b", "Mamba")])
+def test_cache_under_model_axis_raises(arch, block):
+    """Every layer that takes a cache refuses one under a model axis
+    above 1 (serving over a mesh), naming the layer and ROADMAP M4.1e;
+    without the mesh the same prefill runs."""
+    from repro_torch.models import prefill
+    from repro_torch.models.layers import activation_sharding
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sharding import rules
     cfg = tcfg.reduced(tcfg.get_config(arch))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
     mesh = TracingMesh(MeshShape((1, 2), ("data", "model")), 0, "cpu")
-    with pytest.raises(NotImplementedError, match="M4.1d"):
-        build_train_step(cfg, device="cpu", mesh=mesh)
-    build_train_step(cfg, device="cpu", mesh=TracingMesh(
-        MeshShape((2, 1), ("data", "model")), 0, "cpu"))
+    with activation_sharding(rules.activation_plan(mesh, cfg,
+                                                   kind="prefill"), mesh):
+        with pytest.raises(NotImplementedError,
+                           match=f"{block} with a cache.*M4.1e"):
+            prefill(cfg, params, {"tokens": tokens}, 16)
+    logits, _ = prefill(cfg, params, {"tokens": tokens}, 16)
+    assert torch.isfinite(logits).all()
 
 
 # ------------------------------------------------------------ launch
@@ -591,3 +782,53 @@ def test_launch_train_model_parallel_then_resume(tmp_path):
     assert res.stdout.count("resumed from step 3") == 4
     assert res.stdout.count("done at step 4") == 4
     assert "mesh {'data': 1, 'model': 4}" in res.stdout
+
+
+def test_launch_train_jamba_model_parallel_resumes_on_one_rank(tmp_path):
+    """``launch.train --model-parallel 2`` under 2 ranks (data 1, model 2)
+    trains reduced jamba 2 steps and checkpoints (``w_in`` gathered from
+    both ranks' halves); one rank resumes from it and trains to step 4,
+    and equals one rank that trains the 4 steps uninterrupted: every
+    leaf of the two final checkpoints (parameters and AdamW's state)
+    within 1e-4 of its largest magnitude (the first two steps' split
+    products round differently)."""
+    import subprocess
+    import sys
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.conformance.subproc import child_env
+    args = ("repro_torch.launch.train", "--arch", "jamba-v0.1-52b",
+            "--reduced", "--device", "cpu", "--batch", "2", "--seq", "16",
+            "--ckpt-every", "2", "--lr", "1e-3")
+
+    def launch(ck, *extra, nproc=1):
+        pre = ("-m", "repro_torch.distributed", "--nproc", str(nproc)) \
+            if nproc > 1 else ()
+        res = subprocess.run([sys.executable, *pre, "-m", *args,
+                              "--ckpt-dir", str(tmp_path / ck), *extra],
+                             cwd=tmp_path, capture_output=True, text=True,
+                             timeout=300, env=child_env())
+        assert res.returncode == 0, res.stderr[-4000:]
+        return res.stdout
+
+    out = launch("ck", "--steps", "2", "--model-parallel", "2", nproc=2)
+    assert out.count("done at step 2") == 2
+    assert "mesh {'data': 1, 'model': 2}" in out
+    resumed = launch("ck", "--steps", "4")
+    assert "resumed from step 2" in resumed and "done at step 4" in resumed
+    launch("ck_whole", "--steps", "4")
+    got, want = [CheckpointManager(str(tmp_path / ck)) for ck in
+                 ("ck", "ck_whole")]
+    assert got.all_steps()[-1] == want.all_steps()[-1] == 4
+    d_got, d_want = got._step_dir(4), want._step_dir(4)
+    files = sorted(f for f in os.listdir(d_want) if f.endswith(".npy"))
+    assert files and files == sorted(f for f in os.listdir(d_got)
+                                     if f.endswith(".npy"))
+    for f in files:
+        x, y = (np.load(os.path.join(d, f)) for d in (d_got, d_want))
+        if x.dtype.kind != "f":
+            np.testing.assert_array_equal(x, y)
+            continue
+        scale = max(float(np.abs(y).max()), 1e-30)
+        assert float(np.abs(x.astype(np.float64) - y).max()) <= \
+            1e-4 * scale, f

@@ -442,8 +442,9 @@ def _cli(*args, cwd):
 def test_launch_train_cli_then_resume(tmp_path):
     """``python -m repro_torch.launch.train --reduced --device cpu``
     writes checkpoints and a second run resumes from the newest;
-    ``--model-parallel`` above 1 is refused for RWKV blocks, naming
-    ROADMAP M4.1d."""
+    ``--model-parallel 2`` in one process is refused: the ranks do not
+    divide into model groups of 2 (RWKV blocks themselves train tensor
+    parallel, ``tests/test_torch_tensor_parallel.py``)."""
     ck = str(tmp_path / "ckpt")
     base = ("repro_torch.launch.train", "--arch", "rwkv6-7b", "--reduced",
             "--device", "cpu", "--batch", "2", "--seq", "16",
@@ -457,7 +458,8 @@ def test_launch_train_cli_then_resume(tmp_path):
         res.stdout
     assert CheckpointManager(ck).all_steps() == [2, 3, 4]
     res = _cli(*base, "--steps", "1", "--model-parallel", "2", cwd=tmp_path)
-    assert res.returncode != 0 and "M4.1d" in res.stderr
+    assert res.returncode != 0 and "--model-parallel 2 does not divide " \
+        "1 ranks" in res.stderr
 
 
 def test_launch_train_cli_hubert_trains_on_frames(tmp_path):
