@@ -361,7 +361,12 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    data 16, model 16) traced with its collectives (trace seconds, nodes,
    the rank's peak and fits, collective bytes by kind, the collective
    share of the roofline), its all-reduce bytes within MULTI_GATE of
-   the count from the shapes (:func:`multi_all_reduce_bytes`); (b)
+   the count from the shapes (:func:`multi_all_reduce_bytes`); then the
+   multi serving cells granite-8b ``decode_32k``, jamba-v0.1-52b
+   ``long_500k`` and granite-8b ``prefill_32k``
+   (:data:`DRYRUN_MULTI_SERVE`): OK, fits, the rank's all-reduce and
+   all-gather bytes equal to the count from the shapes
+   (:func:`serve_tp_bytes`); (b)
    ``run_pardnn_plan`` for reduced granite-8b (float32), K=4 folded onto
    the card, executed, linted and traced: 0 verifier errors, compiled
    within PARDNN_DRIFT of the interpreter, at least one fma flash forward
@@ -409,8 +414,23 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    whole layer's; (f) ``launch.train``'s body over (data 2, model 2) at
    (b)'s depth, TP["train_steps"] steps, no checkpoint: the first loss
    within DIST_LOSS_GATE of the one-rank loss, 2L sm90 forward and L
-   backward launches a step. Prints the backend, the bytes each
-   collective moved a step and each rank's step ms (host-staged
+   backward launches a step; then serving over a mesh
+   (``build_prefill_step`` and ``build_serve_step`` with ``mesh``, each
+   rank its blocks of the parameters and of the caches), bf16 at full
+   width (:func:`_serve_cases`): (j) 2 granite-8b layers over (data 1,
+   model 4), a prompt of 4 x 1020 into caches of 4096 (1024 positions a
+   rank), 12 decode steps into rank 1's slice, 2 sm90 flash forwards a
+   rank and 0 fma; (k) deepseek's mla and mla_moe layers, 4 x 1024 into
+   caches of 4112; (l) a gemma3-1b period at ``long_500k`` over (data 2,
+   model 2), batch 1, caches of 524288 filled from the seed to 524280,
+   4 decode steps; (m) 2 rwkv6-7b layers and a jamba mamba + mamba_moe
+   pair over (data 1, model 4), 2 mma ``wkv6`` and 26 ``reg`` scan
+   launches a rank: each case's logits against the whole bf16 run on
+   one rank, anchored on float32, under DIST_GATE with the rounding
+   witness, the greedy tokens equal wherever the whole run's top-2 gap
+   exceeds the gate, each collective's bytes equal to the count from
+   the shapes (:func:`serve_tp_bytes`). Prints the backend, the bytes
+   each collective moved a step and each rank's step ms (host-staged
    transport on a shared card: no measure of NVLink or NCCL).
 
 Each phase's seconds are printed when it ends. ``--rank-body`` (not
@@ -5944,6 +5964,55 @@ def _dryrun_multi(torch, card: str) -> None:
         f" against {want}"
 
 
+#: the multi-card serving cells traced at full width (rank 0 of (pod 2,
+#: data 16, model 16)): OK, fits, and the rank's collective bytes equal
+#: to the count from the shapes (:func:`serve_tp_bytes`)
+DRYRUN_MULTI_SERVE = (("granite-8b", "decode_32k"),
+                      ("jamba-v0.1-52b", "long_500k"),
+                      ("granite-8b", "prefill_32k"))
+
+
+def _dryrun_multi_serve(torch, card: str) -> None:
+    """(a) continued: the multi-card serving cells of
+    :data:`DRYRUN_MULTI_SERVE`, rank 0's prefill or decode step traced
+    with its collectives: status OK, fits, all-reduce and all-gather
+    bytes equal to :func:`serve_tp_bytes` at the rank's rows (the
+    decode cells one step; ``long_500k``'s one row, its caches' sequence
+    over data 16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    for arch, shape in DRYRUN_MULTI_SERVE:
+        r = dryrun.run_cell(arch, shape, "multi", device="cuda")
+        sh = dryrun.SHAPES[shape]
+        cfg = get_config(arch)
+        long = sh.global_batch < 32
+        rows = sh.global_batch if long else sh.global_batch // 32
+        mesh = {"pod": 2, "data": 16, "model": 16}
+        if sh.kind == "prefill":
+            want = serve_tp_bytes(cfg, mesh, rows, sh.seq_len, 0, False)
+        else:
+            want = serve_tp_bytes(cfg, mesh, rows, None, 1, long)
+        by = r.get("rank_collective_bytes", {})
+        got = {"all-reduce": by.get("all-reduce"),
+               "all-gather": by.get("all-gather")}
+        counted = {"all-reduce": want["psum"] + want["pmax"],
+                   "all-gather": want["all_gather"]}
+        rf = r.get("roofline", {})
+        log(f"dryrun cell {arch} {shape} multi (rank 0 of (pod 2, data 16, "
+            f"model 16), its {rows} of {sh.global_batch} rows x "
+            f"{sh.seq_len}{', the sequence over data' if long else ''}): "
+            f"{r['status']}, {r.get('nodes')} nodes traced in "
+            f"{r.get('trace_s')} s; the rank's peak "
+            f"{r.get('per_device_total_bytes', 0) / 2 ** 30:.2f} GiB, fits "
+            f"{r.get('fits')}; the rank's collective bytes {by}, counts "
+            f"{r.get('collective_schedule')}; against the count from the "
+            f"shapes {counted}; roofline bound "
+            f"{rf.get('bound_s', 0) * 1e3:.3f} ms ({rf.get('dominant')}); "
+            f"{card}")
+        assert r["status"] == "OK" and r["fits"] and got == counted, \
+            f"dryrun {arch} {shape} multi: {r}"
+
+
 def _dryrun_pardnn(torch, work: Path) -> str:
     """(b) ``run_pardnn_plan`` on the card: reduced granite-8b (float32),
     K=4 folded onto it, executed, linted and traced. Returns the saved
@@ -6165,6 +6234,7 @@ def phase_dryrun(torch, card: str, serving: bool = False,
                                            distributed)
             _dryrun_cells(torch, card)
             _dryrun_multi(torch, card)
+            _dryrun_multi_serve(torch, card)
             if priced is None:
                 priced = _dryrun_priced(torch, "cuda")
             t2 = time.perf_counter()
@@ -6528,8 +6598,8 @@ def _rank_tensor_parallel(torch, cfg, chained: bool) -> dict:
     pinned: list = []        # the routing the later runs take, in order
     real = M.route
 
-    def spy(c, router, xg):
-        probs, top_p, top_e, onehot, poh = real(c, router, xg)
+    def spy(c, router, xg, keep_fn=None):
+        probs, top_p, top_e, onehot, poh = real(c, router, xg, keep_fn)
         if pinned:
             top_e, onehot, poh = pinned[len(seen)]
             top_p = probs.gather(-1, top_e)
@@ -6745,6 +6815,333 @@ def _rank_model_parallel_train(torch, layers: int) -> dict:
     return res
 
 
+# (j)-(m): serving over a mesh in the same ranks
+#: the decode steps of the batched cases, those of the long-context case
+#: (l), its caches' length and the position they are filled to, and the
+#: seed of the weights, tokens and caches
+SERVE_TP = dict(steps=12, long_steps=4, long_len=524288,
+                long_pos=524280, seed=11)
+
+
+def _serve_cases(get_config) -> dict:
+    """(j)-(m): per case the full-width config (its depth cut), the mesh
+    (data, model), the prompt (B rows of S tokens; S None: long context,
+    batch 1, the caches filled from the seed up to
+    ``SERVE_TP["long_pos"]``), the caches' length, the decode steps and
+    the kernels (wrapper: launches a rank, all of the variant named) the
+    mesh run launches (the others none). The batched prompts end 4
+    positions before rank 1's slice of the caches (granite: 1,020 of
+    1,024; deepseek: 1,024 of 1,028, its 4 x 1,024 tokens 4 whole MoE
+    routing groups)."""
+    import dataclasses as dc
+    steps = SERVE_TP["steps"]
+    g = get_config("gemma3-1b")
+    return {
+        "(j)": (dc.replace(get_config("granite-8b"), num_layers=2), (1, 4),
+                4, 1020, 4096, steps, {"flash_attention": (2, "sm90")}),
+        "(k)": (dc.replace(get_config("deepseek-v2-lite-16b"), num_layers=2),
+                (1, 4), 4, 1024, 4 * 1028, steps, {}),
+        "(l)": (dc.replace(g, prelude=(), num_layers=len(g.block_pattern)),
+                (2, 2), 1, None, SERVE_TP["long_len"],
+                SERVE_TP["long_steps"], {}),
+        "(m) rwkv": (dc.replace(get_config("rwkv6-7b"), num_layers=2),
+                     (1, 4), 4, 1024, 4096, steps, {"wkv6": (2, "mma")}),
+        "(m) jamba": (dc.replace(get_config("jamba-v0.1-52b"), num_layers=2,
+                                 block_pattern=("mamba", "mamba_moe")),
+                      (1, 4), 4, 1024, 4096, steps,
+                      {"selective_scan": (2 * (1 + steps), "reg")}),
+    }
+
+
+def serve_tp_bytes(cfg, mesh_shape: dict, B: int, S, steps: int,
+                   long: bool | None = None) -> dict:
+    """The payload bytes one rank gives each collective
+    (``ProcessMesh.moved``) in a (j)-(m) mesh run of ``cfg`` over the
+    mesh of axis sizes ``mesh_shape`` ({"data": ..., "model": ...}, and
+    "pod"), B its rows: the prefill of B x S tokens (none where ``S`` is
+    None) and ``steps`` decode steps, at long context where ``long``
+    says (default: ``S`` None), from the shapes; activations in the
+    config's dtype. Per call, T its tokens (B x S, or B):
+
+    * the embedding's D-columns gathered (T x D/m; none for a prefill of
+      frontend embeddings); the head: the
+      rank's vocab columns of the B last logits gathered (B x V/m
+      float32), or a tied head's partial logits psummed (B x V);
+    * GQA: the new K and V of the rank's KV heads gathered (T x KV/m x
+      hd each) where m divides KV, else the blocks of ``wk`` and ``wv``
+      gathered (D x KV·hd/m each); decode batched: the rank's query
+      heads gathered (B x H/m x hd), the row maxima pmaxed (B x H
+      float32) and the outputs with their sums psummed (B x H x (hd + 1)
+      float32) over model; at long context the rank's heads' partials
+      over data (B x H/m, B x H/m x (hd + 1)); *g* after ``wo`` (T x D);
+    * MLA decode: ``q_lat`` and ``q_rope`` gathered (B x H/m x (r +
+      rope)), the combine in the latent space (B x H, B x H x (r + 1)
+      float32); *g* (T x D);
+    * RWKV6: each of the time mix's and channel mix's ``x_prev`` gathered
+      where the caches cut it on D (B x D/n over the axis of n that cuts
+      them) and their two *g* (T x D each);
+    * Mamba: ``w_x``'s product psummed (T x (R + 2N)) and *g* (T x D);
+    * an MLP's or an MoE's *g* (T x D), and where the batch axes split
+      the rows and the reference's routing group (min(1024, the global
+      batch's tokens)) spans ranks, the top-k choices gathered over them
+      (T x K int32)."""
+    data, m = mesh_shape["data"], mesh_shape["model"]
+    n_dp = data * mesh_shape.get("pod", 1)
+    long = S is None if long is None else long
+    bf, f4 = (2 if cfg.dtype == "bfloat16" else 4), 4
+    D, H, hd, KV = cfg.d_model, cfg.num_heads, cfg.head_dim, \
+        cfg.num_kv_heads
+    V = cfg.padded_vocab
+    kinds = cfg.prelude + cfg.block_pattern * cfg.num_periods
+    out = {"all_gather": 0, "psum": 0, "pmax": 0}
+
+    def call(T, decode):
+        if decode or cfg.frontend is None:
+            out["all_gather"] += T * D // m * bf
+        if cfg.tie_embeddings:
+            out["psum"] += B * V * f4
+        else:
+            out["all_gather"] += B * V // m * f4
+        for kind in kinds:
+            if kind == "rwkv":
+                n = data if long else m
+                if D >= 1024:
+                    out["all_gather"] += 2 * B * D // n * bf
+                out["psum"] += 2 * T * D * bf
+                continue
+            if kind.startswith("mamba"):
+                out["psum"] += T * (max(D // 16, 1) + 2 * cfg.mamba.d_state
+                                    ) * bf
+            elif kind.startswith("mla"):
+                if decode:
+                    r = cfg.kv_lora_rank
+                    out["all_gather"] += B * H // m * (r + cfg.qk_rope_dim) \
+                        * bf
+                    out["pmax"] += B * H * f4
+                    out["psum"] += B * H * (r + 1) * f4
+            else:
+                if KV % m == 0:
+                    out["all_gather"] += 2 * T * KV // m * hd * bf
+                else:
+                    out["all_gather"] += 2 * D * KV * hd // m * bf
+                if decode and long:
+                    out["pmax"] += B * H // m * f4
+                    out["psum"] += B * H // m * (hd + 1) * f4
+                elif decode:
+                    out["all_gather"] += B * H // m * hd * bf
+                    out["pmax"] += B * H * f4
+                    out["psum"] += B * H * (hd + 1) * f4
+            out["psum"] += 2 * T * D * bf       # the mixer's g, the FFN's
+            if kind.endswith("moe") and not long and n_dp > 1 and \
+                    T % min(1024, T * n_dp):
+                out["all_gather"] += T * cfg.moe.experts_per_token * 4
+    if S is not None:
+        call(B * S, False)
+    for _ in range(steps):
+        call(B, True)
+    return out
+
+
+def _mesh_serve_run(torch, cfg, mesh, params, toks, B: int, S, L: int,
+               steps: int, caches=None) -> list:
+    """Every step's float32 logits (the prefill's last, then each decode
+    step's) of ``cfg`` on ``params`` over ``mesh`` (its blocks), or on
+    one rank (``mesh`` None, whole ``params``): the prompt ``toks[:,
+    :S]``, then ``steps`` decode steps fed ``toks``' next columns; at long
+    context (``S`` None) only the decode steps, from ``caches`` (the
+    rank's blocks, or whole), at positions from ``SERVE_TP["long_pos"]``.
+    Only the real vocabulary's columns are kept."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.train.step import build_prefill_step, build_serve_step
+    got = []
+    if S is None:
+        pos = SERVE_TP["long_pos"]
+    else:
+        logits, caches = build_prefill_step(cfg, L, "cuda", mesh)(
+            params, {"tokens": toks[:, :S]})
+        got.append(logits[..., :cfg.vocab_size].float())
+        pos = S
+    step = build_serve_step(cfg, ShapeConfig("serve", L, B, "decode"),
+                            "cuda", mesh)
+    first = 0 if S is None else S
+    for t in range(steps):
+        _, logits, caches = step(params, caches,
+                                 toks[:, first + t:first + t + 1],
+                                 torch.tensor(pos + t, dtype=torch.int32,
+                                              device="cuda"))
+        got.append(logits[..., :cfg.vocab_size].float())
+    del caches
+    return torch.stack(got)
+
+
+def _long_caches(torch, cfg, gen, L: int):
+    """Whole caches of batch 1 and ``L`` positions in the config's dtype,
+    every KV entry up to ``SERVE_TP["long_pos"]`` drawn from ``gen``."""
+    from repro_torch.models import init_cache
+    from repro_torch.tree import tree_map
+    caches = init_cache(cfg, 1, L, "cuda")
+
+    def fill(t):
+        n = SERVE_TP["long_pos"]
+        t.narrow(-3, 0, n).copy_(torch.randn(
+            t.narrow(-3, 0, n).shape, generator=gen, device="cuda"))
+        return t
+    return tree_map(fill, caches)
+
+
+class _Routing:
+    """The MoE routings of a run (``models.moe.route``'s expert choices
+    and slots, call by call), while installed: ``"record"`` keeps each;
+    ``"pin"`` makes each call take the recorded one in turn (with its own
+    probabilities for the top-k weights), so that a token that inputs
+    differing by rounding would send to another expert takes the same
+    expert in every run; ``"compare"`` keeps each call's own and counts
+    the (token, k) assignments that differ from the recorded ones."""
+
+    def __init__(self):
+        self.kept: list = []
+        self.mode, self.i, self.changed, self.made = "record", 0, 0, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self.M, self.real = M, M.route
+        M.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.M.route = self.real
+
+    def use(self, mode: str) -> None:
+        self.mode, self.i = mode, 0
+
+    def route(self, c, router, xg, keep_fn=None):
+        probs, top_p, top_e, onehot, poh = self.real(c, router, xg, keep_fn)
+        if self.mode == "record":
+            self.kept.append((top_e, onehot, poh))
+            return probs, top_p, top_e, onehot, poh
+        e, o, p = self.kept[self.i]
+        self.i += 1
+        if self.mode == "compare":
+            self.changed += int((e != top_e).sum())
+            self.made += e.numel()
+            return probs, top_p, top_e, onehot, poh
+        top_p = probs.gather(-1, e)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+        return probs, top_p, e, o, p
+
+
+def _rank_serve(torch, label: str, case) -> dict:
+    """(j)-(m) on one rank: the case's config at full width (bf16) served
+    over its mesh (``build_prefill_step`` and ``build_serve_step`` with
+    ``mesh``; each rank its blocks of the parameters and caches), the
+    launches of :data:`TP_KERNELS` and the bytes of that run; then, on
+    rank 0 (every rank holds the same rows), the same steps on one rank
+    whole in bf16 and in float32 (the float32 weights the bf16 ones
+    upcast, the long caches likewise), and where the mesh run is further
+    from float32 than the whole bf16 run by more than DIST_GATE by the
+    largest element, the split run in float32 on every rank (the
+    rounding witness). The runs after the mesh run take its MoE routing
+    (:class:`_Routing`; the MoE cases (e), (g), (i) do the same), and the
+    whole bf16 run once more on its own routing counts the assignments
+    that bf16 rounding sends elsewhere. Rank 0 returns the errors and the
+    greedy tokens' agreement; every rank its launches, bytes and
+    seconds."""
+    from repro_torch.distributed import ProcessMesh
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import init_params
+    from repro_torch.train.step import shard_caches, shard_params
+    from repro_torch.tree import tree_map
+    cfg, shape, B, S, L, steps, _ = case
+    mesh = ProcessMesh(MeshShape(shape, ("data", "model")), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_TP["seed"])
+    params = init_params(cfg, gen, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (B, (S or 0) + steps),
+                         generator=gen, device="cuda")
+    whole_caches = _long_caches(torch, cfg, gen, L) if S is None else None
+    blocks = tree_map(lambda t: t.clone(), shard_params(params, mesh))
+    # the rank's blocks of the long caches, and a copy for the witness
+    kept = None if S is not None else shard_caches(whole_caches, mesh,
+                                                   long_context=True)
+    if mesh.rank != 0:
+        params = whole_caches = None
+    _release(torch)
+    with _Routing() as routing:
+        return _rank_serve_runs(torch, cfg, mesh, params, blocks, toks, B,
+                                S, L, steps, whole_caches, kept, routing)
+
+
+def _rank_serve_runs(torch, cfg, mesh, params, blocks, toks, B, S, L,
+                     steps, whole_caches, kept, routing) -> dict:
+    """The runs of :func:`_rank_serve` under ``routing``."""
+    from repro_torch.tree import tree_map
+    every = ("data", "model")
+    reset_counts()
+    mesh.reset_moved()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp = _mesh_serve_run(torch, cfg, mesh, blocks, toks, B, S, L, steps,
+                         None if kept is None else
+                         tree_map(lambda t: t.clone(), kept))
+    torch.cuda.synchronize()
+    res = {"ms": (time.perf_counter() - t0) * 1e3,
+           "counts": {k: n for k, n in read_counts().items()
+                      if k.split("/")[0] in TP_KERNELS},
+           "moved": dict(mesh.moved), "rank": mesh.rank}
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    need = torch.zeros(1, device="cuda")
+    if mesh.rank == 0:
+        t1 = time.perf_counter()
+
+        def caches(dtype=None):
+            """A copy of the whole long caches (in ``dtype``), or None."""
+            return None if whole_caches is None else tree_map(
+                lambda t: t.to(dtype or t.dtype, copy=True), whole_caches)
+        if routing.kept:
+            routing.use("compare")
+            _mesh_serve_run(torch, cfg, None, params, toks, B, S, L, steps,
+                            caches())
+            res["routing"] = {"changed": routing.changed,
+                              "made": routing.made}
+        routing.use("pin")
+        bf = _mesh_serve_run(torch, cfg, None, params, toks, B, S, L,
+                             steps, caches())
+        p32 = tree_map(lambda t: t.float(), params)
+        del params
+        routing.use("pin")
+        f32 = _mesh_serve_run(torch, c32, None, p32, toks, B, S, L, steps,
+                              caches(torch.float32))
+        del p32
+        res["whole_s"] = time.perf_counter() - t1
+        res["tp_f32"] = {"max": _rel(tp, f32), "l2": _rel_l2(tp, f32)}
+        res["bf16_f32"] = {"max": _rel(bf, f32), "l2": _rel_l2(bf, f32)}
+        res["tp_bf16"] = {"max": _rel(tp, bf), "l2": _rel_l2(tp, bf)}
+        # greedy tokens wherever the whole bf16 run's top-2 gap exceeds
+        # the gate over the row's largest magnitude
+        top = bf.topk(2, dim=-1).values
+        sure = (top[..., 0] - top[..., 1]) > DIST_GATE * bf.abs().amax(-1)
+        same = tp.argmax(-1) == bf.argmax(-1)
+        res["tokens"] = {"checked": int(sure.sum()),
+                         "of": int(sure.numel()),
+                         "differ": int((sure & ~same).sum())}
+        need += float(res["tp_f32"]["max"] > res["bf16_f32"]["max"]
+                      + DIST_GATE)
+        _release(torch)
+    if float(mesh.all_reduce(need, every)[0]):
+        # the witness: the same split in float32 against the whole
+        # float32 run (every rank runs the split; rank 0 compares)
+        b32 = tree_map(lambda t: t.float(), blocks)
+        c_w = None if kept is None else tree_map(lambda t: t.float(), kept)
+        routing.use("pin")
+        s32 = _mesh_serve_run(torch, c32, mesh, b32, toks, B, S, L, steps,
+                              c_w)
+        if mesh.rank == 0:
+            res["split32"] = _rel(s32, f32)
+        del b32, s32, c_w
+    mesh.all_reduce(torch.zeros(1, device="cuda"), every)
+    del blocks, tp, kept
+    return res
+
+
 def _local_sums(torch, tree) -> list:
     from repro_torch.tree import tree_flatten
     return [float(t.double().sum()) for t in tree_flatten(tree)[0]]
@@ -6838,6 +7235,12 @@ def rank_distributed(torch, work: Path, layers: int) -> None:
             res["tp"][label] = _rank_tensor_parallel(torch, c, chained)
             _release(torch)
             seconds[label] = time.perf_counter() - t4
+        res["serve"] = {}
+        for label, case in _serve_cases(get_config).items():
+            t5 = time.perf_counter()
+            res["serve"][label] = _rank_serve(torch, label, case)
+            _release(torch)
+            seconds[label] = time.perf_counter() - t5
         t6 = time.perf_counter()
         res["tp_train"] = _rank_model_parallel_train(torch, layers)
         res["seconds"] = dict(seconds, **{"(f)": time.perf_counter() - t6})
@@ -6992,6 +7395,8 @@ def _distributed_check(torch, started, card: str) -> dict:
             f"{co['worst']['feedback']:.3g} ulp of the scale, |residual| at "
             f"most {co['worst']['residual']:.3g} scale; bytes {co['moved']}")
     tp_launches = _tensor_parallel_check(res, layers, card)
+    for name, n in _serve_check(res, card).items():
+        tp_launches[name]["serve_tensor_parallel"] = n
     checked = [r for r in res if r["compression"]["worst"]["rel"] is not None]
     assert len(checked) == P_ // DIST["pods"], \
         f"distributed (c): the exact mean checked on {len(checked)} ranks"
@@ -7041,13 +7446,6 @@ def _tensor_parallel_check(res: list, layers: int, card: str) -> dict:
               "flash_attention_bwd": layers * steps,
               "flash_attention_bwd/sm90": layers * steps}
 
-    def want(kernels: dict) -> dict:
-        out = dict.fromkeys(TP_KERNELS, 0)
-        out.update({"flash_attention/fma": 0, "flash_attention_bwd/fma": 0})
-        for name, (n, variant) in kernels.items():
-            out[name] = out[f"{name}/{variant}"] = n
-        return out
-
     def errs_text(case):
         return "; ".join(
             f"{name}: out {case[k]['out']:.4g} (L2 {case[k]['out_l2']:.4g}), "
@@ -7074,7 +7472,7 @@ def _tensor_parallel_check(res: list, layers: int, card: str) -> dict:
             f"launches {got}, want {f_want}"
         for label, (c, kernels, _) in cases.items():
             case = r["tp"][label]
-            w = want(kernels)
+            w = _launch_want(kernels)
             got = {k: case["counts"].get(k, 0) for k in w}
             if got != w:
                 failed.append(f"distributed {label} rank {r['rank']}: "
@@ -7210,6 +7608,103 @@ def _tensor_parallel_check(res: list, layers: int, card: str) -> dict:
     out["flash_attention"]["tensor_parallel_train"] = 2 * layers * steps
     out["flash_attention_bwd"]["tensor_parallel_train"] = layers * steps
     return out
+
+
+def _launch_want(kernels: dict) -> dict:
+    """The launches a rank of a case must count: ``kernels`` (wrapper:
+    (launches, variant)), 0 of every other wrapper of TP_KERNELS and of
+    the fma flash kernels."""
+    out = dict.fromkeys(TP_KERNELS, 0)
+    out.update({"flash_attention/fma": 0, "flash_attention_bwd/fma": 0})
+    for name, (n, variant) in kernels.items():
+        out[name] = out[f"{name}/{variant}"] = n
+    return out
+
+
+def _serve_check(res: list, card: str) -> dict:
+    """Hold the ranks' (j)-(m) to their gates and log them: on every rank
+    the launches and the collective bytes (:func:`serve_tp_bytes`); on
+    rank 0 the logits of the mesh run against the whole float32 run
+    within DIST_GATE of the whole bf16 run's error, by the largest
+    element (or, over it, held by the rounding witness: the float32
+    split within TP32_GATE of the whole float32 run and the error within
+    TP_ROUNDING times the whole bf16 run's) and by the relative L2 error,
+    and the greedy tokens equal wherever the whole bf16 run's top-2 gap
+    exceeds the gate. Returns the launches a rank by wrapper, over the
+    cases."""
+    from repro_torch.configs import get_config
+    what = {"(j)": "2 granite-8b layers, prefill of 4 x 1020 into caches "
+                   "of 4096 (1024 positions a rank), 8 of 32 query heads "
+                   "a rank",
+            "(k)": "deepseek-v2-lite-16b's mla and mla_moe layers, prefill "
+                   "of 4 x 1024 into caches of 4112 (1028 a rank), "
+                   "absorbed",
+            "(l)": "a gemma3-1b period (5 local layers of window 1024, 1 "
+                   "global) at long_500k: batch 1, caches of 524288 "
+                   "filled from the seed to 524280, the sequence over "
+                   "data (262144 a rank), 2 of 4 heads a rank",
+            "(m) rwkv": "2 rwkv6-7b layers, prefill of 4 x 1024, 16 of 64 "
+                        "heads a rank",
+            "(m) jamba": "a jamba-v0.1-52b mamba and mamba_moe pair, "
+                         "prefill of 4 x 1024, 2048 of 8192 channels and 4 "
+                         "of 16 experts a rank"}
+    failed, launches = [], {}
+    for label, (cfg, shape, B, S, L, steps, kernels) in \
+            _serve_cases(get_config).items():
+        want = _launch_want(kernels)
+        moved = serve_tp_bytes(cfg, dict(zip(("data", "model"), shape)), B,
+                               S, steps)
+        for r in res:
+            case = r["serve"][label]
+            got = {k: case["counts"].get(k, 0) for k in want}
+            if got != want:
+                failed.append(f"distributed {label} rank {r['rank']}: "
+                              f"launches {got}, want {want}")
+            if {k: v for k, v in case["moved"].items() if v} != \
+                    {k: v for k, v in moved.items() if v}:
+                failed.append(f"distributed {label} rank {r['rank']}: "
+                              f"moved {case['moved']}, the count from the "
+                              f"shapes {moved}")
+        for name, (n, _) in kernels.items():
+            launches[name] = launches.get(name, 0) + n
+        case = res[0]["serve"][label]
+        tp_, bf, tok = case["tp_f32"], case["bf16_f32"], case["tokens"]
+        over = tp_["max"] > bf["max"] + DIST_GATE
+        witnessed = over and case.get("split32", 1.0) <= TP32_GATE and \
+            tp_["max"] <= TP_ROUNDING * bf["max"]
+        if (over and not witnessed) or tp_["l2"] > bf["l2"] + DIST_GATE \
+                or tok["differ"]:
+            failed.append(f"distributed {label}: logits against float32 "
+                          f"{tp_}, the whole bf16 run's {bf}, the float32 "
+                          f"split {case.get('split32')}; greedy tokens "
+                          f"{tok}")
+        log(f"distributed {label}: {what[label]} (bf16) over (data "
+            f"{shape[0]}, model {shape[1]}), {steps} decode steps: the mesh "
+            f"run {case['ms']:.1f} ms on rank 0 (host-staged transport on a "
+            f"shared card), the whole bf16 and float32 runs "
+            f"{case['whole_s']:.1f} s; launches "
+            f"{ {k: n for k, n in case['counts'].items() if n} }; bytes "
+            f"{case['moved']} (the count from the shapes {moved}); logits' "
+            f"largest error / max |logit| (relative L2) against float32: "
+            f"mesh {tp_['max']:.4g} ({tp_['l2']:.4g}), whole bf16 "
+            f"{bf['max']:.4g} ({bf['l2']:.4g}), mesh against whole bf16 "
+            f"{case['tp_bf16']['max']:.4g} ({case['tp_bf16']['l2']:.4g}) "
+            f"(gate: within {DIST_GATE:.4g} of the whole bf16 run's"
+            + (f"; over it by the largest element and held by the rounding "
+               f"witness, the float32 split {case['split32']:.3g} against "
+               f"the whole float32 run" if witnessed else "")
+            + ")" + (f"; the mesh run's routing taken by the whole runs; on "
+                     f"its own the whole bf16 run sends "
+                     f"{case['routing']['changed']} of "
+                     f"{case['routing']['made']} (token, k) assignments to "
+                     f"another expert" if "routing" in case else "")
+            + f"; greedy tokens equal at {tok['checked']} of {tok['of']} "
+            f"(step, row) where the top-2 gap exceeds the gate, "
+            f"{tok['differ']} differ; the case "
+            + ", ".join(f"rank {r['rank']} {r['seconds'][label]:.1f} s"
+                        for r in res) + f"; {card}")
+    assert not failed, "\n".join(failed)
+    return launches
 
 
 def _distributed_depth(torch, cfg, measured: dict | None) -> int:

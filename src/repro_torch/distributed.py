@@ -42,7 +42,10 @@ body for itself:
   :meth:`~ProcessMesh.reduce_from` (*g*: psum forward, identity
   backward) and :meth:`~ProcessMesh.gather_from` (an all-gather whose
   backward takes the rank's block of a whole gradient or reduce-scatters
-  partial ones). :class:`TracingMesh` is one rank of a mesh with no
+  partial ones); where autograd is off (serving) each is its forward
+  collective alone, with no ``autograd.Function``, so that a serving
+  step traces through ``functionalize``. :class:`TracingMesh` is one
+  rank of a mesh with no
   process group, whose collectives are custom ops, for tracing a rank's
   program (the dry run's multi-card cells).
 * :class:`NamedSharding` places a tensor by a spec (one entry per
@@ -329,6 +332,8 @@ class ProcessMesh:
         """Megatron's *f*: ``x`` (the same on every rank of ``axis``)
         entering compute split over ``axis``. Identity forward; backward
         the psum of the ranks' partial gradients."""
+        if not torch.is_grad_enabled():
+            return x
         return _CopyTo.apply(x, self, self._axes(axis))
 
     def reduce_from(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -337,6 +342,8 @@ class ProcessMesh:
         (the incoming gradient is the whole one on every rank). Not
         :meth:`psum`, whose backward psums again: used here it would
         multiply every upstream gradient by the axis size."""
+        if not torch.is_grad_enabled():
+            return self.all_reduce(x, axis)
         return _ReduceFrom.apply(x, self, self._axes(axis))
 
     def gather_from(self, x: torch.Tensor, axis: str, dim: int,
@@ -347,6 +354,8 @@ class ProcessMesh:
         gradient is whole and equal there), or with ``partial`` the
         gradient reduce-scattered (summed over the ranks, each keeping
         its block) when each rank reads only its part of the result."""
+        if not torch.is_grad_enabled():
+            return self.all_gather(x, axis, dim % x.dim())
         return _GatherFrom.apply(x, self, axis, dim % x.dim(), partial)
 
     def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:

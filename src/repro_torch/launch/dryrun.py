@@ -38,9 +38,13 @@ GSPMD's sequence-parallel all-gathers and reduce-scatters around each
 block (the plan's ``btd`` over ``model``), where the port runs Megatron's
 all-reduces (one forward and one backward a block's attention, MLA,
 RWKV mix, Mamba mixer or MLP, and again in a recompute; Mamba's
-``w_x`` product psummed both ways). Multi prefill and decode cells are
-``SKIP``, naming the ROADMAP item that brings serving over a mesh
-(:func:`multi_skip_reason`).
+``w_x`` product psummed both ways). Multi prefill and decode cells trace
+rank 0's prefill or serve step over the same mesh
+(:func:`trace_rank_serve`): its blocks of the parameters and of the
+caches (``rules.serve_cache_specs``), its rows, and at ``long_500k``
+(batch 1, below the 32 data-parallel ways) the whole batch with the
+caches' sequence cut over ``data``; a multi cell runs wherever its
+single cell runs.
 
 It differs from the reference where the card differs: no ``XLA_FLAGS``
 line and no forced device count; the results go to
@@ -87,22 +91,8 @@ from ..core.costmodel import (H100_HBM_BW, H100_HBM_BYTES, H100_NVLINK_BW,
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 
-#: why a ``--mesh multi`` prefill or decode cell does not run
-MULTI_SERVE_SKIP = ("serving over the multi-card mesh (tensor-parallel "
-                    "prefill and decode with cache_specs, the "
-                    "context-parallel long_500k) is ROADMAP M4.1e")
-
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
-
-
-def multi_skip_reason(cfg, shape) -> str | None:
-    """Why the ``--mesh multi`` cell of ``cfg`` at ``shape`` does not run
-    (the single cell's reason first), or None."""
-    skip = shape_skip_reason(cfg, shape)
-    if skip is None and shape.kind != "train":
-        skip = MULTI_SERVE_SKIP
-    return skip
 
 
 def collective_bytes_from_graph(graph) -> dict:
@@ -231,6 +221,46 @@ def trace_rank_step(cfg, shape, remat: str, mesh, dev: torch.device):
     return api.trace(step, params, batch, autograd=True, record=True)
 
 
+def trace_rank_serve(cfg, shape, mesh, dev: torch.device):
+    """The prefill or serve step (``shape``'s kind) of one rank of
+    ``mesh`` (a :class:`~repro_torch.distributed.TracingMesh`) traced on
+    fake tensors on ``dev`` of that rank's shapes: its blocks of the
+    parameters, its rows of the batch or tokens (``global_batch / (pod x
+    data)``; the whole batch at long context, where it is smaller than
+    that), and for decode its blocks of the caches
+    (``train.step.cache_shardings``) and a 0-d ``cache_pos``."""
+    from .. import api
+    from ..models.io_spec import (cache_spec, decode_token_spec,
+                                  params_spec, prefill_batch_spec)
+    from ..sharding import rules
+    from ..train.step import (_rows, build_prefill_step, build_serve_step,
+                              cache_shardings, rules_total_dp)
+    from ..tree import tree_map
+    long_context = shape.kind == "decode" and \
+        shape.global_batch < rules_total_dp(mesh)
+    rows = shape.global_batch if long_context else \
+        _rows(shape.global_batch, mesh)
+
+    def local(whole, shs):
+        return tree_map(lambda p, sh: torch.empty(
+            sh.shard_shape(p.shape), dtype=p.dtype, device=p.device), whole,
+            shs)
+    p_whole = params_spec(cfg)
+    params = local(p_whole, rules.param_shardings(p_whole, mesh))
+    if shape.kind == "prefill":
+        params, batch = _fake_on((params, prefill_batch_spec(
+            cfg, rows, shape.seq_len)), dev)
+        return api.trace(build_prefill_step(cfg, shape.seq_len, dev, mesh),
+                         params, batch, record=True)
+    c_whole = cache_spec(cfg, shape.global_batch, shape.seq_len)
+    caches = local(c_whole, cache_shardings(c_whole, mesh, long_context))
+    params, caches, tokens, pos = _fake_on(
+        (params, caches, decode_token_spec(cfg, rows),
+         torch.empty((), dtype=torch.int32, device="meta")), dev)
+    return api.trace(build_serve_step(cfg, shape, dev, mesh), params,
+                     caches, tokens, pos, record=True)
+
+
 def trace_order_peak(traced) -> float:
     """Bytes live at the peak of the traced step run on one device in
     the order the trace recorded its nodes, the order the eager step
@@ -285,8 +315,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     """One dry-run cell, traced on fake tensors on ``device`` (``None``:
     cuda, which raises where there is none): nothing is allocated.
     ``mesh_kind="single"``: the step on one H100; ``"multi"``: rank 0's
-    program on the 512-chip production mesh (:func:`trace_rank_step`;
-    train cells; prefill and decode ``SKIP``). The
+    program on the 512-chip production mesh (:func:`trace_rank_step` for
+    train cells, :func:`trace_rank_serve` for prefill and decode). The
     record keeps the reference's keys where they mean the same
     (``status``, ``chips``, ``remat``, ``tag``, ``roofline``,
     ``model_flops``, ``useful_flops_ratio``, ``collective_bytes``,
@@ -306,8 +336,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     multi = mesh_kind == "multi"
-    skip = multi_skip_reason(cfg, shape) if multi else \
-        shape_skip_reason(cfg, shape)
+    skip = shape_skip_reason(cfg, shape)
     if skip:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
                 "status": "SKIP", "reason": skip}
@@ -317,8 +346,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     if multi:
         shape_m = make_production_mesh(multi_pod=True)
         chips = mesh_num_chips(shape_m)
-        traced = trace_rank_step(cfg, shape, remat,
-                                 TracingMesh(shape_m, 0, dev), dev)
+        mesh = TracingMesh(shape_m, 0, dev)
+        traced = trace_rank_step(cfg, shape, remat, mesh, dev) \
+            if shape.kind == "train" else \
+            trace_rank_serve(cfg, shape, mesh, dev)
     else:
         traced = _trace_cell(cfg, shape, remat, dev)
     trace_s = time.perf_counter() - t0
@@ -592,9 +623,7 @@ def _cells_main(args, dev) -> int:
 
     if args.list:
         for a, s, m in cells:
-            cfg, shape = get_config(a), SHAPES[s]
-            skip = multi_skip_reason(cfg, shape) if m == "multi" else \
-                shape_skip_reason(cfg, shape)
+            skip = shape_skip_reason(get_config(a), SHAPES[s])
             print(f"{cell_name(a, s, m):60s} "
                   f"{'SKIP: ' + skip if skip else 'RUN'}")
         return 0

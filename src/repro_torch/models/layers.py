@@ -28,8 +28,19 @@ MLA's latent projections) gets the ranks' partial gradients summed by
 :func:`whole` with ``split``; right before the split product where a
 whole branch reads the same input (the RWKV channel mix's ``cm_r``),
 since *f* at the input would sum that branch's whole gradient ``model``
-times. A layer with a cache (serving over a mesh) raises under a
-``model`` axis above 1 (:data:`CACHE_PENDING`).
+times.
+
+**Serving over a mesh.** Under a serving step's plan (:func:`serving`)
+each layer with a cache holds this rank's block of it, as
+``rules.serve_cache_specs`` places it: the rank's rows, and the
+sequence of every KV head (or of MLA's latent and rope key) cut over
+``model`` (batched decode and prefill) or over ``data`` (long context,
+batch 1). Decode attention is flash-decoding: each rank attends over its
+slice of positions, masked by their global positions, to a float32
+partial (:func:`softmax_partial`), and the partials are combined over
+the axis that cuts the sequence (:func:`combine_partials`); the new
+token is written by the rank whose slice holds its position
+(:func:`write_cache_slice`).
 """
 from __future__ import annotations
 
@@ -92,18 +103,95 @@ def model_mesh():
         mesh.shape.get("model", 1) > 1 else None
 
 
-#: what waits: serving over a mesh
-CACHE_PENDING = ("a cache under a model axis above 1 (serving over a "
-                 "mesh: tensor-parallel prefill and decode with "
-                 "cache_specs) is ROADMAP M4.1e")
+#: the plan entry the serving steps add (``train.step``): ``{"axis",
+#: "len", "rows"}``, the mesh axis that splits the caches' sequence
+#: (``model`` in batched decode and prefill, ``data`` at long context),
+#: the caches' whole length, and whether the batch axes split the rows
+SERVE = "serve"
+
+#: the finite floor of a partial softmax's row maximum (the Pallas
+#: kernel's ``NEG_INF``): a slice with every key masked keeps a finite
+#: maximum, so that its weight in the combine is exp(floor - M) = 0 and
+#: not exp(-inf - -inf), which is NaN
+NEG_INF = -1e30
 
 
-def refuse_cache(cache, block: str) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) for a
-    ``block`` layer given a cache under :func:`model_mesh`."""
-    if cache is not None and model_mesh() is not None:
-        raise NotImplementedError(f"tensor-parallel {block} with a cache: "
-                                  f"{CACHE_PENDING}")
+def serving():
+    """``(mesh, entry)`` under a serving step's plan (the installed mesh,
+    whatever its ``model`` size, and the plan's :data:`SERVE` entry), else
+    None."""
+    if _ACT is None or _ACT["plan"].get(SERVE) is None:
+        return None
+    return _ACT["mesh"], _ACT["plan"][SERVE]
+
+
+def cache_slice(cache_len: int):
+    """``(n, axis, lo)`` of a cache leaf whose sequence holds
+    ``cache_len`` positions here, under :func:`serving`: the slices the
+    whole sequence is cut into over ``axis`` and the first position this
+    rank holds (``n`` 1 and ``lo`` 0 where the sequence is whole)."""
+    mesh, entry = serving()
+    n = entry["len"] // cache_len
+    if n == 1:
+        return 1, entry["axis"], 0
+    axis = entry["axis"]
+    if n != mesh.axis_size(axis):
+        raise ValueError(f"a cache of {cache_len} of {entry['len']} "
+                         f"positions over {axis} of size "
+                         f"{mesh.axis_size(axis)}")
+    return n, axis, mesh.axis_index(axis) * cache_len
+
+
+def write_cache_slice(cache: torch.Tensor, new: torch.Tensor, pos,
+                      lo: int) -> torch.Tensor:
+    """Write ``new`` (B, S, ...), the tokens at positions ``pos``, ...,
+    into ``cache`` (B, L_slice, ...), which holds the positions ``[lo, lo
+    + L_slice)`` of a sequence-split cache, **in place**: the part that
+    falls in the slice, nothing elsewhere. ``pos`` is an int (a static
+    slice) or, for one token, a 0-d or (B,) tensor: then a masked write
+    (each row's old entry written back where its position lies outside
+    the slice), so that a trace on fake tensors never reads its value."""
+    L, S = cache.shape[1], new.shape[1]
+    if not isinstance(pos, torch.Tensor):
+        a, b = max(int(pos), lo), min(int(pos) + S, lo + L)
+        if a < b:
+            cache[:, a - lo:b - lo] = new[:, a - pos:b - pos].to(cache.dtype)
+        return cache
+    if S != 1:
+        raise ValueError(f"a tensor position writes one token, not {S}")
+    B = cache.shape[0]
+    local = pos.to(cache.device).long().expand(B) - lo
+    inside = (local >= 0) & (local < L)
+    rows = torch.arange(B, device=cache.device)
+    idx = local.clamp(0, L - 1)
+    old = cache[rows, idx]
+    keep = inside.reshape((B,) + (1,) * (old.dim() - 1))
+    cache[rows, idx] = torch.where(keep, new[:, 0].to(cache.dtype), old)
+    return cache
+
+
+def softmax_partial(s: torch.Tensor):
+    """``(m, l, p)`` of float32 scores ``s`` (..., T), masked keys -inf:
+    the row maximum (floored at :data:`NEG_INF`), the sum of the
+    exponentials and the exponentials themselves, relative to ``m`` (0
+    at a masked key; all 0 in a row with every key masked)."""
+    m = s.amax(-1, keepdim=True).clamp(min=NEG_INF)
+    p = torch.exp(s - m)
+    return m, p.sum(-1, keepdim=True), p
+
+
+def combine_partials(mesh, axis: str, m: torch.Tensor, l: torch.Tensor,
+                     o: torch.Tensor) -> torch.Tensor:
+    """The softmax-weighted sum over every rank of ``axis``'s keys from
+    each rank's float32 partial: ``m`` and ``l`` (..., 1), ``o`` (...,
+    d) unnormalised (:func:`softmax_partial`'s weights times the values).
+    ``M = pmax(m)``, then ``psum(o e^{m-M}) / psum(l e^{m-M})``, the two
+    sums in one all-reduce. With ``n`` 1 (no ``mesh``) ``o / l``."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return o / l
+    w = torch.exp(m - mesh.pmax(m, axis))
+    both = mesh.all_reduce(torch.cat([o * w, l * w], -1), axis)
+    return both[..., :-1] / both[..., -1:]
 
 
 @functools.lru_cache(maxsize=None)
@@ -314,23 +402,26 @@ def _kv_select(t: torch.Tensor, heads: list, hd: int) -> torch.Tensor:
     return t.index_select(-1, cols)
 
 
-def _gqa_tensor_parallel(cfg: ModelConfig, p, mesh):
-    """(p, H_l, KV_l, split) for this rank of :func:`model_mesh`: the
-    weights it computes with, its query and KV head counts, and whether
+def _gqa_tensor_parallel(cfg: ModelConfig, p, mesh, kv_whole: bool = False):
+    """(p, H_l, KV_l, split, need) for this rank of :func:`model_mesh`:
+    the weights it computes with, its query and KV head counts, whether
     they are its own heads (Megatron: *f* before, *g* after) or every
     head (``split`` False: the gathered weights, the same compute on
-    every rank). With ``wq`` split by whole heads the rank takes query
-    heads ``[r·H/m, (r+1)·H/m)``; the KV heads they read are its own
-    block of ``wk`` and ``wv`` when ``KV % m == 0``, else gathered over
-    ``model`` and selected (one per query head where the heads they read
-    do not form equal groups)."""
+    every rank), and the KV heads its query heads read (None: every
+    head). With ``wq`` split by whole heads the rank takes query heads
+    ``[r·H/m, (r+1)·H/m)``; the KV heads they read are its own block of
+    ``wk`` and ``wv`` when ``KV % m == 0``, else gathered over ``model``
+    and selected (one per query head where the heads they read do not
+    form equal groups). ``kv_whole`` (serving, where every rank writes
+    every KV head's new entry) keeps gathered ``wk`` and ``wv`` whole
+    (``KV_l`` then KV) instead of selecting."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     m, r = mesh.axis_size("model"), mesh.axis_index("model")
     shapes = init_shapes(gqa_init, cfg)
     split = p["wq"].shape[1] < shapes["wq"][1] and H % m == 0
     if not split:
         return ({k: whole(t, shapes[k], False) for k, t in p.items()}, H,
-                KV, False)
+                KV, False, None)
     Hl, g = H // m, H // KV
     mine = [h // g for h in range(r * Hl, (r + 1) * Hl)]
     need = sorted(set(mine))
@@ -344,25 +435,39 @@ def _gqa_tensor_parallel(cfg: ModelConfig, p, mesh):
     own = p["wk"].shape[1] < cfg.kv_dim and KV % m == 0
     for k in ("wk", "wv", "bk", "bv"):
         if k in p and not own:
-            out[k] = _kv_select(whole(p[k], shapes[k], True), need, hd)
-    return out, Hl, len(need), True
+            w = whole(p[k], shapes[k], True)
+            out[k] = w if kv_whole else _kv_select(w, need, hd)
+    KVl = KV if kv_whole and not own else len(need)
+    return out, Hl, KVl, True, need
+
+
+def _kv_heads(t: torch.Tensor, need) -> torch.Tensor:
+    """KV heads ``need`` (dim 2) of ``t`` (B, T, KV, d): a view where
+    they are consecutive and distinct, else gathered; ``t`` for None."""
+    if need is None:
+        return t
+    if need == list(range(need[0], need[0] + len(need))):
+        return t.narrow(2, need[0], len(need))
+    return t.index_select(2, torch.tensor(need, device=t.device))
 
 
 def apply_gqa(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
               is_global: bool, kv_cache=None, cache_pos=None):
     """GQA attention layer. Prefill/training: ``kv_cache`` None → full
     sequence. Decode: ``kv_cache = dict(k=(B,Smax,KV,hd), v=...)``,
-    written in place at ``cache_pos``. Under :func:`model_mesh` (no
-    cache) the rank's heads (:func:`_gqa_tensor_parallel`).
+    written in place at ``cache_pos``. Under :func:`model_mesh` the
+    rank's heads (:func:`_gqa_tensor_parallel`); with a cache under
+    :func:`serving`, :func:`_gqa_serve`.
 
     Returns (out, kv_cache)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     mesh = model_mesh()
-    split = False
-    refuse_cache(kv_cache, "attention")
+    serve = kv_cache is not None and serving() is not None
+    split, need = False, None
     if mesh is not None:
-        p, H, KV, split = _gqa_tensor_parallel(cfg, p, mesh)
+        p, H, KV, split, need = _gqa_tensor_parallel(cfg, p, mesh,
+                                                     kv_whole=serve)
         if split:
             x = mesh.copy_to(x, "model")
     q = linear(x, p["wq"])
@@ -386,6 +491,9 @@ def apply_gqa(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     if kv_cache is None:
         out = multi_head_attention(q, k, v, causal=cfg.causal, window=window,
                                    q_offset=0, softcap=cfg.softcap)
+    elif serve:
+        out = _gqa_serve(cfg, q, k, v, kv_cache, cache_pos, window, split,
+                         need)
     else:
         ck = update_cache(kv_cache["k"], k, cache_pos)
         cv = update_cache(kv_cache["v"], v, cache_pos)
@@ -396,6 +504,77 @@ def apply_gqa(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     if split:
         out = mesh.reduce_from(out, "model")
     return out, kv_cache
+
+
+def _check_prefill_pos(cache_pos) -> None:
+    if isinstance(cache_pos, torch.Tensor) or int(cache_pos) != 0:
+        raise ValueError("a prefill over a mesh starts at position 0 (an "
+                         "int)")
+
+
+def _gqa_serve(cfg: ModelConfig, q, k, v, kv_cache, cache_pos, window,
+               split: bool, need):
+    """Attention of the rank's query heads ``q`` with this rank's block
+    of the cache under :func:`serving`. ``k`` and ``v`` are the new
+    tokens' KV heads: the rank's own block (gathered here over
+    ``model``) or every head. Every rank writes every KV head's new
+    entries at the positions its slice holds.
+
+    Prefill (S > 1, from position 0) attends over the fresh K and V of
+    the heads ``need``, through :func:`multi_head_attention` (the flash
+    kernel on the card). The reference attends over the whole cache,
+    zeros past the prompt, at ``q_offset`` 0; causality masks every key
+    past the last query, so the visible keys and the result are the
+    same.
+
+    Decode (one token) is flash-decoding over the axis that cuts the
+    sequence: where ``model`` cuts it and the heads are split, the
+    rank's query heads are gathered over ``model`` and the rank attends
+    every head over its slice of positions (its slice holds every KV
+    head); otherwise (``data`` cuts it, at long context, or nothing
+    does) the rank attends its own heads over its slice. Each key is
+    masked by its global position (``r·L_slice + j <= cache_pos``, and
+    ``> cache_pos - window`` in a windowed layer), the partials are
+    combined over the axis (:func:`combine_partials`), and the rank keeps
+    its heads of the result. Scores and the PV product are float32 (the
+    reference rounds the probabilities to v's dtype first)."""
+    mesh, _ = serving()
+    B, S, Hq, hd = q.shape
+    if k.shape[2] < cfg.num_kv_heads:
+        k = mesh.all_gather(k, "model", 2)
+        v = mesh.all_gather(v, "model", 2)
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    n, axis, lo = cache_slice(ck.shape[1])
+    write_cache_slice(ck, k, cache_pos, lo)
+    write_cache_slice(cv, v, cache_pos, lo)
+    if S > 1:
+        _check_prefill_pos(cache_pos)
+        return multi_head_attention(q, _kv_heads(k, need),
+                                    _kv_heads(v, need), causal=True,
+                                    window=window, q_offset=0,
+                                    softcap=cfg.softcap)
+    every = split and n > 1 and axis == "model"
+    if every:
+        q = mesh.all_gather(q, "model", 2)
+    else:
+        ck, cv = _kv_heads(ck, need), _kv_heads(cv, need)
+    H, KV, T = q.shape[2], ck.shape[2], ck.shape[1]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), ck.float()) \
+        * (1.0 / math.sqrt(hd))
+    if cfg.softcap > 0:
+        s = torch.tanh(s / cfg.softcap) * cfg.softcap
+    qp = torch.as_tensor(cache_pos, device=q.device).reshape(-1, 1)
+    kp = lo + torch.arange(T, device=q.device)[None, :]
+    seen = kp <= qp
+    if window is not None:
+        seen = seen & (kp > qp - window)
+    s = s.masked_fill(~seen[:, None, None, None, :], float("-inf"))
+    m, l, pr = softmax_partial(s)
+    o = torch.einsum("bkgqs,bskd->bkgqd", pr, cv.float())
+    o = combine_partials(mesh if n > 1 else None, axis, m, l, o)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd).to(q.dtype)
+    return o.narrow(2, mesh.axis_index("model") * Hq, Hq) if every else o
 
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -461,8 +640,8 @@ def apply_mla(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     The rounding points are the reference's: the latent normalised in
     float32 and cast to x's dtype, ``q_lat``, ``o_lat`` and the output
     in x's dtype, the probabilities cast to the cache's dtype. Under
-    :func:`model_mesh` (no cache) the rank's heads
-    (:func:`_mla_tensor_parallel`).
+    :func:`model_mesh` the rank's heads (:func:`_mla_tensor_parallel`);
+    with a cache under :func:`serving`, :func:`_mla_serve`.
 
     Returns (out, kv_cache)."""
     B, S, _ = x.shape
@@ -471,7 +650,6 @@ def apply_mla(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
                      cfg.v_head_dim)
     mesh = model_mesh()
     split = False
-    refuse_cache(kv_cache, "MLA")
     if mesh is not None:
         p, H, split = _mla_tensor_parallel(cfg, p, mesh)
         if split:
@@ -496,24 +674,79 @@ def apply_mla(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
         out = linear(out.reshape(B, S, H * vd), p["wo"])
         return (mesh.reduce_from(out, "model") if split else out), None
 
-    cc = update_cache(kv_cache["c_kv"], c_kv, cache_pos)
-    ck = update_cache(kv_cache["k_rope"], k_rope[:, :, 0], cache_pos)
     q_lat = torch.einsum("bshn,rhn->bshr", q_nope,
                          p["w_uk"].reshape(r, H, nd))
-    # bf16 products are exact in float32: upcast operands give the
-    # reference's float32 scores from bf16 operands
-    s_lat = torch.einsum("bshr,btr->bhst", q_lat.float(), cc.float())
-    s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), ck.float())
-    s = (s_lat + s_rope) * (1.0 / math.sqrt(nd + rd))
-    kp = torch.arange(cc.shape[1], device=x.device)
-    qp = torch.as_tensor(cache_pos, device=x.device).reshape(-1, 1) + \
-        torch.arange(S, device=x.device)                 # (B or 1, S)
+    if serving() is not None:
+        o_lat = _mla_serve(cfg, q_lat, q_rope, c_kv, k_rope, kv_cache,
+                           cache_pos, split)
+    else:
+        cc = update_cache(kv_cache["c_kv"], c_kv, cache_pos)
+        ck = update_cache(kv_cache["k_rope"], k_rope[:, :, 0], cache_pos)
+        # bf16 products are exact in float32: upcast operands give the
+        # reference's float32 scores from bf16 operands
+        s_lat = torch.einsum("bshr,btr->bhst", q_lat.float(), cc.float())
+        s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), ck.float())
+        s = (s_lat + s_rope) * (1.0 / math.sqrt(nd + rd))
+        kp = torch.arange(cc.shape[1], device=x.device)
+        qp = torch.as_tensor(cache_pos, device=x.device).reshape(-1, 1) + \
+            torch.arange(S, device=x.device)                 # (B or 1, S)
+        s = s.masked_fill(kp[None, None, None, :] > qp[:, None, :, None],
+                          float("-inf"))
+        pr = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", pr.to(cc.dtype), cc)
+    out = torch.einsum("bshr,rhv->bshv", o_lat, p["w_uv"].reshape(r, H, vd))
+    out = linear(out.reshape(B, S, H * vd), p["wo"])
+    return (mesh.reduce_from(out, "model") if split else out), kv_cache
+
+
+def _mla_serve(cfg: ModelConfig, q_lat, q_rope, c_kv, k_rope, kv_cache,
+               cache_pos, split: bool):
+    """``o_lat`` (B, S, H_l, r) in x's dtype of the rank's heads, from
+    its absorbed queries ``q_lat`` and ``q_rope``, under
+    :func:`serving`. The latent and the rope key are whole on every rank
+    (``w_dkv`` and ``w_kr`` are whole): every rank writes the new
+    tokens' entries at the positions its slice of ``c_kv`` and
+    ``k_rope`` holds.
+
+    Prefill (S > 1, from position 0) attends over the fresh latent and
+    rope key, causally: the keys the reference's attention over the
+    whole zero-padded cache leaves visible. Decode attends over the
+    rank's slice of positions, each key masked by its global position,
+    to float32 partials in the latent space, combined over the axis that
+    cuts the sequence (:func:`combine_partials`); where ``model`` cuts
+    it and the heads are split, ``q_lat`` and ``q_rope`` are gathered
+    over ``model`` first, every head attends over the slice, and the
+    rank keeps its heads of ``o_lat`` for its ``w_uv`` and ``wo``
+    blocks. Scores and the PV product are float32 (the reference rounds
+    the probabilities to the cache's dtype first)."""
+    mesh, _ = serving()
+    B, S, Hl, r = q_lat.shape
+    cc, ck = kv_cache["c_kv"], kv_cache["k_rope"]
+    n, axis, lo = cache_slice(cc.shape[1])
+    write_cache_slice(cc, c_kv, cache_pos, lo)
+    write_cache_slice(ck, k_rope[:, :, 0], cache_pos, lo)
+    dev = q_lat.device
+    if S > 1:
+        _check_prefill_pos(cache_pos)
+        cc, ck, n, lo = c_kv, k_rope[:, :, 0], 1, 0
+        qp = torch.arange(S, device=dev)[None, :]
+    else:
+        qp = torch.as_tensor(cache_pos, device=dev).reshape(-1, 1)
+    every = split and n > 1 and axis == "model"
+    if every:
+        q_lat = mesh.all_gather(q_lat, "model", 2)
+        q_rope = mesh.all_gather(q_rope, "model", 2)
+    s = (torch.einsum("bshr,btr->bhst", q_lat.float(), cc.float())
+         + torch.einsum("bshd,btd->bhst", q_rope.float(), ck.float())) \
+        * (1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim))
+    kp = lo + torch.arange(cc.shape[1], device=dev)
     s = s.masked_fill(kp[None, None, None, :] > qp[:, None, :, None],
                       float("-inf"))
-    pr = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", pr.to(cc.dtype), cc)
-    out = torch.einsum("bshr,rhv->bshv", o_lat, p["w_uv"].reshape(r, H, vd))
-    return linear(out.reshape(B, S, H * vd), p["wo"]), kv_cache
+    m, l, pr = softmax_partial(s)
+    o = torch.einsum("bhst,btr->bhsr", pr, cc.float())
+    o = combine_partials(mesh if n > 1 else None, axis, m, l, o)
+    o = o.permute(0, 2, 1, 3).to(c_kv.dtype)
+    return o.narrow(2, mesh.axis_index("model") * Hl, Hl) if every else o
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -525,10 +758,11 @@ def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                   dtype=dtype, device=device)}
 
 
-__all__ = ["CACHE_PENDING", "activation", "activation_sharding",
+__all__ = ["NEG_INF", "SERVE", "activation", "activation_sharding",
            "apply_gqa", "apply_mla", "apply_mlp", "apply_norm", "apply_rope",
-           "dense_init", "dtype_of", "gqa_cache_init", "gqa_init",
-           "init_shapes", "linear",
+           "cache_slice", "combine_partials", "dense_init", "dtype_of",
+           "gqa_cache_init", "gqa_init", "init_shapes", "linear",
            "mla_cache_init", "mla_init", "mlp_init", "model_mesh",
-           "multi_head_attention", "norm_init", "plan_value", "refuse_cache",
-           "rms_head_norm", "rope_freqs", "shard", "update_cache", "whole"]
+           "multi_head_attention", "norm_init", "plan_value", "rms_head_norm",
+           "rope_freqs", "serving", "shard", "softmax_partial",
+           "update_cache", "whole", "write_cache_slice"]

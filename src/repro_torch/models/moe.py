@@ -32,6 +32,18 @@ rank on the same tokens, the rank's part of the combine is summed with
 the shared experts' (column and row split) and reduced over ``model``
 once (*g*); the tokens stay replicated, so no all-to-all is needed.
 ``aux`` is the one-rank value.
+
+Serving over a mesh whose batch axes split the rows (a serving step's
+plan, :func:`~repro_torch.models.layers.serving`), a rank holds fewer
+tokens than the reference's routing group when the group spans ranks
+(decode: one group of all the global batch's tokens). The capacity and
+the drops are then the reference's group's: the ranks' top-k choices
+(T x K ints) are all-gathered over the batch axes, each assignment's
+place in its expert's buffer is counted in the reference's token order
+over the group, and the rank dispatches its own tokens, those within
+capacity, into buffers of its own (an expert's output for a token does
+not depend on its slot). ``aux`` is then the rank's own tokens' (the
+serving steps discard it).
 """
 from __future__ import annotations
 
@@ -41,7 +53,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from .layers import (activation, dense_init, dtype_of, init_shapes, linear,
-                     model_mesh, shard, whole)
+                     model_mesh, serving, shard, whole)
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -90,11 +102,16 @@ def capacity(cfg: ModelConfig, n: int) -> int:
                n * K)
 
 
-def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
+def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor,
+          keep_fn=None):
     """The routing of groups ``xg`` (G, N, D): returns ``probs`` (G, N,
     E) float32, ``top_p`` (G, N, K) renormalised, ``top_e`` (G, N, K)
     int64, the expert one-hots (G, N, K, E) and the slot one-hots (G, N,
-    K, E, C) float32, zero where an assignment is dropped."""
+    K, E, C) float32, zero where an assignment is dropped. ``keep_fn``,
+    where given, maps ``top_e`` and the one-hots to ``(keep, C)``, which
+    assignments the group keeps and the buffers' slots (a group that
+    spans ranks, :func:`_group_keep`); by default the group is ``xg``'s
+    own."""
     m = cfg.moe
     G, N, _ = xg.shape
     E, K = m.num_experts, m.experts_per_token
@@ -103,16 +120,50 @@ def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[..., :K], top_e[..., :K]
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
-    C = capacity(cfg, N)
     experts = torch.arange(E, device=xg.device)
     onehot = (top_e[..., None] == experts).float()            # (G,N,K,E)
-    pos_in_e = onehot.reshape(G, N * K, E).cumsum(1).reshape(
-        G, N, K, E) - 1.0
-    keep = (pos_in_e < C) & (onehot > 0)
+    if keep_fn is None:
+        C = capacity(cfg, N)
+        pos_in_e = _slots(onehot)
+        keep = (pos_in_e < C) & (onehot > 0)
+    else:
+        keep, C = keep_fn(top_e, onehot)
+        pos_in_e = _slots(keep.float())
     pos = torch.where(keep, pos_in_e, 0.0).long()
     slots = torch.arange(C, device=xg.device)
     poh = ((pos[..., None] == slots) & keep[..., None]).float()
     return probs, top_p, top_e, onehot, poh
+
+
+def _slots(onehot: torch.Tensor) -> torch.Tensor:
+    """Each (token, k) assignment's place in its expert's buffer (G, N,
+    K, E), counted over the flattened (N·K) axis: token first, then k."""
+    G, N, K, E = onehot.shape
+    return onehot.reshape(G, N * K, E).cumsum(1).reshape(G, N, K, E) - 1.0
+
+
+def _group_keep(cfg: ModelConfig, mesh, axes: tuple, group: int):
+    """``keep_fn`` of :func:`route` for a rank's tokens, one group (1, T,
+    D), whose reference routing group of ``group`` tokens spans the
+    ranks of ``axes``: the ranks' choices gathered (int32, in the order
+    of the ranks' rows), each assignment's place counted over its
+    reference group, the rank's own kept where within the reference's
+    capacity. The rank's buffers hold every slot its tokens can take: at
+    most one a token, and C a group its tokens touch."""
+    def keep_fn(top_e, onehot):
+        _, T, K, E = onehot.shape
+        index = mesh._index(axes)
+        every = mesh.all_gather(top_e.to(torch.int32), axes, 1)   # (1,Tg,K)
+        Tg = every.shape[1]
+        glob = (every.long()[..., None] == torch.arange(
+            E, device=onehot.device)).float().reshape(Tg // group, group, K,
+                                                      E)
+        pos = _slots(glob).reshape(1, Tg, K, E)
+        mine = pos.narrow(1, index * T, T)
+        C = capacity(cfg, group)
+        first, last = index * T // group, ((index + 1) * T - 1) // group
+        return (mine < C) & (onehot > 0), min(T, (last - first + 1) * C)
+    return keep_fn
 
 
 def apply_moe(cfg: ModelConfig, p, x: torch.Tensor,
@@ -125,15 +176,25 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor,
     B, S, D = x.shape
     E = m.num_experts
     T = B * S
-    N = min(group_size, T)
-    if T % N:
+    keep_fn = None
+    rows = serving()
+    n_dp, Tg = 1, T
+    if rows is not None and rows[1]["rows"]:
+        from ..sharding.rules import batch_axes
+        axes = batch_axes(rows[0])
+        n_dp = math.prod(rows[0].shape[a] for a in axes)
+        Tg = T * n_dp       # the reference's tokens: every rank's rows
+    N = min(group_size, Tg)
+    if Tg % N:
         raise ValueError(
-            f"MoE groups: {B} x {S} = {T} tokens is not a multiple of the "
-            f"group of {N} tokens; pad the batch to a multiple of "
-            f"{group_size}")
+            f"MoE groups: {Tg} tokens is not a multiple of the group of "
+            f"{N} tokens; pad the batch to a multiple of {group_size}")
+    if T % N:               # the reference's group spans ranks
+        keep_fn = _group_keep(cfg, rows[0], axes, N)
+        N = T
     G = T // N
     xg = shard(x.reshape(G, N, D), "gnd")
-    probs, top_p, _, onehot, poh = route(cfg, p["router"], xg)
+    probs, top_p, _, onehot, poh = route(cfg, p["router"], xg, keep_fn)
     C = poh.shape[-1]
     mesh = model_mesh()
     experts, tp = _expert_split(cfg, p, mesh)

@@ -20,7 +20,7 @@ The cache is ``{"tm": {"x_prev", "S"}, "cm": {"x_prev"}}`` with ``S``
 float32; the functions that take a cache write it **in place** (as
 :func:`.layers.update_cache` does) and return the same dicts.
 
-Under tensor parallelism (:func:`.layers.model_mesh`, no cache) the time
+Under tensor parallelism (:func:`.layers.model_mesh`) the time
 mix runs the rank's H/m heads: ``w_r``, ``w_k``, ``w_v``, ``w_g`` and
 ``w_lora_b`` by columns, ``w0``, ``ln_x`` and ``u`` by heads, ``w_o`` by
 rows; *f* at its input (every path from it reaches a split product),
@@ -28,6 +28,9 @@ the token-shift coefficients and ``w_lora_a`` whole with their partial
 gradients summed, *g* after ``w_o``. The channel mix is Megatron's MLP
 (``cm_k`` by columns, ``cm_v`` by rows) beside the whole ``cm_r``: its
 *f* sits right before ``cm_k``, since ``xm`` feeds ``cm_r`` too.
+Serving over a mesh (:func:`.layers.serving`), the cache's ``S`` holds
+the rank's heads (``rules.serve_cache_specs``) and an ``x_prev`` cut on
+D is gathered where the token shift reads it.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.rwkv6.ops import wkv6
 from .layers import (dense_init, dtype_of, init_shapes, model_mesh,
-                     refuse_cache, shard, whole)
+                     serving, shard, whole)
 
 
 def rwkv_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -76,10 +79,29 @@ def rwkv_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def _shifted(x: torch.Tensor, cache) -> torch.Tensor:
-    """x one token later: the cached last token (or zeros) first."""
-    first = (torch.zeros_like(x[:, :1]) if cache is None
-             else cache["x_prev"][:, None].to(x.dtype))
-    return torch.cat([first, x[:, :-1]], 1)
+    """x one token later: the cached last token (or zeros) first. Under
+    :func:`.layers.serving` a cached ``x_prev`` cut on D (over the axis
+    that cuts the caches, as ``rules.cache_specs`` places it) is gathered
+    whole first."""
+    if cache is None:
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], 1)
+    prev = cache["x_prev"]
+    if prev.shape[-1] < x.shape[-1]:
+        mesh, entry = serving()
+        prev = mesh.all_gather(prev, entry["axis"], -1)
+    return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], 1)
+
+
+def _keep_last(x: torch.Tensor, cache) -> None:
+    """Write x's last token into the cache's ``x_prev``, **in place**:
+    this rank's block of D where the cache holds one."""
+    prev = cache["x_prev"]
+    last = x[:, -1]
+    if prev.shape[-1] < last.shape[-1]:
+        mesh, entry = serving()
+        n = prev.shape[-1]
+        last = last.narrow(-1, mesh.axis_index(entry["axis"]) * n, n)
+    prev.copy_(last)
 
 
 #: the time mix's whole tensors read before its split products
@@ -109,12 +131,12 @@ def apply_rwkv_timemix(cfg: ModelConfig, p, x: torch.Tensor, *,
     """x: (B, S, D). cache: {"x_prev": (B, D), "S": (B, H, hd, hd)},
     written in place. Returns (out, cache). Under
     :func:`.layers.model_mesh` the rank's heads (the module's
-    docstring)."""
+    docstring); serving, the cache's ``S`` holds the same heads
+    (``rules.serve_cache_specs``)."""
     B, S, D = x.shape
     hd = cfg.rwkv.head_dim
     mesh = model_mesh()
     split = False
-    refuse_cache(cache, "RWKV time mix")
     if mesh is not None:
         p, split = _timemix_tensor_parallel(cfg, p, mesh)
         if split:
@@ -151,7 +173,7 @@ def apply_rwkv_timemix(cfg: ModelConfig, p, x: torch.Tensor, *,
             St = w[:, t].float()[..., None] * St + kv
         y, S_last = torch.stack(ys, 1), St
     if cache is not None:
-        cache["x_prev"].copy_(x[:, -1])
+        _keep_last(x, cache)
         cache["S"].copy_(S_last)
 
     # per-head group norm, in float32
@@ -171,7 +193,6 @@ def apply_rwkv_channelmix(cfg: ModelConfig, p, x: torch.Tensor, *,
     rank's hidden columns where ``cm_k`` is split (the module's
     docstring), else ``cm_k`` and ``cm_v`` gathered."""
     mesh = model_mesh()
-    refuse_cache(cache, "RWKV channel mix")
     shapes = init_shapes(rwkv_init, cfg)
     split = mesh is not None and p["cm_k"].shape[1] < shapes["cm_k"][1]
     if mesh is not None and not split:
@@ -179,7 +200,7 @@ def apply_rwkv_channelmix(cfg: ModelConfig, p, x: torch.Tensor, *,
              for k in ("cm_mu", "cm_k", "cm_v", "cm_r")}
     x_prev = _shifted(x, cache)
     if cache is not None:
-        cache["x_prev"].copy_(x[:, -1])
+        _keep_last(x, cache)
     xm = x * p["cm_mu"] + x_prev * (1 - p["cm_mu"])
     kk = torch.square(torch.relu(
         (mesh.copy_to(xm, "model") if split else xm) @ p["cm_k"]))

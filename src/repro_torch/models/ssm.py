@@ -22,15 +22,17 @@ The cache is ``{"conv": (B, d_conv - 1, d_inner) in the model's dtype,
 "h": (B, d_inner, N) float32}``; :func:`apply_mamba` writes it **in
 place** (as :func:`.layers.update_cache` does) and returns the same dict.
 
-Under tensor parallelism (:func:`.layers.model_mesh`, no cache) a rank
-runs its d_inner/m channels: its channels of ``w_in``'s two halves (the
+Under tensor parallelism (:func:`.layers.model_mesh`) a rank runs its
+d_inner/m channels: its channels of ``w_in``'s two halves (the
 layout of ``rules.param_parts``), of ``conv_w``, ``conv_b``, ``w_dt``,
 ``dt_bias``, ``A_log`` and ``D``, and its rows of ``w_x`` and
 ``w_out``. *f* at the input; ``w_x``'s product is a partial sum, so it
 is summed (*g*), and its gradient summed too (*f*), since ``dt_lr``,
 ``Bm`` and ``Cm`` are then whole tensors that each rank's channels read;
 *g* after ``w_out``. Where ``model`` does not divide d_inner, the weights are
-gathered and every rank runs every channel.
+gathered and every rank runs every channel. Serving, the cache's ``conv``
+and ``h`` hold the rank's channels likewise
+(``rules.serve_cache_specs``).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.ssm.ops import selective_scan
 from .layers import (dense_init, dtype_of, init_shapes, linear, model_mesh,
-                     refuse_cache, shard, whole)
+                     shard, whole)
 
 
 def _dt_rank(cfg: ModelConfig) -> int:
@@ -105,7 +107,6 @@ def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
     N = mb.d_state
     R = _dt_rank(cfg)
     mesh = model_mesh()
-    refuse_cache(cache, "Mamba")
     shapes = init_shapes(mamba_init, cfg)
     split = mesh is not None and p["conv_w"].shape[1] < shapes["conv_w"][1]
     if split:

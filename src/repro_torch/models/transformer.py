@@ -16,9 +16,9 @@ Caches are written in place (see :func:`layers.update_cache`): the
 functions that take caches return the same tree they were given.
 
 Under tensor parallelism (:func:`layers.activation_sharding` with a
-``model`` axis above 1; every block kind, without a cache) the embedding
-table is split on D: each rank looks up its columns and they are
-all-gathered; the head is vocab-parallel where ``lm_head``'s V is split
+``model`` axis above 1; every block kind, with or without a cache) the
+embedding table is split on D: each rank looks up its columns and they
+are all-gathered; the head is vocab-parallel where ``lm_head``'s V is split
 (each rank's logits, the log-sum-exp from a ``pmax`` and a psum of
 exponentials, the target logit psummed from the rank that holds it) and
 row-parallel where the tied table is the head (the partial logits
@@ -508,12 +508,16 @@ def _logits(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
     return mask_pad_logits(cfg, logits)
 
 
-def prefill(cfg: ModelConfig, params, batch: dict, max_len: int):
-    """Run the prompt, fill caches of length ``max_len``. Returns
-    (last_logits (B,1,V) float32, caches)."""
+def prefill(cfg: ModelConfig, params, batch: dict, max_len: int,
+            caches=None):
+    """Run the prompt, fill caches of length ``max_len`` (zeroed here, or
+    ``caches``, zeroed by the caller: a rank's blocks of them when it
+    serves over a mesh). Returns (last_logits (B,1,V) float32,
+    caches)."""
     x = embed_inputs(cfg, params, batch)
     B, S = x.shape[:2]
-    caches = init_cache(cfg, B, max_len, x.device)
+    if caches is None:
+        caches = init_cache(cfg, B, max_len, x.device)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     hidden, caches, _ = forward(cfg, params, x, positions=positions,
                                 caches=caches, cache_pos=0)

@@ -26,11 +26,14 @@ Rules are divisibility-aware: a dim is only sharded when its size
 divides the axis size (InternVL2's 151655 vocab stays replicated;
 Mixtral's 8 experts fall back to intra-expert TP on a 16-way axis).
 
-One deviation from the reference's placement, which GSPMD's resharding
+Two deviations from the reference's placement, which GSPMD's resharding
 hides there: Mamba's ``w_in`` (D, 2·d_inner) is the input ``xi`` and the
 gate ``z`` side by side, and the port's rank holds its channels of each
 (:func:`param_parts`), not the contiguous block of columns the spec
-names. The specs themselves stay the reference's.
+names; and serving, the recurrent states (RWKV6's ``S``, Mamba's ``h``
+and ``conv``) follow the compute's split over ``model``
+(:func:`serve_cache_specs`), not :func:`cache_specs`. The specs
+themselves stay the reference's.
 """
 from __future__ import annotations
 
@@ -298,6 +301,53 @@ def cache_specs(mesh, cache_tree: Any, *, long_context: bool) -> Any:
     return tree_map_with_path(one, cache_tree)
 
 
+def serve_cache_specs(mesh, cache_tree: Any, *, long_context: bool) -> Any:
+    """The specs the port stores the caches by when it serves over
+    ``mesh``: :func:`cache_specs`' for every leaf but the recurrent
+    states, which follow the compute's split instead (a deviation from
+    the reference, whose GSPMD moves a state between the two layouts
+    where they differ):
+
+    * RWKV6's ``S`` (B, H, hd, hd) by heads over ``model`` where
+      ``model`` divides H (the time mix then runs the rank's heads);
+      :func:`cache_specs` leaves it whole, and a whole state would cost
+      an all-gather of every head's new state at every step;
+    * Mamba's ``h`` (B, d_inner, N) and ``conv`` (B, d_conv - 1,
+      d_inner) by channels over ``model`` where ``model`` divides
+      d_inner (the mixer then runs the rank's channels), and never over
+      ``data``: :func:`cache_specs` splits the channels only where
+      d_inner >= 1024 (over ``model`` in batched decode, the same
+      layout; over ``data`` at long context).
+
+    The batch entry stays :func:`cache_specs`'. RWKV6's ``x_prev`` (B, D)
+    keeps :func:`cache_specs`' layout (D over ``model`` in batched
+    decode, over ``data`` at long context, where D >= 1024): the token
+    shift gathers it."""
+    specs = cache_specs(mesh, cache_tree, long_context=long_context)
+    msize = mesh.shape.get("model", 1)
+
+    def one(path, leaf):
+        spec = list(_at(specs, path))
+        name = path[-1]
+        s = _path_str(path)
+        lead = 1 if "periods/" in s else 0
+        dim = None
+        if name == "S" and s.endswith("tm/S"):
+            dim = lead + 1
+        elif name == "h" and s.endswith("mix/h"):
+            dim = lead + 1
+        elif name == "conv" and s.endswith("mix/conv"):
+            dim = lead + 2
+        if dim is None:
+            return tuple(spec)
+        for i in range(lead + 1, len(spec)):
+            spec[i] = None
+        spec[dim] = "model" if leaf.shape[dim] % msize == 0 else None
+        return _spec(*spec)
+
+    return tree_map_with_path(one, cache_tree)
+
+
 # ---------------------------------------------------------------- ZeRO-1
 def zero1_specs(pspecs: Any, params_shape: Any, mesh) -> Any:
     """Optimizer-state specs: each parameter's spec with its first
@@ -324,5 +374,5 @@ def zero1_specs(pspecs: Any, params_shape: Any, mesh) -> Any:
 
 
 __all__ = ["activation_plan", "batch_axes", "batch_specs", "cache_specs",
-           "param_parts", "param_shardings", "param_specs", "spec_leaves",
-           "zero1_specs"]
+           "param_parts", "param_shardings", "param_specs",
+           "serve_cache_specs", "spec_leaves", "zero1_specs"]

@@ -30,9 +30,17 @@ forces the cast before the gather: ``repro/train/step.py:64-67``). Each
 rank needs only its block of the mean gradient, so a leaf split over
 ``data`` is reduce-scattered over it and then all-reduced over ``pod``:
 a rank moves about half the bytes of one all-reduce over both axes.
+
+``build_prefill_step(..., mesh=)`` and ``build_serve_step(..., mesh=)``
+serve over a mesh the same way: each rank holds its blocks of the
+parameters and of the caches (:func:`shard_caches`,
+``rules.serve_cache_specs``) and runs its rows under the reference's
+activation plan with the serving entry the layers read
+(``layers.serving``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -290,14 +298,26 @@ def build_encoder_train_step(cfg: ModelConfig,
     return build_train_step(cfg, opt_cfg, remat_policy, device)
 
 
-def build_prefill_step(cfg: ModelConfig, max_len: int, device=None):
+def build_prefill_step(cfg: ModelConfig, max_len: int, device=None,
+                       mesh=None):
     """``prefill_step(params, batch)`` on ``device`` (``None``: cuda),
     without autograd: ``(encoder_logits (B, S, V) float32, None)`` for an
     encoder-only config, else :func:`~repro_torch.models.prefill`'s
     ``(last_logits (B, 1, V) float32, caches of length max_len)``.
     ``batch`` holds numpy arrays or tensors (``tokens`` or ``embeds``),
-    moved to the device."""
+    moved to the device.
+
+    With ``mesh`` (a :class:`~repro_torch.distributed.ProcessMesh` or a
+    :class:`~repro_torch.distributed.TracingMesh`) the step is this
+    rank's program of the reference's prefill over that mesh: ``params``
+    are its blocks (:func:`shard_params`), ``batch`` its rows
+    (``rules.batch_specs``: the batch over the batch axes), and it
+    returns its rows' last logits (the whole vocabulary) and its blocks
+    of the caches, in the layout :func:`build_serve_step` takes for
+    batched decode (:func:`cache_shardings`)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        return _mesh_prefill_step(cfg, max_len, dev, mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -309,7 +329,58 @@ def build_prefill_step(cfg: ModelConfig, max_len: int, device=None):
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, device=None):
+def _serve_plan(cfg: ModelConfig, mesh, kind: str, max_len: int,
+                long_context: bool) -> dict:
+    """The reference's activation plan of ``kind`` over ``mesh`` and the
+    serving entry the layers read (``layers.SERVE``): the axis that cuts
+    the caches' sequence, their whole length, and whether the batch axes
+    split the rows."""
+    from ..models.layers import SERVE
+    from ..sharding import rules
+    return dict(rules.activation_plan(mesh, cfg, kind=kind), **{SERVE: {
+        "axis": "data" if long_context else "model", "len": max_len,
+        "rows": not long_context}})
+
+
+def _rows(global_batch: int, mesh) -> int:
+    """This rank's rows of a batch split over the batch axes."""
+    n_dp = rules_total_dp(mesh)
+    if global_batch % n_dp:
+        raise ValueError(f"a batch of {global_batch} rows does not split "
+                         f"over {n_dp} data-parallel ranks")
+    return global_batch // n_dp
+
+
+def _local_caches(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                  long_context: bool, dev) -> dict:
+    """Zeroed caches: this rank's blocks of the caches of ``batch`` rows
+    (the global batch) of ``max_len`` positions."""
+    from ..models import cache_spec
+    whole = cache_spec(cfg, batch, max_len)
+    return tree_map(lambda t, sh: torch.zeros(
+        sh.shard_shape(t.shape), dtype=t.dtype, device=dev), whole,
+        cache_shardings(whole, mesh, long_context))
+
+
+def _mesh_prefill_step(cfg: ModelConfig, max_len: int, dev, mesh):
+    plan = _serve_plan(cfg, mesh, "prefill", max_len, False)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with activation_sharding(plan, mesh):
+            if cfg.encoder_only:
+                return encoder_logits(cfg, params, batch), None
+            rows = next(iter(batch.values())).shape[0]
+            caches = _local_caches(cfg, mesh, rows * rules_total_dp(mesh),
+                                   max_len, False, dev)
+            return prefill(cfg, params, batch, max_len, caches)
+
+    return prefill_step
+
+
+def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, device=None,
+                     mesh=None):
     """``serve_step(params, caches, tokens, cache_pos) -> (next_tok,
     logits, new_caches)`` on ``device`` (``None``: cuda), without
     autograd: one-token decode (``shape``, a decode shape, sizes the
@@ -317,23 +388,65 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, device=None):
     shape.seq_len)``). ``next_tok`` is the greedy (B, 1) int32 token;
     the caches are written in place and returned. ``cache_pos`` is an
     int or a tensor; a 0-d tensor is taken for every row, as a (B,)
-    tensor, so that a trace on fake tensors never reads its value."""
+    tensor, so that a trace on fake tensors never reads its value.
+
+    With ``mesh`` the step is this rank's program of the reference's
+    serve step over that mesh: ``params`` its blocks
+    (:func:`shard_params`), ``caches`` its blocks of each cache leaf
+    (:func:`shard_caches`), ``tokens`` its rows (``rules.batch_specs``)
+    and a (B,) ``cache_pos`` its rows' positions; it returns its rows'
+    tokens and whole-vocabulary logits. As in the reference, the batch
+    is smaller than the data-parallel ways at long context
+    (``long_context``): then every rank takes the whole batch and the
+    caches' sequence is cut over ``data`` (context parallelism, the plan
+    ``decode_long``); else the rows are split over the batch axes and the
+    sequence over ``model`` (flash-decoding)."""
     if shape.kind != "decode":
         raise ValueError(f"build_serve_step needs a decode shape, got "
                          f"{shape.name} ({shape.kind})")
     dev = resolve_device(device)
+    plan = None
+    if mesh is not None:
+        long_context = shape.global_batch < rules_total_dp(mesh)
+        if not long_context:
+            _rows(shape.global_batch, mesh)
+        plan = _serve_plan(cfg, mesh, "decode_long" if long_context
+                           else "decode", shape.seq_len, long_context)
 
     @torch.no_grad()
     def serve_step(params, caches, tokens, cache_pos):
         tokens = torch.as_tensor(tokens, device=dev)
         if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 0:
             cache_pos = cache_pos.to(dev).expand(tokens.shape[0])
-        logits, new_caches = decode_step(cfg, params, caches, tokens,
-                                         cache_pos)
+        with activation_sharding(plan, mesh) if plan is not None \
+                else contextlib.nullcontext():
+            logits, new_caches = decode_step(cfg, params, caches, tokens,
+                                             cache_pos)
         next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
         return next_tok, logits, new_caches
 
     return serve_step
+
+
+def cache_shardings(caches, mesh, long_context: bool):
+    """The placement of a cache tree (whole caches, or anything with
+    their ``.shape``) when the steps serve over ``mesh``:
+    ``rules.serve_cache_specs``, a tree of
+    :class:`~repro_torch.distributed.NamedSharding`. ``long_context`` as
+    for :func:`build_serve_step` (``shape.global_batch <
+    rules_total_dp(mesh)``)."""
+    from ..distributed import shardings
+    from ..sharding import rules
+    return shardings(mesh, rules.serve_cache_specs(
+        mesh, caches, long_context=long_context), caches)
+
+
+def shard_caches(caches, mesh, long_context: bool):
+    """This rank's block of every leaf of ``caches`` (whole, the same on
+    every rank) by :func:`cache_shardings`: the tree the serve step over
+    ``mesh`` takes. Always a copy, since the step writes it in place."""
+    return tree_map(lambda c, sh: sh.shard(c).clone(), caches,
+                    cache_shardings(caches, mesh, long_context))
 
 
 def abstract_train_args(cfg: ModelConfig, mesh, shape: ShapeConfig,
@@ -365,7 +478,7 @@ def rules_total_dp(mesh) -> int:
 
 __all__ = ["abstract_serve_args", "abstract_train_args",
            "build_encoder_train_step", "build_prefill_step",
-           "build_serve_step", "build_train_step", "grad_blocks",
-           "init_zero1_state", "loss_and_grads", "rules_total_dp",
-           "shard_params",
+           "build_serve_step", "build_train_step", "cache_shardings",
+           "grad_blocks", "init_zero1_state", "loss_and_grads",
+           "rules_total_dp", "shard_caches", "shard_params",
            "train_state_shardings", "zero1_shardings"]

@@ -2,9 +2,10 @@
 reference's on the CPU: ``model_flops`` for every registered arch and
 shape (the reference's module runs in a child process, since importing
 it sets ``XLA_FLAGS``), the roofline's dominance cases on the H100's
-constants, one reduced cell of each kind, the decode cells' serve step
-against the reference's, and ``--pardnn --lint`` writing a plan that
-both packages load and the analysis CLI passes."""
+constants, one reduced cell of each kind, the multi-card train and
+serving cells with their collectives counted by hand, the decode cells'
+serve step against the reference's, and ``--pardnn --lint`` writing a
+plan that both packages load and the analysis CLI passes."""
 import dataclasses
 import json
 import math
@@ -150,17 +151,123 @@ def test_trace_order_peak_by_hand():
     assert dryrun.trace_order_peak(traced) == 3 * n
 
 
-def test_multi_mesh_and_skips(small):
-    """Multi prefill and decode cells wait for serving over a mesh
-    (ROADMAP M4.1e), and the single cells' own reasons still hold."""
+def test_multi_mesh_and_skips(small, monkeypatch):
+    """Multi prefill and decode cells run (serving over the mesh): granite
+    ``prefill_32k`` (a global batch of 32, a row for each of the 32
+    data-parallel ranks) and jamba ``decode_32k`` (64 rows of 2,048
+    positions) are OK and fit; the single cells' own reasons still
+    hold."""
+    monkeypatch.setitem(dryrun.SHAPES, "prefill_32k",
+                        ShapeConfig("prefill_32k", 32, 32, "prefill"))
+    monkeypatch.setitem(dryrun.SHAPES, "decode_32k",
+                        ShapeConfig("decode_32k", 2048, 64, "decode"))
     r = dryrun.run_cell("granite-8b", "prefill_32k", "multi", device="cpu")
-    assert r["status"] == "SKIP" and "M4.1e" in r["reason"]
+    assert r["status"] == "OK" and r["chips"] == 512 and r["fits"]
     r = dryrun.run_cell("jamba-v0.1-52b", "decode_32k", "multi",
                         device="cpu")
-    assert r["status"] == "SKIP" and "M4.1e" in r["reason"]
+    assert r["status"] == "OK" and r["chips"] == 512 and r["fits"]
+    assert r["rank_collective_bytes"]["all-reduce"] > 0
     r = dryrun.run_cell("hubert-xlarge", "decode_32k", "single",
                         device="cpu")
     assert r["status"] == "SKIP" and "encoder-only" in r["reason"]
+    r = dryrun.run_cell("hubert-xlarge", "decode_32k", "multi",
+                        device="cpu")
+    assert r["status"] == "SKIP" and "encoder-only" in r["reason"]
+
+
+def _serve_hand_count(cfg, rows: int, long_context: bool):
+    """(bytes, counts) of the all-reduces and all-gathers of one rank's
+    decode step of a reduced config (float32, every head, expert and
+    channel split over model 2) over (pod 2, data 2, model 2), worked out
+    from the shapes. A = rows x D floats, one token's activation:
+
+      * the embedding's D-columns gathered (A / 2) and the vocab-split
+        head's logits gathered (rows x V / 2);
+      * attention: the new token's K and V of the rank's KV heads
+        gathered over model (rows x KV/2 x hd each); batched, the
+        sequence cut over model, the rank's query heads gathered (rows x
+        H/2 x hd), then the combine over model of every head's partials,
+        a pmax of the row maxima (rows x H) and one psum of the
+        unnormalised outputs with the sums (rows x H x (hd + 1)); at
+        long context the combine over data of the rank's heads' partials
+        (rows x H/2 and rows x H/2 x (hd + 1)); *g* after ``wo`` (A);
+      * MLA (batched): ``q_lat`` and ``q_rope`` gathered (rows x H/2 x r,
+        rows x H/2 x rope), the combine in the latent space (rows x H,
+        rows x H x (r + 1)), *g* (A);
+      * RWKV6: the time mix's *g* and the channel mix's *g* (A each);
+      * Mamba: ``w_x``'s product psummed (rows x (R + 2N)), *g* (A);
+      * an MLP's *g* (A); an MoE's *g* (A) and, batched, the top-k
+        choices gathered over the batch axes (rows x K int32), the
+        routing group spanning the ranks."""
+    f32, D = 4, cfg.d_model
+    A = rows * D * f32
+    ar = {"all-reduce": 0, "all-gather": 0}
+    n = {"all-reduce": 0, "all-gather": 0}
+
+    def add(kind, b, k=1):
+        ar[kind] += b
+        n[kind] += k
+    add("all-gather", A // 2)
+    add("all-gather", rows * cfg.padded_vocab // 2 * f32)
+    H, hd = cfg.num_heads, cfg.head_dim
+    for kind in cfg.prelude + cfg.block_pattern * cfg.num_periods:
+        if kind == "rwkv":
+            add("all-reduce", 2 * A, 2)
+            continue
+        if kind.startswith("mamba"):
+            R, N = max(D // 16, 1), cfg.mamba.d_state
+            add("all-reduce", rows * (R + 2 * N) * f32 + A, 2)
+        elif kind.startswith("mla"):
+            r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+            add("all-gather", rows * H // 2 * (r + rd) * f32, 2)
+            add("all-reduce", rows * H * f32 + rows * H * (r + 1) * f32 + A,
+                3)
+        else:
+            add("all-gather", 2 * rows * cfg.num_kv_heads // 2 * hd * f32,
+                2)
+            Hc = H // 2 if long_context else H
+            if not long_context:
+                add("all-gather", rows * H // 2 * hd * f32)
+            add("all-reduce", rows * Hc * f32 + rows * Hc * (hd + 1) * f32
+                + A, 3)
+        add("all-reduce", A)
+        if kind.endswith("moe") and not long_context:
+            add("all-gather", rows * cfg.moe.experts_per_token * 4)
+    return ar, n
+
+
+@pytest.mark.parametrize("arch, shape", [
+    ("granite-8b", "decode_32k"), ("deepseek-v2-lite-16b", "decode_32k"),
+    ("jamba-v0.1-52b", "long_500k"), ("rwkv6-7b", "long_500k")])
+def test_serve_collective_bytes_by_hand(arch, shape):
+    """``collective_bytes_from_graph`` on the decode step of reduced
+    granite (2 layers), deepseek (its MLA prelude layer with an MLP and
+    an ``mla_moe`` layer), jamba (a period: 7 Mamba and 1 attention
+    mixers, 4 MLPs, 4 MoE FFNs) and rwkv6 (2 layers), traced for rank 0
+    of a (pod 2, data 2, model 2) tracing mesh: ``decode_32k`` as 8 rows
+    (2 a rank) of 2,048 positions (1,024 a rank over model),
+    ``long_500k`` as 1 row of 2,048 (1,024 a rank over data). Every
+    kind's bytes and count as :func:`_serve_hand_count` works them out,
+    and the tracing mesh's own count of what it moved the same."""
+    from repro_torch.distributed import TracingMesh
+    from repro_torch.launch.mesh import MeshShape
+    cfg = tcfg.reduced(tcfg.get_config(arch),
+                       layers=2 if arch in ("granite-8b", "rwkv6-7b")
+                       else None)
+    mesh = TracingMesh(MeshShape((2, 2, 2), ("pod", "data", "model")), 0,
+                       "cpu")
+    long_context = shape == "long_500k"
+    sh = ShapeConfig(shape, 2048, 1 if long_context else 8, "decode")
+    traced = dryrun.trace_rank_serve(cfg, sh, mesh, torch.device("cpu"))
+    got = dryrun.collective_bytes_from_graph(traced.graph)
+    want, counts = _serve_hand_count(cfg, 1 if long_context else 2,
+                                     long_context)
+    assert {k: got["bytes"][k] for k in want} == want
+    assert {k: got["counts"][k] for k in counts} == counts
+    assert got["bytes"]["reduce-scatter"] == 0
+    assert got["total_bytes"] == sum(want.values())
+    assert mesh.moved["psum"] + mesh.moved["pmax"] == want["all-reduce"]
+    assert mesh.moved["all_gather"] == want["all-gather"]
 
 
 @pytest.mark.parametrize("arch, kind", [("deepseek-v2-lite-16b", "mla"),
@@ -466,10 +573,9 @@ def test_serve_step_matches_reference():
 
 
 def test_list_prints_every_cell(capsys):
-    """Every cell, single and multi: a multi cell runs where its single
-    cell runs and its shape trains (every config, every block kind);
-    every other multi cell the single one would run, prefill and decode,
-    names ROADMAP M4.1e."""
+    """Every cell, single and multi: a multi cell runs exactly where its
+    single cell runs (every config, every shape, serving over the mesh
+    included), and a skipped one gives the single cell's reason."""
     assert dryrun.main(["--list", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == len(tcfg.ASSIGNED_ARCHS) * len(dryrun.SHAPES) * 2
@@ -478,13 +584,10 @@ def test_list_prints_every_cell(capsys):
         for s, shape in dryrun.SHAPES.items():
             single = dryrun.cell_name(a, s, "single") in runs
             multi = dryrun.cell_name(a, s, "multi")
-            assert (multi in runs) == (single and shape.kind == "train"), \
-                multi
-            if single and multi not in runs:
-                line = next(ln for ln in lines if ln.split()[0] == multi)
-                assert "M4.1e" in line and shape.kind != "train", line
-    assert any(ln.split()[0].endswith("__multi") for ln in lines
-               if ln.rstrip().endswith("RUN"))
+            assert (multi in runs) == single, multi
+    assert any(ln.split()[0].endswith("__multi") and "decode" in ln
+               for ln in lines if ln.rstrip().endswith("RUN"))
+    assert not any("M4.1e" in ln for ln in lines)
 
 
 def test_cli_cell_writes_its_record(small, tmp_path, capsys):

@@ -3,8 +3,9 @@ families, MLA, RWKV6 and Mamba) against the reference, over gloo ranks
 on the CPU: the ZeRO-1 step's losses, every gradient gathered whole,
 expert parallelism and its hidden-dim fallback, the tied head, the
 ``shard`` kinds, the region functions, the data slice, the RWKV channel
-mix's whole branch, Mamba's ``w_in`` halves, the refusal of a cache and
-``launch.train --model-parallel``.
+mix's whole branch, Mamba's ``w_in`` halves and ``launch.train
+--model-parallel``. Serving over a mesh, with caches, is
+``tests/test_torch_serve_mesh.py``'s.
 
 The reference runs in two child processes on one host device (the
 weights, then, beside the port's 4 ranks, the losses), on a one-device
@@ -680,7 +681,7 @@ def test_param_parts_only_where_each_half_splits():
         assert torch.equal(sh.shard(t), want)
 
 
-# ------------------------------------------------------------ refusals
+# ------------------------------------------------------- MLA, RWKV, Mamba
 def _step_over_model_2(arch):
     """(cfg, mesh, rank 0's blocks, tokens) after one ZeRO-1 step of
     reduced ``arch`` over (data 1, model 2) on rank 0's blocks (a
@@ -709,47 +710,6 @@ def test_mla_rwkv_mamba_step_over_model_axis(arch):
     step over (data 1, model 2) builds and takes a step on rank 0's
     blocks, its loss finite."""
     assert np.isfinite(_step_over_model_2(arch)[-1])
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "rwkv6-7b",
-                                  "jamba-v0.1-52b"])
-def test_mla_rwkv_mamba_refuse_model_parallel(arch):
-    """MLA, RWKV and Mamba blocks refuse a model axis above 1 with a
-    cache (serving over a mesh): a prefill of the blocks that have just
-    trained over (data 1, model 2), under the prefill plan, raises
-    naming ROADMAP M4.1e."""
-    from repro_torch.models import prefill
-    from repro_torch.models.layers import activation_sharding
-    from repro_torch.sharding import rules
-    cfg, mesh, blocks, tokens, _ = _step_over_model_2(arch)
-    with activation_sharding(rules.activation_plan(mesh, cfg, kind="prefill"),
-                             mesh):
-        with pytest.raises(NotImplementedError, match="M4.1e"):
-            prefill(cfg, blocks, {"tokens": tokens}, 32)
-
-
-@pytest.mark.parametrize("arch, block", [
-    ("granite-8b", "attention"), ("deepseek-v2-lite-16b", "MLA"),
-    ("rwkv6-7b", "RWKV time mix"), ("jamba-v0.1-52b", "Mamba")])
-def test_cache_under_model_axis_raises(arch, block):
-    """Every layer that takes a cache refuses one under a model axis
-    above 1 (serving over a mesh), naming the layer and ROADMAP M4.1e;
-    without the mesh the same prefill runs."""
-    from repro_torch.models import prefill
-    from repro_torch.models.layers import activation_sharding
-    from repro_torch.models.transformer import init_params
-    from repro_torch.sharding import rules
-    cfg = tcfg.reduced(tcfg.get_config(arch))
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.int64)
-    mesh = TracingMesh(MeshShape((1, 2), ("data", "model")), 0, "cpu")
-    with activation_sharding(rules.activation_plan(mesh, cfg,
-                                                   kind="prefill"), mesh):
-        with pytest.raises(NotImplementedError,
-                           match=f"{block} with a cache.*M4.1e"):
-            prefill(cfg, params, {"tokens": tokens}, 16)
-    logits, _ = prefill(cfg, params, {"tokens": tokens}, 16)
-    assert torch.isfinite(logits).all()
 
 
 # ------------------------------------------------------------ launch
