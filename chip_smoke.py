@@ -69,10 +69,9 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    step time (emulated makespan, one PE and K=4) is printed beside the
    measured eager step (wall, and device time under torch.profiler). No
    kernel launches on this path (one query token). The static verifier
-   must refuse the quarter-cap plan as it now does (RP020 and RP040 on
-   PE 3: its certificate holds more there than the partitioner's
-   emulated order does) and accept the plan under half the card per PE,
-   which is the one saved;
+   must judge the quarter-cap plan as it now does (no error: ParDNN
+   calls that plan infeasible, so it claims no cap) and accept the plan
+   under half the card per PE, which is the one saved;
 10. plan execute: the plans run with their PEs folded onto the card
    (``device_map=[0] * 4``), through ``PartitionPlan.execute``: (a) 2
    layers in float32, the compiled runtime against the eager step
@@ -86,8 +85,10 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    the eager step (greedy tokens equal on every row, logits within
    2^-7 x max |logits|), every segment replayed from its CUDA graph;
    (c) the same trace at K=1, one graph for the whole step, the same
-   gates; (d) 8 layers at full width, the op-by-op interpreter against
-   the compiled runtime (bit-equal expected; else the bf16 gate). For
+   gates; (d) the op-by-op interpreter against the compiled runtime
+   (bit-equal expected; else the bf16 gate) on (b)'s plan at all 36
+   layers, the printed arithmetic letting 90% of the card hold every
+   value the interpreter keeps. For
    (b) and (c): wall ms of async, sync and eager, device time under
    torch.profiler, the predicted makespan, segments, transfers, input
    copies and output clones, the logical peak per PE beside the plan's
@@ -280,6 +281,17 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    products, dispatch and combine, router, the rest) and the share of
    routed assignments capacity dropped, on the first prefill and decode
    step;
+21b. deepseek plan serve: deepseek-v2-lite-16b in bf16 (random weights
+   from a seed) at full width, served from a K=4 ParDNN plan folded
+   onto the card at the serve phase's geometry, as deep as the printed
+   arithmetic lets 90% of the card hold the weights, each PE's graph
+   pool and the runtime's clones (all 27 layers): the plan verified with
+   0 errors; the local engine, then ``PartitionPlan.serve`` on the same
+   8 requests: greedy tokens held to the local engine's under phase 6's
+   near-tie rule, every pool leaf (the latent and rope-key pools) on its
+   PE's device, every decode step after the first a replay of every
+   segment (the MoE routing among them), 0 leaked blocks, no flash
+   launch; then ``launch.serve --plan-devices 4 --fold`` at that depth;
 22. deepseek train: its SGD step as phase 19 runs mixtral's: eager at
    the depth the printed arithmetic allows (all 27 layers), L sm90 flash
    forward and L sm90 backward launches at q/k 192 with v read at 128
@@ -1414,10 +1426,13 @@ def decode_matmul_flops(cfg, batch: int, max_len: int) -> float:
 
 
 #: How the static verifier judges full granite-8b's quarter-cap K=4
-#: plan today: ParDNN calls it feasible, but the certificate, which
-#: replays the segment schedule, holds more on PE 3 than the cap
-#: (ROADMAP: reconcile the emulator's feasibility with the certificate).
-QUARTER_CAP_REFUSAL = {("RP020", 3), ("RP040", 3)}
+#: plan today: no error. ParDNN calls the plan infeasible (its peaks
+#: over the cap's planned 90%), and RP020 and RP040 judge only a cap a
+#: plan claims to satisfy; the certificate, which replays the segment
+#: schedule, still holds more than the cap on PEs 2 and 3 (ROADMAP F3).
+#: While each layer's cache write copied the whole stacked cache, ParDNN
+#: called it feasible and the verifier refused PE 3 (RP020, RP040).
+QUARTER_CAP_REFUSAL: set = set()
 
 
 def _serving_meta(cfg, geometry: dict) -> dict:
@@ -1786,7 +1801,7 @@ def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms):
     for name, fn in (("compiled async", lambda: run("async")),
                      ("eager", eager)):
         prof[name] = profile(torch, f"plan_execute {label} {name}", fn,
-                             top=3)
+                             top=8)
     del eager_pools
     cert, _ = _certificate(plan)
     gib = 2 ** 30
@@ -1809,17 +1824,50 @@ def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms):
     return ms, prof, st
 
 
+def _interpret_cell(torch, label: str, plan, args, fold) -> None:
+    """The op-by-op interpreter against the compiled runtime (sync) on
+    one plan and its arguments: bit-equal, or the greedy tokens equal and
+    the logits within PLAN_BF16_GATE of their scale."""
+    compiled = _leaves(plan.execute(*args, device_map=fold, mode="sync"))
+    del plan._compiled_runtime
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    interp = _leaves(plan.execute(*args, device_map=fold,
+                                  runtime="interpret"))
+    torch.cuda.synchronize()
+    interp_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    bit = all(torch.equal(a, b) for a, b in zip(interp, compiled))
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(interp, compiled))
+    scale = float(compiled[0].float().abs().max())
+    log(f"plan_execute interpreter {label} K={plan.k} ({plan.n} nodes): "
+        f"{interp_s:.2f} s, bit-equal "
+        f"to compiled sync: {bit}; max |diff| {err:.3g}; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    if not bit:
+        tok_i = interp[0][:, -1].argmax(-1)
+        tok_c = compiled[0][:, -1].argmax(-1)
+        assert torch.equal(tok_i, tok_c) and \
+            float((interp[0].float() - compiled[0].float()).abs().max()) \
+            <= PLAN_BF16_GATE * scale, "the interpreter disagrees"
+
+
 def phase_plan_execute(torch, cfg, planned: tuple | None = None) -> None:
     """Execute ParDNN plans of the paged decode step on the card, with PEs
     folded onto it: (1) full granite-8b bf16 at K=4 (half cap: the
-    verifier refuses the quarter-cap plan; ``planned``, the plan phase's
+    quarter-cap plan is infeasible; ``planned``, the plan phase's
     trace and half-cap plan, when that phase ran), the
     compiled runtime async and sync against the eager step, every
     segment replayed from a CUDA graph; (2) the same trace at K=1, one
-    graph for the whole step; (3) the op-by-op interpreter at 8 layers
-    against the compiled runtime; (4) 2 layers in float32 against the
+    graph for the whole step; (3) the op-by-op interpreter against the
+    compiled runtime on (1)'s plan, the printed arithmetic letting the
+    card hold every value it keeps; (4) 2 layers in float32 against the
     eager step within PLAN_F32_GATE. Run first is (4), the cheapest."""
     from repro_torch import api
+    from repro_torch.core.graph import RESIDUAL
+    from repro_torch.core.tracing import VIEW_OPS
     from repro_torch.models import init_params
     from repro_torch.serving import ServingEngine, partition_for_serving
     from repro_torch.tree import tree_map
@@ -1880,38 +1928,21 @@ def phase_plan_execute(torch, cfg, planned: tuple | None = None) -> None:
         cells[label] = _execute_cell(torch, f"{cfg.name} {label}", p, eng,
                                      params, inputs, one_pe_ms)
         del p._compiled_runtime
+    # (3) the interpreter keeps every value it computes: the card must
+    # hold them beside what is allocated
+    g = traced.graph
+    views = np.array([n.split(".")[0] in VIEW_OPS for n in g.names])
+    kept = float(g.mem[~views & (g.ntype != RESIDUAL)].sum())
+    held = _release(torch) * 2 ** 30
+    log(f"plan_execute: interpreter arithmetic at {cfg.num_layers} layers: "
+        f"{held / 2**30:.3f} GiB allocated (the weights and the pools) plus "
+        f"the step's {kept / 2**30:.3f} GiB of values that are not views "
+        f"(it keeps each): {(held + kept) / 2**30:.3f} GiB against 90% of "
+        f"the card, {0.9 * card / 2**30:.3f} GiB")
+    assert held + kept <= 0.9 * card, "the interpreter's values do not fit"
+    _interpret_cell(torch, f"{cfg.num_layers} layers", plan,
+                    (params,) + tuple(inputs), fold)
     del traced, plan, one, inputs, eng, params
-    _release(torch)
-
-    # (3) the interpreter at 8 layers, full width, bf16
-    mid = dataclasses.replace(cfg, num_layers=8)
-    params = init_params(mid, torch.Generator(device="cuda").manual_seed(5),
-                         "cuda")
-    plan = partition_for_serving(mid, params, devices=4, memory=card / 4,
-                                 device="cuda", **GEOMETRY)
-    eng = ServingEngine(mid, params, device="cuda", **GEOMETRY)
-    pools, bt, toks, lens = _decode_inputs(torch, eng, seed=6)
-    eng.pools = None
-    args = (params, pools, bt, toks, lens)
-    compiled = _leaves(plan.execute(*args, device_map=fold, mode="sync"))
-    t0 = time.perf_counter()
-    interp = _leaves(plan.execute(*args, device_map=fold,
-                                  runtime="interpret"))
-    torch.cuda.synchronize()
-    interp_s = time.perf_counter() - t0
-    bit = all(torch.equal(a, b) for a, b in zip(interp, compiled))
-    err = max(float((a.float() - b.float()).abs().max())
-              for a, b in zip(interp, compiled))
-    scale = float(compiled[0].float().abs().max())
-    log(f"plan_execute interpreter {mid.num_layers} layers K=4 "
-        f"({plan.n} nodes): {interp_s:.2f} s, bit-equal to compiled sync: "
-        f"{bit}; max |diff| {err:.3g}")
-    if not bit:
-        tok_i, tok_c = interp[0][:, -1].argmax(-1), compiled[0][:, -1].argmax(-1)
-        assert torch.equal(tok_i, tok_c) and \
-            float((interp[0].float() - compiled[0].float()).abs().max()) \
-            <= PLAN_BF16_GATE * scale, "the interpreter disagrees"
-    del plan, eng, params, pools, compiled, interp, args
     _release(torch)
     launches = read_counts()
     assert not any(launches.values()), \
@@ -1921,7 +1952,15 @@ def phase_plan_execute(torch, cfg, planned: tuple | None = None) -> None:
             f"{k} {v:.2f} ms" for k, v in ms.items()) + "; device busy " +
             ", ".join(f"{k} {b:.2f} ms of {w:.2f} ms ({b / w:.1%})"
                       for k, (w, b) in prof.items())
-            + f"; {st.num_segments} segments")
+            + f"; {st.num_segments} segments; the plan-executed step's "
+            f"device time {prof['compiled async'][1] / prof['eager'][1]:.3f}"
+            f"x the eager step's (F2's target: within 1.2x)")
+
+
+#: full granite-8b's plan-served decode ms a step while each layer's cache
+#: write copied the whole stacked cache (PERF.md, NVIDIA H100 80GB HBM3,
+#: 700.00 W)
+PLAN_SERVED_EARLIER_MS = 110.77
 
 
 #: full granite-8b against a block-starved pool: the 8 requests of seed 7
@@ -1963,11 +2002,12 @@ def _watch_steps(torch, eng) -> dict:
     return watch
 
 
-def _serve_run(torch, cfg, eng, reqs, label: str) -> dict:
+def _serve_run(torch, cfg, eng, reqs, label: str, flash: bool = True) -> dict:
     """Drain ``reqs`` through ``eng`` (which writes its trace) with the
     kernels' counts set to 0 just before and read just after; the
-    flash-attention gates of the serve phase; returns the run's
-    numbers."""
+    flash-attention gates of the serve phase (``flash=False``: none
+    launched, as MLA with a cache attends in the absorbed form); returns
+    the run's numbers."""
     from repro_torch.obs.trace import SERVING_PID, load_trace
     watch = _watch_steps(torch, eng)
     for r in reqs:
@@ -1983,11 +2023,13 @@ def _serve_run(torch, cfg, eng, reqs, label: str) -> dict:
     assert len(done) == len(reqs), f"{label}: {len(done)} completed"
     assert all(len(r.output) == r.max_new_tokens for r in done.values())
     assert s.leaked_blocks == 0, f"{label}: {s.leaked_blocks} blocks leaked"
-    want = cfg.num_layers * s.prefill_calls
-    assert launches["flash_attention"] == want > 0 and \
-        launches["flash_attention/sm90"] == want, \
+    want = cfg.num_layers * s.prefill_calls if flash else 0
+    assert launches["flash_attention"] == want and \
+        launches["flash_attention/sm90"] == want and (want or not flash) \
+        and launches["flash_attention_bwd"] == 0, \
         f"{label}: flash_attention launches {launches}, expected {want} sm90"
-    assert launches["wkv6"] == 0, "granite-8b has no RWKV layer"
+    assert launches["wkv6"] == launches["selective_scan"] == 0, \
+        f"{cfg.name} has no RWKV or Mamba layer"
     doc = load_trace(eng._trace_path)
     spans = {}      # the engine lane's spans, ms
     for ev in doc["traceEvents"]:
@@ -2009,8 +2051,9 @@ def _serve_run(torch, cfg, eng, reqs, label: str) -> dict:
         f"{s.decode_steps} decode steps, median {run['decode_ms']:.2f} ms; "
         f"{s.preempted} preemptions; peak {s.peak_blocks_in_use}/"
         f"{eng.allocator.capacity} blocks; flash_attention "
-        f"{launches['flash_attention']} launches = {cfg.num_layers} x "
-        f"{s.prefill_calls}, {launches['flash_attention/sm90']} sm90")
+        f"{launches['flash_attention']} launches = "
+        f"{cfg.num_layers if flash else 0} x {s.prefill_calls}, "
+        f"{launches['flash_attention/sm90']} sm90")
     return run
 
 
@@ -2249,7 +2292,8 @@ def phase_plan_serve(torch, cfg, plan_path: Path, work: Path,
     log(f"plan_serve summary ({card_line}): plan-served "
         f"{served['tok_s']:.1f} tok/s ({steady:.1f} without the capture), "
         f"ttft p50 {served['ttft_p50']:.4f} s, decode median "
-        f"{served['decode_ms']:.2f} ms; local {local['tok_s']:.1f} tok/s, "
+        f"{served['decode_ms']:.2f} ms (before the whole-stack copies went: "
+        f"{PLAN_SERVED_EARLIER_MS} ms); local {local['tok_s']:.1f} tok/s, "
         f"ttft p50 {local['ttft_p50']:.4f} s, decode median "
         f"{local['decode_ms']:.2f} ms; {segments} segments, capture "
         f"{capture_s:.2f} s; max_memory_allocated while plan-served "
@@ -4992,6 +5036,182 @@ def phase_deepseek_serve(torch, cfg, card: str) -> dict:
     return run["launches"]
 
 
+#: the share of the card that the weights, a folded K=4 plan's per-PE
+#: graph pools and the runtime's clones may hold: the deepseek plan path's
+#: depth follows from it
+PLAN_SHARE = 0.9
+
+
+def _plan_depth(torch, api, cfg, params, card: float):
+    """The deepest cut of ``cfg`` (whole periods) whose paged decode step,
+    partitioned at K=4 under half the card a PE (as granite's served
+    plan), fits ``PLAN_SHARE`` of the card by the printed arithmetic: the
+    weights, each PE's graph pool and the runtime's clones of the outputs
+    (the logits and the new pools). The runtime gives each PE a pool of
+    its own (F10) and folded PEs read each other's values in place, so a
+    PE's pool holds at most the values its nodes make (those that are
+    not views). Returns (cfg, params, trace, plan) at that depth;
+    ``params`` are views of the whole model's."""
+    from repro_torch.core.graph import NORMAL
+    from repro_torch.core.tracing import VIEW_OPS
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import tree_map
+    budget = PLAN_SHARE * card
+    for periods in range(cfg.num_periods, 0, -1):
+        deep = dataclasses.replace(
+            cfg, num_layers=len(cfg.prelude) + periods * cfg.period)
+        p = dict(params, periods=tree_map(lambda t: t[:periods],
+                                          params["periods"]))
+        eng = ServingEngine(deep, p, device="cuda", **GEOMETRY)
+        t0 = time.perf_counter()
+        traced = api.trace(eng._decode_impl, *eng._decode_example_args(),
+                           record=True)
+        plan = api.partition(traced, devices=4, memory=card / 2,
+                             meta=_serving_meta(deep, GEOMETRY))
+        g, a = traced.graph, plan.assignment
+        made = (g.ntype == NORMAL) & ~np.array(
+            [n.split(".")[0] in VIEW_OPS for n in g.names])
+        pools = np.array([g.mem[made & (a == pe)].sum() for pe in range(4)])
+        out = [s for s in traced.program.out_slots if s is not None]
+        clones = float(sum(g.mem[nid] for nid, _ in out))
+        weights = _param_bytes(p)
+        need = weights + float(pools.sum()) + clones
+        fits = need <= budget
+        log(f"deepseek_plan_serve: depth arithmetic at {deep.num_layers} "
+            f"layers (traced and partitioned in "
+            f"{time.perf_counter() - t0:.2f} s, {g.n} nodes): weights "
+            f"{weights / 1e9:.2f} GB, the K=4 plan's per-PE pools (the "
+            f"values each PE makes) [" + ", ".join(
+                f"{x / 1e9:.2f}" for x in pools) + f"] GB, the clones of "
+            f"the outputs {clones / 1e9:.2f} GB: {need / 1e9:.2f} GB against "
+            f"{PLAN_SHARE:.0%} of the card, {budget / 1e9:.2f} GB: "
+            f"{'fits' if fits else 'does not fit'}")
+        if fits:
+            traced.program.in_tree_example = None
+            return deep, p, traced, plan
+        del eng, traced, plan
+    raise AssertionError("deepseek_plan_serve: not one period fits")
+
+
+def phase_deepseek_plan_serve(torch, cfg, work: Path, card_line: str) -> dict:
+    """deepseek-v2-lite-16b in bf16 (random weights from a seed) at full
+    width, served from a K=4 ParDNN plan folded onto the card at the serve
+    phase's geometry, as deep as :func:`_plan_depth`'s printed arithmetic
+    allows (all 27 layers): the plan verified with 0 errors under half
+    the card a PE; the local engine, then
+    the plan through ``PartitionPlan.serve`` on the same 8 requests:
+    tokens held to the local engine's under the near-tie rule, every pool
+    leaf (the 3-D latent and rope-key pools) on its PE's device, every
+    decode step after the first a replay of the captured graphs (the MoE
+    routing in them), 0 leaked blocks and no flash launch (MLA with a
+    cache attends in the absorbed form); then ``launch.serve --plan-devices
+    4 --fold`` at that depth. Returns the plan-served run's launch
+    counts."""
+    from repro_torch import api
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import init_params
+    from repro_torch.obs.trace import validate_trace
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.tree import tree_flatten
+    t_phase = time.perf_counter()
+    log(f"deepseek_plan_serve: {_release(torch):.3f} GiB allocated at the "
+        f"start")
+    card = torch.cuda.get_device_properties(0).total_memory
+    fold = api.fold_device_map(4)
+    assert fold == [0, 0, 0, 0], f"expected one card, device_map {fold}"
+    whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    deep, params, traced, plan = _plan_depth(torch, api, cfg, whole, card)
+    del whole
+    t0 = time.perf_counter()
+    rep = plan.verify()
+    c = rep.counts()
+    cert, segments = _certificate(plan)
+    log(f"deepseek_plan_serve: {deep.num_layers} of {cfg.num_layers} layers; "
+        f"the K=4 plan ({plan.devices.memory / 2**30:.3f} GiB a PE, "
+        f"feasible={plan.feasible}, peaks [" + ", ".join(
+            f"{x / 2**30:.3f}" for x in plan.peak_mem) + f"] GiB, predicted "
+        f"{plan.makespan * 1e3:.3f} ms, {segments} segments, certificate ["
+        + ", ".join(f"{x / 2**30:.3f}" for x in cert) + f"] GiB) verified "
+        f"in {time.perf_counter() - t0:.2f} s: {c['error']}E/{c['warn']}W/"
+        f"{c['info']}I" + "".join(f"; {d}" for d in rep.errors[:2]))
+    assert c["error"] == 0, "deepseek_plan_serve: the plan does not verify"
+    names = [n.split(".")[0] for n in traced.graph.names]
+    log(f"deepseek_plan_serve: the traced step holds {names.count('sort')} "
+        f"sort, {names.count('topk')} topk and {names.count('cumsum')} "
+        f"cumsum nodes (the routing), {names.count('select_scatter')} "
+        f"select_scatter and {names.count('stack')} stack")
+
+    warm = ServingEngine(deep, params, device="cuda", **GEOMETRY)
+    for r in _requests(Request, deep, 1, seed=99, plen=(128, 128),
+                       max_new=2):
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+    _release(torch)
+    local = _serve_run(torch, deep, ServingEngine(
+        deep, params, device="cuda",
+        trace=str(work / "deepseek_local.trace.json"), **GEOMETRY),
+        _requests(Request, deep, 8, seed=0), "deepseek local", flash=False)
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = plan.serve(deep, params, device_map=fold,
+                     trace=str(work / "deepseek_plan.trace.json"))
+    bind_s = time.perf_counter() - t0
+    devs = plan._torch_devices(None, fold)
+    leaves = tree_flatten(eng.pools)[0]
+    assert len(leaves) == 4 and all(
+        leaf.device == eng.pool_devices[i] == devs[eng.pool_pes[i]]
+        for i, leaf in enumerate(leaves)), "a pool leaf is misplaced"
+    log(f"deepseek_plan_serve: the plan bound in {bind_s:.2f} s; pool leaves "
+        + ", ".join(f"{tuple(t.shape)}" for t in leaves) + f" on PEs "
+        f"{eng.pool_pes}, each on its PE's device "
+        f"{sorted({str(d) for d in eng.pool_devices})}")
+    served = _serve_run(torch, deep, eng, _requests(Request, deep, 8, seed=0),
+                        "deepseek plan", flash=False)
+    peak = torch.cuda.max_memory_allocated()
+    launches = served["launches"]
+    _hold_tokens(torch, "deepseek", local, served)
+    n_seg, capture_s = _hold_replays("deepseek", served)
+    assert validate_trace(served["doc"]) == []
+    del eng, plan, traced, served["done"], served["watch"], params
+    _release(torch)
+
+    # the launcher, in process, at the same depth
+    paths = [str(work / "deepseek_launch.trace.json"),
+             str(work / "deepseek_launch.json")]
+    t0 = time.perf_counter()
+    reset_counts()
+    eng = launch_serve.main(["--arch", cfg.name, "--plan-devices", "4",
+                             "--fold", "--trace", paths[0], "--metrics",
+                             paths[1]], cfg=deep)
+    launch_s = time.perf_counter() - t0
+    st = eng.plan.report.runtime
+    c = eng.plan.verify().counts()
+    flash = read_counts()["flash_attention"]
+    assert c["error"] == 0 and eng.stats.leaked_blocks == 0 and \
+        st["eager_segments"] == 0 and st["graph_replays"] == \
+        st["num_segments"] and flash == 0 and validate_trace(paths[0]) == [], \
+        f"deepseek_plan_serve launcher: {c}, {st}, {flash} flash launches"
+    log(f"deepseek_plan_serve: launch.serve --plan-devices 4 --fold at "
+        f"{deep.num_layers} layers in {launch_s:.2f} s: {eng.plan.summary()}; "
+        f"verified {c['error']}E/{c['warn']}W/{c['info']}I; "
+        f"{eng.stats.completed} requests, {st['num_segments']} segments "
+        f"replayed, 0 eager, 0 leaked, {flash} flash launches")
+    del eng
+    _release(torch)
+    log(f"deepseek_plan_serve summary ({card_line}): {deep.num_layers} "
+        f"layers, plan-served {served['tok_s']:.1f} tok/s, ttft p50 "
+        f"{served['ttft_p50']:.4f} s, decode median {served['decode_ms']:.2f}"
+        f" ms; local {local['tok_s']:.1f} tok/s, ttft p50 "
+        f"{local['ttft_p50']:.4f} s, decode median {local['decode_ms']:.2f} "
+        f"ms; {n_seg} segments, capture {capture_s:.2f} s; "
+        f"max_memory_allocated while plan-served {peak / 2**30:.3f} GiB; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # the dense configs: gemma3-1b (hd 256, sm90), qwen2.5-14b and starcoder2-7b
 # ---------------------------------------------------------------------------
@@ -5901,7 +6121,8 @@ def _dryrun_cells(torch, card: str) -> None:
         log(f"dryrun cell {arch} {shape} (remat dots, B={sh.global_batch}, "
             f"S={sh.seq_len}): "
             f"{r['status']}, {r['nodes']} nodes traced in {r['trace_s']} s; "
-            f"one-PE peak {r['per_device_total_bytes'] / 2 ** 30:.2f} GiB, "
+            f"one-PE peak {r['per_device_total_bytes'] / 2 ** 30:.2f} GiB "
+            f"(the emulator's {r['emulated_peak_bytes'] / 2 ** 30:.2f}), "
             f"fits one card {r['fits']}; graph {r['graph_flops']:.4g} FLOPs "
             f"{r['graph_bytes']:.4g} bytes; roofline bound "
             f"{rf['bound_s'] * 1e3:.3f} ms ({rf['dominant']}; compute "
@@ -7756,7 +7977,8 @@ PHASES = ("build", "kernels", "rwkv_kernels", "serve",
           "train_kernels", "train",
           "calibrate", "rwkv_train_kernels", "rwkv_train", "launch_train",
           "mixtral_serve", "mixtral_train", "wide_head_kernels",
-          "deepseek_serve", "deepseek_train", "dense_configs",
+          "deepseek_serve", "deepseek_plan_serve", "deepseek_train",
+          "dense_configs",
           "ssm_kernels", "jamba_serve", "jamba_train", "hubert",
           "internvl", "distributed", "dryrun")
 
@@ -7937,6 +8159,13 @@ def main(argv=None) -> int:
     if "deepseek_serve" in phases:
         with _Timed("deepseek_serve"):
             phase_deepseek_serve(torch, dcfg, card)
+    if "deepseek_plan_serve" in phases:
+        with _Timed("deepseek_plan_serve"), \
+                tempfile.TemporaryDirectory() as tmp:
+            launches = phase_deepseek_plan_serve(torch, dcfg, Path(tmp), card)
+        if record is not None:
+            record["deepseek_plan_serve_launches"] = \
+                launches["flash_attention"]
     if "deepseek_train" in phases:
         with _Timed("deepseek_train"):
             launches = phase_moe_train(torch, dcfg, card, "deepseek_train",

@@ -31,7 +31,11 @@ The rules that make the two graphs comparable:
 * **Mutations** become functional ops through ``functionalize``: an
   in-place write into an input (the paged KV pools) makes the new value a
   node output, and the write-back ``copy_`` into the input that
-  ``functionalize`` appends is dropped. Dead nodes are removed.
+  ``functionalize`` appends is dropped. The layers' writes into their
+  period's view of a stacked cache become per-index values and one
+  stack, as the reference's scan builds its output, not a copy of the
+  whole stack a layer (:func:`_unstack_writes`). Dead nodes are
+  removed.
 * **Multiple outputs.** ``operator.getitem`` is not an op: it maps to
   ``(producer, out_idx)``.
 * **Recurrence.** The RWKV6 custom ops (:data:`RECURRENCE_OPS`) are one
@@ -87,6 +91,7 @@ tensors gives the same graph).
 """
 from __future__ import annotations
 
+import logging
 import operator
 from typing import Any, Callable
 
@@ -102,6 +107,8 @@ from .graph import CostGraph, NORMAL, RESIDUAL
 
 # env entry: fx.Node -> (node_id, out_idx)
 Slot = tuple[int, int]
+
+_log = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -411,12 +418,191 @@ class _Tracer:
             self.n_outputs[nid] = n_out
 
 
+_SELECT = torch.ops.aten.select.int
+_SELECT_SCATTER = torch.ops.aten.select_scatter.default
+#: reshapes: each keeps its input's elements in row-major order, so two
+#: chains of them from one tensor to one shape give the same tensor, and
+#: one that keeps the leading axis has as its slice j the same reshape
+#: of the input's slice j
+_RESHAPES = frozenset({"view", "_unsafe_view", "reshape", "alias"})
+
+
+def _val(node):
+    return node.meta["val"]
+
+
+def _is_reshape(node) -> bool:
+    return (node.op == "call_function"
+            and isinstance(node.target, torch._ops.OpOverload)
+            and node.target.overloadpacket.__name__ in _RESHAPES)
+
+
+def _keeps_axis0(node) -> bool:
+    return (_is_reshape(node) and _val(node).dim() > 0
+            and _val(node.args[0]).dim() > 0
+            and _val(node).shape[0] == _val(node.args[0]).shape[0])
+
+
+def _written(node) -> bool:
+    """``select_scatter(base, src, 0, i)``: one index of a stack written."""
+    return (node.op == "call_function" and node.target is _SELECT_SCATTER
+            and node.args[2] == 0)
+
+
+def _reshapes(node) -> list:
+    """``node`` and every node that reshapes it, through chains of
+    reshapes."""
+    out, todo = [], [node]
+    while todo:
+        n = todo.pop()
+        out.append(n)
+        todo.extend(u for u in n.users if _is_reshape(u))
+    return out
+
+
+def _stack_reads(node):
+    """The uses of ``node``'s value through reshapes that keep its leading
+    axis: ``(selects of axis 0 on a tensor of node's shape, writes whose
+    base it is, other uses)``."""
+    shape = _val(node).shape
+    selects, writes, other = [], [], []
+    todo = [node]
+    while todo:
+        n = todo.pop()
+        same = _val(n).shape == shape
+        for u in n.users:
+            if _keeps_axis0(u):
+                todo.append(u)
+            elif same and u.target is _SELECT and u.args[1] == 0:
+                selects.append(u)
+            elif same and _written(u) and u.args[0] is n \
+                    and u.args[1] is not n:
+                writes.append(u)
+            else:
+                other.append(u)
+    return selects, writes, other
+
+
+def _meta(x):
+    if not isinstance(x, torch.fx.Node):
+        return x
+    v = _val(x)
+    return torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                               device="meta")
+
+
+def _add(graph, target, args, where):
+    """A new node ``target(*args)`` before ``where``, its value computed
+    on meta tensors of the argument nodes' shapes, strides and dtypes."""
+    with graph.inserting_before(where):
+        node = graph.call_function(target, args)
+    node.meta["val"] = target(*pytree.tree_map(_meta, args))
+    return node
+
+
+def _unstack_writes(graph) -> int:
+    """Rewrite each chain of per-index writes into a stacked tensor as the
+    reference's scan builds its output: per-index values and one stack.
+
+    ``functionalize`` turns a layer's in-place write into its period's
+    view of a stacked cache (``caches["periods"]`` indexed by period)
+    into ``select_scatter(base, src, 0, i)``, a copy of the whole stack,
+    once per layer. Over a chain of such writes into one stack, where
+    each intermediate stack is read only by the next write and by
+    ``select(·, 0, j)`` (through reshapes that keep the leading axis):
+
+    * a select of an index written reads the value last written there;
+    * one of an index never written reads the chain's first base, as the
+      first reshape of it to that shape in the graph (one node holds it,
+      as the reference's one ``reshape`` of its gathered cache);
+    * the last stack becomes one ``aten.stack`` of the per-index values,
+      and a reshape of it back to its own shape becomes the stack
+      (where it is only gathered from, :func:`_gather_per_index`).
+
+    The values are the same tensors, so a replay is bit-equal. Returns
+    the number of chains left as they were (a stack read in any other
+    way mid-chain, or the base of two writes)."""
+    order = {node: i for i, node in enumerate(graph.nodes)}
+    links: dict = {}          # a write -> the writes into its result
+    heads = []
+    for node in graph.nodes:
+        if not _written(node):
+            continue
+        base = node.args[0]
+        while _keeps_axis0(base):
+            base = base.args[0]
+        if _written(base) and _val(base).shape == _val(node).shape:
+            links.setdefault(base, []).append(node)
+        else:
+            heads.append(node)
+    kept = 0
+    for head in heads:
+        chain = [head]
+        while len(links.get(chain[-1], ())) == 1:
+            chain.append(links[chain[-1]][0])
+        if len(links.get(chain[-1], ())) > 1 or any(
+                _stack_reads(w)[2] for w in chain[:-1]):
+            kept += 1
+            continue
+        shape = _val(head).shape
+        base = head.args[0]
+        while _is_reshape(base):
+            base = base.args[0]
+        root = min((r for r in _reshapes(base) if _val(r).shape == shape),
+                   key=order.__getitem__)
+        last: dict = {}       # index -> the value last written there
+
+        def value(j, where):
+            if j in last:
+                return last[j]
+            return _add(graph, _SELECT, (root, 0, j), where)
+        for w in chain:
+            last[w.args[3] % shape[0]] = w.args[1]
+            for sel in _stack_reads(w)[0]:
+                sel.replace_all_uses_with(value(sel.args[2] % shape[0], sel))
+        end = chain[-1]
+        stacked = _add(graph, torch.ops.aten.stack.default,
+                       ([value(j, end) for j in range(shape[0])], 0), end)
+        end.replace_all_uses_with(stacked)
+        for r in _reshapes(stacked)[1:]:
+            if _val(r).shape == shape:
+                r.replace_all_uses_with(stacked)
+        _gather_per_index(graph, stacked)
+    graph.eliminate_dead_code()
+    return kept
+
+
+def _gather_per_index(graph, stacked) -> None:
+    """Where every use of ``stacked`` (``stack(vs, 0)``) gathers from it
+    along all of the leading axis (``index(stacked, [None, i1, ...])``,
+    tensor indices only), gather from each value and stack the gathers:
+    the same tensor, without the copy of the whole stack (the paged step
+    reads only each row's new token back from its layers' caches)."""
+    graph.eliminate_dead_code()
+    uses = list(stacked.users)
+    if not all(u.target is torch.ops.aten.index.Tensor
+               and u.args[0] is stacked and u.args[1][0] is None
+               and len(u.args[1]) > 1
+               and all(isinstance(i, torch.fx.Node)
+                       and _val(i).dtype != torch.bool
+                       for i in u.args[1][1:]) for u in uses):
+        return
+    for u in uses:
+        rows = list(u.args[1][1:])
+        parts = [_add(graph, torch.ops.aten.index.Tensor, (v, rows), u)
+                 for v in stacked.args[0]]
+        u.replace_all_uses_with(
+            _add(graph, torch.ops.aten.stack.default, (parts, 0), u))
+
+
 def _functional_graph(fn: Callable, example_args: tuple,
                       tracing_mode: str = "fake", autograd: bool = False):
     """``fn`` as an aten FX graph over the flat input leaves, with the
-    input write-backs dropped and dead nodes removed. Returns the graph
-    module and the output structure. ``tracing_mode="real"`` runs ``fn``
-    once; it exists to check that it gives the fake trace's graph.
+    input write-backs dropped, the writes into stacked tensors unstacked
+    (:func:`_unstack_writes`; ``gm.meta["kept_write_chains"]`` counts the
+    chains it left) and dead nodes removed. Returns the graph module and
+    the output structure. ``tracing_mode="real"`` runs ``fn`` once; it
+    exists to check that it gives the fake trace's graph.
     ``autograd=True`` traces ``fn`` as it runs first (it may call
     ``torch.autograd``), then functionalizes that graph."""
     leaves, in_structure = tree_flatten(example_args)
@@ -446,6 +632,11 @@ def _functional_graph(fn: Callable, example_args: tuple,
                 and node.args[0].op == "placeholder" and not node.users):
             graph.erase_node(node)
     graph.eliminate_dead_code()
+    kept = _unstack_writes(graph)
+    gm.meta["kept_write_chains"] = kept
+    if kept:
+        _log.warning("%d chains of writes into a stacked tensor kept: each "
+                     "write copies the whole stack", kept)
     return gm, out_structure[0]
 
 

@@ -112,6 +112,23 @@ def test_reduced_cell_is_ok(small, arch, shape, remat):
     assert rf["bound_s"] == max(rf["compute_s"], rf["memory_s"]) > 0
 
 
+def test_decode_cell_bytes_fall_with_unstacked_writes(small, monkeypatch):
+    """The jamba ``decode_32k`` cell touches fewer bytes with each layer's
+    cache write a per-index value of one stack than with the
+    whole-stack ``select_scatter`` copy per layer that ``functionalize``
+    makes of it."""
+    from repro_torch.core import tracing
+    r = dryrun.run_cell("jamba-v0.1-52b", "decode_32k", "single",
+                        device="cpu")
+    monkeypatch.setattr(tracing, "_unstack_writes", lambda graph: 0)
+    copies = dryrun.run_cell("jamba-v0.1-52b", "decode_32k", "single",
+                             device="cpu")
+    assert r["status"] == copies["status"] == "OK"
+    assert r["graph_flops"] < copies["graph_flops"]
+    assert r["graph_bytes"] < copies["graph_bytes"]
+    assert r["nodes"] < copies["nodes"]
+
+
 def test_trace_order_peak_falls_under_remat(small):
     """The cell's one-card peak is priced in the trace's order, so a
     policy that recomputes lowers it; the emulator's figure stays under

@@ -7,7 +7,9 @@ token, under forced eviction and shuffled admission, through both
 runtimes; the pools lie where the plan puts them; a saved and loaded
 plan serves the same tokens; the facade's refusals; ``execute(trace=)``
 lanes; the load generator against the reference's; the launcher's plan
-path with its trace and metrics files. The ``cuda`` tests serve on the
+path with its trace and metrics files. Reduced deepseek-v2-lite-16b
+(MLA pools, MoE routing) served from a K=4 plan gives the reference
+engine's tokens and the local engine's. The ``cuda`` tests serve on the
 card and need no JAX: the reference is imported where it is used, so
 that ``python -m pytest -m cuda tests/test_torch_plan_serving.py`` runs
 on a machine without it."""
@@ -131,6 +133,62 @@ def test_pools_live_on_the_pes_the_plan_assigns(setup):
     devs = ts.resolve_pool_devices(plan, n_params, eng.pools,
                                    [f"dev{pe}" for pe in range(plan.k)])
     assert devs == [f"dev{pe}" for pe in eng.pool_pes]
+
+
+#: reduced deepseek-v2-lite-16b (an ``mla`` prelude, two ``mla_moe``
+#: layers): 4 requests of 6-12 tokens, 10 new each, against 9
+#: allocatable blocks of 4
+DEEPSEEK_GEO = dict(block_size=4, num_blocks=10, max_batch=4, max_len=24)
+
+
+def test_deepseek_plan_served_tokens_equal_reference_and_local():
+    """A K=4 plan of reduced deepseek's paged decode step (MLA's 3-D latent
+    and rope-key pools, top-k MoE routing), folded onto the CPU, serves
+    the reference engine's tokens (bridged weights) and the local
+    engine's, under eviction; each pool leaf lies on its PE."""
+    import jax
+    import repro.configs as jcfg
+    import repro.models as jm
+    import repro.serving as js
+    arch = "deepseek-v2-lite-16b"
+    jc = jcfg.reduced(jcfg.get_config(arch), layers=3)
+    tc = tcfg.reduced(tcfg.get_config(arch), layers=3)
+    jp = jm.init_params(jc, jax.random.PRNGKey(2))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, jc.vocab_size, n).astype(np.int32)
+               for n in (9, 6, 12, 7)]
+    jeng = js.ServingEngine(jc, jp, **DEEPSEEK_GEO)
+    gaps, inner = [], jeng._decode
+
+    def decode(*args):
+        out = inner(*args)
+        top2 = np.sort(np.asarray(out[0][:, -1]), -1)[:, -2:]
+        gaps.extend(top2[:, 1] - top2[:, 0])
+        return out
+    jeng._decode = decode
+    for i, p in enumerate(prompts):
+        jeng.submit(js.Request(rid=i, prompt=p, max_new_tokens=N_NEW))
+    done = jeng.run_until_drained()
+    ref = [done[i].output for i in range(len(prompts))]
+    assert min(gaps) > 1e-3, "a near-tie"
+    plan = ts.partition_for_serving(tc, tp, devices=4, device="cpu",
+                                    **DEEPSEEK_GEO)
+    assert plan.k == 4 and len(set(plan.assignment.tolist())) > 1
+    local_eng, local = _serve(
+        ts.ServingEngine(tc, tp, device="cpu", **DEEPSEEK_GEO), prompts,
+        range(len(prompts)))
+    eng = plan.serve(tc, tp, devices=CPU, device_map=FOLD, device="cpu")
+    eng, outs = _serve(eng, prompts, range(len(prompts)))
+    assert outs == local == ref
+    assert eng.stats.preempted == local_eng.stats.preempted > 0
+    prog = plan.traced.program
+    n_params = len(tree_flatten(tp)[0])
+    leaves = tree_flatten(eng.pools)[0]
+    assert len(leaves) == 4          # c_kv and k_rope, prelude and periods
+    assert eng.pool_pes == [int(plan.assignment[prog.input_nodes[n_params + i]])
+                            for i in range(len(leaves))]
+    assert all(leaf.device == torch.device("cpu") for leaf in leaves)
 
 
 @pytest.mark.cuda
