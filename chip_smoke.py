@@ -242,12 +242,12 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    at init near ln V; step
    ms, tokens/s, peak memory, device time by role; (b) traced,
    partitioned at K=4 under half the card per PE at the deepest depth
-   whose plan's summed peaks and the returned clones fit 90% of the card
-   (folded onto one card each PE keeps its own graph pool), verified,
-   executed with its PEs folded onto the card: async = sync bit for bit,
-   every leaf within TRAIN_GATE of the eager step; nodes, partition
-   seconds, predicted makespan, async, sync and eager ms, logical peak
-   per PE beside the plan's.
+   (up to PLAN_CAP) whose weights, one-pool peak and returned clones fit
+   90% of the card (folded onto one card the PEs share one graph pool),
+   verified, executed with its PEs folded onto the card: async = sync
+   bit for bit, every leaf within TRAIN_GATE of the eager step; nodes,
+   partition seconds, predicted makespan, async, sync and eager ms,
+   logical peak per PE beside the plan's, the measured multiple of P.
 20. wide head kernels: the sm90 flash kernels at the head dims off 64
    and 128 on main paths, in bf16: q/k 192 with v at its own 128 at
    deepseek-v2-lite's training shape (B=1, S=2048, 16 heads; forward and
@@ -284,8 +284,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 21b. deepseek plan serve: deepseek-v2-lite-16b in bf16 (random weights
    from a seed) at full width, served from a K=4 ParDNN plan folded
    onto the card at the serve phase's geometry, as deep as the printed
-   arithmetic lets 90% of the card hold the weights, each PE's graph
-   pool and the runtime's clones (all 27 layers): the plan verified with
+   arithmetic lets 90% of the card hold the weights, the card's one
+   graph pool and the runtime's clones (all 27 layers): the plan verified with
    0 errors; the local engine, then ``PartitionPlan.serve`` on the same
    8 requests: greedy tokens held to the local engine's under phase 6's
    near-tie rule, every pool leaf (the latent and rope-key pools) on its
@@ -345,8 +345,8 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
    step, 0 fma, the cross entropy at init near ln V; (iii) the step
    traced, partitioned at K=4 under half the card per PE, verified and
    executed with its PEs folded onto the card at the deepest depth whose
-   summed per-PE peaks and returned clones fit 90% of the card (all 48
-   when they do): async = sync, every leaf within TRAIN_GATE of eager.
+   weights, one-pool peak and returned clones fit 90% of the card (all
+   48 when they do): async = sync, every leaf within TRAIN_GATE of eager.
    Step ms, frames or tokens/s, busy share, peak memory (held under 90%
    of the card) and the flash kernels' device time for each;
 28. internvl: internvl2-1b (its vision frontend stubbed) in bf16 at full
@@ -870,13 +870,15 @@ def phase_kernels(torch, ops, ref) -> dict:
     return record
 
 
-def profile(torch, label: str, fn, top: int = 6,
-            part=None) -> tuple[float, float]:
+def profile(torch, label: str, fn, top: int = 6, part=None,
+            parts: dict | None = None) -> tuple:
     """Host time, device-busy time and the kernels that take the most
     device time for one call of ``fn`` (torch.profiler, after warm-up);
     with ``part`` = (name, substring), also the device time of the
     kernels whose names hold the substring and their share of the busy
-    time. Returns (wall ms, device-busy ms)."""
+    time. Returns (wall ms, device-busy ms), and with ``parts`` (name ->
+    substring) a third item: name -> (count, device ms) of the events
+    whose names hold the substring."""
     from torch.profiler import ProfilerActivity
     for _ in range(2):
         fn()
@@ -902,7 +904,13 @@ def profile(torch, label: str, fn, top: int = 6,
         log(f"profile {label}: {part[0]} kernels {part_ms:.3f} ms "
             f"(x{sum(e.count for e in mine)}) of {busy_ms:.2f} ms of device "
             f"time ({part_ms / busy_ms:.1%})")
-    return host_ms, busy_ms
+    if parts is None:
+        return host_ms, busy_ms
+    found = {name: (sum(e.count for e in evs if sub in e.key),
+                    sum(e.self_device_time_total for e in evs
+                        if sub in e.key) / 1e3)
+             for name, sub in parts.items()}
+    return host_ms, busy_ms, found
 
 
 def _requests(Request, cfg, n, seed, plen=(128, 1024), max_new=32):
@@ -1480,8 +1488,9 @@ def phase_plan(torch, cfg, plan_path: Path) -> tuple:
     to ``plan_path`` (the plan_serve phase serves it), load it and bind
     it to a fresh trace; the predicted step time beside the measured
     eager step. First, at the reduced size, the graph's fingerprint must
-    be the same for a trace on the CPU and on the card. Returns the trace
-    and the verified half-cap plan (plan_execute runs them)."""
+    be the same for a trace on the CPU and on the card. Returns the
+    trace, the verified half-cap plan and the quarter-cap plan
+    (plan_execute runs them)."""
     from repro_torch import api
     from repro_torch.configs import reduced
     from repro_torch.core.costmodel import H100
@@ -1622,9 +1631,10 @@ def phase_plan(torch, cfg, plan_path: Path) -> tuple:
     # the recorded program keeps its example arguments (these parameters,
     # for calibration): plan_execute draws its own
     traced.program.in_tree_example = None
+    quarter = plans["quarter"]
     del eng, params, fresh, plans, loaded
     _release(torch)
-    return traced, plan
+    return traced, plan, quarter
 
 
 # compiled vs eager in bf16: the logits within 2^-7 of their largest
@@ -1722,9 +1732,17 @@ def _release(torch) -> float:
     return torch.cuda.memory_allocated() / 2 ** 30
 
 
-def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms):
-    """Compiled async and sync and the eager step on one plan: the
-    gates, then the times and the runtime's counters."""
+#: the device-to-device copies of a decode step, by event name in the
+#: profile: ``clone`` and ``copy_`` of whole tensors, and the
+#: elementwise copy kernels
+COPY_EVENTS = {"Memcpy DtoD": "Memcpy DtoD", "copy kernels": "copy_kernel"}
+
+
+def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms,
+                  donate: bool = True):
+    """Compiled async and sync (donating dead segment inputs or not) and
+    the eager step on one plan: the gates, then the times, the runtime's
+    counters and the device-to-device copies of each."""
     from repro_torch.tree import tree_flatten, tree_map
     pools, bt, toks, lens = inputs
     fold = [0] * plan.k
@@ -1738,11 +1756,14 @@ def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms):
     def run(mode, *given):
         # the parameters are read in place, the other leaves copied
         return plan.execute(*(given or args), device_map=fold, mode=mode,
-                            static_argnums=(0,))
+                            static_argnums=(0,), donate=donate)
     torch.cuda.reset_peak_memory_stats()
     first = run("sync")
     first_peak = torch.cuda.max_memory_allocated()
-    st = plan._compiled_runtime[1].stats
+    rt = plan._compiled_runtime[1]
+    st, reserved, n_pools = rt.stats, _pool_reserved(torch, rt), \
+        len(rt._pools)
+    del rt
     same = all(torch.equal(a, b) for mode in ("sync", "async") * 3
                for a, b in zip(_leaves(run(mode)), _leaves(first)))
     # the pools given as other tensors: copied into the runtime's buffers
@@ -1797,14 +1818,21 @@ def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms):
         f"{k} {v:.2f} ms" for k, v in ms.items())
         + f"; predicted {plan.makespan * 1e3:.3f} ms (one PE "
         f"{one_pe_ms:.3f} ms)")
-    prof = {}
+    prof, copies = {}, {}
     for name, fn in (("compiled async", lambda: run("async")),
                      ("eager", eager)):
-        prof[name] = profile(torch, f"plan_execute {label} {name}", fn,
-                             top=8)
+        wall, busy, copies[name] = profile(
+            torch, f"plan_execute {label} {name}", fn, top=8,
+            parts=COPY_EVENTS)
+        prof[name] = (wall, busy)
+        log(f"plan_execute {label} {name}: device-to-device copies " +
+            ", ".join(f"{k} x{n} {t:.3f} ms"
+                      for k, (n, t) in copies[name].items()))
     del eager_pools
     cert, _ = _certificate(plan)
     gib = 2 ** 30
+    writes = sum(str(node[0]) == "aten.index_put.default"
+                 for node in plan.traced.program.program.values())
     log(f"plan_execute {label}: capture {st.compile_seconds:.2f} s "
         f"(warm-up + {st.num_segments} captures), {st.graph_replays} graph "
         f"replays per step, 0 eager; transfers {st.transfers} "
@@ -1812,7 +1840,11 @@ def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms):
         f"{st.aliased_reads} ({st.aliased_read_bytes / 2**20:.1f} MiB); "
         f"input copies {st.input_copies} ({st.input_copy_bytes / 2**20:.1f} "
         f"MiB), output clones {st.output_clone_bytes / gib:.3f} GiB; "
-        f"{st.reuse_waits} cross-pool reuse waits")
+        f"{n_pools} graph pool(s), reserving {reserved / gib:.3f} GiB; "
+        f"{st.reuse_waits} reuse waits; donate={donate}: "
+        f"{st.donated_inputs} inputs donated "
+        f"({st.donated_bytes / gib:.3f} GiB), {st.inplace_writes} writes in "
+        f"place (of {writes} index_put nodes)")
     log(f"plan_execute {label}: logical peak per PE [" + ", ".join(
         f"{x / gib:.3f}" for x in st.peak_live_bytes) + "] GiB; plan [" +
         ", ".join(f"{x / gib:.3f}" for x in plan.peak_mem) +
@@ -1821,7 +1853,7 @@ def _execute_cell(torch, label, plan, eng, params, inputs, one_pe_ms):
         f"over a steady call +{call_peak / gib:.3f} GiB above "
         f"{base / gib:.3f}, {after:.3f} after 20 more calls; reserved "
         f"{torch.cuda.memory_reserved() / gib:.3f} GiB")
-    return ms, prof, st
+    return ms, prof, st, copies
 
 
 def _interpret_cell(torch, label: str, plan, args, fold) -> None:
@@ -1858,13 +1890,17 @@ def phase_plan_execute(torch, cfg, planned: tuple | None = None) -> None:
     """Execute ParDNN plans of the paged decode step on the card, with PEs
     folded onto it: (1) full granite-8b bf16 at K=4 (half cap: the
     quarter-cap plan is infeasible; ``planned``, the plan phase's
-    trace and half-cap plan, when that phase ran), the
+    trace, half-cap and quarter-cap plans, when that phase ran), the
     compiled runtime async and sync against the eager step, every
-    segment replayed from a CUDA graph; (2) the same trace at K=1, one
-    graph for the whole step; (3) the op-by-op interpreter against the
-    compiled runtime on (1)'s plan, the printed arithmetic letting the
-    card hold every value it keeps; (4) 2 layers in float32 against the
-    eager step within PLAN_F32_GATE. Run first is (4), the cheapest."""
+    segment replayed from a CUDA graph, with donation and without (the
+    device-to-device copies of each counted in the profile); (2) the
+    same trace at K=1, one graph for the whole step; (3) the op-by-op
+    interpreter against the compiled runtime on (1)'s plan, the printed
+    arithmetic letting the card hold every value it keeps; (4) 2 layers
+    in float32 against the eager step within PLAN_F32_GATE; (5) the
+    quarter-cap plan run once, its logical per-PE peaks beside its
+    certificate. Run first is (4), the cheapest."""
+    from repro_torch.core.runtime import CompiledRuntime
     from repro_torch import api
     from repro_torch.core.graph import RESIDUAL
     from repro_torch.core.tracing import VIEW_OPS
@@ -1910,11 +1946,12 @@ def phase_plan_execute(torch, cfg, planned: tuple | None = None) -> None:
     t0 = time.perf_counter()
     if planned is None:
         traced = api.trace(eng._decode_impl, params, *inputs, record=True)
-        plan = _half_cap_plan(api, traced, card)
+        quarter = api.partition(traced, devices=4, memory=card / 4)
+        plan = _half_cap_plan(api, traced, card, quarter)
     else:
         # the plan phase's trace of the same step (its graph depends on
         # the shapes and dtypes only) and its verified half-cap plan
-        traced, plan = planned
+        traced, plan, quarter = planned
     one = api.partition(traced, devices=1)
     whose = "traced and partitioned here" if planned is None else \
         "the plan phase's trace and plan"
@@ -1924,10 +1961,25 @@ def phase_plan_execute(torch, cfg, planned: tuple | None = None) -> None:
         f"{time.perf_counter() - t0:.2f} s")
     one_pe_ms = one.makespan * 1e3
     cells = {}
-    for label, p in (("K=4", plan), ("K=1", one)):
+    for label, p, donate in (("K=4", plan, True),
+                             ("K=4 donate=False", plan, False),
+                             ("K=1", one, True)):
         cells[label] = _execute_cell(torch, f"{cfg.name} {label}", p, eng,
-                                     params, inputs, one_pe_ms)
+                                     params, inputs, one_pe_ms, donate)
         del p._compiled_runtime
+    # (5) the quarter-cap plan's logical per-PE peaks beside the
+    # certificate's (ParDNN and the verifier disagree there: ROADMAP F3)
+    rt = CompiledRuntime(traced.program, quarter.assignment, ["cuda"] * 4,
+                         static_argnums=(0,))
+    rt(params, *inputs)
+    cert, _ = _certificate(quarter)
+    log(f"plan_execute: the quarter-cap plan (feasible={quarter.feasible}) "
+        f"run once: logical peak per PE [" + ", ".join(
+            f"{x / 2**30:.2f}" for x in rt.stats.peak_live_bytes)
+        + "] GiB; certificate [" + ", ".join(
+            f"{x / 2**30:.2f}" for x in cert) + "]; ParDNN's [" + ", ".join(
+            f"{x / 2**30:.2f}" for x in quarter.peak_mem) + "]")
+    del rt
     # (3) the interpreter keeps every value it computes: the card must
     # hold them beside what is allocated
     g = traced.graph
@@ -1942,19 +1994,24 @@ def phase_plan_execute(torch, cfg, planned: tuple | None = None) -> None:
     assert held + kept <= 0.9 * card, "the interpreter's values do not fit"
     _interpret_cell(torch, f"{cfg.num_layers} layers", plan,
                     (params,) + tuple(inputs), fold)
-    del traced, plan, one, inputs, eng, params
+    del traced, plan, one, quarter, inputs, eng, params
     _release(torch)
     launches = read_counts()
     assert not any(launches.values()), \
         f"a kernel launched on the plan path (one query token): {launches}"
-    for label, (ms, prof, st) in cells.items():
+    for label, (ms, prof, st, copies) in cells.items():
         log(f"plan_execute {label} summary: " + ", ".join(
             f"{k} {v:.2f} ms" for k, v in ms.items()) + "; device busy " +
             ", ".join(f"{k} {b:.2f} ms of {w:.2f} ms ({b / w:.1%})"
                       for k, (w, b) in prof.items())
-            + f"; {st.num_segments} segments; the plan-executed step's "
-            f"device time {prof['compiled async'][1] / prof['eager'][1]:.3f}"
-            f"x the eager step's (F2's target: within 1.2x)")
+            + "; device-to-device copies " + ", ".join(
+                f"{k} " + " + ".join(f"x{n} {t:.3f} ms"
+                                     for n, t in c.values())
+                for k, c in copies.items())
+            + f"; {st.num_segments} segments, {st.inplace_writes} writes in "
+            f"place; the plan-executed step's device time "
+            f"{prof['compiled async'][1] / prof['eager'][1]:.3f}x the eager "
+            f"step's (F12's target: within 1.2x)")
 
 
 #: full granite-8b's plan-served decode ms a step while each layer's cache
@@ -2781,11 +2838,17 @@ def _hold_train(torch, label: str, got, want) -> bool:
 
 def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
                      layers: int,
-                     kernels=FWD_KERNELS + (BWD_KERNEL,)) -> dict:
-    """A training plan folded onto the card: async = sync over 3 calls,
-    against the eager step, every segment a replay; then times, device
-    time, counters, peaks beside the plan's and the certificate, and one
-    measured timeline beside the predicted makespan."""
+                     kernels=FWD_KERNELS + (BWD_KERNEL,), donate=True,
+                     same_as=None, light=False) -> dict:
+    """A training plan folded onto the card, donating (``donate``) or
+    not: async = sync over 3 calls, against the eager step (and, with
+    ``same_as``, an earlier cell's leaves on the host, bit for bit),
+    every segment a replay; the peak allocated and the pool's reserved
+    bytes, the donation and reuse counters, async and sync ms. Unless
+    ``light`` (which returns the first call's leaves on the host
+    instead), then the eager ms, device time, peaks beside the plan's
+    and the certificate, and one measured timeline beside the predicted
+    makespan."""
     fold = [0] * plan.k
     rep = plan.verify(strict=True)
     c = rep.counts()
@@ -2794,17 +2857,28 @@ def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
 
     def run(mode):
         return plan.execute(params, batch, device_map=fold, mode=mode,
-                            static_argnums=(0,))
+                            static_argnums=(0,), donate=donate)
+    # cuBLAS keeps a workspace per stream it ran on, and PyTorch hands out
+    # streams from a pool: drop them, so that each first call allocates
+    # the workspaces it uses and the cells' rises compare
+    torch._C._cuda_clearCublasWorkspaces()
+    _release(torch)
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     first = run("sync")
     first_peak = torch.cuda.max_memory_allocated()
-    st = plan._compiled_runtime[1].stats
+    held = torch.cuda.max_memory_reserved()
+    rt = plan._compiled_runtime[1]
+    st, reserved, n_pools = rt.stats, _pool_reserved(torch, rt), \
+        len(rt._pools)
+    del rt
     same = all(torch.equal(a, b) for mode in ("async", "sync") * 3
                for a, b in zip(_train_leaves(run(mode)),
                                _train_leaves(first)))
     log(f"train {label}: {st.num_segments} segments "
         f"{st.segments_per_device} per PE, capture {st.compile_seconds:.2f} "
-        f"s; async x3 and sync x3 bit-equal to the first call: {same}")
+        f"s into {n_pools} graph pool(s); async x3 and sync x3 bit-equal to "
+        f"the first call: {same}")
     if not same:
         raise AssertionError(f"train {label}: sync and async dispatch "
                              f"disagree")
@@ -2813,10 +2887,31 @@ def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
                              f"and {st.eager_segments} eager segments for "
                              f"{st.num_segments} segments")
     bit = _hold_train(torch, label, first, want)
+    if same_as is not None:
+        equal = _same_host(torch, first, same_as)
+        log(f"train {label}: bit-equal to the cell without donation: "
+            f"{equal}")
+        if not equal:
+            raise AssertionError(f"train {label}: donation changed the "
+                                 f"result")
+    host = _host(_train_leaves(first)) if light else None
     del first
     ms = {"compiled async": _wall_ms(torch, lambda: run("async"), n=5),
-          "compiled sync": _wall_ms(torch, lambda: run("sync"), n=5),
-          "eager": _wall_ms(torch, eager_fn, n=5)}
+          "compiled sync": _wall_ms(torch, lambda: run("sync"), n=5)}
+    gib = 2 ** 30
+    log(f"train {label}: donate={donate}: max_memory_allocated first call "
+        f"{first_peak / gib:.3f} GiB (+{(first_peak - base) / gib:.3f} over "
+        f"the call's start), max_memory_reserved "
+        f"{held / gib:.3f} GiB, the graph pool reserves "
+        f"{reserved / gib:.3f} GiB; {st.donated_inputs} inputs donated "
+        f"({st.donated_bytes / gib:.3f} GiB), {st.inplace_writes} writes in "
+        f"place, {st.reuse_waits} reuse waits; median wall of 5 calls async "
+        f"{ms['compiled async']:.2f} ms, sync {ms['compiled sync']:.2f} ms")
+    cell = {"ms": ms, "peak": first_peak, "rise": first_peak - base,
+            "reserved": reserved, "host": host, "stats": st, "bit": bit}
+    if light:
+        return cell
+    ms["eager"] = _wall_ms(torch, eager_fn, n=5)
     prof = {name: _profile_step(torch, f"train {label} {name}", fn, kernels)
             for name, fn in (("compiled async", lambda: run("async")),
                              ("eager", eager_fn))}
@@ -2828,7 +2923,7 @@ def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
         f"{counts} (the step has {layers} layers)")
     with tempfile.TemporaryDirectory() as tmp:
         plan.execute(params, batch, device_map=fold, static_argnums=(0,),
-                     trace=f"{tmp}/train.trace.json")
+                     donate=donate, trace=f"{tmp}/train.trace.json")
     measured = st.timeline()["makespan_s"]
     cert, _ = _certificate(plan)
     gib = 2 ** 30
@@ -2846,15 +2941,66 @@ def _train_plan_cell(torch, label, plan, params, batch, eager_fn, want,
         ", ".join(f"{x / gib:.3f}" for x in plan.peak_mem) +
         "]; certificate [" + ", ".join(f"{x / gib:.3f}" for x in cert) +
         f"]; max_memory_allocated first call {first_peak / gib:.3f} GiB")
-    return {"ms": ms, "prof": prof, "segments": st.num_segments,
-            "capture_s": st.compile_seconds, "bit": bit,
-            "measured_ms": measured * 1e3, "predicted_ms": plan.makespan * 1e3}
+    return dict(cell, prof=prof, segments=st.num_segments,
+                capture_s=st.compile_seconds, measured_ms=measured * 1e3,
+                predicted_ms=plan.makespan * 1e3)
 
 
 def _param_bytes(params) -> int:
     from repro_torch.tree import tree_flatten
     return sum(t.numel() * t.element_size()
                for t in tree_flatten(params)[0])
+
+
+def _pool_reserved(torch, rt) -> int:
+    """The bytes the caching allocator holds in the runtime ``rt``'s graph
+    pools (its segments whose pool is one of them), from a memory
+    snapshot."""
+    ids = {tuple(p) for p in rt._pools}
+    return sum(s["total_size"]
+               for s in torch.cuda.memory._snapshot()["segments"]
+               if tuple(s.get("segment_pool_id", ())) in ids)
+
+
+def _pool_peak(traced, plan) -> float:
+    """The one-pool model of a plan folded onto one card: walking its
+    segments in schedule order, the most bytes of values its nodes make
+    (views and the inputs excluded) alive at once. A value no other
+    segment reads dies after its last reader in its segment (at the
+    segment's end if none reads it); one that other segments read dies
+    when its last consuming segment ends; program outputs live to the
+    end. The runtime's donation frees some earlier: this is the larger."""
+    from repro_torch.core.graph import RESIDUAL
+    from repro_torch.core.segments import cut_segments
+    from repro_torch.core.tracing import VIEW_OPS
+    g, prog = traced.graph, traced.program
+    sched = cut_segments(prog, plan.assignment, k=plan.k)
+    _, outputs = prog.liveness()
+    size = [0.0 if g.ntype[n] == RESIDUAL or g.names[n].split(".")[0]
+            in VIEW_OPS else float(g.mem[n]) for n in range(g.n)]
+    live = peak = 0.0
+    for seg in sched.segments:
+        last: dict[int, int] = {}
+        for nid in seg.nodes:
+            for inp in prog.program[nid][2]:
+                if inp[0] == "slot":
+                    last[inp[1]] = nid
+        exported = {src for src, _ in seg.outputs}
+        inside = set(seg.nodes)
+        dies: dict[int, list[int]] = {}
+        for src, nid in last.items():
+            if src in inside and src not in exported:
+                dies.setdefault(nid, []).append(src)
+        for nid in seg.nodes:
+            live += size[nid]
+            peak = max(peak, live)
+            live -= sum(size[src] for src in dies.get(nid, ()))
+        live -= sum(size[nid] for nid in seg.nodes
+                    if nid not in exported and nid not in last)
+        live -= sum(size[src] for src in {s[0] for s in seg.inputs}
+                    if sched.last_consumer_seg.get(src) == seg.sid
+                    and src not in outputs)
+    return peak
 
 
 def fit_depth(torch, cfg, label: str, build, holds: str,
@@ -3165,14 +3311,41 @@ def phase_train(torch, ops, cfg, card: str, record: dict) -> dict:
     log(f"train plan: the eager {L}-layer step repeated bit-equal: "
         f"{eager_det}")
     del again
+    # the K=4 plan without donation, then with it (the default): bit-equal,
+    # and no more memory allocated with donation than without, counted
+    # from each first call's start
+    off = _train_plan_cell(torch, f"K=4 {label} cap donate=False", plan,
+                           params, batch, lambda: step(params, batch), want,
+                           L, donate=False, light=True)
+    del plan._compiled_runtime
+    _release(torch)
     cells = {}
     one = api.partition(traced, devices=1, meta=meta)
     for name, p in ((f"K=4 {label} cap", plan), ("K=1", one)):
         cells[name] = _train_plan_cell(
             torch, name, p, params, batch, lambda: step(params, batch), want,
-            L)
+            L, same_as=off["host"] if p is plan else None)
         del p._compiled_runtime
         _release(torch)
+    on = cells[f"K=4 {label} cap"]
+    gib = 2 ** 30
+    log(f"train plan K=4 donation ({L} layers): max_memory_allocated "
+        f"{off['peak'] / gib:.3f} GiB without, {on['peak'] / gib:.3f} with, "
+        f"+{off['rise'] / gib:.3f} and +{on['rise'] / gib:.3f} over each "
+        f"first call's start; "
+        f"the pool reserves {off['reserved'] / gib:.3f} and "
+        f"{on['reserved'] / gib:.3f} GiB; inputs donated "
+        f"{on['stats'].donated_inputs}, writes in place "
+        f"{on['stats'].inplace_writes}, reuse waits "
+        f"{off['stats'].reuse_waits} and {on['stats'].reuse_waits}; async "
+        f"{off['ms']['compiled async']:.2f} and "
+        f"{on['ms']['compiled async']:.2f} ms, sync "
+        f"{off['ms']['compiled sync']:.2f} and "
+        f"{on['ms']['compiled sync']:.2f} ms; {card}")
+    if on["rise"] > off["rise"]:
+        raise AssertionError("train plan: donation allocated more than "
+                             "the plan without it")
+    del off
     del traced, plan, one, want, params, step
     _release(torch)
 
@@ -3382,7 +3555,7 @@ def phase_calibrate(torch, ops, cfg, card: str, train_record,
         else:
             # the plan phase's trace of this step and its verified
             # half-cap plan (the calibration annotates the trace)
-            traced, plan = planned
+            traced, plan = planned[:2]
         pools, bt, toks, lens = inputs
         want = eng._decode_impl(params, tree_map(torch.clone, pools), bt,
                                 toks, lens)
@@ -4338,10 +4511,15 @@ def _same_host(torch, got, host) -> bool:
 
 
 #: the plan path's depth search starts at the deepest L with PLAN_START
-#: x P(L) under 90% of the card: folded onto one card, the K=4 plans'
-#: summed per-PE peaks and the returned clones came to 7.5 P (mixtral, 3
-#: layers) and 8.2 P (deepseek-v2-lite, 8 layers)
+#: x P(L) under 90% of the card. While each PE had a graph pool of its
+#: own, the K=4 plans folded onto one card held 7.5 P (mixtral, 3 layers)
+#: and 8.2 P (deepseek-v2-lite, 8 layers); with one pool per card
+#: max_memory_reserved came to 5.93 P and 6.24 P at those depths (the
+#: weights, the pool, the returned clones; NVIDIA H100 80GB HBM3,
+#: 700.00 W), which would allow 4 and 10 layers
 PLAN_START = 7
+#: the deepest training plan each MoE phase runs, whatever memory allows
+PLAN_CAP = {"mixtral_train": 3, "deepseek_train": 8}
 
 
 def _plan_cell(torch, cfg, label: str, batch: dict, L: int, lr: float,
@@ -4349,11 +4527,11 @@ def _plan_cell(torch, cfg, label: str, batch: dict, L: int, lr: float,
     """(b) of the training phases that run a plan at full width: the SGD
     step (``conformance.make_train_step``) at ``L`` layers traced,
     partitioned at K=4 under half the card per PE, verified and executed
-    with its PEs folded onto the card. Folded onto one card, each PE
-    captures its segments into its own graph pool, which keeps that PE's
-    peak: the card holds the sum of the plan's peaks, and beside it the
-    clones a call returns (new parameters and grads, 2P). Where that is
-    over 90% of the card, a shallower depth (printed), down to 1. Gates: one
+    with its PEs folded onto the card. Folded onto one card, the PEs
+    capture into one graph pool: the card holds the weights, the pool's
+    peak (:func:`_pool_peak`) and the clones a call returns (new
+    parameters and grads, 2P). Where that is over 90% of the card, a
+    shallower depth (printed), down to 1. Gates: one
     flash forward and one backward node a layer, one sort and cumsum a
     MoE layer, no ``select_backward``, no whole-stack op but the
     restacks, product FLOPs equal to the config's count, async = sync
@@ -4378,13 +4556,17 @@ def _plan_cell(torch, cfg, label: str, batch: dict, L: int, lr: float,
         plan = api.partition(traced, devices=k, memory=total / 2, meta=meta)
         part_s = time.perf_counter() - t0
         pbytes = _param_bytes(params)
-        need = float(sum(plan.peak_mem)) + 2 * pbytes
-        log(f"{label} plan: depth arithmetic at {L} layers: the "
-            f"K={k} plan's peaks [" + ", ".join(
-                f"{p / gb:.2f}" for p in plan.peak_mem) + f"] GB sum to "
-            f"{float(sum(plan.peak_mem)) / gb:.2f} GB, plus the returned "
-            f"clones 2P = {2 * pbytes / gb:.2f} GB: {need / gb:.2f} GB "
-            f"against 90% of the card, {fit / gb:.2f} GB: "
+        pool = _pool_peak(traced, plan)
+        clones = float(sum(traced.graph.mem[s[0]]
+                           for s in traced.program.out_slots
+                           if s is not None))
+        need = pbytes + pool + clones
+        log(f"{label} plan: one-pool arithmetic at {L} layers: weights P "
+            f"= {pbytes / gb:.2f} GB, the pool's peak {pool / gb:.2f} GB, "
+            f"the returned clones {clones / gb:.2f} GB: {need / gb:.2f} GB "
+            f"({need / pbytes:.2f} P; the K={k} plan's per-PE peaks sum "
+            f"to {float(sum(plan.peak_mem)) / gb:.2f} GB) against 90% of "
+            f"the card, {fit / gb:.2f} GB: "
             f"{'fits' if need <= fit else 'does not fit'}")
         if need <= fit or L == 1:
             break
@@ -4442,7 +4624,17 @@ def _plan_cell(torch, cfg, label: str, batch: dict, L: int, lr: float,
     torch.cuda.reset_peak_memory_stats()
     first = run("sync")
     first_peak = torch.cuda.max_memory_allocated()
-    st = plan._compiled_runtime[1].stats
+    held = torch.cuda.max_memory_reserved()
+    rt = plan._compiled_runtime[1]
+    st, reserved = rt.stats, _pool_reserved(torch, rt)
+    del rt
+    log(f"{label} plan: measured at {L} layers: max_memory_reserved "
+        f"{held / gb:.2f} GB = {held / pbytes:.2f} P (the one-pool "
+        f"arithmetic {need / gb:.2f} GB), max_memory_allocated "
+        f"{first_peak / gb:.2f} GB = {first_peak / pbytes:.2f} P, the pool "
+        f"reserves {reserved / gb:.2f} GB; {st.donated_inputs} inputs donated "
+        f"({st.donated_bytes / gb:.2f} GB), {st.inplace_writes} writes in "
+        f"place, {st.reuse_waits} reuse waits")
     bit = _hold_train(torch, f"{label} K={k} plan", first, want_host)
     first_host = _host(_train_leaves(first))
     del first, want_host
@@ -4546,14 +4738,18 @@ def phase_moe_train(torch, cfg, card: str, label: str,
     del params
     _release(torch)
 
-    # (b) the plan path. Folded onto one card, each PE captures its
-    # segments into its own graph pool, which keeps that PE's peak: the
-    # card holds the sum of the plan's peaks, and beside it the clones a
-    # call returns (new parameters and grads, 2P). The depth is the
-    # deepest from 5 P(L) <= 90% of the card down whose plan fits so.
+    # (b) the plan path. Folded onto one card, the PEs capture into one
+    # graph pool: the card holds the weights, the pool's peak and the
+    # clones a call returns (new parameters and grads, 2P). The depth is
+    # the deepest with PLAN_START x P(L) <= 90% of the card, at most
+    # PLAN_CAP, and down from there the deepest whose plan fits so.
     fit = 0.9 * total
-    L = max([n for n in range(1, layers_n + 1)
-             if PLAN_START * (p0 + n * p1) <= fit] or [1])
+    allows = max([n for n in range(1, layers_n + 1)
+                  if PLAN_START * (p0 + n * p1) <= fit] or [1])
+    L = min(allows, PLAN_CAP[label])
+    log(f"{label} plan: memory allows {allows} layers ({PLAN_START} P(L) "
+        f"<= {fit / 1e9:.2f} GB), the time cap {PLAN_CAP[label]}: the plan "
+        f"runs at {L}")
     _plan_cell(torch, cfg, label, batch, L, lr, card, t_phase)
     return launches
 
@@ -5036,8 +5232,8 @@ def phase_deepseek_serve(torch, cfg, card: str) -> dict:
     return run["launches"]
 
 
-#: the share of the card that the weights, a folded K=4 plan's per-PE
-#: graph pools and the runtime's clones may hold: the deepseek plan path's
+#: the share of the card that the weights, a folded K=4 plan's graph
+#: pool and the runtime's clones may hold: the deepseek plan path's
 #: depth follows from it
 PLAN_SHARE = 0.9
 
@@ -5046,14 +5242,11 @@ def _plan_depth(torch, api, cfg, params, card: float):
     """The deepest cut of ``cfg`` (whole periods) whose paged decode step,
     partitioned at K=4 under half the card a PE (as granite's served
     plan), fits ``PLAN_SHARE`` of the card by the printed arithmetic: the
-    weights, each PE's graph pool and the runtime's clones of the outputs
-    (the logits and the new pools). The runtime gives each PE a pool of
-    its own (F10) and folded PEs read each other's values in place, so a
-    PE's pool holds at most the values its nodes make (those that are
-    not views). Returns (cfg, params, trace, plan) at that depth;
+    weights, the peak of the card's one graph pool (:func:`_pool_peak`:
+    folded PEs capture into one pool and read each other's values in
+    place) and the runtime's clones of the outputs (the logits and the
+    new pools). Returns (cfg, params, trace, plan) at that depth;
     ``params`` are views of the whole model's."""
-    from repro_torch.core.graph import NORMAL
-    from repro_torch.core.tracing import VIEW_OPS
     from repro_torch.serving import ServingEngine
     from repro_torch.tree import tree_map
     budget = PLAN_SHARE * card
@@ -5068,22 +5261,19 @@ def _plan_depth(torch, api, cfg, params, card: float):
                            record=True)
         plan = api.partition(traced, devices=4, memory=card / 2,
                              meta=_serving_meta(deep, GEOMETRY))
-        g, a = traced.graph, plan.assignment
-        made = (g.ntype == NORMAL) & ~np.array(
-            [n.split(".")[0] in VIEW_OPS for n in g.names])
-        pools = np.array([g.mem[made & (a == pe)].sum() for pe in range(4)])
+        g = traced.graph
+        pool = _pool_peak(traced, plan)
         out = [s for s in traced.program.out_slots if s is not None]
         clones = float(sum(g.mem[nid] for nid, _ in out))
         weights = _param_bytes(p)
-        need = weights + float(pools.sum()) + clones
+        need = weights + pool + clones
         fits = need <= budget
         log(f"deepseek_plan_serve: depth arithmetic at {deep.num_layers} "
             f"layers (traced and partitioned in "
             f"{time.perf_counter() - t0:.2f} s, {g.n} nodes): weights "
-            f"{weights / 1e9:.2f} GB, the K=4 plan's per-PE pools (the "
-            f"values each PE makes) [" + ", ".join(
-                f"{x / 1e9:.2f}" for x in pools) + f"] GB, the clones of "
-            f"the outputs {clones / 1e9:.2f} GB: {need / 1e9:.2f} GB against "
+            f"{weights / 1e9:.2f} GB, the card's one graph pool's peak "
+            f"{pool / 1e9:.2f} GB, the clones of the outputs "
+            f"{clones / 1e9:.2f} GB: {need / 1e9:.2f} GB against "
             f"{PLAN_SHARE:.0%} of the card, {budget / 1e9:.2f} GB: "
             f"{'fits' if fits else 'does not fit'}")
         if fits:
@@ -5846,8 +6036,9 @@ def phase_hubert(torch, cfg, card: str) -> dict:
     the step does not fit at 48 layers): 48 sm90 forward and 48 sm90
     backward launches a step, 0 fma (asserted); (iii) the step traced,
     partitioned at K=4, verified and executed with its PEs folded onto
-    the card (:func:`_plan_cell`: full depth when the plan's summed peaks
-    and clones fit 90% of the card, else the deepest depth that does,
+    the card (:func:`_plan_cell`: full depth when the weights, the
+    one-pool peak and the clones fit 90% of the card, else the deepest
+    depth that does,
     printed). Returns the launches by WIDE_CASES record."""
     from repro_torch.conformance import make_train_step
     from repro_torch.models import init_params
@@ -7984,7 +8175,8 @@ PHASES = ("build", "kernels", "rwkv_kernels", "serve",
 
 
 class _Timed:
-    """Logs a phase's seconds when its block ends."""
+    """Logs a phase's seconds when its block ends; ``total`` sums them."""
+    total = 0.0
 
     def __init__(self, name: str):
         self.name = name
@@ -7993,7 +8185,9 @@ class _Timed:
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
-        log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s")
+        seconds = time.perf_counter() - self.t0
+        _Timed.total += seconds
+        log(f"phase {self.name}: {seconds:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -8232,6 +8426,7 @@ def main(argv=None) -> int:
         for r in [record, train_record, rwkv_record, rwkv_bwd_record] + ssm:
             if r is not None and r["name"] in dist_launches:
                 r["distributed_launches"] = dist_launches[r["name"]]
+    log(f"phases: {_Timed.total:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": [r for r in (record, train_record,
                                               rwkv_record, rwkv_bwd_record)

@@ -26,11 +26,15 @@ harness (:mod:`.mutate`) and the random-program generator
 :data:`repro_torch.core.errors.CODES`.
 
 The memory certificate replays the reference's schedule, donation
-included. The port's runtime does not donate, so with PEs on different
-devices a transferred copy may outlive the certificate's; with PEs
-folded onto one device the runtime makes no copy, and the certificate,
-which charges one per cross-PE read, bounds its logical peaks from
-above.
+included, and the port's runtime donates as the reference's does
+(``CompiledRuntime.donated``: ``Segment.dead_inputs``, masked for PEs
+folded onto one device as the reference masks them), so RP003 and RP042
+guard what it runs. Two differences remain. A read from another device
+is a copy into a buffer of the runtime's, never donated: with PEs on
+different devices a transferred copy may outlive the certificate's.
+With PEs folded onto one device the runtime makes no copy, and the
+certificate, which charges one per cross-PE read, bounds its logical
+peaks from above.
 """
 from __future__ import annotations
 

@@ -587,13 +587,19 @@ class PartitionPlan:
                 via ``device_map``. ``["cpu"]`` runs on the CPU.
             device_map: pe -> device-index list realizing the placement
                 on fewer devices (``[0] * plan.k`` folds every PE onto
-                one device, each PE keeping its own stream).
+                one device, each PE keeping its own stream; the PEs of
+                one device capture into one graph pool and replay in
+                capture order).
             runtime: ``"compiled"`` (default; the segment runtime: one
                 CUDA graph per segment, liveness-driven freeing) or
                 ``"interpret"`` (op by op). Overridable via the
                 ``REPRO_RUNTIME`` env var.
-            donate: accepted for parity with the reference; PyTorch has
-                no donation, and it changes nothing.
+            donate: donate each segment's dead inputs, so that its
+                outputs may take their memory, and run the functional
+                writes into them in place (default True, as the
+                reference's); ``False`` frees by liveness alone. Both
+                give the same bits; neither writes into the caller's
+                tensors.
             mode: compiled dispatch mode: ``"async"`` (overlapped; the
                 default) or ``"sync"`` (synchronised per segment).
                 ``None`` resolves the ``REPRO_RUNTIME_SYNC=1`` escape
@@ -616,7 +622,7 @@ class PartitionPlan:
                 trace`). Compiled runtime only.
 
         The compiled runtime is cached on the plan (rebuilt only when
-        the devices or ``static_argnums`` change) and its
+        the devices, ``donate`` or ``static_argnums`` change) and its
         :class:`~repro_torch.core.runtime.RuntimeStats` land in
         ``report.runtime``. Requires a bound trace recorded with
         ``record=True``.
@@ -644,7 +650,7 @@ class PartitionPlan:
         if static_argnums is None:
             static_argnums = self.meta.get("static_argnums", ())
         static_argnums = tuple(int(i) for i in static_argnums)
-        key = (tuple(devs[:self.k]), static_argnums)
+        key = (tuple(devs[:self.k]), static_argnums, bool(donate))
         rt = getattr(self, "_compiled_runtime", None)
         if rt is None or rt[0] != key:
             rt = (key, CompiledRuntime(self.traced.program,

@@ -117,11 +117,13 @@ def node_kwargs(kwargs: dict, device) -> dict:
     return dict(kwargs, device=device)
 
 
-def run_node(prog: TracedProgram, nid: int, vals: list, kwargs: dict):
+def run_node(prog: TracedProgram, nid: int, vals: list, kwargs: dict,
+             op=None):
     """One node's aten call on its input values (the leaves of its
-    positional arguments, literals included), as the trace recorded
-    it."""
-    op = prog.program[nid][0]
+    positional arguments, literals included), as the trace recorded it;
+    ``op`` runs another op on the same arguments (the segment runtime's
+    in-place form of a functional write)."""
+    op = prog.program[nid][0] if op is None else op
     return op(*pytree.tree_unflatten(vals, prog.arg_specs[nid]), **kwargs)
 
 

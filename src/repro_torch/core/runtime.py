@@ -6,29 +6,42 @@ at a time (the reference the runtime is held to), this runtime lowers
 the placement into per-PE subprograms with explicit transfers:
 
 * Each :class:`~repro_torch.core.segments.Segment` becomes one CUDA
-  graph, captured once on its PE's ``torch.cuda.Stream`` and replayed on
-  every later call. The reference compiles each segment ahead of time
-  with ``jax.jit``; here the first call runs every segment eagerly on
-  its PE's stream as a warm-up (cuBLAS handles and workspaces), then
-  captures the segments in schedule order. Warm-up and capture time go
-  into ``compile_seconds``, apart from run time.
-* Each PE has its own graph memory pool, so that a PE's segments share
-  memory as one device's executables do. During capture, a value's
-  Python reference is dropped after its last consuming segment (the
-  refcounts derived from the trace-time liveness table), and a later
-  segment captured into the same pool reuses the memory.
-* **Reads across pools.** Captured graphs have no ``record_stream``.
-  When the last value that lies in a block of PE a's pool is dropped, a
-  later capture on PE a may reuse the block while a reader on another
-  PE's stream still runs at replay. The rule is kept per storage, not
-  per node: a view taken on PE b of a tensor in PE a's pool keeps PE
-  a's block alive, and the block goes back to PE a's pool only when the
-  last of its aliases drops (:class:`_PoolOwners`). Then the first
-  segment captured on PE a waits, at every replay, on the event recorded
-  after the last segment on each other PE that read or made any of
-  those aliases (``RuntimeStats.reuse_waits`` counts these waits).
-  Holding such values until capture ends instead kept 17.9 GiB out of
-  reuse (full granite-8b's decode step at K=4, folded onto one H100).
+  graph, captured once and replayed on its PE's ``torch.cuda.Stream``
+  at every later call. The reference compiles each segment ahead of
+  time with ``jax.jit``; here the first call runs every segment eagerly
+  as a warm-up (cuBLAS handles and workspaces), then captures the
+  segments in schedule order. Warm-up and capture time go into
+  ``compile_seconds``, apart from run time.
+* **One graph pool per device.** The PEs that lie on one device (a
+  ``device_map`` that folds them) capture into one pool, as the
+  reference's folded PEs share one XLA allocator; PEs on distinct
+  devices have a pool each. During capture, a value's Python reference
+  is dropped after its last consuming segment (the refcounts derived
+  from the trace-time liveness table), and a later segment captured into
+  the same pool, on any PE, reuses the memory. PyTorch's allocator
+  hands a freed block only to an allocation on the stream it was made
+  on, so every segment of a device is captured on one capture stream
+  (and warmed up there), and replayed on its PE's stream: a graph runs
+  on the stream that replays it.
+* **Replay order in a shared pool.** Graphs that share a pool may
+  replay only in capture order and never at once: a block freed inside
+  one segment's capture may serve the next segment's, on another PE,
+  and the segments captured on one stream share its cuBLAS workspace.
+  So each segment waits, at every replay, on the event recorded after
+  the segment captured before it on its device, when that one ran on
+  another PE. The PEs of one device still dispatch without blocking the
+  host, but their segments run one after another on the card.
+* **Reads across devices.** Captured graphs have no ``record_stream``.
+  When the last value that lies in a block of device a's pool is
+  dropped, a later capture on device a may reuse the block while a copy
+  to device b, on b's stream, still reads it. The rule is kept per
+  storage, not per node: a view of a tensor in a's pool keeps a's block
+  alive, and the block goes back to a's pool only when the last of its
+  aliases drops (:class:`_PoolOwners`). Then the next segment captured
+  on device a waits, at every replay, on the event recorded after the
+  last segment on each other device that read or made any of those
+  aliases. ``RuntimeStats.reuse_waits`` counts these waits and those of
+  the replay order above.
 * A cross-PE read between PEs folded onto one device (``device_map=[0]
   * k``) is not copied: the consumer's stream waits on an event
   recorded after the producing segment. It counts in ``transfers`` and
@@ -45,15 +58,30 @@ the placement into per-PE subprograms with explicit transfers:
   (``input_copies``, ``input_copy_bytes``); the caller's tensors are
   never written. Outputs live in the graph pools and the next replay
   overwrites them, so a call returns clones (``output_clone_bytes``).
-* **Donation.** ``jax.jit`` donation has no counterpart in PyTorch.
-  ``donate`` is accepted for parity with the reference and changes
-  nothing: a dead input's memory goes back to its PE's pool when its
-  last reference drops, and a transferred copy lives until its source's
-  last consuming segment (the reference frees a donated copy at its last
-  reader on that device).
+* **Donation** (``donate=True``, the default, as the reference's). A
+  segment input that dies there (``Segment.dead_inputs``) is donated:
+  the runtime drops its own references before the segment runs and the
+  segment drops the value after its last reader inside it, so that the
+  block serves the segment's later allocations (at capture, and so at
+  every replay). Where PEs fold onto one device, a cross-PE read is the
+  producer's own tensor, donated only when the producer is a program
+  node, no program output, and this segment its last consumer, as the
+  reference masks it (``_effective_donations``). Program inputs,
+  constants, and the runtime's input and copy buffers are never
+  donated, and the caller's tensors never written. A functional write
+  of the kinds in ``_INPLACE`` (the ones granite-8b's decode and
+  training programs hold) runs in place into its base, XLA's
+  input-output alias, when the base is donated there or is a local that
+  dies there, is contiguous (so the functional op's output would have
+  its shape, dtype and strides), and no other value the runtime holds
+  lies in its storage; else it runs as recorded. ``donate=False``
+  donates nothing and writes nothing in place. A transferred copy lives
+  until its source's last consuming segment (the reference donates a
+  copy at its last reader on that device).
 * **CPU.** With CPU devices (the tests) the segments run as plain
-  Python replays in schedule order: no streams, no capture. That is the
-  runtime's plain version. With CUDA devices it always captures, and a
+  Python replays in schedule order: no streams, no capture, donation
+  and in-place writes as on the card. That is the runtime's plain
+  version. With CUDA devices it always captures, and a
   node that cannot be captured (one that syncs with the host) raises,
   naming the segment, the node and its op.
 
@@ -80,7 +108,8 @@ runs one call that also records when each segment ran: on CUDA by timing
 events on each PE's stream (the card's clock), on the CPU by host
 timestamps; a plain call records none. The logical per-PE live bytes
 (``peak_live_bytes``) follow the refcount schedule as the reference's
-do; the tests hold the runtime to the interpreter and to the eager step
+do, a donated input's bytes released before its segment's outputs are
+charged; the tests hold the runtime to the interpreter and to the eager step
 bit for bit on the CPU, and ``chip_smoke.py`` on the card.
 """
 from __future__ import annotations
@@ -137,9 +166,16 @@ class RuntimeStats:
     num_transfer_edges: int = 0        # static cross-device slot reads
     compile_seconds: float = 0.0       # warm-up + capture, cumulative
     calls: int = 0
-    # event waits added so that no PE reuses memory that another PE's
-    # stream may still read (the cross-pool rule)
+    # event waits added so that no segment reuses memory that another
+    # PE's stream may still read (the replay order of a shared pool and
+    # the cross-device rule)
     reuse_waits: int = 0
+    # segment inputs donated over the schedule, their bytes, and the
+    # functional writes run in place (at capture on CUDA; the last call
+    # on the CPU)
+    donated_inputs: int = 0
+    donated_bytes: float = 0.0
+    inplace_writes: int = 0
     # per-call counters (the last call's values):
     mode: str = ""                     # dispatch mode that produced them
     transfers: int = 0                 # cross-PE reads: copies + aliased
@@ -203,58 +239,73 @@ def _nbytes(v: Any) -> int:
     return 0
 
 
-class _PoolOwners:
-    """During capture: which PE's graph pool holds each storage that a
-    segment's output lies in, which live slots alias it, and the last
-    segment on each PE that read or made one of those slots.
+def _storage_key(v: Any) -> int | None:
+    """The storage a tensor lies in (its base address), shared by all of
+    its views; None for a non-tensor or an empty storage."""
+    if not isinstance(v, torch.Tensor):
+        return None
+    storage = v.untyped_storage()
+    return storage.data_ptr() if storage.nbytes() else None
 
-    A storage first seen as an output of a segment captured on PE p was
-    allocated from p's pool; a later output that lies in it (a view, on
-    any PE) joins its aliases. The block goes back to p's pool when the
-    last alias drops: :meth:`dropped` then returns p and the segments on
-    other PEs that p's next capture must wait for. Storages the runtime
-    holds for the whole call (inputs, constants, copy buffers) are
-    pinned and never returned."""
+
+#: functional writes into a base that the segment runtime may run in
+#: place, each with its in-place form: the functional op is the in-place
+#: one on ``base.clone()``, so both give the same bits. The list is the
+#: functional writes that granite-8b's decode step (``index_put``: each
+#: layer's cache write and the pool scatter) and training step
+#: (``index_put``, ``scatter_add``) hold.
+_INPLACE = {
+    torch.ops.aten.index_put.default: torch.ops.aten.index_put_.default,
+    torch.ops.aten.scatter_add.default:
+        torch.ops.aten.scatter_add_.default,
+}
+
+
+class _PoolOwners:
+    """During capture: which graph pool holds each storage that a
+    segment's output lies in, which live slots alias it, and the last
+    segment on each pool's device that read or made one of those slots.
+
+    A storage first seen as an output of a segment captured into pool p
+    was allocated from p; a later output that lies in it (a view, on any
+    PE) joins its aliases. The block goes back to p when the last alias
+    drops: :meth:`dropped` then returns p and the segments on other
+    pools' devices that p's next capture must wait for. Storages the
+    runtime holds for the whole call (inputs, constants, copy buffers)
+    are pinned and never returned."""
 
     def __init__(self):
-        self._owner: dict[int, int | None] = {}      # storage -> pe
+        self._owner: dict[int, int | None] = {}      # storage -> pool
         self._aliases: dict[int, set[Slot]] = {}     # storage -> live slots
-        self._touched: dict[int, dict[int, int]] = {}  # storage -> pe -> sid
+        self._touched: dict[int, dict[int, int]] = {}  # storage -> pool -> sid
         self._storage: dict[Slot, int] = {}
 
-    @staticmethod
-    def _key(v: Any) -> int | None:
-        if not isinstance(v, torch.Tensor):
-            return None
-        storage = v.untyped_storage()
-        return storage.data_ptr() if storage.nbytes() else None
-
     def pin(self, v: Any) -> None:
-        key = self._key(v)
+        key = _storage_key(v)
         if key is not None:
             self._owner[key] = None
 
-    def produced(self, slot: Slot, v: Any, pe: int, sid: int) -> None:
-        key = self._key(v)
+    def produced(self, slot: Slot, v: Any, pool: int, sid: int) -> None:
+        key = _storage_key(v)
         if key is None:
             return
-        self._owner.setdefault(key, pe)
+        self._owner.setdefault(key, pool)
         if self._owner[key] is None:
             return
         self._aliases.setdefault(key, set()).add(slot)
         self._storage[slot] = key
-        self.read(slot, pe, sid)
+        self.read(slot, pool, sid)
 
-    def read(self, slot: Slot, pe: int, sid: int) -> None:
+    def read(self, slot: Slot, pool: int, sid: int) -> None:
         key = self._storage.get(slot)
         if key is not None:
             touched = self._touched.setdefault(key, {})
-            touched[pe] = max(touched.get(pe, -1), sid)
+            touched[pool] = max(touched.get(pool, -1), sid)
 
     def dropped(self, slot: Slot) -> tuple[int, set[int]] | None:
         """``slot`` is dropped: when it was the last alias of its
-        storage, (the owning pe, the segments on other PEs to wait for),
-        else None."""
+        storage, (the owning pool, the segments on other pools' devices
+        to wait for), else None."""
         key = self._storage.pop(slot, None)
         if key is None:
             return None
@@ -265,31 +316,64 @@ class _PoolOwners:
         owner = self._owner.pop(key)
         del self._aliases[key]
         touched = self._touched.pop(key, {})
-        return owner, {sid for pe, sid in touched.items() if pe != owner}
+        return owner, {sid for pool, sid in touched.items()
+                       if pool != owner}
 
 
-def _make_segment_fn(prog: TracedProgram, seg: Segment, device):
+def _make_segment_fn(prog: TracedProgram, seg: Segment, device,
+                     donated: tuple[int, ...] | None = None):
     """The Python callable replaying ``seg``'s nodes on ``device``; the
     segment's CUDA graph is a capture of one call of it. A node's value
     is dropped after its last reader inside the segment unless the
     segment exports it, so that a long segment (the whole step at K=1)
-    holds no more than the eager step does."""
+    holds no more than the eager step does; so is each ``donated`` input
+    position's value (None: no donation and no write in place).
+
+    It is called as ``fn(invals, shared)``: ``invals`` the list of input
+    values, which it empties (the caller keeps no reference to a donated
+    one), ``shared`` the storages of the values the caller still holds.
+    A functional write of ``_INPLACE`` whose base (its first argument)
+    is a donated input or a local that dies at that node runs in place
+    when the base is contiguous and no other live value, here or in
+    ``shared``, lies in the base's storage. ``fn.inplace_writes`` is the
+    number of such writes in its last call."""
     kwargs = {nid: node_kwargs(prog.program[nid][1], device)
               for nid in seg.nodes}
     exported = {src for src, _ in seg.outputs}
     last_read: dict[int, int] = {}
+    slot_read: dict[Slot, int] = {}
     for nid in seg.nodes:
         for inp in prog.program[nid][2]:
             if inp[0] == "slot":
                 last_read[inp[1]] = nid
+                slot_read[(inp[1], inp[2])] = nid
     free_after: dict[int, list[int]] = {}
     for src, nid in last_read.items():
         if src in kwargs and src not in exported:
             free_after.setdefault(nid, []).append(src)
+    drop_after: dict[int, list[Slot]] = {}
+    for pos in donated or ():
+        slot = seg.inputs[pos]
+        drop_after.setdefault(slot_read[slot], []).append(slot)
+    # functional writes whose base dies at the node (the base read once)
+    candidates: dict[int, Slot] = {}
+    for nid in seg.nodes if donated is not None else ():
+        op, _, inputs = prog.program[nid]
+        if op not in _INPLACE or not inputs or inputs[0][0] != "slot":
+            continue
+        base = (inputs[0][1], inputs[0][2])
+        if sum(inp[0] == "slot" and (inp[1], inp[2]) == base
+               for inp in inputs) != 1:
+            continue
+        if base[0] in free_after.get(nid, ()) or \
+                base in drop_after.get(nid, ()):
+            candidates[nid] = base
 
-    def fn(*invals):
+    def fn(invals: list, shared=frozenset()):
         env: dict[Slot, Any] = dict(zip(seg.inputs, invals))
+        invals.clear()
         local: dict[int, Any] = {}
+        inplace = 0
 
         def read(src: int, idx: int):
             if src in local:
@@ -297,21 +381,48 @@ def _make_segment_fn(prog: TracedProgram, seg: Segment, device):
                 return v[idx] if isinstance(v, (tuple, list)) else v
             return env[(src, idx)]
 
+        def sole(base_slot: Slot, base) -> bool:
+            """No live value but ``base`` lies in its storage."""
+            key = _storage_key(base)
+            if key is None or key in shared:
+                return False
+            if any(slot != base_slot and _storage_key(v) == key
+                   for slot, v in env.items()):
+                return False
+            for src, v in local.items():
+                vs = v if isinstance(v, (tuple, list)) else (v,)
+                if any((src, i) != base_slot and _storage_key(t) == key
+                       for i, t in enumerate(vs)):
+                    return False
+            return True
+
         nid = -1
         try:
             for nid in seg.nodes:
                 vals = [inp[1] if inp[0] == "lit" else read(inp[1], inp[2])
                         for inp in prog.program[nid][2]]
-                local[nid] = run_node(prog, nid, vals, kwargs[nid])
+                base = candidates.get(nid)
+                if base is not None and isinstance(vals[0], torch.Tensor) \
+                        and vals[0].is_contiguous() and sole(base, vals[0]):
+                    local[nid] = run_node(prog, nid, vals, kwargs[nid],
+                                          _INPLACE[prog.program[nid][0]])
+                    inplace += 1
+                else:
+                    local[nid] = run_node(prog, nid, vals, kwargs[nid])
                 del vals
                 for src in free_after.get(nid, ()):
                     del local[src]
+                for slot in drop_after.get(nid, ()):
+                    del env[slot]
         except RuntimeError as e:
             raise RuntimeError(
                 f"segment {seg.sid} (pe {seg.device}), node {nid} "
                 f"({prog.program[nid][0]}): {e}") from e
+        fn.inplace_writes = inplace
         return tuple(read(src, idx) for src, idx in seg.outputs)
 
+    fn.candidates = candidates
+    fn.inplace_writes = 0
     return fn
 
 
@@ -325,8 +436,9 @@ class CompiledRuntime:
             cover every pe the assignment uses (no silent aliasing;
             expand the list explicitly to share devices). ``None``:
             ``cuda``, which raises on a machine without one.
-        donate: accepted for parity with the reference; PyTorch has no
-            donation, and the runtime frees by liveness alone.
+        donate: donate dead segment inputs and run functional writes
+            into them in place (default True, as the reference's); see
+            the module docstring. ``False``: free by liveness alone.
         static_argnums: positional arguments whose leaves the graphs
             read in place (the parameters): every later call must pass
             the same tensors. The other leaves are copied into buffers
@@ -371,8 +483,17 @@ class CompiledRuntime:
             num_segments=sched.num_segments,
             segments_per_device=sched.segments_per_device(),
             num_transfer_edges=sched.num_transfer_edges)
-        self._fns = [_make_segment_fn(prog, seg, devices[seg.device])
-                     for seg in sched.segments]
+        # the distinct devices: one graph pool (and capture stream) each
+        self._pool_devices = list(dict.fromkeys(devices))
+        self._pool_of = [self._pool_devices.index(d) for d in devices]
+        _, output_nodes = prog.liveness()
+        self.donated: list[tuple[int, ...]] = [
+            self._donations(seg, output_nodes) if donate else ()
+            for seg in sched.segments]
+        self.stats.donated_inputs = sum(map(len, self.donated))
+        self._fns = [_make_segment_fn(prog, seg, devices[seg.device],
+                                      dn if donate else None)
+                     for seg, dn in zip(sched.segments, self.donated)]
         # consts are placed once and pinned for the runtime's lifetime
         self._const_vals = {nid: cval.to(self._dev_of(nid))
                             if isinstance(cval, torch.Tensor) else cval
@@ -404,10 +525,12 @@ class CompiledRuntime:
                 self._root_slots.append(slot)
         # byte size of every slot (static shapes), filled as values appear
         self._slot_bytes: dict[Slot, int] = {}
-        # capture state (CUDA): streams, events and pools per PE, the
-        # graphs, the tensors they read and write
+        # capture state (CUDA): a replay stream per PE, a capture stream
+        # and a graph pool per device, an event per segment, the graphs,
+        # the tensors they read and write
         self._graphs: list | None = None
         self._streams: list = []
+        self._capture_streams: list = []
         self._events: list = []
         self._pools: list = []
         self._static_in: list = []
@@ -425,6 +548,41 @@ class CompiledRuntime:
         self.profile_segments = False
 
     # ------------------------------------------------------------------
+    def _donations(self, seg: Segment, output_nodes) -> tuple[int, ...]:
+        """The input positions ``seg`` donates: ``Segment.dead_inputs``,
+        masked as the reference's ``_effective_donations`` masks them. A
+        cross-PE read on a shared device is the producer's own tensor,
+        donated only when the producer is a program node, no program
+        output, and ``seg`` its last consumer; a read from another
+        device is a copy into a buffer the runtime keeps, never
+        donated."""
+        transfer = set(seg.transfer_inputs)
+        out = []
+        for pos in seg.dead_inputs:
+            slot = seg.inputs[pos]
+            if pos in transfer:
+                if not self._aliased(slot, seg.device):
+                    continue
+                if not (slot[0] in self.prog.program
+                        and slot[0] not in output_nodes
+                        and self.schedule.last_consumer_seg.get(slot[0])
+                        == seg.sid):
+                    continue
+            out.append(pos)
+        return tuple(out)
+
+    def _shared(self, env: dict, seg: Segment) -> frozenset:
+        """The storages of the values held outside ``seg`` (the sweep's
+        environment and the copy buffers), where the segment has a write
+        that may run in place; else empty."""
+        if not self._fns[seg.sid].candidates:
+            return frozenset()
+        keys = {_storage_key(v) for v in env.values()}
+        keys.update(_storage_key(v) for d in (self._copy_src, self._copy_dst)
+                    for v in d.values())
+        keys.discard(None)
+        return frozenset(keys)
+
     def _pe_of(self, nid: int) -> int:
         return 0 if self.assignment is None else int(self.assignment[nid])
 
@@ -460,12 +618,15 @@ class CompiledRuntime:
     # ------------------------------------------------------------------
     def _build(self, args: tuple, flat: list) -> None:
         """First CUDA call: the input buffers, a warm-up of every segment
-        on its PE's stream, then one capture per segment in schedule
-        order."""
+        on its device's capture stream, then one capture per segment in
+        schedule order."""
         t0 = time.perf_counter()
         self._streams = [torch.cuda.Stream(device=d) for d in self.devices]
+        self._capture_streams = [torch.cuda.Stream(device=d)
+                                 for d in self._pool_devices]
         self._events = [torch.cuda.Event() for _ in self.schedule.segments]
-        self._pools = [torch.cuda.graph_pool_handle() for _ in self.devices]
+        self._pools = [torch.cuda.graph_pool_handle()
+                       for _ in self._pool_devices]
         static = []
         for i, a in enumerate(args):
             static += [i in self.static_argnums] * len(tree_flatten(a)[0])
@@ -483,20 +644,26 @@ class CompiledRuntime:
         self._synchronize()
         self._sweep(node_vals, capture=False)
         self._synchronize()
+        # the allocator frees no cached block while a capture is under
+        # way: hand back the warm-up's before the graph pools grow
+        torch.cuda.empty_cache()
         self._graphs = []
         env = self._sweep(node_vals, capture=True)
+        self.stats.inplace_writes = sum(f.inplace_writes for f in self._fns)
         self._static_out = {slot: env[slot] for slot in self.prog.out_slots
                             if slot is not None}
         self._synchronize()
         self.stats.compile_seconds += time.perf_counter() - t0
 
     def _sweep(self, node_vals: dict, *, capture: bool) -> dict:
-        """Every segment in schedule order on its PE's stream: run
-        eagerly and synchronised (the warm-up), or captured into its
-        graph. Values are dropped after their last consuming segment;
-        while capturing, the drop of the last value in a block of a PE's
-        pool adds the cross-pool waits. Returns the environment left at
-        the end (the program's outputs)."""
+        """Every segment in schedule order on its device's capture
+        stream: run eagerly and synchronised (the warm-up), or captured
+        into its graph. Values are dropped after their last consuming
+        segment, donated ones before it; while capturing, each segment
+        gets the waits of its pool's replay order, and the drop of the
+        last value in a block of a pool those of the segments on other
+        devices that read it. Returns the environment left at the end
+        (the program's outputs)."""
         sched = self.schedule
         env: dict[Slot, Any] = {slot: node_vals[slot[0]]
                                 for slot in self._root_slots}
@@ -505,21 +672,19 @@ class CompiledRuntime:
         owners = _PoolOwners()
         for v in env.values():
             owners.pin(v)
-        # per PE: segments on other PEs that read memory dropped from its
-        # pool, which its next captured segment must wait for
-        pending: list[set[int]] = [set() for _ in self.devices]
+        # per pool: segments on other devices that read memory dropped
+        # from it, which its next captured segment must wait for; and
+        # the (pe, segment) captured into it last
+        pending: list[set[int]] = [set() for _ in self._pools]
+        last: list[tuple[int, int] | None] = [None] * len(self._pools)
         for seg in sched.segments:
-            dev, stream = self.devices[seg.device], self._streams[seg.device]
-            if capture and pending[seg.device]:
-                new = pending[seg.device] - set(self._waits[seg.sid])
-                self._waits[seg.sid] = tuple(sorted(
-                    new.union(self._waits[seg.sid])))
-                self.stats.reuse_waits += len(new)
-                pending[seg.device] = set()
-            invals = []
+            pool = self._pool_of[seg.device]
+            dev, stream = self.devices[seg.device], \
+                self._capture_streams[pool]
+            invals, v = [], None
             for slot in seg.inputs:
                 v = env[slot]
-                owners.read(slot, seg.device, seg.sid)
+                owners.read(slot, pool, seg.sid)
                 if self._pe_of(slot[0]) != seg.device:
                     if not self._aliased(slot, seg.device):
                         key = (slot, seg.device)
@@ -536,16 +701,36 @@ class CompiledRuntime:
                                     copies[key] = v.to(dev)
                             v = copies[key]
                 invals.append(v)
+            del v
+            # donated inputs: the segment holds the only references, and
+            # may hand their blocks to its own allocations
+            for pos in self.donated[seg.sid]:
+                slot = seg.inputs[pos]
+                del env[slot]
+                freed = owners.dropped(slot)
+                if freed is not None:
+                    pending[freed[0]].update(freed[1])
+            shared = self._shared(env, seg)
             if capture:
-                outs = self._capture(seg, stream, invals)
+                new = pending[pool]
+                pending[pool] = set()
+                if last[pool] is not None and last[pool][0] != seg.device:
+                    new.add(last[pool][1])
+                new -= set(self._waits[seg.sid])
+                self._waits[seg.sid] = tuple(sorted(
+                    new.union(self._waits[seg.sid])))
+                self.stats.reuse_waits += len(new)
+                last[pool] = (seg.device, seg.sid)
+                outs = self._capture(seg, stream, invals, shared)
             else:
                 with torch.cuda.stream(stream):
-                    outs = self._fns[seg.sid](*invals)
+                    outs = self._fns[seg.sid](invals, shared)
                 stream.synchronize()
             for slot, v in zip(seg.outputs, outs):
                 env[slot] = v
                 self._slot_bytes[slot] = _nbytes(v)
-                owners.produced(slot, v, seg.device, seg.sid)
+                owners.produced(slot, v, pool, seg.sid)
+            outs = v = None
             for src in {s[0] for s in seg.inputs}:
                 if src not in refcount:
                     continue
@@ -557,20 +742,23 @@ class CompiledRuntime:
                 if src in node_vals:
                     continue
                 for slot in self._slots_by_producer.get(src, ()):
-                    env.pop(slot, None)
+                    if slot not in env:
+                        continue            # donated
+                    del env[slot]
                     freed = owners.dropped(slot)
                     if freed is not None:
                         pending[freed[0]].update(freed[1])
         return env
 
-    def _capture(self, seg: Segment, stream, invals: list) -> tuple:
+    def _capture(self, seg: Segment, stream, invals: list,
+                 shared: frozenset) -> tuple:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream), warnings.catch_warnings():
             # a segment of views alone launches nothing: an empty graph
             warnings.filterwarnings("ignore", message=".*CUDA Graph is empty")
-            graph.capture_begin(pool=self._pools[seg.device])
+            graph.capture_begin(pool=self._pools[self._pool_of[seg.device]])
             try:
-                outs = self._fns[seg.sid](*invals)
+                outs = self._fns[seg.sid](invals, shared)
             except RuntimeError as e:
                 try:
                     graph.capture_end()
@@ -709,6 +897,10 @@ class CompiledRuntime:
             alloc(self._pe_of(nid), nbytes[(nid, 0)])
         resident = live.copy()
 
+        # donated inputs, released before their segment's outputs
+        released: set[Slot] = set()
+        inplace = 0
+
         # copies between devices, one per (slot, target pe), live until
         # their source's last consuming segment has run
         copied: set[tuple[Slot, int]] = set()
@@ -796,8 +988,14 @@ class CompiledRuntime:
                 if profiling:
                     seg_seconds.append(span[0].elapsed_time(span[1]) / 1e3)
             else:
+                fn = self._fns[seg.sid]
+                invals = [env[s] for s in seg.inputs]
+                for pos in self.donated[seg.sid]:
+                    del env[seg.inputs[pos]]
+                shared = self._shared(env, seg)
                 t_ready = time.perf_counter() - t_start
-                outs = self._fns[seg.sid](*[env[s] for s in seg.inputs])
+                outs = fn(invals, shared)
+                inplace += fn.inplace_writes
                 if timed:
                     marks.append((t_ready, time.perf_counter() - t_start))
                 if profiling:
@@ -807,8 +1005,15 @@ class CompiledRuntime:
                 for slot, v in zip(seg.outputs, outs):
                     env[slot] = v
                     nbytes[slot] = _nbytes(v)
+                outs = v = None
             if timed:
                 dispatched.append(time.perf_counter() - t_start)
+            # a donated input's block may hold the segment's outputs
+            for pos in self.donated[seg.sid]:
+                slot = seg.inputs[pos]
+                live[self._pe_of(slot[0])] -= nbytes[slot]
+                released.add(slot)
+                freed += 1
             for slot in seg.outputs:
                 alloc(seg.device, nbytes[slot])
             if self.capture and not sync:
@@ -830,6 +1035,8 @@ class CompiledRuntime:
                     freed += 1
                 pe = self._pe_of(src)
                 for slot in self._slots_by_producer.get(src, ()):
+                    if slot in released:
+                        continue
                     live[pe] -= nbytes[slot]
                     env.pop(slot, None)
                     freed += 1
@@ -868,6 +1075,11 @@ class CompiledRuntime:
             st.ready_seconds = [m[0] for m in marks]
             st.done_seconds = [m[1] for m in marks]
             st.transfer_wait_seconds = [0.0] * len(marks)
+        if not self.capture:
+            st.inplace_writes = inplace
+        st.donated_bytes = float(sum(
+            nbytes[seg.inputs[pos]] for seg in sched.segments
+            for pos in self.donated[seg.sid]))
         st.calls += 1
         st.freed_buffers = freed
         st.peak_live_bytes = [float(x) for x in peak]
@@ -877,12 +1089,13 @@ class CompiledRuntime:
 
 def execute_compiled(prog: TracedProgram, assignment: np.ndarray | None,
                      devices: list | None, *args,
+                     donate: bool = True,
                      static_argnums: tuple[int, ...] = (),
                      mode: str | None = None, **kwargs):
     """One-shot convenience: build a :class:`CompiledRuntime` and call it.
     Returns ``(result, runtime)`` so callers can read the stats or reuse
     the captured segments."""
-    rt = CompiledRuntime(prog, assignment, devices,
+    rt = CompiledRuntime(prog, assignment, devices, donate=donate,
                          static_argnums=static_argnums, mode=mode)
     return rt(*args, **kwargs), rt
 
